@@ -1,0 +1,40 @@
+"""pynngp_tpu_torch: the PyTorch + CUDA port of pynngp_tpu for NVIDIA Hopper.
+
+The response NNGP (Vecchia) model with Metropolis-within-Gibbs sampling and
+a MAP/Laplace fit, over hand-written CUDA kernels for the fused Vecchia
+sufficient statistics and their value + gradient pass (``csrc/``, built with
+nvcc at first use).  CPU tensors run the kernels' plain PyTorch versions.
+The package imports no JAX; ``pynngp_tpu`` stays the reference it is tested
+against.
+"""
+
+from pynngp_tpu_torch.diagnostics import ess, split_rhat
+from pynngp_tpu_torch.kernels import Exponential, Matern, Spherical, SqExp, get_kernel
+from pynngp_tpu_torch.models.response import ResponseNNGP, ResponseState
+from pynngp_tpu_torch.neighbors import NeighborTable, build_neighbor_table
+from pynngp_tpu_torch.vecchia import (
+    VecchiaData,
+    make_vecchia_data,
+    vecchia_bf,
+    vecchia_loglik,
+    vecchia_suffstats,
+)
+
+__all__ = [
+    "ResponseNNGP",
+    "ResponseState",
+    "SqExp",
+    "Exponential",
+    "Spherical",
+    "Matern",
+    "get_kernel",
+    "NeighborTable",
+    "build_neighbor_table",
+    "VecchiaData",
+    "make_vecchia_data",
+    "vecchia_bf",
+    "vecchia_suffstats",
+    "vecchia_loglik",
+    "ess",
+    "split_rhat",
+]

@@ -1,0 +1,113 @@
+// Shared device helpers of the fused Vecchia kernels (vecchia_suffstats.cu,
+// vecchia_grad.cu): the correlation families and their phi-derivatives
+// (counterparts of _rho_fn and _drho_fn in pynngp_tpu/ops/pallas_bf.py:312,656),
+// the packed-triangle index, and the deterministic block reduction.
+//
+// Layout (pynngp_tpu_torch/ops/site_tables.py): plane-major tables of n_pad
+// sites, n_pad a multiple of kBlock; per-chain parameters as a (C, 6) float32
+// array [phi, alpha, jitter, n, nu, off], mirroring _params_vec
+// (pallas_bf.py:496).  nu and off are read by no closed-form family: they
+// stay in the row for the general-nu Matern and site-sharded variants.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace vecchia {
+
+constexpr int kBlock = 128;  // threads per block along sites (site_tables.BLOCK)
+constexpr int kParams = 6;   // floats per chain in the params array
+
+enum Family : int {
+  kSqExp = 0,
+  kExponential = 1,
+  kSpherical = 2,
+  kMatern12 = 3,
+  kMatern32 = 4,
+  kMatern52 = 5,
+};
+
+// Packed strict-lower-triangle index of the (i, k), i > k neighbor pair
+// (pallas_bf.py:87); the same order as the d_tri planes.
+__host__ __device__ constexpr int tri(int i, int k) { return i * (i - 1) / 2 + k; }
+
+// rho(d; phi).  `family` is the same for every thread of a launch, so the
+// switch never diverges inside a warp.
+__device__ __forceinline__ float rho(int family, float d, float phi) {
+  switch (family) {
+    case kSqExp: {
+      const float t = d / phi;
+      return expf(-(t * t));
+    }
+    case kExponential:
+      return expf(-d / phi);
+    case kSpherical: {
+      const float t = fminf(d / phi, 1.0f);
+      return 1.0f - 1.5f * t + 0.5f * t * t * t;
+    }
+    case kMatern12:
+      return expf(-(d / phi));
+    case kMatern32: {
+      const float t = 1.7320508075688772f * d / phi;
+      return (1.0f + t) * expf(-t);
+    }
+    default: {  // kMatern52
+      const float t = 2.23606797749979f * d / phi;
+      return (1.0f + t + t * t / 3.0f) * expf(-t);
+    }
+  }
+}
+
+// d rho / d phi.  Zero at d = 0 for every family, so dC/dphi has no diagonal.
+__device__ __forceinline__ float drho_dphi(int family, float d, float phi) {
+  switch (family) {
+    case kSqExp: {
+      const float t = d / phi;
+      return expf(-(t * t)) * 2.0f * d * d / (phi * phi * phi);
+    }
+    case kExponential:
+      return expf(-d / phi) * d / (phi * phi);
+    case kSpherical: {
+      const float t = d / phi;
+      return t < 1.0f ? 1.5f * t * (1.0f - t * t) / phi : 0.0f;
+    }
+    case kMatern12: {
+      const float t = d / phi;
+      return expf(-t) * t / phi;
+    }
+    case kMatern32: {
+      const float t = 1.7320508075688772f * d / phi;
+      return expf(-t) * t * t / phi;
+    }
+    default: {  // kMatern52
+      const float t = 2.23606797749979f * d / phi;
+      return expf(-t) * t * t * (1.0f + t) / (3.0f * phi);
+    }
+  }
+}
+
+// Sums each of vals[0..NV) over the block and writes the v-th sum to
+// out[v * out_stride + out_index].  Warp shuffles, then one shared-memory
+// pass over the warps: a fixed order, so the result is deterministic.
+template <int NV>
+__device__ __forceinline__ void block_sum_store(const float (&vals)[NV], float* out,
+                                                int out_stride, int out_index) {
+  __shared__ float partial[NV][kBlock / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    float s = vals[v];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) partial[v][warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < NV) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kBlock / 32; ++w) s += partial[threadIdx.x][w];
+    out[threadIdx.x * out_stride + out_index] = s;
+  }
+}
+
+}  // namespace vecchia

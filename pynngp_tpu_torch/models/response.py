@@ -1,0 +1,386 @@
+"""Response NNGP model: y ~ NNGP(0, sigma2 (rho_phi + alpha I)) with
+alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
+
+Ported: no fixed effects (p = 0), homogeneous noise, one device, the
+distance-plane table layout, closed-form kernels.  Every other option of the
+reference raises.
+
+Sampler (Metropolis-within-Gibbs, batched over C chains):
+  - theta = (phi, alpha) block: Metropolis on unconstrained coordinates
+    against the sigma2-collapsed marginal (``collapsed=True``, the default)
+    or the sigma2-conditioned target; componentwise, joint, correlated-joint
+    or pilot-fitted independence-mixture proposals.  Every proposal is one
+    fused suffstats launch for all chains;
+  - sigma2: conjugate inverse-gamma draw;
+  - step sizes adapt (Robbins-Monro) during burn-in.
+``fit_map`` runs Adam on ``full_logpost`` and a Laplace fit through the
+differentiable suffstats (kernel 2 on the GPU).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pynngp_tpu_torch.kernels import get_kernel
+from pynngp_tpu_torch.models.base import prepare_spatial_data, run_chains_chunked
+from pynngp_tpu_torch.ops.diff_suffstats import diff_suffstats
+from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.suffstats import CUDA_M, suffstats
+from pynngp_tpu_torch.priors import InverseGamma, Uniform, log_transform, logit_transform
+from pynngp_tpu_torch.samplers.mwg import (
+    adapt_log_step,
+    mh_indep_mix,
+    rw_joint,
+    rw_joint_corr,
+    rw_sweep,
+    sample_inverse_gamma,
+)
+from pynngp_tpu_torch.vecchia import LOG_2PI
+
+__all__ = ["ResponseNNGP", "ResponseState"]
+
+
+class ResponseState(NamedTuple):
+    """Batched sampler state; every field has a leading chain axis C."""
+
+    theta_u: torch.Tensor  # (C, k) unconstrained (logit phi, log alpha)
+    sigma2: torch.Tensor  # (C,)
+    value: torch.Tensor  # (C,) cached theta-block log-posterior
+    logdet: torch.Tensor  # (C,)
+    quad: torch.Tensor  # (C,)
+    log_steps: torch.Tensor  # (C, k) RW proposal scales
+    accept: torch.Tensor  # (C, k) running acceptance-probability sums
+    iteration: torch.Tensor  # (C,) int32
+
+
+def _numpy(x):
+    return torch.as_tensor(x).detach().cpu().numpy()
+
+
+class ResponseNNGP:
+    """User-facing response-model API.
+
+    ``device`` is "cuda" (the fused CUDA kernels, float32 only) or "cpu"
+    (their plain PyTorch versions, any float dtype); there is no automatic
+    choice, and "cuda" without a card raises."""
+
+    def __init__(
+        self,
+        coords,
+        y,
+        kernel="sqexp",
+        m: int = 15,
+        x=None,
+        ordering: str = "coordinate",
+        distance: str = "euclidean",
+        priors: Optional[dict] = None,
+        dtype=torch.float32,
+        jitter: float = 1e-6,
+        joint_theta: bool = False,
+        collapsed: bool = True,
+        lane_layout: str = "dist",
+        mesh=None,
+        noise="homogeneous",
+        device="cuda",
+    ):
+        if lane_layout != "dist":
+            raise NotImplementedError("only the distance-plane table layout "
+                                      "(lane_layout='dist') is ported")
+        if mesh is not None:
+            raise NotImplementedError("mesh (multi-device sharding) is not "
+                                      "ported yet")
+        if noise != "homogeneous":
+            raise NotImplementedError("only homogeneous noise is ported")
+        device = torch.device(device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("device='cuda' but torch sees no CUDA device")
+            if dtype != torch.float32:
+                raise ValueError("the CUDA kernels run in float32")
+        elif device.type != "cpu":
+            raise ValueError(f"device must be 'cuda' or 'cpu', got {device}")
+        self.device = device
+        self.kernel = get_kernel(kernel)
+        self.dtype = dtype
+        self.jitter = jitter
+        self.joint_theta = joint_theta
+        # the theta block targets the sigma2-collapsed marginal by default
+        # (same joint posterior, far better mixing on the (sigma2, phi) ridge)
+        self.collapsed = collapsed
+
+        sd = prepare_spatial_data(coords, y, m, x=x, ordering=ordering,
+                                  distance=distance, dtype=dtype, device=device)
+        self.table = sd.table
+        self.n = sd.y.shape[0]
+        self.y = sd.y
+        self.tables = make_site_tables(sd.vecchia, dtype=dtype, device=device)
+        if device.type == "cuda" and self.tables.m not in CUDA_M:
+            raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")
+
+        # priors (data-informed defaults, overridable)
+        coords = np.asarray(coords)
+        span = float(np.max(coords.max(0) - coords.min(0))) if coords.size else 1.0
+        var_y = float(np.var(np.asarray(y))) or 1.0
+        defaults = {
+            "sigma2": InverseGamma(2.0, var_y),
+            "tau2": InverseGamma(2.0, 0.1 * var_y),
+            "phi": Uniform(1e-3 * span, 2.0 * span),
+        }
+        if priors:
+            defaults.update(priors)
+        self.priors = defaults
+        self.theta_names = ("phi", "alpha")
+        pp = self.priors["phi"]
+        self._t_phi = logit_transform(pp.lo, pp.hi)
+        self._t_alpha = log_transform
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    # ---- parameter plumbing -------------------------------------------
+    def _natural(self, theta_u):
+        return {"phi": self._t_phi.forward(theta_u[..., 0]),
+                "alpha": self._t_alpha.forward(theta_u[..., 1])}
+
+    def _unconstrained(self, phi, alpha):
+        return torch.stack([self._t_phi.inverse(self._tensor(phi)),
+                            self._t_alpha.inverse(self._tensor(alpha))])
+
+    def _log_prior_theta(self, theta_u, nat, sigma2):
+        """Prior + Jacobian of the Metropolis block given sigma2 (tau2 =
+        alpha sigma2 carries the IG tau2 prior, Jacobian d tau2/d alpha =
+        sigma2)."""
+        lp = (self.priors["phi"].logpdf(nat["phi"])
+              + self._t_phi.log_jac(theta_u[..., 0]))
+        tau2 = nat["alpha"] * sigma2
+        return lp + (self.priors["tau2"].logpdf(tau2) + torch.log(sigma2)
+                     + self._t_alpha.log_jac(theta_u[..., 1]))
+
+    # ---- likelihood pieces --------------------------------------------
+    def _suffstats(self, theta_u):
+        """(logdet, quad) per chain: one fused forward launch."""
+        nat = self._natural(theta_u)
+        logdet, quad, _, _ = suffstats(self.kernel, self.tables, nat["phi"],
+                                       nat["alpha"], self.y, self.jitter)
+        return logdet, quad
+
+    def _theta_logpost(self, theta_u, sigma2):
+        logdet, quad = self._suffstats(theta_u)
+        nat = self._natural(theta_u)
+        if self.collapsed:
+            value = self._collapsed_value(theta_u, nat, logdet, quad)
+        else:
+            value = -0.5 * (logdet + quad / sigma2) + self._log_prior_theta(
+                theta_u, nat, sigma2)
+        return value, {"logdet": logdet, "quad": quad}
+
+    def _collapsed_value(self, theta_u, nat, logdet, quad):
+        """Metropolis target with sigma2 integrated out analytically.
+
+        p(y, sigma2, phi, alpha) carries sigma2 only as
+        (sigma2)^{-(A+1)} exp(-B/sigma2) with A = a_s + a_t + n/2 and
+        B = b_s + b_t/alpha + quad/2, so the integral is Gamma(A) B^{-A};
+        the conjugate sigma2 | theta draw afterwards is exact, so the joint
+        stationary distribution is unchanged (partially collapsed Gibbs)."""
+        a_big = self.priors["sigma2"].a + self.priors["tau2"].a + 0.5 * self.n
+        b_big = (self.priors["sigma2"].b + self.priors["tau2"].b / nat["alpha"]
+                 + 0.5 * quad)
+        lp = (self.priors["phi"].logpdf(nat["phi"])
+              + self._t_phi.log_jac(theta_u[..., 0])
+              - (self.priors["tau2"].a + 1.0) * torch.log(nat["alpha"])
+              + self._t_alpha.log_jac(theta_u[..., 1]))
+        return -0.5 * logdet - a_big * torch.log(b_big) + lp
+
+    def loglik(self, state: ResponseState):
+        return -0.5 * (self.n * (LOG_2PI + torch.log(state.sigma2))
+                       + state.logdet + state.quad / state.sigma2)
+
+    # ---- sampler -------------------------------------------------------
+    def init_state(self, n_chains: int = 1, init: Optional[dict] = None):
+        """The same starting state for every chain."""
+        init = init or {}
+        var_y = torch.var(self.y, unbiased=False)
+        pp = self.priors["phi"]
+        theta_u = self._unconstrained(init.get("phi", 0.5 * (pp.lo + pp.hi)),
+                                      init.get("alpha", 0.1))
+        k = len(self.theta_names)
+        theta_u = theta_u.expand(n_chains, k).clone()
+        sigma2 = self._tensor(init.get("sigma2", 0.9 * var_y)).expand(n_chains).clone()
+        value, aux = self._theta_logpost(theta_u, sigma2)
+        return ResponseState(
+            theta_u=theta_u,
+            sigma2=sigma2,
+            value=value,
+            logdet=aux["logdet"],
+            quad=aux["quad"],
+            log_steps=torch.full((n_chains, k), math.log(0.1), dtype=self.dtype,
+                                 device=self.device),
+            accept=torch.zeros((n_chains, k), dtype=self.dtype, device=self.device),
+            iteration=torch.zeros(n_chains, dtype=torch.int32, device=self.device),
+        )
+
+    def step(self, gen, state: ResponseState, n_adapt: int = 10**9,
+             prop_chol=None, prop_center=None):
+        """One MWG iteration of every chain."""
+        # 1. Metropolis block on (phi, alpha) | sigma2
+        logpost = lambda u: self._theta_logpost(u, state.sigma2)
+        aux = {"logdet": state.logdet, "quad": state.quad}
+        if prop_center is not None:
+            # independence-MH mixture from a pilot-fitted t proposal
+            theta_u, value, aux, aprobs = mh_indep_mix(
+                gen, state.theta_u, state.value, aux, logpost, prop_center,
+                prop_chol, state.log_steps[:, 0], target=0.3,
+            )
+        elif prop_chol is not None:
+            theta_u, value, aux, aprobs = rw_joint_corr(
+                gen, state.theta_u, state.value, aux, logpost,
+                state.log_steps[:, 0], prop_chol,
+            )
+        else:
+            sweep = rw_joint if self.joint_theta else rw_sweep
+            theta_u, value, aux, aprobs = sweep(
+                gen, state.theta_u, state.value, aux, logpost, state.log_steps
+            )
+        nat = self._natural(theta_u)
+
+        # 2. sigma2 | theta: conjugate IG; the IG(a_t, b_t) prior on
+        # tau2 = alpha sigma2 contributes (a_t, b_t/alpha)
+        pr_s, pr_t = self.priors["sigma2"], self.priors["tau2"]
+        sigma2 = sample_inverse_gamma(
+            gen, pr_s.a + pr_t.a + 0.5 * self.n,
+            pr_s.b + pr_t.b / nat["alpha"] + 0.5 * aux["quad"],
+        )
+
+        # 3. refresh the cached theta-block value for the new sigma2
+        if self.collapsed:
+            value = self._collapsed_value(theta_u, nat, aux["logdet"], aux["quad"])
+        else:
+            value = -0.5 * (aux["logdet"] + aux["quad"] / sigma2) + \
+                self._log_prior_theta(theta_u, nat, sigma2)
+
+        # 4. adaptation (multivariate proposals target ~0.3)
+        target = 0.3 if prop_chol is not None else 0.44
+        log_steps = adapt_log_step(state.log_steps, aprobs, state.iteration,
+                                   n_adapt, target=target)
+        return ResponseState(
+            theta_u=theta_u,
+            sigma2=sigma2,
+            value=value,
+            logdet=aux["logdet"],
+            quad=aux["quad"],
+            log_steps=log_steps,
+            accept=state.accept + aprobs,
+            iteration=state.iteration + 1,
+        )
+
+    def collect(self, state: ResponseState):
+        nat = self._natural(state.theta_u)
+        return {
+            "sigma2": state.sigma2,
+            "tau2": nat["alpha"] * state.sigma2,
+            "phi": nat["phi"],
+            "loglik": self.loglik(state),
+        }
+
+    # ---- the joint posterior (MAP / Laplace) ---------------------------
+    # u = [log sigma2, logit phi, log tau2]; a (B, 3) batch of points is a
+    # batch of chains in the fused kernels.
+    def _unpack_full(self, u):
+        return {"sigma2": torch.exp(u[..., 0]),
+                "phi": self._t_phi.forward(u[..., 1]),
+                "tau2": torch.exp(u[..., 2])}
+
+    def full_loglik(self, u):
+        """log p(y | u) per point of u (..., 3)."""
+        nat = self._unpack_full(u)
+        sigma2, phi = nat["sigma2"], nat["phi"]
+        alpha = nat["tau2"] / sigma2
+        logdet, quad = diff_suffstats(self.kernel, self.tables, phi.reshape(-1),
+                                      alpha.reshape(-1), self.y, self.jitter)
+        logdet, quad = logdet.reshape(phi.shape), quad.reshape(phi.shape)
+        return -0.5 * (self.n * (LOG_2PI + torch.log(sigma2)) + logdet
+                       + quad / sigma2)
+
+    def full_logprior(self, u):
+        """log p(u): priors + transform Jacobians on the unconstrained vector."""
+        nat = self._unpack_full(u)
+        lp = self.priors["sigma2"].logpdf(nat["sigma2"]) + u[..., 0]
+        lp = lp + self.priors["phi"].logpdf(nat["phi"]) + self._t_phi.log_jac(u[..., 1])
+        return lp + self.priors["tau2"].logpdf(nat["tau2"]) + u[..., 2]
+
+    def full_logpost(self, u):
+        """log p(u | y) up to a constant; differentiable through kernel 2."""
+        return self.full_loglik(u) + self.full_logprior(u)
+
+    def _full_init_u(self, init: Optional[dict] = None):
+        init = init or {}
+        var_y = torch.var(self.y, unbiased=False)
+        pp = self.priors["phi"]
+        return torch.stack([
+            torch.log(self._tensor(init.get("sigma2", 0.9 * var_y))),
+            self._t_phi.inverse(self._tensor(init.get("phi", 0.5 * (pp.lo + pp.hi)))),
+            torch.log(self._tensor(init.get("tau2", 0.1 * var_y))),
+        ])
+
+    def fit_map(self, n_steps: int = 300, learning_rate: float = 5e-2,
+                init: Optional[dict] = None):
+        """Adam MAP + Laplace approximation on the joint unconstrained
+        posterior (samplers/mapfit.py)."""
+        from pynngp_tpu_torch.samplers.mapfit import map_fit
+
+        return map_fit(self.full_logpost, self._full_init_u(init),
+                       n_steps=n_steps, learning_rate=learning_rate)
+
+    def theta_proposal_cov(self, laplace_cov):
+        """Project the full-u Laplace covariance onto the Metropolis theta
+        block (logit phi, log alpha = log tau2 - log sigma2)."""
+        c = _numpy(laplace_cov)
+        t = np.zeros((len(self.theta_names), c.shape[0]))
+        t[0, 1] = 1.0
+        t[1, 0], t[1, 2] = -1.0, 1.0
+        return t @ c @ t.T
+
+    def theta_proposal_center(self, u_map):
+        """Project the full-u MAP point onto the Metropolis theta block."""
+        u = _numpy(u_map)
+        return np.asarray([u[1], u[2] - u[0]])
+
+    def sample(
+        self,
+        n_samples: int,
+        n_burn: int = 500,
+        thin: int = 1,
+        n_chains: int = 1,
+        seed: int = 0,
+        init: Optional[dict] = None,
+        proposal_cov=None,
+        proposal_center=None,
+        **driver_kwargs,
+    ):
+        """Run the sampler; returns a dict of numpy draws with leading axes
+        (n_chains, n_samples) (chain axis dropped when n_chains=1).
+
+        ``proposal_cov``: (k, k) theta-block covariance (theta_proposal_cov)
+        switching to correlated joint proposals.  ``proposal_center`` (with
+        ``proposal_cov``): theta-block center switching to the
+        independence-MH mixture (mwg.mh_indep_mix)."""
+        if proposal_center is not None and proposal_cov is None:
+            raise ValueError("proposal_center requires proposal_cov")
+        prop_chol = (None if proposal_cov is None else
+                     self._tensor(np.linalg.cholesky(np.asarray(proposal_cov))))
+        prop_center = (None if proposal_center is None
+                       else self._tensor(np.asarray(proposal_center)))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        step = lambda g, s: self.step(g, s, n_adapt=n_burn, prop_chol=prop_chol,
+                                      prop_center=prop_center)
+        _, draws = run_chains_chunked(
+            gen, lambda c: self.init_state(c, init), step, self.collect,
+            n_chains, n_samples, n_burn, thin, **driver_kwargs,
+        )
+        if n_chains == 1:
+            draws = {k: v[0] for k, v in draws.items()}
+        return draws

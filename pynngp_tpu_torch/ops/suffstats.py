@@ -1,0 +1,149 @@
+"""Fused forward Vecchia sufficient statistics — the counterpart of
+``pallas_suffstats`` / ``pallas_loglik`` (``pynngp_tpu/ops/pallas_bf.py:598-640``).
+
+:func:`suffstats` launches kernel 1 (``csrc/vecchia_suffstats.cu``) for CUDA
+tensors and runs :func:`suffstats_reference`, its plain PyTorch version, for
+CPU tensors.  Chains are an explicit leading axis: ``phi`` and ``alpha`` are
+(C,) tensors, and the tables and y are shared by all chains.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
+from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
+
+__all__ = ["COUNT", "CUDA_M", "params_array", "suffstats", "suffstats_reference",
+           "loglik"]
+
+COUNT = _build.LaunchCount("vecchia_suffstats")
+CUDA_M = (7, 10, 15, 20)  # neighbor counts the CUDA kernels are built for
+
+
+def params_array(phi, alpha, jitter, n, dtype, device=None):
+    """(C, 6) per-chain parameter rows [phi, alpha, jitter, n, nu, off] in
+    ``dtype``, mirroring ``_params_vec`` (``pallas_bf.py:496``).  nu and off
+    stay 0: no ported kernel reads them.  Differentiable in phi and alpha."""
+    phi = torch.atleast_1d(torch.as_tensor(phi, dtype=dtype, device=device))
+    alpha = torch.as_tensor(alpha, dtype=dtype, device=phi.device).expand_as(phi)
+    full = lambda v: torch.full_like(phi, float(v))
+    return torch.stack([phi, alpha, full(jitter), full(n), full(0.0), full(0.0)],
+                       dim=-1)
+
+
+def _plain_inputs(tables: SiteTables, y):
+    """Site-major distances, slot masks, y_N and y_own for the plain versions."""
+    d_in, d_nn = unpack_distances(tables)
+    site = torch.arange(tables.n_pad, device=d_in.device)
+    mask = site[:, None] > torch.arange(tables.m, device=d_in.device)[None, :]
+    y_nbr = y[tables.nn_idx.T.long()] * mask.to(y.dtype)  # (n_pad, m)
+    y_own = torch.nn.functional.pad(y, (0, tables.n_pad - tables.n))
+    valid = site < tables.n
+    return d_in, d_nn, mask, y_nbr, y_own, valid
+
+
+def _factor(kernel, tables, params, y):
+    """Batched factorization shared by the plain versions of both kernels."""
+    d_in, d_nn, mask, y_nbr, y_own, valid = _plain_inputs(tables, y)
+    phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
+    c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
+                                      mask)
+    low = torch.linalg.cholesky(c_mat)  # (C, n_pad, m, m)
+    u = torch.linalg.solve_triangular(low, c_vec[..., None], upper=False)
+    v = torch.linalg.solve_triangular(low, y_nbr[..., None], upper=False)
+    u, v = u[..., 0], v[..., 0]
+    f = 1.0 + alpha - (u * u).sum(-1)  # (C, n_pad)
+    return dict(d_in=d_in, d_nn=d_nn, mask=mask, valid=valid, low=low, u=u,
+                v=v, f=f, y_own=y_own)
+
+
+def suffstats_reference(kernel, tables: SiteTables, params, y):
+    """Plain PyTorch version of kernel 1: batched ``torch.linalg.cholesky``
+    over (C, n_pad) systems.  Returns (logdet (C,), quad (C,), f (C, n_pad),
+    resid (C, n_pad)), sums accumulated in float64 and cast to the tables'
+    dtype.  Differentiable in ``params``."""
+    fac = _factor(kernel, tables, params, y)
+    f, valid = fac["f"], fac["valid"]
+    resid = fac["y_own"] - (fac["u"] * fac["v"]).sum(-1)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    logdet = torch.where(valid, torch.log(f), zero).sum(-1, dtype=torch.float64)
+    quad = torch.where(valid, resid * resid / f, zero).sum(-1, dtype=torch.float64)
+    return logdet.to(f.dtype), quad.to(f.dtype), f, resid
+
+
+def cuda_args(tables: SiteTables, params, y):
+    """Validate the inputs of a CUDA launch; returns (params, y) as
+    contiguous float32 tensors."""
+    if tables.m not in CUDA_M:
+        raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}, "
+                         f"got m={tables.m}")
+    if tables.n_pad % BLOCK:
+        raise ValueError(f"n_pad={tables.n_pad} is not a multiple of {BLOCK}")
+    for name, t in (("d_in", tables.d_in), ("d_tri", tables.d_tri)):
+        if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+    if tables.nn_idx.dtype != torch.int32 or not tables.nn_idx.is_contiguous():
+        raise ValueError("nn_idx must be a contiguous int32 tensor")
+    if y.dtype != torch.float32 or y.device != tables.d_in.device:
+        raise ValueError("y must be a float32 tensor on the tables' device")
+    if y.shape != (tables.n,):
+        raise ValueError(f"y must have shape ({tables.n},), got {tuple(y.shape)}")
+    if tables.n >= 2**24:  # n rides the float32 params row (exact below 2^24)
+        raise ValueError(f"n={tables.n} sites exceeds the kernels' 2^24 limit")
+    params = params.detach().to(torch.float32).contiguous()
+    if params.device != tables.d_in.device or params.shape[-1] != 6:
+        raise ValueError("params must be (C, 6) on the tables' device")
+    return params, y.contiguous()
+
+
+def _launch(kernel, tables: SiteTables, params, y):
+    params, y = cuda_args(tables, params, y)
+    chains = params.shape[0]
+    dev = tables.d_in.device
+    f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
+    resid = torch.empty_like(f)
+    part = torch.empty((2, chains, tables.n_pad // BLOCK), dtype=torch.float32,
+                       device=dev)
+    code = _build.library().vecchia_suffstats_f32(
+        params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
+        tables.nn_idx.data_ptr(), y.data_ptr(), tables.n_pad, tables.m, chains,
+        kernel.family, f.data_ptr(), resid.data_ptr(), part.data_ptr(),
+        _build.stream_handle(dev),
+    )
+    _build.check(code, "vecchia_suffstats_f32")
+    COUNT.launches += 1
+    sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
+    return sums[0], sums[1], f, resid
+
+
+def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
+    """(logdet, quad, f, resid) of the unit-variance Vecchia factorization,
+    per chain.
+
+    Args:
+      kernel: a closed-form kernel of :mod:`pynngp_tpu_torch.kernels`.
+      tables: :class:`SiteTables` of the dataset.
+      phi, alpha: (C,) per-chain range and relative nugget (scalars give C=1).
+      y: (n,) ordered values, shared by all chains.
+    Returns logdet, quad as (C,) and f, resid as (C, n_pad); padded sites are
+    excluded from the sums.  CUDA tensors launch kernel 1; CPU tensors run
+    :func:`suffstats_reference`.
+    """
+    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
+                          tables.d_in.device)
+    if tables.d_in.is_cuda:
+        return _launch(kernel, tables, params, y)
+    if tables.d_in.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.d_in.device}")
+    COUNT.plain += 1
+    return suffstats_reference(kernel, tables, params, y)
+
+
+def loglik(kernel, tables: SiteTables, phi, y, sigma2, alpha, jitter=1e-6):
+    """Response-model Vecchia log-likelihood per chain (``pallas_loglik``)."""
+    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter)
+    sigma2 = torch.as_tensor(sigma2, dtype=logdet.dtype, device=logdet.device)
+    return -0.5 * (tables.n * (LOG_2PI + torch.log(sigma2)) + logdet
+                   + quad / sigma2)

@@ -1,0 +1,164 @@
+"""Batched Vecchia B/F builder and log-likelihood in plain PyTorch — the
+counterpart of ``pynngp_tpu.vecchia`` and the plain oracle of the whole port.
+
+Per ordered site i with neighbor set N(i), |N(i)| <= m:
+
+    B_i = C_{N(i),N(i)}^{-1} c_i          (m-vector of kriging weights)
+    F_i = C_ii - c_i^T B_i                (conditional variance)
+    log p(y) = sum_i log N(y_i | B_i . y_{N(i)}, F_i)
+
+with C the unit-variance correlation plus the relative nugget alpha =
+tau^2/sigma^2 on the diagonal.  Ragged first-m sites are masked: invalid
+slots become identity rows/columns with zero cross-correlation, so B = 0
+there.  The n factorizations run as one batched ``torch.linalg.cholesky``.
+This module serves CPU tensors and the tests; on the GPU the main path runs
+the hand-written kernels in :mod:`pynngp_tpu_torch.ops`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pynngp_tpu_torch.distance import get_distance
+from pynngp_tpu_torch.neighbors import build_neighbor_table
+
+__all__ = [
+    "VecchiaData",
+    "make_vecchia_data",
+    "conditional_system",
+    "vecchia_bf",
+    "vecchia_suffstats",
+    "vecchia_loglik",
+    "LOG_2PI",
+]
+
+LOG_2PI = 1.8378770664093453
+
+
+class VecchiaData(NamedTuple):
+    """Static-shape Vecchia structure in ordered site space.
+
+    ``coords``, ``nn_idx`` (int64) and ``nn_mask`` are tensors on the model's
+    device.  ``nn_dist`` (n, m) and ``nn_cross_dist`` (n, m, m) are the
+    hyperparameter-independent distance tables, kept as host numpy arrays:
+    the site-table builder consumes them on the host.
+    """
+
+    coords: torch.Tensor  # (n, d)
+    nn_idx: torch.Tensor  # (n, m) int64
+    nn_mask: torch.Tensor  # (n, m) bool
+    nn_dist: np.ndarray  # (n, m)
+    nn_cross_dist: np.ndarray  # (n, m, m)
+
+    @property
+    def n(self) -> int:
+        return self.coords.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.nn_idx.shape[1]
+
+
+def make_vecchia_data(
+    coords,
+    m: int,
+    ordering: str = "coordinate",
+    distance="euclidean",
+    dtype=torch.float32,
+    device="cpu",
+):
+    """Host-side setup: order sites, build the neighbor table, compute the
+    distance tables in float64 numpy and keep them in ``dtype``.
+
+    Returns (data, table): ``data`` has coords in ordered space; use
+    ``table.order`` / ``table.inverse_order`` to map user arrays.
+    """
+    coords = np.asarray(coords)
+    dist_fn = get_distance(distance)
+    table = build_neighbor_table(coords, m, ordering=ordering)
+    pts_host = coords[table.order]
+    pts = torch.as_tensor(pts_host, dtype=dtype, device=device)
+    nn_idx = torch.as_tensor(table.nn_idx, dtype=torch.int64, device=device)
+    nn_mask = torch.as_tensor(table.nn_mask, device=device)
+    nbr = pts_host[table.nn_idx]  # (n, m, d)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    d_in = dist_fn.one_to_many_np(pts_host, nbr).astype(np_dtype)
+    d_nn = dist_fn.pairwise_np(nbr, nbr).astype(np_dtype)
+    return VecchiaData(pts, nn_idx, nn_mask, d_in, d_nn), table
+
+
+def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask):
+    """Masked neighbor correlation C_N (..., m, m) and cross-correlation
+    c (..., m) of the unit-variance conditionals.
+
+    ``phi`` and ``alpha`` broadcast against ``d_in.shape[:-1]``: 0-d tensors
+    for one parameter set, or shape (C, 1) against (n, m) tables for C
+    chains (giving (C, n, m, m))."""
+    dtype = d_in.dtype
+    m = d_in.shape[-1]
+    eye = torch.eye(m, dtype=dtype, device=d_in.device)
+    mask_f = mask.to(dtype)
+    mask2 = mask_f[..., :, None] * mask_f[..., None, :]
+    rho_nn = kernel.correlation(d_nn, {"phi": phi[..., None, None]})
+    diag_add = (alpha + jitter)[..., None, None] * eye
+    # valid slots: rho + alpha + jitter on the diagonal; masked slots:
+    # identity row/column (=> B = 0 there)
+    c_mat = (rho_nn + diag_add) * mask2 + eye * (1.0 - mask2 * eye)
+    c_vec = kernel.correlation(d_in, {"phi": phi[..., None]}) * mask_f
+    return c_mat, c_vec
+
+
+def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
+    """Batched kriging weights and conditional variances.
+
+    Args:
+      kernel: correlation kernel (:mod:`pynngp_tpu_torch.kernels`).
+      params: {"phi": scalar} in natural space.
+      alpha: scalar relative nugget tau^2/sigma^2 (0 for the latent process).
+        Per-site (heterogeneous) nuggets are not ported yet.
+
+    Returns:
+      B: (n, m) weights (0 in masked slots), F: (n,) conditional variances of
+      the unit-variance process.
+    """
+    dev = data.coords.device
+    d_in = torch.as_tensor(data.nn_dist, device=dev)
+    d_nn = torch.as_tensor(data.nn_cross_dist, device=dev)
+    dtype = d_in.dtype
+    phi = torch.as_tensor(params["phi"], dtype=dtype, device=dev)
+    alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)
+    if alpha.ndim:
+        raise NotImplementedError("per-site nuggets (heterogeneous noise) "
+                                  "are not ported yet")
+    c_mat, c_vec = conditional_system(
+        kernel, phi, alpha, jitter, d_in, d_nn, data.nn_mask
+    )
+    chol = torch.linalg.cholesky(c_mat)
+    tmp = torch.linalg.solve_triangular(chol, c_vec[..., None], upper=False)
+    b = torch.linalg.solve_triangular(chol.mT, tmp, upper=True)[..., 0]
+    f = (1.0 + alpha) - (b * c_vec).sum(-1)
+    return b, f
+
+
+def vecchia_suffstats(b, f, y, data: VecchiaData):
+    """(logdet, quad, resid): sum_i log F_i, sum_i r_i^2 / F_i, and the
+    residuals r_i = y_i - B_i . y_{N(i)}.  The sums accumulate in float64
+    and are cast back to F's dtype."""
+    y_nbr = y[data.nn_idx] * data.nn_mask.to(y.dtype)
+    resid = y - (b * y_nbr).sum(-1)
+    logdet = torch.sum(torch.log(f), dtype=torch.float64).to(f.dtype)
+    quad = torch.sum(resid * resid / f, dtype=torch.float64).to(f.dtype)
+    return logdet, quad, resid
+
+
+def vecchia_loglik(kernel, params, data: VecchiaData, y, sigma2, alpha=0.0,
+                   jitter=1e-6):
+    """Vecchia (NNGP) log-likelihood of y under sigma^2 (rho + alpha I)."""
+    b, f = vecchia_bf(kernel, params, data, alpha=alpha, jitter=jitter)
+    logdet, quad, _ = vecchia_suffstats(b, f, y, data)
+    n = y.shape[-1]
+    sigma2 = torch.as_tensor(sigma2, dtype=f.dtype, device=f.device)
+    return -0.5 * (n * (LOG_2PI + torch.log(sigma2)) + logdet + quad / sigma2)

@@ -1,0 +1,88 @@
+"""The CUDA kernels against their plain versions on the card, at small size.
+Marked ``cuda``: they skip where torch sees no CUDA device, and run on the
+card with
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+(``--noconftest``: tests/conftest.py imports JAX, which the port does not
+need).  The first test in a process builds the kernels with nvcc (about two
+minutes)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pynngp_tpu_torch import kernels
+from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.ops import diff_suffstats as dops
+from pynngp_tpu_torch.ops import suffstats as fops
+from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.vecchia import make_vecchia_data
+
+pytestmark = pytest.mark.cuda
+
+KERNELS = [kernels.SqExp(), kernels.Exponential(), kernels.Spherical(),
+           kernels.Matern(nu=0.5), kernels.Matern(nu=1.5), kernels.Matern(nu=2.5)]
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (no interpret mode for CUDA kernels)")
+    return torch.device("cuda", 0)
+
+
+def _problem(dev, n=1500, m=7, seed=3):
+    rng = np.random.default_rng(seed)
+    data, tab = make_vecchia_data(rng.uniform(size=(n, 2)), m)
+    tab32 = make_site_tables(data, dtype=torch.float32, device=dev)
+    tab64 = tab32._replace(d_in=tab32.d_in.double(), d_tri=tab32.d_tri.double())
+    y = torch.as_tensor(rng.standard_normal(n)[tab.order], dtype=torch.float32,
+                        device=dev)
+    phi = torch.tensor([0.1, 0.3, 0.5], device=dev)
+    alpha = torch.tensor([0.05, 0.15, 0.3], device=dev)
+    return tab32, tab64, y, phi, alpha
+
+
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: repr(k))
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_forward_kernel_matches_plain(card, kern, m):
+    tab32, tab64, y, phi, alpha = _problem(card, m=m)
+    launches = fops.COUNT.launches
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y)
+    torch.cuda.synchronize()
+    assert fops.COUNT.launches == launches + 1
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y.double())
+    n = tab32.n
+    torch.testing.assert_close(ld.double(), ld_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: repr(k))
+def test_grad_kernel_matches_plain(card, kern):
+    tab32, tab64, y, phi, alpha = _problem(card)
+    got = dops.value_and_grad_sums(kern, tab32, phi, alpha, y).double()
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    want = dops.grad_reference(kern, tab64, params, y.double())
+    torch.testing.assert_close(got[:2], want[:2], rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(got[2:], want[2:], rtol=2e-4, atol=0.0)
+
+
+def test_model_on_card_goes_through_the_kernels(card):
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(2000, 2))
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2000)
+    model = ResponseNNGP(coords, y, m=7, device="cuda")
+    before = (fops.COUNT.launches, dops.COUNT.launches, fops.COUNT.plain,
+              dops.COUNT.plain)
+    mp = model.fit_map(n_steps=20)
+    draws = model.sample(50, n_burn=20, n_chains=4, seed=0,
+                         proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
+    assert fops.COUNT.launches > before[0] and dops.COUNT.launches > before[1]
+    assert (fops.COUNT.plain, dops.COUNT.plain) == before[2:]
+    assert all(np.isfinite(v).all() for v in draws.values())

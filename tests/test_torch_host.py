@@ -1,0 +1,151 @@
+"""pynngp_tpu_torch host-side pieces against the reference package: neighbor
+tables, diagnostics, the plane-major site tables, and a JAX-free import."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from pynngp_tpu import diagnostics as jdiag
+from pynngp_tpu import neighbors as jnbr
+from pynngp_tpu import vecchia as jvecchia
+from pynngp_tpu.ops import pallas_bf as pb
+from pynngp_tpu_torch import convert, diagnostics, neighbors
+from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.ops.site_tables import BLOCK, make_site_tables, tri_index
+from pynngp_tpu_torch.vecchia import make_vecchia_data
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("use_native", ["auto", "never"])
+@pytest.mark.parametrize("m", [7, 15])
+def test_neighbor_table_matches_reference(use_native, m):
+    coords = np.random.default_rng(5).uniform(size=(3000, 2))
+    got = neighbors.build_neighbor_table(coords, m, use_native=use_native)
+    want = jnbr.build_neighbor_table(coords, m, use_native=use_native,
+                                     cache=False)
+    np.testing.assert_array_equal(got.order, want.order)
+    np.testing.assert_array_equal(got.inverse_order, want.inverse_order)
+    np.testing.assert_array_equal(got.nn_idx, want.nn_idx)
+    np.testing.assert_array_equal(got.nn_mask, want.nn_mask)
+    assert got.nn_idx.dtype == want.nn_idx.dtype
+
+
+def test_diagnostics_match_reference():
+    rng = np.random.default_rng(11)
+    x = np.zeros((4, 800))
+    for t in range(1, 800):  # AR(1) chains with a per-chain offset
+        x[:, t] = 0.8 * x[:, t - 1] + rng.standard_normal(4)
+    x += np.arange(4)[:, None] * 0.05
+    assert diagnostics.ess(x) == jdiag.ess(x)
+    assert diagnostics.ess(x[0]) == jdiag.ess(x[0])
+    assert diagnostics.split_rhat(x) == jdiag.split_rhat(x)
+
+
+def test_site_tables_match_lane_cache():
+    """make_site_tables equals the reference's dist-layout lane cache
+    carried across by convert.site_tables_from_lane_cache."""
+    rng = np.random.default_rng(3)
+    n, m = 1500, 7
+    coords = rng.uniform(size=(n, 2))
+    jdata, _ = jvecchia.make_vecchia_data(coords, m)
+    cache = pb.make_lane_cache(jdata, layout="dist")
+    want = convert.site_tables_from_lane_cache(
+        np.asarray(cache.tab_a), np.asarray(cache.tab_b),
+        np.asarray(cache.nn_idx), n,
+    )
+    data, _ = make_vecchia_data(coords, m, dtype=torch.float32)
+    got = make_site_tables(data, dtype=torch.float32)
+    assert got.n == want.n == n
+    assert got.n_pad == want.n_pad == 1536 and got.n_pad % BLOCK == 0
+    assert got.d_in.shape == (m, got.n_pad)
+    assert got.d_tri.shape == (m * (m - 1) // 2, got.n_pad)
+    for name in ("d_in", "d_tri", "nn_idx"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.is_contiguous()
+        assert torch.equal(a, b), name
+    # packed-plane order: plane tri_index(i, k) holds the (i, k) pair
+    i, k = 5, 2
+    np.testing.assert_array_equal(
+        got.d_tri[tri_index(i, k), :n].numpy(),
+        data.nn_cross_dist[:, i, k],
+    )
+
+
+_JAX_FREE = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None       # any import of jax now fails
+    sys.modules["triton"] = None
+    import numpy as np
+    import torch
+    import pynngp_tpu_torch as pt
+    assert not torch.cuda.is_available()
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(200, 2))
+    y = rng.standard_normal(200)
+    model = pt.ResponseNNGP(coords, y, m=5, device="cpu")
+    draws = model.sample(30, n_burn=10, n_chains=2, seed=0)
+    assert draws["phi"].shape == (2, 30)
+    assert all(np.isfinite(v).all() for v in draws.values())
+    loaded = [name for name, mod in sys.modules.items()
+              if mod is not None and name.split(".")[0] in ("jax", "pynngp_tpu")]
+    assert not loaded, loaded
+    print("OK")
+""")
+
+
+def test_port_runs_without_jax_or_triton():
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_FREE], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+_SMALL = np.random.default_rng(2).uniform(size=(60, 2))
+
+
+@pytest.mark.parametrize("kwargs,exc", [
+    ({"x": np.ones((60, 1))}, NotImplementedError),
+    ({"mesh": object()}, NotImplementedError),
+    ({"noise": "heterogeneous"}, NotImplementedError),
+    ({"distance": "dotproduct"}, NotImplementedError),
+    ({"kernel": "matern"}, NotImplementedError),
+    ({"ordering": "maxmin"}, NotImplementedError),
+    ({"lane_layout": "coords"}, NotImplementedError),
+    ({"device": "mps"}, ValueError),
+], ids=["x", "mesh", "hetero", "dotproduct", "general_nu", "maxmin", "coords",
+        "mps"])
+def test_unported_options_raise(kwargs, exc):
+    args = {"m": 5, "device": "cpu", **kwargs}
+    with pytest.raises(exc):
+        ResponseNNGP(_SMALL, np.ones(60), **args)
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        # on a card the model builds; the kernels are tested in test_torch_cuda
+        ResponseNNGP(_SMALL, np.ones(60), m=7, device="cuda")
+        return
+    with pytest.raises(RuntimeError):
+        ResponseNNGP(_SMALL, np.ones(60), m=7, device="cuda")
+
+
+def test_port_sources_import_no_jax():
+    """No module of the port (nor chip_smoke.py) imports jax, optax or the
+    reference package."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "pynngp_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            src = fh.read()
+        for bad in ("import jax", "from jax", "import optax", "from pynngp_tpu.",
+                    "import pynngp_tpu\n", "from pynngp_tpu import"):
+            assert bad not in src, (path, bad)

@@ -1,0 +1,198 @@
+"""The port's ResponseNNGP against the reference's (XLA backend, float64):
+deterministic pieces to rtol 1e-8, the Adam MAP trace to rtol 1e-6, a
+reference sampler state carried across, and posterior means within Monte
+Carlo error (the two packages draw different random streams)."""
+
+import io
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pynngp_tpu import priors as jpriors
+from pynngp_tpu.models.response import ResponseNNGP as JaxResponseNNGP
+from pynngp_tpu_torch import convert, diagnostics, priors
+from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.utils.metrics import MetricsLogger
+
+INIT = {"phi": 0.3, "alpha": 0.1, "sigma2": 1.0}
+U_POINTS = [(0.1, -1.0, -2.0), (-0.3, 0.5, -1.2), (0.0, -2.5, -3.0)]
+
+
+@pytest.fixture(scope="module")
+def models():
+    rng = np.random.default_rng(21)
+    n = 300
+    coords = rng.uniform(size=(n, 2))
+    field = np.sin(6.0 * coords[:, 0]) * np.cos(4.0 * coords[:, 1])
+    y = field + 0.3 * rng.standard_normal(n)
+    jm = JaxResponseNNGP(coords, y, kernel="sqexp", m=6, backend="xla",
+                         dtype=jnp.float64)
+    tm = ResponseNNGP(coords, y, kernel="sqexp", m=6, device="cpu",
+                      dtype=torch.float64)
+    return jm, tm
+
+
+@pytest.mark.parametrize("u", U_POINTS)
+def test_logpost_and_gradient_match(models, u):
+    jm, tm = models
+    jv, jg = jax.value_and_grad(jm.full_logpost)(jnp.asarray(u, jnp.float64))
+    ut = torch.tensor(u, dtype=torch.float64, requires_grad=True)
+    tv = tm.full_logpost(ut)
+    (tg,) = torch.autograd.grad(tv, ut)
+    np.testing.assert_allclose(tv.item(), float(jv), rtol=1e-8)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-8)
+    # sigma2-collapsed theta-block target at the projected point
+    theta = np.asarray([u[1], u[2] - u[0]])
+    sigma2 = float(np.exp(u[0]))
+    j_val, j_aux = jm._theta_logpost(jnp.asarray(theta), jnp.float64(sigma2),
+                                     jnp.zeros(1, jnp.float64))
+    t_val, t_aux = tm._theta_logpost(torch.tensor(theta)[None],
+                                     torch.tensor([sigma2], dtype=torch.float64))
+    np.testing.assert_allclose(float(t_val[0]), float(j_val), rtol=1e-8)
+    np.testing.assert_allclose(float(t_aux["logdet"][0]), float(j_aux["logdet"]),
+                               rtol=1e-8)
+    np.testing.assert_allclose(float(t_aux["quad"][0]), float(j_aux["quad"]),
+                               rtol=1e-8)
+
+
+def test_batched_logpost_equals_pointwise(models):
+    _, tm = models
+    pts = torch.tensor(U_POINTS, dtype=torch.float64)
+    batched = tm.full_logpost(pts)
+    single = torch.stack([tm.full_logpost(p) for p in pts])
+    np.testing.assert_allclose(batched.numpy(), single.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("collapsed", [True, False])
+def test_init_state_matches(models, collapsed):
+    jm, tm = models
+    jm.collapsed = tm.collapsed = collapsed
+    try:
+        js = jm.init_state(jax.random.PRNGKey(0), INIT)
+        ts = tm.init_state(2, INIT)
+    finally:
+        jm.collapsed = tm.collapsed = True
+    for name in ("theta_u", "sigma2", "value", "logdet", "quad", "log_steps",
+                 "accept"):
+        got = getattr(ts, name).numpy()
+        want = np.broadcast_to(np.asarray(getattr(js, name)), got.shape)
+        np.testing.assert_allclose(got, want, rtol=1e-8, err_msg=name)
+    assert ts.iteration.tolist() == [0, 0]
+
+
+def test_theta_proposal_projection_matches(models):
+    jm, tm = models
+    a = np.random.default_rng(2).standard_normal((3, 3))
+    cov = a @ a.T + np.eye(3)
+    u = np.asarray([0.2, -1.1, -2.3])
+    np.testing.assert_array_equal(tm.theta_proposal_cov(cov),
+                                  jm.theta_proposal_cov(cov))
+    np.testing.assert_array_equal(tm.theta_proposal_center(torch.tensor(u)),
+                                  jm.theta_proposal_center(u))
+
+
+def test_map_trace_matches(models):
+    jm, tm = models
+    jres = jm.fit_map(n_steps=20)
+    tres = tm.fit_map(n_steps=20)
+    np.testing.assert_allclose(tres.trace.numpy(), np.asarray(jres.trace),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tres.u.numpy(), np.asarray(jres.u), rtol=1e-6)
+    np.testing.assert_allclose(tres.laplace_cov.numpy(),
+                               np.asarray(jres.laplace_cov), rtol=1e-4,
+                               atol=1e-8)
+
+
+def test_state_from_jax_steps_in_the_port(models):
+    jm, tm = models
+    keys = jax.random.split(jax.random.PRNGKey(3), 4)
+    states = jax.vmap(lambda k: jm.init_state(k, INIT))(keys)
+    step = jax.jit(jax.vmap(lambda k, s: jm.step(k, s, n_adapt=100)))
+    for i in range(3):
+        states = step(jax.random.split(jax.random.PRNGKey(10 + i), 4), states)
+    state_np = jax.tree.map(np.asarray, states)
+    ts = convert.response_state_from_jax(state_np, dtype=torch.float64)
+    assert ts.theta_u.shape == (4, 2) and ts.iteration.tolist() == [3] * 4
+    j_val = jax.vmap(lambda t, s, b: jm._theta_logpost(t, s, b)[0])(
+        states.theta_u, states.sigma2, states.beta)
+    t_val, _ = tm._theta_logpost(ts.theta_u, ts.sigma2)
+    np.testing.assert_allclose(t_val.numpy(), np.asarray(j_val), rtol=1e-8)
+    np.testing.assert_allclose(t_val.numpy(), state_np.value, rtol=1e-8)
+
+    gen = torch.Generator().manual_seed(0)
+    nxt = tm.step(gen, ts, n_adapt=100)
+    for name, before in ts._asdict().items():
+        after = getattr(nxt, name)
+        assert after.shape == before.shape and after.dtype == before.dtype, name
+        assert torch.isfinite(after.to(torch.float64)).all(), name
+    assert nxt.iteration.tolist() == [4] * 4
+
+
+@pytest.fixture(scope="module")
+def reference_draws(models):
+    jm, _ = models
+    return jm.sample(2000, n_burn=500, n_chains=4, seed=0, init=INIT)
+
+
+@pytest.mark.parametrize("sampler", ["rw_sweep", "indep_mix"])
+def test_posterior_means_agree(models, reference_draws, sampler):
+    """Both packages target the same posterior: means of sigma2, phi, tau2
+    from 4 chains x 2000 draws agree within 4 combined Monte Carlo standard
+    errors (sd / sqrt(ESS) per package)."""
+    _, tm = models
+    kwargs = {}
+    if sampler == "indep_mix":
+        mp = tm.fit_map(n_steps=200)
+        kwargs = {"proposal_cov": tm.theta_proposal_cov(mp.laplace_cov),
+                  "proposal_center": tm.theta_proposal_center(mp.u)}
+    draws = tm.sample(2000, n_burn=500, n_chains=4, seed=1, init=INIT, **kwargs)
+    assert draws["phi"].shape == (4, 2000)
+    for key in ("sigma2", "phi", "tau2"):
+        a = np.asarray(draws[key], np.float64)
+        b = np.asarray(reference_draws[key], np.float64)
+        se2 = (a.var() / diagnostics.ess(a)) + (b.var() / diagnostics.ess(b))
+        assert abs(a.mean() - b.mean()) <= 4.0 * np.sqrt(se2), (
+            key, a.mean(), b.mean(), np.sqrt(se2))
+
+
+def test_driver_metrics_lines_and_collect_every(models):
+    _, tm = models
+    logger = MetricsLogger(stream=io.StringIO())
+    draws = tm.sample(50, n_burn=30, n_chains=3, seed=2, init=INIT, chunk=20,
+                      metrics=logger, collect_every={"loglik": 4})
+    assert draws["phi"].shape == (3, 50)
+    assert draws["loglik"].shape == (3, 13)  # draws 0, 4, ..., 48
+    events = [(r["event"], r["done"], r["total"]) for r in logger.history]
+    assert events == [("burn", 20, 30), ("burn", 30, 30), ("sample", 20, 50),
+                      ("sample", 40, 50), ("sample", 50, 50)]
+    lines = logger.stream.getvalue().splitlines()
+    assert [json.loads(x)["event"] for x in lines] == [e[0] for e in events]
+    assert all(r["iters_per_sec"] > 0 for r in logger.history)
+
+
+@pytest.mark.parametrize("name", ["InverseGamma", "Uniform", "LogNormal",
+                                  "Normal"])
+def test_priors_match_reference(name):
+    args = {"InverseGamma": (2.5, 0.7), "Uniform": (0.1, 2.0),
+            "LogNormal": (0.3, 1.4), "Normal": (-0.2, 0.8)}[name]
+    x = np.asarray([0.05, 0.4, 1.0, 1.9, 2.5])
+    got = getattr(priors, name)(*args).logpdf(torch.as_tensor(x)).numpy()
+    want = np.asarray(getattr(jpriors, name)(*args).logpdf(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_transforms_match_reference():
+    u = np.asarray([-40.0, -3.0, -0.5, 0.0, 0.7, 4.0, 35.0])
+    t, jt = priors.logit_transform(0.1, 2.0), jpriors.logit_transform(0.1, 2.0)
+    ut = torch.as_tensor(u)
+    for fn in ("forward", "log_jac"):
+        np.testing.assert_allclose(getattr(t, fn)(ut).numpy(),
+                                   np.asarray(getattr(jt, fn)(jnp.asarray(u))),
+                                   rtol=1e-12)
+    x = np.asarray([0.2, 1.0, 1.9])
+    np.testing.assert_allclose(t.inverse(torch.as_tensor(x)).numpy(),
+                               np.asarray(jt.inverse(jnp.asarray(x))), rtol=1e-12)

@@ -1,0 +1,133 @@
+"""The port's forward Vecchia suffstats (kernel 1's plain version on CPU
+tensors) against the reference's Pallas kernel in interpret mode, in
+float64, and the port's batched B/F oracle against the dense numpy gold.
+
+Parameters are exact in float32 (phi, alpha, jitter = 2^-20), because the
+reference's ``_params_vec`` rounds them through float32; the port keeps
+them in float64.  With identical tables, interpret-mode Pallas in float64
+agrees with the XLA path to ~1e-10, so the port is held to rtol 1e-8."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pynngp_tpu import kernels as jkernels
+from pynngp_tpu import vecchia as jvecchia
+from pynngp_tpu.gold import dense_gp
+from pynngp_tpu.ops import pallas_bf as pb
+from pynngp_tpu_torch import kernels, vecchia
+from pynngp_tpu_torch.ops import suffstats as ops
+from pynngp_tpu_torch.ops.site_tables import make_site_tables
+
+JITTER = 2.0**-20
+PHIS = (0.25, 0.125, 0.5)  # C = 3 chains
+ALPHAS = (0.125, 0.25, 0.0625)
+KERNELS = [
+    (jkernels.SqExp(), kernels.SqExp()),
+    (jkernels.Exponential(), kernels.Exponential()),
+    (jkernels.Spherical(), kernels.Spherical()),
+    (jkernels.Matern(nu=0.5), kernels.Matern(nu=0.5)),
+    (jkernels.Matern(nu=1.5), kernels.Matern(nu=1.5)),
+    (jkernels.Matern(nu=2.5), kernels.Matern(nu=2.5)),
+]
+_IDS = [repr(k[1]) for k in KERNELS]
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(3)
+    n, m = 1500, 7  # ragged: n pads to 1536 here, to 8192 in the lane cache
+    coords = rng.uniform(size=(n, 2))
+    y = rng.standard_normal(n)
+    jdata, jtab = jvecchia.make_vecchia_data(coords, m)
+    cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout="dist")
+    y_ord = y[jtab.order]
+    # the same float32 distance tables, held in float64
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
+    tables = make_site_tables(data, dtype=torch.float64)
+    return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
+            "tables": tables, "y": torch.as_tensor(y_ord), "n": n}
+
+
+@pytest.mark.parametrize("jkern,kern", KERNELS, ids=_IDS)
+def test_suffstats_matches_pallas(problem, jkern, kern):
+    run = jax.jit(lambda phi, alpha: pb.pallas_suffstats(
+        jkern, {"phi": phi}, problem["cache"], problem["y_jax"], alpha,
+        jitter=JITTER))
+    logdet, quad, f, r = ops.suffstats(
+        kern, problem["tables"], torch.tensor(PHIS, dtype=torch.float64),
+        torch.tensor(ALPHAS, dtype=torch.float64), problem["y"], JITTER)
+    n = problem["n"]
+    assert logdet.shape == quad.shape == (3,)
+    assert f.shape == r.shape == (3, problem["tables"].n_pad)
+    for c, (phi, alpha) in enumerate(zip(PHIS, ALPHAS)):
+        ld_j, q_j, f_j, r_j = run(jnp.float64(phi), jnp.float64(alpha))
+        np.testing.assert_allclose(float(logdet[c]), float(ld_j), rtol=1e-8)
+        np.testing.assert_allclose(float(quad[c]), float(q_j), rtol=1e-8)
+        np.testing.assert_allclose(f[c, :n].numpy(),
+                                   np.asarray(f_j).reshape(-1)[:n], rtol=1e-8)
+        np.testing.assert_allclose(r[c, :n].numpy(),
+                                   np.asarray(r_j).reshape(-1)[:n], rtol=1e-8,
+                                   atol=1e-10)
+
+
+def test_loglik_matches_pallas_loglik(problem):
+    want = pb.pallas_loglik(jkernels.SqExp(), {"phi": jnp.float64(0.25)},
+                            problem["cache"], problem["y_jax"], 1.5, 0.125,
+                            jitter=JITTER)
+    got = ops.loglik(kernels.SqExp(), problem["tables"],
+                     torch.tensor([0.25], dtype=torch.float64), problem["y"],
+                     1.5, 0.125, JITTER)
+    np.testing.assert_allclose(float(got[0]), float(want), rtol=1e-8)
+
+
+def test_plain_version_counts_and_cpu_route(problem):
+    """CPU tensors go to the plain version and never count a launch."""
+    before = (ops.COUNT.launches, ops.COUNT.plain)
+    ops.suffstats(kernels.SqExp(), problem["tables"], 0.25, 0.125,
+                  problem["y"], JITTER)
+    assert ops.COUNT.launches == before[0]
+    assert ops.COUNT.plain == before[1] + 1
+
+
+@pytest.mark.parametrize("name,kern", [("sqexp", kernels.SqExp()),
+                                       ("exponential", kernels.Exponential()),
+                                       ("spherical", kernels.Spherical())])
+def test_vecchia_loglik_matches_dense_gold(name, kern):
+    rng = np.random.default_rng(17)
+    n, m = 200, 5
+    coords = rng.uniform(size=(n, 2))
+    y = rng.standard_normal(n)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    y_ord = torch.as_tensor(y[tab.order])
+    sigma2, phi, tau2 = 1.3, 0.2, 0.15
+    got = vecchia.vecchia_loglik(kern, {"phi": phi}, data, y_ord, sigma2,
+                                 alpha=tau2 / sigma2, jitter=0.0)
+    want = dense_gp.vecchia_loglik_dense(
+        y[tab.order], coords[tab.order], tab.nn_idx, tab.nn_mask, name,
+        sigma2, phi, tau2)
+    np.testing.assert_allclose(float(got), want, rtol=1e-10)
+
+
+def test_plain_suffstats_matches_batched_bf():
+    """Kernel 1's plain version (site tables, slot masks from the site
+    index) equals the oracle built from the (n, m) neighbor table.  B.c
+    and u.u are the same number reached by different solves: rtol 1e-8."""
+    rng = np.random.default_rng(4)
+    n, m = 400, 6
+    coords = rng.uniform(size=(n, 2))
+    y = rng.standard_normal(n)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    y_ord = torch.as_tensor(y[tab.order])
+    kern = kernels.Matern(nu=1.5)
+    b, f = vecchia.vecchia_bf(kern, {"phi": 0.3}, data, alpha=0.2, jitter=JITTER)
+    ld, q, resid = vecchia.vecchia_suffstats(b, f, y_ord, data)
+    tables = make_site_tables(data, dtype=torch.float64)
+    ld2, q2, f2, r2 = ops.suffstats(kern, tables, 0.3, 0.2, y_ord, JITTER)
+    np.testing.assert_allclose(float(ld2[0]), float(ld), rtol=1e-8)
+    np.testing.assert_allclose(float(q2[0]), float(q), rtol=1e-8)
+    np.testing.assert_allclose(f2[0, :n].numpy(), f.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(r2[0, :n].numpy(), resid.numpy(), rtol=1e-8,
+                               atol=1e-10)
