@@ -2,12 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``pynngp_tpu_torch/csrc``, holds each against
-its plain PyTorch version, times both, then drives the main path once (the
-response NNGP at n=100,000, m=15, sqexp, as ``bench.py``'s ``bench_ess`` MWG
-branch runs it) and checks that it went through the kernels.  Any failure
-exits non-zero.  Without a CUDA device it exits 1 and prints no result.
-The last line is ``{"ok": true, "device": {...}}``.
+Builds the three CUDA kernels from ``pynngp_tpu_torch/csrc``, holds each
+against its plain PyTorch version, times both, then drives every ported path
+once and checks that it went through its kernels:
+
+- the response NNGP at n=100,000, m=15, sqexp, as ``bench.py``'s ``bench_ess``
+  MWG branch runs it (kernels 1 and 2);
+- the latent-w NNGP at n=10,000, m=15, exponential, 8 chains, as ``bench.py``'s
+  config 2 runs it, and a short run of the same model at n=100,000 (kernel 3);
+- the response NNGP with an intercept and one covariate at n=100,000, 16
+  chains (kernel 3).
+
+Each path starts with every launch count at 0.  Any failure exits non-zero.
+Without a CUDA device it exits 1 and prints no result.  The line before the
+last lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ import torch
 
 from pynngp_tpu_torch import diagnostics
 from pynngp_tpu_torch.kernels import Exponential, SqExp
+from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
 from pynngp_tpu_torch.ops.site_tables import make_site_tables
@@ -36,7 +46,14 @@ KERNEL_ROWS = {
                           "pynngp_tpu/ops/pallas_bf.py:409", fwd_ops.COUNT),
     "vecchia_grad": ("pynngp_tpu_torch/csrc/vecchia_grad.cu",
                      "pynngp_tpu/ops/pallas_bf.py:727", diff_ops.COUNT),
+    "vecchia_bf": ("pynngp_tpu_torch/csrc/vecchia_bf.cu",
+                   "pynngp_tpu/ops/pallas_bf.py:941", bf_ops.COUNT),
 }
+# Published peaks of one H100 SXM: device memory rate, float32 rate outside
+# the tensor cores, and the special-function rate that follows from it (an SM
+# issues 16 special-function operations a clock against 128 FMAs, so
+# 67e12 / 2 / 8).
+PEAK_BYTES, PEAK_FLOPS, PEAK_SFU = 3.35e12, 67e12, 67e12 / 16
 
 
 class SmokeFailure(RuntimeError):
@@ -62,13 +79,14 @@ def bench_field(n: int, seed: int = 0):
 
 
 def ptxas_summary(ptxas: str, m: int) -> str:
-    """'<kernel>: R regs, S/L bytes spill stores/loads' for the m instances."""
+    """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
+    instance of every kernel."""
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line or f"ILi{m}E" not in line:
             continue
-        name = "suffstats" if "suffstats_kernel" in line else "grad"
+        name = next(k for k in ("suffstats", "grad", "bf") if f"{k}_kernel" in line)
         spill = regs = "?"
         for nxt in lines[i + 1:i + 4]:
             if "spill stores" in nxt:
@@ -97,9 +115,10 @@ class Case:
         self.alpha = torch.linspace(0.05, 0.3, chains, device=dev)
         self.jitter = 1e-6
 
-    def params64(self, sl, requires_grad=False):
+    def params64(self, sl, requires_grad=False, alpha=None):
+        alpha = self.alpha if alpha is None else alpha
         phi = self.phi[sl].double().requires_grad_(requires_grad)
-        alpha = self.alpha[sl].double().requires_grad_(requires_grad)
+        alpha = alpha[sl].double().requires_grad_(requires_grad)
         pr = fwd_ops.params_array(phi, alpha, np.float32(self.jitter), self.n,
                                   torch.float64, phi.device)
         return phi, alpha, pr
@@ -174,6 +193,44 @@ def check_grad(case: Case, label: str, grad_rtol: float) -> dict:
     return res
 
 
+def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool) -> dict:
+    """Kernel 3 against its plain version (float64 on the card, chunked over
+    chains), B and F over the sites < n, and the padded-site rule (B = 0,
+    F = 1 exactly for site >= n).
+
+    Tolerances.  With the case's alpha: B atol 3e-5 and F rtol 3e-5, as
+    tests/test_pallas.py:80-81 holds the TPU kernel.  With alpha = 0 (what
+    the latent model passes) the systems are far worse conditioned: B atol
+    1e-3 and F rtol 1e-3 for the rough exponential kernel; for sqexp any two
+    correct float32 factorizations disagree (tests/test_pallas.py:34-38), so
+    that case is printed and only its padded sites are held."""
+    alpha = torch.zeros_like(case.alpha) if zero_alpha else case.alpha
+    b, f = bf_ops.bf_planes(case.kernel, case.tab32, case.phi, alpha, case.jitter)
+    torch.cuda.synchronize()
+    ref = [bf_ops.bf_reference(case.kernel, case.tab64,
+                               case.params64(sl, alpha=alpha)[2])
+           for sl in case.chunks()]
+    b_ref, f_ref = (torch.cat(x) for x in zip(*ref))
+    n = case.n
+    b_err = (b[:, :, :n].double() - b_ref[:, :, :n]).abs()
+    f_err = (f[:, :n].double() - f_ref[:, :n]).abs() / f_ref[:, :n].abs()
+    pad_ok = bool((b[:, :, n:] == 0).all() and (f[:, n:] == 1).all())
+    res = {
+        "alpha": "0" if zero_alpha else "case", "gated": gated,
+        "b_max_abs_err": float(b_err.nan_to_num(nan=float("inf")).max()),
+        "f_max_rel_err": float(f_err.nan_to_num(nan=float("inf")).max()),
+        "b_max_abs": float(b_ref.abs().max()),
+        "padded_sites": case.tab32.n_pad - n, "padded_b0_f1": pad_ok,
+    }
+    print(f"bf parity [{label}]: " + json.dumps(res), flush=True)
+    _require(pad_ok, f"kernel 3 padded sites are not B=0, F=1 [{label}]")
+    if gated:
+        tol = 1e-3 if zero_alpha else 3e-5
+        _require(res["b_max_abs_err"] <= tol and res["f_max_rel_err"] <= tol,
+                 f"kernel 3 B/F disagree [{label}, alpha {res['alpha']}]")
+    return res
+
+
 def _time_ms(fn, warm: int, reps: int) -> float:
     for _ in range(warm):
         fn()
@@ -189,7 +246,7 @@ def _time_ms(fn, warm: int, reps: int) -> float:
 
 
 def time_kernels(case: Case) -> dict:
-    """Per-call times of both kernels and of their float32 plain versions."""
+    """Per-call times of the kernels and of their float32 plain versions."""
     k, t, y = case.kernel, case.tab32, case.y32
     params = fwd_ops.params_array(case.phi, case.alpha, case.jitter, case.n,
                                   torch.float32, case.phi.device)
@@ -204,6 +261,11 @@ def time_kernels(case: Case) -> dict:
             lambda: fwd_ops.suffstats_reference(k, t, params, y), 2, 5),
         "vecchia_grad_plain": _time_ms(
             lambda: diff_ops.grad_reference(k, t, params, y), 2, 5),
+        "vecchia_bf": _time_ms(
+            lambda: bf_ops.bf_planes(k, t, case.phi, case.alpha, case.jitter),
+            20, 200),
+        "vecchia_bf_plain": _time_ms(
+            lambda: bf_ops.bf_reference(k, t, params), 2, 5),
     }
     chains = case.phi.shape[0]
     tag = f"n{case.n}_m{case.m}"
@@ -211,9 +273,51 @@ def time_kernels(case: Case) -> dict:
         **{f"{name}_ms": ms for name, ms in times.items()},
         f"vecchia_loglik_evals_per_sec_{tag}": chains * 1e3 / times["vecchia_suffstats"],
         "grad_evals_per_sec": chains * 1e3 / times["vecchia_grad"],
+        "bf_builds_per_sec": chains * 1e3 / times["vecchia_bf"],
         "chains": chains,
     }), flush=True)
     return times
+
+
+def kernel_bounds(case: Case) -> dict:
+    """The least time the card could take for one launch of each kernel at
+    the case's shapes: name -> (bound_ms, "bytes" or "operations").
+
+    Bytes: every input read once (the tables are shared by all chains; kernel
+    3 reads no neighbor ids and no y) and every output written once, over
+    3.35 TB/s.  Operations per (site, chain), the reference's own cost
+    estimate (pynngp_tpu/ops/pallas_bf.py:1027-1031) extended to each
+    kernel's solves: m^3/3 float32 operations for the factorization and m^2
+    per triangular solve (kernel 1: two forward; kernel 2: two forward, two
+    backward and ~3 m^2 for the dC/dphi contractions; kernel 3: one forward,
+    one backward) over 67 TFLOP/s; and one special-function operation per
+    correlation (m(m+1)/2; twice that in kernel 2, which also needs the
+    derivative) and per pivot (m) over 4.19e12/s.  The bound is the largest
+    of the three times."""
+    t, m = case.tab32, case.m
+    sites = t.n_pad * case.phi.shape[0]
+    blocks = sites // 128
+    tables = (t.d_in.numel() + t.d_tri.numel()) * 4
+    ids_y = t.nn_idx.numel() * 4 + t.n * 4
+    corr = m * (m + 1) // 2
+    work = {
+        "vecchia_suffstats": (tables + ids_y + (2 * sites + 2 * blocks) * 4,
+                              m**3 / 3 + 2 * m * m, corr + m),
+        "vecchia_grad": (tables + ids_y + 6 * blocks * 4,
+                         m**3 / 3 + 7 * m * m, 2 * corr + m),
+        "vecchia_bf": (tables + (m + 1) * sites * 4,
+                       m**3 / 3 + 2 * m * m, corr + m),
+    }
+    out = {}
+    for name, (nbytes, flops, sfu) in work.items():
+        byte_ms = nbytes / PEAK_BYTES * 1e3
+        op_ms = max(flops * sites / PEAK_FLOPS, sfu * sites / PEAK_SFU) * 1e3
+        out[name] = (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations")
+    print("kernel bounds: " + json.dumps({
+        k: {"bound_ms": v[0], "bound_by": v[1], "bytes": work[k][0],
+            "flops": work[k][1] * sites, "special": work[k][2] * sites}
+        for k, v in out.items()}), flush=True)
+    return out
 
 
 def _chain_stats(draws):
@@ -225,13 +329,29 @@ def _chain_stats(draws):
     return float(min_ess), float(max_rhat)
 
 
+def _reset_counts() -> None:
+    for _, _, count in KERNEL_ROWS.values():
+        count.reset()
+
+
+def _read_counts(path: str, expected: tuple) -> dict:
+    """Launch counts since the last reset; fails unless every kernel of
+    ``expected`` was launched and no plain version was called."""
+    launches = {name: row[2].launches for name, row in KERNEL_ROWS.items()}
+    plain = {name: row[2].plain for name, row in KERNEL_ROWS.items()}
+    _require(all(launches[name] > 0 for name in expected),
+             f"a kernel was not launched on the {path} path: {launches}")
+    _require(all(v == 0 for v in plain.values()),
+             f"the {path} path reached a plain version: {plain}")
+    return launches
+
+
 def main_path(dev) -> dict:
     """bench.py's bench_ess MWG branch on the port: the same generator and
     seed, fit_map(250), a 16 x 1200 correlated-RW pilot with 800 burn-in,
     then 16 x 6000 independence-mixture draws with 500 burn-in."""
     coords, y = bench_field(N_MAIN, seed=0)
-    for count in (fwd_ops.COUNT, diff_ops.COUNT):
-        count.reset()
+    _reset_counts()
     t0 = time.perf_counter()
     model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
     setup_s = time.perf_counter() - t0
@@ -263,26 +383,201 @@ def main_path(dev) -> dict:
                          proposal_cov=emp_cov, proposal_center=emp_mean)
     run_s = time.perf_counter() - t0
     min_ess, max_rhat = _chain_stats(draws)
-    launches = {name: row[2].launches for name, row in KERNEL_ROWS.items()}
-    plain = {name: row[2].plain for name, row in KERNEL_ROWS.items()}
+    launches = _read_counts("response", ("vecchia_suffstats", "vecchia_grad"))
     means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
     res = {
         "setup_s": setup_s, "map_s": map_s, "pilot_s": pilot_s, "run_s": run_s,
         f"min_ess_per_sec_n{N_MAIN}_m{M_MAIN}": min_ess / (run_s + pilot_s + map_s),
         "min_ess": min_ess, "rhat_max": max_rhat, "map_value": float(mp.value),
-        "posterior_mean": means, "launches": launches, "plain_calls": plain,
+        "posterior_mean": means, "launches": launches, "plain_calls": 0,
         "draws_shape": list(draws["phi"].shape),
     }
     print("main path: " + json.dumps(res), flush=True)
-    _require(all(v > 0 for v in launches.values()),
-             f"a kernel was not launched on the main path: {launches}")
-    _require(all(v == 0 for v in plain.values()),
-             f"the main path reached a plain version: {plain}")
     _require(all(np.isfinite(v).all() for v in draws.values()),
              "non-finite draws")
     _require(draws["phi"].shape == (CHAINS, 6000), "draws have the wrong shape")
     _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
              f"posterior mean tau2 {means['tau2']} is not within 2x of 0.09")
+    return res
+
+
+def config2_field(n: int, scale: float, rng):
+    """bench.py's ``_field`` (l.724-730): a 128-feature RFF draw on uniform
+    sites plus N(0, 0.3^2) noise, from the caller's generator."""
+    coords = rng.uniform(size=(n, 2))
+    freqs = rng.normal(scale=scale, size=(128, 2))
+    ph = rng.uniform(0, 2 * np.pi, 128)
+    w = np.sqrt(2 / 128) * np.cos(coords @ freqs.T + ph).sum(axis=1)
+    return coords, w + 0.3 * rng.standard_normal(n)
+
+
+def _step_ms(model, state, gen, steps: int) -> float:
+    """Wall ms per sampler step, unprofiled, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = model.step(gen, state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def profile_steps(model, state, gen, steps: int = 5) -> dict:
+    """Where a sampler step's time goes: device-busy ms per step from the
+    kernels that torch.profiler records over ``steps`` steps, against the
+    wall ms per step of 20 unprofiled steps (the profiler itself slows the
+    host).  The idle share is the part of the unprofiled wall clock in which
+    no kernel ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = _step_ms(model, state, gen, 20)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = model.step(gen, state)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device-side rows only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    _require(busy_ms > 0, "torch.profiler recorded no device time")
+    top = sorted(rows, key=lambda r: -r[1])[:4]
+    return {
+        "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": profiled_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "bf_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "bf_kernel" in k),
+        "device_kernels_per_step": sum(c for _, _, c in rows),
+        "top": [[k[:60], ms] for k, ms, _ in top],
+    }
+
+
+def latent_path(dev) -> dict:
+    """bench.py's config 2 (l.784-823) on the port: the latent-w NNGP at
+    n=10,000, m=15, exponential, 8 chains, 1000 draws after 500 burn-in with
+    w_every=8, doubled up to twice while split-R-hat > 1.05."""
+    n, chains = 10_000, 8
+    coords, y = config2_field(n, 10.0, np.random.default_rng(0))
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = LatentNNGP(coords, y, kernel="exponential", m=M_MAIN, device=dev)
+    setup_s = time.perf_counter() - t0
+    init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1,
+            "tau2": float(np.var(y)) * 0.15}
+    n_draws, run_s, steps = 1000, 0.0, 0
+    for attempt in range(3):  # size the run to the R-hat gate
+        t0 = time.perf_counter()
+        draws = model.sample(n_draws, n_burn=n_draws // 2, n_chains=chains,
+                             seed=attempt, init=init, w_every=8)
+        run_s += time.perf_counter() - t0
+        steps += n_draws + n_draws // 2
+        min_ess, max_rhat = _chain_stats(draws)
+        if max_rhat <= 1.05:
+            break
+        n_draws *= 2
+    launches = _read_counts("latent n=10,000", ("vecchia_bf",))
+    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
+    res = {
+        "setup_s": setup_s, "run_s": run_s, "colors": model.n_colors,
+        "attempts": attempt + 1, "n_draws": n_draws, "steps": steps,
+        "steps_per_sec": steps / run_s,
+        f"config2_latent_mwg_ess_per_sec_n{n}": min_ess / run_s,
+        "min_ess": min_ess, "rhat_max": max_rhat, "posterior_mean": means,
+        "launches": launches, "plain_calls": 0,
+        "w_shape": list(draws["w"].shape),
+    }
+    print("latent path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite latent draws")
+    _require(draws["w"].shape == (chains, -(-n_draws // 8), n),
+             f"w draws have the wrong shape {draws['w'].shape}")
+    _require(draws["phi"].shape == (chains, n_draws), "draws have the wrong shape")
+    _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
+             f"posterior mean tau2 {means['tau2']} is not within 2x of 0.09")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prof = profile_steps(model, model.init_state(chains, init), gen)
+    print("latent step profile [n10000]: " + json.dumps(prof), flush=True)
+    return res
+
+
+def latent_path_large(dev) -> dict:
+    """The same model at the data scale of the response path: n=100,000,
+    m=15, exponential, 8 chains, 150 draws after 150 burn-in, w_every=8."""
+    n, chains, n_burn, n_draws = N_MAIN, 8, 150, 150
+    coords, y = bench_field(n, seed=0)
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = LatentNNGP(coords, y, kernel="exponential", m=M_MAIN, device=dev)
+    setup_s = time.perf_counter() - t0
+    init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1,
+            "tau2": float(np.var(y)) * 0.15}
+    t0 = time.perf_counter()
+    draws = model.sample(n_draws, n_burn=n_burn, n_chains=chains, seed=0,
+                         init=init, w_every=8)
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("latent n=100,000", ("vecchia_bf",))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    state = model.init_state(chains, init)
+    res = {
+        "setup_s": setup_s, "run_s": run_s, "colors": model.n_colors,
+        "ms_per_step": run_s * 1e3 / (n_burn + n_draws),
+        "posterior_mean": {k: float(np.mean(draws[k]))
+                           for k in ("sigma2", "phi", "tau2")},
+        "launches": launches, "plain_calls": 0,
+        "w_shape": list(draws["w"].shape),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("latent path [n100000]: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite latent draws at n=100,000")
+    _require(draws["w"].shape == (chains, -(-n_draws // 8), n),
+             f"w draws have the wrong shape {draws['w'].shape}")
+    prof = profile_steps(model, state, gen)
+    print("latent step profile [n100000]: " + json.dumps(prof), flush=True)
+    return res
+
+
+def fixed_effects_path(dev) -> dict:
+    """The response NNGP with an intercept and one covariate on the
+    n=100,000 field plus x @ [1, -2]: 16 chains, 100 componentwise MWG draws
+    after 100 burn-in.  Every proposal is one kernel-3 launch."""
+    n_burn, n_draws = 100, 100
+    coords, y = bench_field(N_MAIN, seed=0)
+    x = np.column_stack([np.ones(N_MAIN),
+                         np.random.default_rng(1).standard_normal(N_MAIN)])
+    beta_true = np.array([1.0, -2.0])
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y + x @ beta_true, kernel="sqexp", m=M_MAIN,
+                         x=x, device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    init = {"sigma2": 1.0, "phi": 0.1, "alpha": 0.1}
+    draws = model.sample(n_draws, n_burn=n_burn, n_chains=CHAINS, seed=0,
+                         init=init)
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("fixed-effects", ("vecchia_bf",))
+    beta_mean = draws["beta"].mean(axis=(0, 1))
+    res = {
+        "setup_s": setup_s, "run_s": run_s,
+        "ms_per_step": run_s * 1e3 / (n_burn + n_draws),
+        "beta_mean": beta_mean.tolist(), "beta_true": beta_true.tolist(),
+        "posterior_mean": {k: float(np.mean(draws[k]))
+                           for k in ("sigma2", "phi", "tau2")},
+        "launches": launches, "plain_calls": 0,
+        "beta_shape": list(draws["beta"].shape),
+    }
+    print("fixed-effects path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite fixed-effects draws")
+    _require(draws["beta"].shape == (CHAINS, n_draws, 2),
+             "beta draws have the wrong shape")
+    _require(abs(beta_mean[1] - beta_true[1]) <= 0.1,
+             f"posterior mean slope {beta_mean[1]} is not within 0.1 of -2")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prof = profile_steps(model, model.init_state(CHAINS, init), gen)
+    print("fixed-effects step profile: " + json.dumps(prof), flush=True)
     return res
 
 
@@ -303,7 +598,8 @@ def main() -> int:
     info = _build.build_info()
     print(f"build: {info['seconds']:.1f} s (cached={info['cached']}), "
           f"{info['nvcc']}, torch {torch.__version__} cuda {torch.version.cuda}, "
-          f"ptxas m={M_MAIN}: {ptxas_summary(info['ptxas'], M_MAIN)}", flush=True)
+          "ptxas: " + "; ".join(ptxas_summary(info["ptxas"], m)
+                                for m in fwd_ops.CUDA_M), flush=True)
 
     main_case = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev)
     small_case = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev)
@@ -311,16 +607,35 @@ def main() -> int:
     check_forward(small_case, "n1500 m7 exponential")
     grad = check_grad(main_case, "n100000 m15 sqexp", grad_rtol=2e-3)
     check_grad(small_case, "n1500 m7 exponential", grad_rtol=2e-4)
+    bf_err = check_bf(main_case, "n100000 m15 sqexp", zero_alpha=False, gated=True)
+    check_bf(main_case, "n100000 m15 sqexp", zero_alpha=True, gated=False)
+    check_bf(small_case, "n1500 m7 exponential", zero_alpha=False, gated=True)
+    check_bf(small_case, "n1500 m7 exponential", zero_alpha=True, gated=True)
     times = time_kernels(main_case)
-    main_path(dev)
+    bounds = kernel_bounds(main_case)
+    del main_case, small_case
+    torch.cuda.empty_cache()
+
+    paths = {
+        "response": main_path(dev),
+        "latent_n10000": latent_path(dev),
+        "latent_n100000": latent_path_large(dev),
+        "fixed_effects": fixed_effects_path(dev),
+    }
 
     errs = {"vecchia_suffstats": fwd["f_max_abs_err"],
-            "vecchia_grad": grad["max_abs_err"]}
+            "vecchia_grad": grad["max_abs_err"],
+            "vecchia_bf": bf_err["b_max_abs_err"]}
+    # launches: the sum over the paths, each counted from 0; no single
+    # PyTorch call computes any of the three functions, so library_ms is null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": count.launches, "max_abs_err": errs[name],
-         "ms": times[name], "plain_ms": times[name + "_plain"]}
-        for name, (src, tpu, count) in KERNEL_ROWS.items()
+         "launches": sum(p["launches"][name] for p in paths.values()),
+         "launches_by_path": {k: p["launches"][name] for k, p in paths.items()},
+         "max_abs_err": errs[name], "ms": times[name],
+         "plain_ms": times[name + "_plain"], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name, (src, tpu, _) in KERNEL_ROWS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

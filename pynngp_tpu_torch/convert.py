@@ -7,10 +7,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pynngp_tpu_torch.models.latent import LatentState
 from pynngp_tpu_torch.models.response import ResponseState
 from pynngp_tpu_torch.ops.site_tables import SiteTables, padded_size
 
-__all__ = ["site_tables_from_lane_cache", "response_state_from_jax"]
+__all__ = ["site_tables_from_lane_cache", "bf_planes_from_rows",
+           "response_state_from_jax", "latent_state_from_jax"]
 
 
 def site_tables_from_lane_cache(tab_a, tab_b, nn_idx, n, device="cpu"):
@@ -33,22 +35,67 @@ def site_tables_from_lane_cache(tab_a, tab_b, nn_idx, n, device="cpu"):
                       n_pad=n_pad)
 
 
+def bf_planes_from_rows(b, f, dtype=None, device="cpu"):
+    """The port's plane-major (B (C, m, n_pad), F (C, n_pad)) from the
+    reference's row-major B (C, n, m) and F (C, n): transposed, and padded to
+    the block size with B = 0, F = 1 as the port's kernel pads."""
+    b = torch.as_tensor(np.asarray(b), dtype=dtype, device=device)
+    f = torch.as_tensor(np.asarray(f), dtype=dtype, device=device)
+    pad = padded_size(b.shape[1]) - b.shape[1]
+    b = torch.nn.functional.pad(b.transpose(1, 2), (0, pad))
+    return b.contiguous(), torch.nn.functional.pad(f, (0, pad), value=1.0)
+
+
+def _field_reader(state_np, batched, dtype, device):
+    def field(name, dt=dtype):
+        a = np.asarray(getattr(state_np, name))
+        return torch.tensor(a if batched else a[None], dtype=dt, device=device)
+
+    return field
+
+
 def response_state_from_jax(state_np, dtype=None, device="cpu") -> ResponseState:
     """The port's batched :class:`ResponseState` from a reference
     ``ResponseState`` whose fields are numpy arrays with a leading chain
-    axis.  The reference's fixed-effect fields (beta, B, F) carry nothing
-    without fixed effects and are dropped."""
-
-    def field(name, dt=dtype):
-        return torch.tensor(np.asarray(getattr(state_np, name)), dtype=dt,
-                            device=device)
-
+    axis.  With fixed effects B and F are carried across plane-major; without
+    them the reference's (1, 1) and (1,) placeholders map onto the port's."""
+    field = _field_reader(state_np, True, dtype, device)
+    b, f = field("b"), field("f")
+    if b.shape[1:] != (1, 1):
+        b, f = bf_planes_from_rows(b, f, dtype, device)
     return ResponseState(
         theta_u=field("theta_u"),
         sigma2=field("sigma2"),
+        beta=field("beta"),
         value=field("value"),
         logdet=field("logdet"),
         quad=field("quad"),
+        b=b,
+        f=f,
+        log_steps=field("log_steps"),
+        accept=field("accept"),
+        iteration=field("iteration", torch.int32),
+    )
+
+
+def latent_state_from_jax(state_np, dtype=None, device="cpu") -> LatentState:
+    """The port's batched :class:`LatentState` from a reference
+    ``LatentState`` whose fields are numpy arrays: one chain's state (a chain
+    axis of 1 is added) or a vmapped batch with a leading chain axis."""
+    batched = np.ndim(state_np.sigma2) == 1
+    field = _field_reader(state_np, batched, dtype, device)
+    b, f = bf_planes_from_rows(field("b"), field("f"), dtype, device)
+    return LatentState(
+        theta_u=field("theta_u"),
+        sigma2=field("sigma2"),
+        tau2=field("tau2"),
+        beta=field("beta"),
+        w=field("w"),
+        value=field("value"),
+        logdet=field("logdet"),
+        quad_w=field("quad_w"),
+        b=b,
+        f=f,
         log_steps=field("log_steps"),
         accept=field("accept"),
         iteration=field("iteration", torch.int32),

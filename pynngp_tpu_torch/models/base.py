@@ -17,10 +17,12 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from pynngp_tpu_torch.priors import InverseGamma, Uniform
 from pynngp_tpu_torch.utils.metrics import MetricsLogger
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
-__all__ = ["SpatialData", "prepare_spatial_data", "run_chains_chunked"]
+__all__ = ["SpatialData", "check_device", "default_priors",
+           "prepare_spatial_data", "run_chains_chunked"]
 
 
 class SpatialData(NamedTuple):
@@ -29,21 +31,55 @@ class SpatialData(NamedTuple):
     vecchia: object  # VecchiaData
     table: object  # NeighborTable (host)
     y: torch.Tensor  # (n,) ordered response
-    x: Optional[torch.Tensor]  # (n, p) ordered covariates (not ported: None)
+    x: Optional[torch.Tensor]  # (n, p) ordered covariates, or None
+
+
+def check_device(device, dtype) -> torch.device:
+    """The models' device rule: "cuda" (float32 only; raises without a card)
+    or "cpu"; there is no automatic choice."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but torch sees no CUDA device")
+        if dtype != torch.float32:
+            raise ValueError("the CUDA kernels run in float32")
+    elif device.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device}")
+    return device
+
+
+def default_priors(coords, y, priors: Optional[dict] = None) -> dict:
+    """Data-informed default priors of both models, overridden by ``priors``."""
+    coords = np.asarray(coords)
+    span = float(np.max(coords.max(0) - coords.min(0))) if coords.size else 1.0
+    var_y = float(np.var(np.asarray(y))) or 1.0
+    out = {
+        "sigma2": InverseGamma(2.0, var_y),
+        "tau2": InverseGamma(2.0, 0.1 * var_y),
+        "phi": Uniform(1e-3 * span, 2.0 * span),
+        "beta_scale": 100.0,
+    }
+    out.update(priors or {})
+    return out
 
 
 def prepare_spatial_data(coords, y, m, x=None, ordering="coordinate",
                          distance="euclidean", dtype=torch.float32,
                          device="cpu"):
-    if x is not None:
-        raise NotImplementedError("fixed effects (x=) are not ported yet")
     coords = np.asarray(coords)
     data, table = make_vecchia_data(coords, m, ordering=ordering,
                                     distance=distance, dtype=dtype,
                                     device=device)
     y_ord = torch.as_tensor(np.asarray(y)[table.order], dtype=dtype,
                             device=device)
-    return SpatialData(data, table, y_ord, None)
+    x_ord = None
+    if x is not None:
+        x = np.asarray(x)
+        if x.ndim != 2 or x.shape[0] != coords.shape[0]:
+            raise ValueError(f"x must be (n, p) with n={coords.shape[0]}, got "
+                             f"{x.shape}")
+        x_ord = torch.as_tensor(x[table.order], dtype=dtype, device=device)
+    return SpatialData(data, table, y_ord, x_ord)
 
 
 def _synchronize(states) -> None:

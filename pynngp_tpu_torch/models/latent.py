@@ -1,0 +1,529 @@
+"""Latent-w NNGP model: y_i = x_i'beta + w_i + eps_i, eps ~ N(0, tau2),
+w ~ NNGP(0, sigma2 rho_phi) (counterpart of ``pynngp_tpu.models.latent``).
+
+Ported: coordinate ordering, Euclidean distance, homogeneous noise, one
+device, closed-form kernels (phi is the only sampled kernel parameter).
+Every other option of the reference raises.
+
+Sampler (Metropolis-within-Gibbs, batched over C chains):
+  - w: site-by-site Gibbs, two implementations with the same stationary law:
+      * ``w_update='chromatic'`` (default): sites are coloured on the moral
+        graph once, on the host; all sites of one colour are conditionally
+        independent given the rest and update together, so a sweep is one
+        pass per colour instead of n sequential steps;
+      * ``w_update='sequential'``: the reference's site-by-site scan, a
+        Python loop over sites kept as the semantics oracle (CPU sizes);
+  - tau2: conjugate inverse-gamma from the measurement residuals;
+  - beta: conjugate Gaussian linear model on y - w;
+  - phi: random-walk Metropolis, one B/F rebuild per proposal (kernel 3,
+    ``ops/bf.py``), against the sigma2-collapsed marginal
+    (``collapsed=True``, the default) or the sigma2-conditioned target;
+  - sigma2: conjugate inverse-gamma from the Vecchia quadratic form of w.
+
+The per-site conditional of w_i:
+  v_i  = [ 1/tau2 + 1/(s2 F_i) + sum_j B_{j,l}^2/(s2 F_j) ]^{-1}
+  mu_i = v_i [ (y_i - x_i'b)/tau2 + B_i.w_{N(i)}/(s2 F_i)
+               + sum_j B_{j,l} (w_j - sum_{k != l} B_{j,k} w_{N(j)_k})/(s2 F_j) ]
+where j ranges over the children of i (the sites that condition on i) and l
+is i's slot in N(j).
+
+B and F live in the state plane-major, ``b`` (C, m, n_pad) and ``f``
+(C, n_pad), exactly as kernel 3 writes them: a child's weight B_{j,l} is the
+flat element ``l * n_pad + j``, and padded sites hold B = 0, F = 1.  A
+proposal builds a second (b, f) pair and ``torch.where`` keeps the accepted
+one per chain, C * (m + 1) * n_pad * 4 bytes read twice and written once.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pynngp_tpu_torch.kernels import get_kernel
+from pynngp_tpu_torch.models.base import (
+    check_device,
+    default_priors,
+    prepare_spatial_data,
+    run_chains_chunked,
+)
+from pynngp_tpu_torch.neighbors import (
+    build_children_table,
+    color_child_pairs,
+    color_moral_graph,
+    color_site_table,
+)
+from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
+from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.suffstats import CUDA_M
+from pynngp_tpu_torch.priors import logit_transform
+from pynngp_tpu_torch.samplers.mwg import (
+    adapt_log_step,
+    rw_sweep,
+    sample_gaussian_precision,
+    sample_inverse_gamma,
+)
+from pynngp_tpu_torch.vecchia import LOG_2PI
+
+__all__ = ["LatentNNGP", "LatentState"]
+
+
+class LatentState(NamedTuple):
+    """Batched sampler state; every field has a leading chain axis C."""
+
+    theta_u: torch.Tensor  # (C, 1) unconstrained phi
+    sigma2: torch.Tensor  # (C,)
+    tau2: torch.Tensor  # (C,)
+    beta: torch.Tensor  # (C, max(p, 1))
+    w: torch.Tensor  # (C, n) latent surface, ordered sites
+    value: torch.Tensor  # (C,) cached theta-block log-posterior
+    logdet: torch.Tensor  # (C,) unit-process sum log F
+    quad_w: torch.Tensor  # (C,) sum (w_i - B_i w_N)^2 / F_i
+    b: torch.Tensor  # (C, m, n_pad) plane-major kriging weights
+    f: torch.Tensor  # (C, n_pad)
+    log_steps: torch.Tensor  # (C, 1)
+    accept: torch.Tensor  # (C, 1)
+    iteration: torch.Tensor  # (C,) int32
+
+
+def _site_sum(x):
+    """Sum over the site axis, accumulated in float64 (n terms feed a
+    Metropolis ratio or a conjugate scale) and cast back."""
+    return x.sum(-1, dtype=torch.float64).to(x.dtype)
+
+
+class LatentNNGP:
+    """User-facing latent-model API.
+
+    ``device`` is "cuda" (kernel 3 for B/F, float32 only) or "cpu" (its plain
+    PyTorch version, any float dtype); there is no automatic choice, and
+    "cuda" without a card raises."""
+
+    def __init__(
+        self,
+        coords,
+        y,
+        kernel="exponential",
+        m: int = 15,
+        x=None,
+        ordering: str = "coordinate",
+        distance: str = "euclidean",
+        priors: Optional[dict] = None,
+        dtype=torch.float32,
+        jitter: float = 1e-6,
+        w_update: str = "chromatic",
+        noise="homogeneous",
+        mesh=None,
+        collapsed: bool = True,
+        device="cuda",
+    ):
+        if w_update not in ("chromatic", "sequential"):
+            raise ValueError("w_update must be 'chromatic' or 'sequential', "
+                             f"got {w_update!r}")
+        if mesh is not None:
+            raise NotImplementedError("mesh (multi-device sharding) is not "
+                                      "ported yet")
+        if noise != "homogeneous":
+            raise NotImplementedError("only homogeneous noise is ported")
+        self.device = device = check_device(device, dtype)
+        self.kernel = get_kernel(kernel)
+        self.dtype = dtype
+        self.jitter = jitter
+        self.w_update = w_update
+        # the theta block targets the sigma2-collapsed marginal by default
+        # (see _collapsed_value); collapsed=False keeps the reference
+        # sampler's sigma2-conditioned update
+        self.collapsed = collapsed
+
+        sd = prepare_spatial_data(coords, y, m, x=x, ordering=ordering,
+                                  distance=distance, dtype=dtype, device=device)
+        self.table = tab = sd.table
+        self.y, self.x = sd.y, sd.x
+        self.n = sd.y.shape[0]
+        self.p = 0 if sd.x is None else sd.x.shape[1]
+        self.tables = make_site_tables(sd.vecchia, dtype=dtype, device=device)
+        self.m = self.tables.m
+        if device.type == "cuda" and self.m not in CUDA_M:
+            raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")
+        if self.p:
+            self._xtx = self.x.T @ self.x
+
+        # static structure of the sweeps, built once on the host
+        ch = build_children_table(tab.nn_idx, tab.nn_mask)
+        self.colors = color_moral_graph(tab.nn_idx, tab.nn_mask)  # host numpy
+        self.n_colors = int(self.colors.max()) + 1
+        sites, smask = color_site_table(self.colors)
+        pairs = color_child_pairs(self.colors, sites, smask, ch.child_idx,
+                                  ch.child_mask)
+        n_pad = self.tables.n_pad
+        index = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+        flag = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        self._nbr = index(tab.nn_idx.T)  # (m, n) neighbor ids, plane-major
+        self.child_idx = index(ch.child_idx)  # (n, max_c)
+        self.child_mask = flag(ch.child_mask)
+        # flat position of B_{j, l} in b.reshape(C, m * n_pad)
+        self._child_flat = index(ch.child_slot.astype(np.int64) * n_pad
+                                 + ch.child_idx)
+        self.color_sites = index(sites)  # (n_colors, max_sz)
+        self.color_smask = flag(smask)
+        # pair tables with one extra, always-empty column P: the slot that
+        # the padding of _pair_gather points at
+        pad = lambda a: np.pad(a, ((0, 0), (0, 1)))
+        pp, pc, pf, pm = (pad(a) for a in pairs)
+        self._pp, self._pc, self._pf = index(pp), index(pc), index(pf)
+        self._pm = flag(pm)
+        gather = _pair_gather_table(pp, pm, sites.shape[1], ch.max_children)
+        self._gather_shape = gather.shape[1:]  # (max_sz, max_c)
+        self._pair_gather = index(gather.reshape(gather.shape[0], -1))
+
+        self.priors = default_priors(coords, y, priors)
+        self.theta_names = ("phi",)
+        prior_phi = self.priors["phi"]
+        self._t_phi = logit_transform(prior_phi.lo, prior_phi.hi)
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    # ---- parameter plumbing -------------------------------------------
+    def _natural(self, theta_u):
+        return {"phi": self._t_phi.forward(theta_u[..., 0])}
+
+    def _log_prior_theta(self, theta_u, nat):
+        return (self.priors["phi"].logpdf(nat["phi"])
+                + self._t_phi.log_jac(theta_u[..., 0]))
+
+    def _mean(self, beta):
+        """x'beta per chain, (C, n); 0 without fixed effects."""
+        return 0.0 if self.p == 0 else beta @ self.x.T
+
+    # ---- w full-conditional pieces ------------------------------------
+    def _child_terms(self, b, fprec):
+        """Per (site, child slot): B_{j,l} and 1/(s2 F_j) of child j, both
+        (C, n, max_c) and zero in empty child slots."""
+        b_child = b.reshape(b.shape[0], -1)[:, self._child_flat] * self.child_mask
+        fp_child = fprec[:, self.child_idx] * self.child_mask
+        return b_child, fp_child
+
+    def _own_mean(self, w, b):
+        """B_i . w_N(i) per site, (C, n).  B is 0 in invalid slots."""
+        return (b[:, :, :self.n] * w[:, self._nbr]).sum(1)
+
+    def conditional_moments(self, w, b, f, sigma2, tau2, beta):
+        """Vectorized (mu_i, v_i) of every site's full conditional given the
+        current w, each (C, n)."""
+        fprec = 1.0 / (sigma2[:, None] * f[:, :self.n])
+        mu_own = self._own_mean(w, b)
+        resid = w - mu_own  # full residual of every site
+        b_child, fp_child = self._child_terms(b, fprec)
+        # child j's residual without i's own contribution
+        resid_excl = resid[:, self.child_idx] + b_child * w[:, :, None]
+        tau2 = tau2[:, None]
+        prec = 1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1)
+        rhs = ((self.y - self._mean(beta)) / tau2 + mu_own * fprec
+               + (b_child * fp_child * resid_excl).sum(-1))
+        v = 1.0 / prec
+        return v * rhs, v
+
+    def _update_w_chromatic(self, eps, w, b, f, sigma2, tau2, beta):
+        """Exact chromatic Gibbs sweep, one colour class at a time, from the
+        standard normals ``eps`` (C, n).
+
+        Everything that does not depend on w, the whole conditional precision
+        included, is computed once and gathered into colour-major layout
+        before the loop.  The residual r_j = w_j - B_j . w_N(j) is kept up to
+        date incrementally, so B_i . w_N(i) = w_i - r_i needs no neighbor
+        gather, and the child work runs on the packed (parent, child) pair
+        tables.  The loop over colours is a Python loop of small tensor ops.
+
+        Scatters.  Pad slots of the site and pair tables all point at site 0
+        with a zero update, so the updates of w and r must accumulate
+        (``index_add_``); a plain indexed assignment would let a pad slot
+        overwrite site 0.  The live indices of one colour are distinct (a
+        proper moral-graph colouring: no two sites of a colour share a child
+        or condition on one another), so the atomic adds of a CUDA
+        ``index_add_`` change no value with their order and a run is
+        reproducible.  The one sum with repeated targets, a parent's sum over
+        its children, is a gather through ``_pair_gather`` and a dense sum."""
+        n = self.n
+        fprec = 1.0 / (sigma2[:, None] * f[:, :n])
+        tau2 = tau2[:, None]
+        ytil = (self.y - self._mean(beta)) / tau2
+        b_child, fp_child = self._child_terms(b, fprec)
+        prec = 1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1)
+        v = 1.0 / prec
+        # w_i' = v_i (ytil_i + fprec_i B_i.w_N(i) + child sum) + sqrt(v_i) eps_i
+        fixed = v * ytil + torch.sqrt(v) * eps
+        own = v * fprec
+        w = w.clone()  # updated in place below; the caller's state is kept
+        resid = w - self._own_mean(w, b)
+
+        chains = w.shape[0]
+        cs = self.color_sites
+        bcp = b_child.reshape(chains, -1)[:, self._pf] * self._pm  # B_{j,l}
+        coef = bcp * fp_child.reshape(chains, -1)[:, self._pf]  # B_{j,l}/(s2 F_j)
+        # per-site vectors gathered colour-major, (C, n_colors, max_sz), once
+        rows = zip(cs, self.color_smask, self._pp, self._pc, self._pair_gather,
+                   bcp.unbind(1), coef.unbind(1), v[:, cs].unbind(1),
+                   fixed[:, cs].unbind(1), own[:, cs].unbind(1))
+        shape = (chains,) + self._gather_shape
+        for (sites, smask, pp_c, pc_c, gather_c, bcp_c, coef_c, v_s, fixed_s,
+             own_s) in rows:
+            w_s = w.index_select(1, sites)
+            # B_i . w_N(i) under the current w is w_i - r_i
+            mu_own = w_s - resid.index_select(1, sites)
+            # child term: sum over i's pairs of B_{j,l}/(s2 F_j) (r_j + B_{j,l} w_i)
+            rexcl = torch.addcmul(resid.index_select(1, pc_c), bcp_c,
+                                  w_s.index_select(1, pp_c))
+            child_sum = (coef_c * rexcl).index_select(1, gather_c).view(shape).sum(-1)
+            w_new = torch.addcmul(torch.addcmul(fixed_s, own_s, mu_own), v_s,
+                                  child_sum)
+            delta = (w_new - w_s) * smask  # pad slots add 0
+            w.index_add_(1, sites, delta)
+            resid.index_add_(1, sites, delta)
+            resid.index_add_(1, pc_c, -bcp_c * delta.index_select(1, pp_c))
+        return w
+
+    def _update_w_sequential(self, eps, w, b, f, sigma2, tau2, beta):
+        """The reference sampler's semantics: sites in order, each from its
+        full conditional given the latest w.  A Python loop over n sites,
+        for CPU-sized problems and tests."""
+        n = self.n
+        fprec = 1.0 / (sigma2[:, None] * f[:, :n])
+        tau2 = tau2[:, None]
+        ytil = (self.y - self._mean(beta)) / tau2
+        b_child, fp_child = self._child_terms(b, fprec)
+        prec = 1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1)
+        v = 1.0 / prec
+        noise = torch.sqrt(v) * eps
+        b_n = b[:, :, :n]
+        w = w.clone()
+        for i in range(n):
+            mu_own = (b_n[:, :, i] * w[:, self._nbr[:, i]]).sum(-1)
+            cj = self.child_idx[i]  # (max_c,) children (pads: site 0, B = 0)
+            # child residuals recomputed from the current w, without i
+            resid_child = w[:, cj] - (b_n[:, :, cj] * w[:, self._nbr[:, cj]]).sum(1)
+            resid_excl = resid_child + b_child[:, i] * w[:, i, None]
+            rhs = (ytil[:, i] + mu_own * fprec[:, i]
+                   + (b_child[:, i] * fp_child[:, i] * resid_excl).sum(-1))
+            w[:, i] = v[:, i] * rhs + noise[:, i]
+        return w
+
+    # ---- likelihood pieces --------------------------------------------
+    def _suffstats(self, theta_u, w):
+        """(b, f, logdet, quad) of w under the unit-variance process at
+        theta: one B/F build for all chains."""
+        nat = self._natural(theta_u)
+        b, f = bf_planes(self.kernel, self.tables, nat["phi"], 0.0, self.jitter)
+        logdet, quad, _ = plane_suffstats(b, f, w, self._nbr)
+        return b, f, logdet, quad
+
+    def _theta_logpost(self, theta_u, w, sigma2):
+        b, f, logdet, quad = self._suffstats(theta_u, w)
+        nat = self._natural(theta_u)
+        if self.collapsed:
+            value = self._collapsed_value(theta_u, nat, logdet, quad)
+        else:
+            value = (-0.5 * (logdet + quad / sigma2)
+                     + self._log_prior_theta(theta_u, nat))
+        return value, {"b": b, "f": f, "logdet": logdet, "quad": quad}
+
+    def _collapsed_value(self, theta_u, nat, logdet, quad):
+        """Metropolis target for theta with sigma2 integrated out.
+
+        p(w | phi, sigma2) p(sigma2) carries sigma2 only as
+        sigma2^{-(a_s + n/2 + 1)} exp(-(b_s + quad_phi(w)/2) / sigma2), so the
+        marginal over the IG(a_s, b_s) prior is Gamma(A) B^{-A} with
+        A = a_s + n/2, B = b_s + quad/2.  Walking phi against this marginal
+        instead of the sigma2-conditioned target removes the (sigma2, phi)
+        ridge; redrawing sigma2 ~ IG(A, B) from the post-theta quad
+        afterwards makes the (phi, sigma2) pair one exact joint conditional
+        draw (partially collapsed Gibbs, same stationary distribution)."""
+        a_big = self.priors["sigma2"].a + 0.5 * self.n
+        b_big = self.priors["sigma2"].b + 0.5 * quad
+        return (-0.5 * logdet - a_big * torch.log(b_big)
+                + self._log_prior_theta(theta_u, nat))
+
+    def loglik(self, state: LatentState):
+        """Per-chain record: log p(y | w, tau2) + log p(w | theta, sigma2)."""
+        r = self.y - self._mean(state.beta) - state.w
+        ll_y = -0.5 * (self.n * (LOG_2PI + torch.log(state.tau2))
+                       + _site_sum(r * r) / state.tau2)
+        ll_w = -0.5 * (self.n * (LOG_2PI + torch.log(state.sigma2))
+                       + state.logdet + state.quad_w / state.sigma2)
+        return ll_y + ll_w
+
+    # ---- sampler -------------------------------------------------------
+    def init_state(self, n_chains: int = 1, init: Optional[dict] = None):
+        """The same starting state for every chain."""
+        init = init or {}
+        var_y = torch.var(self.y, unbiased=False)
+        pp = self.priors["phi"]
+        chain = lambda v: self._tensor(v).expand(n_chains).clone()
+        phi0 = self._tensor(init.get("phi", 0.5 * (pp.lo + pp.hi)))
+        theta_u = self._t_phi.inverse(phi0).expand(n_chains, 1).clone()
+        sigma2 = chain(init.get("sigma2", 0.5 * var_y))
+        tau2 = chain(init.get("tau2", 0.1 * var_y))
+        beta = torch.zeros((n_chains, max(self.p, 1)), dtype=self.dtype,
+                           device=self.device)
+        if self.p and "beta" in init:
+            beta = self._tensor(init["beta"]).expand(n_chains, self.p).clone()
+        w = self._tensor(init.get("w", np.zeros(self.n)))
+        w = w.expand(n_chains, self.n).clone()
+        b, f, logdet, quad = self._suffstats(theta_u, w)
+        value = (-0.5 * (logdet + quad / sigma2)
+                 + self._log_prior_theta(theta_u, self._natural(theta_u)))
+        return LatentState(
+            theta_u=theta_u, sigma2=sigma2, tau2=tau2, beta=beta, w=w,
+            value=value, logdet=logdet, quad_w=quad, b=b, f=f,
+            log_steps=torch.full((n_chains, 1), math.log(0.1), dtype=self.dtype,
+                                 device=self.device),
+            accept=torch.zeros((n_chains, 1), dtype=self.dtype,
+                               device=self.device),
+            iteration=torch.zeros(n_chains, dtype=torch.int32,
+                                  device=self.device),
+        )
+
+    def step(self, gen, state: LatentState, n_adapt: int = 10**9, eps=None):
+        """One MWG iteration of every chain.  ``eps`` (C, n) are the sweep's
+        standard normals, drawn from ``gen`` when not given."""
+        chains = state.w.shape[0]
+        if eps is None:
+            eps = torch.randn((chains, self.n), generator=gen, dtype=self.dtype,
+                              device=self.device)
+
+        # 1. w | rest
+        sweep = (self._update_w_chromatic if self.w_update == "chromatic"
+                 else self._update_w_sequential)
+        w = sweep(eps, state.w, state.b, state.f, state.sigma2, state.tau2,
+                  state.beta)
+
+        # 2. sigma2 | w, theta from the quad of w under the current B/F.  In
+        # collapsed mode sigma2 is drawn after the theta sweep instead, from
+        # the post-theta quad (see _collapsed_value).
+        _, quad_w, _ = plane_suffstats(state.b, state.f, w, self._nbr)
+        pr_s, pr_t = self.priors["sigma2"], self.priors["tau2"]
+        sigma2 = state.sigma2
+        if not self.collapsed:
+            sigma2 = sample_inverse_gamma(gen, pr_s.a + 0.5 * self.n,
+                                          pr_s.b + 0.5 * quad_w)
+
+        # 3. tau2 | w, beta
+        r = self.y - self._mean(state.beta) - w
+        tau2 = sample_inverse_gamma(gen, pr_t.a + 0.5 * self.n,
+                                    pr_t.b + 0.5 * _site_sum(r * r))
+
+        # 4. beta | w, tau2: conjugate linear model on y - w
+        beta = state.beta
+        if self.p:
+            beta, _, _ = self._draw_beta(
+                w, tau2, torch.randn((chains, self.p), generator=gen,
+                                     dtype=self.dtype, device=self.device))
+
+        # 5. theta | w: random-walk Metropolis, one B/F build per proposal
+        nat = self._natural(state.theta_u)
+        if self.collapsed:
+            value = self._collapsed_value(state.theta_u, nat, state.logdet,
+                                          quad_w)
+        else:
+            value = (-0.5 * (state.logdet + quad_w / sigma2)
+                     + self._log_prior_theta(state.theta_u, nat))
+        aux = {"b": state.b, "f": state.f, "logdet": state.logdet,
+               "quad": quad_w}
+        logpost = lambda u: self._theta_logpost(u, w, sigma2)
+        theta_u, value, aux, aprobs = rw_sweep(gen, state.theta_u, value, aux,
+                                               logpost, state.log_steps)
+        if self.collapsed:
+            # the exact conjugate draw from the post-theta quad completes the
+            # joint (theta, sigma2) conditional
+            sigma2 = sample_inverse_gamma(gen, pr_s.a + 0.5 * self.n,
+                                          pr_s.b + 0.5 * aux["quad"])
+
+        log_steps = adapt_log_step(state.log_steps, aprobs, state.iteration,
+                                   n_adapt)
+        return LatentState(
+            theta_u=theta_u, sigma2=sigma2, tau2=tau2, beta=beta, w=w,
+            value=value, logdet=aux["logdet"], quad_w=aux["quad"], b=aux["b"],
+            f=aux["f"], log_steps=log_steps, accept=state.accept + aprobs,
+            iteration=state.iteration + 1,
+        )
+
+    def _draw_beta(self, w, tau2, eps):
+        """beta | w, tau2 from standard normals ``eps`` (C, p); returns
+        (beta, mean, Cholesky factor of the precision)."""
+        eye = torch.eye(self.p, dtype=self.dtype, device=self.device)
+        prec = (self._xtx / tau2[:, None, None]
+                + eye / self.priors["beta_scale"] ** 2)
+        rhs = ((self.y - w) @ self.x) / tau2[:, None]
+        return sample_gaussian_precision(prec, rhs, eps)
+
+    def collect(self, state: LatentState, collect_w: bool = False):
+        out = {
+            "sigma2": state.sigma2,
+            "tau2": state.tau2,
+            "phi": self._natural(state.theta_u)["phi"],
+            "loglik": self.loglik(state),
+        }
+        if self.p:
+            out["beta"] = state.beta
+        if collect_w:
+            out["w"] = state.w
+        return out
+
+    def sample(
+        self,
+        n_samples: int,
+        n_burn: int = 500,
+        thin: int = 1,
+        n_chains: int = 1,
+        seed: int = 0,
+        init: Optional[dict] = None,
+        collect_w: bool = True,
+        w_every: int = 1,
+        **run_kwargs,
+    ):
+        """Run the sampler; returns a dict of numpy draws with leading axes
+        (n_chains, n_samples) (chain axis dropped when n_chains=1).
+
+        ``w_every=k`` keeps every k-th draw of the (n,)-sized latent surface
+        while the hyperparameter draws stay per-iteration: the w chain
+        dominates storage (n floats per draw and chain).  The kept rows are
+        identical to an unthinned run's: the generator and the state are
+        untouched, only the recording is thinned.  ``draws["w"]`` then has
+        ceil(n_samples / k) rows per chain, in the user's site order."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        step = lambda g, s: self.step(g, s, n_adapt=n_burn)
+        collect = lambda s: self.collect(s, collect_w=collect_w)
+        _, draws = run_chains_chunked(
+            gen, lambda c: self.init_state(c, init), step, collect, n_chains,
+            n_samples, n_burn, thin,
+            collect_every={"w": w_every} if collect_w and w_every > 1 else None,
+            **run_kwargs,
+        )
+        if collect_w:
+            draws["w"] = draws["w"][..., self.table.inverse_order]
+        if n_chains == 1:
+            draws = {k: v[0] for k, v in draws.items()}
+        return draws
+
+
+def _pair_gather_table(pp, pm, max_sz, max_c):
+    """(n_colors, max_sz, max_c) positions in a colour's pair row of each
+    parent's pairs, padded with the row's last (always empty) column.
+
+    A colour's pair row lists the pairs parent by parent, so parent t's pairs
+    are one run of the row; gathering a per-pair quantity through this table
+    and summing the last axis is the parent's sum over its children, with no
+    scatter and in a fixed order."""
+    n_colors, width = pp.shape
+    table = np.full((n_colors, max_sz, max_c), width - 1, np.int64)
+    for c in range(n_colors):
+        live = np.arange(int(pm[c].sum()))  # live pairs fill the row's head
+        parent = pp[c, live]
+        if np.any(np.diff(parent) < 0):
+            raise ValueError("pair rows must be in parent order")
+        # rank of each pair within its parent's run
+        rank = live - np.searchsorted(parent, parent, side="left")
+        table[c, parent, rank] = live
+    return table

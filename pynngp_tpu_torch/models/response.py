@@ -1,17 +1,20 @@
 """Response NNGP model: y ~ NNGP(0, sigma2 (rho_phi + alpha I)) with
 alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
 
-Ported: no fixed effects (p = 0), homogeneous noise, one device, the
-distance-plane table layout, closed-form kernels.  Every other option of the
-reference raises.
+Ported: homogeneous noise, one device, the distance-plane table layout,
+closed-form kernels; fixed effects (``x=``) on the MWG path.  Every other
+option of the reference raises.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
   - theta = (phi, alpha) block: Metropolis on unconstrained coordinates
     against the sigma2-collapsed marginal (``collapsed=True``, the default)
     or the sigma2-conditioned target; componentwise, joint, correlated-joint
     or pilot-fitted independence-mixture proposals.  Every proposal is one
-    fused suffstats launch for all chains;
+    fused suffstats launch for all chains (kernel 1), or with fixed effects
+    one B/F build (kernel 3, ``ops/bf.py``) whose weights the beta draw
+    reuses;
   - sigma2: conjugate inverse-gamma draw;
+  - beta: conjugate Gaussian draw through the whitened design (I - B) X;
   - step sizes adapt (Robbins-Monro) during burn-in.
 ``fit_map`` runs Adam on ``full_logpost`` and a Laplace fit through the
 differentiable suffstats (kernel 2 on the GPU).
@@ -26,17 +29,24 @@ import numpy as np
 import torch
 
 from pynngp_tpu_torch.kernels import get_kernel
-from pynngp_tpu_torch.models.base import prepare_spatial_data, run_chains_chunked
+from pynngp_tpu_torch.models.base import (
+    check_device,
+    default_priors,
+    prepare_spatial_data,
+    run_chains_chunked,
+)
+from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.diff_suffstats import diff_suffstats
 from pynngp_tpu_torch.ops.site_tables import make_site_tables
 from pynngp_tpu_torch.ops.suffstats import CUDA_M, suffstats
-from pynngp_tpu_torch.priors import InverseGamma, Uniform, log_transform, logit_transform
+from pynngp_tpu_torch.priors import log_transform, logit_transform
 from pynngp_tpu_torch.samplers.mwg import (
     adapt_log_step,
     mh_indep_mix,
     rw_joint,
     rw_joint_corr,
     rw_sweep,
+    sample_gaussian_precision,
     sample_inverse_gamma,
 )
 from pynngp_tpu_torch.vecchia import LOG_2PI
@@ -49,9 +59,12 @@ class ResponseState(NamedTuple):
 
     theta_u: torch.Tensor  # (C, k) unconstrained (logit phi, log alpha)
     sigma2: torch.Tensor  # (C,)
+    beta: torch.Tensor  # (C, max(p, 1)) fixed effects
     value: torch.Tensor  # (C,) cached theta-block log-posterior
     logdet: torch.Tensor  # (C,)
     quad: torch.Tensor  # (C,)
+    b: torch.Tensor  # (C, m, n_pad) plane-major weights; (C, 1, 1) at p = 0
+    f: torch.Tensor  # (C, n_pad); (C, 1) at p = 0
     log_steps: torch.Tensor  # (C, k) RW proposal scales
     accept: torch.Tensor  # (C, k) running acceptance-probability sums
     iteration: torch.Tensor  # (C,) int32
@@ -95,15 +108,7 @@ class ResponseNNGP:
                                       "ported yet")
         if noise != "homogeneous":
             raise NotImplementedError("only homogeneous noise is ported")
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("device='cuda' but torch sees no CUDA device")
-            if dtype != torch.float32:
-                raise ValueError("the CUDA kernels run in float32")
-        elif device.type != "cpu":
-            raise ValueError(f"device must be 'cuda' or 'cpu', got {device}")
-        self.device = device
+        self.device = device = check_device(device, dtype)
         self.kernel = get_kernel(kernel)
         self.dtype = dtype
         self.jitter = jitter
@@ -116,23 +121,18 @@ class ResponseNNGP:
                                   distance=distance, dtype=dtype, device=device)
         self.table = sd.table
         self.n = sd.y.shape[0]
-        self.y = sd.y
+        self.y, self.x = sd.y, sd.x
+        self.p = 0 if sd.x is None else sd.x.shape[1]
         self.tables = make_site_tables(sd.vecchia, dtype=dtype, device=device)
         if device.type == "cuda" and self.tables.m not in CUDA_M:
             raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")
+        if self.p:
+            # (m, n) neighbor ids, plane-major like B, and X at the neighbors
+            self._nbr = torch.as_tensor(sd.table.nn_idx.T.astype(np.int64),
+                                        device=device)
+            self._x_nbr = self.x[self._nbr]  # (m, n, p)
 
-        # priors (data-informed defaults, overridable)
-        coords = np.asarray(coords)
-        span = float(np.max(coords.max(0) - coords.min(0))) if coords.size else 1.0
-        var_y = float(np.var(np.asarray(y))) or 1.0
-        defaults = {
-            "sigma2": InverseGamma(2.0, var_y),
-            "tau2": InverseGamma(2.0, 0.1 * var_y),
-            "phi": Uniform(1e-3 * span, 2.0 * span),
-        }
-        if priors:
-            defaults.update(priors)
-        self.priors = defaults
+        self.priors = default_priors(coords, y, priors)
         self.theta_names = ("phi", "alpha")
         pp = self.priors["phi"]
         self._t_phi = logit_transform(pp.lo, pp.hi)
@@ -161,22 +161,32 @@ class ResponseNNGP:
                      + self._t_alpha.log_jac(theta_u[..., 1]))
 
     # ---- likelihood pieces --------------------------------------------
-    def _suffstats(self, theta_u):
-        """(logdet, quad) per chain: one fused forward launch."""
+    def _suffstats(self, theta_u, beta=None):
+        """Per-chain likelihood pieces as an aux dict.  Without fixed effects
+        {logdet, quad} from one fused forward launch; with them the residual
+        y - X beta differs per chain, so B/F are built explicitly (kernel 3)
+        and kept: {b, f, logdet, quad}."""
         nat = self._natural(theta_u)
-        logdet, quad, _, _ = suffstats(self.kernel, self.tables, nat["phi"],
-                                       nat["alpha"], self.y, self.jitter)
-        return logdet, quad
+        if self.p == 0:
+            logdet, quad, _, _ = suffstats(self.kernel, self.tables, nat["phi"],
+                                           nat["alpha"], self.y, self.jitter)
+            return {"logdet": logdet, "quad": quad}
+        b, f = bf_planes(self.kernel, self.tables, nat["phi"], nat["alpha"],
+                         self.jitter)
+        logdet, quad, _ = plane_suffstats(b, f, self.y - beta @ self.x.T,
+                                          self._nbr)
+        return {"b": b, "f": f, "logdet": logdet, "quad": quad}
 
-    def _theta_logpost(self, theta_u, sigma2):
-        logdet, quad = self._suffstats(theta_u)
+    def _theta_logpost(self, theta_u, sigma2, beta=None):
+        aux = self._suffstats(theta_u, beta)
+        logdet, quad = aux["logdet"], aux["quad"]
         nat = self._natural(theta_u)
         if self.collapsed:
             value = self._collapsed_value(theta_u, nat, logdet, quad)
         else:
             value = -0.5 * (logdet + quad / sigma2) + self._log_prior_theta(
                 theta_u, nat, sigma2)
-        return value, {"logdet": logdet, "quad": quad}
+        return value, aux
 
     def _collapsed_value(self, theta_u, nat, logdet, quad):
         """Metropolis target with sigma2 integrated out analytically.
@@ -210,13 +220,25 @@ class ResponseNNGP:
         k = len(self.theta_names)
         theta_u = theta_u.expand(n_chains, k).clone()
         sigma2 = self._tensor(init.get("sigma2", 0.9 * var_y)).expand(n_chains).clone()
-        value, aux = self._theta_logpost(theta_u, sigma2)
+        beta = torch.zeros((n_chains, max(self.p, 1)), dtype=self.dtype,
+                           device=self.device)
+        if self.p and "beta" in init:
+            beta = self._tensor(init["beta"]).expand(n_chains, self.p).clone()
+        value, aux = self._theta_logpost(theta_u, sigma2, beta)
+        if self.p == 0:  # B and F are never materialised without fixed effects
+            aux["b"] = torch.zeros((n_chains, 1, 1), dtype=self.dtype,
+                                   device=self.device)
+            aux["f"] = torch.ones((n_chains, 1), dtype=self.dtype,
+                                  device=self.device)
         return ResponseState(
             theta_u=theta_u,
             sigma2=sigma2,
+            beta=beta,
             value=value,
             logdet=aux["logdet"],
             quad=aux["quad"],
+            b=aux["b"],
+            f=aux["f"],
             log_steps=torch.full((n_chains, k), math.log(0.1), dtype=self.dtype,
                                  device=self.device),
             accept=torch.zeros((n_chains, k), dtype=self.dtype, device=self.device),
@@ -226,9 +248,13 @@ class ResponseNNGP:
     def step(self, gen, state: ResponseState, n_adapt: int = 10**9,
              prop_chol=None, prop_center=None):
         """One MWG iteration of every chain."""
-        # 1. Metropolis block on (phi, alpha) | sigma2
-        logpost = lambda u: self._theta_logpost(u, state.sigma2)
+        # 1. Metropolis block on (phi, alpha) | sigma2, beta.  With fixed
+        # effects the aux carries (b, f): the accepted pair is kept per chain
+        # by torch.where over the whole (C, m, n_pad) tensor.
+        logpost = lambda u: self._theta_logpost(u, state.sigma2, state.beta)
         aux = {"logdet": state.logdet, "quad": state.quad}
+        if self.p:
+            aux.update(b=state.b, f=state.f)
         if prop_center is not None:
             # independence-MH mixture from a pilot-fitted t proposal
             theta_u, value, aux, aprobs = mh_indep_mix(
@@ -255,36 +281,69 @@ class ResponseNNGP:
             pr_s.b + pr_t.b / nat["alpha"] + 0.5 * aux["quad"],
         )
 
-        # 3. refresh the cached theta-block value for the new sigma2
+        # 3. beta | theta, sigma2: conjugate Gaussian via the whitened design
+        beta, quad = state.beta, aux["quad"]
+        if self.p:
+            eps = torch.randn(state.beta.shape, generator=gen, dtype=self.dtype,
+                              device=self.device)
+            beta, quad = self._draw_beta(aux["b"], aux["f"], sigma2, eps)[:2]
+
+        # 4. refresh the cached theta-block value for the new (sigma2, beta)
         if self.collapsed:
-            value = self._collapsed_value(theta_u, nat, aux["logdet"], aux["quad"])
+            value = self._collapsed_value(theta_u, nat, aux["logdet"], quad)
         else:
-            value = -0.5 * (aux["logdet"] + aux["quad"] / sigma2) + \
+            value = -0.5 * (aux["logdet"] + quad / sigma2) + \
                 self._log_prior_theta(theta_u, nat, sigma2)
 
-        # 4. adaptation (multivariate proposals target ~0.3)
+        # 5. adaptation (multivariate proposals target ~0.3)
         target = 0.3 if prop_chol is not None else 0.44
         log_steps = adapt_log_step(state.log_steps, aprobs, state.iteration,
                                    n_adapt, target=target)
         return ResponseState(
             theta_u=theta_u,
             sigma2=sigma2,
+            beta=beta,
             value=value,
             logdet=aux["logdet"],
-            quad=aux["quad"],
+            quad=quad,
+            b=aux.get("b", state.b),
+            f=aux.get("f", state.f),
             log_steps=log_steps,
             accept=state.accept + aprobs,
             iteration=state.iteration + 1,
         )
 
+    def _draw_beta(self, b, f, sigma2, eps):
+        """beta | theta, sigma2 from standard normals ``eps`` (C, p), through
+        the whitened design X~ = (I - B) X and y~ = (I - B) y with weights
+        1 / (sigma2 F).  Returns (beta, refreshed quad, mean, Cholesky factor
+        of the precision)."""
+        n = self.n
+        b = b[:, :, :n]
+        x_t = self.x - torch.einsum("cmn,mnp->cnp", b, self._x_nbr)  # (C, n, p)
+        y_t = self.y - (b * self.y[self._nbr]).sum(1)  # (C, n)
+        f = f[:, :n]
+        d_inv = 1.0 / (sigma2[:, None] * f)
+        eye = torch.eye(self.p, dtype=self.dtype, device=self.device)
+        prec = (x_t.mT @ (x_t * d_inv[..., None])
+                + eye / self.priors["beta_scale"] ** 2)
+        rhs = (x_t.mT @ (y_t * d_inv)[..., None])[..., 0]
+        beta, mean, chol = sample_gaussian_precision(prec, rhs, eps)
+        resid = y_t - (x_t @ beta[..., None])[..., 0]
+        quad = (resid * resid / f).sum(-1, dtype=torch.float64).to(f.dtype)
+        return beta, quad, mean, chol
+
     def collect(self, state: ResponseState):
         nat = self._natural(state.theta_u)
-        return {
+        out = {
             "sigma2": state.sigma2,
             "tau2": nat["alpha"] * state.sigma2,
             "phi": nat["phi"],
             "loglik": self.loglik(state),
         }
+        if self.p:
+            out["beta"] = state.beta
+        return out
 
     # ---- the joint posterior (MAP / Laplace) ---------------------------
     # u = [log sigma2, logit phi, log tau2]; a (B, 3) batch of points is a
@@ -296,6 +355,11 @@ class ResponseNNGP:
 
     def full_loglik(self, u):
         """log p(y | u) per point of u (..., 3)."""
+        if self.p:
+            raise NotImplementedError(
+                "the joint posterior with fixed effects needs the y cotangent "
+                "of the differentiable suffstats (the emit_y kernel variant), "
+                "which is not ported yet; sample() handles x=")
         nat = self._unpack_full(u)
         sigma2, phi = nat["sigma2"], nat["phi"]
         alpha = nat["tau2"] / sigma2

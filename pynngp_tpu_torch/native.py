@@ -1,11 +1,12 @@
-"""ctypes loader for the native C++ neighbor search.
+"""ctypes loader for the native C++ host preprocessing: the neighbor
+search, the children (reverse) index and the moral-graph colouring.
 
 The C++ source is the reference package's ``pynngp_tpu/cpp/nngp_native.cpp``,
 read by path and compiled with g++ at first use into ``build/pynngp_tpu_torch/``
 at the root of the checkout.  It is not imported through ``pynngp_tpu``:
 importing that package pulls in JAX, which the port never needs.  When g++ is
-missing, :mod:`pynngp_tpu_torch.neighbors` takes its scipy/numpy path, which
-gives the same table.
+missing, :mod:`pynngp_tpu_torch.neighbors` takes its scipy/numpy paths, which
+give the same tables.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["get_lib", "native_available", "neighbor_table"]
+__all__ = ["get_lib", "native_available", "neighbor_table", "children_table",
+           "color_moral"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_ROOT, "pynngp_tpu", "cpp", "nngp_native.cpp")
@@ -87,6 +89,16 @@ class _NativeLib:
                 f64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p, u8p,
             ]
             lib.nngp_neighbor_table.restype = None
+            lib.nngp_children_table.argtypes = [
+                i32p, u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            lib.nngp_children_table.restype = ctypes.c_int32
+            lib.nngp_color_moral.argtypes = [
+                i32p, u8p, i32p, i32p, u8p,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p,
+            ]
+            lib.nngp_color_moral.restype = ctypes.c_int32
             self._lib = lib
             return lib
 
@@ -102,14 +114,57 @@ def native_available() -> bool:
     return get_lib() is not None
 
 
-def neighbor_table(pts_ordered: np.ndarray, m: int):
-    """(nn_idx, nn_mask) of the m nearest preceding neighbors (ordered space)."""
+def _require_lib():
     lib = get_lib()
     if lib is None:
-        raise RuntimeError("native neighbor search is not available")
+        raise RuntimeError("the native host library is not available")
+    return lib
+
+
+def neighbor_table(pts_ordered: np.ndarray, m: int):
+    """(nn_idx, nn_mask) of the m nearest preceding neighbors (ordered space)."""
+    lib = _require_lib()
     pts = np.ascontiguousarray(pts_ordered, np.float64)
     n, d = pts.shape
     nn_idx = np.zeros((n, m), np.int32)
     nn_mask = np.zeros((n, m), np.uint8)
     lib.nngp_neighbor_table(pts, n, d, m, nn_idx, nn_mask)
     return nn_idx, nn_mask.astype(bool)
+
+
+def children_table(nn_idx: np.ndarray, nn_mask: np.ndarray):
+    """(child_idx, child_slot, child_mask), each (n, max_children): the sites
+    that condition on site i and i's slot in their neighbor sets.  The first
+    call sizes the table, the second fills it."""
+    lib = _require_lib()
+    nn_idx = np.ascontiguousarray(nn_idx, np.int32)
+    mask_u8 = np.ascontiguousarray(nn_mask, np.uint8)
+    n, m = nn_idx.shape
+    max_c = int(lib.nngp_children_table(nn_idx, mask_u8, n, m, 0, None, None,
+                                        None))
+    child_idx = np.zeros((n, max_c), np.int32)
+    child_slot = np.zeros((n, max_c), np.int32)
+    child_mask = np.zeros((n, max_c), np.uint8)
+    lib.nngp_children_table(
+        nn_idx, mask_u8, n, m, max_c,
+        child_idx.ctypes.data_as(ctypes.c_void_p),
+        child_slot.ctypes.data_as(ctypes.c_void_p),
+        child_mask.ctypes.data_as(ctypes.c_void_p),
+    )
+    return child_idx, child_slot, child_mask.astype(bool)
+
+
+def color_moral(nn_idx, nn_mask, child_idx, child_slot, child_mask):
+    """(n,) int32 balanced greedy colouring of the moral graph."""
+    lib = _require_lib()
+    n, m = nn_idx.shape
+    colors = np.zeros(n, np.int32)
+    lib.nngp_color_moral(
+        np.ascontiguousarray(nn_idx, np.int32),
+        np.ascontiguousarray(nn_mask, np.uint8),
+        np.ascontiguousarray(child_idx, np.int32),
+        np.ascontiguousarray(child_slot, np.int32),
+        np.ascontiguousarray(child_mask, np.uint8),
+        n, m, child_idx.shape[1], colors,
+    )
+    return colors

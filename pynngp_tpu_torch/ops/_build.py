@@ -1,10 +1,13 @@
 """Builds the hand-written CUDA kernels and binds them to PyTorch.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-compiles every ``pynngp_tpu_torch/csrc/*.cu`` into one shared library with a
-plain C interface under ``build/pynngp_tpu_torch/`` at the root of the
-checkout (``build/`` is git-ignored).  The library is named by a hash of its
-sources and flags, built at first use, and loaded with ctypes; tensors pass
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c``
+compiles every ``pynngp_tpu_torch/csrc/*.cu`` to its own object, all files at
+once (one nvcc process each: ptxas on the unrolled m = 20 instances is the
+whole cost, and the files are independent), and one ``nvcc -shared`` links
+them into one library with a plain C interface under
+``build/pynngp_tpu_torch/`` at the root of the checkout (``build/`` is
+git-ignored).  The library is named by a hash of its sources and flags,
+built at first use, and loaded with ctypes; tensors pass
 as ``data_ptr()`` and the stream as ``torch.cuda.current_stream().cuda_stream``,
 both as ``c_void_p``.  Each C entry returns ``cudaGetLastError()`` and
 :func:`check` raises on a non-zero code.  There is no fallback: a missing
@@ -30,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pynngp_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +42,8 @@ _SIGNATURES = {
     "vecchia_suffstats_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # params, d_in, d_tri, nn_idx, y, n_pad, m, chains, family, part, stream
     "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # params, d_in, d_tri, n_pad, m, chains, family, b, f, stream
+    "vecchia_bf_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -79,6 +84,49 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
+def _compile_and_link(nvcc: str, lib_path: str) -> str:
+    """Compile each source to an object in its own nvcc process, all started
+    together, then link; returns the compilers' stderr (the ptxas report).
+    Raises on the first failure, after every process has ended."""
+    tag = f"tmp{os.getpid()}"
+    objects, procs = [], []
+    for src in _sources():
+        stem = os.path.splitext(os.path.basename(src))[0]
+        obj = os.path.join(BUILD_DIR, f"{stem}-{tag}.o")
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], None
+    for src, proc in zip(_sources(), procs):
+        try:
+            _, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+            err += "\n(killed after 900 s)"
+        logs.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = (src, proc.returncode, err)
+    try:
+        if failed is not None:
+            src, code, err = failed
+            raise RuntimeError(f"nvcc failed ({code}) on {os.path.basename(src)}:"
+                               f"\n{err[-8000:]}")
+        tmp = f"{lib_path}.{tag}"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects],
+                              capture_output=True, text=True, timeout=900)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-8000:]}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.unlink(obj)
+    return "".join(logs)
+
+
 class _KernelLibrary:
     """Build-once, load-once holder for the kernel library."""
 
@@ -105,19 +153,11 @@ class _KernelLibrary:
         cached = os.path.exists(lib_path)
         if not cached:
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib_path}.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *_sources()]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=900)
+            log = _compile_and_link(nvcc, lib_path)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-                )
             with open(log_path, "w") as fh:
-                fh.write(proc.stderr)
-            os.replace(tmp, lib_path)
+                fh.write(log)
         lib = ctypes.CDLL(lib_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,0 +1,114 @@
+"""Explicit kriging weights B and conditional variances F — the counterpart
+of ``pallas_bf`` (``pynngp_tpu/ops/pallas_bf.py:991-1048``).
+
+:func:`bf_planes` launches kernel 3 (``csrc/vecchia_bf.cu``) for CUDA tensors
+and runs :func:`bf_reference`, its plain PyTorch version, for CPU tensors.
+Chains are an explicit leading axis: ``phi`` and ``alpha`` are (C,) tensors,
+the tables are shared by all chains.
+
+Layout.  B comes out plane-major, ``(C, m, n_pad)``, and F as ``(C, n_pad)``:
+the layout the kernel stores coalesced and the one the models consume (the
+neighbor gather ``w[:, nbr]`` with ``nbr`` (m, n) lands in the same shape, and
+a child's weight is one flat index ``slot * n_pad + site``), so nothing is
+transposed on the way.  :func:`bf` returns the ``(C, n, m)`` / ``(C, n)``
+views in the reference's row-major layout, for tests and callers that want it.
+
+Padded sites (site >= n) hold B = 0 and F = 1, from the kernel and from the
+plain version alike: their table entries are zero, so with alpha = 0 their
+system would be the singular all-ones matrix.  A consumer may take log F or
+1/F over all n_pad sites; sums over sites still run over ``[:n]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops.site_tables import SiteTables, unpack_distances
+from pynngp_tpu_torch.ops.suffstats import cuda_args, params_array
+from pynngp_tpu_torch.vecchia import conditional_system
+
+__all__ = ["COUNT", "bf", "bf_planes", "bf_reference", "plane_suffstats"]
+
+COUNT = _build.LaunchCount("vecchia_bf")
+
+
+def bf_reference(kernel, tables: SiteTables, params):
+    """Plain PyTorch version of kernel 3: batched ``torch.linalg.cholesky``
+    over (C, n_pad) systems and two triangular solves.  Returns B
+    (C, m, n_pad) and F (C, n_pad) in the tables' dtype."""
+    d_in, d_nn = unpack_distances(tables)
+    site = torch.arange(tables.n_pad, device=d_in.device)
+    valid = site < tables.n
+    # slot k of site i is a real neighbor iff i > k; a padded site has none
+    mask = (site[:, None] > torch.arange(tables.m, device=d_in.device)) & valid[:, None]
+    phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
+    c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
+                                      mask)
+    low = torch.linalg.cholesky(c_mat)  # (C, n_pad, m, m)
+    u = torch.linalg.solve_triangular(low, c_vec[..., None], upper=False)
+    b = torch.linalg.solve_triangular(low.mT, u, upper=True)[..., 0]
+    f = 1.0 + alpha - (u[..., 0] * u[..., 0]).sum(-1)
+    f = torch.where(valid, f, torch.ones((), dtype=f.dtype, device=f.device))
+    return b.transpose(1, 2).contiguous(), f
+
+
+def _launch(kernel, tables: SiteTables, params):
+    params, _ = cuda_args(tables, params)
+    chains = params.shape[0]
+    dev = tables.d_in.device
+    b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
+                    device=dev)
+    f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
+    code = _build.library().vecchia_bf_f32(
+        params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
+        tables.n_pad, tables.m, chains, kernel.family, b.data_ptr(),
+        f.data_ptr(), _build.stream_handle(dev),
+    )
+    _build.check(code, "vecchia_bf_f32")
+    COUNT.launches += 1
+    return b, f
+
+
+def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6):
+    """Plane-major (B (C, m, n_pad), F (C, n_pad)) of the unit-variance
+    Vecchia factorization, per chain.
+
+    Args:
+      kernel: a closed-form kernel of :mod:`pynngp_tpu_torch.kernels`.
+      tables: :class:`SiteTables` of the dataset.
+      phi, alpha: (C,) per-chain range and relative nugget (scalars give
+        C = 1); alpha is 0 for the latent process.
+    B is 0 in invalid slots; padded sites hold B = 0, F = 1.  CUDA tensors
+    launch kernel 3; CPU tensors run :func:`bf_reference`.
+    """
+    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
+                          tables.d_in.device)
+    if tables.d_in.is_cuda:
+        return _launch(kernel, tables, params)
+    if tables.d_in.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.d_in.device}")
+    COUNT.plain += 1
+    return bf_reference(kernel, tables, params)
+
+
+def bf(kernel, tables: SiteTables, phi, alpha, jitter=1e-6):
+    """(B (C, n, m), F (C, n)): :func:`bf_planes` as row-major views over the
+    true sites, the layout ``pallas_bf`` returns.  No copy is made."""
+    b, f = bf_planes(kernel, tables, phi, alpha, jitter)
+    return b[:, :, :tables.n].transpose(1, 2), f[:, :tables.n]
+
+
+def plane_suffstats(b, f, y, nbr):
+    """(logdet, quad, resid) of y under plane-major B/F: sum_i log F_i,
+    sum_i r_i^2 / F_i and r_i = y_i - B_i . y_N(i), per chain.
+
+    ``b`` is (C, m, n_pad), ``f`` (C, n_pad), ``y`` (n,) or (C, n), and
+    ``nbr`` the (m, n) int64 neighbor ids.  No slot mask is needed: B is 0 in
+    invalid slots.  The sums accumulate in float64 and are cast back."""
+    n = nbr.shape[1]
+    f = f[:, :n]
+    resid = y - (b[:, :, :n] * y[..., nbr]).sum(-2)
+    logdet = torch.log(f).sum(-1, dtype=torch.float64).to(f.dtype)
+    quad = (resid * resid / f).sum(-1, dtype=torch.float64).to(f.dtype)
+    return logdet, quad, resid

@@ -73,9 +73,9 @@ def suffstats_reference(kernel, tables: SiteTables, params, y):
     return logdet.to(f.dtype), quad.to(f.dtype), f, resid
 
 
-def cuda_args(tables: SiteTables, params, y):
+def cuda_args(tables: SiteTables, params, y=None):
     """Validate the inputs of a CUDA launch; returns (params, y) as
-    contiguous float32 tensors."""
+    contiguous float32 tensors (y stays None for a kernel that reads none)."""
     if tables.m not in CUDA_M:
         raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}, "
                          f"got m={tables.m}")
@@ -86,16 +86,19 @@ def cuda_args(tables: SiteTables, params, y):
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
     if tables.nn_idx.dtype != torch.int32 or not tables.nn_idx.is_contiguous():
         raise ValueError("nn_idx must be a contiguous int32 tensor")
-    if y.dtype != torch.float32 or y.device != tables.d_in.device:
-        raise ValueError("y must be a float32 tensor on the tables' device")
-    if y.shape != (tables.n,):
-        raise ValueError(f"y must have shape ({tables.n},), got {tuple(y.shape)}")
+    if y is not None:
+        if y.dtype != torch.float32 or y.device != tables.d_in.device:
+            raise ValueError("y must be a float32 tensor on the tables' device")
+        if y.shape != (tables.n,):
+            raise ValueError(f"y must have shape ({tables.n},), got "
+                             f"{tuple(y.shape)}")
+        y = y.contiguous()
     if tables.n >= 2**24:  # n rides the float32 params row (exact below 2^24)
         raise ValueError(f"n={tables.n} sites exceeds the kernels' 2^24 limit")
     params = params.detach().to(torch.float32).contiguous()
     if params.device != tables.d_in.device or params.shape[-1] != 6:
         raise ValueError("params must be (C, 6) on the tables' device")
-    return params, y.contiguous()
+    return params, y
 
 
 def _launch(kernel, tables: SiteTables, params, y):

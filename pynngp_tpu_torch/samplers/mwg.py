@@ -20,6 +20,7 @@ import torch
 
 __all__ = [
     "sample_inverse_gamma",
+    "sample_gaussian_precision",
     "rw_sweep",
     "rw_joint",
     "rw_joint_corr",
@@ -34,6 +35,17 @@ def sample_inverse_gamma(gen, a, b):
     b = torch.as_tensor(b)
     a = torch.as_tensor(a, dtype=b.dtype, device=b.device).expand_as(b)
     return b / torch._standard_gamma(a.contiguous(), generator=gen)
+
+
+def sample_gaussian_precision(prec, rhs, eps):
+    """beta = mean + L^-T eps with prec = L L^T and mean = prec^-1 rhs, per
+    chain: a draw from N(prec^-1 rhs, prec^-1) for standard normal ``eps``.
+    ``prec`` is (C, p, p), ``rhs`` and ``eps`` (C, p), p the handful of fixed
+    effects.  Returns (beta, mean, L)."""
+    chol = torch.linalg.cholesky(prec)
+    mean = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+    dev = torch.linalg.solve_triangular(chol.mT, eps[..., None], upper=True)
+    return mean + dev[..., 0], mean, chol
 
 
 def _normal(gen, shape, like):

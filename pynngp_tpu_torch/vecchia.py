@@ -116,13 +116,14 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
 
     Args:
       kernel: correlation kernel (:mod:`pynngp_tpu_torch.kernels`).
-      params: {"phi": scalar} in natural space.
-      alpha: scalar relative nugget tau^2/sigma^2 (0 for the latent process).
-        Per-site (heterogeneous) nuggets are not ported yet.
+      params: {"phi": scalar or (C,)} in natural space.
+      alpha: relative nugget tau^2/sigma^2, scalar or (C,) (0 for the latent
+        process).  Per-site (heterogeneous) nuggets are not ported yet.
 
     Returns:
       B: (n, m) weights (0 in masked slots), F: (n,) conditional variances of
-      the unit-variance process.
+      the unit-variance process; with a chain axis C in front when phi or
+      alpha has one.
     """
     dev = data.coords.device
     d_in = torch.as_tensor(data.nn_dist, device=dev)
@@ -130,9 +131,12 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
     dtype = d_in.dtype
     phi = torch.as_tensor(params["phi"], dtype=dtype, device=dev)
     alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)
-    if alpha.ndim:
+    if phi.ndim > 1 or alpha.ndim > 1:
         raise NotImplementedError("per-site nuggets (heterogeneous noise) "
                                   "are not ported yet")
+    if phi.ndim or alpha.ndim:  # chains: (C, 1) against the (n, m) tables
+        phi, alpha = (t.reshape(-1, 1) for t in torch.broadcast_tensors(
+            torch.atleast_1d(phi), torch.atleast_1d(alpha)))
     c_mat, c_vec = conditional_system(
         kernel, phi, alpha, jitter, d_in, d_nn, data.nn_mask
     )
@@ -145,12 +149,13 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
 
 def vecchia_suffstats(b, f, y, data: VecchiaData):
     """(logdet, quad, resid): sum_i log F_i, sum_i r_i^2 / F_i, and the
-    residuals r_i = y_i - B_i . y_{N(i)}.  The sums accumulate in float64
-    and are cast back to F's dtype."""
-    y_nbr = y[data.nn_idx] * data.nn_mask.to(y.dtype)
+    residuals r_i = y_i - B_i . y_{N(i)}.  ``b`` (..., n, m), ``f`` (..., n)
+    and ``y`` (n,) or (..., n) may carry a leading chain axis.  The sums run
+    over sites, accumulate in float64 and are cast back to F's dtype."""
+    y_nbr = y[..., data.nn_idx] * data.nn_mask.to(y.dtype)
     resid = y - (b * y_nbr).sum(-1)
-    logdet = torch.sum(torch.log(f), dtype=torch.float64).to(f.dtype)
-    quad = torch.sum(resid * resid / f, dtype=torch.float64).to(f.dtype)
+    logdet = torch.sum(torch.log(f), dim=-1, dtype=torch.float64).to(f.dtype)
+    quad = torch.sum(resid * resid / f, dim=-1, dtype=torch.float64).to(f.dtype)
     return logdet, quad, resid
 
 

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from pynngp_tpu_torch import kernels
+from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.ops import bf as bops
 from pynngp_tpu_torch.ops import diff_suffstats as dops
 from pynngp_tpu_torch.ops import suffstats as fops
 from pynngp_tpu_torch.ops.site_tables import make_site_tables
@@ -71,6 +73,71 @@ def test_grad_kernel_matches_plain(card, kern):
     want = dops.grad_reference(kern, tab64, params, y.double())
     torch.testing.assert_close(got[:2], want[:2], rtol=5e-4, atol=0.0)
     torch.testing.assert_close(got[2:], want[2:], rtol=2e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: repr(k))
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_bf_kernel_matches_plain(card, kern, m):
+    """Kernel 3 in float32 against its float64 plain version, with the
+    nugget the reference's own bf test uses: B atol 3e-5, F rtol 3e-5
+    (tests/test_pallas.py:80-81); padded sites hold B = 0, F = 1."""
+    tab32, tab64, _, phi, alpha = _problem(card, m=m)
+    launches = bops.COUNT.launches
+    b, f = bops.bf_planes(kern, tab32, phi, alpha)
+    torch.cuda.synchronize()
+    assert bops.COUNT.launches == launches + 1
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    b_p, f_p = bops.bf_reference(kern, tab64, params)
+    n = tab32.n
+    assert b.shape == (3, m, tab32.n_pad) and f.shape == (3, tab32.n_pad)
+    torch.testing.assert_close(b[:, :, :n].double(), b_p[:, :, :n], rtol=0.0,
+                               atol=3e-5)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=3e-5, atol=0.0)
+    assert (b[:, :, n:] == 0).all() and (f[:, n:] == 1).all()
+    rows_b, rows_f = bops.bf(kern, tab32, phi, alpha)
+    assert rows_b.shape == (3, n, m) and rows_f.shape == (3, n)
+
+
+@pytest.mark.parametrize("kern", [kernels.Exponential(), kernels.Matern(nu=0.5),
+                                  kernels.Spherical()], ids=lambda k: repr(k))
+def test_bf_kernel_without_nugget(card, kern):
+    """alpha = 0 (the latent model) with the rough, well-conditioned
+    families and no jitter: finite everywhere, padded sites included, and
+    within B atol 1e-3, F rtol 1e-3 of the float64 plain version."""
+    tab32, tab64, _, phi, _ = _problem(card)
+    zero = torch.zeros_like(phi)
+    b, f = bops.bf_planes(kern, tab32, phi, zero, jitter=0.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(b).all() and torch.isfinite(f).all()
+    params = fops.params_array(phi.double(), zero.double(), 0.0, tab32.n,
+                               torch.float64, card)
+    b_p, f_p = bops.bf_reference(kern, tab64, params)
+    torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=1e-3)
+    torch.testing.assert_close(f.double(), f_p, rtol=1e-3, atol=0.0)
+
+
+def test_latent_and_fixed_effects_models_go_through_kernel_3(card):
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(2000, 2))
+    x = np.column_stack([np.ones(2000), rng.standard_normal(2000)])
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2000)
+    before = (bops.COUNT.launches, bops.COUNT.plain)
+    latent = LatentNNGP(coords, y, m=7, device="cuda")
+    draws = latent.sample(30, n_burn=20, n_chains=4, seed=0, w_every=8)
+    again = latent.sample(30, n_burn=20, n_chains=4, seed=0, w_every=8)
+    assert draws["w"].shape == (4, 4, 2000)
+    assert bops.COUNT.launches >= before[0] + 102
+    for key in draws:  # reproducible on one card from one seed
+        np.testing.assert_array_equal(draws[key], again[key], err_msg=key)
+    mid = bops.COUNT.launches
+    model = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), m=7, x=x,
+                         device="cuda")
+    fixed = model.sample(30, n_burn=20, n_chains=4, seed=0)
+    assert bops.COUNT.launches > mid and bops.COUNT.plain == before[1]
+    assert abs(fixed["beta"][..., 1].mean() + 2.0) < 0.1
+    for out in (draws, fixed):
+        assert all(np.isfinite(v).all() for v in out.values())
 
 
 def test_model_on_card_goes_through_the_kernels(card):

@@ -1,5 +1,6 @@
 """pynngp_tpu_torch host-side pieces against the reference package: neighbor
-tables, diagnostics, the plane-major site tables, and a JAX-free import."""
+tables, the latent sampler's children, colour and pair tables, diagnostics,
+the plane-major site tables, and a JAX-free import."""
 
 import os
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from pynngp_tpu import diagnostics as jdiag
+from pynngp_tpu import native as jnative
 from pynngp_tpu import neighbors as jnbr
 from pynngp_tpu import vecchia as jvecchia
 from pynngp_tpu.ops import pallas_bf as pb
@@ -34,6 +36,66 @@ def test_neighbor_table_matches_reference(use_native, m):
     np.testing.assert_array_equal(got.nn_idx, want.nn_idx)
     np.testing.assert_array_equal(got.nn_mask, want.nn_mask)
     assert got.nn_idx.dtype == want.nn_idx.dtype
+
+
+@pytest.fixture(scope="module")
+def small_table():
+    coords = np.random.default_rng(1).uniform(size=(700, 2))
+    return neighbors.build_neighbor_table(coords, 7)
+
+
+@pytest.mark.parametrize("use_native", ["auto", "never"])
+def test_children_table_matches_reference(small_table, use_native):
+    t = small_table
+    got = neighbors.build_children_table(t.nn_idx, t.nn_mask, use_native=use_native)
+    want = jnbr.build_children_table(t.nn_idx, t.nn_mask, use_native=use_native)
+    assert got.max_children == want.max_children
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    # every valid (site, slot) entry of the neighbor table is one child entry
+    assert got.child_mask.sum() == t.nn_mask.sum()
+
+
+@pytest.mark.parametrize("use_native", ["auto", "never"])
+def test_colours_and_colour_tables_match_reference(small_table, use_native,
+                                                   monkeypatch):
+    """Colours, the padded per-colour site table and the packed (parent,
+    child) pair tables, bit for bit; the pure-numpy branch is compared with
+    the reference's by switching the reference's native library off."""
+    t = small_table
+    if use_native == "never":
+        monkeypatch.setattr(jnative, "native_available", lambda: False)
+    got = neighbors.color_moral_graph(t.nn_idx, t.nn_mask, use_native=use_native)
+    want = jnbr.color_moral_graph(t.nn_idx, t.nn_mask)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    ch = neighbors.build_children_table(t.nn_idx, t.nn_mask, use_native=use_native)
+    # a proper colouring of the moral graph: no site shares a colour with a
+    # parent, nor with a co-parent of any of its children
+    for j in range(t.n):
+        fam = np.append(t.nn_idx[j][t.nn_mask[j]], j)
+        assert len(set(got[fam])) == len(fam)
+    sites, smask = neighbors.color_site_table(got)
+    jsites, jsmask = jnbr.color_site_table(want)
+    np.testing.assert_array_equal(sites, jsites)
+    np.testing.assert_array_equal(smask, jsmask)
+    assert sites.dtype == jsites.dtype
+    pairs = neighbors.color_child_pairs(got, sites, smask, ch.child_idx,
+                                        ch.child_mask)
+    jpairs = jnbr.color_child_pairs(want, jsites, jsmask, ch.child_idx,
+                                    ch.child_mask)
+    for a, b in zip(pairs, jpairs):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert pairs[3].sum() == ch.child_mask.sum()  # every live pair, once
+
+
+def test_unbalanced_colouring_matches_reference(small_table):
+    t = small_table
+    got = neighbors.color_moral_graph(t.nn_idx, t.nn_mask, balanced=False)
+    want = jnbr.color_moral_graph(t.nn_idx, t.nn_mask, balanced=False)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_diagnostics_match_reference():
@@ -92,6 +154,14 @@ _JAX_FREE = textwrap.dedent("""
     draws = model.sample(30, n_burn=10, n_chains=2, seed=0)
     assert draws["phi"].shape == (2, 30)
     assert all(np.isfinite(v).all() for v in draws.values())
+    x = np.column_stack([np.ones(200), rng.standard_normal(200)])
+    draws = pt.ResponseNNGP(coords, y, m=5, x=x, device="cpu").sample(
+        10, n_burn=5, n_chains=2, seed=0)
+    assert draws["beta"].shape == (2, 10, 2)
+    latent = pt.LatentNNGP(coords, y, m=5, device="cpu")
+    draws = latent.sample(10, n_burn=5, n_chains=2, seed=0, w_every=4)
+    assert draws["w"].shape == (2, 3, 200)
+    assert all(np.isfinite(v).all() for v in draws.values())
     loaded = [name for name, mod in sys.modules.items()
               if mod is not None and name.split(".")[0] in ("jax", "pynngp_tpu")]
     assert not loaded, loaded
@@ -112,7 +182,7 @@ _SMALL = np.random.default_rng(2).uniform(size=(60, 2))
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"x": np.ones((60, 1))}, NotImplementedError),
+    ({"x": np.ones(60)}, ValueError),
     ({"mesh": object()}, NotImplementedError),
     ({"noise": "heterogeneous"}, NotImplementedError),
     ({"distance": "dotproduct"}, NotImplementedError),

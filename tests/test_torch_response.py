@@ -196,3 +196,132 @@ def test_transforms_match_reference():
     x = np.asarray([0.2, 1.0, 1.9])
     np.testing.assert_allclose(t.inverse(torch.as_tensor(x)).numpy(),
                                np.asarray(jt.inverse(jnp.asarray(x))), rtol=1e-12)
+
+
+# ---- fixed effects (x=) ---------------------------------------------------
+
+INIT_X = {"phi": 0.3, "alpha": 0.1, "sigma2": 0.9, "beta": np.array([0.5, -1.0])}
+
+
+@pytest.fixture(scope="module")
+def models_x():
+    rng = np.random.default_rng(5)
+    n = 250
+    coords = rng.uniform(size=(n, 2))
+    x = np.column_stack([np.ones(n), rng.standard_normal(n)])
+    y = (np.sin(5.0 * coords[:, 0]) + 0.3 * rng.standard_normal(n)
+         + x @ np.array([1.0, -2.0]))
+    jm = JaxResponseNNGP(coords, y, kernel="exponential", m=6, x=x,
+                         backend="xla", dtype=jnp.float64)
+    tm = ResponseNNGP(coords, y, kernel="exponential", m=6, x=x, device="cpu",
+                      dtype=torch.float64)
+    return jm, tm
+
+
+@pytest.mark.parametrize("collapsed", [True, False])
+def test_init_state_with_fixed_effects_matches(models_x, collapsed):
+    jm, tm = models_x
+    jm.collapsed = tm.collapsed = collapsed
+    try:
+        js = jm.init_state(jax.random.PRNGKey(0), INIT_X)
+        ts = tm.init_state(2, INIT_X)
+    finally:
+        jm.collapsed = tm.collapsed = True
+    for name in ("theta_u", "sigma2", "beta", "value", "logdet", "quad", "f"):
+        got = getattr(ts, name).numpy()
+        want = np.asarray(getattr(js, name))
+        if name == "f":
+            got = got[:, :tm.n]
+        np.testing.assert_allclose(got, np.broadcast_to(want, got.shape),
+                                   rtol=1e-8, err_msg=name)
+    np.testing.assert_allclose(ts.b[0, :, :tm.n].T.numpy(), np.asarray(js.b),
+                               rtol=1e-8, atol=1e-12)
+    assert ts.b.shape == (2, 6, tm.tables.n_pad)
+
+
+def test_beta_step_matches_on_shared_normal_draw(models_x):
+    """The conjugate beta draw through the whitened design, from the
+    reference's own normal draw (the k_beta key of its step): the mean and
+    the precision's Cholesky factor against a numpy transcription of
+    response.py:564-587, and beta, the refreshed quad and the refreshed
+    theta-block value against the reference's stepped state.  rtol 1e-8."""
+    jm, tm = models_x
+    js = jm.init_state(jax.random.PRNGKey(0), INIT_X)
+    key = jax.random.PRNGKey(12)
+    nxt = jax.tree.map(np.asarray, jm.step(key, js, n_adapt=100))
+    eps = np.asarray(jax.random.normal(jax.random.split(key, 3)[2], (2,),
+                                       jnp.float64))
+    # the reference's state after its theta move and sigma2 draw, carried over
+    stack = lambda a: np.stack([a, a])
+    ts = convert.response_state_from_jax(
+        type(nxt)(*(stack(a) for a in nxt)), dtype=torch.float64)
+    beta, quad, mean, chol = tm._draw_beta(ts.b, ts.f, ts.sigma2,
+                                           torch.as_tensor(stack(eps)))
+    np.testing.assert_allclose(beta[1].numpy(), nxt.beta, rtol=1e-8)
+    np.testing.assert_allclose(quad[0].item(), nxt.quad, rtol=1e-8)
+    nat = tm._natural(ts.theta_u)
+    value = tm._collapsed_value(ts.theta_u, nat, ts.logdet, quad)
+    np.testing.assert_allclose(value[0].item(), nxt.value, rtol=1e-8)
+    # numpy transcription of the reference's whitened-design update
+    vd = jm.data.vecchia
+    xmat, yv = np.asarray(jm.data.x), np.asarray(jm.data.y)
+    idx, msk = np.asarray(vd.nn_idx), np.asarray(vd.nn_mask)
+    x_t = xmat - np.einsum("nm,nmp->np", nxt.b, xmat[idx] * msk[..., None])
+    y_t = yv - np.sum(nxt.b * (yv[idx] * msk), axis=-1)
+    d_inv = 1.0 / (nxt.sigma2 * nxt.f)
+    prec = x_t.T @ (x_t * d_inv[:, None]) + np.eye(2) / 100.0**2
+    np.testing.assert_allclose(mean[0].numpy(),
+                               np.linalg.solve(prec, x_t.T @ (y_t * d_inv)),
+                               rtol=1e-8)
+    np.testing.assert_allclose(chol[1].numpy(), np.linalg.cholesky(prec),
+                               rtol=1e-8)
+
+
+def test_fixed_effects_state_from_jax_steps_in_the_port(models_x):
+    jm, tm = models_x
+    keys = jax.random.split(jax.random.PRNGKey(3), 3)
+    states = jax.vmap(lambda k: jm.init_state(k, INIT_X))(keys)
+    step = jax.jit(jax.vmap(lambda k, s: jm.step(k, s, n_adapt=100)))
+    for i in range(3):
+        states = step(jax.random.split(jax.random.PRNGKey(10 + i), 3), states)
+    ts = convert.response_state_from_jax(jax.tree.map(np.asarray, states),
+                                         dtype=torch.float64)
+    assert ts.b.shape == (3, 6, tm.tables.n_pad) and ts.beta.shape == (3, 2)
+    _, aux = tm._theta_logpost(ts.theta_u, ts.sigma2, ts.beta)
+    np.testing.assert_allclose(aux["b"].numpy(), ts.b.numpy(), rtol=1e-8,
+                               atol=1e-12)
+    np.testing.assert_allclose(aux["f"].numpy(), ts.f.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(aux["logdet"].numpy(), ts.logdet.numpy(), rtol=1e-8)
+    # the state's quad is the one refreshed by the beta draw at its own beta
+    np.testing.assert_allclose(aux["quad"].numpy(), ts.quad.numpy(), rtol=1e-8)
+    nxt = tm.step(torch.Generator().manual_seed(0), ts, n_adapt=100)
+    for name, before in ts._asdict().items():
+        after = getattr(nxt, name)
+        assert after.shape == before.shape and after.dtype == before.dtype, name
+        assert torch.isfinite(after.to(torch.float64)).all(), name
+
+
+def test_fixed_effects_posterior_agrees_with_reference(models_x):
+    """Posterior means of the slope, sigma2, phi and tau2 from 4 chains x 600
+    draws within 4 combined Monte Carlo standard errors plus 2% (the two
+    packages draw different random streams); the slope is recovered."""
+    jm, tm = models_x
+    init = {k: v for k, v in INIT_X.items() if k != "beta"}
+    ref = jm.sample(600, n_burn=300, n_chains=4, seed=0, init=init)
+    got = tm.sample(600, n_burn=300, n_chains=4, seed=1, init=init)
+    assert got["beta"].shape == (4, 600, 2)
+    assert abs(got["beta"][..., 1].mean() + 2.0) < 0.1
+    pairs = [(got[k], np.asarray(ref[k])) for k in ("sigma2", "phi", "tau2")]
+    pairs.append((got["beta"][..., 1], np.asarray(ref["beta"])[..., 1]))
+    for a, b in pairs:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        se2 = a.var() / diagnostics.ess(a) + b.var() / diagnostics.ess(b)
+        assert abs(a.mean() - b.mean()) <= 4.0 * np.sqrt(se2) + 0.02 * abs(b.mean())
+
+
+def test_fixed_effects_joint_posterior_is_not_ported(models_x):
+    _, tm = models_x
+    with pytest.raises(NotImplementedError):
+        tm.fit_map(n_steps=2)
+    with pytest.raises(NotImplementedError):
+        tm.full_loglik(torch.zeros(3, dtype=torch.float64))
