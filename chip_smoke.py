@@ -2,16 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``pynngp_tpu_torch/csrc``, holds each
-against its plain PyTorch version, times both, then drives every ported path
-once and checks that it went through its kernels:
+Builds the CUDA kernels from ``pynngp_tpu_torch/csrc``, holds each against
+its plain PyTorch version, times both, then drives every ported path once and
+checks that it went through its kernels:
 
 - the response NNGP at n=100,000, m=15, sqexp, as ``bench.py``'s ``bench_ess``
   MWG branch runs it (kernels 1 and 2);
 - the latent-w NNGP at n=10,000, m=15, exponential, 8 chains, as ``bench.py``'s
   config 2 runs it, and a short run of the same model at n=100,000 (kernel 3);
 - the response NNGP with an intercept and one covariate at n=100,000, 16
-  chains (kernel 3).
+  chains (kernel 3);
+- NUTS over the joint posterior of the first model, as ``bench.py``'s
+  ``bench_ess`` NUTS branch runs it (fit_map, then 4 chains with the dense
+  Laplace metric; kernel 2 on every leapfrog step), and a short HMC run;
+- NUTS with the intercept and the covariate (the EMIT_Y instances of kernel
+  2 and the y-cotangent gather on every leapfrog step).
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -20,6 +25,7 @@ last lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -36,7 +42,8 @@ from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
-from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
+from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
 N_MAIN, M_MAIN, CHAINS = 100_000, 15, 16
@@ -48,6 +55,9 @@ KERNEL_ROWS = {
                      "pynngp_tpu/ops/pallas_bf.py:727", diff_ops.COUNT),
     "vecchia_bf": ("pynngp_tpu_torch/csrc/vecchia_bf.cu",
                    "pynngp_tpu/ops/pallas_bf.py:941", bf_ops.COUNT),
+    # the emit_y branch of _grad_kernel
+    "vecchia_grad_y": ("pynngp_tpu_torch/csrc/vecchia_grad_y.cu",
+                       "pynngp_tpu/ops/pallas_bf.py:857", diff_ops.COUNT_Y),
 }
 # Published peaks of one H100 SXM: device memory rate, float32 rate outside
 # the tensor cores, and the special-function rate that follows from it (an SM
@@ -87,6 +97,8 @@ def ptxas_summary(ptxas: str, m: int) -> str:
         if "Compiling entry function" not in line or f"ILi{m}E" not in line:
             continue
         name = next(k for k in ("suffstats", "grad", "bf") if f"{k}_kernel" in line)
+        if f"ILi{m}ELb1E" in line:  # the EMIT_Y template argument
+            name = "grad_y"
         spill = regs = "?"
         for nxt in lines[i + 1:i + 4]:
             if "spill stores" in nxt:
@@ -106,7 +118,8 @@ class Case:
         coords, y = bench_field(n, seed)
         data, table = make_vecchia_data(coords, m, dtype=torch.float64)
         self.n, self.m, self.kernel = n, m, kernel
-        self.tab32 = make_site_tables(data, dtype=torch.float32, device=dev)
+        self.tab32 = with_children(
+            make_site_tables(data, dtype=torch.float32, device=dev))
         self.tab64 = self.tab32._replace(d_in=self.tab32.d_in.double(),
                                          d_tri=self.tab32.d_tri.double())
         self.y32 = torch.as_tensor(y[table.order], dtype=torch.float32, device=dev)
@@ -114,6 +127,13 @@ class Case:
         self.phi = torch.linspace(0.05, 0.2, chains, device=dev)
         self.alpha = torch.linspace(0.05, 0.3, chains, device=dev)
         self.jitter = 1e-6
+        # a residual per chain, y - x beta_c, as the fixed-effects model forms
+        # it: the chains' slopes spread over +-0.05, some fifty posterior
+        # standard deviations at this n
+        x = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(n),
+                            dtype=torch.float32, device=dev)
+        beta = torch.linspace(-0.05, 0.05, chains, device=dev)
+        self.y32_chains = self.y32 - beta[:, None] * x
 
     def params64(self, sl, requires_grad=False, alpha=None):
         alpha = self.alpha if alpha is None else alpha
@@ -231,6 +251,64 @@ def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool) -> dict:
     return res
 
 
+def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float) -> dict:
+    """The EMIT_Y instances of kernel 2 against the plain version in float64
+    on the card (chunked over chains), with a shared or a per-chain y.
+
+    Tolerances.  The six sums as kernel 2 (values rtol 5e-4, gradients
+    ``grad_rtol``).  B atol 3e-5, kernel 3's limit.  r/F rtol 2e-3 and atol
+    1e-4, kernel 1's limit for r.  dy = dquad/dy from the kernel's planes
+    through the gather, against autograd through the float64 factorization:
+    rtol 2e-3, atol 2e-4 (tests/test_pallas.py:205-209).  Padded sites hold
+    B = 0 and r/F = 0 exactly, and so does every invalid slot of B."""
+    y32 = case.y32_chains if per_chain else case.y32
+    sums, b, rof = diff_ops.value_and_grad_sums(
+        case.kernel, case.tab32, case.phi, case.alpha, y32, case.jitter, emit_y=True)
+    dy = diff_ops.dquad_dy(case.tab32, b, rof)
+    torch.cuda.synchronize()
+    n, m = case.n, case.m
+    refs = []
+    for sl in case.chunks():
+        _, _, pr = case.params64(sl)
+        width = sl.stop - sl.start
+        # one y row per chain, so that the shared y's gradient splits by chain
+        y64 = y32[sl].double() if per_chain else case.y64.expand(width, n)
+        y64 = y64.clone().requires_grad_(True)
+        s_ref, b_ref, rof_ref = diff_ops.grad_reference(
+            case.kernel, case.tab64, pr, y64.detach(), emit_y=True)
+        _, q, _, _ = fwd_ops.suffstats_reference(case.kernel, case.tab64, pr, y64)
+        (dy_ref,) = torch.autograd.grad(q.sum(), y64)
+        refs.append((s_ref, b_ref, rof_ref, dy_ref))
+    s_ref = torch.cat([r[0] for r in refs], dim=1)
+    b_ref, rof_ref, dy_ref = (torch.cat([r[i] for r in refs]) for i in (1, 2, 3))
+    got = sums.double()
+    pad_ok = bool((b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all())
+    slots_ok = all(bool((b[:, k, :k + 1] == 0).all()) for k in range(m))
+    res = {
+        "y": "per-chain" if per_chain else "shared",
+        "value_rel": _rel(got[:2], s_ref[:2]),
+        "dphi_rel": _rel(got[2:4], s_ref[2:4]),
+        "dalpha_rel": _rel(got[4:6], s_ref[4:6]),
+        "b_max_abs_err": float((b.double() - b_ref).abs().max()),
+        "rof_ratio": _allclose_ratio(rof.double(), rof_ref, 2e-3, 1e-4),
+        "dy_ratio": _allclose_ratio(dy.double(), dy_ref, 2e-3, 2e-4),
+        "dy_max_abs": float(dy_ref.abs().max()),
+        "padded_sites": case.tab32.n_pad - n, "padded_zero": pad_ok,
+        "invalid_slots_zero": slots_ok,
+        "max_children": case.tab32.child_flat.shape[1],
+    }
+    print(f"grad_y parity [{label}]: " + json.dumps(res), flush=True)
+    _require(pad_ok and slots_ok,
+             f"EMIT_Y padded sites or invalid slots are not exactly 0 [{label}]")
+    _require(res["value_rel"] <= 5e-4, f"EMIT_Y values disagree [{label}]")
+    _require(res["dphi_rel"] <= grad_rtol and res["dalpha_rel"] <= grad_rtol,
+             f"EMIT_Y gradients disagree [{label}]")
+    _require(res["b_max_abs_err"] <= 3e-5, f"EMIT_Y B disagrees [{label}]")
+    _require(res["rof_ratio"] <= 1.0, f"EMIT_Y r/F disagrees [{label}]")
+    _require(res["dy_ratio"] <= 1.0, f"the y cotangent disagrees [{label}]")
+    return res
+
+
 def _time_ms(fn, warm: int, reps: int) -> float:
     for _ in range(warm):
         fn()
@@ -266,7 +344,40 @@ def time_kernels(case: Case) -> dict:
             20, 200),
         "vecchia_bf_plain": _time_ms(
             lambda: bf_ops.bf_reference(k, t, params), 2, 5),
+        "vecchia_grad_y": _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, case.phi, case.alpha,
+                                                 case.y32_chains, case.jitter,
+                                                 emit_y=True), 20, 200),
+        "vecchia_grad_y_plain": _time_ms(
+            lambda: diff_ops.grad_reference(k, t, params, case.y32_chains,
+                                            emit_y=True), 2, 5),
     }
+    # the EMIT_Y instances and the y-cotangent gather by chain count, and the
+    # scatter-add that the gather replaces (index_add_: float atomics, not
+    # reproducible, timed as a yardstick and used nowhere in the port)
+    idx = t.nn_idx.long().reshape(-1)
+    by_chains = {}
+    for c in (1, 4, 16):
+        phi, alpha, y = case.phi[:c], case.alpha[:c], case.y32_chains[:c]
+        _, b, rof = diff_ops.value_and_grad_sums(k, t, phi, alpha, y, case.jitter,
+                                                 emit_y=True)
+
+        def scatter():
+            out = 2.0 * rof
+            src = (-2.0 * b * rof[:, None, :]).reshape(c, -1)
+            return out.index_add_(1, idx, src)
+
+        by_chains[c] = {
+            "grad_y_ms": _time_ms(lambda: diff_ops.value_and_grad_sums(
+                k, t, phi, alpha, y, case.jitter, emit_y=True), 20, 100),
+            "grad_ms": _time_ms(lambda: diff_ops.value_and_grad_sums(
+                k, t, phi, alpha, y, case.jitter), 20, 100),
+            "suffstats_per_chain_y_ms": _time_ms(lambda: fwd_ops.suffstats(
+                k, t, phi, alpha, y, case.jitter), 20, 100),
+            "dy_gather_ms": _time_ms(lambda: diff_ops.dquad_dy(t, b, rof), 10, 50),
+            "dy_index_add_ms": _time_ms(scatter, 10, 50),
+        }
+    print("grad_y times by chains: " + json.dumps(by_chains), flush=True)
     chains = case.phi.shape[0]
     tag = f"n{case.n}_m{case.m}"
     print("kernel times: " + json.dumps({
@@ -289,8 +400,8 @@ def kernel_bounds(case: Case) -> dict:
     estimate (pynngp_tpu/ops/pallas_bf.py:1027-1031) extended to each
     kernel's solves: m^3/3 float32 operations for the factorization and m^2
     per triangular solve (kernel 1: two forward; kernel 2: two forward, two
-    backward and ~3 m^2 for the dC/dphi contractions; kernel 3: one forward,
-    one backward) over 67 TFLOP/s; and one special-function operation per
+    backward and ~3 m^2 for the dC/dphi contractions, the same with EMIT_Y;
+    kernel 3: one forward, one backward) over 67 TFLOP/s; and one special-function operation per
     correlation (m(m+1)/2; twice that in kernel 2, which also needs the
     derivative) and per pivot (m) over 4.19e12/s.  The bound is the largest
     of the three times."""
@@ -307,6 +418,11 @@ def kernel_bounds(case: Case) -> dict:
                          m**3 / 3 + 7 * m * m, 2 * corr + m),
         "vecchia_bf": (tables + (m + 1) * sites * 4,
                        m**3 / 3 + 2 * m * m, corr + m),
+        # kernel 2's work, one y row per chain, and the B and r/F stores
+        "vecchia_grad_y": (tables + t.nn_idx.numel() * 4
+                           + case.phi.shape[0] * t.n * 4 + 6 * blocks * 4
+                           + (m + 1) * sites * 4,
+                           m**3 / 3 + 7 * m * m, 2 * corr + m),
     }
     out = {}
     for name, (nbytes, flops, sfu) in work.items():
@@ -411,30 +527,31 @@ def config2_field(n: int, scale: float, rng):
     return coords, w + 0.3 * rng.standard_normal(n)
 
 
-def _step_ms(model, state, gen, steps: int) -> float:
-    """Wall ms per sampler step, unprofiled, ending in a synchronise."""
+def _step_ms(step, state, gen, steps: int):
+    """(wall ms per sampler step, the state after them), unprofiled, ending
+    in a synchronise."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state = model.step(gen, state)
+        state = step(gen, state)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / steps
+    return (time.perf_counter() - t0) * 1e3 / steps, state
 
 
-def profile_steps(model, state, gen, steps: int = 5) -> dict:
-    """Where a sampler step's time goes: device-busy ms per step from the
-    kernels that torch.profiler records over ``steps`` steps, against the
-    wall ms per step of 20 unprofiled steps (the profiler itself slows the
-    host).  The idle share is the part of the unprofiled wall clock in which
-    no kernel ran."""
+def profile_steps(step, state, gen, steps: int = 5) -> dict:
+    """Where a sampler step's time goes, for ``step(gen, state) -> state``:
+    device-busy ms per step from the kernels that torch.profiler records over
+    ``steps`` steps, against the wall ms per step of 20 unprofiled steps (the
+    profiler itself slows the host).  The idle share is the part of the
+    unprofiled wall clock in which no kernel ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wall_ms = _step_ms(model, state, gen, 20)
+    wall_ms, state = _step_ms(step, state, gen, 20)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state = model.step(gen, state)
+            state = step(gen, state)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device-side rows only: an operator's row repeats its kernels' time
@@ -448,6 +565,8 @@ def profile_steps(model, state, gen, steps: int = 5) -> dict:
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "bf_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "bf_kernel" in k),
+        "grad_kernel_ms_per_step": sum(ms for k, ms, _ in rows if "grad_kernel" in k),
+        "grad_kernel_launches_per_step": sum(c for k, _, c in rows if "grad_kernel" in k),
         "device_kernels_per_step": sum(c for _, _, c in rows),
         "top": [[k[:60], ms] for k, ms, _ in top],
     }
@@ -496,7 +615,7 @@ def latent_path(dev) -> dict:
     _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
              f"posterior mean tau2 {means['tau2']} is not within 2x of 0.09")
     gen = torch.Generator(device=dev).manual_seed(7)
-    prof = profile_steps(model, model.init_state(chains, init), gen)
+    prof = profile_steps(model.step, model.init_state(chains, init), gen)
     print("latent step profile [n10000]: " + json.dumps(prof), flush=True)
     return res
 
@@ -533,7 +652,7 @@ def latent_path_large(dev) -> dict:
              "non-finite latent draws at n=100,000")
     _require(draws["w"].shape == (chains, -(-n_draws // 8), n),
              f"w draws have the wrong shape {draws['w'].shape}")
-    prof = profile_steps(model, state, gen)
+    prof = profile_steps(model.step, state, gen)
     print("latent step profile [n100000]: " + json.dumps(prof), flush=True)
     return res
 
@@ -576,8 +695,161 @@ def fixed_effects_path(dev) -> dict:
     _require(abs(beta_mean[1] - beta_true[1]) <= 0.1,
              f"posterior mean slope {beta_mean[1]} is not within 0.1 of -2")
     gen = torch.Generator(device=dev).manual_seed(7)
-    prof = profile_steps(model, model.init_state(CHAINS, init), gen)
+    prof = profile_steps(model.step, model.init_state(CHAINS, init), gen)
     print("fixed-effects step profile: " + json.dumps(prof), flush=True)
+    return res
+
+
+def _digest(draws: dict) -> str:
+    """sha256 over the draws' bytes: equal between two runs iff every draw is."""
+    h = hashlib.sha256()
+    for key in sorted(draws):
+        h.update(key.encode() + np.ascontiguousarray(draws[key]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _nuts_summary(draws, n_burn, launches_name, launches) -> dict:
+    n_chains, n_draws = draws["phi"].shape
+    min_ess, max_rhat = _chain_stats(draws)
+    return {
+        "min_ess": min_ess, "rhat_max": max_rhat,
+        "mean_tree_depth": float(draws["depth"].mean()),
+        "leapfrogs_per_draw": float(draws["n_leapfrog"].mean()),
+        "divergences": int(draws["diverging"].sum()),
+        "posterior_mean": {k: float(np.mean(draws[k]))
+                           for k in ("sigma2", "phi", "tau2")},
+        # every chain waits for the deepest tree of its transition
+        f"{launches_name}_launches_per_transition": launches / (n_burn + n_draws),
+        "draws_shape": [n_chains, n_draws], "draws_sha256": _digest(draws),
+    }
+
+
+def profile_nuts(model, mp, chains: int, max_depth: int, warm: int = 40) -> dict:
+    """profile_steps over NUTS transitions of ``model`` from its MAP fit, after
+    ``warm`` transitions of warmup, with the per-leapfrog figures that follow
+    from the kernel-2 launches of the window."""
+    gen = torch.Generator().manual_seed(7)  # the samplers' state is on the host
+    init_fn, step_fn = make_nuts_kernel(model.full_value_and_grad, 300, max_depth,
+                                        init_inv_mass=mp.laplace_cov)
+    state = init_fn(gen, model._warm_init_u(mp.u, mp.laplace_cov, chains, gen, 2.0))
+    for _ in range(warm):
+        state = step_fn(gen, state)
+    prof = profile_steps(step_fn, state, gen)
+    per = max(prof["grad_kernel_launches_per_step"], 1.0)
+    prof["wall_ms_per_leapfrog"] = prof["wall_ms_per_step"] / per
+    prof["device_busy_ms_per_leapfrog"] = prof["device_busy_ms_per_step"] / per
+    prof["device_kernels_per_leapfrog"] = prof["device_kernels_per_step"] / per
+    prof["grad_kernel_ms_per_launch"] = prof["grad_kernel_ms_per_step"] / per
+    # the share of a leapfrog that is the value and gradient of the posterior
+    # (kernel 2, the eager ops around it and their backward), on its own
+    vg = profile_steps(lambda _, u: (model.full_value_and_grad(u), u)[1],
+                       state.z, gen)
+    prof["value_and_grad"] = {k: vg[k] for k in (
+        "wall_ms_per_step", "device_busy_ms_per_step", "device_kernels_per_step")}
+    return prof
+
+
+def nuts_path(dev, mwg_ess_per_sec: float) -> dict:
+    """bench.py's bench_ess NUTS branch (l.392-434) on the port, on the main
+    path's model and data: fit_map(250), then 4 chains x 400 NUTS draws after
+    300 burn-in at max_depth 6, started 2 posterior sds around the MAP with
+    the dense Laplace covariance as the frozen metric.  Then a short HMC run
+    on the same model."""
+    chains, n_burn, n_draws, max_depth = 4, 300, 400, 6
+    coords, y = bench_field(N_MAIN, seed=0)
+    _reset_counts()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=250)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_launches = diff_ops.COUNT.launches
+    t0 = time.perf_counter()
+    draws = model.sample_nuts(n_draws, n_burn=n_burn, n_chains=chains, seed=0,
+                              max_depth=max_depth, init_u=mp.u,
+                              init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    run_s = time.perf_counter() - t0
+    nuts_launches = diff_ops.COUNT.launches - map_launches
+    t0 = time.perf_counter()
+    hmc = model.sample_hmc(50, n_burn=100, n_chains=chains, seed=1, n_leapfrog=32,
+                           init_u=mp.u, init_inv_mass=mp.laplace_cov)
+    hmc_s = time.perf_counter() - t0
+    launches = _read_counts("NUTS and HMC", ("vecchia_grad",))
+    res = {
+        "map_s": map_s, "run_s": run_s,
+        "samples_per_sec": chains * n_draws / run_s,
+        **_nuts_summary(draws, n_burn, "vecchia_grad", nuts_launches),
+        f"mwg_min_ess_per_sec_n{N_MAIN}_m{M_MAIN}": mwg_ess_per_sec,
+        "launches": launches, "plain_calls": 0,
+    }
+    res[f"nuts_min_ess_per_sec_n{N_MAIN}_m{M_MAIN}"] = res["min_ess"] / (map_s + run_s)
+    print("NUTS path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite NUTS draws")
+    _require(draws["phi"].shape == (chains, n_draws), "NUTS draws have the wrong shape")
+    tau2 = res["posterior_mean"]["tau2"]
+    _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+             f"NUTS posterior mean tau2 {tau2} is not within 2x of 0.09")
+    _require(draws["depth"].max() <= max_depth
+             and draws["n_leapfrog"].max() <= 2**max_depth - 1,
+             "a NUTS tree exceeded its depth limit")
+    print("HMC run: " + json.dumps({
+        "run_s": hmc_s, "mean_accept_prob": float(hmc["accept_prob"].mean()),
+        "divergences": int(hmc["diverging"].sum()),
+        "posterior_mean": {k: float(np.mean(hmc[k])) for k in ("sigma2", "phi", "tau2")},
+        "vecchia_grad_launches": launches["vecchia_grad"] - map_launches - nuts_launches,
+        "draws_shape": list(hmc["phi"].shape), "draws_sha256": _digest(hmc),
+    }), flush=True)
+    _require(all(np.isfinite(v).all() for v in hmc.values()), "non-finite HMC draws")
+    _require(hmc["phi"].shape == (chains, 50), "HMC draws have the wrong shape")
+    print("NUTS transition profile: " + json.dumps(profile_nuts(model, mp, chains,
+                                                                max_depth)),
+          flush=True)
+    return res
+
+
+def nuts_fixed_effects_path(dev) -> dict:
+    """NUTS with fixed effects on the fixed-effects path's data: fit_map(250)
+    with x=, then 4 chains x 100 draws after 150 burn-in at max_depth 6 with
+    the dense Laplace metric.  Every leapfrog step is one launch of the EMIT_Y
+    instances of kernel 2 and one y-cotangent gather."""
+    chains, n_burn, n_draws, max_depth = 4, 150, 100, 6
+    coords, y = bench_field(N_MAIN, seed=0)
+    x = np.column_stack([np.ones(N_MAIN),
+                         np.random.default_rng(1).standard_normal(N_MAIN)])
+    beta_true = np.array([1.0, -2.0])
+    _reset_counts()
+    model = ResponseNNGP(coords, y + x @ beta_true, kernel="sqexp", m=M_MAIN,
+                         x=x, device=dev)
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=250)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_launches = diff_ops.COUNT_Y.launches
+    t0 = time.perf_counter()
+    draws = model.sample_nuts(n_draws, n_burn=n_burn, n_chains=chains, seed=0,
+                              max_depth=max_depth, init_u=mp.u,
+                              init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("NUTS with fixed effects", ("vecchia_grad_y",))
+    beta_mean = draws["beta"].mean(axis=(0, 1))
+    res = {
+        "map_s": map_s, "run_s": run_s, "map_u": mp.u.cpu().tolist(),
+        "samples_per_sec": chains * n_draws / run_s,
+        **_nuts_summary(draws, n_burn, "vecchia_grad_y",
+                        launches["vecchia_grad_y"] - map_launches),
+        "beta_mean": beta_mean.tolist(), "beta_true": beta_true.tolist(),
+        "launches": launches, "plain_calls": 0,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("NUTS fixed-effects path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite NUTS draws with fixed effects")
+    _require(draws["beta"].shape == (chains, n_draws, 2),
+             "beta draws have the wrong shape")
+    _require(abs(beta_mean[1] - beta_true[1]) <= 0.1,
+             f"NUTS posterior mean slope {beta_mean[1]} is not within 0.1 of -2")
+    print("NUTS fixed-effects transition profile: "
+          + json.dumps(profile_nuts(model, mp, chains, max_depth)), flush=True)
     return res
 
 
@@ -611,23 +883,31 @@ def main() -> int:
     check_bf(main_case, "n100000 m15 sqexp", zero_alpha=True, gated=False)
     check_bf(small_case, "n1500 m7 exponential", zero_alpha=False, gated=True)
     check_bf(small_case, "n1500 m7 exponential", zero_alpha=True, gated=True)
+    grad_y = check_grad_y(main_case, "n100000 m15 sqexp", False, grad_rtol=2e-3)
+    check_grad_y(main_case, "n100000 m15 sqexp", True, grad_rtol=2e-3)
+    check_grad_y(small_case, "n1500 m7 exponential", False, grad_rtol=2e-4)
+    check_grad_y(small_case, "n1500 m7 exponential", True, grad_rtol=2e-4)
     times = time_kernels(main_case)
     bounds = kernel_bounds(main_case)
     del main_case, small_case
     torch.cuda.empty_cache()
 
-    paths = {
-        "response": main_path(dev),
+    paths = {"response": main_path(dev)}
+    mwg_ess = paths["response"][f"min_ess_per_sec_n{N_MAIN}_m{M_MAIN}"]
+    paths.update({
         "latent_n10000": latent_path(dev),
         "latent_n100000": latent_path_large(dev),
         "fixed_effects": fixed_effects_path(dev),
-    }
+        "nuts": nuts_path(dev, mwg_ess),
+        "nuts_fixed_effects": nuts_fixed_effects_path(dev),
+    })
 
     errs = {"vecchia_suffstats": fwd["f_max_abs_err"],
             "vecchia_grad": grad["max_abs_err"],
-            "vecchia_bf": bf_err["b_max_abs_err"]}
+            "vecchia_bf": bf_err["b_max_abs_err"],
+            "vecchia_grad_y": grad_y["b_max_abs_err"]}
     # launches: the sum over the paths, each counted from 0; no single
-    # PyTorch call computes any of the three functions, so library_ms is null
+    # PyTorch call computes any of the four functions, so library_ms is null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p["launches"][name] for p in paths.values()),

@@ -10,9 +10,12 @@ import torch
 from pynngp_tpu_torch.models.latent import LatentState
 from pynngp_tpu_torch.models.response import ResponseState
 from pynngp_tpu_torch.ops.site_tables import SiteTables, padded_size
+from pynngp_tpu_torch.samplers.hmc import DualAveraging, HMCInfo, HMCState, Welford
+from pynngp_tpu_torch.samplers.nuts import NUTSInfo, NUTSState
 
 __all__ = ["site_tables_from_lane_cache", "bf_planes_from_rows",
-           "response_state_from_jax", "latent_state_from_jax"]
+           "response_state_from_jax", "latent_state_from_jax",
+           "nuts_state_from_jax", "hmc_state_from_jax"]
 
 
 def site_tables_from_lane_cache(tab_a, tab_b, nn_idx, n, device="cpu"):
@@ -100,3 +103,43 @@ def latent_state_from_jax(state_np, dtype=None, device="cpu") -> LatentState:
         accept=field("accept"),
         iteration=field("iteration", torch.int32),
     )
+
+
+def _gradient_state(state_cls, info_cls, state_np, dtype, device):
+    """A batched gradient-sampler state from the reference's, whose fields
+    are numpy arrays: one chain's (a chain axis of 1 is added) or a vmapped
+    batch.  ``z`` is the full unconstrained vector [log sigma2, logit phi,
+    log tau2, beta...], the same in both packages.  Floating fields take
+    ``dtype``; counters stay int32 and flags bool."""
+    batched = np.ndim(state_np.value) == 1
+
+    def leaf(a):
+        a = np.asarray(a)
+        a = a if batched else a[None]
+        if a.dtype == np.bool_:
+            dt = torch.bool
+        elif np.issubdtype(a.dtype, np.integer):
+            dt = torch.int32
+        else:
+            dt = dtype
+        return torch.tensor(a, dtype=dt, device=device)
+
+    def tree(node_np, cls):
+        return cls(*(leaf(getattr(node_np, name)) for name in cls._fields))
+
+    return state_cls(z=leaf(state_np.z), value=leaf(state_np.value),
+                     grad=leaf(state_np.grad), da=tree(state_np.da, DualAveraging),
+                     wf=tree(state_np.wf, Welford),
+                     inv_mass=leaf(state_np.inv_mass),
+                     iteration=leaf(state_np.iteration),
+                     info=tree(state_np.info, info_cls))
+
+
+def nuts_state_from_jax(state_np, dtype=None, device="cpu") -> NUTSState:
+    """The port's batched :class:`NUTSState` from a reference ``NUTSState``."""
+    return _gradient_state(NUTSState, NUTSInfo, state_np, dtype, device)
+
+
+def hmc_state_from_jax(state_np, dtype=None, device="cpu") -> HMCState:
+    """The port's batched :class:`HMCState` from a reference ``HMCState``."""
+    return _gradient_state(HMCState, HMCInfo, state_np, dtype, device)

@@ -1,5 +1,5 @@
 // Shared device helpers of the fused Vecchia kernels (vecchia_suffstats.cu,
-// vecchia_grad.cu, vecchia_bf.cu): the correlation families and their phi-derivatives
+// vecchia_grad_body.cuh, vecchia_bf.cu): the correlation families and their phi-derivatives
 // (counterparts of _rho_fn and _drho_fn in pynngp_tpu/ops/pallas_bf.py:312,656),
 // the packed-triangle index, and the deterministic block reduction.
 //

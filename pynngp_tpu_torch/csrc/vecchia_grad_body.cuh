@@ -1,0 +1,202 @@
+// Body of kernel 2, the fused Vecchia value + gradient pass, shared by its two
+// translation units: vecchia_grad.cu (EMIT_Y = false) and vecchia_grad_y.cu
+// (EMIT_Y = true).  Each instance costs tens of seconds of ptxas at m = 20, so
+// the two sets are compiled by separate nvcc processes side by side.
+//
+// Replaces the Pallas kernel _grad_kernel (pynngp_tpu/ops/pallas_bf.py:727,
+// driven by _run_grad l.867) for closed-form kernels, without sampled nu.  For
+// every (site, chain) it makes the same factorization as kernel 1,
+// back-substitutes p = L^-T u and q = L^-T v (p = C^-1 c, q = C^-1 y_N), and
+// contracts them with dC/dphi (from drho_dphi) and dC/dalpha (the masked
+// identity):
+//   dF/dphi = -2 p.dc + p' dC p,   dr/dphi = -dc.q + p' dC q,
+//   dF/dalpha = 1 + p.p,           dr/dalpha = p.q.
+// It writes, per (block, chain), partials of logdet, quad, dlogdet/dphi,
+// dquad/dphi, dlogdet/dalpha and dquad/dalpha over the sites < n; the
+// wrapper (ops/diff_suffstats.py) sums them in float64.  One pass over the
+// tables gives the value and the gradient.
+//
+// EMIT_Y (the emit_y branch of _grad_kernel, pallas_bf.py:857-864) also
+// writes what the y cotangent needs: the kriging weights B = p, plane-major
+// (C, m, n_pad) so that a warp stores 32 adjacent floats of one plane, and
+// r/F per site (C, n_pad).  p is live anyway, so the variant adds stores and
+// no register state.  Padded sites (site >= n) hold B = 0 and r/F = 0 exactly,
+// and so do invalid slots (site <= slot), where p is an exact zero of the
+// recurrence: the gather that forms dquad/dy adds them without a mask.
+//
+// y is (n,) shared by all chains (y_stride = 0) or (C, n) with one row per
+// chain (y_stride = n): with fixed effects the residual y - X beta differs by
+// chain.
+//
+// What bounds it.  The same reads as kernel 1, about (m^2/2 + 2m) * 4 bytes
+// per thread plus a second read of d_tri for the dC contraction (L2-resident
+// for the block), against ~m^3/6 + m^2 dependent FMAs: latency- and
+// register-bound on the serial recurrence.  At m = 15 the factor alone is
+// about 120 live floats per thread (105 off-diagonal + 15 inverse diagonal),
+// and p, q, u, v and dc add 75 more, so expect spills; ptxas -v reports them.
+// EMIT_Y adds (m + 1) * 4 bytes of stores per thread.
+#pragma once
+
+#include <cstddef>
+
+#include "vecchia_common.cuh"
+
+namespace vecchia {
+namespace {
+
+template <int M, bool EMIT_Y>
+__global__ void __launch_bounds__(kBlock)
+grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
+            const float* __restrict__ d_tri, const int* __restrict__ nn_idx,
+            const float* __restrict__ y_all, int y_stride, int n_pad, int family,
+            float* __restrict__ part, float* __restrict__ b_out,
+            float* __restrict__ rof_out) {
+  const int chain = blockIdx.y;
+  const int site = blockIdx.x * kBlock + threadIdx.x;
+  const float* pr = params + chain * kParams;
+  const float* y = y_all + static_cast<size_t>(chain) * y_stride;
+  const float phi = pr[0];
+  const float alpha = pr[1];
+  const float jitter = pr[2];
+  const int n = static_cast<int>(pr[3]);
+
+  float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
+  float inv_diag[M];
+  float u[M];   // L^-1 c
+  float v[M];   // L^-1 y_N
+  float dc[M];  // dc/dphi (masked)
+
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const float mk = site > k ? 1.0f : 0.0f;
+    float acc = 1.0f + mk * (alpha + jitter);
+#pragma unroll
+    for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
+    const float inv = 1.0f / sqrtf(acc);
+    inv_diag[k] = inv;
+    const size_t at = static_cast<size_t>(k) * n_pad + site;
+    const float dk = d_in[at];
+    dc[k] = drho_dphi(family, dk, phi) * mk;
+    float au = rho(family, dk, phi) * mk;
+    float av = y[nn_idx[at]] * mk;
+#pragma unroll
+    for (int j = 0; j < k; ++j) {
+      au -= low[tri(k, j)] * u[j];
+      av -= low[tri(k, j)] * v[j];
+    }
+    u[k] = au * inv;
+    v[k] = av * inv;
+#pragma unroll
+    for (int i = k + 1; i < M; ++i) {
+      const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
+      float a = rho(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi) * mi;
+#pragma unroll
+      for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
+      low[tri(i, k)] = a * inv;
+    }
+  }
+
+  const bool valid = site < n;
+  float ff = 1.0f + alpha;
+  float r = valid ? y[site] : 0.0f;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    ff -= u[k] * u[k];
+    r -= u[k] * v[k];
+  }
+
+  // back-substitution p = L^-T u, q = L^-T v (zero on invalid slots)
+  float p[M];
+  float q[M];
+  float pp = 0.0f;
+  float pq = 0.0f;
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    float ap = u[i];
+    float aq = v[i];
+#pragma unroll
+    for (int k = i + 1; k < M; ++k) {
+      ap -= low[tri(k, i)] * p[k];
+      aq -= low[tri(k, i)] * q[k];
+    }
+    p[i] = ap * inv_diag[i];
+    q[i] = aq * inv_diag[i];
+    pp += p[i] * p[i];
+    pq += p[i] * q[i];
+  }
+  if constexpr (EMIT_Y) {
+    float* b_site = b_out + static_cast<size_t>(chain) * M * n_pad + site;
+#pragma unroll
+    for (int i = 0; i < M; ++i) b_site[static_cast<size_t>(i) * n_pad] = valid ? p[i] : 0.0f;
+  }
+
+  // contractions with dC/dphi (diagonal-free: drho(0) = 0)
+  float df_phi = 0.0f;
+  float dr_phi = 0.0f;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    df_phi -= 2.0f * p[i] * dc[i];
+    dr_phi -= dc[i] * q[i];
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < M; ++j) {
+      const float mj = site > j ? 1.0f : 0.0f;  // mask_i * mask_j, as j > i
+      const float dcij =
+          drho_dphi(family, d_tri[static_cast<size_t>(tri(j, i)) * n_pad + site], phi) * mj;
+      df_phi += 2.0f * p[i] * p[j] * dcij;
+      dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
+    }
+  }
+  const float df_a = 1.0f + pp;
+  const float dr_a = pq;
+
+  const float inv_f = valid ? 1.0f / ff : 0.0f;
+  const float r_over_f = r * inv_f;
+  const float ratio2 = r_over_f * r_over_f;
+  if constexpr (EMIT_Y) {
+    rof_out[static_cast<size_t>(chain) * n_pad + site] = valid ? r_over_f : 0.0f;
+  }
+  // d(r^2/F) = 2 r dr / F - (r/F)^2 dF; r_over_f carries the validity mask
+  const float sums[6] = {
+      valid ? logf(ff) : 0.0f,
+      r * r_over_f,
+      df_phi * inv_f,
+      2.0f * r_over_f * dr_phi - ratio2 * df_phi,
+      df_a * inv_f,
+      2.0f * r_over_f * dr_a - ratio2 * df_a,
+  };
+  block_sum_store<6>(sums, part, gridDim.y * gridDim.x, chain * gridDim.x + blockIdx.x);
+}
+
+// Validates the launch shape, picks the M instance and launches on `stream`
+// without synchronising; returns cudaGetLastError().
+template <bool EMIT_Y>
+int launch_grad(const float* params, const float* d_in, const float* d_tri, const int* nn_idx,
+                const float* y, int y_stride, int n_pad, int m, int chains, int family,
+                float* part, float* b_out, float* rof_out, void* stream) {
+  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535 || y_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n_pad / kBlock, chains);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VECCHIA_GRAD_CASE(MM)                                                              \
+  case MM:                                                                                 \
+    grad_kernel<MM, EMIT_Y><<<grid, kBlock, 0, s>>>(params, d_in, d_tri, nn_idx, y,        \
+                                                    y_stride, n_pad, family, part, b_out,  \
+                                                    rof_out);                              \
+    break;
+  switch (m) {
+    VECCHIA_GRAD_CASE(7)
+    VECCHIA_GRAD_CASE(10)
+    VECCHIA_GRAD_CASE(15)
+    VECCHIA_GRAD_CASE(20)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VECCHIA_GRAD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace vecchia

@@ -12,8 +12,10 @@
 // per-cell partials (pallas_bf.py:593-594): deterministic, no atomics.
 //
 // Design.  One thread per (site, chain): blocks of kBlock threads along
-// sites, gridDim.y = chains.  The tables and y are shared by all chains; each
-// thread gathers its y_N through nn_idx.  The factor lives in registers, fully
+// sites, gridDim.y = chains.  The tables are shared by all chains, and so is y
+// (y_stride = 0) unless each chain brings its own row of a (C, n) array
+// (y_stride = n: the residual y - X beta with fixed effects); each thread
+// gathers its y_N through nn_idx.  The factor lives in registers, fully
 // unrolled over the template parameter M.
 //
 // What bounds it.  A thread reads about (m^2/2 + 2m) * 4 bytes (d_in, d_tri,
@@ -32,12 +34,13 @@ template <int M>
 __global__ void __launch_bounds__(kBlock)
 suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
                  const float* __restrict__ d_tri, const int* __restrict__ nn_idx,
-                 const float* __restrict__ y, int n_pad, int family,
+                 const float* __restrict__ y_all, int y_stride, int n_pad, int family,
                  float* __restrict__ f_out, float* __restrict__ r_out,
                  float* __restrict__ part) {
   const int chain = blockIdx.y;
   const int site = blockIdx.x * kBlock + threadIdx.x;
   const float* pr = params + chain * kParams;
+  const float* y = y_all + static_cast<size_t>(chain) * y_stride;
   const float phi = pr[0];
   const float alpha = pr[1];
   const float jitter = pr[2];
@@ -95,10 +98,10 @@ suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_i
 
 template <int M>
 void launch(dim3 grid, cudaStream_t stream, const float* params, const float* d_in,
-            const float* d_tri, const int* nn_idx, const float* y, int n_pad, int family,
-            float* f_out, float* r_out, float* part) {
-  suffstats_kernel<M><<<grid, kBlock, 0, stream>>>(params, d_in, d_tri, nn_idx, y, n_pad,
-                                                   family, f_out, r_out, part);
+            const float* d_tri, const int* nn_idx, const float* y, int y_stride, int n_pad,
+            int family, float* f_out, float* r_out, float* part) {
+  suffstats_kernel<M><<<grid, kBlock, 0, stream>>>(params, d_in, d_tri, nn_idx, y, y_stride,
+                                                   n_pad, family, f_out, r_out, part);
 }
 
 }  // namespace
@@ -106,23 +109,25 @@ void launch(dim3 grid, cudaStream_t stream, const float* params, const float* d_
 
 // C interface, bound with ctypes by pynngp_tpu_torch/ops/_build.py.
 //   params (C, 6); d_in (m, n_pad); d_tri (m(m-1)/2, n_pad); nn_idx (m, n_pad)
-//   int32; y (n,); f_out, r_out (C, n_pad); part (2, C, n_pad / 128).
+//   int32; y (n,) with y_stride 0, or (C, n) with y_stride n; f_out, r_out
+//   (C, n_pad); part (2, C, n_pad / 128).
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int vecchia_suffstats_f32(const float* params, const float* d_in,
                                      const float* d_tri, const int* nn_idx, const float* y,
-                                     int n_pad, int m, int chains, int family, float* f_out,
-                                     float* r_out, float* part, void* stream) {
+                                     int y_stride, int n_pad, int m, int chains, int family,
+                                     float* f_out, float* r_out, float* part,
+                                     void* stream) {
   using namespace vecchia;
-  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535) {
+  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535 || y_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_pad / kBlock, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 7: launch<7>(grid, s, params, d_in, d_tri, nn_idx, y, n_pad, family, f_out, r_out, part); break;
-    case 10: launch<10>(grid, s, params, d_in, d_tri, nn_idx, y, n_pad, family, f_out, r_out, part); break;
-    case 15: launch<15>(grid, s, params, d_in, d_tri, nn_idx, y, n_pad, family, f_out, r_out, part); break;
-    case 20: launch<20>(grid, s, params, d_in, d_tri, nn_idx, y, n_pad, family, f_out, r_out, part); break;
+    case 7: launch<7>(grid, s, params, d_in, d_tri, nn_idx, y, y_stride, n_pad, family, f_out, r_out, part); break;
+    case 10: launch<10>(grid, s, params, d_in, d_tri, nn_idx, y, y_stride, n_pad, family, f_out, r_out, part); break;
+    case 15: launch<15>(grid, s, params, d_in, d_tri, nn_idx, y, y_stride, n_pad, family, f_out, r_out, part); break;
+    case 20: launch<20>(grid, s, params, d_in, d_tri, nn_idx, y, y_stride, n_pad, family, f_out, r_out, part); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

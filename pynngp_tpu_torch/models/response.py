@@ -2,7 +2,7 @@
 alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
 
 Ported: homogeneous noise, one device, the distance-plane table layout,
-closed-form kernels; fixed effects (``x=``) on the MWG path.  Every other
+closed-form kernels; fixed effects (``x=``) on every path.  Every other
 option of the reference raises.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
@@ -18,6 +18,21 @@ Sampler (Metropolis-within-Gibbs, batched over C chains):
   - step sizes adapt (Robbins-Monro) during burn-in.
 ``fit_map`` runs Adam on ``full_logpost`` and a Laplace fit through the
 differentiable suffstats (kernel 2 on the GPU).
+
+``sample_nuts`` and ``sample_hmc`` sample the joint unconstrained posterior
+u = [log sigma2, logit phi, log tau2, beta...] of all chains at once: every
+leapfrog step is one ``full_logpost`` value and gradient, one launch of
+kernel 2 for all chains.  With fixed effects the residual y - X beta_c
+differs by chain and its gradient flows back through the y cotangent of the
+differentiable suffstats (the EMIT_Y instances of kernel 2).
+
+Where u lives.  ``full_logpost`` runs its transforms and priors on the device
+of the u it is given; only (phi, alpha) and, with fixed effects, beta cross to
+the card, and the (C,) sums come back.  ``fit_map``, ``sample_nuts`` and
+``sample_hmc`` keep u, a few numbers per chain, on the host: the tree, the
+warmup and the priors are then host arithmetic instead of hundreds of tiny
+kernel launches per leapfrog step, and the card runs kernel 2 (and the
+y-cotangent gather).  The MWG sampler's state stays on the card.
 """
 
 from __future__ import annotations
@@ -37,9 +52,11 @@ from pynngp_tpu_torch.models.base import (
 )
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.diff_suffstats import diff_suffstats
-from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
 from pynngp_tpu_torch.ops.suffstats import CUDA_M, suffstats
 from pynngp_tpu_torch.priors import log_transform, logit_transform
+from pynngp_tpu_torch.samplers.hmc import make_hmc_kernel
+from pynngp_tpu_torch.samplers.mapfit import map_fit, value_and_grad
 from pynngp_tpu_torch.samplers.mwg import (
     adapt_log_step,
     mh_indep_mix,
@@ -49,6 +66,7 @@ from pynngp_tpu_torch.samplers.mwg import (
     sample_gaussian_precision,
     sample_inverse_gamma,
 )
+from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
 from pynngp_tpu_torch.vecchia import LOG_2PI
 
 __all__ = ["ResponseNNGP", "ResponseState"]
@@ -131,6 +149,8 @@ class ResponseNNGP:
             self._nbr = torch.as_tensor(sd.table.nn_idx.T.astype(np.int64),
                                         device=device)
             self._x_nbr = self.x[self._nbr]  # (m, n, p)
+            # reverse neighbor index, for the y cotangent of full_loglik
+            self.tables = with_children(self.tables)
 
         self.priors = default_priors(coords, y, priors)
         self.theta_names = ("phi", "alpha")
@@ -345,65 +365,173 @@ class ResponseNNGP:
             out["beta"] = state.beta
         return out
 
-    # ---- the joint posterior (MAP / Laplace) ---------------------------
-    # u = [log sigma2, logit phi, log tau2]; a (B, 3) batch of points is a
-    # batch of chains in the fused kernels.
+    # ---- the joint posterior (MAP / Laplace / NUTS / HMC) ---------------
+    # u = [log sigma2, logit phi, log tau2, beta...]; a (B, 3 + p) batch of
+    # points is a batch of chains in the fused kernels.
     def _unpack_full(self, u):
-        return {"sigma2": torch.exp(u[..., 0]),
-                "phi": self._t_phi.forward(u[..., 1]),
-                "tau2": torch.exp(u[..., 2])}
+        """(natural parameters, beta (..., p)) of u (..., 3 + p)."""
+        nat = {"sigma2": torch.exp(u[..., 0]),
+               "phi": self._t_phi.forward(u[..., 1]),
+               "tau2": torch.exp(u[..., 2])}
+        return nat, u[..., 3:3 + self.p]
+
+    def full_dim(self) -> int:
+        return 3 + self.p
 
     def full_loglik(self, u):
-        """log p(y | u) per point of u (..., 3)."""
-        if self.p:
-            raise NotImplementedError(
-                "the joint posterior with fixed effects needs the y cotangent "
-                "of the differentiable suffstats (the emit_y kernel variant), "
-                "which is not ported yet; sample() handles x=")
-        nat = self._unpack_full(u)
+        """log p(y | u) per point of u (..., 3 + p)."""
+        nat, beta = self._unpack_full(u)
         sigma2, phi = nat["sigma2"], nat["phi"]
         alpha = nat["tau2"] / sigma2
+        y = self.y
+        if self.p:
+            # per-point residual (B, n): its beta gradient, -dy' X, is this
+            # product's own backward; dy comes from the kernel's EMIT_Y outputs
+            y = self.y - beta.reshape(-1, self.p).to(self.device) @ self.x.T
         logdet, quad = diff_suffstats(self.kernel, self.tables, phi.reshape(-1),
-                                      alpha.reshape(-1), self.y, self.jitter)
+                                      alpha.reshape(-1), y, self.jitter)
         logdet, quad = logdet.reshape(phi.shape), quad.reshape(phi.shape)
         return -0.5 * (self.n * (LOG_2PI + torch.log(sigma2)) + logdet
                        + quad / sigma2)
 
     def full_logprior(self, u):
         """log p(u): priors + transform Jacobians on the unconstrained vector."""
-        nat = self._unpack_full(u)
+        nat, beta = self._unpack_full(u)
         lp = self.priors["sigma2"].logpdf(nat["sigma2"]) + u[..., 0]
         lp = lp + self.priors["phi"].logpdf(nat["phi"]) + self._t_phi.log_jac(u[..., 1])
-        return lp + self.priors["tau2"].logpdf(nat["tau2"]) + u[..., 2]
+        lp = lp + self.priors["tau2"].logpdf(nat["tau2"]) + u[..., 2]
+        if self.p:
+            lp = lp - 0.5 * ((beta / self.priors["beta_scale"]) ** 2).sum(-1)
+        return lp
 
     def full_logpost(self, u):
-        """log p(u | y) up to a constant; differentiable through kernel 2."""
+        """log p(u | y) up to a constant, the NUTS/HMC/MAP target;
+        differentiable through kernel 2."""
         return self.full_loglik(u) + self.full_logprior(u)
+
+    def full_value_and_grad(self, u):
+        """(log p(u | y) (C,), its gradient (C, 3 + p)) at the points u
+        (C, 3 + p), on u's device: one launch of kernel 2 for all of them."""
+        return value_and_grad(self.full_logpost, u)
 
     def _full_init_u(self, init: Optional[dict] = None):
         init = init or {}
         var_y = torch.var(self.y, unbiased=False)
         pp = self.priors["phi"]
-        return torch.stack([
+        u = torch.stack([
             torch.log(self._tensor(init.get("sigma2", 0.9 * var_y))),
             self._t_phi.inverse(self._tensor(init.get("phi", 0.5 * (pp.lo + pp.hi)))),
             torch.log(self._tensor(init.get("tau2", 0.1 * var_y))),
         ])
+        if self.p:
+            beta = self._tensor(init.get("beta", 0.0)).expand(self.p)
+            u = torch.cat([u, beta])
+        return u
+
+    def _warm_init_u(self, init_u, init_inv_mass, n_chains, gen, init_jitter):
+        """Per-chain starts (C, 3 + p) around a point, dispersed by
+        ``init_jitter`` posterior standard deviations per coordinate (the
+        diagonal of a dense Laplace metric; 1 without a metric)."""
+        host = lambda a: torch.as_tensor(a, dtype=self.dtype).to(gen.device)
+        u = host(init_u)
+        if init_inv_mass is None:
+            scale = torch.ones_like(u)
+        else:
+            im = host(init_inv_mass)
+            scale = torch.sqrt(torch.diagonal(im) if im.dim() == 2 else im)
+        eps = torch.randn((n_chains, u.shape[0]), generator=gen, dtype=self.dtype,
+                          device=gen.device)
+        return u + init_jitter * scale * eps
 
     def fit_map(self, n_steps: int = 300, learning_rate: float = 5e-2,
                 init: Optional[dict] = None):
         """Adam MAP + Laplace approximation on the joint unconstrained
-        posterior (samplers/mapfit.py)."""
-        from pynngp_tpu_torch.samplers.mapfit import map_fit
-
-        return map_fit(self.full_logpost, self._full_init_u(init),
+        posterior (samplers/mapfit.py); u and the result live on the host."""
+        return map_fit(self.full_logpost, self._full_init_u(init).cpu(),
                        n_steps=n_steps, learning_rate=learning_rate)
+
+    def _collect_full(self, state, info_keys=()):
+        nat, beta = self._unpack_full(state.z)
+        out = dict(nat)
+        out["logpost"] = state.value
+        out["diverging"] = state.info.diverging
+        for key in info_keys:
+            out[key] = getattr(state.info, key)
+        if self.p:
+            out["beta"] = beta
+        return out
+
+    def _sample_gradient(self, make_kernel, info_keys, n_samples, n_burn, thin,
+                         n_chains, seed, init, init_u, init_inv_mass,
+                         init_jitter, driver_kwargs):
+        """The shared body of sample_nuts and sample_hmc: per-chain starts,
+        the sampler's (init, step) pair on full_value_and_grad, and
+        run_chains_chunked; ``info_keys`` names the sampler's own per-draw
+        diagnostics.  The sampler's state and its generator are on the host."""
+        gen = torch.Generator().manual_seed(seed)
+        if init_inv_mass is not None:
+            init_inv_mass = torch.as_tensor(init_inv_mass, dtype=self.dtype).cpu()
+        init_kernel, step_kernel = make_kernel(self.full_value_and_grad,
+                                               init_inv_mass)
+
+        def init_fn(chains):
+            if init_u is not None:
+                u0 = self._warm_init_u(init_u, init_inv_mass, chains, gen,
+                                       init_jitter)
+            else:  # a cold start: a small jitter for overdispersed chains
+                u0 = self._warm_init_u(self._full_init_u(init), None, chains,
+                                       gen, 0.1)
+            return init_kernel(gen, u0)
+
+        collect = lambda state: self._collect_full(state, info_keys)
+        _, draws = run_chains_chunked(gen, init_fn, step_kernel, collect,
+                                      n_chains, n_samples, n_burn, thin,
+                                      **driver_kwargs)
+        if n_chains == 1:
+            draws = {k: v[0] for k, v in draws.items()}
+        return draws
+
+    def sample_nuts(self, n_samples: int, n_burn: int = 500, thin: int = 1,
+                    n_chains: int = 1, seed: int = 0, max_depth: int = 8,
+                    target_accept: float = 0.8, init: Optional[dict] = None,
+                    init_u=None, init_inv_mass=None, init_jitter: float = 1.0,
+                    **driver_kwargs):
+        """NUTS over the joint hyperparameter (+ fixed-effect) posterior;
+        returns numpy draws (n_chains, n_samples) of sigma2, phi, tau2,
+        logpost, diverging, the tree's depth and n_leapfrog, and beta with
+        fixed effects.
+
+        Warm start (``fit_map``): ``init_u`` starts every chain at that
+        unconstrained point, dispersed by ``init_jitter`` posterior standard
+        deviations (``sqrt(init_inv_mass)`` per coordinate);
+        ``init_inv_mass`` also seeds the inverse metric: a (d,) diagonal
+        that warmup refines, or a dense (d, d) matrix frozen through warmup
+        (e.g. ``fit_map().laplace_cov``)."""
+        make = lambda vg, im: make_nuts_kernel(vg, n_burn, max_depth,
+                                               target_accept, init_inv_mass=im)
+        return self._sample_gradient(make, ("depth", "n_leapfrog"), n_samples,
+                                     n_burn, thin, n_chains, seed, init, init_u,
+                                     init_inv_mass, init_jitter, driver_kwargs)
+
+    def sample_hmc(self, n_samples: int, n_burn: int = 500, thin: int = 1,
+                   n_chains: int = 1, seed: int = 0, n_leapfrog: int = 32,
+                   target_accept: float = 0.8, init: Optional[dict] = None,
+                   init_u=None, init_inv_mass=None, init_jitter: float = 1.0,
+                   **driver_kwargs):
+        """Fixed-length (jittered) HMC over the joint posterior, with the
+        warm-start options of :meth:`sample_nuts`; its draws carry
+        accept_prob in place of the tree's diagnostics."""
+        make = lambda vg, im: make_hmc_kernel(vg, n_burn, n_leapfrog,
+                                              target_accept, init_inv_mass=im)
+        return self._sample_gradient(make, ("accept_prob",), n_samples, n_burn,
+                                     thin, n_chains, seed, init, init_u,
+                                     init_inv_mass, init_jitter, driver_kwargs)
 
     def theta_proposal_cov(self, laplace_cov):
         """Project the full-u Laplace covariance onto the Metropolis theta
         block (logit phi, log alpha = log tau2 - log sigma2)."""
         c = _numpy(laplace_cov)
-        t = np.zeros((len(self.theta_names), c.shape[0]))
+        t = np.zeros((len(self.theta_names), c.shape[0]))  # beta columns: 0
         t[0, 1] = 1.0
         t[1, 0], t[1, 2] = -1.0, 1.0
         return t @ c @ t.T
@@ -411,7 +539,7 @@ class ResponseNNGP:
     def theta_proposal_center(self, u_map):
         """Project the full-u MAP point onto the Metropolis theta block."""
         u = _numpy(u_map)
-        return np.asarray([u[1], u[2] - u[0]])
+        return np.asarray([u[1], u[2] - u[0]])  # beta entries dropped
 
     def sample(
         self,

@@ -38,10 +38,15 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # params, d_in, d_tri, nn_idx, y, n_pad, m, chains, family, f, r, part, stream
-    "vecchia_suffstats_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # params, d_in, d_tri, nn_idx, y, n_pad, m, chains, family, part, stream
-    "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m, chains, family, f, r,
+    # part, stream
+    "vecchia_suffstats_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m, chains, family, part,
+    # stream
+    "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m, chains, family, part,
+    # b, rof, stream
+    "vecchia_grad_y_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # params, d_in, d_tri, n_pad, m, chains, family, b, f, stream
     "vecchia_bf_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }

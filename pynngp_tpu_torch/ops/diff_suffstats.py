@@ -1,15 +1,31 @@
 """Differentiable Vecchia sufficient statistics — the counterpart of
 ``make_diff_suffstats`` (``pynngp_tpu/ops/pallas_bf.py:1051-1158``).
 
-:class:`DiffSuffstats` is a ``torch.autograd.Function`` of (phi, alpha) per
-chain.  When phi or alpha requires grad, its forward runs kernel 2
-(``csrc/vecchia_grad.cu``) once: the value and the six partial sums (logdet,
-quad and their phi and alpha derivatives) come out of one pass over the
-tables, and ``backward`` contracts the saved derivatives with the cotangents
-exactly as the reference's ``bwd`` does (``pallas_bf.py:1144-1155``).
-Otherwise it runs kernel 1.  The y cotangent is zero, as at the reference's
-``y_grad=False`` (y is data in the response model without fixed effects);
-a y that requires grad raises until the ``emit_y`` variant is ported.
+:class:`DiffSuffstats` is a ``torch.autograd.Function`` of (phi, alpha, y)
+per chain.  A differentiated call runs kernel 2 once: the value and the six
+partial sums (logdet, quad and their phi and alpha derivatives) come out of
+one pass over the tables, and ``backward`` contracts the saved derivatives
+with the cotangents exactly as the reference's ``bwd`` does
+(``pallas_bf.py:1144-1155``).  An undifferentiated call runs kernel 1.
+
+When y requires grad (the reference's ``y_grad=True``: with fixed effects y
+is the residual y - X beta) the forward runs the ``EMIT_Y`` instances of
+kernel 2 (``csrc/vecchia_grad_y.cu``), which also write the kriging weights
+B (C, m, n_pad) and r/F (C, n_pad), and ``backward`` forms
+  dquad/dy_j = 2 (r/F)_j - 2 sum_{(i,k): N(i)[k] = j} B_{k,i} (r/F)_i
+(:func:`dquad_dy`).  The reference adds the second term with a scatter; here
+it is a gather through the reverse index ``tables.child_flat`` and a dense
+sum over the child axis, so that the result does not depend on the order of
+floating-point atomics and a run repeats bit for bit.  logdet does not
+depend on y.
+
+y is (n,), shared by all chains, or (C, n), one row per chain.
+
+phi and alpha may live on the host while the tables and y live on the card:
+the (C, 6) parameter rows go to the card, and the (C,) sums and derivatives
+come back to phi's device.  A sampler whose state is a few numbers per chain
+can then keep it, and the prior and transform arithmetic around this call,
+off the card, where each of those tiny operations would be a kernel launch.
 
 Per site (u = L^-1 c, v = L^-1 y_N, p = C^-1 c, q = C^-1 y_N):
   F = (1+alpha) - u.u,          r = y_0 - u.v
@@ -24,18 +40,27 @@ import torch
 
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables
-from pynngp_tpu_torch.ops.suffstats import _factor, cuda_args, params_array, suffstats
+from pynngp_tpu_torch.ops.suffstats import (
+    _factor,
+    cuda_args,
+    params_array,
+    suffstats,
+    y_stride,
+)
 
-__all__ = ["COUNT", "DiffSuffstats", "diff_suffstats", "grad_reference",
-           "value_and_grad_sums"]
+__all__ = ["COUNT", "COUNT_Y", "DiffSuffstats", "diff_suffstats", "dquad_dy",
+           "grad_reference", "value_and_grad_sums"]
 
 COUNT = _build.LaunchCount("vecchia_grad")
+COUNT_Y = _build.LaunchCount("vecchia_grad_y")  # the EMIT_Y instances
 
 
-def grad_reference(kernel, tables: SiteTables, params, y):
+def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
     """Plain PyTorch version of kernel 2: (6, C) sums of logdet, quad,
     dlogdet/dphi, dquad/dphi, dlogdet/dalpha, dquad/dalpha, accumulated in
-    float64 and cast to the tables' dtype."""
+    float64 and cast to the tables' dtype.  With ``emit_y`` it returns
+    (sums, B (C, m, n_pad), r/F (C, n_pad)) as the EMIT_Y kernel writes them:
+    B and r/F exactly 0 at padded sites, B also in invalid slots."""
     fac = _factor(kernel, tables, params, y)
     low, u, v, f, valid = fac["low"], fac["u"], fac["v"], fac["f"], fac["valid"]
     mask_f = fac["mask"].to(f.dtype)
@@ -65,72 +90,113 @@ def grad_reference(kernel, tables: SiteTables, params, y):
         df_a * inv_f,
         2.0 * r_over_f * dr_a - ratio2 * df_a,
     ])  # (6, C, n_pad)
-    return terms.sum(-1, dtype=torch.float64).to(f.dtype)
+    sums = terms.sum(-1, dtype=torch.float64).to(f.dtype)
+    if not emit_y:
+        return sums
+    b = torch.where((fac["mask"] & valid[:, None]), p, zero)  # (C, n_pad, m)
+    return sums, b.transpose(1, 2).contiguous(), torch.where(valid, r_over_f, zero)
 
 
-def _launch(kernel, tables: SiteTables, params, y):
+def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
     params, y = cuda_args(tables, params, y)
     chains = params.shape[0]
     dev = tables.d_in.device
     part = torch.empty((6, chains, tables.n_pad // BLOCK), dtype=torch.float32,
                        device=dev)
-    code = _build.library().vecchia_grad_f32(
-        params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-        tables.nn_idx.data_ptr(), y.data_ptr(), tables.n_pad, tables.m, chains,
-        kernel.family, part.data_ptr(), _build.stream_handle(dev),
-    )
-    _build.check(code, "vecchia_grad_f32")
-    COUNT.launches += 1
-    return part.sum(-1, dtype=torch.float64).to(torch.float32)
+    args = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
+            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
+            tables.m, chains, kernel.family, part.data_ptr())
+    if emit_y:
+        b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
+                        device=dev)
+        rof = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
+        code = _build.library().vecchia_grad_y_f32(
+            *args, b.data_ptr(), rof.data_ptr(), _build.stream_handle(dev))
+        _build.check(code, "vecchia_grad_y_f32")
+        COUNT_Y.launches += 1
+    else:
+        code = _build.library().vecchia_grad_f32(*args, _build.stream_handle(dev))
+        _build.check(code, "vecchia_grad_f32")
+        COUNT.launches += 1
+    sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
+    return (sums, b, rof) if emit_y else sums
 
 
-def value_and_grad_sums(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
-    """(6, C) value and derivative sums: kernel 2 for CUDA tensors,
+def value_and_grad_sums(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6,
+                        emit_y: bool = False):
+    """(6, C) value and derivative sums, and with ``emit_y`` also B
+    (C, m, n_pad) and r/F (C, n_pad): kernel 2 for CUDA tensors,
     :func:`grad_reference` for CPU tensors."""
-    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
-                          tables.d_in.device)
+    device = phi.device if isinstance(phi, torch.Tensor) else tables.d_in.device
+    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype, device)
     if tables.d_in.is_cuda:
-        return _launch(kernel, tables, params, y)
+        return _launch(kernel, tables, params, y, emit_y)
     if tables.d_in.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.d_in.device}")
-    COUNT.plain += 1
-    return grad_reference(kernel, tables, params.detach(), y)
+    (COUNT_Y if emit_y else COUNT).plain += 1
+    return grad_reference(kernel, tables, params.detach(), y.detach(), emit_y)
+
+
+def dquad_dy(tables: SiteTables, b, rof):
+    """dquad/dy (C, n) from the EMIT_Y outputs B (C, m, n_pad) and r/F
+    (C, n_pad): site j's own term 2 (r/F)_j minus, for every child i that
+    has j as its slot-k neighbor, 2 B_{k,i} (r/F)_i.
+
+    The children are gathered through ``tables.child_flat`` and summed
+    densely in a fixed order: no atomics, so the gradient is reproducible.
+    The temporary is (C, n, max_children)."""
+    if tables.child_flat is None:
+        raise ValueError("the y cotangent needs the reverse index: build the "
+                         "tables with site_tables.with_children")
+    weighted = (b * rof[:, None, :]).reshape(b.shape[0], -1)  # B_{k,i} (r/F)_i
+    from_children = weighted[:, tables.child_flat].sum(-1)  # (C, n)
+    return 2.0 * (rof[:, :tables.n] - from_children)
 
 
 class DiffSuffstats(torch.autograd.Function):
-    """(logdet, quad) per chain as a differentiable function of (phi, alpha).
+    """(logdet, quad) per chain as a differentiable function of (phi, alpha,
+    y).
 
     ``apply(phi, alpha, y, kernel, tables, jitter)`` with phi, alpha of
-    shape (C,)."""
+    shape (C,) and y of shape (n,) or (C, n)."""
 
     @staticmethod
     def forward(ctx, phi, alpha, y, kernel, tables, jitter):
+        ctx.y_shared = y.dim() == 1
         if ctx.needs_input_grad[2]:
-            raise NotImplementedError(
-                "the y cotangent (y_grad=True, the emit_y kernel variant) is "
-                "not ported yet"
-            )
-        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            sums, b, rof = value_and_grad_sums(kernel, tables, phi, alpha, y,
+                                               jitter, emit_y=True)
+            sums = sums.to(phi)  # phi's device and dtype
+            ctx.tables = tables
+            ctx.save_for_backward(sums[2:], b, rof)
+        elif ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            sums = value_and_grad_sums(kernel, tables, phi, alpha, y, jitter).to(phi)
+            ctx.save_for_backward(sums[2:])
+        else:
             logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter)
-            return logdet.to(phi.dtype), quad.to(phi.dtype)
-        sums = value_and_grad_sums(kernel, tables, phi, alpha, y, jitter)
-        ctx.save_for_backward(sums[2:].to(phi.dtype))
-        return sums[0].to(phi.dtype), sums[1].to(phi.dtype)
+            return logdet.to(phi), quad.to(phi)
+        return sums[0], sums[1]
 
     @staticmethod
     def backward(ctx, g_ld, g_q):
-        (derivs,) = ctx.saved_tensors
+        derivs, *emitted = ctx.saved_tensors
         dld_dphi, dq_dphi, dld_da, dq_da = derivs
         dphi = g_ld * dld_dphi + g_q * dq_dphi
         dalpha = g_ld * dld_da + g_q * dq_da
-        return dphi, dalpha, None, None, None, None
+        dy = None
+        if emitted:
+            dy = g_q[:, None].to(emitted[1]) * dquad_dy(ctx.tables, *emitted)
+            if ctx.y_shared:  # one y for all chains: their cotangents add up
+                dy = dy.sum(0)
+        return dphi, dalpha, dy, None, None, None
 
 
 def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
-    """(logdet, quad) per chain; differentiable in phi and alpha.
+    """(logdet, quad) per chain; differentiable in phi, alpha and y.
 
-    A differentiated call (grad enabled and phi or alpha requiring grad)
-    runs kernel 2 once; any other call runs kernel 1 only."""
+    A differentiated call (grad enabled and phi, alpha or y requiring grad)
+    runs kernel 2 once, its EMIT_Y instances when y requires grad (the
+    tables then need ``child_flat``); any other call runs kernel 1 only."""
     phi = torch.atleast_1d(phi)
     alpha = torch.as_tensor(alpha, dtype=phi.dtype, device=phi.device)
     alpha = torch.atleast_1d(alpha).expand_as(phi)
@@ -138,4 +204,4 @@ def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
                                     or y.requires_grad):
         return DiffSuffstats.apply(phi, alpha, y, kernel, tables, jitter)
     logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter)
-    return logdet.to(phi.dtype), quad.to(phi.dtype)
+    return logdet.to(phi), quad.to(phi)

@@ -12,6 +12,10 @@ read adjacent addresses.
 - ``nn_idx`` (m, n_pad) int32: neighbor ids, from which each thread gathers
   y_N itself.
 
+- ``child_flat`` (n, max_children) int64, optional (:func:`with_children`):
+  the reverse index that the y cotangent of the differentiable suffstats
+  gathers through.
+
 n is padded only to the CUDA block size.  There is no mask plane: every
 ordering packs site i's min(i, m) preceding neighbors into the low slots, so
 slot k is valid iff site > k (``pallas_bf.py:357-374``).  Padded entries are
@@ -21,13 +25,15 @@ built once per dataset.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from pynngp_tpu_torch.neighbors import build_children_table
+
 __all__ = ["BLOCK", "SiteTables", "make_site_tables", "padded_size",
-           "tri_index", "unpack_distances"]
+           "tri_index", "unpack_distances", "with_children"]
 
 BLOCK = 128  # CUDA threads per block along sites (csrc/vecchia_common.cuh)
 
@@ -38,6 +44,7 @@ class SiteTables(NamedTuple):
     nn_idx: torch.Tensor  # (m, n_pad) int32
     n: int  # true site count
     n_pad: int  # padded site count, a multiple of BLOCK
+    child_flat: Optional[torch.Tensor] = None  # (n, max_children) int64
 
     @property
     def m(self) -> int:
@@ -84,6 +91,25 @@ def make_site_tables(data, dtype=torch.float32, device="cpu") -> SiteTables:
         n=n,
         n_pad=n_pad,
     )
+
+
+def with_children(tables: SiteTables) -> SiteTables:
+    """The tables with ``child_flat``, the reverse index of ``nn_idx``: row j
+    lists, for every site i that has j as its slot-k neighbor, the flat
+    position ``k * n_pad + i`` of B[k, i] in a plane-major (m * n_pad) weight
+    array.  Rows are padded with 0, the position of slot 0 of site 0, which
+    has no neighbors: a weight array is exactly 0 there, so a sum over a row
+    needs no mask.  Built once per dataset, on the host."""
+    if tables.child_flat is not None:
+        return tables
+    n, m = tables.n, tables.m
+    nn_idx = tables.nn_idx[:, :n].T.cpu().numpy()
+    nn_mask = np.arange(n)[:, None] > np.arange(m)[None, :]
+    ch = build_children_table(np.ascontiguousarray(nn_idx), nn_mask)
+    flat = np.where(ch.child_mask, ch.child_slot.astype(np.int64) * tables.n_pad
+                    + ch.child_idx, 0)
+    return tables._replace(
+        child_flat=torch.as_tensor(flat, device=tables.nn_idx.device))
 
 
 def unpack_distances(tables: SiteTables):

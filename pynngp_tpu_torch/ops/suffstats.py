@@ -4,7 +4,9 @@
 :func:`suffstats` launches kernel 1 (``csrc/vecchia_suffstats.cu``) for CUDA
 tensors and runs :func:`suffstats_reference`, its plain PyTorch version, for
 CPU tensors.  Chains are an explicit leading axis: ``phi`` and ``alpha`` are
-(C,) tensors, and the tables and y are shared by all chains.
+(C,) tensors, the tables are shared by all chains, and y is either (n,),
+shared, or (C, n), one row per chain (the residual y - X beta with fixed
+effects).
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ def params_array(phi, alpha, jitter, n, dtype, device=None):
 
 
 def _plain_inputs(tables: SiteTables, y):
-    """Site-major distances, slot masks, y_N and y_own for the plain versions."""
+    """Site-major distances, slot masks, y_N and y_own for the plain
+    versions; y is (n,) or (C, n)."""
     d_in, d_nn = unpack_distances(tables)
     site = torch.arange(tables.n_pad, device=d_in.device)
     mask = site[:, None] > torch.arange(tables.m, device=d_in.device)[None, :]
-    y_nbr = y[tables.nn_idx.T.long()] * mask.to(y.dtype)  # (n_pad, m)
+    y_nbr = y[..., tables.nn_idx.T.long()] * mask.to(y.dtype)  # (..., n_pad, m)
     y_own = torch.nn.functional.pad(y, (0, tables.n_pad - tables.n))
     valid = site < tables.n
     return d_in, d_nn, mask, y_nbr, y_own, valid
@@ -50,7 +53,11 @@ def _factor(kernel, tables, params, y):
     phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
     c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
                                       mask)
-    low = torch.linalg.cholesky(c_mat)  # (C, n_pad, m, m)
+    # a system that is not positive definite (a chain at a non-finite or
+    # absurd point) gives NaN, as the kernels do, and raises nothing: the
+    # gradient samplers treat a NaN energy as a divergence
+    low, info = torch.linalg.cholesky_ex(c_mat)  # (C, n_pad, m, m)
+    low = torch.where(info[..., None, None] > 0, torch.nan, low)
     u = torch.linalg.solve_triangular(low, c_vec[..., None], upper=False)
     v = torch.linalg.solve_triangular(low, y_nbr[..., None], upper=False)
     u, v = u[..., 0], v[..., 0]
@@ -75,7 +82,10 @@ def suffstats_reference(kernel, tables: SiteTables, params, y):
 
 def cuda_args(tables: SiteTables, params, y=None):
     """Validate the inputs of a CUDA launch; returns (params, y) as
-    contiguous float32 tensors (y stays None for a kernel that reads none)."""
+    contiguous float32 tensors (y stays None for a kernel that reads none).
+    y is (n,), shared by all chains, or (C, n): :func:`y_stride` of it is the
+    kernels' chain stride.  ``params`` may live on the host (a sampler that
+    keeps its few parameters there): the (C, 6) rows are copied to the card."""
     if tables.m not in CUDA_M:
         raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}, "
                          f"got m={tables.m}")
@@ -89,16 +99,23 @@ def cuda_args(tables: SiteTables, params, y=None):
     if y is not None:
         if y.dtype != torch.float32 or y.device != tables.d_in.device:
             raise ValueError("y must be a float32 tensor on the tables' device")
-        if y.shape != (tables.n,):
-            raise ValueError(f"y must have shape ({tables.n},), got "
+        if y.shape not in ((tables.n,), (params.shape[0], tables.n)):
+            raise ValueError(f"y must have shape ({tables.n},) or "
+                             f"({params.shape[0]}, {tables.n}), got "
                              f"{tuple(y.shape)}")
-        y = y.contiguous()
+        y = y.detach().contiguous()
     if tables.n >= 2**24:  # n rides the float32 params row (exact below 2^24)
         raise ValueError(f"n={tables.n} sites exceeds the kernels' 2^24 limit")
-    params = params.detach().to(torch.float32).contiguous()
-    if params.device != tables.d_in.device or params.shape[-1] != 6:
-        raise ValueError("params must be (C, 6) on the tables' device")
+    if params.dim() != 2 or params.shape[-1] != 6:
+        raise ValueError("params must be (C, 6)")
+    params = params.detach().to(device=tables.d_in.device,
+                                dtype=torch.float32).contiguous()
     return params, y
+
+
+def y_stride(y) -> int:
+    """Elements between two chains' y: 0 for a shared (n,) y."""
+    return 0 if y.dim() == 1 else y.shape[-1]
 
 
 def _launch(kernel, tables: SiteTables, params, y):
@@ -111,8 +128,9 @@ def _launch(kernel, tables: SiteTables, params, y):
                        device=dev)
     code = _build.library().vecchia_suffstats_f32(
         params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-        tables.nn_idx.data_ptr(), y.data_ptr(), tables.n_pad, tables.m, chains,
-        kernel.family, f.data_ptr(), resid.data_ptr(), part.data_ptr(),
+        tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
+        tables.m, chains, kernel.family, f.data_ptr(), resid.data_ptr(),
+        part.data_ptr(),
         _build.stream_handle(dev),
     )
     _build.check(code, "vecchia_suffstats_f32")
@@ -129,7 +147,7 @@ def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
       kernel: a closed-form kernel of :mod:`pynngp_tpu_torch.kernels`.
       tables: :class:`SiteTables` of the dataset.
       phi, alpha: (C,) per-chain range and relative nugget (scalars give C=1).
-      y: (n,) ordered values, shared by all chains.
+      y: (n,) ordered values shared by all chains, or (C, n) per chain.
     Returns logdet, quad as (C,) and f, resid as (C, n_pad); padded sites are
     excluded from the sums.  CUDA tensors launch kernel 1; CPU tensors run
     :func:`suffstats_reference`.

@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["MAPResult", "map_fit", "laplace_moments"]
+__all__ = ["MAPResult", "map_fit", "laplace_moments", "value_and_grad"]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 _FD_STEP = 1e-3  # first-pass finite-difference step of the Laplace Hessian
@@ -30,7 +30,7 @@ class MAPResult(NamedTuple):
     trace: torch.Tensor  # (n_steps,) log-posterior trace
 
 
-def _value_and_grad(logpost_fn: Callable, u):
+def value_and_grad(logpost_fn: Callable, u):
     """(values (B,), gradients (B, k)) at a batch of points u (B, k)."""
     u = u.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -52,7 +52,7 @@ def map_fit(logpost_fn: Callable, u0, n_steps: int = 300,
     best_v = torch.full((), -torch.inf, dtype=u.dtype, device=u.device)
     trace = []
     for step in range(1, n_steps + 1):
-        v, g = _value_and_grad(logpost_fn, u[None])
+        v, g = value_and_grad(logpost_fn, u[None])
         v, g = v[0], -g[0]  # minimize the negated log-posterior, as optax
         mu = (1.0 - _B1) * g + _B1 * mu
         nu = (1.0 - _B2) * (g * g) + _B2 * nu
@@ -65,11 +65,11 @@ def map_fit(logpost_fn: Callable, u0, n_steps: int = 300,
         trace.append(v)
         u = u_new
     # prefer the final iterate when it improves on the running best
-    v_last, _ = _value_and_grad(logpost_fn, u[None])
+    v_last, _ = value_and_grad(logpost_fn, u[None])
     better = v_last[0] > best_v
     u_map = torch.where(better, u, best_u)
     v_map = torch.where(better, v_last[0], best_v)
-    _, g_map = _value_and_grad(logpost_fn, u_map[None])
+    _, g_map = value_and_grad(logpost_fn, u_map[None])
     converged = g_map.abs().max() < grad_tol
     var, cov = laplace_moments(logpost_fn, u_map)
     return MAPResult(u=u_map, value=v_map, laplace_var=var, laplace_cov=cov,
@@ -93,7 +93,7 @@ def laplace_moments(logpost_fn: Callable, u_map):
     def moments(steps):
         shift = steps[:, None] * eye
         pts = torch.cat([u_map + shift, u_map - shift])  # (2k, k)
-        _, g = _value_and_grad(logpost_fn, pts)
+        _, g = value_and_grad(logpost_fn, pts)
         h_rows = (g[:k] - g[k:]) / (2.0 * steps[:, None])  # row i = d grad/d u_i
         h = (-0.5 * (h_rows + h_rows.T)).cpu()
         evals, evecs = torch.linalg.eigh(h)

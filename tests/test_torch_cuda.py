@@ -18,7 +18,7 @@ from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.ops import bf as bops
 from pynngp_tpu_torch.ops import diff_suffstats as dops
 from pynngp_tpu_torch.ops import suffstats as fops
-from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
 pytestmark = pytest.mark.cuda
@@ -153,3 +153,146 @@ def test_model_on_card_goes_through_the_kernels(card):
     assert fops.COUNT.launches > before[0] and dops.COUNT.launches > before[1]
     assert (fops.COUNT.plain, dops.COUNT.plain) == before[2:]
     assert all(np.isfinite(v).all() for v in draws.values())
+
+
+# ---- the EMIT_Y instances of kernel 2 and the gradient samplers -------------
+
+
+def _y_problem(dev, m, per_chain, n=1500, seed=3):
+    tab32, tab64, y, phi, alpha = _problem(dev, n=n, m=m, seed=seed)
+    tab32, tab64 = with_children(tab32), with_children(tab64)
+    if per_chain:
+        rng = np.random.default_rng(seed + 1)
+        y = y + 0.1 * torch.as_tensor(rng.standard_normal((3, n)),
+                                      dtype=torch.float32, device=dev)
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, dev)
+    return tab32, tab64, y, phi, alpha, params
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_grad_y_kernel_matches_plain(card, m, per_chain):
+    """The EMIT_Y instances in float32 against the float64 plain version: the
+    six sums at kernel 2's tolerances, B atol 3e-5 (kernel 3's), r/F at kernel
+    1's limit for r (rtol 2e-3, atol 1e-4); B and r/F exactly 0 at padded
+    sites and B in invalid slots; one launch of the EMIT_Y count only."""
+    kern = kernels.Exponential()
+    tab32, tab64, y, phi, alpha, params = _y_problem(card, m, per_chain)
+    before = (dops.COUNT_Y.launches, dops.COUNT.launches)
+    sums, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, emit_y=True)
+    torch.cuda.synchronize()
+    assert (dops.COUNT_Y.launches, dops.COUNT.launches) == (before[0] + 1, before[1])
+    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, y.double(), emit_y=True)
+    n = tab32.n
+    assert b.shape == (3, m, tab32.n_pad) and rof.shape == (3, tab32.n_pad)
+    torch.testing.assert_close(sums.double()[:2], want[:2], rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(sums.double()[2:], want[2:], rtol=2e-4, atol=0.0)
+    torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=3e-5)
+    torch.testing.assert_close(rof.double(), rof_p, rtol=2e-3, atol=1e-4)
+    assert (b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all()
+    assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
+    # kernels 1 and 2 read the same per-chain y
+    ld, q, _, _ = fops.suffstats(kern, tab32, phi, alpha, y)
+    torch.testing.assert_close(ld.double(), want[0], rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(q.double(), want[1], rtol=3e-4, atol=0.0)
+    plain = dops.value_and_grad_sums(kern, tab32, phi, alpha, y)
+    torch.testing.assert_close(plain, sums, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: repr(k))
+def test_y_cotangent_on_the_card_matches_float64(card, kern, per_chain):
+    """dquad/dy and the phi, alpha gradients through DiffSuffstats on the card
+    (EMIT_Y kernel + gather) against autograd through the float64 plain
+    factorization: dy rtol 2e-3, atol 2e-4 (tests/test_pallas.py:205-209,
+    taken there at alpha = 0.12).  dy is a sum of terms r/F with F >= alpha,
+    so its absolute error grows as 1/alpha: the chain at alpha = 0.05 is held
+    to atol 2e-4 * 0.12 / 0.05.  The gather gives the same bits twice."""
+    tab32, tab64, y, phi, alpha, params = _y_problem(card, 7, per_chain)
+    leaves = [t.clone().requires_grad_(True) for t in (phi, alpha, y)]
+    ld, q = dops.diff_suffstats(kern, tab32, *leaves)
+    got = torch.autograd.grad((0.7 * ld + 1.3 * q).sum(), leaves)
+    ld2, q2 = dops.diff_suffstats(kern, tab32, *leaves)
+    again = torch.autograd.grad((0.7 * ld2 + 1.3 * q2).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = [t.double().clone().requires_grad_(True) for t in (phi, alpha, y)]
+    pr = fops.params_array(ref[0], ref[1], np.float32(1e-6), tab64.n,
+                           torch.float64, card)
+    ld_p, q_p, _, _ = fops.suffstats_reference(kern, tab64, pr, ref[2])
+    want = torch.autograd.grad((0.7 * ld_p + 1.3 * q_p).sum(), ref)
+    torch.testing.assert_close(got[0].double(), want[0], rtol=2e-4, atol=0.0)
+    torch.testing.assert_close(got[1].double(), want[1], rtol=2e-4, atol=0.0)
+    dy, dy_ref = got[2].double(), want[2]
+    if not per_chain:  # the chains' cotangents add up: the loosest limit holds
+        dy, dy_ref = dy[None], dy_ref[None]
+        atol = [2e-4 * max(1.0, 0.12 / float(alpha.min()))]
+    else:
+        atol = [2e-4 * max(1.0, 0.12 / float(a)) for a in alpha]
+    for c, limit in enumerate(atol):
+        torch.testing.assert_close(dy[c], dy_ref[c], rtol=2e-3, atol=limit)
+
+
+def test_gradient_samplers_on_card_go_through_kernel_2(card):
+    """fit_map, sample_nuts and sample_hmc on the card, with and without
+    fixed effects: every value-and-gradient is one kernel-2 launch (the
+    EMIT_Y instances with x=), no plain version is called, and two runs from
+    one seed give identical draws."""
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(2000, 2))
+    x = np.column_stack([np.ones(2000), rng.standard_normal(2000)])
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2000)
+    plain = (fops.COUNT.plain, dops.COUNT.plain, dops.COUNT_Y.plain)
+
+    model = ResponseNNGP(coords, y, m=7, device="cuda")
+    mp = model.fit_map(n_steps=60)
+    kwargs = dict(n_burn=40, n_chains=4, seed=0, max_depth=5, init_u=mp.u,
+                  init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    before = (dops.COUNT.launches, dops.COUNT_Y.launches)
+    draws = model.sample_nuts(40, **kwargs)
+    assert dops.COUNT.launches >= before[0] + 80
+    assert dops.COUNT_Y.launches == before[1]
+    again = model.sample_nuts(40, **kwargs)
+    for key in draws:
+        np.testing.assert_array_equal(draws[key], again[key], err_msg=key)
+    hmc_draws = model.sample_hmc(20, n_burn=20, n_chains=4, seed=1, n_leapfrog=8,
+                                 init_u=mp.u, init_inv_mass=mp.laplace_cov)
+
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), m=7, x=x,
+                         device="cuda")
+    mpx = fixed.fit_map(n_steps=100)
+    before = dops.COUNT_Y.launches
+    kwargs.update(init_u=mpx.u, init_inv_mass=mpx.laplace_cov)
+    fx = fixed.sample_nuts(60, **kwargs)
+    assert dops.COUNT_Y.launches >= before + 100
+    fx_again = fixed.sample_nuts(60, **kwargs)
+    for key in fx:
+        np.testing.assert_array_equal(fx[key], fx_again[key], err_msg=key)
+    assert fx["beta"].shape == (4, 60, 2)
+    assert abs(fx["beta"][..., 1].mean() + 2.0) < 0.1
+    for out in (draws, hmc_draws, fx):
+        assert all(np.isfinite(v).all() for v in out.values())
+    assert (fops.COUNT.plain, dops.COUNT.plain, dops.COUNT_Y.plain) == plain
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])
+def test_host_parameters_with_device_tables(card, per_chain):
+    """phi and alpha on the host, tables and y on the card: the values and
+    the phi, alpha gradients come back on the host and equal, bit for bit,
+    those of parameters that live on the card; dy stays on the card."""
+    kern = kernels.SqExp()
+    tab32, _, y, phi, alpha, _ = _y_problem(card, 7, per_chain)
+    on_card = [t.clone().requires_grad_(True) for t in (phi, alpha, y)]
+    on_host = [phi.cpu().requires_grad_(True), alpha.cpu().requires_grad_(True),
+               y.clone().requires_grad_(True)]
+    out = []
+    for leaves in (on_card, on_host):
+        ld, q = dops.diff_suffstats(kern, tab32, *leaves)
+        assert ld.device == leaves[0].device and q.device == leaves[0].device
+        out.append((ld, q) + torch.autograd.grad((0.7 * ld + 1.3 * q).sum(), leaves))
+        with torch.no_grad():
+            ld0, _ = dops.diff_suffstats(kern, tab32, *leaves)
+        assert ld0.device == leaves[0].device
+    for a, b in zip(*out):
+        assert torch.equal(a.detach().cpu(), b.detach().cpu())
+    assert out[1][2].device.type == "cpu" and out[1][4].is_cuda

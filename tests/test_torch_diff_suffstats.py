@@ -1,7 +1,8 @@
 """The port's differentiable suffstats (kernel 2's plain version on CPU
 tensors) against ``jax.grad`` of the reference's ``make_diff_suffstats``
 (Pallas value+grad kernel in interpret mode), in float64, rtol 1e-8; and
-``torch.autograd.gradcheck`` of the analytic derivatives."""
+``torch.autograd.gradcheck`` of the analytic derivatives; the same for the
+y cotangent (``y_grad=True``), with the planes B and r/F it is formed from."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,7 @@ from pynngp_tpu.ops import pallas_bf as pb
 from pynngp_tpu_torch import kernels, vecchia
 from pynngp_tpu_torch.ops import diff_suffstats as dops
 from pynngp_tpu_torch.ops import suffstats as fops
-from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
 
 JITTER = 2.0**-20
 POINTS = ((0.25, 0.125), (0.5, 0.0625))  # (phi, alpha) of C = 2 chains
@@ -107,8 +108,147 @@ def test_undifferentiated_call_runs_the_forward_kernel_only():
 
 
 def test_y_cotangent_raises_until_ported():
+    """The y cotangent is ported: it raises only where the tables lack the
+    reverse neighbor index it gathers through."""
     tables, y = _tiny()
     phi = torch.tensor([0.3], dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        dops.diff_suffstats(kernels.SqExp(), tables, phi, 0.1,
-                            y.clone().requires_grad_(True))
+    y = y.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="with_children"):
+        _, q = dops.diff_suffstats(kernels.SqExp(), tables, phi, 0.1, y)
+        q.sum().backward()
+    _, q = dops.diff_suffstats(kernels.SqExp(), with_children(tables), phi, 0.1, y)
+    q.sum().backward()
+    assert y.grad.shape == y.shape and torch.isfinite(y.grad).all()
+
+
+# ---- the y cotangent (y_grad=True, the EMIT_Y variant of kernel 2) ---------
+
+
+@pytest.mark.parametrize("jkern,kern", KERNELS[:3], ids=[repr(k[1]) for k in KERNELS[:3]])
+def test_y_gradient_matches_jax(problem, jkern, kern):
+    """(logdet, quad) and the gradient with respect to (phi, alpha, y) against
+    jax.grad of make_diff_suffstats(y_grad=True), the Pallas value+grad kernel
+    with emit_y in interpret mode, as tests/test_pallas.py:185-209 runs it.
+    Float64, rtol 1e-8 (dy also atol 1e-10 of its largest entry: single
+    entries cancel to near zero)."""
+    suff = pb.make_diff_suffstats(jkern, problem["cache"], jitter=JITTER,
+                                  y_grad=True)
+
+    def scalar(phi, alpha, y):
+        ld, q = suff(phi, alpha, y)
+        return 0.7 * ld + 1.3 * q, (ld, q)
+
+    vg = jax.jit(jax.value_and_grad(scalar, argnums=(0, 1, 2), has_aux=True))
+    tables = with_children(problem["tables"])
+    phi = torch.tensor([p for p, _ in POINTS], dtype=torch.float64,
+                       requires_grad=True)
+    alpha = torch.tensor([a for _, a in POINTS], dtype=torch.float64,
+                         requires_grad=True)
+    y = problem["y"].clone().requires_grad_(True)
+    ld, q = dops.diff_suffstats(kern, tables, phi, alpha, y, JITTER)
+    # one scalar per chain, so that the shared y's gradient splits by chain
+    dy = [torch.autograd.grad((0.7 * ld + 1.3 * q)[c], (phi, alpha, y),
+                              retain_graph=True) for c in range(len(POINTS))]
+    ld, q = ld.detach(), q.detach()
+    for c, (p, a) in enumerate(POINTS):
+        (_, (ld_j, q_j)), (gp_j, ga_j, gy_j) = vg(jnp.float64(p), jnp.float64(a),
+                                                  problem["y_jax"])
+        np.testing.assert_allclose(float(ld[c]), float(ld_j), rtol=1e-8)
+        np.testing.assert_allclose(float(q[c]), float(q_j), rtol=1e-8)
+        np.testing.assert_allclose(float(dy[c][0][c]), float(gp_j), rtol=1e-8)
+        np.testing.assert_allclose(float(dy[c][1][c]), float(ga_j), rtol=1e-8)
+        gy_j = np.asarray(gy_j)
+        np.testing.assert_allclose(dy[c][2].numpy(), gy_j, rtol=1e-8,
+                                   atol=1e-10 * np.abs(gy_j).max())
+
+
+def test_emitted_planes_match_jax(problem):
+    """B and r/F of the plain version (what the EMIT_Y kernel writes) against
+    pallas_bf and pallas_suffstats in interpret mode: rtol 1e-8 (B also atol
+    1e-12), and exactly 0 at padded sites and in invalid slots."""
+    jkern, kern = KERNELS[0]
+    tables = problem["tables"]
+    n, m = tables.n, tables.m
+    phi = torch.tensor([p for p, _ in POINTS], dtype=torch.float64)
+    alpha = torch.tensor([a for _, a in POINTS], dtype=torch.float64)
+    _, b, rof = dops.value_and_grad_sums(kern, tables, phi, alpha, problem["y"],
+                                         JITTER, emit_y=True)
+    assert b.shape == (2, m, tables.n_pad) and rof.shape == (2, tables.n_pad)
+    assert tables.n_pad > n
+    assert (b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all()
+    assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
+    for c, (p, a) in enumerate(POINTS):
+        params = {"phi": jnp.float64(p)}
+        b_j, _ = pb.pallas_bf(jkern, params, problem["cache"], alpha=a, jitter=JITTER)
+        _, _, f4, r4 = pb.pallas_suffstats(jkern, params, problem["cache"],
+                                           problem["y_jax"], alpha=a, jitter=JITTER)
+        rof_j = (np.asarray(r4) / np.asarray(f4)).reshape(-1)[:n]
+        np.testing.assert_allclose(b[c, :, :n].T.numpy(), np.asarray(b_j),
+                                   rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(rof[c, :n].numpy(), rof_j, rtol=1e-8, atol=1e-14)
+
+
+def test_per_chain_y_equals_separate_calls(problem):
+    """A (C, n) y gives, chain by chain, what C calls with a shared y give:
+    values, phi and alpha gradients and dy, differentiated and not."""
+    kern = kernels.Exponential()
+    tables = with_children(problem["tables"])
+    rng = np.random.default_rng(4)
+    ys = torch.as_tensor(rng.standard_normal((2, tables.n)))
+    phi = torch.tensor([p for p, _ in POINTS], dtype=torch.float64)
+    alpha = torch.tensor([a for _, a in POINTS], dtype=torch.float64)
+    with torch.no_grad():
+        ld0, q0 = dops.diff_suffstats(kern, tables, phi, alpha, ys, JITTER)
+    leaves = [t.clone().requires_grad_(True) for t in (phi, alpha, ys)]
+    ld, q = dops.diff_suffstats(kern, tables, *leaves, JITTER)
+    grads = torch.autograd.grad((0.7 * ld + 1.3 * q).sum(), leaves)
+    torch.testing.assert_close(ld.detach(), ld0, rtol=1e-12, atol=0.0)
+    torch.testing.assert_close(q.detach(), q0, rtol=1e-12, atol=0.0)
+    for c in range(2):
+        one = [phi[c:c + 1].clone().requires_grad_(True),
+               alpha[c:c + 1].clone().requires_grad_(True),
+               ys[c].clone().requires_grad_(True)]
+        ld1, q1 = dops.diff_suffstats(kern, tables, *one, JITTER)
+        g1 = torch.autograd.grad((0.7 * ld1 + 1.3 * q1).sum(), one)
+        torch.testing.assert_close(ld[c].detach(), ld1[0].detach(), rtol=1e-12, atol=0.0)
+        torch.testing.assert_close(q[c].detach(), q1[0].detach(), rtol=1e-12, atol=0.0)
+        torch.testing.assert_close(grads[0][c], g1[0][0], rtol=1e-11, atol=0.0)
+        torch.testing.assert_close(grads[1][c], g1[1][0], rtol=1e-11, atol=0.0)
+        torch.testing.assert_close(grads[2][c], g1[2], rtol=1e-11, atol=1e-14)
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared", "per_chain"])
+def test_gradcheck_y(per_chain):
+    rng = np.random.default_rng(8)
+    n, m = 60, 4
+    data, _ = vecchia.make_vecchia_data(rng.uniform(size=(n, 2)), m,
+                                        dtype=torch.float64)
+    tables = with_children(make_site_tables(data, dtype=torch.float64))
+    y = torch.as_tensor(rng.standard_normal((2, n) if per_chain else n))
+    y.requires_grad_(True)
+    phi = torch.tensor([0.2, 0.35], dtype=torch.float64, requires_grad=True)
+    alpha = torch.tensor([0.1, 0.3], dtype=torch.float64, requires_grad=True)
+    kern = kernels.Matern(nu=1.5)
+    fn = lambda p, a, yy: dops.DiffSuffstats.apply(p, a, yy, kern, tables, JITTER)
+    assert torch.autograd.gradcheck(fn, (phi, alpha, y))
+
+
+def test_dy_gather_equals_scatter():
+    """The deterministic gather of dquad_dy against the reference's own
+    formulation, a scatter-add of -2 B (r/F) onto the neighbors
+    (pallas_bf.py:1082-1091), on random planes."""
+    rng = np.random.default_rng(2)
+    data, _ = vecchia.make_vecchia_data(rng.uniform(size=(300, 2)), 6,
+                                        dtype=torch.float64)
+    tables = with_children(make_site_tables(data, dtype=torch.float64))
+    n, m, n_pad = tables.n, tables.m, tables.n_pad
+    site = torch.arange(n_pad)
+    mask = (site[None, :] > torch.arange(m)[:, None]) & (site < n)[None, :]
+    b = torch.as_tensor(rng.standard_normal((3, m, n_pad))) * mask
+    rof = torch.as_tensor(rng.standard_normal((3, n_pad))) * (site < n)
+    got = dops.dquad_dy(tables, b, rof)
+    want = 2.0 * rof.clone()
+    idx = tables.nn_idx.long().reshape(-1)
+    for c in range(3):
+        want[c].index_add_(0, idx, (-2.0 * b[c] * rof[c][None, :]).reshape(-1))
+    torch.testing.assert_close(got, want[:, :n], rtol=1e-12, atol=1e-13)

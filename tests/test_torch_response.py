@@ -320,8 +320,95 @@ def test_fixed_effects_posterior_agrees_with_reference(models_x):
 
 
 def test_fixed_effects_joint_posterior_is_not_ported(models_x):
+    """It is ported now: full_loglik and fit_map take a model with x=, through
+    the y cotangent of the differentiable suffstats."""
     _, tm = models_x
-    with pytest.raises(NotImplementedError):
-        tm.fit_map(n_steps=2)
-    with pytest.raises(NotImplementedError):
-        tm.full_loglik(torch.zeros(3, dtype=torch.float64))
+    assert tm.full_dim() == 5
+    res = tm.fit_map(n_steps=2)
+    assert res.u.shape == (5,) and res.laplace_cov.shape == (5, 5)
+    assert torch.isfinite(tm.full_loglik(torch.zeros(5, dtype=torch.float64)))
+
+
+U_POINTS_X = [(0.1, -1.0, -2.0, 0.5, -1.5), (-0.3, 0.5, -1.2, 1.2, -2.2),
+              (0.0, -2.5, -3.0, -0.4, 0.3)]
+
+
+def test_full_logpost_with_fixed_effects_matches(models_x):
+    """full_logpost with p = 2 at a batch of points: value and gradient,
+    d/dbeta included, against jax.value_and_grad of the reference model at
+    the same u, rtol 1e-8; the batch equals its points one by one."""
+    jm, tm = models_x
+    ut = torch.tensor(U_POINTS_X, dtype=torch.float64)
+    tv, tg = tm.full_value_and_grad(ut)
+    for i, u in enumerate(U_POINTS_X):
+        jv, jg = jax.value_and_grad(jm.full_logpost)(jnp.asarray(u, jnp.float64))
+        np.testing.assert_allclose(tv[i].item(), float(jv), rtol=1e-8)
+        np.testing.assert_allclose(tg[i].numpy(), np.asarray(jg), rtol=1e-8)
+        np.testing.assert_allclose(tm.full_logpost(ut[i]).item(), tv[i].item(),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(tm.full_logprior(ut[i]).item(),
+                                   float(jm.full_logprior(jnp.asarray(u))),
+                                   rtol=1e-10)
+
+
+def test_fixed_effects_pallas_backend_gradient_matches():
+    """The same against the reference's Pallas backend (the fused kernels with
+    emit_y in interpret mode and the _dy scatter) in float64, at n = 600 as
+    tests/test_pallas.py:212-227: rtol 1e-8 of the value and of the gradient's
+    largest entry.  The reference's kernels take
+    (phi, alpha, jitter) through a float32 params row, so the point is chosen
+    with all three exact in float32: phi = 0.3125, alpha = 1, jitter 2^-20."""
+    rng = np.random.default_rng(12)
+    n = 600
+    coords = rng.uniform(size=(n, 2))
+    x = rng.standard_normal((n, 2))
+    y = rng.standard_normal(n) + x @ np.array([1.0, -0.5])
+    kwargs = dict(x=x, kernel="sqexp", m=6, jitter=2.0**-20)
+    jm = JaxResponseNNGP(coords, y, backend="pallas", dtype=jnp.float64,
+                         priors={"phi": jpriors.Uniform(0.0625, 0.5625)}, **kwargs)
+    tm = ResponseNNGP(coords, y, device="cpu", dtype=torch.float64,
+                      priors={"phi": priors.Uniform(0.0625, 0.5625)}, **kwargs)
+    np.testing.assert_allclose(
+        tm._full_init_u({"phi": 0.3}).numpy(),
+        np.asarray(jm._full_init_u(jax.random.PRNGKey(0), {"phi": 0.3}, jitter=0.0)),
+        rtol=1e-12)
+    u = np.array([0.0, 0.0, 0.0, 0.7, -0.2])
+    jv, jg = jax.value_and_grad(jm.full_logpost)(jnp.asarray(u))
+    tv, tg = tm.full_value_and_grad(torch.tensor(u)[None])
+    np.testing.assert_allclose(tv[0].item(), float(jv), rtol=1e-8)
+    # the logit-phi entry is a difference of terms a thousand times its size:
+    # 1e-8 of the largest entry
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(tg[0].numpy(), jg, rtol=1e-8,
+                               atol=1e-8 * np.abs(jg).max())
+
+
+def test_fit_map_with_fixed_effects_reaches_the_reference_value(models_x):
+    """fit_map(x=) ends at a log-posterior value within 1e-3 of the
+    reference's MAP (values, not locations: Adam stalls at different points
+    of a flat ridge), and recovers the slope."""
+    jm, tm = models_x
+    jres = jm.fit_map(n_steps=300)
+    tres = tm.fit_map(n_steps=300)
+    assert abs(tres.value.item() - float(jres.value)) <= 1e-3
+    np.testing.assert_allclose(tres.trace[:20].numpy(),
+                               np.asarray(jres.trace)[:20], rtol=1e-6)
+    assert abs(tres.u[4].item() + 2.0) < 0.1
+    # the projection onto the theta block ignores the beta coordinates
+    cov = tm.theta_proposal_cov(tres.laplace_cov)
+    assert cov.shape == (2, 2) and np.all(np.linalg.eigvalsh(cov) > 0)
+
+
+def test_warm_init_disperses_by_the_metric(models_x):
+    _, tm = models_x
+    gen = torch.Generator().manual_seed(0)
+    u = torch.arange(5, dtype=torch.float64)
+    cov = torch.diag(torch.tensor([4.0, 1.0, 0.25, 0.01, 9.0], dtype=torch.float64))
+    cov[0, 1] = cov[1, 0] = 0.5
+    starts = tm._warm_init_u(u, cov, 4000, gen, init_jitter=2.0)
+    assert starts.shape == (4000, 5)
+    np.testing.assert_allclose(starts.mean(0).numpy(), u.numpy(), atol=0.4)
+    np.testing.assert_allclose(starts.std(0).numpy(),
+                               2.0 * np.sqrt(np.diag(cov.numpy())), rtol=0.1)
+    same = tm._warm_init_u(u, None, 3, gen, init_jitter=0.0)
+    np.testing.assert_array_equal(same.numpy(), np.broadcast_to(u.numpy(), (3, 5)))
