@@ -16,7 +16,16 @@ checks that it went through its kernels:
   ``bench_ess`` NUTS branch runs it (fit_map, then 4 chains with the dense
   Laplace metric; kernel 2 on every leapfrog step), and a short HMC run;
 - NUTS with the intercept and the covariate (the EMIT_Y instances of kernel
-  2 and the y-cotangent gather on every leapfrog step).
+  2 and the y-cotangent gather on every leapfrog step);
+- ``bench.py``'s config 3, uncut: the response NNGP with a sampled-nu Matern
+  at n=25,000, m=10 on a Matern(nu=1.2) NNGP prior draw, fit_map(300), then
+  NUTS over (sigma2, phi, tau2, nu) (kernel 2's general-nu instances, the
+  Bessel K_nu evaluated inside the kernel);
+- the same model's MWG sampler with the theta block (phi, alpha, nu) (kernel
+  1's general-nu instances), a short NUTS run with fixed effects and a
+  sampled nu (kernel 2's general-nu EMIT_Y instances), and the latent-w NNGP
+  with ``Matern()`` on the first 10,000 sites (kernel 3's general-nu
+  instances).
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -27,6 +36,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,14 +44,15 @@ import time
 import numpy as np
 import torch
 
-from pynngp_tpu_torch import diagnostics
-from pynngp_tpu_torch.kernels import Exponential, SqExp
+from pynngp_tpu_torch import bessel, diagnostics
+from pynngp_tpu_torch.kernels import Exponential, Matern, SqExp
 from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
+from pynngp_tpu_torch.neighbors import build_neighbor_table
 from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
 from pynngp_tpu_torch.vecchia import make_vecchia_data
@@ -58,7 +69,19 @@ KERNEL_ROWS = {
     # the emit_y branch of _grad_kernel
     "vecchia_grad_y": ("pynngp_tpu_torch/csrc/vecchia_grad_y.cu",
                        "pynngp_tpu/ops/pallas_bf.py:857", diff_ops.COUNT_Y),
+    # the general-nu Matern instances of the same three kernels: the
+    # _matern_rho_general branch of _rho_fn, the with_nu contractions of
+    # _grad_kernel (also with emit_y), _bf_kernel reading nu
+    "vecchia_suffstats_nu": ("pynngp_tpu_torch/csrc/vecchia_suffstats_nu.cu",
+                             "pynngp_tpu/ops/pallas_bf.py:338", fwd_ops.COUNT_NU),
+    "vecchia_grad_nu": ("pynngp_tpu_torch/csrc/vecchia_grad_nu.cu",
+                        "pynngp_tpu/ops/pallas_bf.py:812", diff_ops.COUNT_NU),
+    "vecchia_grad_y_nu": ("pynngp_tpu_torch/csrc/vecchia_grad_y_nu.cu",
+                          "pynngp_tpu/ops/pallas_bf.py:1107", diff_ops.COUNT_Y_NU),
+    "vecchia_bf_nu": ("pynngp_tpu_torch/csrc/vecchia_bf_nu.cu",
+                      "pynngp_tpu/ops/pallas_bf.py:949", bf_ops.COUNT_NU),
 }
+N_NU, M_NU = 25_000, 10  # bench.py's config 3
 # Published peaks of one H100 SXM: device memory rate, float32 rate outside
 # the tensor cores, and the special-function rate that follows from it (an SM
 # issues 16 special-function operations a clock against 128 FMAs, so
@@ -88,17 +111,59 @@ def bench_field(n: int, seed: int = 0):
     return coords, y
 
 
+def config3_field(n: int = 25_000, m: int = 10):
+    """bench.py's config 3 data (l.838-855): an NNGP prior draw of a
+    Matern(nu=1.2, phi=0.15) field with sigma2 = 1.5 on uniform sites, composed
+    site by site through dense per-site conditionals (numpy and scipy's K_nu:
+    an implementation independent of the port's kernels), plus N(0, 0.1)
+    noise, all from ``np.random.default_rng(33)``."""
+    from scipy.special import gamma as sp_gamma
+    from scipy.special import kv as sp_kv
+
+    sig_t, phi_t, nu_t, tau_t = 1.5, 0.15, 1.2, 0.1
+
+    def rho(d):
+        t = np.sqrt(2.0 * nu_t) * d / phi_t
+        out = np.ones_like(t)
+        pos = t > 0
+        out[pos] = (2.0 ** (1.0 - nu_t) / sp_gamma(nu_t)) * t[pos] ** nu_t * sp_kv(nu_t, t[pos])
+        return out
+
+    g = np.random.default_rng(33)
+    coords = g.uniform(size=(n, 2))
+    tab = build_neighbor_table(coords, m=m)
+    oc = coords[tab.order]
+    z = g.standard_normal(n)
+    w_ord = np.zeros(n)
+    for i in range(n):  # w_i = B_i w_N + sqrt(F_i) z_i
+        sel = tab.nn_idx[i][tab.nn_mask[i]]
+        if len(sel) == 0:
+            w_ord[i] = z[i]
+            continue
+        pts = oc[sel]
+        c_nn = rho(np.sqrt(((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)))
+        c_in = rho(np.sqrt(((oc[i] - pts) ** 2).sum(-1)))
+        b = np.linalg.solve(c_nn, c_in)
+        w_ord[i] = b @ w_ord[sel] + np.sqrt(1.0 - c_in @ b) * z[i]
+    w = np.sqrt(sig_t) * w_ord[tab.inverse_order]
+    return coords, w + np.sqrt(tau_t) * g.standard_normal(n)
+
+
 def ptxas_summary(ptxas: str, m: int) -> str:
     """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
-    instance of every kernel."""
+    instance of every kernel.  The template arguments after M are EMIT_Y
+    (kernel 2 only) and GENERAL, the general-nu Matern."""
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or f"ILi{m}E" not in line:
+        found = re.search(rf"(suffstats|grad|bf)_kernelILi{m}E((?:Lb[01]E)+)", line)
+        if "Compiling entry function" not in line or not found:
             continue
-        name = next(k for k in ("suffstats", "grad", "bf") if f"{k}_kernel" in line)
-        if f"ILi{m}ELb1E" in line:  # the EMIT_Y template argument
+        name, flags = found.group(1), re.findall(r"Lb([01])E", found.group(2))
+        if name == "grad" and flags[0] == "1":
             name = "grad_y"
+        if flags[-1] == "1":
+            name += "_nu"
         spill = regs = "?"
         for nxt in lines[i + 1:i + 4]:
             if "spill stores" in nxt:
@@ -107,15 +172,15 @@ def ptxas_summary(ptxas: str, m: int) -> str:
             if "registers" in nxt:
                 regs = nxt.split("Used")[1].split("registers")[0].strip()
         out.append(f"{name}<{m}> {regs} regs spill {spill} B")
-    return "; ".join(out)
+    return "; ".join(sorted(out))
 
 
 class Case:
     """Site tables, y and per-chain parameters of one parity case, in float32
     for the kernels and the same values in float64 for the oracle."""
 
-    def __init__(self, n, m, kernel, chains, seed, dev):
-        coords, y = bench_field(n, seed)
+    def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None):
+        coords, y = field if field is not None else bench_field(n, seed)
         data, table = make_vecchia_data(coords, m, dtype=torch.float64)
         self.n, self.m, self.kernel = n, m, kernel
         self.tab32 = with_children(
@@ -126,6 +191,9 @@ class Case:
         self.y64 = self.y32.double()
         self.phi = torch.linspace(0.05, 0.2, chains, device=dev)
         self.alpha = torch.linspace(0.05, 0.3, chains, device=dev)
+        # (C,) smoothness per chain for a kernel that samples it, else None
+        self.nu = None if nu is None else torch.as_tensor(
+            nu, dtype=torch.float32, device=dev)
         self.jitter = 1e-6
         # a residual per chain, y - x beta_c, as the fixed-effects model forms
         # it: the chains' slopes spread over +-0.05, some fifty posterior
@@ -139,8 +207,10 @@ class Case:
         alpha = self.alpha if alpha is None else alpha
         phi = self.phi[sl].double().requires_grad_(requires_grad)
         alpha = alpha[sl].double().requires_grad_(requires_grad)
+        nu = None if self.nu is None else self.nu[sl].double()
         pr = fwd_ops.params_array(phi, alpha, np.float32(self.jitter), self.n,
-                                  torch.float64, phi.device)
+                                  torch.float64, phi.device,
+                                  fwd_ops.kernel_nu(self.kernel, nu))
         return phi, alpha, pr
 
     def chunks(self, size=4):
@@ -309,6 +379,143 @@ def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float) -> d
     return res
 
 
+# Limits of the general-nu parity phases: float32 kernel against the float64
+# plain version, relative unless named otherwise.
+NU_LIMITS = {
+    "value_rel": 5e-5, "dphi_rel": 2e-4, "dalpha_rel": 2e-4, "dnu_rel": 5e-2,
+    "b_max_abs_err": 1e-4, "f_ratio": 1.0, "r_ratio": 1.0, "rof_ratio": 1.0,
+    "dy_ratio": 1.0,
+}
+
+
+def nu_spread(chains: int):
+    """Per-chain smoothness over (0.15, 2.9), with the three cancellation
+    cases of the nearest-integer split (bessel.py): nu within 1e-4 of 1/2, 1
+    and 3/2, from below and from above."""
+    edge = [0.5 - 1e-4, 0.5 + 1e-4, 1.0 - 1e-4, 1.0 + 1e-4, 1.5 - 1e-4, 1.5 + 1e-4]
+    rest = np.linspace(0.15, 2.9, chains - len(edge))
+    return np.concatenate([rest, edge])[:chains]
+
+
+def check_general_nu(case: Case, label: str) -> dict:
+    """The general-nu instances of kernels 1, 2, 2-EMIT_Y and 3 against their
+    plain versions in float64 on the card (chunked over chains), sampled nu.
+
+    Limits, and why.  The float32 series for K_nu carries up to 1e-5 relative
+    noise in rho, where a closed form carries 1e-7; F and r follow rho through
+    the factorization.  The limits were set after the first run on the card,
+    about ten times what it showed (an NVIDIA H100 80GB HBM3; in brackets).
+    Values (logdet, quad) rtol 5e-5 (4.5e-7: the noise averages out over the
+    sites).  F rtol 1e-3 / atol 1e-5 (0.005 of it), r rtol 2e-3 / atol 2e-4,
+    r/F rtol 2e-3 / atol 2e-4 and dy rtol 2e-3 / atol 5e-4: twice the
+    closed-form instances' absolute limits, which scale as 1/F >= 1/alpha.  B
+    atol 1e-4 (1.1e-5).  The phi and alpha sums rtol 2e-4 (1.3e-6, 1.0e-6).
+    The nu sums rtol 5e-2 (4.8e-3 at nu = 2.6; below 2e-4 for nu < 2): the
+    derivative is a difference of two float32 rho over a width of 2e-2, which
+    divides the series' noise by that width.  Padded sites and invalid slots
+    exactly 0 (kernel 3: B = 0, F = 1)."""
+    k, t32, t64, n, m = case.kernel, case.tab32, case.tab64, case.n, case.m
+    jit = case.jitter
+    logdet, quad, f, r = fwd_ops.suffstats(k, t32, case.phi, case.alpha, case.y32,
+                                           jit, nu=case.nu)
+    b3, f3 = bf_ops.bf_planes(k, t32, case.phi, case.alpha, jit, nu=case.nu)
+    sums = diff_ops.value_and_grad_sums(k, t32, case.phi, case.alpha, case.y32, jit,
+                                        nu=case.nu)
+    sums_y, b, rof = diff_ops.value_and_grad_sums(
+        k, t32, case.phi, case.alpha, case.y32_chains, jit, emit_y=True, nu=case.nu)
+    dy = diff_ops.dquad_dy(t32, b, rof)
+    torch.cuda.synchronize()
+    refs = []
+    for sl in case.chunks():
+        _, _, pr = case.params64(sl)
+        fwd = fwd_ops.suffstats_reference(k, t64, pr, case.y64)
+        bf = bf_ops.bf_reference(k, t64, pr)
+        s_ref = diff_ops.grad_reference(k, t64, pr, case.y64)
+        sy_ref, b_ref, rof_ref = diff_ops.grad_reference(
+            k, t64, pr, case.y32_chains[sl].double(), emit_y=True)
+        refs.append((*fwd, *bf, s_ref, sy_ref, b_ref, rof_ref,
+                     diff_ops.dquad_dy(t64, b_ref, rof_ref)))
+    cat = lambda i, dim=0: torch.cat([ref[i] for ref in refs], dim=dim)
+    ld_ref, q_ref, f_ref, r_ref, b3_ref, f3_ref = (cat(i) for i in range(6))
+    s_ref, sy_ref = cat(6, 1), cat(7, 1)
+    b_ref, rof_ref, dy_ref = cat(8), cat(9), cat(10)
+    pad_ok = bool((b3[:, :, n:] == 0).all() and (f3[:, n:] == 1).all()
+                  and (b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all())
+    slots_ok = all(bool((b[:, j, :j + 1] == 0).all()) for j in range(m))
+    got, got_y = sums.double(), sums_y.double()
+    res = {
+        "nu": [round(float(v), 4) for v in case.nu],
+        "value_rel": max(_rel(logdet.double(), ld_ref), _rel(quad.double(), q_ref),
+                         _rel(got[:2], s_ref[:2]), _rel(got_y[:2], sy_ref[:2])),
+        "f_ratio": _allclose_ratio(f[:, :n].double(), f_ref[:, :n], 1e-3, 1e-5),
+        "r_ratio": _allclose_ratio(r[:, :n].double(), r_ref[:, :n], 2e-3, 2e-4),
+        "f_max_abs_err": float((f[:, :n].double() - f_ref[:, :n]).abs().max()),
+        "bf_b_max_abs_err": float((b3.double() - b3_ref).abs().max()),
+        "bf_f_max_rel_err": _rel(f3[:, :n].double(), f3_ref[:, :n]),
+        "dphi_rel": max(_rel(got[2:4], s_ref[2:4]), _rel(got_y[2:4], sy_ref[2:4])),
+        "dalpha_rel": max(_rel(got[4:6], s_ref[4:6]), _rel(got_y[4:6], sy_ref[4:6])),
+        "dnu_rel": max(_rel(got[6:8], s_ref[6:8]), _rel(got_y[6:8], sy_ref[6:8])),
+        "dnu_rel_by_chain": [round(float(v), 5) for v in
+                             ((got[6:8] - s_ref[6:8]).abs() / s_ref[6:8].abs()).amax(0)],
+        "sums_max_abs_err": float((got - s_ref).abs().max()),
+        "b_max_abs_err": float((b.double() - b_ref).abs().max()),
+        "rof_ratio": _allclose_ratio(rof.double(), rof_ref, 2e-3, 2e-4),
+        "dy_ratio": _allclose_ratio(dy.double(), dy_ref, 2e-3, 5e-4),
+        "padded_sites": t32.n_pad - n, "padded_ok": pad_ok, "invalid_slots_zero": slots_ok,
+    }
+    print(f"general-nu parity [{label}]: " + json.dumps(res), flush=True)
+    _require(pad_ok and slots_ok,
+             f"general-nu padded sites or invalid slots are wrong [{label}]")
+    _require(res["bf_b_max_abs_err"] <= NU_LIMITS["b_max_abs_err"]
+             and res["bf_f_max_rel_err"] <= 1e-4,
+             f"general-nu kernel 3 B/F disagree [{label}]")
+    for key, limit in NU_LIMITS.items():
+        _require(res[key] <= limit, f"general-nu {key} {res[key]} exceeds {limit} [{label}]")
+    return res
+
+
+def check_static_nu(case: Case, label: str) -> dict:
+    """``Matern(nu=0.8)``, a static general nu, through the same instances
+    without the nu sums: kernel 2's eight sums against the plain version, the
+    last two exactly 0; limits of :func:`check_general_nu`."""
+    k = Matern(nu=0.8)
+    sums = diff_ops.value_and_grad_sums(k, case.tab32, case.phi, case.alpha,
+                                        case.y32, case.jitter)
+    torch.cuda.synchronize()
+    pr = fwd_ops.params_array(case.phi.double(), case.alpha.double(),
+                              np.float32(case.jitter), case.n, torch.float64,
+                              case.phi.device, 0.8)
+    ref = torch.cat([diff_ops.grad_reference(k, case.tab64, pr[sl], case.y64)
+                     for sl in case.chunks()], dim=1)
+    got = sums.double()
+    res = {"value_rel": _rel(got[:2], ref[:2]), "dphi_rel": _rel(got[2:4], ref[2:4]),
+           "dalpha_rel": _rel(got[4:6], ref[4:6]),
+           "nu_sums_zero": bool((sums[6:] == 0).all())}
+    print(f"static-nu parity [{label}]: " + json.dumps(res), flush=True)
+    _require(res["nu_sums_zero"], f"static nu wrote nu sums [{label}]")
+    for key in ("value_rel", "dphi_rel", "dalpha_rel"):
+        _require(res[key] <= NU_LIMITS[key], f"static-nu {key} disagrees [{label}]")
+    return res
+
+
+def check_kve(dev) -> dict:
+    """bessel.kve in float64 on the card against scipy.special.kve over
+    x in [1e-6, 60] and the orders of tests/test_bessel.py: rtol 1e-9 (the
+    series and the continued fraction run to float64 convergence)."""
+    from scipy.special import kve as scipy_kve
+
+    x = np.exp(np.random.default_rng(0).uniform(np.log(1e-6), np.log(60.0), 4000))
+    worst = 0.0
+    for nu in (0.0, 0.3, 0.5, 0.99, 0.9999, 1.0, 1.5, 2.7, 5.25, 10.6):
+        got = bessel.kve(torch.as_tensor(x, device=dev), nu).cpu().numpy()
+        want = scipy_kve(nu, x)
+        worst = max(worst, float(np.max(np.abs(got - want) / np.abs(want))))
+    print("kve parity [float64 on the card vs scipy]: "
+          + json.dumps({"max_rel_err": worst}), flush=True)
+    _require(worst <= 1e-9, f"bessel.kve disagrees with scipy: {worst}")
+    return {"max_rel_err": worst}
+
+
 def _time_ms(fn, warm: int, reps: int) -> float:
     for _ in range(warm):
         fn()
@@ -436,10 +643,152 @@ def kernel_bounds(case: Case) -> dict:
     return out
 
 
+def time_kernels_nu(case: Case, plain: bool) -> dict:
+    """Per-call times of the general-nu instances at the case's shapes (all
+    its chains, sampled nu) and, with ``plain``, of their float32 plain
+    versions; kernel 2 also with 2 chains, config 3's launch shape."""
+    k, t, y, nu = case.kernel, case.tab32, case.y32, case.nu
+    args = (case.phi, case.alpha)
+    times = {
+        "vecchia_suffstats_nu": _time_ms(
+            lambda: fwd_ops.suffstats(k, t, *args, y, case.jitter, nu=nu), 5, 50),
+        "vecchia_grad_nu": _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, *args, y, case.jitter, nu=nu),
+            5, 50),
+        "vecchia_grad_y_nu": _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, *args, case.y32_chains,
+                                                 case.jitter, emit_y=True, nu=nu), 5, 50),
+        "vecchia_bf_nu": _time_ms(
+            lambda: bf_ops.bf_planes(k, t, *args, case.jitter, nu=nu), 5, 50),
+        "vecchia_grad_nu_2_chains": _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, case.phi[:2], case.alpha[:2], y,
+                                                 case.jitter, nu=nu[:2]), 5, 50),
+        "vecchia_grad_nu_static": _time_ms(
+            lambda: diff_ops.value_and_grad_sums(Matern(nu=0.8), t, *args, y,
+                                                 case.jitter), 5, 50),
+    }
+    if plain:
+        params = fwd_ops.params_array(*args, case.jitter, case.n, torch.float32,
+                                      case.phi.device, nu)
+        times.update({
+            "vecchia_suffstats_nu_plain": _time_ms(
+                lambda: fwd_ops.suffstats_reference(k, t, params, y), 1, 1),
+            "vecchia_grad_nu_plain": _time_ms(
+                lambda: diff_ops.grad_reference(k, t, params, y), 1, 1),
+            "vecchia_grad_y_nu_plain": _time_ms(
+                lambda: diff_ops.grad_reference(k, t, params, case.y32_chains,
+                                                emit_y=True), 1, 1),
+            "vecchia_bf_nu_plain": _time_ms(
+                lambda: bf_ops.bf_reference(k, t, params), 1, 1),
+        })
+    print(f"general-nu kernel times [n{case.n} m{case.m}]: " + json.dumps(
+        {**{f"{name}_ms": ms for name, ms in times.items()},
+         "chains": case.phi.shape[0]}), flush=True)
+    return times
+
+
+# Operations of one call of kve_order (csrc/vecchia_bessel.cuh), counted from
+# its code as (float32 operations, special-function operations); a float32
+# division is one reciprocal and four operations of refinement.
+TEMME_SETUP, TEMME_TERM = (42, 10), (34, 4)  # log, exp, sinh, exp(x), 4 divisions; 4 a term
+CF2_SETUP, CF2_STEP = (28, 5), (33, 3)  # sqrt and 4 divisions; 3 a step
+RECUR_STEP = (8, 1)  # one advance of the upward recurrence
+RHO_TAIL = (6, 3)  # two logs and an exp around K_nu; rho_drho_general: twice that
+
+
+def kernel_bounds_nu(case: Case) -> dict:
+    """:func:`kernel_bounds` for the general-nu instances.  The bytes are
+    those of the closed-form instances (kernel 2 writes two sums more).  The
+    operations add, to the factorization and the solves, the Bessel
+    evaluations this run's data needs: :func:`bessel.series_terms` gives, for
+    every table entry and chain, the branch (Temme for t <= 2, CF2 above) and
+    the terms or steps it runs until it converges to float32, as the kernel's
+    loops do.  Entries below the floor of t (the padded slots among them)
+    cost nothing.  Evaluations per entry, what the function needs and not
+    what the kernel spends: kernels 1 and 3 one (rho); kernel 2 with a
+    sampled nu three, one for rho with d rho / d phi (one evaluation yields
+    K_nu and K_{nu-1}, below nu = 1/2 as K_{-nu} and K_{1-nu}) and two for
+    the difference in nu (counted at nu, not at nu +- h); with a static nu
+    one.  The kernel itself evaluates every pair of neighbors a fourth time
+    (it does not keep d rho / d phi from the factorization to the
+    contractions), which the bound does not forgive."""
+    t, m = case.tab32, case.m
+    chains = case.phi.shape[0]
+    sites = t.n_pad * chains
+    blocks = sites // 128
+    tables = (t.d_in.numel() + t.d_tri.numel()) * 4
+    ids_y = t.nn_idx.numel() * 4 + t.n * 4
+    flops = {"in": [], "tri": []}  # per chain: (flops, sfu, entries) of one evaluation each
+    for c in range(chains):
+        nu, phi = case.nu[c].double(), case.phi[c].double()
+        for key, d in (("in", t.d_in), ("tri", t.d_tri)):
+            x = torch.sqrt(2.0 * nu) * d.double() / phi
+            live = x >= 1e-8
+            count, small = bessel.series_terms(torch.clamp(x, min=1e-8), nu)
+            recur = max(int(torch.floor(nu + 0.5)) - 1, 0)
+
+            def total(i):
+                per = torch.where(small, TEMME_SETUP[i] + count * TEMME_TERM[i],
+                                  CF2_SETUP[i] + count * CF2_STEP[i]) + recur * RECUR_STEP[i]
+                return float((per * live).sum())
+
+            flops[key].append((total(0), total(1), float(live.sum())))
+
+    def bessel_ops(evals, tails):
+        """(flops, sfu) of ``evals`` evaluations and ``tails`` units of
+        RHO_TAIL per live entry of both tables."""
+        out = [0.0, 0.0]
+        for key in ("in", "tri"):
+            for f, s, entries in flops[key]:
+                for i, one in enumerate((f, s)):
+                    out[i] += evals * one + tails * entries * RHO_TAIL[i]
+        return out
+
+    k1 = bessel_ops(1, 1)
+    # kernel 2, per entry of either table: one rho with d rho / d phi (two
+    # units of RHO_TAIL) and, with a sampled nu, two rho more
+    k2 = bessel_ops(3, 4)
+    k2_static = bessel_ops(1, 2)
+    fact = sites * (m**3 / 3 + 2 * m * m)
+    fact2 = sites * (m**3 / 3 + 10 * m * m)  # 7 m^2 as kernel 2, 3 m^2 more for dC/dnu
+    work = {
+        "vecchia_suffstats_nu": (tables + ids_y + (2 * sites + 2 * blocks) * 4,
+                                 fact + k1[0], k1[1] + m * sites),
+        "vecchia_grad_nu": (tables + ids_y + 8 * blocks * 4,
+                            fact2 + k2[0], k2[1] + m * sites),
+        "vecchia_grad_y_nu": (tables + t.nn_idx.numel() * 4 + chains * t.n * 4
+                              + 8 * blocks * 4 + (m + 1) * sites * 4,
+                              fact2 + k2[0], k2[1] + m * sites),
+        "vecchia_bf_nu": (tables + (m + 1) * sites * 4, fact + k1[0], k1[1] + m * sites),
+        "vecchia_grad_nu_static": (tables + ids_y + 8 * blocks * 4,
+                                   sites * (m**3 / 3 + 7 * m * m) + k2_static[0],
+                                   k2_static[1] + m * sites),
+    }
+    out = {}
+    for name, (nbytes, ops, sfu) in work.items():
+        byte_ms = nbytes / PEAK_BYTES * 1e3
+        op_ms = max(ops / PEAK_FLOPS, sfu / PEAK_SFU) * 1e3
+        out[name] = (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations")
+    entries = sum(e for key in flops for _, _, e in flops[key])
+    print(f"general-nu kernel bounds [n{case.n} m{case.m}]: " + json.dumps({
+        "bessel_evaluations_per_entry_kernel_1": 1,
+        "bessel_evaluations_per_entry_kernel_2": 3,
+        "bessel_evaluations_per_entry_kernel_2_static_nu": 1,
+        "bessel_evaluations_per_pair_kernel_2_spends": 4,
+        "mean_series_flops_per_evaluation": sum(f for key in flops for f, _, _ in flops[key]) / entries,
+        "mean_series_special_per_evaluation": sum(s for key in flops for _, s, _ in flops[key]) / entries,
+        "live_entries": entries,
+        **{k: {"bound_ms": v[0], "bound_by": v[1], "bytes": work[k][0],
+               "flops": work[k][1], "special": work[k][2]} for k, v in out.items()}}),
+          flush=True)
+    return out
+
+
 def _chain_stats(draws):
-    """(min-ESS, max split-R-hat) over the (sigma2, phi, tau2) marginals."""
+    """(min-ESS, max split-R-hat) over the (sigma2, phi, tau2) marginals, and
+    nu's where it was sampled."""
     min_ess, max_rhat = np.inf, 0.0
-    for key in ("phi", "sigma2", "tau2"):
+    for key in ("phi", "sigma2", "tau2") + (("nu",) if "nu" in draws else ()):
         min_ess = min(min_ess, diagnostics.ess(draws[key]))
         max_rhat = max(max_rhat, diagnostics.split_rhat(draws[key]))
     return float(min_ess), float(max_rhat)
@@ -717,7 +1066,7 @@ def _nuts_summary(draws, n_burn, launches_name, launches) -> dict:
         "leapfrogs_per_draw": float(draws["n_leapfrog"].mean()),
         "divergences": int(draws["diverging"].sum()),
         "posterior_mean": {k: float(np.mean(draws[k]))
-                           for k in ("sigma2", "phi", "tau2")},
+                           for k in ("sigma2", "phi", "tau2", "nu") if k in draws},
         # every chain waits for the deepest tree of its transition
         f"{launches_name}_launches_per_transition": launches / (n_burn + n_draws),
         "draws_shape": [n_chains, n_draws], "draws_sha256": _digest(draws),
@@ -853,6 +1202,224 @@ def nuts_fixed_effects_path(dev) -> dict:
     return res
 
 
+TAU2_NU = 0.1  # config 3's noise variance
+
+
+def matern_nu_nuts_path(dev, field) -> tuple:
+    """bench.py's config 3 (l.825-895) on the port, uncut: the response NNGP
+    with a sampled-nu Matern at n=25,000, m=10, fit_map(300), then NUTS over
+    (sigma2, phi, tau2, nu): 2 chains x 200 draws after 150 burn-in at
+    max_depth 6, started 2 posterior sds around the MAP with the dense Laplace
+    covariance as the frozen metric, doubled up to twice while split-R-hat >
+    1.05.  Every MAP step and every leapfrog step is one launch of kernel 2's
+    general-nu instances with the two nu sums.  Returns (result, model, MAP
+    fit) for the MWG path on the same model."""
+    coords, y = field
+    chains, max_depth, keys = 2, 6, ("sigma2", "tau2", "phi", "nu")
+    _reset_counts()
+    t_all = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel=Matern(), m=M_NU, device=dev)
+    setup_s = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=300)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_launches = diff_ops.COUNT_NU.launches
+    n_s, sample_s, transitions = 200, 0.0, 0
+    for attempt in range(3):  # size the run to the R-hat gate
+        n_burn = max(150, n_s // 2)
+        t0 = time.perf_counter()
+        draws = model.sample_nuts(n_s, n_burn=n_burn, n_chains=chains, seed=attempt,
+                                  max_depth=max_depth, init_u=mp.u,
+                                  init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+        sample_s += time.perf_counter() - t0
+        transitions += n_s + n_burn
+        min_ess = min(diagnostics.ess(draws[k]) for k in keys)
+        rhat = max(diagnostics.split_rhat(draws[k]) for k in keys)
+        if rhat <= 1.05 or attempt == 2:
+            break
+        n_s *= 2
+    total_s = time.perf_counter() - t_all  # MAP fit and set-up included
+    launches = _read_counts("sampled-nu NUTS", ("vecchia_grad_nu",))
+    nuts_launches = launches["vecchia_grad_nu"] - map_launches
+    summary = _nuts_summary(draws, n_burn, "vecchia_grad_nu", nuts_launches)
+    summary["vecchia_grad_nu_launches_per_transition"] = nuts_launches / transitions
+    res = {
+        "setup_s": setup_s, "map_s": map_s, "sample_seconds": sample_s,
+        "total_seconds": total_s, "attempts": attempt + 1, "n_draws": n_s,
+        "samples_per_sec": chains * n_s / sample_s, **summary,
+        f"config3_matern_nu_nuts_ess_per_sec_n{N_NU}": float(min_ess) / total_s,
+        "min_ess": float(min_ess), "rhat_max": float(rhat),
+        "converged": bool(rhat <= 1.05),
+        "map": {k: float(v) for k, v in zip(
+            ("sigma2", "phi", "tau2", "nu"),
+            (torch.exp(mp.u[0]), model._t_phi.forward(mp.u[1]), torch.exp(mp.u[2]),
+             model._t_nu.forward(mp.u[3])))},
+        "ms_per_launch": sample_s * 1e3 / nuts_launches,
+        "launches": launches, "plain_calls": 0,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("sampled-nu NUTS path [config 3]: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite sampled-nu NUTS draws")
+    _require(draws["nu"].shape == (chains, n_s), "sampled-nu draws have the wrong shape")
+    _require(map_launches >= 300, f"fit_map launched kernel 2 {map_launches} times")
+    _require(nuts_launches >= transitions,
+             "fewer kernel-2 launches than NUTS transitions")
+    means = res["posterior_mean"]
+    _require(TAU2_NU / 2 <= means["tau2"] <= TAU2_NU * 2,
+             f"posterior mean tau2 {means['tau2']} is not within 2x of {TAU2_NU}")
+    _require(0.3 < means["nu"] < 2.8,
+             f"posterior mean nu {means['nu']} sits on a bound of its prior")
+    print("sampled-nu NUTS transition profile: "
+          + json.dumps(profile_nuts(model, mp, chains, max_depth)), flush=True)
+    return res, model, mp
+
+
+def matern_nu_nuts_fixed_effects_path(dev, field) -> dict:
+    """Fixed effects with a sampled nu: config 3's data plus x @ [1, -2],
+    fit_map(150) with x=, then 2 chains x 30 NUTS draws after 50 burn-in at
+    max_depth 5 (no reference recipe; cut to a few seconds).  Every step is
+    one launch of kernel 2's general-nu EMIT_Y instances and one y-cotangent
+    gather."""
+    coords, y = field
+    chains, n_burn, n_draws, max_depth = 2, 50, 30, 5
+    x = np.column_stack([np.ones(N_NU), np.random.default_rng(1).standard_normal(N_NU)])
+    beta_true = np.array([1.0, -2.0])
+    _reset_counts()
+    model = ResponseNNGP(coords, y + x @ beta_true, kernel=Matern(), m=M_NU, x=x,
+                         device=dev)
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=150)
+    map_launches = diff_ops.COUNT_Y_NU.launches
+    draws = model.sample_nuts(n_draws, n_burn=n_burn, n_chains=chains, seed=0,
+                              max_depth=max_depth, init_u=mp.u,
+                              init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("sampled-nu NUTS with fixed effects", ("vecchia_grad_y_nu",))
+    beta_mean = draws["beta"].mean(axis=(0, 1))
+    res = {
+        "map_and_run_s": run_s,
+        **_nuts_summary(draws, n_burn, "vecchia_grad_y_nu",
+                        launches["vecchia_grad_y_nu"] - map_launches),
+        "beta_mean": beta_mean.tolist(), "beta_true": beta_true.tolist(),
+        "launches": launches, "plain_calls": 0,
+    }
+    print("sampled-nu NUTS fixed-effects path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite sampled-nu NUTS draws with fixed effects")
+    _require(draws["beta"].shape == (chains, n_draws, 2), "beta draws have the wrong shape")
+    _require(abs(beta_mean[1] - beta_true[1]) <= 0.1,
+             f"posterior mean slope {beta_mean[1]} is not within 0.1 of -2")
+    return res
+
+
+def matern_nu_mwg_path(dev, model, mp) -> dict:
+    """The MWG sampler of config 3's model, theta block (phi, alpha, nu): 16
+    chains, 300 draws after 200 burn-in from the MAP point with the projected
+    Laplace covariance as the proposal.  Every proposal is one launch of
+    kernel 1's general-nu instances."""
+    n_burn, n_draws = 200, 300
+    u0 = mp.u.cpu()
+    sig0, tau0 = float(torch.exp(u0[0])), float(torch.exp(u0[2]))
+    init = {"sigma2": sig0, "phi": float(model._t_phi.forward(u0[1])),
+            "alpha": tau0 / sig0, "nu": float(model._t_nu.forward(u0[3]))}
+    _reset_counts()
+    t0 = time.perf_counter()
+    draws = model.sample(n_draws, n_burn=n_burn, n_chains=CHAINS, init=init, seed=0,
+                         proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("sampled-nu MWG", ("vecchia_suffstats_nu",))
+    min_ess, max_rhat = _chain_stats(draws)
+    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2", "nu")}
+    res = {
+        "run_s": run_s, "ms_per_step": run_s * 1e3 / (n_burn + n_draws),
+        "min_ess": min_ess, "rhat_max": max_rhat, "posterior_mean": means,
+        "launches": launches, "plain_calls": 0,
+        "draws_shape": list(draws["nu"].shape),
+    }
+    print("sampled-nu MWG path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite sampled-nu MWG draws")
+    _require(draws["nu"].shape == (CHAINS, n_draws), "MWG nu draws have the wrong shape")
+    _require(launches["vecchia_suffstats_nu"] >= n_burn + n_draws,
+             "fewer kernel-1 launches than MWG steps")
+    _require(TAU2_NU / 2 <= means["tau2"] <= TAU2_NU * 2,
+             f"MWG posterior mean tau2 {means['tau2']} is not within 2x of {TAU2_NU}")
+    _require(0.3 < means["nu"] < 2.8,
+             f"MWG posterior mean nu {means['nu']} sits on a bound of its prior")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prof = profile_steps(model.step, model.init_state(CHAINS, init), gen)
+    print("sampled-nu MWG step profile: " + json.dumps(prof), flush=True)
+    return res
+
+
+def matern_nu_latent_path(dev, field, start) -> dict:
+    """The latent-w NNGP with ``Matern()`` on the first 10,000 sites of
+    config 3's data: m=10, 8 chains, 200 draws after 300 burn-in, w_every=8,
+    theta block (phi, nu), started at ``start``, the response model's MAP
+    estimate of (sigma2, phi, tau2, nu) on all 25,000 sites.  Every proposal
+    is one launch of kernel 3's general-nu instances, two a step.  The gates
+    are those of the response paths: tau2 within 2x of 0.1 and nu off its
+    prior's bounds; sigma2, phi and nu move along their ridge for longer than
+    this run and have none.
+
+    The call a user would make first, ``LatentNNGP(coords, y,
+    kernel=Matern(), m=10)`` with the default jitter 1e-6, is made first from
+    a cold start at the generator's phi = 0.15 and nu = 1, and what it does
+    is printed.  Without a nugget (alpha = 0) the conditional variance F of a
+    site that nearly repeats a neighbor is the jitter itself, and 1 + 1e-6
+    has three bits in float32: at that start one site of these 10,000 comes
+    out at F = 0 exactly where float64 gives 1.1e-6.  init_state raises there
+    and names jitter; the run follows its advice with jitter=1e-4.  The
+    exponential kernel of the other latent paths never gets there (1 - rho
+    falls like d, not d^2)."""
+    n, chains, n_burn, n_draws = 10_000, 8, 300, 200
+    coords, y = field[0][:n], field[1][:n]
+    cold = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.15, "nu": 1.0,
+            "tau2": float(np.var(y)) * 0.1}
+    try:
+        LatentNNGP(coords, y, kernel=Matern(), m=M_NU, device=dev).init_state(chains, cold)
+        default_call = "starts at a finite log-density"
+    except ValueError as err:
+        _require("jitter" in str(err), f"the default call fails without naming jitter: {err}")
+        default_call = "raises ValueError naming jitter"
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = LatentNNGP(coords, y, kernel=Matern(), m=M_NU, jitter=1e-4, device=dev)
+    setup_s = time.perf_counter() - t0
+    init = {k: float(start[k]) for k in ("sigma2", "phi", "tau2", "nu")}
+    t0 = time.perf_counter()
+    draws = model.sample(n_draws, n_burn=n_burn, n_chains=chains, seed=0, init=init,
+                         w_every=8)
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("sampled-nu latent", ("vecchia_bf_nu",))
+    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2", "nu")}
+    res = {
+        "setup_s": setup_s, "run_s": run_s, "colors": model.n_colors,
+        "ms_per_step": run_s * 1e3 / (n_burn + n_draws), "posterior_mean": means,
+        "launches": launches, "plain_calls": 0, "w_shape": list(draws["w"].shape),
+        "default_jitter_call": default_call, "start": init,
+        "mean_by_fifth": {k: [float(np.mean(part)) for part in
+                              np.array_split(draws[k], 5, axis=1)]
+                          for k in ("sigma2", "phi", "tau2", "nu")},
+    }
+    res["min_ess"], res["rhat_max"] = _chain_stats(draws)
+    print("sampled-nu latent path [n10000]: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite sampled-nu latent draws")
+    _require(draws["w"].shape == (chains, -(-n_draws // 8), n),
+             f"w draws have the wrong shape {draws['w'].shape}")
+    _require(draws["nu"].shape == (chains, n_draws), "latent nu draws have the wrong shape")
+    _require(launches["vecchia_bf_nu"] >= n_burn + n_draws,
+             "fewer kernel-3 launches than latent steps")
+    _require(TAU2_NU / 2 <= means["tau2"] <= TAU2_NU * 2,
+             f"latent posterior mean tau2 {means['tau2']} is not within 2x of {TAU2_NU}")
+    _require(0.3 < means["nu"] < 2.8,
+             f"latent posterior mean nu {means['nu']} sits on a bound of its prior")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -889,7 +1456,30 @@ def main() -> int:
     check_grad_y(small_case, "n1500 m7 exponential", True, grad_rtol=2e-4)
     times = time_kernels(main_case)
     bounds = kernel_bounds(main_case)
-    del main_case, small_case
+    del main_case
+
+    # the general-nu instances: config 3's data and shapes, and the small case
+    check_kve(dev)
+    t0 = time.perf_counter()
+    field3 = config3_field(N_NU, M_NU)
+    print(f"config 3 field: {time.perf_counter() - t0:.1f} s", flush=True)
+    nu_case = Case(N_NU, M_NU, Matern(), CHAINS, seed=5, dev=dev, field=field3,
+                   nu=nu_spread(CHAINS))
+    small_nu = Case(1500, 7, Matern(), CHAINS, seed=3, dev=dev, nu=nu_spread(CHAINS))
+    nu_err = check_general_nu(nu_case, f"n{N_NU} m{M_NU}")
+    check_general_nu(small_nu, "n1500 m7")
+    check_static_nu(nu_case, f"n{N_NU} m{M_NU}")
+    check_static_nu(small_nu, "n1500 m7")
+    times.update(time_kernels_nu(nu_case, plain=True))
+    bounds.update(kernel_bounds_nu(nu_case))
+    del nu_case, small_nu, small_case
+    torch.cuda.empty_cache()
+    # the same instances at the main path's shapes, for the table of kernels
+    large_nu = Case(N_MAIN, M_MAIN, Matern(), CHAINS, seed=0, dev=dev,
+                    nu=nu_spread(CHAINS))
+    time_kernels_nu(large_nu, plain=False)
+    kernel_bounds_nu(large_nu)
+    del large_nu
     torch.cuda.empty_cache()
 
     paths = {"response": main_path(dev)}
@@ -901,13 +1491,27 @@ def main() -> int:
         "nuts": nuts_path(dev, mwg_ess),
         "nuts_fixed_effects": nuts_fixed_effects_path(dev),
     })
+    paths["matern_nu_nuts"], model3, map3 = matern_nu_nuts_path(dev, field3)
+    paths["matern_nu_mwg"] = matern_nu_mwg_path(dev, model3, map3)
+    del model3
+    torch.cuda.empty_cache()
+    paths["matern_nu_nuts_fixed_effects"] = matern_nu_nuts_fixed_effects_path(dev, field3)
+    paths["matern_nu_latent"] = matern_nu_latent_path(dev, field3,
+                                                      paths["matern_nu_nuts"]["map"])
 
     errs = {"vecchia_suffstats": fwd["f_max_abs_err"],
             "vecchia_grad": grad["max_abs_err"],
             "vecchia_bf": bf_err["b_max_abs_err"],
-            "vecchia_grad_y": grad_y["b_max_abs_err"]}
+            "vecchia_grad_y": grad_y["b_max_abs_err"],
+            "vecchia_suffstats_nu": nu_err["f_max_abs_err"],
+            "vecchia_grad_nu": nu_err["sums_max_abs_err"],
+            "vecchia_grad_y_nu": nu_err["b_max_abs_err"],
+            "vecchia_bf_nu": nu_err["bf_b_max_abs_err"]}
     # launches: the sum over the paths, each counted from 0; no single
-    # PyTorch call computes any of the four functions, so library_ms is null
+    # PyTorch call computes any of these functions (torch.special has K_0 and
+    # K_1 only), so library_ms is null.  ms, plain_ms and bound_ms of the
+    # closed-form rows are at n=100,000, m=15, of the general-nu rows at
+    # config 3's n=25,000, m=10, 16 chains each
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p["launches"][name] for p in paths.values()),

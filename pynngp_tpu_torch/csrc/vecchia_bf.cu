@@ -1,114 +1,6 @@
-// Kernel 3: explicit kriging weights B = C_N^-1 c and conditional variances F.
-//
-// Replaces the Pallas kernel _bf_kernel (pynngp_tpu/ops/pallas_bf.py:941,
-// driven by _run_bf l.991 and pallas_bf l.1036).  For every (site, chain) it
-// builds the m x m unit-variance neighbor correlation C (+ alpha + jitter on
-// valid diagonal slots, identity rows for invalid slots), factors it with the
-// unrolled Cholesky-Crout recurrence, forward-solves u = L^-1 c, writes
-// F = 1 + alpha - u.u and back-substitutes B = L^-T u.  B is exactly 0 in
-// invalid slots.  These are the outputs the latent-w Gibbs sweep and the
-// conjugate beta update consume; there is no reduction and no partial.
-//
-// Padded sites (site >= n) write B = 0 and F = 1 and factor nothing: their
-// table entries are zero, so with alpha = 0 (the latent model) their system
-// is the singular all-ones matrix.  Nothing downstream has to slice them off
-// before it takes a log or a reciprocal of F.
-//
-// Design.  One thread per (site, chain) as in kernels 1 and 2: blocks of
-// kBlock threads along sites, gridDim.y = chains, the tables shared by all
-// chains.  B is written plane-major, (C, m, n_pad), so the 32 threads of a
-// warp store 32 adjacent floats of one plane; the sweep reads it in that
-// layout and nothing is transposed.
-//
-// What bounds it.  Per thread about (m^2/2 + m/2) * 4 bytes of table reads
-// and (m + 1) * 4 bytes of stores against ~m^3/6 + m^2 dependent FMAs and
-// m(m+1)/2 exponentials: latency- and register-bound like kernel 2, because
-// the back-substitution reads column i of L for every k > i and so keeps all
-// of L live to the end (105 + 15 + 15 + 15 floats at m = 15).  Its floor on
-// an H100 is set by operations, the special-function rate of the
-// exponentials, just above the bytes it must move (chip_smoke.py,
-// kernel_bounds); it runs far above both.
-#include <cstddef>
-
-#include "vecchia_common.cuh"
-
-namespace vecchia {
-namespace {
-
-template <int M>
-__global__ void __launch_bounds__(kBlock)
-bf_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
-          const float* __restrict__ d_tri, int n_pad, int family, float* __restrict__ b_out,
-          float* __restrict__ f_out) {
-  const int chain = blockIdx.y;
-  const int site = blockIdx.x * kBlock + threadIdx.x;
-  const float* pr = params + chain * kParams;
-  const float phi = pr[0];
-  const float alpha = pr[1];
-  const float jitter = pr[2];
-  const int n = static_cast<int>(pr[3]);
-  float* b_site = b_out + static_cast<size_t>(chain) * M * n_pad + site;
-  float* f_site = f_out + static_cast<size_t>(chain) * n_pad + site;
-
-  if (site >= n) {  // padded site: B = 0, F = 1
-#pragma unroll
-    for (int i = 0; i < M; ++i) b_site[static_cast<size_t>(i) * n_pad] = 0.0f;
-    *f_site = 1.0f;
-    return;
-  }
-
-  float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
-  float inv_diag[M];
-  float u[M];  // L^-1 c
-
-#pragma unroll
-  for (int k = 0; k < M; ++k) {
-    // slot k is a real neighbor iff site > k (identity row otherwise)
-    const float mk = site > k ? 1.0f : 0.0f;
-    float acc = 1.0f + mk * (alpha + jitter);
-#pragma unroll
-    for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
-    const float inv = 1.0f / sqrtf(acc);
-    inv_diag[k] = inv;
-    float au = rho(family, d_in[static_cast<size_t>(k) * n_pad + site], phi) * mk;
-#pragma unroll
-    for (int j = 0; j < k; ++j) au -= low[tri(k, j)] * u[j];
-    u[k] = au * inv;
-#pragma unroll
-    for (int i = k + 1; i < M; ++i) {
-      const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
-      float a = rho(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi) * mi;
-#pragma unroll
-      for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
-      low[tri(i, k)] = a * inv;
-    }
-  }
-
-  float ff = 1.0f + alpha;
-#pragma unroll
-  for (int k = 0; k < M; ++k) ff -= u[k] * u[k];
-  *f_site = ff;
-
-  // back-substitution B = L^-T u, last slot first
-  float b[M];
-#pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
-    float ab = u[i];
-#pragma unroll
-    for (int k = i + 1; k < M; ++k) ab -= low[tri(k, i)] * b[k];
-    b[i] = ab * inv_diag[i];
-    b_site[static_cast<size_t>(i) * n_pad] = b[i];
-  }
-}
-
-template <int M>
-void launch(dim3 grid, cudaStream_t stream, const float* params, const float* d_in,
-            const float* d_tri, int n_pad, int family, float* b_out, float* f_out) {
-  bf_kernel<M><<<grid, kBlock, 0, stream>>>(params, d_in, d_tri, n_pad, family, b_out, f_out);
-}
-
-}  // namespace
-}  // namespace vecchia
+// Kernel 3: explicit kriging weights B and conditional variances F, the
+// closed-form instances (the body and its notes are in vecchia_bf_body.cuh).
+#include "vecchia_bf_body.cuh"
 
 // C interface, bound with ctypes by pynngp_tpu_torch/ops/_build.py.
 //   params (C, 6); d_in (m, n_pad); d_tri (m(m-1)/2, n_pad);
@@ -117,18 +9,6 @@ void launch(dim3 grid, cudaStream_t stream, const float* params, const float* d_
 extern "C" int vecchia_bf_f32(const float* params, const float* d_in, const float* d_tri,
                               int n_pad, int m, int chains, int family, float* b_out,
                               float* f_out, void* stream) {
-  using namespace vecchia;
-  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(n_pad / kBlock, chains);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 7: launch<7>(grid, s, params, d_in, d_tri, n_pad, family, b_out, f_out); break;
-    case 10: launch<10>(grid, s, params, d_in, d_tri, n_pad, family, b_out, f_out); break;
-    case 15: launch<15>(grid, s, params, d_in, d_tri, n_pad, family, b_out, f_out); break;
-    case 20: launch<20>(grid, s, params, d_in, d_tri, n_pad, family, b_out, f_out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vecchia::launch_bf<false>(params, d_in, d_tri, n_pad, m, chains, family, b_out,
+                                   f_out, stream);
 }

@@ -1,16 +1,26 @@
-// Shared device helpers of the fused Vecchia kernels (vecchia_suffstats.cu,
-// vecchia_grad_body.cuh, vecchia_bf.cu): the correlation families and their phi-derivatives
-// (counterparts of _rho_fn and _drho_fn in pynngp_tpu/ops/pallas_bf.py:312,656),
-// the packed-triangle index, and the deterministic block reduction.
+// Shared device helpers of the fused Vecchia kernels (vecchia_suffstats_body.cuh,
+// vecchia_grad_body.cuh, vecchia_bf_body.cuh): the correlation families and their
+// phi-derivatives (counterparts of _rho_fn and _drho_fn in
+// pynngp_tpu/ops/pallas_bf.py:312,656), the packed-triangle index, and the
+// deterministic block reduction.
 //
 // Layout (pynngp_tpu_torch/ops/site_tables.py): plane-major tables of n_pad
 // sites, n_pad a multiple of kBlock; per-chain parameters as a (C, 6) float32
 // array [phi, alpha, jitter, n, nu, off], mirroring _params_vec
-// (pallas_bf.py:496).  nu and off are read by no closed-form family: they
-// stay in the row for the general-nu Matern and site-sharded variants.
+// (pallas_bf.py:496).  nu is read by the general-nu Matern instances alone
+// (GENERAL = true; vecchia_bessel.cuh); off is read by none and stays in the
+// row for the site-sharded variants.
+//
+// GENERAL is a template parameter of every body beside M.  The closed-form
+// instances (GENERAL = false) take rho and d rho / d phi from the switch
+// below on the runtime `family`; the general-nu instances ignore `family`
+// and call the Bessel routines.  The two sets live in separate translation
+// units, so the closed-form instances compile as they did without them.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "vecchia_bessel.cuh"
 
 namespace vecchia {
 
@@ -24,6 +34,7 @@ enum Family : int {
   kMatern12 = 3,
   kMatern32 = 4,
   kMatern52 = 5,
+  kMaternGeneral = 6,  // any nu through K_nu: the GENERAL instances
 };
 
 // Packed strict-lower-triangle index of the (i, k), i > k neighbor pair
@@ -82,6 +93,28 @@ __device__ __forceinline__ float drho_dphi(int family, float d, float phi) {
       const float t = 2.23606797749979f * d / phi;
       return expf(-t) * t * t * (1.0f + t) / (3.0f * phi);
     }
+  }
+}
+
+// rho of either set of instances.  `set` is the block's MaternSet (GENERAL)
+// or null.
+template <bool GENERAL>
+__device__ __forceinline__ float corr(int family, float d, float phi, const MaternSet* set) {
+  if constexpr (GENERAL) {
+    return rho_general(d, &set->at);
+  } else {
+    return rho(family, d, phi);
+  }
+}
+
+// The block's MaternSet from the chain's parameter row (GENERAL), or null.
+// Every thread of the block must call it.
+template <bool GENERAL>
+__device__ __forceinline__ const MaternSet* chain_matern_set(const float* pr, bool with_nu) {
+  if constexpr (GENERAL) {
+    return block_matern_set(pr[0], pr[4], with_nu);
+  } else {
+    return nullptr;
   }
 }
 

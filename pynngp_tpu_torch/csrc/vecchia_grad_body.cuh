@@ -1,10 +1,12 @@
-// Body of kernel 2, the fused Vecchia value + gradient pass, shared by its two
+// Body of kernel 2, the fused Vecchia value + gradient pass, shared by its four
 // translation units: vecchia_grad.cu (EMIT_Y = false) and vecchia_grad_y.cu
-// (EMIT_Y = true).  Each instance costs tens of seconds of ptxas at m = 20, so
-// the two sets are compiled by separate nvcc processes side by side.
+// (EMIT_Y = true) for closed-form rho, vecchia_grad_nu.cu and
+// vecchia_grad_y_nu.cu the same for the general-nu Matern (GENERAL = true).
+// Each instance costs tens of seconds of ptxas at m = 20, so the sets are
+// compiled by separate nvcc processes side by side.
 //
 // Replaces the Pallas kernel _grad_kernel (pynngp_tpu/ops/pallas_bf.py:727,
-// driven by _run_grad l.867) for closed-form kernels, without sampled nu.  For
+// driven by _run_grad l.867).  For
 // every (site, chain) it makes the same factorization as kernel 1,
 // back-substitutes p = L^-T u and q = L^-T v (p = C^-1 c, q = C^-1 y_N), and
 // contracts them with dC/dphi (from drho_dphi) and dC/dalpha (the masked
@@ -15,6 +17,21 @@
 // dquad/dphi, dlogdet/dalpha and dquad/dalpha over the sites < n; the
 // wrapper (ops/diff_suffstats.py) sums them in float64.  One pass over the
 // tables gives the value and the gradient.
+//
+// GENERAL (the general branches of _rho_fn and _drho_fn, pallas_bf.py:338,
+// 682, and with `with_nu` _drho_nu_fn and the with_nu contractions, l.704,
+// 812-833, 852-856).  rho and d rho / d phi come from one Bessel evaluation
+// (vecchia_bessel.cuh).  `with_nu`, a launch argument that every thread
+// shares, is set for a sampled nu: dC/dnu, the central difference of rho in
+// nu, is diagonal-free like dC/dphi and is contracted the same way into
+// dlogdet/dnu and dquad/dnu, sums 6 and 7 (exact zeros without it, so a
+// static general nu runs the same instances).  These instances always write
+// 8 partials, the closed-form ones 6.  Per pair of neighbors they make one
+// Bessel evaluation in the factorization and one (d rho / d phi) plus two
+// (d rho / d nu) in the contractions.  The function needs three: the
+// factorization's evaluation already holds K_{nu-1}, but keeping d rho / d phi
+// of every pair until the contractions would cost m(m-1)/2 more registers in
+// a body that spills at m = 15, so the pairs are evaluated again.
 //
 // EMIT_Y (the emit_y branch of _grad_kernel, pallas_bf.py:857-864) also
 // writes what the y cotangent needs: the kriging weights B = p, plane-major
@@ -44,13 +61,13 @@
 namespace vecchia {
 namespace {
 
-template <int M, bool EMIT_Y>
+template <int M, bool EMIT_Y, bool GENERAL>
 __global__ void __launch_bounds__(kBlock)
 grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
             const float* __restrict__ d_tri, const int* __restrict__ nn_idx,
             const float* __restrict__ y_all, int y_stride, int n_pad, int family,
             float* __restrict__ part, float* __restrict__ b_out,
-            float* __restrict__ rof_out) {
+            float* __restrict__ rof_out, bool with_nu) {
   const int chain = blockIdx.y;
   const int site = blockIdx.x * kBlock + threadIdx.x;
   const float* pr = params + chain * kParams;
@@ -59,12 +76,14 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
   const float alpha = pr[1];
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
+  const MaternSet* set = chain_matern_set<GENERAL>(pr, with_nu);
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
   float u[M];   // L^-1 c
   float v[M];   // L^-1 y_N
   float dc[M];  // dc/dphi (masked)
+  [[maybe_unused]] float dcn[GENERAL ? M : 1];  // dc/dnu (masked), GENERAL only
 
 #pragma unroll
   for (int k = 0; k < M; ++k) {
@@ -76,8 +95,16 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     inv_diag[k] = inv;
     const size_t at = static_cast<size_t>(k) * n_pad + site;
     const float dk = d_in[at];
-    dc[k] = drho_dphi(family, dk, phi) * mk;
-    float au = rho(family, dk, phi) * mk;
+    float au;
+    if constexpr (GENERAL) {
+      const float2 rd = rho_drho_general(dk, &set->at);
+      dc[k] = rd.y * mk;
+      dcn[k] = with_nu ? drho_dnu_general(dk, set) * mk : 0.0f;
+      au = rd.x * mk;
+    } else {
+      dc[k] = drho_dphi(family, dk, phi) * mk;
+      au = rho(family, dk, phi) * mk;
+    }
     float av = y[nn_idx[at]] * mk;
 #pragma unroll
     for (int j = 0; j < k; ++j) {
@@ -89,7 +116,8 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
 #pragma unroll
     for (int i = k + 1; i < M; ++i) {
       const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
-      float a = rho(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi) * mi;
+      float a =
+          corr<GENERAL>(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi, set) * mi;
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
@@ -130,23 +158,42 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     for (int i = 0; i < M; ++i) b_site[static_cast<size_t>(i) * n_pad] = valid ? p[i] : 0.0f;
   }
 
-  // contractions with dC/dphi (diagonal-free: drho(0) = 0)
+  // contractions with dC/dphi (diagonal-free: drho(0) = 0) and, GENERAL with
+  // a sampled nu, with dC/dnu (diagonal-free too: rho(0) = 1 for every nu)
   float df_phi = 0.0f;
   float dr_phi = 0.0f;
+  [[maybe_unused]] float df_nu = 0.0f;
+  [[maybe_unused]] float dr_nu = 0.0f;
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     df_phi -= 2.0f * p[i] * dc[i];
     dr_phi -= dc[i] * q[i];
+    if constexpr (GENERAL) {
+      df_nu -= 2.0f * p[i] * dcn[i];
+      dr_nu -= dcn[i] * q[i];
+    }
   }
 #pragma unroll
   for (int i = 0; i < M; ++i) {
 #pragma unroll
     for (int j = i + 1; j < M; ++j) {
       const float mj = site > j ? 1.0f : 0.0f;  // mask_i * mask_j, as j > i
-      const float dcij =
-          drho_dphi(family, d_tri[static_cast<size_t>(tri(j, i)) * n_pad + site], phi) * mj;
-      df_phi += 2.0f * p[i] * p[j] * dcij;
-      dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
+      if constexpr (GENERAL) {
+        const float dij = d_tri[static_cast<size_t>(tri(j, i)) * n_pad + site];
+        const float dcij = rho_drho_general(dij, &set->at).y * mj;
+        df_phi += 2.0f * p[i] * p[j] * dcij;
+        dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
+        if (with_nu) {
+          const float dcnij = drho_dnu_general(dij, set) * mj;
+          df_nu += 2.0f * p[i] * p[j] * dcnij;
+          dr_nu += (p[i] * q[j] + p[j] * q[i]) * dcnij;
+        }
+      } else {
+        const float dcij =
+            drho_dphi(family, d_tri[static_cast<size_t>(tri(j, i)) * n_pad + site], phi) * mj;
+        df_phi += 2.0f * p[i] * p[j] * dcij;
+        dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
+      }
     }
   }
   const float df_a = 1.0f + pp;
@@ -159,23 +206,37 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     rof_out[static_cast<size_t>(chain) * n_pad + site] = valid ? r_over_f : 0.0f;
   }
   // d(r^2/F) = 2 r dr / F - (r/F)^2 dF; r_over_f carries the validity mask
-  const float sums[6] = {
-      valid ? logf(ff) : 0.0f,
-      r * r_over_f,
-      df_phi * inv_f,
-      2.0f * r_over_f * dr_phi - ratio2 * df_phi,
-      df_a * inv_f,
-      2.0f * r_over_f * dr_a - ratio2 * df_a,
-  };
-  block_sum_store<6>(sums, part, gridDim.y * gridDim.x, chain * gridDim.x + blockIdx.x);
+  if constexpr (GENERAL) {
+    const float sums[8] = {
+        valid ? logf(ff) : 0.0f,
+        r * r_over_f,
+        df_phi * inv_f,
+        2.0f * r_over_f * dr_phi - ratio2 * df_phi,
+        df_a * inv_f,
+        2.0f * r_over_f * dr_a - ratio2 * df_a,
+        df_nu * inv_f,
+        2.0f * r_over_f * dr_nu - ratio2 * df_nu,
+    };
+    block_sum_store<8>(sums, part, gridDim.y * gridDim.x, chain * gridDim.x + blockIdx.x);
+  } else {
+    const float sums[6] = {
+        valid ? logf(ff) : 0.0f,
+        r * r_over_f,
+        df_phi * inv_f,
+        2.0f * r_over_f * dr_phi - ratio2 * df_phi,
+        df_a * inv_f,
+        2.0f * r_over_f * dr_a - ratio2 * df_a,
+    };
+    block_sum_store<6>(sums, part, gridDim.y * gridDim.x, chain * gridDim.x + blockIdx.x);
+  }
 }
 
 // Validates the launch shape, picks the M instance and launches on `stream`
 // without synchronising; returns cudaGetLastError().
-template <bool EMIT_Y>
+template <bool EMIT_Y, bool GENERAL>
 int launch_grad(const float* params, const float* d_in, const float* d_tri, const int* nn_idx,
                 const float* y, int y_stride, int n_pad, int m, int chains, int family,
-                float* part, float* b_out, float* rof_out, void* stream) {
+                bool with_nu, float* part, float* b_out, float* rof_out, void* stream) {
   if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535 || y_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -183,9 +244,9 @@ int launch_grad(const float* params, const float* d_in, const float* d_tri, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VECCHIA_GRAD_CASE(MM)                                                              \
   case MM:                                                                                 \
-    grad_kernel<MM, EMIT_Y><<<grid, kBlock, 0, s>>>(params, d_in, d_tri, nn_idx, y,        \
-                                                    y_stride, n_pad, family, part, b_out,  \
-                                                    rof_out);                              \
+    grad_kernel<MM, EMIT_Y, GENERAL><<<grid, kBlock, 0, s>>>(                              \
+        params, d_in, d_tri, nn_idx, y, y_stride, n_pad, family, part, b_out, rof_out,     \
+        with_nu);                                                                          \
     break;
   switch (m) {
     VECCHIA_GRAD_CASE(7)

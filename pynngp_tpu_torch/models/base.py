@@ -57,6 +57,7 @@ def default_priors(coords, y, priors: Optional[dict] = None) -> dict:
         "sigma2": InverseGamma(2.0, var_y),
         "tau2": InverseGamma(2.0, 0.1 * var_y),
         "phi": Uniform(1e-3 * span, 2.0 * span),
+        "nu": Uniform(0.1, 3.0),  # read by a kernel that samples nu only
         "beta_scale": 100.0,
     }
     out.update(priors or {})

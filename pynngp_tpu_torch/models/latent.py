@@ -2,8 +2,9 @@
 w ~ NNGP(0, sigma2 rho_phi) (counterpart of ``pynngp_tpu.models.latent``).
 
 Ported: coordinate ordering, Euclidean distance, homogeneous noise, one
-device, closed-form kernels (phi is the only sampled kernel parameter).
-Every other option of the reference raises.
+device, every kernel of :mod:`pynngp_tpu_torch.kernels` (with ``Matern()``
+the theta block is (phi, nu), otherwise phi alone).  Every other option of
+the reference raises.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
   - w: site-by-site Gibbs, two implementations with the same stationary law:
@@ -15,7 +16,7 @@ Sampler (Metropolis-within-Gibbs, batched over C chains):
         Python loop over sites kept as the semantics oracle (CPU sizes);
   - tau2: conjugate inverse-gamma from the measurement residuals;
   - beta: conjugate Gaussian linear model on y - w;
-  - phi: random-walk Metropolis, one B/F rebuild per proposal (kernel 3,
+  - phi (and nu): random-walk Metropolis, one B/F rebuild per proposal (kernel 3,
     ``ops/bf.py``), against the sigma2-collapsed marginal
     (``collapsed=True``, the default) or the sigma2-conditioned target;
   - sigma2: conjugate inverse-gamma from the Vecchia quadratic form of w.
@@ -73,7 +74,7 @@ __all__ = ["LatentNNGP", "LatentState"]
 class LatentState(NamedTuple):
     """Batched sampler state; every field has a leading chain axis C."""
 
-    theta_u: torch.Tensor  # (C, 1) unconstrained phi
+    theta_u: torch.Tensor  # (C, k) unconstrained (phi[, nu])
     sigma2: torch.Tensor  # (C,)
     tau2: torch.Tensor  # (C,)
     beta: torch.Tensor  # (C, max(p, 1))
@@ -83,8 +84,8 @@ class LatentState(NamedTuple):
     quad_w: torch.Tensor  # (C,) sum (w_i - B_i w_N)^2 / F_i
     b: torch.Tensor  # (C, m, n_pad) plane-major kriging weights
     f: torch.Tensor  # (C, n_pad)
-    log_steps: torch.Tensor  # (C, 1)
-    accept: torch.Tensor  # (C, 1)
+    log_steps: torch.Tensor  # (C, k)
+    accept: torch.Tensor  # (C, k)
     iteration: torch.Tensor  # (C,) int32
 
 
@@ -179,20 +180,37 @@ class LatentNNGP:
         self._pair_gather = index(gather.reshape(gather.shape[0], -1))
 
         self.priors = default_priors(coords, y, priors)
-        self.theta_names = ("phi",)
+        self._sample_nu = self.kernel.samples_nu
+        self.theta_names = ("phi",) + (("nu",) if self._sample_nu else ())
         prior_phi = self.priors["phi"]
         self._t_phi = logit_transform(prior_phi.lo, prior_phi.hi)
+        if self._sample_nu:
+            prior_nu = self.priors["nu"]
+            self._t_nu = logit_transform(prior_nu.lo, prior_nu.hi)
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     # ---- parameter plumbing -------------------------------------------
     def _natural(self, theta_u):
-        return {"phi": self._t_phi.forward(theta_u[..., 0])}
+        out = {"phi": self._t_phi.forward(theta_u[..., 0])}
+        if self._sample_nu:
+            out["nu"] = self._t_nu.forward(theta_u[..., 1])
+        return out
+
+    def _unconstrained(self, phi, nu=None):
+        vals = [self._t_phi.inverse(self._tensor(phi))]
+        if self._sample_nu:
+            vals.append(self._t_nu.inverse(self._tensor(nu)))
+        return torch.stack(vals)
 
     def _log_prior_theta(self, theta_u, nat):
-        return (self.priors["phi"].logpdf(nat["phi"])
-                + self._t_phi.log_jac(theta_u[..., 0]))
+        lp = (self.priors["phi"].logpdf(nat["phi"])
+              + self._t_phi.log_jac(theta_u[..., 0]))
+        if self._sample_nu:
+            lp = lp + (self.priors["nu"].logpdf(nat["nu"])
+                       + self._t_nu.log_jac(theta_u[..., 1]))
+        return lp
 
     def _mean(self, beta):
         """x'beta per chain, (C, n); 0 without fixed effects."""
@@ -315,7 +333,8 @@ class LatentNNGP:
         """(b, f, logdet, quad) of w under the unit-variance process at
         theta: one B/F build for all chains."""
         nat = self._natural(theta_u)
-        b, f = bf_planes(self.kernel, self.tables, nat["phi"], 0.0, self.jitter)
+        b, f = bf_planes(self.kernel, self.tables, nat["phi"], 0.0, self.jitter,
+                         nat.get("nu"))
         logdet, quad, _ = plane_suffstats(b, f, w, self._nbr)
         return b, f, logdet, quad
 
@@ -361,8 +380,10 @@ class LatentNNGP:
         var_y = torch.var(self.y, unbiased=False)
         pp = self.priors["phi"]
         chain = lambda v: self._tensor(v).expand(n_chains).clone()
-        phi0 = self._tensor(init.get("phi", 0.5 * (pp.lo + pp.hi)))
-        theta_u = self._t_phi.inverse(phi0).expand(n_chains, 1).clone()
+        k = len(self.theta_names)
+        theta_u = self._unconstrained(init.get("phi", 0.5 * (pp.lo + pp.hi)),
+                                      init.get("nu", 1.0))
+        theta_u = theta_u.expand(n_chains, k).clone()
         sigma2 = chain(init.get("sigma2", 0.5 * var_y))
         tau2 = chain(init.get("tau2", 0.1 * var_y))
         beta = torch.zeros((n_chains, max(self.p, 1)), dtype=self.dtype,
@@ -374,12 +395,23 @@ class LatentNNGP:
         b, f, logdet, quad = self._suffstats(theta_u, w)
         value = (-0.5 * (logdet + quad / sigma2)
                  + self._log_prior_theta(theta_u, self._natural(theta_u)))
+        if not bool(torch.isfinite(value).all()):
+            # every proposal is compared with this value: a chain that starts
+            # at a non-finite one accepts nothing finite again
+            raise ValueError(
+                "the initial state has a non-finite log-density: the Vecchia "
+                "factorization broke down at the initial (phi, nu).  The "
+                f"latent process has no nugget, so jitter={self.jitter:g} is "
+                "all that keeps the conditional variance of a site that "
+                "nearly repeats a neighbor above 0; in float32 a smooth "
+                "kernel needs about jitter=1e-4.  Pass a larger jitter, or an "
+                "`init` with another phi or nu.")
         return LatentState(
             theta_u=theta_u, sigma2=sigma2, tau2=tau2, beta=beta, w=w,
             value=value, logdet=logdet, quad_w=quad, b=b, f=f,
-            log_steps=torch.full((n_chains, 1), math.log(0.1), dtype=self.dtype,
+            log_steps=torch.full((n_chains, k), math.log(0.1), dtype=self.dtype,
                                  device=self.device),
-            accept=torch.zeros((n_chains, 1), dtype=self.dtype,
+            accept=torch.zeros((n_chains, k), dtype=self.dtype,
                                device=self.device),
             iteration=torch.zeros(n_chains, dtype=torch.int32,
                                   device=self.device),
@@ -459,12 +491,15 @@ class LatentNNGP:
         return sample_gaussian_precision(prec, rhs, eps)
 
     def collect(self, state: LatentState, collect_w: bool = False):
+        nat = self._natural(state.theta_u)
         out = {
             "sigma2": state.sigma2,
             "tau2": state.tau2,
-            "phi": self._natural(state.theta_u)["phi"],
+            "phi": nat["phi"],
             "loglik": self.loglik(state),
         }
+        if self._sample_nu:
+            out["nu"] = nat["nu"]
         if self.p:
             out["beta"] = state.beta
         if collect_w:

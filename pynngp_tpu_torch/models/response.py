@@ -2,11 +2,12 @@
 alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
 
 Ported: homogeneous noise, one device, the distance-plane table layout,
-closed-form kernels; fixed effects (``x=``) on every path.  Every other
-option of the reference raises.
+every kernel of :mod:`pynngp_tpu_torch.kernels`, the general and the
+sampled-nu Matern among them; fixed effects (``x=``) on every path.  Every
+other option of the reference raises.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
-  - theta = (phi, alpha) block: Metropolis on unconstrained coordinates
+  - theta = (phi, alpha) block, (phi, alpha, nu) with ``Matern()``: Metropolis on unconstrained coordinates
     against the sigma2-collapsed marginal (``collapsed=True``, the default)
     or the sigma2-conditioned target; componentwise, joint, correlated-joint
     or pilot-fitted independence-mixture proposals.  Every proposal is one
@@ -20,14 +21,15 @@ Sampler (Metropolis-within-Gibbs, batched over C chains):
 differentiable suffstats (kernel 2 on the GPU).
 
 ``sample_nuts`` and ``sample_hmc`` sample the joint unconstrained posterior
-u = [log sigma2, logit phi, log tau2, beta...] of all chains at once: every
+u = [log sigma2, logit phi, log tau2, (logit nu,) beta...] of all chains at
+once (logit nu with ``Matern()`` only): every
 leapfrog step is one ``full_logpost`` value and gradient, one launch of
 kernel 2 for all chains.  With fixed effects the residual y - X beta_c
 differs by chain and its gradient flows back through the y cotangent of the
 differentiable suffstats (the EMIT_Y instances of kernel 2).
 
 Where u lives.  ``full_logpost`` runs its transforms and priors on the device
-of the u it is given; only (phi, alpha) and, with fixed effects, beta cross to
+of the u it is given; only (phi, alpha, nu) and, with fixed effects, beta cross to
 the card, and the (C,) sums come back.  ``fit_map``, ``sample_nuts`` and
 ``sample_hmc`` keep u, a few numbers per chain, on the host: the tree, the
 warmup and the priors are then host arithmetic instead of hundreds of tiny
@@ -75,7 +77,7 @@ __all__ = ["ResponseNNGP", "ResponseState"]
 class ResponseState(NamedTuple):
     """Batched sampler state; every field has a leading chain axis C."""
 
-    theta_u: torch.Tensor  # (C, k) unconstrained (logit phi, log alpha)
+    theta_u: torch.Tensor  # (C, k) unconstrained (logit phi, log alpha[, logit nu])
     sigma2: torch.Tensor  # (C,)
     beta: torch.Tensor  # (C, max(p, 1)) fixed effects
     value: torch.Tensor  # (C,) cached theta-block log-posterior
@@ -153,22 +155,39 @@ class ResponseNNGP:
             self.tables = with_children(self.tables)
 
         self.priors = default_priors(coords, y, priors)
-        self.theta_names = ("phi", "alpha")
+        # Metropolis block layout: [phi, alpha(, nu)]
+        self._sample_nu = self.kernel.samples_nu
+        self.theta_names = ("phi", "alpha") + (("nu",) if self._sample_nu else ())
         pp = self.priors["phi"]
         self._t_phi = logit_transform(pp.lo, pp.hi)
         self._t_alpha = log_transform
+        if self._sample_nu:
+            pn = self.priors["nu"]
+            self._t_nu = logit_transform(pn.lo, pn.hi)
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     # ---- parameter plumbing -------------------------------------------
     def _natural(self, theta_u):
-        return {"phi": self._t_phi.forward(theta_u[..., 0]),
-                "alpha": self._t_alpha.forward(theta_u[..., 1])}
+        out = {"phi": self._t_phi.forward(theta_u[..., 0]),
+               "alpha": self._t_alpha.forward(theta_u[..., 1])}
+        if self._sample_nu:
+            out["nu"] = self._t_nu.forward(theta_u[..., 2])
+        return out
 
-    def _unconstrained(self, phi, alpha):
-        return torch.stack([self._t_phi.inverse(self._tensor(phi)),
-                            self._t_alpha.inverse(self._tensor(alpha))])
+    def _unconstrained(self, phi, alpha, nu=None):
+        vals = [self._t_phi.inverse(self._tensor(phi)),
+                self._t_alpha.inverse(self._tensor(alpha))]
+        if self._sample_nu:
+            vals.append(self._t_nu.inverse(self._tensor(nu)))
+        return torch.stack(vals)
+
+    def _log_prior_nu(self, nu, nu_u):
+        """Prior + Jacobian of a sampled nu; 0 for a kernel that samples none."""
+        if not self._sample_nu:
+            return 0.0
+        return self.priors["nu"].logpdf(nu) + self._t_nu.log_jac(nu_u)
 
     def _log_prior_theta(self, theta_u, nat, sigma2):
         """Prior + Jacobian of the Metropolis block given sigma2 (tau2 =
@@ -177,8 +196,9 @@ class ResponseNNGP:
         lp = (self.priors["phi"].logpdf(nat["phi"])
               + self._t_phi.log_jac(theta_u[..., 0]))
         tau2 = nat["alpha"] * sigma2
-        return lp + (self.priors["tau2"].logpdf(tau2) + torch.log(sigma2)
-                     + self._t_alpha.log_jac(theta_u[..., 1]))
+        lp = lp + (self.priors["tau2"].logpdf(tau2) + torch.log(sigma2)
+                   + self._t_alpha.log_jac(theta_u[..., 1]))
+        return lp + self._log_prior_nu(nat.get("nu"), theta_u[..., -1])
 
     # ---- likelihood pieces --------------------------------------------
     def _suffstats(self, theta_u, beta=None):
@@ -189,10 +209,11 @@ class ResponseNNGP:
         nat = self._natural(theta_u)
         if self.p == 0:
             logdet, quad, _, _ = suffstats(self.kernel, self.tables, nat["phi"],
-                                           nat["alpha"], self.y, self.jitter)
+                                           nat["alpha"], self.y, self.jitter,
+                                           nat.get("nu"))
             return {"logdet": logdet, "quad": quad}
         b, f = bf_planes(self.kernel, self.tables, nat["phi"], nat["alpha"],
-                         self.jitter)
+                         self.jitter, nat.get("nu"))
         logdet, quad, _ = plane_suffstats(b, f, self.y - beta @ self.x.T,
                                           self._nbr)
         return {"b": b, "f": f, "logdet": logdet, "quad": quad}
@@ -222,7 +243,8 @@ class ResponseNNGP:
         lp = (self.priors["phi"].logpdf(nat["phi"])
               + self._t_phi.log_jac(theta_u[..., 0])
               - (self.priors["tau2"].a + 1.0) * torch.log(nat["alpha"])
-              + self._t_alpha.log_jac(theta_u[..., 1]))
+              + self._t_alpha.log_jac(theta_u[..., 1])
+              + self._log_prior_nu(nat.get("nu"), theta_u[..., -1]))
         return -0.5 * logdet - a_big * torch.log(b_big) + lp
 
     def loglik(self, state: ResponseState):
@@ -236,7 +258,7 @@ class ResponseNNGP:
         var_y = torch.var(self.y, unbiased=False)
         pp = self.priors["phi"]
         theta_u = self._unconstrained(init.get("phi", 0.5 * (pp.lo + pp.hi)),
-                                      init.get("alpha", 0.1))
+                                      init.get("alpha", 0.1), init.get("nu", 1.0))
         k = len(self.theta_names)
         theta_u = theta_u.expand(n_chains, k).clone()
         sigma2 = self._tensor(init.get("sigma2", 0.9 * var_y)).expand(n_chains).clone()
@@ -361,25 +383,30 @@ class ResponseNNGP:
             "phi": nat["phi"],
             "loglik": self.loglik(state),
         }
+        if self._sample_nu:
+            out["nu"] = nat["nu"]
         if self.p:
             out["beta"] = state.beta
         return out
 
     # ---- the joint posterior (MAP / Laplace / NUTS / HMC) ---------------
-    # u = [log sigma2, logit phi, log tau2, beta...]; a (B, 3 + p) batch of
-    # points is a batch of chains in the fused kernels.
+    # u = [log sigma2, logit phi, log tau2, (logit nu,) beta...]; a
+    # (B, full_dim) batch of points is a batch of chains in the fused kernels.
     def _unpack_full(self, u):
-        """(natural parameters, beta (..., p)) of u (..., 3 + p)."""
+        """(natural parameters, beta (..., p)) of u (..., full_dim)."""
         nat = {"sigma2": torch.exp(u[..., 0]),
                "phi": self._t_phi.forward(u[..., 1]),
                "tau2": torch.exp(u[..., 2])}
-        return nat, u[..., 3:3 + self.p]
+        if self._sample_nu:
+            nat["nu"] = self._t_nu.forward(u[..., 3])
+        first = self.full_dim() - self.p
+        return nat, u[..., first:first + self.p]
 
     def full_dim(self) -> int:
-        return 3 + self.p
+        return 3 + int(self._sample_nu) + self.p
 
     def full_loglik(self, u):
-        """log p(y | u) per point of u (..., 3 + p)."""
+        """log p(y | u) per point of u (..., full_dim)."""
         nat, beta = self._unpack_full(u)
         sigma2, phi = nat["sigma2"], nat["phi"]
         alpha = nat["tau2"] / sigma2
@@ -388,8 +415,9 @@ class ResponseNNGP:
             # per-point residual (B, n): its beta gradient, -dy' X, is this
             # product's own backward; dy comes from the kernel's EMIT_Y outputs
             y = self.y - beta.reshape(-1, self.p).to(self.device) @ self.x.T
+        nu = nat["nu"].reshape(-1) if self._sample_nu else None
         logdet, quad = diff_suffstats(self.kernel, self.tables, phi.reshape(-1),
-                                      alpha.reshape(-1), y, self.jitter)
+                                      alpha.reshape(-1), y, self.jitter, nu)
         logdet, quad = logdet.reshape(phi.shape), quad.reshape(phi.shape)
         return -0.5 * (self.n * (LOG_2PI + torch.log(sigma2)) + logdet
                        + quad / sigma2)
@@ -400,6 +428,8 @@ class ResponseNNGP:
         lp = self.priors["sigma2"].logpdf(nat["sigma2"]) + u[..., 0]
         lp = lp + self.priors["phi"].logpdf(nat["phi"]) + self._t_phi.log_jac(u[..., 1])
         lp = lp + self.priors["tau2"].logpdf(nat["tau2"]) + u[..., 2]
+        if self._sample_nu:
+            lp = lp + self._log_prior_nu(nat["nu"], u[..., 3])
         if self.p:
             lp = lp - 0.5 * ((beta / self.priors["beta_scale"]) ** 2).sum(-1)
         return lp
@@ -410,26 +440,29 @@ class ResponseNNGP:
         return self.full_loglik(u) + self.full_logprior(u)
 
     def full_value_and_grad(self, u):
-        """(log p(u | y) (C,), its gradient (C, 3 + p)) at the points u
-        (C, 3 + p), on u's device: one launch of kernel 2 for all of them."""
+        """(log p(u | y) (C,), its gradient (C, full_dim)) at the points u
+        (C, full_dim), on u's device: one launch of kernel 2 for all of them."""
         return value_and_grad(self.full_logpost, u)
 
     def _full_init_u(self, init: Optional[dict] = None):
         init = init or {}
         var_y = torch.var(self.y, unbiased=False)
         pp = self.priors["phi"]
-        u = torch.stack([
+        vals = [
             torch.log(self._tensor(init.get("sigma2", 0.9 * var_y))),
             self._t_phi.inverse(self._tensor(init.get("phi", 0.5 * (pp.lo + pp.hi)))),
             torch.log(self._tensor(init.get("tau2", 0.1 * var_y))),
-        ])
+        ]
+        if self._sample_nu:
+            vals.append(self._t_nu.inverse(self._tensor(init.get("nu", 1.0))))
+        u = torch.stack(vals)
         if self.p:
             beta = self._tensor(init.get("beta", 0.0)).expand(self.p)
             u = torch.cat([u, beta])
         return u
 
     def _warm_init_u(self, init_u, init_inv_mass, n_chains, gen, init_jitter):
-        """Per-chain starts (C, 3 + p) around a point, dispersed by
+        """Per-chain starts (C, full_dim) around a point, dispersed by
         ``init_jitter`` posterior standard deviations per coordinate (the
         diagonal of a dense Laplace metric; 1 without a metric)."""
         host = lambda a: torch.as_tensor(a, dtype=self.dtype).to(gen.device)
@@ -497,8 +530,8 @@ class ResponseNNGP:
                     init_u=None, init_inv_mass=None, init_jitter: float = 1.0,
                     **driver_kwargs):
         """NUTS over the joint hyperparameter (+ fixed-effect) posterior;
-        returns numpy draws (n_chains, n_samples) of sigma2, phi, tau2,
-        logpost, diverging, the tree's depth and n_leapfrog, and beta with
+        returns numpy draws (n_chains, n_samples) of sigma2, phi, tau2, nu
+        when it is sampled, logpost, diverging, the tree's depth and n_leapfrog, and beta with
         fixed effects.
 
         Warm start (``fit_map``): ``init_u`` starts every chain at that
@@ -529,17 +562,22 @@ class ResponseNNGP:
 
     def theta_proposal_cov(self, laplace_cov):
         """Project the full-u Laplace covariance onto the Metropolis theta
-        block (logit phi, log alpha = log tau2 - log sigma2)."""
+        block (logit phi, log alpha = log tau2 - log sigma2(, logit nu))."""
         c = _numpy(laplace_cov)
         t = np.zeros((len(self.theta_names), c.shape[0]))  # beta columns: 0
         t[0, 1] = 1.0
         t[1, 0], t[1, 2] = -1.0, 1.0
+        if self._sample_nu:
+            t[2, 3] = 1.0
         return t @ c @ t.T
 
     def theta_proposal_center(self, u_map):
         """Project the full-u MAP point onto the Metropolis theta block."""
         u = _numpy(u_map)
-        return np.asarray([u[1], u[2] - u[0]])  # beta entries dropped
+        out = [u[1], u[2] - u[0]]  # beta entries dropped
+        if self._sample_nu:
+            out.append(u[3])
+        return np.asarray(out)
 
     def sample(
         self,

@@ -49,6 +49,12 @@ _SIGNATURES = {
     "vecchia_grad_y_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # params, d_in, d_tri, n_pad, m, chains, family, b, f, stream
     "vecchia_bf_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # the general-nu Matern instances: no family; kernel 2 takes with_nu in
+    # its place
+    "vecchia_suffstats_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_grad_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "vecchia_grad_y_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_bf_nu_f32": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -4,7 +4,9 @@ of ``pallas_bf`` (``pynngp_tpu/ops/pallas_bf.py:991-1048``).
 :func:`bf_planes` launches kernel 3 (``csrc/vecchia_bf.cu``) for CUDA tensors
 and runs :func:`bf_reference`, its plain PyTorch version, for CPU tensors.
 Chains are an explicit leading axis: ``phi`` and ``alpha`` are (C,) tensors,
-the tables are shared by all chains.
+the tables are shared by all chains.  The general-nu Matern (``Matern()``
+with a (C,) ``nu``, or ``Matern(nu=0.8)``) launches the kernel's GENERAL
+instances (``csrc/vecchia_bf_nu.cu``), counted in ``COUNT_NU``.
 
 Layout.  B comes out plane-major, ``(C, m, n_pad)``, and F as ``(C, n_pad)``:
 the layout the kernel stores coalesced and the one the models consume (the
@@ -25,12 +27,20 @@ import torch
 
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import SiteTables, unpack_distances
-from pynngp_tpu_torch.ops.suffstats import cuda_args, params_array
+from pynngp_tpu_torch.ops.suffstats import (
+    GENERAL_FAMILY,
+    cuda_args,
+    kernel_nu,
+    params_array,
+    plain_nu,
+)
 from pynngp_tpu_torch.vecchia import conditional_system
 
-__all__ = ["COUNT", "bf", "bf_planes", "bf_reference", "plane_suffstats"]
+__all__ = ["COUNT", "COUNT_NU", "bf", "bf_planes", "bf_reference",
+           "plane_suffstats"]
 
 COUNT = _build.LaunchCount("vecchia_bf")
+COUNT_NU = _build.LaunchCount("vecchia_bf_nu")  # the GENERAL instances
 
 
 def bf_reference(kernel, tables: SiteTables, params):
@@ -44,13 +54,18 @@ def bf_reference(kernel, tables: SiteTables, params):
     mask = (site[:, None] > torch.arange(tables.m, device=d_in.device)) & valid[:, None]
     phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
     c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
-                                      mask)
+                                      mask, nu=plain_nu(kernel, params),
+                                      fused=True)
     low = torch.linalg.cholesky(c_mat)  # (C, n_pad, m, m)
     u = torch.linalg.solve_triangular(low, c_vec[..., None], upper=False)
     b = torch.linalg.solve_triangular(low.mT, u, upper=True)[..., 0]
     f = 1.0 + alpha - (u[..., 0] * u[..., 0]).sum(-1)
     f = torch.where(valid, f, torch.ones((), dtype=f.dtype, device=f.device))
     return b.transpose(1, 2).contiguous(), f
+
+
+def _count(kernel):
+    return COUNT_NU if kernel.family == GENERAL_FAMILY else COUNT
 
 
 def _launch(kernel, tables: SiteTables, params):
@@ -60,42 +75,45 @@ def _launch(kernel, tables: SiteTables, params):
     b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                     device=dev)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
-    code = _build.library().vecchia_bf_f32(
-        params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-        tables.n_pad, tables.m, chains, kernel.family, b.data_ptr(),
-        f.data_ptr(), _build.stream_handle(dev),
-    )
-    _build.check(code, "vecchia_bf_f32")
-    COUNT.launches += 1
+    head = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
+            tables.n_pad, tables.m, chains)
+    tail = (b.data_ptr(), f.data_ptr(), _build.stream_handle(dev))
+    general = kernel.family == GENERAL_FAMILY
+    name = "vecchia_bf" + ("_nu" if general else "") + "_f32"
+    # only the closed-form entry takes the family
+    family = () if general else (kernel.family,)
+    _build.check(getattr(_build.library(), name)(*head, *family, *tail), name)
+    _count(kernel).launches += 1
     return b, f
 
 
-def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6):
+def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None):
     """Plane-major (B (C, m, n_pad), F (C, n_pad)) of the unit-variance
     Vecchia factorization, per chain.
 
     Args:
-      kernel: a closed-form kernel of :mod:`pynngp_tpu_torch.kernels`.
+      kernel: a kernel of :mod:`pynngp_tpu_torch.kernels`.
       tables: :class:`SiteTables` of the dataset.
       phi, alpha: (C,) per-chain range and relative nugget (scalars give
         C = 1); alpha is 0 for the latent process.
+      nu: (C,) per-chain smoothness, for a kernel that samples it only.
     B is 0 in invalid slots; padded sites hold B = 0, F = 1.  CUDA tensors
     launch kernel 3; CPU tensors run :func:`bf_reference`.
     """
     params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
-                          tables.d_in.device)
+                          tables.d_in.device, kernel_nu(kernel, nu))
     if tables.d_in.is_cuda:
         return _launch(kernel, tables, params)
     if tables.d_in.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.d_in.device}")
-    COUNT.plain += 1
+    _count(kernel).plain += 1
     return bf_reference(kernel, tables, params)
 
 
-def bf(kernel, tables: SiteTables, phi, alpha, jitter=1e-6):
+def bf(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None):
     """(B (C, n, m), F (C, n)): :func:`bf_planes` as row-major views over the
     true sites, the layout ``pallas_bf`` returns.  No copy is made."""
-    b, f = bf_planes(kernel, tables, phi, alpha, jitter)
+    b, f = bf_planes(kernel, tables, phi, alpha, jitter, nu)
     return b[:, :, :tables.n].transpose(1, 2), f[:, :tables.n]
 
 

@@ -2,11 +2,21 @@
 ``make_diff_suffstats`` (``pynngp_tpu/ops/pallas_bf.py:1051-1158``).
 
 :class:`DiffSuffstats` is a ``torch.autograd.Function`` of (phi, alpha, y)
-per chain.  A differentiated call runs kernel 2 once: the value and the six
-partial sums (logdet, quad and their phi and alpha derivatives) come out of
-one pass over the tables, and ``backward`` contracts the saved derivatives
+per chain and, for a kernel that samples it (``Matern()``), nu.  A
+differentiated call runs kernel 2 once: the value and the six partial sums
+(logdet, quad and their phi and alpha derivatives; eight with the two nu
+derivatives, the reference's ``suff_nu``, ``pallas_bf.py:1095-1126``) come out
+of one pass over the tables, and ``backward`` contracts the saved derivatives
 with the cotangents exactly as the reference's ``bwd`` does
-(``pallas_bf.py:1144-1155``).  An undifferentiated call runs kernel 1.
+(``pallas_bf.py:1112-1124, 1144-1155``).  An undifferentiated call runs
+kernel 1.  The nu derivative is the kernels' central difference of rho
+(``kernels.Matern.dcorrelation_dnu``), not an exact one: a sampler that uses
+it stays exact because its acceptance rests on energies.
+
+The general-nu Matern (family 6, sampled or static nu) runs the GENERAL
+instances (``csrc/vecchia_grad_nu.cu``, ``csrc/vecchia_grad_y_nu.cu``), which
+always return eight sums, the last two zero for a static nu; their launches
+are counted in ``COUNT_NU`` and ``COUNT_Y_NU``.
 
 When y requires grad (the reference's ``y_grad=True``: with fixed effects y
 is the residual y - X beta) the forward runs the ``EMIT_Y`` instances of
@@ -21,7 +31,7 @@ depend on y.
 
 y is (n,), shared by all chains, or (C, n), one row per chain.
 
-phi and alpha may live on the host while the tables and y live on the card:
+phi, alpha and nu may live on the host while the tables and y live on the card:
 the (C, 6) parameter rows go to the card, and the (C,) sums and derivatives
 come back to phi's device.  A sampler whose state is a few numbers per chain
 can then keep it, and the prior and transform arithmetic around this call,
@@ -41,24 +51,36 @@ import torch
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables
 from pynngp_tpu_torch.ops.suffstats import (
+    GENERAL_FAMILY,
     _factor,
     cuda_args,
+    kernel_nu,
     params_array,
     suffstats,
     y_stride,
 )
 
-__all__ = ["COUNT", "COUNT_Y", "DiffSuffstats", "diff_suffstats", "dquad_dy",
-           "grad_reference", "value_and_grad_sums"]
+__all__ = ["COUNT", "COUNT_Y", "COUNT_NU", "COUNT_Y_NU", "DiffSuffstats",
+           "diff_suffstats", "dquad_dy", "grad_reference", "value_and_grad_sums"]
 
 COUNT = _build.LaunchCount("vecchia_grad")
 COUNT_Y = _build.LaunchCount("vecchia_grad_y")  # the EMIT_Y instances
+COUNT_NU = _build.LaunchCount("vecchia_grad_nu")  # GENERAL
+COUNT_Y_NU = _build.LaunchCount("vecchia_grad_y_nu")  # GENERAL and EMIT_Y
+
+
+def _count(kernel, emit_y: bool):
+    general = kernel.family == GENERAL_FAMILY
+    return ((COUNT_Y_NU if general else COUNT_Y) if emit_y
+            else (COUNT_NU if general else COUNT))
 
 
 def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
     """Plain PyTorch version of kernel 2: (6, C) sums of logdet, quad,
     dlogdet/dphi, dquad/dphi, dlogdet/dalpha, dquad/dalpha, accumulated in
-    float64 and cast to the tables' dtype.  With ``emit_y`` it returns
+    float64 and cast to the tables' dtype; (8, C) for the general-nu Matern,
+    with dlogdet/dnu and dquad/dnu (zeros for a static nu), as its kernel
+    instances write them.  With ``emit_y`` it returns
     (sums, B (C, m, n_pad), r/F (C, n_pad)) as the EMIT_Y kernel writes them:
     B and r/F exactly 0 at padded sites, B also in invalid slots."""
     fac = _factor(kernel, tables, params, y)
@@ -69,28 +91,43 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
     p = torch.linalg.solve_triangular(low.mT, u[..., None], upper=True)[..., 0]
     q = torch.linalg.solve_triangular(low.mT, v[..., None], upper=True)[..., 0]
     phi = params[:, 0:1]
-    dc = kernel.dcorrelation_dphi(fac["d_in"], phi[..., None]) * mask_f
-    # drho(0) = 0 for every kernel, so dC/dphi has no diagonal
-    d_cmat = (kernel.dcorrelation_dphi(fac["d_nn"], phi[..., None, None])
-              * mask_f[..., :, None] * mask_f[..., None, :])
-    p_dc = (p[..., :, None] * d_cmat).sum(-2)  # p' dC/dphi
-    df_phi = -2.0 * (p * dc).sum(-1) + (p_dc * p).sum(-1)
-    dr_phi = -(dc * q).sum(-1) + (p_dc * q).sum(-1)
+    general = kernel.family == GENERAL_FAMILY
+    nu = params[:, 4:5] if general else None
+    vec = lambda t: None if t is None else t[..., None]
+    mask2 = mask_f[..., :, None] * mask_f[..., None, :]
+
+    def contract(drho):
+        """(dF, dr) for the derivative ``drho(d, phi, nu)`` of rho: dc on the
+        cross-correlations, and dC, which has no diagonal (drho/dphi is 0 and
+        rho is 1 at d = 0 for every kernel and nu)."""
+        dc = drho(fac["d_in"], vec(phi), vec(nu)) * mask_f
+        p_dc = (p[..., :, None]
+                * drho(fac["d_nn"], vec(vec(phi)), vec(vec(nu))) * mask2).sum(-2)
+        return (-2.0 * (p * dc).sum(-1) + (p_dc * p).sum(-1),
+                -(dc * q).sum(-1) + (p_dc * q).sum(-1))
+
+    df_phi, dr_phi = contract(kernel.dcorrelation_dphi)
     df_a = 1.0 + (p * p).sum(-1)
     dr_a = (p * q).sum(-1)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     inv_f = torch.where(valid, 1.0 / f, zero)
     r_over_f = r * inv_f
     ratio2 = r_over_f * r_over_f
-    terms = torch.stack([
+    terms = [
         torch.where(valid, torch.log(f), zero),
         r * r_over_f,
         df_phi * inv_f,
         2.0 * r_over_f * dr_phi - ratio2 * df_phi,
         df_a * inv_f,
         2.0 * r_over_f * dr_a - ratio2 * df_a,
-    ])  # (6, C, n_pad)
-    sums = terms.sum(-1, dtype=torch.float64).to(f.dtype)
+    ]
+    if kernel.samples_nu:
+        df_nu, dr_nu = contract(kernel.dcorrelation_dnu)
+        terms += [df_nu * inv_f, 2.0 * r_over_f * dr_nu - ratio2 * df_nu]
+    elif general:
+        terms += [torch.zeros_like(f), torch.zeros_like(f)]
+    # (6 or 8, C, n_pad)
+    sums = torch.stack(terms).sum(-1, dtype=torch.float64).to(f.dtype)
     if not emit_y:
         return sums
     b = torch.where((fac["mask"] & valid[:, None]), p, zero)  # (C, n_pad, m)
@@ -101,39 +138,42 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
     params, y = cuda_args(tables, params, y)
     chains = params.shape[0]
     dev = tables.d_in.device
-    part = torch.empty((6, chains, tables.n_pad // BLOCK), dtype=torch.float32,
-                       device=dev)
+    general = kernel.family == GENERAL_FAMILY
+    part = torch.empty((8 if general else 6, chains, tables.n_pad // BLOCK),
+                       dtype=torch.float32, device=dev)
+    # the GENERAL entries take with_nu where the closed-form ones take family
+    selector = int(kernel.samples_nu) if general else kernel.family
     args = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
             tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
-            tables.m, chains, kernel.family, part.data_ptr())
+            tables.m, chains, selector, part.data_ptr())
+    name = "vecchia_grad" + ("_y" if emit_y else "") + ("_nu" if general else "") + "_f32"
+    entry = getattr(_build.library(), name)
     if emit_y:
         b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                         device=dev)
         rof = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
-        code = _build.library().vecchia_grad_y_f32(
-            *args, b.data_ptr(), rof.data_ptr(), _build.stream_handle(dev))
-        _build.check(code, "vecchia_grad_y_f32")
-        COUNT_Y.launches += 1
+        code = entry(*args, b.data_ptr(), rof.data_ptr(), _build.stream_handle(dev))
     else:
-        code = _build.library().vecchia_grad_f32(*args, _build.stream_handle(dev))
-        _build.check(code, "vecchia_grad_f32")
-        COUNT.launches += 1
+        code = entry(*args, _build.stream_handle(dev))
+    _build.check(code, name)
+    _count(kernel, emit_y).launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return (sums, b, rof) if emit_y else sums
 
 
 def value_and_grad_sums(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6,
-                        emit_y: bool = False):
-    """(6, C) value and derivative sums, and with ``emit_y`` also B
-    (C, m, n_pad) and r/F (C, n_pad): kernel 2 for CUDA tensors,
-    :func:`grad_reference` for CPU tensors."""
+                        emit_y: bool = False, nu=None):
+    """(6, C) value and derivative sums ((8, C) for the general-nu Matern),
+    and with ``emit_y`` also B (C, m, n_pad) and r/F (C, n_pad): kernel 2 for
+    CUDA tensors, :func:`grad_reference` for CPU tensors."""
     device = phi.device if isinstance(phi, torch.Tensor) else tables.d_in.device
-    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype, device)
+    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype, device,
+                          kernel_nu(kernel, nu))
     if tables.d_in.is_cuda:
         return _launch(kernel, tables, params, y, emit_y)
     if tables.d_in.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.d_in.device}")
-    (COUNT_Y if emit_y else COUNT).plain += 1
+    _count(kernel, emit_y).plain += 1
     return grad_reference(kernel, tables, params.detach(), y.detach(), emit_y)
 
 
@@ -155,53 +195,63 @@ def dquad_dy(tables: SiteTables, b, rof):
 
 class DiffSuffstats(torch.autograd.Function):
     """(logdet, quad) per chain as a differentiable function of (phi, alpha,
-    y).
+    y) and, for a kernel that samples it, nu.
 
-    ``apply(phi, alpha, y, kernel, tables, jitter)`` with phi, alpha of
-    shape (C,) and y of shape (n,) or (C, n)."""
+    ``apply(phi, alpha, y, kernel, tables, jitter, nu)`` with phi, alpha and
+    nu of shape (C,) (nu is None for a kernel that samples none) and y of
+    shape (n,) or (C, n)."""
 
     @staticmethod
-    def forward(ctx, phi, alpha, y, kernel, tables, jitter):
+    def forward(ctx, phi, alpha, y, kernel, tables, jitter, nu):
         ctx.y_shared = y.dim() == 1
-        if ctx.needs_input_grad[2]:
+        ctx.with_nu = nu is not None
+        needs = ctx.needs_input_grad
+        if needs[2]:
             sums, b, rof = value_and_grad_sums(kernel, tables, phi, alpha, y,
-                                               jitter, emit_y=True)
+                                               jitter, emit_y=True, nu=nu)
             sums = sums.to(phi)  # phi's device and dtype
             ctx.tables = tables
             ctx.save_for_backward(sums[2:], b, rof)
-        elif ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            sums = value_and_grad_sums(kernel, tables, phi, alpha, y, jitter).to(phi)
+        elif needs[0] or needs[1] or needs[6]:
+            sums = value_and_grad_sums(kernel, tables, phi, alpha, y, jitter,
+                                       nu=nu).to(phi)
             ctx.save_for_backward(sums[2:])
         else:
-            logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter)
+            logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu)
             return logdet.to(phi), quad.to(phi)
         return sums[0], sums[1]
 
     @staticmethod
     def backward(ctx, g_ld, g_q):
         derivs, *emitted = ctx.saved_tensors
-        dld_dphi, dq_dphi, dld_da, dq_da = derivs
+        dld_dphi, dq_dphi, dld_da, dq_da = derivs[:4]
         dphi = g_ld * dld_dphi + g_q * dq_dphi
         dalpha = g_ld * dld_da + g_q * dq_da
+        dnu = g_ld * derivs[4] + g_q * derivs[5] if ctx.with_nu else None
         dy = None
         if emitted:
             dy = g_q[:, None].to(emitted[1]) * dquad_dy(ctx.tables, *emitted)
             if ctx.y_shared:  # one y for all chains: their cotangents add up
                 dy = dy.sum(0)
-        return dphi, dalpha, dy, None, None, None
+        return dphi, dalpha, dy, None, None, None, dnu
 
 
-def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
-    """(logdet, quad) per chain; differentiable in phi, alpha and y.
+def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
+    """(logdet, quad) per chain; differentiable in phi, alpha, y and, for a
+    kernel that samples it, the per-chain ``nu``.
 
-    A differentiated call (grad enabled and phi, alpha or y requiring grad)
-    runs kernel 2 once, its EMIT_Y instances when y requires grad (the
+    A differentiated call (grad enabled and phi, alpha, nu or y requiring
+    grad) runs kernel 2 once, its EMIT_Y instances when y requires grad (the
     tables then need ``child_flat``); any other call runs kernel 1 only."""
     phi = torch.atleast_1d(phi)
     alpha = torch.as_tensor(alpha, dtype=phi.dtype, device=phi.device)
     alpha = torch.atleast_1d(alpha).expand_as(phi)
-    if torch.is_grad_enabled() and (phi.requires_grad or alpha.requires_grad
-                                    or y.requires_grad):
-        return DiffSuffstats.apply(phi, alpha, y, kernel, tables, jitter)
-    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter)
+    nu = kernel_nu(kernel, nu) if kernel.samples_nu else None
+    if nu is not None:
+        nu = torch.as_tensor(nu, dtype=phi.dtype, device=phi.device)
+        nu = torch.atleast_1d(nu).expand_as(phi)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (phi, alpha, y, nu)):
+        return DiffSuffstats.apply(phi, alpha, y, kernel, tables, jitter, nu)
+    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu)
     return logdet.to(phi), quad.to(phi)

@@ -6,7 +6,9 @@ tensors and runs :func:`suffstats_reference`, its plain PyTorch version, for
 CPU tensors.  Chains are an explicit leading axis: ``phi`` and ``alpha`` are
 (C,) tensors, the tables are shared by all chains, and y is either (n,),
 shared, or (C, n), one row per chain (the residual y - X beta with fixed
-effects).
+effects).  The general-nu Matern (``kernel.family == 6``: ``Matern()`` with a
+(C,) ``nu`` per chain, or ``Matern(nu=0.8)``) launches the kernel's GENERAL
+instances (``csrc/vecchia_suffstats_nu.cu``), counted in ``COUNT_NU``.
 """
 
 from __future__ import annotations
@@ -17,22 +19,41 @@ from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
-__all__ = ["COUNT", "CUDA_M", "params_array", "suffstats", "suffstats_reference",
-           "loglik"]
+__all__ = ["COUNT", "COUNT_NU", "CUDA_M", "GENERAL_FAMILY", "kernel_nu",
+           "params_array", "suffstats", "suffstats_reference", "loglik"]
 
 COUNT = _build.LaunchCount("vecchia_suffstats")
+COUNT_NU = _build.LaunchCount("vecchia_suffstats_nu")  # the GENERAL instances
 CUDA_M = (7, 10, 15, 20)  # neighbor counts the CUDA kernels are built for
+GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
 
 
-def params_array(phi, alpha, jitter, n, dtype, device=None):
+def kernel_nu(kernel, nu=None):
+    """The value of the params row's nu slot (``_kernel_nu``,
+    ``pallas_bf.py:347``): the caller's per-chain ``nu`` for a kernel that
+    samples it, the static nu of a general Matern, 0 for every kernel that
+    reads none."""
+    if kernel.samples_nu:
+        if nu is None:
+            raise ValueError(f"{kernel!r} samples nu: pass nu per chain")
+        return nu
+    if nu is not None:
+        raise ValueError(f"{kernel!r} takes no nu")
+    return kernel.static_nu if kernel.family == GENERAL_FAMILY else 0.0
+
+
+def params_array(phi, alpha, jitter, n, dtype, device=None, nu=0.0):
     """(C, 6) per-chain parameter rows [phi, alpha, jitter, n, nu, off] in
-    ``dtype``, mirroring ``_params_vec`` (``pallas_bf.py:496``).  nu and off
-    stay 0: no ported kernel reads them.  Differentiable in phi and alpha."""
+    ``dtype``, mirroring ``_params_vec`` (``pallas_bf.py:496``).  off stays
+    0: no ported kernel reads it.  Differentiable in phi, alpha and nu."""
     phi = torch.atleast_1d(torch.as_tensor(phi, dtype=dtype, device=device))
-    alpha = torch.as_tensor(alpha, dtype=dtype, device=phi.device).expand_as(phi)
     full = lambda v: torch.full_like(phi, float(v))
-    return torch.stack([phi, alpha, full(jitter), full(n), full(0.0), full(0.0)],
-                       dim=-1)
+    # a Python number becomes a fill on phi's device: as_tensor would copy it
+    # from the host and wait for the stream, once per call
+    column = lambda v: (v.to(dtype=dtype, device=phi.device).expand_as(phi)
+                        if isinstance(v, torch.Tensor) else full(v))
+    return torch.stack([phi, column(alpha), full(jitter), full(n), column(nu),
+                        full(0.0)], dim=-1)
 
 
 def _plain_inputs(tables: SiteTables, y):
@@ -47,12 +68,19 @@ def _plain_inputs(tables: SiteTables, y):
     return d_in, d_nn, mask, y_nbr, y_own, valid
 
 
+def plain_nu(kernel, params):
+    """The (C, 1) nu column of the params rows for the plain versions, or
+    None for a kernel that reads none."""
+    return params[:, 4:5] if kernel.family == GENERAL_FAMILY else None
+
+
 def _factor(kernel, tables, params, y):
     """Batched factorization shared by the plain versions of both kernels."""
     d_in, d_nn, mask, y_nbr, y_own, valid = _plain_inputs(tables, y)
     phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
     c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
-                                      mask)
+                                      mask, nu=plain_nu(kernel, params),
+                                      fused=True)
     # a system that is not positive definite (a chain at a non-finite or
     # absurd point) gives NaN, as the kernels do, and raises nothing: the
     # gradient samplers treat a NaN energy as a divergence
@@ -118,6 +146,10 @@ def y_stride(y) -> int:
     return 0 if y.dim() == 1 else y.shape[-1]
 
 
+def _count(kernel):
+    return COUNT_NU if kernel.family == GENERAL_FAMILY else COUNT
+
+
 def _launch(kernel, tables: SiteTables, params, y):
     params, y = cuda_args(tables, params, y)
     chains = params.shape[0]
@@ -126,45 +158,49 @@ def _launch(kernel, tables: SiteTables, params, y):
     resid = torch.empty_like(f)
     part = torch.empty((2, chains, tables.n_pad // BLOCK), dtype=torch.float32,
                        device=dev)
-    code = _build.library().vecchia_suffstats_f32(
-        params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-        tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
-        tables.m, chains, kernel.family, f.data_ptr(), resid.data_ptr(),
-        part.data_ptr(),
-        _build.stream_handle(dev),
-    )
-    _build.check(code, "vecchia_suffstats_f32")
-    COUNT.launches += 1
+    head = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
+            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
+            tables.m, chains)
+    tail = (f.data_ptr(), resid.data_ptr(), part.data_ptr(),
+            _build.stream_handle(dev))
+    general = kernel.family == GENERAL_FAMILY
+    name = "vecchia_suffstats" + ("_nu" if general else "") + "_f32"
+    # only the closed-form entry takes the family
+    family = () if general else (kernel.family,)
+    _build.check(getattr(_build.library(), name)(*head, *family, *tail), name)
+    _count(kernel).launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return sums[0], sums[1], f, resid
 
 
-def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6):
+def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
     """(logdet, quad, f, resid) of the unit-variance Vecchia factorization,
     per chain.
 
     Args:
-      kernel: a closed-form kernel of :mod:`pynngp_tpu_torch.kernels`.
+      kernel: a kernel of :mod:`pynngp_tpu_torch.kernels`.
       tables: :class:`SiteTables` of the dataset.
       phi, alpha: (C,) per-chain range and relative nugget (scalars give C=1).
       y: (n,) ordered values shared by all chains, or (C, n) per chain.
+      nu: (C,) per-chain smoothness, for a kernel that samples it only.
     Returns logdet, quad as (C,) and f, resid as (C, n_pad); padded sites are
     excluded from the sums.  CUDA tensors launch kernel 1; CPU tensors run
     :func:`suffstats_reference`.
     """
     params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
-                          tables.d_in.device)
+                          tables.d_in.device, kernel_nu(kernel, nu))
     if tables.d_in.is_cuda:
         return _launch(kernel, tables, params, y)
     if tables.d_in.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.d_in.device}")
-    COUNT.plain += 1
+    _count(kernel).plain += 1
     return suffstats_reference(kernel, tables, params, y)
 
 
-def loglik(kernel, tables: SiteTables, phi, y, sigma2, alpha, jitter=1e-6):
+def loglik(kernel, tables: SiteTables, phi, y, sigma2, alpha, jitter=1e-6,
+           nu=None):
     """Response-model Vecchia log-likelihood per chain (``pallas_loglik``)."""
-    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter)
+    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu)
     sigma2 = torch.as_tensor(sigma2, dtype=logdet.dtype, device=logdet.device)
     return -0.5 * (tables.n * (LOG_2PI + torch.log(sigma2)) + logdet
                    + quad / sigma2)

@@ -57,10 +57,21 @@ def _uniform(gen, shape, like):
 
 
 def _mh_accept(gen, log_ratio):
+    """(accept, acceptance probability) per chain.  A NaN ratio (a proposal
+    whose factorization broke down in float32) is a rejection with
+    probability 0.
+
+    This departs from the reference on purpose.  There
+    (pynngp_tpu/samplers/mwg.py:43-44) the proposal is rejected as here, since
+    ``log(u) < nan`` is false, but ``jnp.minimum`` hands the NaN on as the
+    acceptance probability, and ``adapt_log_step`` (l.189) adds it to that
+    chain's log step: every later proposal of the chain is NaN and the chain
+    stands still for the rest of the run without an error.  On finite ratios
+    the two agree exactly."""
     u = _uniform(gen, log_ratio.shape, log_ratio)
     accept = torch.log(u) < log_ratio
     accept_prob = torch.clamp(torch.exp(torch.clamp(log_ratio, max=0.0)), max=1.0)
-    return accept, accept_prob
+    return accept, torch.nan_to_num(accept_prob, nan=0.0)
 
 
 def _select(accept, prop, cur):

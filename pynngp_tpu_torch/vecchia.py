@@ -90,24 +90,35 @@ def make_vecchia_data(
     return VecchiaData(pts, nn_idx, nn_mask, d_in, d_nn), table
 
 
-def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask):
+def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask, nu=None,
+                       fused=False):
     """Masked neighbor correlation C_N (..., m, m) and cross-correlation
     c (..., m) of the unit-variance conditionals.
 
-    ``phi`` and ``alpha`` broadcast against ``d_in.shape[:-1]``: 0-d tensors
-    for one parameter set, or shape (C, 1) against (n, m) tables for C
-    chains (giving (C, n, m, m))."""
+    ``phi``, ``alpha`` and, for a kernel that reads one, ``nu`` broadcast
+    against ``d_in.shape[:-1]``: 0-d tensors for one parameter set, or shape
+    (C, 1) against (n, m) tables for C chains (giving (C, n, m, m)).
+    ``fused`` takes rho as the fused kernels do (``fused_correlation``: the
+    general Matern's floor of t), for their plain versions."""
+    rho = kernel.fused_correlation if fused else kernel.correlation
+
+    def kparams(*trail):  # the parameters with trailing broadcast axes
+        out = {"phi": phi[(..., *trail)]}
+        if nu is not None:
+            out["nu"] = nu[(..., *trail)]
+        return out
+
     dtype = d_in.dtype
     m = d_in.shape[-1]
     eye = torch.eye(m, dtype=dtype, device=d_in.device)
     mask_f = mask.to(dtype)
     mask2 = mask_f[..., :, None] * mask_f[..., None, :]
-    rho_nn = kernel.correlation(d_nn, {"phi": phi[..., None, None]})
+    rho_nn = rho(d_nn, kparams(None, None))
     diag_add = (alpha + jitter)[..., None, None] * eye
     # valid slots: rho + alpha + jitter on the diagonal; masked slots:
     # identity row/column (=> B = 0 there)
     c_mat = (rho_nn + diag_add) * mask2 + eye * (1.0 - mask2 * eye)
-    c_vec = kernel.correlation(d_in, {"phi": phi[..., None]}) * mask_f
+    c_vec = rho(d_in, kparams(None)) * mask_f
     return c_mat, c_vec
 
 
@@ -116,7 +127,8 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
 
     Args:
       kernel: correlation kernel (:mod:`pynngp_tpu_torch.kernels`).
-      params: {"phi": scalar or (C,)} in natural space.
+      params: {"phi": scalar or (C,)} in natural space, and "nu" likewise
+        for a kernel that samples it (``Matern()``).
       alpha: relative nugget tau^2/sigma^2, scalar or (C,) (0 for the latent
         process).  Per-site (heterogeneous) nuggets are not ported yet.
 
@@ -134,11 +146,17 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
     if phi.ndim > 1 or alpha.ndim > 1:
         raise NotImplementedError("per-site nuggets (heterogeneous noise) "
                                   "are not ported yet")
-    if phi.ndim or alpha.ndim:  # chains: (C, 1) against the (n, m) tables
-        phi, alpha = (t.reshape(-1, 1) for t in torch.broadcast_tensors(
-            torch.atleast_1d(phi), torch.atleast_1d(alpha)))
+    nu = None
+    if kernel.samples_nu:
+        nu = torch.as_tensor(params["nu"], dtype=dtype, device=dev)
+    if phi.ndim or alpha.ndim or (nu is not None and nu.ndim):
+        # chains: (C, 1) against the (n, m) tables
+        cols = [torch.atleast_1d(t) for t in (phi, alpha, nu) if t is not None]
+        cols = [t.reshape(-1, 1) for t in torch.broadcast_tensors(*cols)]
+        phi, alpha = cols[0], cols[1]
+        nu = cols[2] if nu is not None else None
     c_mat, c_vec = conditional_system(
-        kernel, phi, alpha, jitter, d_in, d_nn, data.nn_mask
+        kernel, phi, alpha, jitter, d_in, d_nn, data.nn_mask, nu=nu
     )
     chol = torch.linalg.cholesky(c_mat)
     tmp = torch.linalg.solve_triangular(chol, c_vec[..., None], upper=False)

@@ -6,7 +6,9 @@ Parameters are exact in float32 (phi, alpha, jitter = 2^-20), because the
 reference's ``_params_vec`` rounds them through float32; the port keeps them
 in float64.  Both packages factor the same float32 distance tables held in
 float64, so B and F agree to rounding: rtol 1e-8 (atol 1e-12 on B, whose
-small entries are differences of O(1) terms)."""
+small entries are differences of O(1) terms).  The general-nu Matern cases
+run at n = 300, m = 6 with nu rounded to float32 like phi and alpha
+(interpret mode with the Bessel series is slow)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,14 @@ ALPHAS = {"nugget": (0.125, 0.25, 0.0625), "zero": (0.0, 0.0, 0.0)}
 FAMILIES = {
     "exponential": (jkernels.Exponential(), kernels.Exponential()),
     "matern32": (jkernels.Matern(nu=1.5), kernels.Matern(nu=1.5)),
+}
+
+
+NU_A, NU_B = float(np.float32(0.8)), float(np.float32(1.7))
+# (reference kernel, port kernel, per-chain nu or None for a static nu)
+NU_CASES = {
+    "sampled": (jkernels.Matern(), kernels.Matern(), (NU_A, NU_B)),
+    "static": (jkernels.Matern(nu=NU_A), kernels.Matern(nu=NU_A), None),
 }
 
 
@@ -77,6 +87,53 @@ def test_bf_matches_pallas_and_xla(problem, family, alphas):
             np.testing.assert_allclose(b[c].numpy(), np.asarray(b_j), rtol=1e-8,
                                        atol=1e-12)
             np.testing.assert_allclose(f[c].numpy(), np.asarray(f_j), rtol=1e-8)
+
+
+@pytest.fixture(scope="module")
+def nu_problem():
+    return _problem(6)
+
+
+@pytest.mark.parametrize("alphas", list(ALPHAS), ids=list(ALPHAS))
+@pytest.mark.parametrize("case", list(NU_CASES))
+def test_general_nu_bf_matches_pallas(nu_problem, case, alphas):
+    """Kernel 3's plain version with the general-nu Matern against pallas_bf
+    in interpret mode (_bf_kernel reading nu), float64, rtol 1e-8 (B atol
+    1e-12); the latent model's alpha = 0 among the cases."""
+    jkern, kern, nus = NU_CASES[case]
+    chains = 2
+    nu_t = None if nus is None else torch.tensor(nus, dtype=torch.float64)
+    before = (ops.COUNT.plain, ops.COUNT_NU.plain)
+    b, f = ops.bf(kern, nu_problem["tables"],
+                  torch.tensor(PHIS[:chains], dtype=torch.float64),
+                  torch.tensor(ALPHAS[alphas][:chains], dtype=torch.float64),
+                  JITTER, nu_t)
+    assert (ops.COUNT.plain, ops.COUNT_NU.plain) == (before[0], before[1] + 1)
+    assert b.shape == (chains, nu_problem["n"], 6)
+    for c in range(chains):
+        params = {"phi": jnp.float64(PHIS[c])}
+        if nus is not None:
+            params["nu"] = jnp.float64(nus[c])
+        b_j, f_j = pb.pallas_bf(jkern, params, nu_problem["cache"],
+                                ALPHAS[alphas][c], jitter=JITTER)
+        np.testing.assert_allclose(b[c].numpy(), np.asarray(b_j), rtol=1e-8,
+                                   atol=1e-12)
+        np.testing.assert_allclose(f[c].numpy(), np.asarray(f_j), rtol=1e-8)
+
+
+def test_general_nu_batched_oracle_equals_plain_version(nu_problem):
+    """The row-major oracle with a per-chain nu (kernels.correlation, floor
+    1e-12) equals kernel 3's plain version (fused_correlation, floor 1e-8)
+    where no distance falls between the floors: rtol 1e-8."""
+    kern = kernels.Matern()
+    phi = torch.tensor(PHIS[:2], dtype=torch.float64)
+    nu = torch.tensor((NU_A, NU_B), dtype=torch.float64)
+    alpha = torch.tensor(ALPHAS["nugget"][:2], dtype=torch.float64)
+    b, f = vecchia.vecchia_bf(kern, {"phi": phi, "nu": nu}, nu_problem["data"],
+                              alpha=alpha, jitter=JITTER)
+    b_k, f_k = ops.bf(kern, nu_problem["tables"], phi, alpha, JITTER, nu)
+    np.testing.assert_allclose(b_k.numpy(), b.numpy(), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(f_k.numpy(), f.numpy(), rtol=1e-8)
 
 
 def test_planes_layout_padding_and_counts(problem):

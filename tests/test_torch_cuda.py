@@ -296,3 +296,110 @@ def test_host_parameters_with_device_tables(card, per_chain):
     for a, b in zip(*out):
         assert torch.equal(a.detach().cpu(), b.detach().cpu())
     assert out[1][2].device.type == "cpu" and out[1][4].is_cuda
+
+
+# ---- the general-nu Matern instances (Bessel K_nu inside the kernels) -------
+
+NU_CHAINS = (0.3, 1.0001, 2.4)  # below 1/2, next to an integer, two recurrence steps
+NU_KERNELS = [(kernels.Matern(), True), (kernels.Matern(nu=0.8), False)]
+_NU_IDS = ["sampled", "static"]
+
+
+def _nu_args(card, kern, sampled, m):
+    """(tables 32, tables 64, y, phi, alpha, nu or None, float64 params)."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=m)
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card,
+                               fops.kernel_nu(kern, None if nu is None else nu.double()))
+    return tab32, tab64, y, phi, alpha, nu, params
+
+
+@pytest.mark.parametrize("kern,sampled", NU_KERNELS, ids=_NU_IDS)
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_general_nu_forward_kernel_matches_plain(card, kern, sampled, m):
+    """Kernel 1's general-nu instances against the float64 plain version:
+    sums rtol 5e-5, F rtol 1e-3 / atol 1e-5, r rtol 2e-3 / atol 2e-4 (the
+    float32 series for K_nu carries up to 1e-5 relative noise in rho)."""
+    tab32, tab64, y, phi, alpha, nu, params = _nu_args(card, kern, sampled, m)
+    before = (fops.COUNT.launches, fops.COUNT_NU.launches)
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y, nu=nu)
+    torch.cuda.synchronize()
+    assert (fops.COUNT.launches, fops.COUNT_NU.launches) == (before[0], before[1] + 1)
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y.double())
+    n = tab32.n
+    torch.testing.assert_close(ld.double(), ld_p, rtol=5e-5, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=5e-5, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("kern,sampled", NU_KERNELS, ids=_NU_IDS)
+@pytest.mark.parametrize("emit_y", [False, True], ids=["sums", "emit_y"])
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_general_nu_grad_kernel_matches_plain(card, kern, sampled, emit_y, m):
+    """Kernel 2's general-nu instances: eight sums against the float64 plain
+    version, values rtol 5e-5, phi and alpha sums rtol 2e-4, nu sums rtol 5e-2
+    (a difference of two float32 rho over a width of 2e-2) and exactly 0 for
+    a static nu; with emit_y B atol 1e-4 and r/F rtol 2e-3 / atol 2e-4,
+    exactly 0 at padded sites."""
+    tab32, tab64, y, phi, alpha, nu, params = _nu_args(card, kern, sampled, m)
+    count = dops.COUNT_Y_NU if emit_y else dops.COUNT_NU
+    before = count.launches
+    got = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, emit_y=emit_y, nu=nu)
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    want = dops.grad_reference(kern, tab64, params, y.double(), emit_y=emit_y)
+    sums, ref = (got[0], want[0]) if emit_y else (got, want)
+    sums = sums.double()
+    assert sums.shape == (8, 3)
+    torch.testing.assert_close(sums[:2], ref[:2], rtol=5e-5, atol=0.0)
+    torch.testing.assert_close(sums[2:6], ref[2:6], rtol=2e-4, atol=0.0)
+    if sampled:
+        torch.testing.assert_close(sums[6:], ref[6:], rtol=5e-2, atol=0.0)
+    else:
+        assert (sums[6:] == 0).all() and (ref[6:] == 0).all()
+    if emit_y:
+        n = tab32.n
+        torch.testing.assert_close(got[1].double(), want[1], rtol=0.0, atol=1e-4)
+        torch.testing.assert_close(got[2].double(), want[2], rtol=2e-3, atol=2e-4)
+        assert (got[1][:, :, n:] == 0).all() and (got[2][:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("kern,sampled", NU_KERNELS, ids=_NU_IDS)
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_general_nu_bf_kernel_matches_plain(card, kern, sampled, m):
+    """Kernel 3's general-nu instances: B atol 1e-4, F rtol 1e-4; padded
+    sites hold B = 0, F = 1."""
+    tab32, tab64, _, phi, alpha, nu, params = _nu_args(card, kern, sampled, m)
+    before = bops.COUNT_NU.launches
+    b, f = bops.bf_planes(kern, tab32, phi, alpha, nu=nu)
+    torch.cuda.synchronize()
+    assert bops.COUNT_NU.launches == before + 1
+    b_p, f_p = bops.bf_reference(kern, tab64, params)
+    n = tab32.n
+    torch.testing.assert_close(b[:, :, :n].double(), b_p[:, :, :n], rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=1e-4, atol=0.0)
+    assert (b[:, :, n:] == 0).all() and (f[:, n:] == 1).all()
+
+
+def test_sampled_nu_models_on_card_go_through_the_general_instances(card):
+    """ResponseNNGP and LatentNNGP with ``Matern()`` on the card: fit_map and
+    NUTS launch kernel 2's general-nu instances, MWG kernel 1's, the latent
+    sampler kernel 3's, and no plain version runs."""
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(1500, 2))
+    y = np.sin(9.0 * coords[:, 0]) + 0.3 * rng.standard_normal(1500)
+    counts = (fops.COUNT_NU, dops.COUNT_NU, bops.COUNT_NU)
+    for c in counts:
+        c.reset()
+    model = ResponseNNGP(coords, y, kernel=kernels.Matern(), m=7, device=card)
+    mp = model.fit_map(n_steps=20)
+    draws = model.sample_nuts(5, n_burn=5, n_chains=2, max_depth=3, init_u=mp.u,
+                              init_inv_mass=mp.laplace_cov)
+    mwg = model.sample(5, n_burn=5, n_chains=2)
+    latent = LatentNNGP(coords, y, kernel=kernels.Matern(), m=7, jitter=1e-4,
+                        device=card).sample(5, n_burn=5, n_chains=2)
+    assert all(c.launches > 0 and c.plain == 0 for c in counts)
+    for out in (draws, mwg, latent):
+        assert out["nu"].shape == (2, 5) and np.isfinite(out["nu"]).all()

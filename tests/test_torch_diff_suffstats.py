@@ -2,7 +2,10 @@
 tensors) against ``jax.grad`` of the reference's ``make_diff_suffstats``
 (Pallas value+grad kernel in interpret mode), in float64, rtol 1e-8; and
 ``torch.autograd.gradcheck`` of the analytic derivatives; the same for the
-y cotangent (``y_grad=True``), with the planes B and r/F it is formed from."""
+y cotangent (``y_grad=True``), with the planes B and r/F it is formed from.
+The general-nu Matern cases (``suff_nu``: phi, alpha, nu and, with
+``y_grad=True``, y) run at n = 300, m = 6, nu rounded to float32 like phi and
+alpha: interpret mode with the Bessel series is slow."""
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +33,11 @@ KERNELS = [
 ]
 
 
-@pytest.fixture(scope="module")
-def problem():
-    rng = np.random.default_rng(3)
-    n, m = 1500, 7
+NU_A, NU_B = float(np.float32(0.8)), float(np.float32(1.7))
+
+
+def _problem(n, m, seed):
+    rng = np.random.default_rng(seed)
     coords = rng.uniform(size=(n, 2))
     y = rng.standard_normal(n)
     jdata, jtab = jvecchia.make_vecchia_data(coords, m)
@@ -43,6 +47,115 @@ def problem():
     return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
             "tables": make_site_tables(data, dtype=torch.float64),
             "y": torch.as_tensor(y_ord)}
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _problem(1500, 7, seed=3)
+
+
+@pytest.fixture(scope="module")
+def nu_problem():
+    return _problem(300, 6, seed=5)
+
+
+@pytest.mark.parametrize("y_grad", [False, True], ids=["y_data", "y_grad"])
+def test_sampled_nu_value_and_grad_match_jax(nu_problem, y_grad):
+    """(logdet, quad) and the gradient in (phi, alpha, nu) and, with y_grad,
+    y, against jax.grad of make_diff_suffstats's suff_nu (the with_nu
+    branches of _grad_kernel in interpret mode).  Float64, rtol 1e-8; dy also
+    atol 1e-10 of its largest entry."""
+    jkern, kern = jkernels.Matern(), kernels.Matern()
+    p = nu_problem
+    suff = pb.make_diff_suffstats(jkern, p["cache"], jitter=JITTER, y_grad=y_grad)
+
+    def scalar(phi, alpha, y, nu):
+        ld, q = suff(phi, alpha, y, nu)
+        return 0.7 * ld + 1.3 * q, (ld, q)
+
+    vg = jax.jit(jax.value_and_grad(scalar, argnums=(0, 1, 2, 3), has_aux=True))
+    tables = with_children(p["tables"])
+    leaf = lambda v: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+    phi, alpha = leaf([a for a, _ in POINTS]), leaf([a for _, a in POINTS])
+    nu = leaf([NU_A, NU_B])
+    y = p["y"].clone().requires_grad_(y_grad)
+    before = (dops.COUNT_NU.plain, dops.COUNT_Y_NU.plain)
+    ld, q = dops.diff_suffstats(kern, tables, phi, alpha, y, JITTER, nu)
+    assert (dops.COUNT_NU.plain, dops.COUNT_Y_NU.plain) == (
+        before[0] + (not y_grad), before[1] + y_grad)
+    leaves = (phi, alpha, nu) + ((y,) if y_grad else ())
+    grads = [torch.autograd.grad((0.7 * ld + 1.3 * q)[c], leaves, retain_graph=True)
+             for c in range(len(POINTS))]
+    ld, q = ld.detach(), q.detach()
+    for c, ((ph, al), v) in enumerate(zip(POINTS, (NU_A, NU_B))):
+        (_, (ld_j, q_j)), (gp_j, ga_j, gy_j, gn_j) = vg(
+            jnp.float64(ph), jnp.float64(al), p["y_jax"], jnp.float64(v))
+        np.testing.assert_allclose(float(ld[c]), float(ld_j), rtol=1e-8)
+        np.testing.assert_allclose(float(q[c]), float(q_j), rtol=1e-8)
+        np.testing.assert_allclose(float(grads[c][0][c]), float(gp_j), rtol=1e-8)
+        np.testing.assert_allclose(float(grads[c][1][c]), float(ga_j), rtol=1e-8)
+        np.testing.assert_allclose(float(grads[c][2][c]), float(gn_j), rtol=1e-8)
+        if y_grad:
+            gy_j = np.asarray(gy_j)
+            np.testing.assert_allclose(grads[c][3].numpy(), gy_j, rtol=1e-8,
+                                       atol=1e-10 * np.abs(gy_j).max())
+
+
+def test_static_general_nu_value_and_grad_match_jax(nu_problem):
+    """``Matern(nu=0.8)``: the general family with a static nu runs the same
+    plain version without the nu sums (eight sums, the last two exactly 0).
+    The oracle is the reference's sampled-nu function at the same nu: its
+    three-argument function leaves the nu slot of the gradient kernel at 0
+    for a static general nu."""
+    kern = kernels.Matern(nu=NU_A)
+    p = nu_problem
+    suff = pb.make_diff_suffstats(jkernels.Matern(), p["cache"], jitter=JITTER)
+
+    def scalar(phi, alpha):
+        ld, q = suff(phi, alpha, p["y_jax"], jnp.float64(NU_A))
+        return 0.7 * ld + 1.3 * q, (ld, q)
+
+    vg = jax.jit(jax.value_and_grad(scalar, argnums=(0, 1), has_aux=True))
+    leaf = lambda v: torch.tensor(v, dtype=torch.float64, requires_grad=True)
+    phi, alpha = leaf([a for a, _ in POINTS]), leaf([a for _, a in POINTS])
+    ld, q = dops.diff_suffstats(kern, p["tables"], phi, alpha, p["y"], JITTER)
+    dphi, dalpha = torch.autograd.grad((0.7 * ld + 1.3 * q).sum(), (phi, alpha))
+    for c, (ph, al) in enumerate(POINTS):
+        (_, (ld_j, q_j)), (gp_j, ga_j) = vg(jnp.float64(ph), jnp.float64(al))
+        np.testing.assert_allclose(float(ld[c].detach()), float(ld_j), rtol=1e-8)
+        np.testing.assert_allclose(float(q[c].detach()), float(q_j), rtol=1e-8)
+        np.testing.assert_allclose(float(dphi[c]), float(gp_j), rtol=1e-8)
+        np.testing.assert_allclose(float(dalpha[c]), float(ga_j), rtol=1e-8)
+    sums = dops.value_and_grad_sums(kern, p["tables"], phi.detach(), alpha.detach(),
+                                    p["y"], JITTER)
+    assert sums.shape == (8, 2) and (sums[6:] == 0).all()
+
+
+def test_nu_derivative_is_the_kernels_central_difference():
+    """The nu derivative of the plain version is the derivative of (logdet,
+    quad) under the kernels' difference quotient of rho: it agrees with a
+    central difference of the VALUE in nu to the O(h^2) of the two stencils
+    (rtol 2e-3 at h = 1e-2), not to rounding."""
+    rng = np.random.default_rng(8)
+    data, _ = vecchia.make_vecchia_data(rng.uniform(size=(150, 2)), 5,
+                                        dtype=torch.float64)
+    tables = make_site_tables(data, dtype=torch.float64)
+    y = torch.as_tensor(rng.standard_normal(150))
+    kern = kernels.Matern()
+    phi = torch.tensor([0.2, 0.35], dtype=torch.float64)
+    alpha = torch.tensor([0.1, 0.3], dtype=torch.float64)
+    nu = torch.tensor([0.7, 1.9], dtype=torch.float64, requires_grad=True)
+    ld, q = dops.diff_suffstats(kern, tables, phi, alpha, y, JITTER, nu)
+    g_ld, = torch.autograd.grad(ld.sum(), nu, retain_graph=True)
+    g_q, = torch.autograd.grad(q.sum(), nu)
+    with torch.no_grad():
+        h = 1e-4
+        up = dops.diff_suffstats(kern, tables, phi, alpha, y, JITTER, nu + h)
+        dn = dops.diff_suffstats(kern, tables, phi, alpha, y, JITTER, nu - h)
+    np.testing.assert_allclose(g_ld.numpy(), ((up[0] - dn[0]) / (2 * h)).numpy(),
+                               rtol=2e-3)
+    np.testing.assert_allclose(g_q.numpy(), ((up[1] - dn[1]) / (2 * h)).numpy(),
+                               rtol=2e-3)
 
 
 @pytest.mark.parametrize("jkern,kern", KERNELS, ids=[repr(k[1]) for k in KERNELS])
@@ -82,7 +195,7 @@ def test_gradcheck_plain_version(kern):
     y = torch.as_tensor(rng.standard_normal(n))
     phi = torch.tensor([0.2, 0.35], dtype=torch.float64, requires_grad=True)
     alpha = torch.tensor([0.1, 0.3], dtype=torch.float64, requires_grad=True)
-    fn = lambda p, a: dops.DiffSuffstats.apply(p, a, y, kern, tables, JITTER)
+    fn = lambda p, a: dops.DiffSuffstats.apply(p, a, y, kern, tables, JITTER, None)
     assert torch.autograd.gradcheck(fn, (phi, alpha))
 
 
@@ -229,7 +342,7 @@ def test_gradcheck_y(per_chain):
     phi = torch.tensor([0.2, 0.35], dtype=torch.float64, requires_grad=True)
     alpha = torch.tensor([0.1, 0.3], dtype=torch.float64, requires_grad=True)
     kern = kernels.Matern(nu=1.5)
-    fn = lambda p, a, yy: dops.DiffSuffstats.apply(p, a, yy, kern, tables, JITTER)
+    fn = lambda p, a, yy: dops.DiffSuffstats.apply(p, a, yy, kern, tables, JITTER, None)
     assert torch.autograd.gradcheck(fn, (phi, alpha, y))
 
 

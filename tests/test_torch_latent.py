@@ -283,7 +283,8 @@ _SMALL = np.random.default_rng(2).uniform(size=(60, 2))
     ({"mesh": object()}, NotImplementedError),
     ({"noise": "heterogeneous"}, NotImplementedError),
     ({"distance": "dotproduct"}, NotImplementedError),
-    ({"kernel": "matern"}, NotImplementedError),
+    # the general-nu Matern is ported; with per-site noise it still is not
+    ({"kernel": "matern", "noise": "heterogeneous"}, NotImplementedError),
     ({"ordering": "maxmin"}, NotImplementedError),
     ({"w_update": "blocked"}, ValueError),
     ({"x": np.ones(60)}, ValueError),
@@ -302,3 +303,137 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         return
     with pytest.raises(RuntimeError):
         LatentNNGP(_SMALL, np.ones(60), m=7)
+
+
+# ---- sampled-nu Matern: theta block (phi, nu) -------------------------------
+
+
+@pytest.fixture(scope="module")
+def pair_nu():
+    from pynngp_tpu import kernels as jkernels
+    from pynngp_tpu_torch import kernels
+
+    coords, y, _, w0 = _data(False)
+    jm = JaxLatentNNGP(coords, y, kernel=jkernels.Matern(), m=M, backend="xla",
+                       dtype=jnp.float64)
+    tm = LatentNNGP(coords, y, kernel=kernels.Matern(), m=M, device="cpu",
+                    dtype=torch.float64)
+    init = dict(INIT, nu=0.8, w=w0)
+    return jm, tm, jm.init_state(jax.random.PRNGKey(0), init), tm.init_state(2, init)
+
+
+def test_sampled_nu_latent_init_state_matches_through_convert(pair_nu):
+    jm, tm, js, ts = pair_nu
+    assert tm.theta_names == jm.theta_names == ("phi", "nu")
+    assert ts.theta_u.shape == ts.log_steps.shape == ts.accept.shape == (2, 2)
+    carried = convert.latent_state_from_jax(jax.tree.map(np.asarray, js),
+                                            dtype=torch.float64)
+    for name, got in ts._asdict().items():
+        want = getattr(carried, name)
+        assert got.shape[1:] == want.shape[1:] and got.dtype == want.dtype, name
+        _close(got[0], want[0], atol=1e-12, err_msg=name)
+        _close(got[1], want[0], atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("collapsed", [True, False])
+def test_sampled_nu_latent_theta_block_matches(pair_nu, collapsed):
+    """The (phi, nu) block's target, B and F at another point against the
+    reference's XLA backend, rtol 1e-8 (B atol 1e-12)."""
+    jm, tm, js, ts = pair_nu
+    jm.collapsed = tm.collapsed = collapsed
+    try:
+        theta = np.array([-0.7, 0.4])
+        v_j, aux_j = jm._theta_logpost(jnp.asarray(theta), js.w, js.sigma2)
+        v_t, aux_t = tm._theta_logpost(torch.as_tensor(theta).expand(2, 2), ts.w,
+                                       ts.sigma2)
+    finally:
+        jm.collapsed = tm.collapsed = True
+    _close(v_t, np.full(2, float(v_j)))
+    _close(aux_t["logdet"][0], aux_j["logdet"])
+    _close(aux_t["quad"][0], aux_j["quad"])
+    _close(aux_t["b"][0, :, :N].T, aux_j["b"], atol=1e-12)
+    _close(aux_t["f"][0, :N], aux_j["f"])
+    _close(tm.loglik(ts), np.full(2, float(jm.loglik(js))))
+
+
+def _cache_is_the_states_own(tm, state):
+    """The cached B, F, logdet, quad and value are those of the state's own
+    (phi, nu, w): what a stale w or a stale B/F in the step would break."""
+    b, f, logdet, quad = tm._suffstats(state.theta_u, state.w)
+    _close(state.b, b, atol=1e-12)
+    _close(state.f, f)
+    _close(state.logdet, logdet)
+    _close(state.quad_w, quad)
+    nat = tm._natural(state.theta_u)
+    _close(state.value, tm._collapsed_value(state.theta_u, nat, logdet, quad))
+
+
+def test_sampled_nu_reference_state_steps_in_the_port(pair_nu):
+    """Reference states after three of the reference's own steps of the
+    (phi, nu) sampler, carried across: their cache is, to rtol 1e-8, what the
+    port computes at their (phi, nu, w), so the two steps keep the same
+    quantities at the same points; the port steps on and keeps it so."""
+    jm, tm, _, _ = pair_nu
+    init = dict(INIT, nu=0.8)
+    keys = jax.random.split(jax.random.PRNGKey(4), 3)
+    states = jax.vmap(lambda k: jm.init_state(k, init))(keys)
+    step = jax.jit(jax.vmap(lambda k, s: jm.step(k, s, n_adapt=100)))
+    for i in range(3):
+        states = step(jax.random.split(jax.random.PRNGKey(20 + i), 3), states)
+    ts = convert.latent_state_from_jax(jax.tree.map(np.asarray, states),
+                                       dtype=torch.float64)
+    assert ts.theta_u.shape == (3, 2) and ts.iteration.tolist() == [3] * 3
+    _cache_is_the_states_own(tm, ts)
+    _cache_is_the_states_own(tm, tm.step(torch.Generator().manual_seed(0), ts,
+                                         n_adapt=100))
+
+
+def test_sampled_nu_latent_steps_keep_the_cache_with_the_state(pair_nu):
+    """Twelve steps of four chains: both sub-blocks accept in some chains and
+    reject in others, and after every step the cache is the state's own."""
+    _, tm, _, _ = pair_nu
+    gen = torch.Generator().manual_seed(11)
+    state = tm.init_state(4, dict(INIT, nu=0.8))
+    for _ in range(12):
+        state = tm.step(gen, state, n_adapt=100)
+        _cache_is_the_states_own(tm, state)
+    moved = (state.theta_u != state.theta_u[:1]).any(0)
+    assert moved.tolist() == [True, True]  # phi and nu both moved, differently
+    assert (state.accept > 0).all() and (state.accept < 12).all()
+
+
+def test_sampled_nu_latent_sampler_runs(pair_nu):
+    _, tm, _, _ = pair_nu
+    before = bf_ops.COUNT_NU.plain
+    draws = tm.sample(6, n_burn=4, n_chains=2, seed=0, init=dict(INIT, nu=0.8))
+    assert bf_ops.COUNT_NU.plain > before
+    assert draws["nu"].shape == draws["phi"].shape == (2, 6)
+    assert all(np.isfinite(v).all() for v in draws.values())
+    assert (draws["nu"] > 0.1).all() and (draws["nu"] < 3.0).all()
+
+
+def test_a_start_at_a_non_finite_log_density_raises_and_names_jitter():
+    """A repeated site without jitter has F = 0 and log F = -inf: the chains
+    would start at a value that no proposal can be compared with.
+    init_state raises and names the remedy; with a jitter it starts.  m = 1
+    keeps every conditioning set a single site, so that the neighbors'
+    own matrix stays positive definite and only F breaks down."""
+    coords = _SMALL.copy()
+    coords[31] = coords[30]
+    y = np.random.default_rng(3).standard_normal(60)
+    args = dict(kernel="sqexp", m=1, device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="jitter"):
+        LatentNNGP(coords, y, jitter=0.0, **args).init_state(2, INIT)
+    with pytest.raises(ValueError, match="jitter"):
+        LatentNNGP(coords, y, jitter=0.0, **args).sample(2, n_burn=2, init=INIT)
+    state = LatentNNGP(coords, y, jitter=1e-4, **args).init_state(2, INIT)
+    assert torch.isfinite(state.value).all()
+
+
+def test_a_nan_proposal_is_rejected_with_probability_zero():
+    from pynngp_tpu_torch.samplers.mwg import _mh_accept
+
+    accept, prob = _mh_accept(torch.Generator().manual_seed(0),
+                              torch.tensor([float("nan"), 0.5, -1e9]))
+    assert accept.tolist() == [False, True, False]
+    assert prob.tolist() == [0.0, 1.0, 0.0]

@@ -281,3 +281,57 @@ def test_sample_nuts_repeats_from_one_seed(models):
     assert not np.array_equal(a["phi"], c["phi"])
     one = tm.sample_nuts(5, n_burn=5, max_depth=3)
     assert one["phi"].shape == (5,)
+
+
+# ---- the response model with a sampled-nu Matern ---------------------------
+
+
+def test_sampled_nu_nuts_runs_on_the_four_wide_vector():
+    """``Matern()``: the joint vector is [log sigma2, logit phi, log tau2,
+    logit nu], the Laplace metric 4 x 4, and nu comes back with the other
+    draws inside its prior's support; one seed gives one run.  (Posterior
+    agreement with the reference: tests/test_torch_sampled_nu.py.)"""
+    from pynngp_tpu_torch import kernels
+
+    coords, y, _ = _field(44, 120, False)
+    tm = ResponseNNGP(coords, y, kernel=kernels.Matern(), m=5, device="cpu",
+                      dtype=torch.float64)
+    assert tm.full_dim() == 4 and tm.theta_names == ("phi", "alpha", "nu")
+    mp = tm.fit_map(n_steps=30)
+    assert mp.u.shape == (4,) and mp.laplace_cov.shape == (4, 4)
+    kwargs = dict(n_burn=8, n_chains=2, seed=5, max_depth=3, init_u=mp.u,
+                  init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    draws = tm.sample_nuts(8, **kwargs)
+    assert set(draws) == {"sigma2", "phi", "tau2", "nu", "logpost", "diverging",
+                          "depth", "n_leapfrog"}
+    assert all(v.shape == (2, 8) for v in draws.values())
+    assert all(np.isfinite(v).all() for v in draws.values())
+    assert (draws["nu"] > 0.1).all() and (draws["nu"] < 3.0).all()
+    again = tm.sample_nuts(8, **kwargs)
+    for key in draws:
+        np.testing.assert_array_equal(draws[key], again[key], err_msg=key)
+
+
+def test_gradient_states_carry_the_nu_column():
+    """convert.nuts_state_from_jax / hmc_state_from_jax with a 4-wide z: the
+    reference's state fields pass through whatever their width."""
+    from pynngp_tpu.samplers import hmc as jhmc
+
+    rng = np.random.default_rng(0)
+    c, d = 3, 4
+    da = jhmc.DualAveraging(*(rng.standard_normal(c) for _ in jhmc.DualAveraging._fields))
+    wf = jhmc.Welford(*(rng.standard_normal((c, d)) if name != "count"
+                        else np.full(c, 5.0) for name in jhmc.Welford._fields))
+    info = jnuts.NUTSInfo(*(np.zeros(c, np.int32) if name in ("depth", "n_leapfrog")
+                            else (np.zeros(c, bool) if name == "diverging"
+                                  else rng.standard_normal(c))
+                            for name in jnuts.NUTSInfo._fields))
+    state = jnuts.NUTSState(z=rng.standard_normal((c, d)), value=rng.standard_normal(c),
+                            grad=rng.standard_normal((c, d)), da=da, wf=wf,
+                            inv_mass=rng.uniform(1, 2, (c, d)),
+                            iteration=np.full(c, 7, np.int32), info=info)
+    ts = convert.nuts_state_from_jax(state, dtype=torch.float64)
+    assert ts.z.shape == ts.grad.shape == ts.inv_mass.shape == (c, d)
+    np.testing.assert_array_equal(ts.z.numpy(), state.z)
+    np.testing.assert_array_equal(ts.wf.mean.numpy(), wf.mean)
+    assert ts.iteration.tolist() == [7] * c and ts.info.diverging.dtype == torch.bool

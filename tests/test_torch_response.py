@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from pynngp_tpu import kernels as jkernels
 from pynngp_tpu import priors as jpriors
 from pynngp_tpu.models.response import ResponseNNGP as JaxResponseNNGP
-from pynngp_tpu_torch import convert, diagnostics, priors
+from pynngp_tpu_torch import convert, diagnostics, kernels, priors
 from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.utils.metrics import MetricsLogger
 
@@ -34,6 +35,16 @@ def models():
     tm = ResponseNNGP(coords, y, kernel="sqexp", m=6, device="cpu",
                       dtype=torch.float64)
     return jm, tm
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _single_torch_thread():
+    """Long loops of small tensor ops: more intra-op threads buy nothing and,
+    beside other test workers, cost a great deal."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("u", U_POINTS)
@@ -412,3 +423,97 @@ def test_warm_init_disperses_by_the_metric(models_x):
                                2.0 * np.sqrt(np.diag(cov.numpy())), rtol=0.1)
     same = tm._warm_init_u(u, None, 3, gen, init_jitter=0.0)
     np.testing.assert_array_equal(same.numpy(), np.broadcast_to(u.numpy(), (3, 5)))
+
+
+# ---- sampled-nu Matern: theta block (phi, alpha, nu), u 4 + p wide ----------
+
+INIT_NU = {"phi": 0.3, "alpha": 0.1, "sigma2": 1.0, "nu": 0.9}
+U_POINTS_NU = [(0.1, -1.0, -2.0, 0.4), (-0.3, 0.5, -1.2, -1.5)]
+
+
+@pytest.fixture(scope="module")
+def models_nu():
+    rng = np.random.default_rng(23)
+    n = 150
+    coords = rng.uniform(size=(n, 2))
+    y = np.sin(9.0 * coords[:, 0]) * np.cos(7.0 * coords[:, 1]) \
+        + 0.3 * rng.standard_normal(n)
+    jm = JaxResponseNNGP(coords, y, kernel=jkernels.Matern(), m=5, backend="xla",
+                         dtype=jnp.float64)
+    tm = ResponseNNGP(coords, y, kernel=kernels.Matern(), m=5, device="cpu",
+                      dtype=torch.float64)
+    return jm, tm
+
+
+def test_sampled_nu_layout_and_default_prior(models_nu):
+    jm, tm = models_nu
+    assert tm.theta_names == jm.theta_names == ("phi", "alpha", "nu")
+    assert tm.full_dim() == jm.full_dim() == 4
+    assert (tm.priors["nu"].lo, tm.priors["nu"].hi) == (0.1, 3.0)
+    static = ResponseNNGP(np.random.default_rng(0).uniform(size=(30, 2)),
+                          np.zeros(30), kernel=kernels.Matern(nu=0.8), m=3,
+                          device="cpu")
+    assert static.theta_names == ("phi", "alpha") and static.full_dim() == 3
+
+
+@pytest.mark.parametrize("u", U_POINTS_NU)
+def test_sampled_nu_logpost_matches(models_nu, u):
+    """full_logpost, its prior and its gradient in (log sigma2, logit phi, log
+    tau2) against the reference's XLA backend, rtol 1e-8, and the theta-block
+    target at the projected point.  The logit-nu entry is left to
+    tests/test_torch_sampled_nu.py: the XLA backend differentiates through
+    K_nu where the fused kernels, and so the port, take a difference quotient
+    of rho."""
+    jm, tm = models_nu
+    jv, jg = jax.value_and_grad(jm.full_logpost)(jnp.asarray(u, jnp.float64))
+    ut = torch.tensor(u, dtype=torch.float64, requires_grad=True)
+    tv = tm.full_logpost(ut)
+    (tg,) = torch.autograd.grad(tv, ut)
+    np.testing.assert_allclose(tv.item(), float(jv), rtol=1e-8)
+    np.testing.assert_allclose(tg[:3].numpy(), np.asarray(jg)[:3], rtol=1e-8)
+    assert np.isfinite(tg[3].item())
+    np.testing.assert_allclose(tm.full_logprior(ut.detach()).item(),
+                               float(jm.full_logprior(jnp.asarray(u, jnp.float64))),
+                               rtol=1e-10)
+    theta = np.asarray([u[1], u[2] - u[0], u[3]])
+    sigma2 = float(np.exp(u[0]))
+    for collapsed in (True, False):
+        jm.collapsed = tm.collapsed = collapsed
+        try:
+            j_val, j_aux = jm._theta_logpost(jnp.asarray(theta), jnp.float64(sigma2),
+                                             jnp.zeros(1, jnp.float64))
+            t_val, t_aux = tm._theta_logpost(torch.tensor(theta)[None],
+                                             torch.tensor([sigma2], dtype=torch.float64))
+        finally:
+            jm.collapsed = tm.collapsed = True
+        np.testing.assert_allclose(float(t_val[0]), float(j_val), rtol=1e-8)
+        np.testing.assert_allclose(float(t_aux["logdet"][0]), float(j_aux["logdet"]),
+                                   rtol=1e-8)
+        np.testing.assert_allclose(float(t_aux["quad"][0]), float(j_aux["quad"]),
+                                   rtol=1e-8)
+
+
+def test_sampled_nu_init_state_and_projection_match(models_nu):
+    jm, tm = models_nu
+    js = jm.init_state(jax.random.PRNGKey(0), INIT_NU)
+    ts = tm.init_state(2, INIT_NU)
+    assert ts.theta_u.shape == (2, 3) and ts.log_steps.shape == (2, 3)
+    for name in ("theta_u", "sigma2", "value", "logdet", "quad", "log_steps", "accept"):
+        got = getattr(ts, name).numpy()
+        want = np.broadcast_to(np.asarray(getattr(js, name)), got.shape)
+        np.testing.assert_allclose(got, want, rtol=1e-8, err_msg=name)
+    carried = convert.response_state_from_jax(
+        jax.tree.map(lambda a: np.asarray(a)[None], js), dtype=torch.float64)
+    assert carried.theta_u.shape == (1, 3)
+    t_val, _ = tm._theta_logpost(carried.theta_u, carried.sigma2)
+    np.testing.assert_allclose(t_val.numpy(), carried.value.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(
+        tm._full_init_u(INIT_NU).numpy(),
+        np.asarray(jm._full_init_u(jax.random.PRNGKey(0), INIT_NU, jitter=0.0)),
+        rtol=1e-12)
+    a = np.random.default_rng(2).standard_normal((4, 4))
+    cov = a @ a.T + np.eye(4)
+    u = np.asarray([0.2, -1.1, -2.3, 0.6])
+    np.testing.assert_array_equal(tm.theta_proposal_cov(cov), jm.theta_proposal_cov(cov))
+    np.testing.assert_array_equal(tm.theta_proposal_center(torch.tensor(u)),
+                                  jm.theta_proposal_center(u))

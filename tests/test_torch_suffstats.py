@@ -5,7 +5,10 @@ float64, and the port's batched B/F oracle against the dense numpy gold.
 Parameters are exact in float32 (phi, alpha, jitter = 2^-20), because the
 reference's ``_params_vec`` rounds them through float32; the port keeps
 them in float64.  With identical tables, interpret-mode Pallas in float64
-agrees with the XLA path to ~1e-10, so the port is held to rtol 1e-8."""
+agrees with the XLA path to ~1e-10, so the port is held to rtol 1e-8.  The
+general-nu Matern cases (sampled and static nu, through the Bessel K_nu) run
+at n = 300, m = 6: interpret mode with the Bessel series is slow.  Their nu
+is rounded to float32 for the same reason as phi and alpha."""
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +36,12 @@ KERNELS = [
     (jkernels.Matern(nu=2.5), kernels.Matern(nu=2.5)),
 ]
 _IDS = [repr(k[1]) for k in KERNELS]
+NU_A, NU_B = float(np.float32(0.8)), float(np.float32(1.7))
+# (reference kernel, port kernel, per-chain nu or None for a static nu)
+NU_CASES = {
+    "sampled": (jkernels.Matern(), kernels.Matern(), (NU_A, NU_B)),
+    "static": (jkernels.Matern(nu=NU_A), kernels.Matern(nu=NU_A), None),
+}
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +58,92 @@ def problem():
     tables = make_site_tables(data, dtype=torch.float64)
     return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
             "tables": tables, "y": torch.as_tensor(y_ord), "n": n}
+
+
+def _problem(n, m, seed):
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(size=(n, 2))
+    y = rng.standard_normal(n)
+    jdata, jtab = jvecchia.make_vecchia_data(coords, m)
+    cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout="dist")
+    y_ord = y[jtab.order]
+    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
+    return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
+            "tables": make_site_tables(data, dtype=torch.float64),
+            "y": torch.as_tensor(y_ord), "n": n}
+
+
+@pytest.fixture(scope="module")
+def nu_problem():
+    return _problem(300, 6, seed=5)
+
+
+@pytest.mark.parametrize("case", list(NU_CASES))
+def test_general_nu_suffstats_matches_pallas(nu_problem, case):
+    """Kernel 1's plain version with the general-nu Matern against
+    pallas_suffstats in interpret mode (the _matern_rho_general branch),
+    float64, rtol 1e-8."""
+    jkern, kern, nus = NU_CASES[case]
+    p = nu_problem
+    chains = 2
+    nu_t = None if nus is None else torch.tensor(nus, dtype=torch.float64)
+    logdet, quad, f, r = ops.suffstats(
+        kern, p["tables"], torch.tensor(PHIS[:chains], dtype=torch.float64),
+        torch.tensor(ALPHAS[:chains], dtype=torch.float64), p["y"], JITTER, nu_t)
+    n = p["n"]
+    for c in range(chains):
+        params = {"phi": jnp.float64(PHIS[c])}
+        if nus is not None:
+            params["nu"] = jnp.float64(nus[c])
+        ld_j, q_j, f_j, r_j = pb.pallas_suffstats(
+            jkern, params, p["cache"], p["y_jax"], jnp.float64(ALPHAS[c]),
+            jitter=JITTER)
+        np.testing.assert_allclose(float(logdet[c]), float(ld_j), rtol=1e-8)
+        np.testing.assert_allclose(float(quad[c]), float(q_j), rtol=1e-8)
+        np.testing.assert_allclose(f[c, :n].numpy(),
+                                   np.asarray(f_j).reshape(-1)[:n], rtol=1e-8)
+        np.testing.assert_allclose(r[c, :n].numpy(),
+                                   np.asarray(r_j).reshape(-1)[:n], rtol=1e-8,
+                                   atol=1e-10)
+
+
+def test_general_nu_counts_and_argument_checks(nu_problem):
+    """The general family counts in COUNT_NU; a kernel that samples nu needs
+    one, and a kernel that samples none refuses one."""
+    t, y = nu_problem["tables"], nu_problem["y"]
+    before = (ops.COUNT.plain, ops.COUNT_NU.plain, ops.COUNT_NU.launches)
+    ops.suffstats(kernels.Matern(), t, 0.25, 0.125, y, JITTER, nu=1.25)
+    assert (ops.COUNT.plain, ops.COUNT_NU.plain, ops.COUNT_NU.launches) == (
+        before[0], before[1] + 1, before[2])
+    with pytest.raises(ValueError, match="samples nu"):
+        ops.suffstats(kernels.Matern(), t, 0.25, 0.125, y, JITTER)
+    with pytest.raises(ValueError, match="takes no nu"):
+        ops.suffstats(kernels.SqExp(), t, 0.25, 0.125, y, JITTER, nu=1.0)
+    row = ops.params_array(0.25, 0.125, JITTER, 300, torch.float64,
+                           nu=ops.kernel_nu(kernels.Matern(nu=NU_A)))
+    assert row.shape == (1, 6) and float(row[0, 4]) == NU_A
+
+
+def test_general_nu_vecchia_loglik_matches_dense_gold():
+    """The batched oracle with a per-chain nu against the dense numpy gold
+    (scipy's K_nu), rtol 1e-9."""
+    rng = np.random.default_rng(17)
+    n, m = 200, 5
+    coords = rng.uniform(size=(n, 2))
+    y = rng.standard_normal(n)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    y_ord = torch.as_tensor(y[tab.order])
+    sigma2, phi, tau2 = 1.3, 0.2, 0.15
+    nus = (0.8, 1.7)
+    got = vecchia.vecchia_loglik(
+        kernels.Matern(), {"phi": torch.tensor([phi, phi], dtype=torch.float64),
+                           "nu": torch.tensor(nus, dtype=torch.float64)},
+        data, y_ord, sigma2, alpha=tau2 / sigma2, jitter=0.0)
+    for c, nu in enumerate(nus):
+        want = dense_gp.vecchia_loglik_dense(
+            y[tab.order], coords[tab.order], tab.nn_idx, tab.nn_mask, "matern",
+            sigma2, phi, tau2, nu=nu)
+        np.testing.assert_allclose(float(got[c]), want, rtol=1e-9)
 
 
 @pytest.mark.parametrize("jkern,kern", KERNELS, ids=_IDS)
