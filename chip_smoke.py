@@ -25,7 +25,21 @@ checks that it went through its kernels:
   1's general-nu instances), a short NUTS run with fixed effects and a
   sampled nu (kernel 2's general-nu EMIT_Y instances), and the latent-w NNGP
   with ``Matern()`` on the first 10,000 sites (kernel 3's general-nu
-  instances).
+  instances);
+- on the coords table layout (every distance recomputed in the kernels from
+  coordinate planes): ``bench.py``'s config 5 probe (``bench_setup500k``,
+  uncut: set-up phases and 50 log-likelihood evaluations at n=500,000, m=20),
+  the response NNGP at that size with the default layout (bench_ess's MWG
+  recipe cut, and a short NUTS run), its fixed effects (``fit_map(x=)``), the
+  latent-w NNGP at that size, and config 3's model with
+  ``lane_layout="coords"`` against the dist layout (kernels 1 and 2's
+  general-nu coords instances, with fixed effects kernel 2's EMIT_Y and
+  kernel 3's).
+
+Before the paths: every coords instance against its plain version, both
+layouts timed on the same sites at n=10,000 to 500,000, and each layout's
+host set-up (seconds, table sizes, peak host memory) at those sizes, from
+which the layout rule is printed (``site_tables.COORDS_LAYOUT_MIN_SITES``).
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -34,8 +48,10 @@ last lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -53,7 +69,13 @@ from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
 from pynngp_tpu_torch.neighbors import build_neighbor_table
-from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
+from pynngp_tpu_torch.ops import site_tables
+from pynngp_tpu_torch.ops.site_tables import (
+    LAYOUTS,
+    make_site_tables,
+    unpack_distances,
+    with_children,
+)
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
@@ -80,6 +102,26 @@ KERNEL_ROWS = {
                           "pynngp_tpu/ops/pallas_bf.py:1107", diff_ops.COUNT_Y_NU),
     "vecchia_bf_nu": ("pynngp_tpu_torch/csrc/vecchia_bf_nu.cu",
                       "pynngp_tpu/ops/pallas_bf.py:949", bf_ops.COUNT_NU),
+    # the coords-layout instances of all eight: the coords branch of
+    # _dist_access (l.377) where each kernel body calls it
+    "vecchia_suffstats_coords": ("pynngp_tpu_torch/csrc/vecchia_suffstats_coords.cu",
+                                 "pynngp_tpu/ops/pallas_bf.py:437", fwd_ops.COUNT_COORDS),
+    "vecchia_grad_coords": ("pynngp_tpu_torch/csrc/vecchia_grad_coords.cu",
+                            "pynngp_tpu/ops/pallas_bf.py:752", diff_ops.COUNT_COORDS),
+    "vecchia_bf_coords": ("pynngp_tpu_torch/csrc/vecchia_bf_coords.cu",
+                          "pynngp_tpu/ops/pallas_bf.py:957", bf_ops.COUNT_COORDS),
+    "vecchia_grad_y_coords": ("pynngp_tpu_torch/csrc/vecchia_grad_y_coords.cu",
+                              "pynngp_tpu/ops/pallas_bf.py:752", diff_ops.COUNT_Y_COORDS),
+    "vecchia_suffstats_nu_coords": ("pynngp_tpu_torch/csrc/vecchia_suffstats_nu_coords.cu",
+                                    "pynngp_tpu/ops/pallas_bf.py:437",
+                                    fwd_ops.COUNT_NU_COORDS),
+    "vecchia_grad_nu_coords": ("pynngp_tpu_torch/csrc/vecchia_grad_nu_coords.cu",
+                               "pynngp_tpu/ops/pallas_bf.py:752", diff_ops.COUNT_NU_COORDS),
+    "vecchia_grad_y_nu_coords": ("pynngp_tpu_torch/csrc/vecchia_grad_y_nu_coords.cu",
+                                 "pynngp_tpu/ops/pallas_bf.py:752",
+                                 diff_ops.COUNT_Y_NU_COORDS),
+    "vecchia_bf_nu_coords": ("pynngp_tpu_torch/csrc/vecchia_bf_nu_coords.cu",
+                             "pynngp_tpu/ops/pallas_bf.py:957", bf_ops.COUNT_NU_COORDS),
 }
 N_NU, M_NU = 25_000, 10  # bench.py's config 3
 # Published peaks of one H100 SXM: device memory rate, float32 rate outside
@@ -152,7 +194,8 @@ def config3_field(n: int = 25_000, m: int = 10):
 def ptxas_summary(ptxas: str, m: int) -> str:
     """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
     instance of every kernel.  The template arguments after M are EMIT_Y
-    (kernel 2 only) and GENERAL, the general-nu Matern."""
+    (kernel 2 only), GENERAL, the general-nu Matern, and COORDS, the coords
+    table layout."""
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
@@ -162,8 +205,10 @@ def ptxas_summary(ptxas: str, m: int) -> str:
         name, flags = found.group(1), re.findall(r"Lb([01])E", found.group(2))
         if name == "grad" and flags[0] == "1":
             name = "grad_y"
-        if flags[-1] == "1":
+        if flags[-2] == "1":
             name += "_nu"
+        if flags[-1] == "1":
+            name += "_coords"
         spill = regs = "?"
         for nxt in lines[i + 1:i + 4]:
             if "spill stores" in nxt:
@@ -177,16 +222,20 @@ def ptxas_summary(ptxas: str, m: int) -> str:
 
 class Case:
     """Site tables, y and per-chain parameters of one parity case, in float32
-    for the kernels and the same values in float64 for the oracle."""
+    for the kernels and the same values in float64 for the oracle.  In the
+    coords layout both hold the same float32 coordinate planes, and the
+    float64 oracle recomputes the distances from them."""
 
-    def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None):
+    def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None,
+                 layout="dist"):
         coords, y = field if field is not None else bench_field(n, seed)
-        data, table = make_vecchia_data(coords, m, dtype=torch.float64)
-        self.n, self.m, self.kernel = n, m, kernel
-        self.tab32 = with_children(
-            make_site_tables(data, dtype=torch.float32, device=dev))
-        self.tab64 = self.tab32._replace(d_in=self.tab32.d_in.double(),
-                                         d_tri=self.tab32.d_tri.double())
+        data, table = make_vecchia_data(coords, m, dtype=torch.float64,
+                                        precompute_distances=layout == "dist")
+        self.n, self.m, self.kernel, self.layout = n, m, kernel, layout
+        self.tab32 = with_children(make_site_tables(
+            data, dtype=torch.float32, device=dev, layout=layout,
+            coords_host=np.asarray(coords)[table.order]))
+        self.tab64 = self.tab32.to(torch.float64)
         self.y32 = torch.as_tensor(y[table.order], dtype=torch.float32, device=dev)
         self.y64 = self.y32.double()
         self.phi = torch.linspace(0.05, 0.2, chains, device=dev)
@@ -202,6 +251,18 @@ class Case:
                             dtype=torch.float32, device=dev)
         beta = torch.linspace(-0.05, 0.05, chains, device=dev)
         self.y32_chains = self.y32 - beta[:, None] * x
+        self.chunk = 4  # chains a float64 plain call takes
+
+    def subset(self, sl, kernel=None, chunk=1):
+        """The same tables and y with the chains ``sl`` of this case, under
+        ``kernel`` if given, and ``chunk`` chains a plain call: the float64
+        plain versions' memory at config 5's n."""
+        out = copy.copy(self)
+        out.phi, out.alpha, out.y32_chains = self.phi[sl], self.alpha[sl], self.y32_chains[sl]
+        out.nu = None if self.nu is None else self.nu[sl]
+        out.kernel = self.kernel if kernel is None else kernel
+        out.chunk = chunk
+        return out
 
     def params64(self, sl, requires_grad=False, alpha=None):
         alpha = self.alpha if alpha is None else alpha
@@ -213,8 +274,8 @@ class Case:
                                   fwd_ops.kernel_nu(self.kernel, nu))
         return phi, alpha, pr
 
-    def chunks(self, size=4):
-        return [slice(i, i + size) for i in range(0, self.phi.shape[0], size)]
+    def chunks(self):
+        return [slice(i, i + self.chunk) for i in range(0, self.phi.shape[0], self.chunk)]
 
 
 def _rel(a, b):
@@ -530,11 +591,34 @@ def _time_ms(fn, warm: int, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_kernels(case: Case) -> dict:
-    """Per-call times of the kernels and of their float32 plain versions."""
+def _suffix(case: Case) -> str:
+    """The row-name suffix of the case's table layout."""
+    return "_coords" if case.layout == "coords" else ""
+
+
+def time_plain(case: Case) -> dict:
+    """Per-call times of the float32 plain versions of kernels 1, 2,
+    2-EMIT_Y and 3 at the case's shapes, named by the rows of its layout."""
     k, t, y = case.kernel, case.tab32, case.y32
     params = fwd_ops.params_array(case.phi, case.alpha, case.jitter, case.n,
                                   torch.float32, case.phi.device)
+    sfx = _suffix(case)
+    return {name + sfx + "_plain": ms for name, ms in {
+        "vecchia_suffstats": _time_ms(
+            lambda: fwd_ops.suffstats_reference(k, t, params, y), 2, 5),
+        "vecchia_grad": _time_ms(lambda: diff_ops.grad_reference(k, t, params, y), 2, 5),
+        "vecchia_bf": _time_ms(lambda: bf_ops.bf_reference(k, t, params), 2, 5),
+        "vecchia_grad_y": _time_ms(
+            lambda: diff_ops.grad_reference(k, t, params, case.y32_chains, emit_y=True),
+            2, 5),
+    }.items()}
+
+
+def time_kernels(case: Case) -> dict:
+    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 on the dist layout and
+    of their float32 plain versions; also of kernel 2 and the y-cotangent
+    gather at 1, 4 and 16 chains."""
+    k, t, y = case.kernel, case.tab32, case.y32
     times = {
         "vecchia_suffstats": _time_ms(
             lambda: fwd_ops.suffstats(k, t, case.phi, case.alpha, y, case.jitter),
@@ -542,22 +626,14 @@ def time_kernels(case: Case) -> dict:
         "vecchia_grad": _time_ms(
             lambda: diff_ops.value_and_grad_sums(k, t, case.phi, case.alpha, y,
                                                  case.jitter), 20, 200),
-        "vecchia_suffstats_plain": _time_ms(
-            lambda: fwd_ops.suffstats_reference(k, t, params, y), 2, 5),
-        "vecchia_grad_plain": _time_ms(
-            lambda: diff_ops.grad_reference(k, t, params, y), 2, 5),
         "vecchia_bf": _time_ms(
             lambda: bf_ops.bf_planes(k, t, case.phi, case.alpha, case.jitter),
             20, 200),
-        "vecchia_bf_plain": _time_ms(
-            lambda: bf_ops.bf_reference(k, t, params), 2, 5),
         "vecchia_grad_y": _time_ms(
             lambda: diff_ops.value_and_grad_sums(k, t, case.phi, case.alpha,
                                                  case.y32_chains, case.jitter,
                                                  emit_y=True), 20, 200),
-        "vecchia_grad_y_plain": _time_ms(
-            lambda: diff_ops.grad_reference(k, t, params, case.y32_chains,
-                                            emit_y=True), 2, 5),
+        **time_plain(case),
     }
     # the EMIT_Y instances and the y-cotangent gather by chain count, and the
     # scatter-add that the gather replaces (index_add_: float atomics, not
@@ -586,10 +662,10 @@ def time_kernels(case: Case) -> dict:
         }
     print("grad_y times by chains: " + json.dumps(by_chains), flush=True)
     chains = case.phi.shape[0]
-    tag = f"n{case.n}_m{case.m}"
-    print("kernel times: " + json.dumps({
+    print(f"kernel times [{case.layout}]: " + json.dumps({
         **{f"{name}_ms": ms for name, ms in times.items()},
-        f"vecchia_loglik_evals_per_sec_{tag}": chains * 1e3 / times["vecchia_suffstats"],
+        f"vecchia_loglik_evals_per_sec_n{case.n}_m{case.m}":
+            chains * 1e3 / times["vecchia_suffstats"],
         "grad_evals_per_sec": chains * 1e3 / times["vecchia_grad"],
         "bf_builds_per_sec": chains * 1e3 / times["vecchia_bf"],
         "chains": chains,
@@ -611,13 +687,17 @@ def kernel_bounds(case: Case) -> dict:
     kernel 3: one forward, one backward) over 67 TFLOP/s; and one special-function operation per
     correlation (m(m+1)/2; twice that in kernel 2, which also needs the
     derivative) and per pivot (m) over 4.19e12/s.  The bound is the largest
-    of the three times."""
+    of the three times.
+
+    The coords layout reads (d + m d) coordinate planes for its tables and
+    adds what its distances need (:func:`distance_work`)."""
     t, m = case.tab32, case.m
     sites = t.n_pad * case.phi.shape[0]
     blocks = sites // 128
-    tables = (t.d_in.numel() + t.d_tri.numel()) * 4
+    tables = (t.tab_a.numel() + t.tab_b.numel()) * 4
     ids_y = t.nn_idx.numel() * 4 + t.n * 4
     corr = m * (m + 1) // 2
+    dist_flops, dist_sfu = distance_work(t)
     work = {
         "vecchia_suffstats": (tables + ids_y + (2 * sites + 2 * blocks) * 4,
                               m**3 / 3 + 2 * m * m, corr + m),
@@ -631,16 +711,41 @@ def kernel_bounds(case: Case) -> dict:
                            + (m + 1) * sites * 4,
                            m**3 / 3 + 7 * m * m, 2 * corr + m),
     }
-    out = {}
+    out, sfx, shown = {}, _suffix(case), {}
     for name, (nbytes, flops, sfu) in work.items():
+        flops, sfu = flops * sites + dist_flops, sfu * sites + dist_sfu
         byte_ms = nbytes / PEAK_BYTES * 1e3
-        op_ms = max(flops * sites / PEAK_FLOPS, sfu * sites / PEAK_SFU) * 1e3
-        out[name] = (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations")
-    print("kernel bounds: " + json.dumps({
-        k: {"bound_ms": v[0], "bound_by": v[1], "bytes": work[k][0],
-            "flops": work[k][1] * sites, "special": work[k][2] * sites}
-        for k, v in out.items()}), flush=True)
+        op_ms = max(flops / PEAK_FLOPS, sfu / PEAK_SFU) * 1e3
+        out[name + sfx] = (max(byte_ms, op_ms),
+                           "bytes" if byte_ms >= op_ms else "operations")
+        shown[name + sfx] = {"bound_ms": out[name + sfx][0],
+                             "bound_by": out[name + sfx][1], "bytes": nbytes,
+                             "flops": flops, "special": sfu}
+    print(f"kernel bounds [{case.layout}]: " + json.dumps(shown), flush=True)
     return out
+
+
+def distance_work(t) -> tuple:
+    """(float32 operations, special-function operations) that the coords
+    layout's distances need on top of the rest: one distance per (site, slot)
+    and per pair of slots, each d subtractions and d multiply-adds and one
+    sqrt, counted once per site since they do not depend on the chain (the
+    kernels recompute each for every chain, and kernel 2 every pair twice;
+    the bound does not count that).  Zero for the dist layout."""
+    if t.layout != "coords":
+        return 0.0, 0.0
+    per_site = t.m * (t.m + 1) // 2
+    return 2.0 * t.dim * per_site * t.n_pad, float(per_site * t.n_pad)
+
+
+def distance_planes(t):
+    """(site -> slot (m, n_pad), slot pair (m(m-1)/2, n_pad)) distances of
+    tables in either layout, the coords layout's recomputed in float64."""
+    if t.layout == "dist":
+        return t.tab_a, t.tab_b[:t.m * (t.m - 1) // 2]
+    d_in, d_nn = unpack_distances(t.to(torch.float64))
+    iu, ku = np.tril_indices(t.m, -1)  # the packed order, tri_index(i, k)
+    return d_in.T, d_nn[:, iu, ku].T
 
 
 def time_kernels_nu(case: Case, plain: bool) -> dict:
@@ -681,7 +786,9 @@ def time_kernels_nu(case: Case, plain: bool) -> dict:
             "vecchia_bf_nu_plain": _time_ms(
                 lambda: bf_ops.bf_reference(k, t, params), 1, 1),
         })
-    print(f"general-nu kernel times [n{case.n} m{case.m}]: " + json.dumps(
+    sfx = _suffix(case)
+    times = {name.replace("_nu", "_nu" + sfx, 1): ms for name, ms in times.items()}
+    print(f"general-nu kernel times [{case.layout} n{case.n} m{case.m}]: " + json.dumps(
         {**{f"{name}_ms": ms for name, ms in times.items()},
          "chains": case.phi.shape[0]}), flush=True)
     return times
@@ -716,12 +823,12 @@ def kernel_bounds_nu(case: Case) -> dict:
     chains = case.phi.shape[0]
     sites = t.n_pad * chains
     blocks = sites // 128
-    tables = (t.d_in.numel() + t.d_tri.numel()) * 4
+    tables = (t.tab_a.numel() + t.tab_b.numel()) * 4
     ids_y = t.nn_idx.numel() * 4 + t.n * 4
     flops = {"in": [], "tri": []}  # per chain: (flops, sfu, entries) of one evaluation each
     for c in range(chains):
         nu, phi = case.nu[c].double(), case.phi[c].double()
-        for key, d in (("in", t.d_in), ("tri", t.d_tri)):
+        for key, d in zip(("in", "tri"), distance_planes(t)):
             x = torch.sqrt(2.0 * nu) * d.double() / phi
             live = x >= 1e-8
             count, small = bessel.series_terms(torch.clamp(x, min=1e-8), nu)
@@ -764,13 +871,17 @@ def kernel_bounds_nu(case: Case) -> dict:
                                    sites * (m**3 / 3 + 7 * m * m) + k2_static[0],
                                    k2_static[1] + m * sites),
     }
+    dist_flops, dist_sfu = distance_work(t)
+    work = {name.replace("_nu", "_nu" + _suffix(case), 1):
+            (nbytes, ops + dist_flops, sfu + dist_sfu)
+            for name, (nbytes, ops, sfu) in work.items()}
     out = {}
     for name, (nbytes, ops, sfu) in work.items():
         byte_ms = nbytes / PEAK_BYTES * 1e3
         op_ms = max(ops / PEAK_FLOPS, sfu / PEAK_SFU) * 1e3
         out[name] = (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations")
     entries = sum(e for key in flops for _, _, e in flops[key])
-    print(f"general-nu kernel bounds [n{case.n} m{case.m}]: " + json.dumps({
+    print(f"general-nu kernel bounds [{case.layout} n{case.n} m{case.m}]: " + json.dumps({
         "bessel_evaluations_per_entry_kernel_1": 1,
         "bessel_evaluations_per_entry_kernel_2": 3,
         "bessel_evaluations_per_entry_kernel_2_static_nu": 1,
@@ -811,16 +922,14 @@ def _read_counts(path: str, expected: tuple) -> dict:
     return launches
 
 
-def main_path(dev) -> dict:
-    """bench.py's bench_ess MWG branch on the port: the same generator and
-    seed, fit_map(250), a 16 x 1200 correlated-RW pilot with 800 burn-in,
-    then 16 x 6000 independence-mixture draws with 500 burn-in."""
-    coords, y = bench_field(N_MAIN, seed=0)
-    _reset_counts()
-    t0 = time.perf_counter()
-    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
-    setup_s = time.perf_counter() - t0
-
+def _mwg_recipe(model, pilot: tuple, run: tuple, tag: str) -> dict:
+    """bench.py's bench_ess MWG recipe (l.440-503) on ``model``: fit_map(250),
+    a correlated-RW pilot of ``pilot`` = (burn-in, draws) steps from the MAP
+    point with the projected Laplace covariance, then ``run`` = (burn-in,
+    draws) independence-mixture steps fitted to the pilot; 16 chains.
+    Returns the phases' seconds, min-ESS over MAP + pilot + run seconds
+    (bench_ess's denominator), R-hat, posterior means, the draws, the MAP
+    fit and the initial point."""
     t0 = time.perf_counter()
     mp = model.fit_map(n_steps=250)
     u0 = mp.u.cpu().numpy()
@@ -833,36 +942,54 @@ def main_path(dev) -> dict:
     }
 
     t0 = time.perf_counter()
-    pilot = model.sample(1200, n_burn=800, n_chains=CHAINS, init=init, seed=101,
+    draws = model.sample(pilot[1], n_burn=pilot[0], n_chains=CHAINS, init=init,
+                         seed=101,
                          proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
     u_pilot = np.stack([
-        model._t_phi.inverse(torch.as_tensor(pilot["phi"])).numpy().ravel(),
-        np.log(pilot["tau2"] / pilot["sigma2"]).ravel(),
+        model._t_phi.inverse(torch.as_tensor(draws["phi"])).numpy().ravel(),
+        np.log(draws["tau2"] / draws["sigma2"]).ravel(),
     ], axis=1)
     emp_cov = np.cov(u_pilot.T) * 1.2  # slight inflation: tail safety
     emp_mean = u_pilot.mean(axis=0)
     pilot_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    draws = model.sample(6000, n_burn=500, n_chains=CHAINS, init=init, seed=0,
+    draws = model.sample(run[1], n_burn=run[0], n_chains=CHAINS, init=init, seed=0,
                          proposal_cov=emp_cov, proposal_center=emp_mean)
     run_s = time.perf_counter() - t0
     min_ess, max_rhat = _chain_stats(draws)
-    launches = _read_counts("response", ("vecchia_suffstats", "vecchia_grad"))
-    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
-    res = {
-        "setup_s": setup_s, "map_s": map_s, "pilot_s": pilot_s, "run_s": run_s,
-        f"min_ess_per_sec_n{N_MAIN}_m{M_MAIN}": min_ess / (run_s + pilot_s + map_s),
+    return {
+        "map_s": map_s, "pilot_s": pilot_s, "run_s": run_s,
+        f"min_ess_per_sec_{tag}": min_ess / (run_s + pilot_s + map_s),
         "min_ess": min_ess, "rhat_max": max_rhat, "map_value": float(mp.value),
-        "posterior_mean": means, "launches": launches, "plain_calls": 0,
-        "draws_shape": list(draws["phi"].shape),
+        "posterior_mean": {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")},
+        "draws_shape": list(draws["phi"].shape), "init": init,
+        "draws": draws, "map_fit": mp,
     }
+
+
+def main_path(dev) -> dict:
+    """bench.py's bench_ess MWG branch on the port: the same generator and
+    seed, fit_map(250), a 16 x 1200 correlated-RW pilot with 800 burn-in,
+    then 16 x 6000 independence-mixture draws with 500 burn-in."""
+    coords, y = bench_field(N_MAIN, seed=0)
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
+    setup_s = time.perf_counter() - t0
+    res = {"setup_s": setup_s, "lane_layout": model.lane_layout,
+           **_mwg_recipe(model, (800, 1200), (500, 6000), f"n{N_MAIN}_m{M_MAIN}")}
+    draws = res.pop("draws")
+    del res["map_fit"], res["init"]
+    launches = _read_counts("response", ("vecchia_suffstats", "vecchia_grad"))
+    res.update(launches=launches, plain_calls=0)
     print("main path: " + json.dumps(res), flush=True)
     _require(all(np.isfinite(v).all() for v in draws.values()),
              "non-finite draws")
     _require(draws["phi"].shape == (CHAINS, 6000), "draws have the wrong shape")
-    _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
-             f"posterior mean tau2 {means['tau2']} is not within 2x of 0.09")
+    tau2 = res["posterior_mean"]["tau2"]
+    _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+             f"posterior mean tau2 {tau2} is not within 2x of 0.09")
     return res
 
 
@@ -887,16 +1014,16 @@ def _step_ms(step, state, gen, steps: int):
     return (time.perf_counter() - t0) * 1e3 / steps, state
 
 
-def profile_steps(step, state, gen, steps: int = 5) -> dict:
+def profile_steps(step, state, gen, steps: int = 5, wall_steps: int = 20) -> dict:
     """Where a sampler step's time goes, for ``step(gen, state) -> state``:
     device-busy ms per step from the kernels that torch.profiler records over
-    ``steps`` steps, against the wall ms per step of 20 unprofiled steps (the
-    profiler itself slows the host).  The idle share is the part of the
+    ``steps`` steps, against the wall ms per step of ``wall_steps``
+    unprofiled steps (the profiler itself slows the host).  The idle share is the part of the
     unprofiled wall clock in which no kernel ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wall_ms, state = _step_ms(step, state, gen, 20)
+    wall_ms, state = _step_ms(step, state, gen, wall_steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1073,22 +1200,26 @@ def _nuts_summary(draws, n_burn, launches_name, launches) -> dict:
     }
 
 
-def profile_nuts(model, mp, chains: int, max_depth: int, warm: int = 40) -> dict:
+def profile_nuts(model, mp, chains: int, max_depth: int, warm: int = 40,
+                 wall_steps: int = 20, value_and_grad: bool = True) -> dict:
     """profile_steps over NUTS transitions of ``model`` from its MAP fit, after
     ``warm`` transitions of warmup, with the per-leapfrog figures that follow
-    from the kernel-2 launches of the window."""
+    from the kernel-2 launches of the window and, with ``value_and_grad``,
+    a profile of the value and gradient alone."""
     gen = torch.Generator().manual_seed(7)  # the samplers' state is on the host
     init_fn, step_fn = make_nuts_kernel(model.full_value_and_grad, 300, max_depth,
                                         init_inv_mass=mp.laplace_cov)
     state = init_fn(gen, model._warm_init_u(mp.u, mp.laplace_cov, chains, gen, 2.0))
     for _ in range(warm):
         state = step_fn(gen, state)
-    prof = profile_steps(step_fn, state, gen)
+    prof = profile_steps(step_fn, state, gen, wall_steps=wall_steps)
     per = max(prof["grad_kernel_launches_per_step"], 1.0)
     prof["wall_ms_per_leapfrog"] = prof["wall_ms_per_step"] / per
     prof["device_busy_ms_per_leapfrog"] = prof["device_busy_ms_per_step"] / per
     prof["device_kernels_per_leapfrog"] = prof["device_kernels_per_step"] / per
     prof["grad_kernel_ms_per_launch"] = prof["grad_kernel_ms_per_step"] / per
+    if not value_and_grad:
+        return prof
     # the share of a leapfrog that is the value and gradient of the posterior
     # (kernel 2, the eager ops around it and their backward), on its own
     vg = profile_steps(lambda _, u: (model.full_value_and_grad(u), u)[1],
@@ -1420,6 +1551,513 @@ def matern_nu_latent_path(dev, field, start) -> dict:
     return res
 
 
+# ---- the coords table layout (slice 5) -----------------------------------
+
+N_C5, M_C5 = 500_000, 20  # BASELINE.json config 5
+
+
+def coords_parity(main: Case, small: Case) -> dict:
+    """The coords instances of the closed-form kernels 1, 2, 2-EMIT_Y and 3
+    against their float64 plain versions on the same coordinate planes, with
+    the dist rows' own checks and limits, at the main path's shapes and at
+    n=1,500, m=7; returns the max_abs_err of each row."""
+    fwd = check_forward(main, "coords n100000 m15 sqexp")
+    check_forward(small, "coords n1500 m7 exponential")
+    grad = check_grad(main, "coords n100000 m15 sqexp", grad_rtol=2e-3)
+    check_grad(small, "coords n1500 m7 exponential", grad_rtol=2e-4)
+    bf = check_bf(main, "coords n100000 m15 sqexp", zero_alpha=False, gated=True)
+    check_bf(main, "coords n100000 m15 sqexp", zero_alpha=True, gated=False)
+    check_bf(small, "coords n1500 m7 exponential", zero_alpha=False, gated=True)
+    check_bf(small, "coords n1500 m7 exponential", zero_alpha=True, gated=True)
+    grad_y = check_grad_y(main, "coords n100000 m15 sqexp", False, grad_rtol=2e-3)
+    check_grad_y(main, "coords n100000 m15 sqexp", True, grad_rtol=2e-3)
+    check_grad_y(small, "coords n1500 m7 exponential", False, grad_rtol=2e-4)
+    check_grad_y(small, "coords n1500 m7 exponential", True, grad_rtol=2e-4)
+    return {"vecchia_suffstats_coords": fwd["f_max_abs_err"],
+            "vecchia_grad_coords": grad["max_abs_err"],
+            "vecchia_bf_coords": bf["b_max_abs_err"],
+            "vecchia_grad_y_coords": grad_y["b_max_abs_err"]}
+
+
+def config5_parity(dist: Case, coords: Case) -> dict:
+    """The m=20 coords instances at config 5's shapes (n=500,000), as paths
+    11-14 launch them, against their float64 plain versions on the same
+    coordinate planes, with the dist rows' own checks and limits: kernels
+    1, 2 and 2-EMIT_Y (shared and per-chain y) with sqexp, as paths 11-13
+    run them; kernel 3 with sqexp and with exponential (path 14's) at the
+    case's alpha.  Four of the case's chains (every fourth, so phi and
+    alpha span the case's range), two a float64 plain call, to keep the
+    plain versions' memory to a few GB; returns the max_abs_err of each row.
+
+    Kernel 3 at alpha = 0 (the latent model's) is printed for both layouts
+    on the same sites and not gated, as the sqexp rows at alpha = 0 are: at
+    this density (neighbors ~1e-3 apart, correlations above 0.98 for phi
+    >= 0.05) the exponential systems without a nugget are as ill-conditioned
+    as sqexp's at n=1,500, and the first run on the card (an NVIDIA H100
+    80GB HBM3) put the coords instance at B 9.0e-3, F 6.3e-3 from the
+    float64 plain version, over the 1e-3 that holds at n=1,500, m=7."""
+    every4 = slice(None, None, 4)
+    sqexp = coords.subset(every4, chunk=2)
+    label = f"coords n{coords.n} m{coords.m} sqexp"
+    fwd = check_forward(sqexp, label)
+    grad = check_grad(sqexp, label, grad_rtol=2e-3)
+    grad_y = check_grad_y(sqexp, label, False, grad_rtol=2e-3)
+    bf = check_bf(sqexp, label, zero_alpha=False, gated=True)
+    for case in (coords, dist):
+        expo = case.subset(every4, kernel=Exponential(), chunk=2)
+        label = f"{case.layout} n{case.n} m{case.m} exponential"
+        if case is coords:
+            bf_exp = check_bf(expo, label, zero_alpha=False, gated=True)
+        check_bf(expo, label, zero_alpha=True, gated=False)
+    return {"vecchia_suffstats_coords": fwd["f_max_abs_err"],
+            "vecchia_grad_coords": grad["max_abs_err"],
+            "vecchia_bf_coords": max(bf["b_max_abs_err"], bf_exp["b_max_abs_err"]),
+            "vecchia_grad_y_coords": grad_y["b_max_abs_err"]}
+
+
+def compare_layouts(dist: Case, coords: Case, label: str) -> dict:
+    """Ungated: how far the coords instances (distances recomputed from
+    float32 coordinates) land from the dist instances (float64 distances
+    rounded to float32) on the same sites and parameters, both in float32.
+    This is the cost of in-kernel distances, not a parity check."""
+    k, jit, nu = dist.kernel, dist.jitter, dist.nu
+    out = {}
+    for name, case in (("dist", dist), ("coords", coords)):
+        t = case.tab32
+        ld, q, f, _ = fwd_ops.suffstats(k, t, case.phi, case.alpha, case.y32, jit, nu=nu)
+        sums = diff_ops.value_and_grad_sums(k, t, case.phi, case.alpha, case.y32, jit,
+                                            nu=nu)
+        b, f3 = bf_ops.bf_planes(k, t, case.phi, case.alpha, jit, nu=nu)
+        out[name] = (torch.stack([ld, q]).double(), f[:, :case.n].double(), sums.double(),
+                     b.double(), f3[:, :case.n].double())
+    d, c = out["dist"], out["coords"]
+    res = {
+        "suffstats_value_rel": _rel(c[0], d[0]),
+        "suffstats_f_max_abs": float((c[1] - d[1]).abs().max()),
+        "grad_value_rel": _rel(c[2][:2], d[2][:2]),
+        "grad_dphi_rel": _rel(c[2][2:4], d[2][2:4]),
+        "grad_dalpha_rel": _rel(c[2][4:6], d[2][4:6]),
+        "bf_b_max_abs": float((c[3] - d[3]).abs().max()),
+        "bf_f_max_rel": _rel(c[4], d[4]),
+    }
+    if nu is not None:
+        res["grad_dnu_rel"] = _rel(c[2][6:8], d[2][6:8])
+    print(f"coords against dist, float32 [{label}] (not gated): " + json.dumps(res),
+          flush=True)
+    return res
+
+
+def time_layout_kernels(case: Case, warm: int, reps: int) -> dict:
+    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 at the case's shapes,
+    and of kernel 2 with 4 chains, named by the rows of its layout (no plain
+    versions)."""
+    k, t, y = case.kernel, case.tab32, case.y32
+    args = (case.phi, case.alpha)
+    sfx = _suffix(case)
+    times = {
+        "vecchia_suffstats" + sfx: _time_ms(
+            lambda: fwd_ops.suffstats(k, t, *args, y, case.jitter), warm, reps),
+        "vecchia_grad" + sfx: _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, *args, y, case.jitter), warm, reps),
+        "vecchia_grad_y" + sfx: _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, *args, case.y32_chains, case.jitter,
+                                                 emit_y=True), warm, reps),
+        "vecchia_bf" + sfx: _time_ms(
+            lambda: bf_ops.bf_planes(k, t, *args, case.jitter), warm, reps),
+        # the NUTS recipe's launch shape
+        "vecchia_grad_4_chains" + sfx: _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, case.phi[:4], case.alpha[:4], y,
+                                                 case.jitter), warm, reps),
+    }
+    print(f"kernel times [{case.layout} n{case.n} m{case.m}]: "
+          + json.dumps({**{f"{n}_ms": ms for n, ms in times.items()},
+                        "chains": case.phi.shape[0]}), flush=True)
+    return times
+
+
+def layout_setup_child(layout: str, n: int, m: int) -> dict:
+    """One layout's host set-up at (n, m) on bench_setup500k's sites, meant
+    for a process of its own so that its peak resident memory is its own:
+    the neighbor table, the Vecchia data (with the (n, m, m) distance table
+    on the dist layout only), the site tables.  Peak host memory two ways:
+    the resident set sampled every 2 ms from /proc/self/statm, and the peak
+    of numpy's allocations (tracemalloc), which holds the tables."""
+    import threading
+    import tracemalloc
+
+    peak, done = [_rss_mb()], threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            peak[0] = max(peak[0], _rss_mb())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    tracemalloc.start()
+    coords = np.random.default_rng(0).uniform(size=(n, 2))
+    t0 = time.perf_counter()
+    tab = build_neighbor_table(coords, m)
+    t_nb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist",
+                                  table=tab)
+    t_vd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = make_site_tables(data, layout=layout, coords_host=coords[tab.order])
+    t_st = time.perf_counter() - t0
+    numpy_peak = tracemalloc.get_traced_memory()[1] / 1e6
+    tracemalloc.stop()
+    done.set()
+    sampler.join()
+    return {
+        "layout": layout, "neighbor_table_s": t_nb, "vecchia_data_s": t_vd,
+        "site_tables_s": t_st, "setup_s": t_nb + t_vd + t_st,
+        "table_mb": sum(a.numel() * a.element_size()
+                        for a in (tables.tab_a, tables.tab_b, tables.nn_idx)) / 1e6,
+        "distance_table_mb": 0.0 if data.nn_cross_dist is None else
+        (data.nn_dist.nbytes + data.nn_cross_dist.nbytes) / 1e6,
+        "peak_rss_mb": max(peak[0], _rss_mb()), "peak_numpy_mb": numpy_peak,
+    }
+
+
+def _rss_mb() -> float:
+    """This process's resident memory now, from /proc/self/statm (getrusage's
+    peak also keeps that of the process this one was forked from)."""
+    try:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e6
+    except (OSError, ValueError, IndexError):
+        return float("nan")
+
+
+def layout_setup(n: int = N_C5, m: int = M_C5) -> dict:
+    """The layout phase: host set-up seconds, table sizes and peak resident
+    memory of each layout at config 5's size, each in a fresh process (this
+    script imported as a module; it touches no card)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for layout in ("dist", "coords"):
+        code = ("import json, chip_smoke; print(json.dumps("
+                f"chip_smoke.layout_setup_child({layout!r}, {n}, {m})))")
+        run = subprocess.run([sys.executable, "-c", code], cwd=here,
+                             capture_output=True, text=True, timeout=900)
+        _require(run.returncode == 0,
+                 f"the {layout} set-up process failed:\n{run.stderr[-4000:]}")
+        out[layout] = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"layout set-up [n{n} m{m}]: " + json.dumps(out), flush=True)
+    return out
+
+
+# the sizes of the layout phase: (n, m), m = 15 as the main path (the models'
+# default) up to 300,000, m = 20 as config 5
+LAYOUT_SIZES = ((10_000, 15), (N_MAIN, M_MAIN), (200_000, M_MAIN),
+                (300_000, M_MAIN), (N_C5, M_C5))
+# bench_ess's two recipes as kernel launches (paths 1 and 5 of this script): the MWG
+# branch, the response model's default sampler, one kernel-1 launch of 16
+# chains a step (a 2000-step pilot and a 6500-step run); the NUTS branch,
+# one kernel-2 launch of 4 chains a leapfrog.  bench_ess's default
+# (--sampler best) runs both on one set-up: the rule's recipe.
+RECIPES = {"mwg": ("vecchia_suffstats", 8_500), "nuts": ("vecchia_grad_4_chains", 11_257)}
+
+
+def layout_rule(layouts: dict) -> dict:
+    """The measurement behind site_tables.COORDS_LAYOUT_MIN_SITES: at each
+    size, the host set-up seconds plus the seconds of the kernel launches of
+    each of bench_ess's recipes (RECIPES) and of both ("best", bench_ess's
+    default, one set-up), on either layout; the faster layout of each.  Fails
+    unless choose_layout("auto", n) takes the layout that runs "best" faster
+    at every size measured."""
+    rows = {}
+    for key, got in sorted(layouts.items(), key=lambda kv: kv[1]["n"]):
+        ms, setup = got["times"]["ms"], got["setup"]
+        row = {recipe: {layout: count * ms[kernel + sfx] / 1e3
+                        for layout, sfx in (("dist", ""), ("coords", "_coords"))}
+               for recipe, (kernel, count) in RECIPES.items()}
+        row["best"] = {layout: sum(row[r][layout] for r in RECIPES) for layout in LAYOUTS}
+        for recipe in list(row):
+            row[recipe] = {layout: setup[layout]["setup_s"] + sec
+                           for layout, sec in row[recipe].items()}
+            row[recipe]["faster"] = min(LAYOUTS, key=row[recipe].get)
+        row["auto"] = site_tables.choose_layout("auto", got["n"])
+        row["coords_over_dist"] = got["times"]["coords_over_dist"]
+        rows[key] = row
+    out = {"recipe_seconds": rows,
+           "coords_layout_min_sites": site_tables.COORDS_LAYOUT_MIN_SITES}
+    print("layout rule: " + json.dumps(out), flush=True)
+    for key, row in rows.items():
+        _require(row["auto"] == row["best"]["faster"],
+                 f"COORDS_LAYOUT_MIN_SITES takes {row['auto']} at {key}, where "
+                 f"bench_ess's recipes run faster on {row['best']['faster']}")
+    return out
+
+
+def config5_probe(dev) -> dict:
+    """bench.py's bench_setup500k (l.921-970, over _build_fused l.193-247) on
+    the port, uncut: n=500,000 uniform sites and y ~ N(0, 1) from
+    default_rng(0), m=20, sqexp, the coords layout; set-up in phases, then
+    50 single-chain log-likelihood evaluations at phi = linspace(0.2, 0.4) +
+    0.002, alpha = 0.1, through the forward pass (kernel 1), after a warm
+    pass at + 0.001."""
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(N_C5, 2))
+    y = rng.standard_normal(N_C5)
+    _reset_counts()
+    phases = {}
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    tab = build_neighbor_table(coords, M_C5)
+    phases["neighbor_table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data, tab = make_vecchia_data(coords, M_C5, precompute_distances=False, table=tab)
+    phases["vecchia_data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_dev = torch.as_tensor(y[tab.order], dtype=torch.float32, device=dev)
+    tables = make_site_tables(data, device=dev, layout="coords",
+                              coords_host=coords[tab.order])
+    torch.cuda.synchronize()
+    phases["site_tables"] = time.perf_counter() - t0
+    phases["layout"] = tables.layout
+    phases["table_mb"] = sum(a.numel() * a.element_size()
+                             for a in (tables.tab_a, tables.tab_b, tables.nn_idx)) / 1e6
+    setup_s = time.perf_counter() - t_all
+    k_evals, kernel = 50, SqExp()
+    alpha = torch.full((1,), 0.1, device=dev)
+
+    def many(phis):
+        acc = torch.zeros((), dtype=torch.float64, device=dev)
+        for phi in phis:
+            ld, q, _, _ = fwd_ops.suffstats(kernel, tables, phi.reshape(1), alpha, y_dev)
+            acc = acc - 0.5 * (ld + q).double().sum()
+        return float(acc)
+
+    phis = torch.linspace(0.2, 0.4, k_evals, device=dev)
+    many(phis + 0.001)
+    t0 = time.perf_counter()
+    total = many(phis + 0.002)
+    evals_per_sec = k_evals / (time.perf_counter() - t0)
+    launches = _read_counts("config 5 probe", ("vecchia_suffstats_coords",))
+    res = {
+        f"config5_loglik_evals_per_sec_n{N_C5}_m{M_C5}": evals_per_sec,
+        "setup_seconds": setup_s, "setup_phases": phases, "sum_loglik": total,
+        "launches": launches, "plain_calls": 0,
+    }
+    print("config 5 probe: " + json.dumps(res), flush=True)
+    _require(np.isfinite(total), "non-finite config 5 log-likelihoods")
+    _require(launches["vecchia_suffstats_coords"] == 2 * k_evals,
+             "the config 5 probe did not launch kernel 1 once per evaluation")
+    return res
+
+
+def config5_response_path(dev) -> dict:
+    """The response NNGP at config 5's size with the default layout (coords
+    at this n): bench_ess's field at n=500,000 (seed 0, noise sd 0.3), m=20,
+    sqexp; fit_map(250), then bench_ess's MWG recipe cut to a 16 x 300
+    correlated-RW pilot (100 burn-in) and 16 x 600 independence-mixture
+    draws after 300 burn-in; then NUTS, 4 chains x 30 draws after 30 burn-in
+    at max_depth 6 from the Laplace fit.  Kernel 1 per MWG proposal, kernel
+    2 per MAP step and leapfrog, both their coords instances."""
+    coords, y = bench_field(N_C5, seed=0)
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_C5, device=dev)
+    setup_s = time.perf_counter() - t0
+    _require(model.lane_layout == "coords",
+             f"the default layout at n={N_C5} is {model.lane_layout}")
+    res = {"setup_s": setup_s, "lane_layout": model.lane_layout,
+           **_mwg_recipe(model, (100, 200), (300, 600), f"n{N_C5}_m{M_C5}")}
+    draws, mp = res.pop("draws"), res.pop("map_fit")
+    res["config5_min_ess_per_sec_n500000_m20"] = res.pop(f"min_ess_per_sec_n{N_C5}_m{M_C5}")
+    chains, n_burn, n_draws, max_depth = 4, 30, 30, 6
+    map_launches = diff_ops.COUNT_COORDS.launches
+    t0 = time.perf_counter()
+    nuts = model.sample_nuts(n_draws, n_burn=n_burn, n_chains=chains, seed=0,
+                             max_depth=max_depth, init_u=mp.u,
+                             init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    res["nuts_run_s"] = time.perf_counter() - t0
+    launches = _read_counts("config 5 response", ("vecchia_suffstats_coords",
+                                                  "vecchia_grad_coords"))
+    res["nuts"] = _nuts_summary(nuts, n_burn, "vecchia_grad_coords",
+                                launches["vecchia_grad_coords"] - map_launches)
+    res.update(launches=launches, plain_calls=0,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("config 5 response path: " + json.dumps(res), flush=True)
+    for name, got in (("MWG", draws), ("NUTS", nuts)):
+        _require(all(np.isfinite(v).all() for v in got.values()),
+                 f"non-finite {name} draws at config 5's size")
+    _require(draws["phi"].shape == (CHAINS, 600), "MWG draws have the wrong shape")
+    for name, tau2 in (("MWG", res["posterior_mean"]["tau2"]),
+                       ("NUTS", res["nuts"]["posterior_mean"]["tau2"])):
+        _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+                 f"{name} posterior mean tau2 {tau2} is not within 2x of 0.09")
+    init = res["init"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prof = profile_steps(model.step, model.init_state(CHAINS, init), gen, wall_steps=10)
+    print("config 5 MWG step profile: " + json.dumps(prof), flush=True)
+    # without the value and gradient alone: late in this script's process
+    # torch.profiler recorded no device time over them (twice; in a fresh
+    # process it does, tools/profile_window.py)
+    print("config 5 NUTS transition profile: "
+          + json.dumps(profile_nuts(model, mp, chains, max_depth, warm=5, wall_steps=5,
+                                    value_and_grad=False)), flush=True)
+    return res
+
+
+def config5_fixed_effects_path(dev) -> dict:
+    """Config 5's field plus x @ [1, -2] with an intercept and one covariate:
+    fit_map(150) with x=, every step one launch of kernel 2's EMIT_Y coords
+    instances and one y-cotangent gather; the MAP slope must be within 0.1
+    of -2."""
+    coords, y = bench_field(N_C5, seed=0)
+    x = np.column_stack([np.ones(N_C5), np.random.default_rng(1).standard_normal(N_C5)])
+    beta_true = np.array([1.0, -2.0])
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y + x @ beta_true, kernel="sqexp", m=M_C5, x=x,
+                         device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=150)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launches = _read_counts("config 5 fixed effects", ("vecchia_grad_y_coords",))
+    u = mp.u.cpu()
+    res = {"setup_s": setup_s, "map_s": map_s, "lane_layout": model.lane_layout,
+           "map_u": u.tolist(), "map_beta": u[3:].tolist(),
+           "beta_true": beta_true.tolist(), "launches": launches, "plain_calls": 0}
+    print("config 5 fixed-effects path: " + json.dumps(res), flush=True)
+    _require(bool(torch.isfinite(u).all()), "non-finite MAP point with fixed effects")
+    _require(abs(float(u[4]) - beta_true[1]) <= 0.1,
+             f"MAP slope {float(u[4])} is not within 0.1 of -2")
+    return res
+
+
+def config5_latent_path(dev) -> dict:
+    """The latent-w NNGP at config 5's size on config 5's field: m=20,
+    exponential, the layout by n (coords here), 8 chains, 100 draws after
+    100 burn-in, w_every=8.  One launch of kernel 3's coords instances a
+    step, for the proposal of the theta block (phi)."""
+    n, chains, n_burn, n_draws = N_C5, 8, 100, 100
+    coords, y = bench_field(n, seed=0)
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = LatentNNGP(coords, y, kernel="exponential", m=M_C5, device=dev)
+    setup_s = time.perf_counter() - t0
+    _require(model.lane_layout == "coords",
+             f"the latent model's layout at n={n} is {model.lane_layout}")
+    init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1, "tau2": float(np.var(y)) * 0.15}
+    t0 = time.perf_counter()
+    draws = model.sample(n_draws, n_burn=n_burn, n_chains=chains, seed=0, init=init,
+                         w_every=8)
+    run_s = time.perf_counter() - t0
+    launches = _read_counts("config 5 latent", ("vecchia_bf_coords",))
+    res = {
+        "setup_s": setup_s, "run_s": run_s, "colors": model.n_colors,
+        "lane_layout": model.lane_layout,
+        "ms_per_step": run_s * 1e3 / (n_burn + n_draws),
+        "posterior_mean": {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")},
+        "launches": launches, "plain_calls": 0, "w_shape": list(draws["w"].shape),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"latent path [n{n} m{M_C5}]: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite latent draws at config 5's size")
+    _require(draws["w"].shape == (chains, -(-n_draws // 8), n),
+             f"w draws have the wrong shape {draws['w'].shape}")
+    _require(launches["vecchia_bf_coords"] >= n_burn + n_draws,
+             "fewer kernel-3 launches than latent steps")
+    return res
+
+
+def matern_nu_coords_path(dev, field, mp) -> dict:
+    """Config 3's model (sampled-nu Matern, n=25,000, m=10) with
+    lane_layout="coords": the kernel sums and the log-posterior's value and
+    gradient at path 7's MAP point against the dist-layout model's, within
+    the general-nu limits, a log-likelihood without gradient (kernel 1-nu),
+    NUTS with 2 chains x 30 draws after 30 burn-in; then the same data plus
+    x @ [1, -2] on the coords layout: the value and gradient (kernel 2-nu's
+    EMIT_Y instances) and 4 MWG chains x 20 draws after 20 burn-in (kernel
+    3-nu per proposal)."""
+    coords, y = field
+    dist_model = ResponseNNGP(coords, y, kernel=Matern(), m=M_NU, lane_layout="dist",
+                              device=dev)
+    _reset_counts()
+    model = ResponseNNGP(coords, y, kernel=Matern(), m=M_NU, lane_layout="coords",
+                         device=dev)
+    _require(model.lane_layout == "coords", "lane_layout='coords' was not taken")
+    u = mp.u.reshape(1, -1)  # [log sigma2, logit phi, log tau2, logit nu]
+    nat = model._natural(torch.stack([u[0, 1], u[0, 2] - u[0, 0], u[0, 3]]))
+    phi, alpha, nu = (nat[k].reshape(1).to(dev) for k in ("phi", "alpha", "nu"))
+    sums = {name: diff_ops.value_and_grad_sums(m.kernel, m.tables, phi, alpha, m.y,
+                                               m.jitter, nu=nu).double().cpu()
+            for name, m in (("coords", model), ("dist", dist_model))}
+    vg = {name: m.full_value_and_grad(u) for name, m in (("coords", model),
+                                                          ("dist", dist_model))}
+    with torch.no_grad():
+        ll = float(model.full_loglik(u)[0])
+    c, d = sums["coords"], sums["dist"]
+    res = {
+        "sums_value_rel": _rel(c[:2], d[:2]), "sums_dphi_rel": _rel(c[2:4], d[2:4]),
+        "sums_dalpha_rel": _rel(c[4:6], d[4:6]), "sums_dnu_rel": _rel(c[6:8], d[6:8]),
+        "logpost_rel": _rel(vg["coords"][0].double(), vg["dist"][0].double()),
+        "logpost_grad_coords": vg["coords"][1].tolist(),
+        "logpost_grad_dist": vg["dist"][1].tolist(), "loglik": ll,
+    }
+    chains, n_burn, n_draws = 2, 30, 30
+    before = diff_ops.COUNT_NU_COORDS.launches
+    t0 = time.perf_counter()
+    draws = model.sample_nuts(n_draws, n_burn=n_burn, n_chains=chains, seed=0,
+                              max_depth=6, init_u=mp.u, init_inv_mass=mp.laplace_cov,
+                              init_jitter=2.0)
+    res["nuts_run_s"] = time.perf_counter() - t0
+    res["nuts"] = _nuts_summary(draws, n_burn, "vecchia_grad_nu_coords",
+                                diff_ops.COUNT_NU_COORDS.launches - before)
+    x = np.column_stack([np.ones(N_NU), np.random.default_rng(1).standard_normal(N_NU)])
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), kernel=Matern(), m=M_NU,
+                         x=x, lane_layout="coords", device=dev)
+    u_fixed = torch.cat([mp.u, torch.tensor([1.0, -2.0])]).reshape(1, -1)
+    value, grad = fixed.full_value_and_grad(u_fixed)
+    u0 = mp.u.cpu()
+    sig0, tau0 = float(torch.exp(u0[0])), float(torch.exp(u0[2]))
+    init = {"sigma2": sig0, "phi": float(model._t_phi.forward(u0[1])),
+            "alpha": tau0 / sig0, "nu": float(model._t_nu.forward(u0[3]))}
+    mwg = fixed.sample(20, n_burn=20, n_chains=4, init=init, seed=0)
+    launches = _read_counts("sampled-nu coords", (
+        "vecchia_suffstats_nu_coords", "vecchia_grad_nu_coords",
+        "vecchia_grad_y_nu_coords", "vecchia_bf_nu_coords"))
+    res.update(fixed_effects_value=float(value[0]), fixed_effects_grad=grad[0].tolist(),
+               mwg_beta_mean=mwg["beta"].mean(axis=(0, 1)).tolist(),
+               launches=launches, plain_calls=0)
+    print("sampled-nu coords path [config 3]: " + json.dumps(res), flush=True)
+    for key, limit in (("sums_value_rel", NU_LIMITS["value_rel"]),
+                       ("sums_dphi_rel", NU_LIMITS["dphi_rel"]),
+                       ("sums_dalpha_rel", NU_LIMITS["dalpha_rel"]),
+                       ("sums_dnu_rel", NU_LIMITS["dnu_rel"]),
+                       ("logpost_rel", NU_LIMITS["value_rel"])):
+        _require(res[key] <= limit, f"coords against dist: {key} {res[key]} exceeds {limit}")
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite sampled-nu NUTS draws on the coords layout")
+    _require(all(np.isfinite(v).all() for v in mwg.values())
+             and bool(torch.isfinite(grad).all()) and np.isfinite(ll),
+             "non-finite values with fixed effects on the coords layout")
+    return res
+
+
+def time_layouts(dist: Case, coords: Case, warm: int, reps: int) -> dict:
+    """Kernels 1, 2, 2-EMIT_Y and 3 in both layouts on the same sites, timed
+    in turns (dist, coords, coords, dist): the mean of each layout's two
+    rounds, and the coords/dist ratio of each kernel."""
+    mean = {}
+    for case in (dist, coords, coords, dist):
+        for name, ms in time_layout_kernels(case, warm, reps).items():
+            mean[name] = mean.get(name, 0.0) + ms / 2
+    ratio = {name: mean[name + "_coords"] / mean[name]
+             for name in mean if not name.endswith("_coords")}
+    out = {"ms": mean, "coords_over_dist": ratio}
+    print(f"layout times [n{dist.n} m{dist.m}, {dist.phi.shape[0]} chains]: "
+          + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1456,7 +2094,20 @@ def main() -> int:
     check_grad_y(small_case, "n1500 m7 exponential", True, grad_rtol=2e-4)
     times = time_kernels(main_case)
     bounds = kernel_bounds(main_case)
-    del main_case
+
+    # the coords instances of the closed-form kernels on the same sites
+    coords_main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, layout="coords")
+    coords_small = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev, layout="coords")
+    errs = coords_parity(coords_main, coords_small)
+    compare_layouts(main_case, coords_main, "n100000 m15 sqexp")
+    compare_layouts(small_case, coords_small, "n1500 m7 exponential")
+    layouts = {f"n{N_MAIN}_m{M_MAIN}": {
+        "n": N_MAIN, "times": time_layouts(main_case, coords_main, 10, 100)}}
+    times.update({name: ms for name, ms in layouts[f"n{N_MAIN}_m{M_MAIN}"]["times"]["ms"]
+                  .items() if name.endswith("_coords")})
+    times.update(time_plain(coords_main))
+    bounds.update(kernel_bounds(coords_main))
+    del main_case, coords_main, coords_small
 
     # the general-nu instances: config 3's data and shapes, and the small case
     check_kve(dev)
@@ -1472,7 +2123,19 @@ def main() -> int:
     check_static_nu(small_nu, "n1500 m7")
     times.update(time_kernels_nu(nu_case, plain=True))
     bounds.update(kernel_bounds_nu(nu_case))
-    del nu_case, small_nu, small_case
+    # and their coords instances
+    nu_coords = Case(N_NU, M_NU, Matern(), CHAINS, seed=5, dev=dev, field=field3,
+                     nu=nu_spread(CHAINS), layout="coords")
+    small_nu_coords = Case(1500, 7, Matern(), CHAINS, seed=3, dev=dev,
+                           nu=nu_spread(CHAINS), layout="coords")
+    nu_coords_err = check_general_nu(nu_coords, f"coords n{N_NU} m{M_NU}")
+    check_general_nu(small_nu_coords, "coords n1500 m7")
+    check_static_nu(nu_coords, f"coords n{N_NU} m{M_NU}")
+    check_static_nu(small_nu_coords, "coords n1500 m7")
+    compare_layouts(nu_case, nu_coords, f"general nu n{N_NU} m{M_NU}")
+    times.update(time_kernels_nu(nu_coords, plain=True))
+    bounds.update(kernel_bounds_nu(nu_coords))
+    del nu_case, small_nu, small_case, nu_coords, small_nu_coords
     torch.cuda.empty_cache()
     # the same instances at the main path's shapes, for the table of kernels
     large_nu = Case(N_MAIN, M_MAIN, Matern(), CHAINS, seed=0, dev=dev,
@@ -1481,6 +2144,27 @@ def main() -> int:
     kernel_bounds_nu(large_nu)
     del large_nu
     torch.cuda.empty_cache()
+
+    # the layout phase: both layouts' kernel times and host set-up at each
+    # of LAYOUT_SIZES, and the rule they give
+    for n, m in LAYOUT_SIZES:
+        key = f"n{n}_m{m}"
+        if key not in layouts:
+            pair = [Case(n, m, SqExp(), CHAINS, seed=0, dev=dev, layout=layout)
+                    for layout in ("dist", "coords")]
+            big = n >= N_C5
+            layouts[key] = {"n": n, "times": time_layouts(*pair, 3 if big else 10,
+                                                          10 if big else 50)}
+            if big:  # config 5's bounds, for the table of kernels, and the
+                # m=20 coords instances at the shapes paths 11-14 launch them
+                for case in pair:
+                    kernel_bounds(case)
+                for name, err in config5_parity(*pair).items():
+                    errs[name] = max(errs[name], err)
+            del pair
+            torch.cuda.empty_cache()
+        layouts[key]["setup"] = layout_setup(n, m)
+    layout_rule(layouts)
 
     paths = {"response": main_path(dev)}
     mwg_ess = paths["response"][f"min_ess_per_sec_n{N_MAIN}_m{M_MAIN}"]
@@ -1498,20 +2182,34 @@ def main() -> int:
     paths["matern_nu_nuts_fixed_effects"] = matern_nu_nuts_fixed_effects_path(dev, field3)
     paths["matern_nu_latent"] = matern_nu_latent_path(dev, field3,
                                                       paths["matern_nu_nuts"]["map"])
+    paths["config5_probe"] = config5_probe(dev)
+    paths["config5_response"] = config5_response_path(dev)
+    torch.cuda.empty_cache()
+    paths["config5_fixed_effects"] = config5_fixed_effects_path(dev)
+    torch.cuda.empty_cache()
+    paths["config5_latent"] = config5_latent_path(dev)
+    torch.cuda.empty_cache()
+    paths["matern_nu_coords"] = matern_nu_coords_path(dev, field3, map3)
 
-    errs = {"vecchia_suffstats": fwd["f_max_abs_err"],
-            "vecchia_grad": grad["max_abs_err"],
-            "vecchia_bf": bf_err["b_max_abs_err"],
-            "vecchia_grad_y": grad_y["b_max_abs_err"],
-            "vecchia_suffstats_nu": nu_err["f_max_abs_err"],
-            "vecchia_grad_nu": nu_err["sums_max_abs_err"],
-            "vecchia_grad_y_nu": nu_err["b_max_abs_err"],
-            "vecchia_bf_nu": nu_err["bf_b_max_abs_err"]}
+    errs.update({
+        "vecchia_suffstats": fwd["f_max_abs_err"],
+        "vecchia_grad": grad["max_abs_err"],
+        "vecchia_bf": bf_err["b_max_abs_err"],
+        "vecchia_grad_y": grad_y["b_max_abs_err"],
+        "vecchia_suffstats_nu": nu_err["f_max_abs_err"],
+        "vecchia_grad_nu": nu_err["sums_max_abs_err"],
+        "vecchia_grad_y_nu": nu_err["b_max_abs_err"],
+        "vecchia_bf_nu": nu_err["bf_b_max_abs_err"],
+        "vecchia_suffstats_nu_coords": nu_coords_err["f_max_abs_err"],
+        "vecchia_grad_nu_coords": nu_coords_err["sums_max_abs_err"],
+        "vecchia_grad_y_nu_coords": nu_coords_err["b_max_abs_err"],
+        "vecchia_bf_nu_coords": nu_coords_err["bf_b_max_abs_err"],
+    })
     # launches: the sum over the paths, each counted from 0; no single
     # PyTorch call computes any of these functions (torch.special has K_0 and
     # K_1 only), so library_ms is null.  ms, plain_ms and bound_ms of the
-    # closed-form rows are at n=100,000, m=15, of the general-nu rows at
-    # config 3's n=25,000, m=10, 16 chains each
+    # closed-form rows (either layout) are at n=100,000, m=15, of the
+    # general-nu rows at config 3's n=25,000, m=10, 16 chains each
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p["launches"][name] for p in paths.values()),

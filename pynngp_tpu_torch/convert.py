@@ -9,7 +9,7 @@ import torch
 
 from pynngp_tpu_torch.models.latent import LatentState
 from pynngp_tpu_torch.models.response import ResponseState
-from pynngp_tpu_torch.ops.site_tables import SiteTables, padded_size
+from pynngp_tpu_torch.ops.site_tables import LAYOUTS, SiteTables, padded_size
 from pynngp_tpu_torch.samplers.hmc import DualAveraging, HMCInfo, HMCState, Welford
 from pynngp_tpu_torch.samplers.nuts import NUTSInfo, NUTSState
 
@@ -18,24 +18,29 @@ __all__ = ["site_tables_from_lane_cache", "bf_planes_from_rows",
            "nuts_state_from_jax", "hmc_state_from_jax"]
 
 
-def site_tables_from_lane_cache(tab_a, tab_b, nn_idx, n, device="cpu"):
-    """Plane-major :class:`SiteTables` from the dist-layout ``LaneCache``
-    arrays (``tab_a`` (m, S, 8, 128), ``tab_b`` (m(m-1)/2, S, 8, 128),
-    ``nn_idx`` (m, S, 8, 128)) of a cache over n sites.  The tile padding
-    beyond the port's block padding holds only zeros and is dropped."""
+def site_tables_from_lane_cache(tab_a, tab_b, nn_idx, n, device="cpu",
+                                layout="dist"):
+    """Plane-major :class:`SiteTables` from the ``LaneCache`` arrays of a
+    cache over n sites in either layout: ``tab_a`` (m, S, 8, 128) and
+    ``tab_b`` (m(m-1)/2, S, 8, 128) distance planes (dist), or ``tab_a``
+    (d, S, 8, 128) and ``tab_b`` (m d, S, 8, 128) coordinate planes
+    (coords); ``nn_idx`` (m, S, 8, 128) in both.  The tile padding beyond the
+    port's block padding holds only zeros and is dropped."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be 'dist' or 'coords', got {layout!r}")
     n_pad = padded_size(n)
 
     def planes(a):
         a = np.asarray(a)
         flat = a.reshape(a.shape[0], -1)
         if flat.shape[1] < n_pad or np.any(flat[:, n:]):
-            raise ValueError("not a dist-layout lane cache over n sites")
+            raise ValueError(f"not a {layout}-layout lane cache over n sites")
         return torch.as_tensor(np.ascontiguousarray(flat[:, :n_pad]),
                                device=device)
 
-    return SiteTables(d_in=planes(tab_a), d_tri=planes(tab_b),
+    return SiteTables(tab_a=planes(tab_a), tab_b=planes(tab_b),
                       nn_idx=planes(np.asarray(nn_idx, np.int32)), n=n,
-                      n_pad=n_pad)
+                      n_pad=n_pad, layout=layout)
 
 
 def bf_planes_from_rows(b, f, dtype=None, device="cpu"):

@@ -9,6 +9,6 @@
 extern "C" int vecchia_bf_f32(const float* params, const float* d_in, const float* d_tri,
                               int n_pad, int m, int chains, int family, float* b_out,
                               float* f_out, void* stream) {
-  return vecchia::launch_bf<false>(params, d_in, d_tri, n_pad, m, chains, family, b_out,
-                                   f_out, stream);
+  return vecchia::launch_bf<false, false>(params, d_in, d_tri, n_pad, m, 0, chains, family,
+                                          b_out, f_out, stream);
 }

@@ -1,9 +1,12 @@
 // Body of kernel 3, the explicit kriging weights B = C_N^-1 c and conditional
-// variances F, shared by its two translation units: vecchia_bf.cu (closed-form
-// rho, GENERAL = false) and vecchia_bf_nu.cu (general-nu Matern, GENERAL = true).
+// variances F, shared by its four translation units: vecchia_bf.cu (closed-form
+// rho, GENERAL = false) and vecchia_bf_nu.cu (general-nu Matern, GENERAL = true)
+// on the dist table layout, and the same two with _coords (COORDS = true:
+// distances recomputed from coordinate planes, vecchia_common.cuh).
 //
 // Replaces the Pallas kernel _bf_kernel (pynngp_tpu/ops/pallas_bf.py:941,
-// driven by _run_bf l.991 and pallas_bf l.1036).  For every (site, chain) it
+// driven by _run_bf l.991 and pallas_bf l.1036; its coords branch through
+// _dist_access, l.377 and l.957).  For every (site, chain) it
 // builds the m x m unit-variance neighbor correlation C (+ alpha + jitter on
 // valid diagonal slots, identity rows for invalid slots), factors it with the
 // unrolled Cholesky-Crout recurrence, forward-solves u = L^-1 c, writes
@@ -30,7 +33,9 @@
 // an H100 is set by operations, the special-function rate of the
 // exponentials, just above the bytes it must move (chip_smoke.py,
 // kernel_bounds); it runs far above both.  The general-nu instances replace
-// each exponential by a Bessel evaluation (vecchia_bessel.cuh).
+// each exponential by a Bessel evaluation (vecchia_bessel.cuh).  The coords
+// layout reads (m + 1) d coordinates for the m(m+1)/2 distances and recomputes
+// each (d subtractions and multiply-adds and a sqrt).
 #pragma once
 
 #include <cstddef>
@@ -40,11 +45,11 @@
 namespace vecchia {
 namespace {
 
-template <int M, bool GENERAL>
+template <int M, bool GENERAL, bool COORDS>
 __global__ void __launch_bounds__(kBlock)
-bf_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
-          const float* __restrict__ d_tri, int n_pad, int family, float* __restrict__ b_out,
-          float* __restrict__ f_out) {
+bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
+          const float* __restrict__ tab_b, int n_pad, int dim, int family,
+          float* __restrict__ b_out, float* __restrict__ f_out) {
   const int chain = blockIdx.y;
   const int site = blockIdx.x * kBlock + threadIdx.x;
   const float* pr = params + chain * kParams;
@@ -62,6 +67,7 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     *f_site = 1.0f;
     return;
   }
+  const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
@@ -76,7 +82,9 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
     const float inv = 1.0f / sqrtf(acc);
     inv_diag[k] = inv;
-    float au = corr<GENERAL>(family, d_in[static_cast<size_t>(k) * n_pad + site], phi, set) * mk;
+    float au =
+        corr<GENERAL>(family, dist_in<COORDS>(tab_a, tab_b, own, k, dim, n_pad, site), phi, set) *
+        mk;
 #pragma unroll
     for (int j = 0; j < k; ++j) au -= low[tri(k, j)] * u[j];
     u[k] = au * inv;
@@ -84,7 +92,7 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     for (int i = k + 1; i < M; ++i) {
       const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
       float a =
-          corr<GENERAL>(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi, set) * mi;
+          corr<GENERAL>(family, dist_pair<COORDS>(tab_b, i, k, dim, n_pad, site), phi, set) * mi;
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
@@ -110,18 +118,18 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
 
 // Validates the launch shape, picks the M instance and launches on `stream`
 // without synchronising; returns cudaGetLastError().
-template <bool GENERAL>
-int launch_bf(const float* params, const float* d_in, const float* d_tri, int n_pad, int m,
-              int chains, int family, float* b_out, float* f_out, void* stream) {
-  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535) {
+template <bool GENERAL, bool COORDS>
+int launch_bf(const float* params, const float* tab_a, const float* tab_b, int n_pad, int m,
+              int dim, int chains, int family, float* b_out, float* f_out, void* stream) {
+  if (!valid_launch<COORDS>(n_pad, chains, dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_pad / kBlock, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VECCHIA_BF_CASE(MM)                                                                \
   case MM:                                                                                 \
-    bf_kernel<MM, GENERAL><<<grid, kBlock, 0, s>>>(params, d_in, d_tri, n_pad, family,     \
-                                                   b_out, f_out);                          \
+    bf_kernel<MM, GENERAL, COORDS><<<grid, kBlock, 0, s>>>(params, tab_a, tab_b, n_pad, dim, \
+                                                           family, b_out, f_out);          \
     break;
   switch (m) {
     VECCHIA_BF_CASE(7)

@@ -1,0 +1,14 @@
+// Kernel 3 on the coords table layout, closed-form rho: the COORDS instances of
+// the B/F pass (body in vecchia_bf_body.cuh).  Replaces the coords branch of
+// _bf_kernel (pynngp_tpu/ops/pallas_bf.py:941, via _dist_access l.377).
+#include "vecchia_bf_body.cuh"
+
+// C interface: the arguments of vecchia_bf_f32 with the coordinate planes in
+// the place of the distance planes and their dimension d in [1, 3]: co (d,
+// n_pad), cn (m d, n_pad), plane k d + a for coordinate a of slot k.
+extern "C" int vecchia_bf_coords_f32(const float* params, const float* co, const float* cn,
+                                     int n_pad, int m, int dim, int chains, int family,
+                                     float* b_out, float* f_out, void* stream) {
+  return vecchia::launch_bf<false, true>(params, co, cn, n_pad, m, dim, chains, family, b_out,
+                                         f_out, stream);
+}

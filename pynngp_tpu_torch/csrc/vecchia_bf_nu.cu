@@ -9,6 +9,6 @@
 extern "C" int vecchia_bf_nu_f32(const float* params, const float* d_in, const float* d_tri,
                                  int n_pad, int m, int chains, float* b_out, float* f_out,
                                  void* stream) {
-  return vecchia::launch_bf<true>(params, d_in, d_tri, n_pad, m, chains,
-                                  vecchia::kMaternGeneral, b_out, f_out, stream);
+  return vecchia::launch_bf<true, false>(params, d_in, d_tri, n_pad, m, 0, chains,
+                                         vecchia::kMaternGeneral, b_out, f_out, stream);
 }

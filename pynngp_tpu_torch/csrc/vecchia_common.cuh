@@ -1,11 +1,20 @@
 // Shared device helpers of the fused Vecchia kernels (vecchia_suffstats_body.cuh,
 // vecchia_grad_body.cuh, vecchia_bf_body.cuh): the correlation families and their
 // phi-derivatives (counterparts of _rho_fn and _drho_fn in
-// pynngp_tpu/ops/pallas_bf.py:312,656), the packed-triangle index, and the
+// pynngp_tpu/ops/pallas_bf.py:312,656), the packed-triangle index, the
+// distance accessors of the two table layouts (_dist_access, l.377), and the
 // deterministic block reduction.
 //
 // Layout (pynngp_tpu_torch/ops/site_tables.py): plane-major tables of n_pad
-// sites, n_pad a multiple of kBlock; per-chain parameters as a (C, 6) float32
+// sites, n_pad a multiple of kBlock, in one of two layouts, a compile-time
+// parameter COORDS of every body beside M:
+//   dist   (COORDS = false): tab_a (m, n_pad) site -> neighbor distances,
+//          tab_b (m(m-1)/2, n_pad) neighbor-pair distances by tri(i, k);
+//   coords (COORDS = true, Euclidean only): tab_a (d, n_pad) the site's own
+//          centred coordinates, tab_b (m d, n_pad) its neighbors', plane
+//          k d + a for coordinate a of slot k; every distance is recomputed
+//          as sqrt(sum_a (x_a - x'_a)^2), d a launch argument in [1, 3].
+// Per-chain parameters as a (C, 6) float32
 // array [phi, alpha, jitter, n, nu, off], mirroring _params_vec
 // (pallas_bf.py:496).  nu is read by the general-nu Matern instances alone
 // (GENERAL = true; vecchia_bessel.cuh); off is read by none and stays in the
@@ -94,6 +103,91 @@ __device__ __forceinline__ float drho_dphi(int family, float d, float phi) {
       return expf(-t) * t * t * (1.0f + t) / (3.0f * phi);
     }
   }
+}
+
+constexpr int kMaxDim = 3;  // coordinate dimensions the coords layout takes
+
+// The site's own coordinates (coords layout), loaded once per thread; the
+// dist layout has none.  Unused entries (a >= dim) are 0.
+template <bool COORDS>
+struct OwnCoords {
+  float x[COORDS ? kMaxDim : 1];
+};
+
+template <bool COORDS>
+__device__ __forceinline__ OwnCoords<COORDS> load_own(const float* __restrict__ tab_a,
+                                                      int n_pad, int site, int dim) {
+  OwnCoords<COORDS> own{};
+  if constexpr (COORDS) {
+#pragma unroll
+    for (int a = 0; a < kMaxDim; ++a) {
+      if (a < dim) own.x[a] = tab_a[static_cast<size_t>(a) * n_pad + site];
+    }
+  }
+  return own;
+}
+
+// Coordinate a of neighbor slot k, read where it is used.  The load is a
+// volatile asm statement so that the compiler neither merges the reads of one
+// coordinate nor hoists them: merged, the m d neighbor coordinates would stay
+// live in registers through the whole factorization, in bodies that already
+// spill at m = 15 (the reference's note at pallas_bf.py:388-391 found the same
+// on the TPU, where hoisting them blew its fast memory).  A re-read is an L1
+// hit: a block's neighbor planes are m d * 512 bytes.
+__device__ __forceinline__ float nbr_coord(const float* __restrict__ tab_b, int k, int a,
+                                           int dim, int n_pad, int site) {
+  const float* at = tab_b + static_cast<size_t>(k * dim + a) * n_pad + site;
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(at));
+  return v;
+}
+
+// Distance from the site to its neighbor slot k.
+template <bool COORDS>
+__device__ __forceinline__ float dist_in(const float* __restrict__ tab_a,
+                                         const float* __restrict__ tab_b,
+                                         const OwnCoords<COORDS>& own, int k, int dim,
+                                         int n_pad, int site) {
+  if constexpr (COORDS) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int a = 0; a < kMaxDim; ++a) {
+      if (a < dim) {
+        const float diff = own.x[a] - nbr_coord(tab_b, k, a, dim, n_pad, site);
+        acc += diff * diff;
+      }
+    }
+    return sqrtf(acc);
+  } else {
+    return tab_a[static_cast<size_t>(k) * n_pad + site];
+  }
+}
+
+// Distance between neighbor slots i and k, i > k.
+template <bool COORDS>
+__device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, int i, int k,
+                                           int dim, int n_pad, int site) {
+  if constexpr (COORDS) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int a = 0; a < kMaxDim; ++a) {
+      if (a < dim) {
+        const float diff = nbr_coord(tab_b, i, a, dim, n_pad, site) -
+                           nbr_coord(tab_b, k, a, dim, n_pad, site);
+        acc += diff * diff;
+      }
+    }
+    return sqrtf(acc);
+  } else {
+    return tab_b[static_cast<size_t>(tri(i, k)) * n_pad + site];
+  }
+}
+
+// Launch-shape checks shared by the three launchers.
+template <bool COORDS>
+__host__ inline bool valid_launch(int n_pad, int chains, int dim) {
+  return n_pad > 0 && n_pad % kBlock == 0 && chains > 0 && chains <= 65535 &&
+         (!COORDS || (dim >= 1 && dim <= kMaxDim));
 }
 
 // rho of either set of instances.  `set` is the block's MaternSet (GENERAL)

@@ -11,6 +11,7 @@
 extern "C" int vecchia_grad_f32(const float* params, const float* d_in, const float* d_tri,
                                 const int* nn_idx, const float* y, int y_stride, int n_pad,
                                 int m, int chains, int family, float* part, void* stream) {
-  return vecchia::launch_grad<false, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                            chains, family, false, part, nullptr, nullptr, stream);
+  return vecchia::launch_grad<false, false, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad,
+                                                   m, 0, chains, family, false, part, nullptr,
+                                                   nullptr, stream);
 }

@@ -1,12 +1,15 @@
-// Body of kernel 2, the fused Vecchia value + gradient pass, shared by its four
+// Body of kernel 2, the fused Vecchia value + gradient pass, shared by its eight
 // translation units: vecchia_grad.cu (EMIT_Y = false) and vecchia_grad_y.cu
 // (EMIT_Y = true) for closed-form rho, vecchia_grad_nu.cu and
-// vecchia_grad_y_nu.cu the same for the general-nu Matern (GENERAL = true).
-// Each instance costs tens of seconds of ptxas at m = 20, so the sets are
-// compiled by separate nvcc processes side by side.
+// vecchia_grad_y_nu.cu the same for the general-nu Matern (GENERAL = true), all
+// on the dist table layout, and the same four with _coords (COORDS = true:
+// distances recomputed from coordinate planes, vecchia_common.cuh).  Each
+// instance costs tens of seconds of ptxas at m = 20, so the sets are compiled
+// by separate nvcc processes side by side.
 //
 // Replaces the Pallas kernel _grad_kernel (pynngp_tpu/ops/pallas_bf.py:727,
-// driven by _run_grad l.867).  For
+// driven by _run_grad l.867; its coords branch through _dist_access, l.377 and
+// l.752).  For
 // every (site, chain) it makes the same factorization as kernel 1,
 // back-substitutes p = L^-T u and q = L^-T v (p = C^-1 c, q = C^-1 y_N), and
 // contracts them with dC/dphi (from drho_dphi) and dC/dalpha (the masked
@@ -46,12 +49,15 @@
 // chain.
 //
 // What bounds it.  The same reads as kernel 1, about (m^2/2 + 2m) * 4 bytes
-// per thread plus a second read of d_tri for the dC contraction (L2-resident
+// per thread plus a second read of the pair distances for the dC contraction (L2-resident
 // for the block), against ~m^3/6 + m^2 dependent FMAs: latency- and
 // register-bound on the serial recurrence.  At m = 15 the factor alone is
 // about 120 live floats per thread (105 off-diagonal + 15 inverse diagonal),
 // and p, q, u, v and dc add 75 more, so expect spills; ptxas -v reports them.
-// EMIT_Y adds (m + 1) * 4 bytes of stores per thread.
+// EMIT_Y adds (m + 1) * 4 bytes of stores per thread.  In the coords layout
+// every pair distance is recomputed twice, in the factorization and in the
+// contractions (d subtractions and multiply-adds and a sqrt each time, from
+// coordinates read where they are used), in the place of two plane reads.
 #pragma once
 
 #include <cstddef>
@@ -61,11 +67,11 @@
 namespace vecchia {
 namespace {
 
-template <int M, bool EMIT_Y, bool GENERAL>
+template <int M, bool EMIT_Y, bool GENERAL, bool COORDS>
 __global__ void __launch_bounds__(kBlock)
-grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
-            const float* __restrict__ d_tri, const int* __restrict__ nn_idx,
-            const float* __restrict__ y_all, int y_stride, int n_pad, int family,
+grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
+            const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
+            const float* __restrict__ y_all, int y_stride, int n_pad, int dim, int family,
             float* __restrict__ part, float* __restrict__ b_out,
             float* __restrict__ rof_out, bool with_nu) {
   const int chain = blockIdx.y;
@@ -77,6 +83,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
   const MaternSet* set = chain_matern_set<GENERAL>(pr, with_nu);
+  const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
@@ -94,7 +101,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     const float inv = 1.0f / sqrtf(acc);
     inv_diag[k] = inv;
     const size_t at = static_cast<size_t>(k) * n_pad + site;
-    const float dk = d_in[at];
+    const float dk = dist_in<COORDS>(tab_a, tab_b, own, k, dim, n_pad, site);
     float au;
     if constexpr (GENERAL) {
       const float2 rd = rho_drho_general(dk, &set->at);
@@ -117,7 +124,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     for (int i = k + 1; i < M; ++i) {
       const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
       float a =
-          corr<GENERAL>(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi, set) * mi;
+          corr<GENERAL>(family, dist_pair<COORDS>(tab_b, i, k, dim, n_pad, site), phi, set) * mi;
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
@@ -179,7 +186,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
     for (int j = i + 1; j < M; ++j) {
       const float mj = site > j ? 1.0f : 0.0f;  // mask_i * mask_j, as j > i
       if constexpr (GENERAL) {
-        const float dij = d_tri[static_cast<size_t>(tri(j, i)) * n_pad + site];
+        const float dij = dist_pair<COORDS>(tab_b, j, i, dim, n_pad, site);
         const float dcij = rho_drho_general(dij, &set->at).y * mj;
         df_phi += 2.0f * p[i] * p[j] * dcij;
         dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
@@ -190,7 +197,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
         }
       } else {
         const float dcij =
-            drho_dphi(family, d_tri[static_cast<size_t>(tri(j, i)) * n_pad + site], phi) * mj;
+            drho_dphi(family, dist_pair<COORDS>(tab_b, j, i, dim, n_pad, site), phi) * mj;
         df_phi += 2.0f * p[i] * p[j] * dcij;
         dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
       }
@@ -233,19 +240,19 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
 
 // Validates the launch shape, picks the M instance and launches on `stream`
 // without synchronising; returns cudaGetLastError().
-template <bool EMIT_Y, bool GENERAL>
-int launch_grad(const float* params, const float* d_in, const float* d_tri, const int* nn_idx,
-                const float* y, int y_stride, int n_pad, int m, int chains, int family,
+template <bool EMIT_Y, bool GENERAL, bool COORDS>
+int launch_grad(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
+                const float* y, int y_stride, int n_pad, int m, int dim, int chains, int family,
                 bool with_nu, float* part, float* b_out, float* rof_out, void* stream) {
-  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535 || y_stride < 0) {
+  if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_pad / kBlock, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VECCHIA_GRAD_CASE(MM)                                                              \
   case MM:                                                                                 \
-    grad_kernel<MM, EMIT_Y, GENERAL><<<grid, kBlock, 0, s>>>(                              \
-        params, d_in, d_tri, nn_idx, y, y_stride, n_pad, family, part, b_out, rof_out,     \
+    grad_kernel<MM, EMIT_Y, GENERAL, COORDS><<<grid, kBlock, 0, s>>>(                      \
+        params, tab_a, tab_b, nn_idx, y, y_stride, n_pad, dim, family, part, b_out, rof_out, \
         with_nu);                                                                          \
     break;
   switch (m) {

@@ -13,7 +13,7 @@ extern "C" int vecchia_grad_nu_f32(const float* params, const float* d_in, const
                                    const int* nn_idx, const float* y, int y_stride, int n_pad,
                                    int m, int chains, int with_nu, float* part,
                                    void* stream) {
-  return vecchia::launch_grad<false, true>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                           chains, vecchia::kMaternGeneral, with_nu != 0, part,
-                                           nullptr, nullptr, stream);
+  return vecchia::launch_grad<false, true, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
+                                                  0, chains, vecchia::kMaternGeneral,
+                                                  with_nu != 0, part, nullptr, nullptr, stream);
 }

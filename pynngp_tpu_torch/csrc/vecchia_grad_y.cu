@@ -13,6 +13,7 @@ extern "C" int vecchia_grad_y_f32(const float* params, const float* d_in, const 
                                   const int* nn_idx, const float* y, int y_stride, int n_pad,
                                   int m, int chains, int family, float* part, float* b_out,
                                   float* rof_out, void* stream) {
-  return vecchia::launch_grad<true, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                            chains, family, false, part, b_out, rof_out, stream);
+  return vecchia::launch_grad<true, false, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
+                                                  0, chains, family, false, part, b_out, rof_out,
+                                                  stream);
 }

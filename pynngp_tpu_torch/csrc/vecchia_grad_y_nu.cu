@@ -10,7 +10,7 @@ extern "C" int vecchia_grad_y_nu_f32(const float* params, const float* d_in,
                                      int y_stride, int n_pad, int m, int chains, int with_nu,
                                      float* part, float* b_out, float* rof_out,
                                      void* stream) {
-  return vecchia::launch_grad<true, true>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                          chains, vecchia::kMaternGeneral, with_nu != 0, part,
-                                          b_out, rof_out, stream);
+  return vecchia::launch_grad<true, true, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m, 0,
+                                                 chains, vecchia::kMaternGeneral, with_nu != 0,
+                                                 part, b_out, rof_out, stream);
 }

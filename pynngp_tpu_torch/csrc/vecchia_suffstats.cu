@@ -1,5 +1,6 @@
 // Kernel 1: fused forward Vecchia sufficient statistics, the closed-form
-// instances (the body and its notes are in vecchia_suffstats_body.cuh).
+// instances on the dist table layout (the body and its notes are in
+// vecchia_suffstats_body.cuh).
 #include "vecchia_suffstats_body.cuh"
 
 // C interface, bound with ctypes by pynngp_tpu_torch/ops/_build.py.
@@ -12,8 +13,9 @@ extern "C" int vecchia_suffstats_f32(const float* params, const float* d_in,
                                      int y_stride, int n_pad, int m, int chains, int family,
                                      float* f_out, float* r_out, float* part,
                                      void* stream) {
-  return vecchia::launch_suffstats<false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                          chains, family, f_out, r_out, part, stream);
+  return vecchia::launch_suffstats<false, false>(params, d_in, d_tri, nn_idx, y, y_stride,
+                                                 n_pad, m, 0, chains, family, f_out, r_out,
+                                                 part, stream);
 }
 
 extern "C" const char* vecchia_error_string(int code) {

@@ -1,9 +1,12 @@
 // Body of kernel 1, the fused forward Vecchia sufficient statistics, shared by
-// its two translation units: vecchia_suffstats.cu (closed-form rho, GENERAL =
-// false) and vecchia_suffstats_nu.cu (general-nu Matern, GENERAL = true).
+// its four translation units: vecchia_suffstats.cu (closed-form rho, GENERAL =
+// false) and vecchia_suffstats_nu.cu (general-nu Matern, GENERAL = true) on the
+// dist table layout, and the same two with _coords (COORDS = true: distances
+// recomputed from coordinate planes, vecchia_common.cuh).
 //
 // Replaces the Pallas kernel _suffstats_kernel (pynngp_tpu/ops/pallas_bf.py:409,
-// driven by _pallas_suffstats_call l.554).  For every (site, chain) it builds
+// driven by _pallas_suffstats_call l.554; its coords branch through
+// _dist_access, l.377 and l.437).  For every (site, chain) it builds
 // the m x m unit-variance neighbor correlation C (+ alpha + jitter on valid
 // diagonal slots, identity rows for invalid slots), factors it with the
 // unrolled Cholesky-Crout recurrence, and forward-solves u = L^-1 c and
@@ -20,13 +23,16 @@
 // gathers its y_N through nn_idx.  The factor lives in registers, fully
 // unrolled over the template parameter M.
 //
-// What bounds it.  A thread reads about (m^2/2 + 2m) * 4 bytes (d_in, d_tri,
-// nn_idx, y_N), about 1 KB at m = 15, against ~m^3/6 dependent FMAs plus
+// What bounds it.  A thread reads about (m^2/2 + 2m) * 4 bytes in the dist
+// layout (distances, nn_idx, y_N), about 1 KB at m = 15, against ~m^3/6 dependent FMAs plus
 // m(m+1)/2 exponentials: the serial recurrence makes it latency- and
 // register-bound, not bandwidth-bound.  At m = 15 the strict lower factor
 // alone is 105 live floats per thread.  The general-nu instances replace each
 // exponential by a Bessel evaluation of some hundreds of operations
-// (vecchia_bessel.cuh) and are bound by those.
+// (vecchia_bessel.cuh) and are bound by those.  The coords layout reads
+// (m + 1) d coordinates in place of the m(m+1)/2 distances and spends, per
+// distance, d subtractions and multiply-adds and one sqrt; it re-reads a
+// neighbor's coordinates at every use instead of keeping m d of them live.
 #pragma once
 
 #include <cstddef>
@@ -36,11 +42,11 @@
 namespace vecchia {
 namespace {
 
-template <int M, bool GENERAL>
+template <int M, bool GENERAL, bool COORDS>
 __global__ void __launch_bounds__(kBlock)
-suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_in,
-                 const float* __restrict__ d_tri, const int* __restrict__ nn_idx,
-                 const float* __restrict__ y_all, int y_stride, int n_pad, int family,
+suffstats_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
+                 const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
+                 const float* __restrict__ y_all, int y_stride, int n_pad, int dim, int family,
                  float* __restrict__ f_out, float* __restrict__ r_out,
                  float* __restrict__ part) {
   const int chain = blockIdx.y;
@@ -52,6 +58,7 @@ suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_i
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
   const MaternSet* set = chain_matern_set<GENERAL>(pr, false);
+  const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
@@ -68,7 +75,9 @@ suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_i
     const float inv = 1.0f / sqrtf(acc);
     inv_diag[k] = inv;
     const size_t at = static_cast<size_t>(k) * n_pad + site;
-    float au = corr<GENERAL>(family, d_in[at], phi, set) * mk;
+    float au =
+        corr<GENERAL>(family, dist_in<COORDS>(tab_a, tab_b, own, k, dim, n_pad, site), phi, set) *
+        mk;
     float av = y[nn_idx[at]] * mk;
 #pragma unroll
     for (int j = 0; j < k; ++j) {
@@ -81,7 +90,7 @@ suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_i
     for (int i = k + 1; i < M; ++i) {
       const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
       float a =
-          corr<GENERAL>(family, d_tri[static_cast<size_t>(tri(i, k)) * n_pad + site], phi, set) * mi;
+          corr<GENERAL>(family, dist_pair<COORDS>(tab_b, i, k, dim, n_pad, site), phi, set) * mi;
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
@@ -106,21 +115,20 @@ suffstats_kernel(const float* __restrict__ params, const float* __restrict__ d_i
 
 // Validates the launch shape, picks the M instance and launches on `stream`
 // without synchronising; returns cudaGetLastError().
-template <bool GENERAL>
-int launch_suffstats(const float* params, const float* d_in, const float* d_tri,
-                     const int* nn_idx, const float* y, int y_stride, int n_pad, int m,
+template <bool GENERAL, bool COORDS>
+int launch_suffstats(const float* params, const float* tab_a, const float* tab_b,
+                     const int* nn_idx, const float* y, int y_stride, int n_pad, int m, int dim,
                      int chains, int family, float* f_out, float* r_out, float* part,
                      void* stream) {
-  if (n_pad <= 0 || n_pad % kBlock != 0 || chains <= 0 || chains > 65535 || y_stride < 0) {
+  if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_pad / kBlock, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VECCHIA_SUFFSTATS_CASE(MM)                                                          \
   case MM:                                                                                  \
-    suffstats_kernel<MM, GENERAL><<<grid, kBlock, 0, s>>>(params, d_in, d_tri, nn_idx, y,   \
-                                                          y_stride, n_pad, family, f_out,   \
-                                                          r_out, part);                     \
+    suffstats_kernel<MM, GENERAL, COORDS><<<grid, kBlock, 0, s>>>(                         \
+        params, tab_a, tab_b, nn_idx, y, y_stride, n_pad, dim, family, f_out, r_out, part); \
     break;
   switch (m) {
     VECCHIA_SUFFSTATS_CASE(7)

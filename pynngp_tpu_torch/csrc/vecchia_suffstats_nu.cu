@@ -1,7 +1,7 @@
 // Kernel 1 for the general-nu Matern: the GENERAL instances of the fused
-// forward pass (body in vecchia_suffstats_body.cuh, Bessel K_nu in
-// vecchia_bessel.cuh).  Replaces the _matern_rho_general branch of
-// _suffstats_kernel (pynngp_tpu/ops/pallas_bf.py:338-341, 409).
+// forward pass on the dist table layout (body in vecchia_suffstats_body.cuh,
+// Bessel K_nu in vecchia_bessel.cuh).  Replaces the _matern_rho_general branch
+// of _suffstats_kernel (pynngp_tpu/ops/pallas_bf.py:338-341, 409).
 #include "vecchia_suffstats_body.cuh"
 
 // C interface: the arguments of vecchia_suffstats_f32 without `family`; nu is
@@ -11,7 +11,7 @@ extern "C" int vecchia_suffstats_nu_f32(const float* params, const float* d_in,
                                         int y_stride, int n_pad, int m, int chains,
                                         float* f_out, float* r_out, float* part,
                                         void* stream) {
-  return vecchia::launch_suffstats<true>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                         chains, vecchia::kMaternGeneral, f_out, r_out, part,
-                                         stream);
+  return vecchia::launch_suffstats<true, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad,
+                                                m, 0, chains, vecchia::kMaternGeneral, f_out,
+                                                r_out, part, stream);
 }

@@ -66,11 +66,12 @@ def default_priors(coords, y, priors: Optional[dict] = None) -> dict:
 
 def prepare_spatial_data(coords, y, m, x=None, ordering="coordinate",
                          distance="euclidean", dtype=torch.float32,
-                         device="cpu"):
+                         device="cpu", precompute_distances=True):
     coords = np.asarray(coords)
     data, table = make_vecchia_data(coords, m, ordering=ordering,
                                     distance=distance, dtype=dtype,
-                                    device=device)
+                                    device=device,
+                                    precompute_distances=precompute_distances)
     y_ord = torch.as_tensor(np.asarray(y)[table.order], dtype=dtype,
                             device=device)
     x_ord = None

@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pynngp_tpu_torch.distance import Euclidean, get_distance
 from pynngp_tpu_torch.kernels import get_kernel
 from pynngp_tpu_torch.models.base import (
     check_device,
@@ -57,7 +58,7 @@ from pynngp_tpu_torch.neighbors import (
     color_site_table,
 )
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
-from pynngp_tpu_torch.ops.site_tables import make_site_tables
+from pynngp_tpu_torch.ops.site_tables import choose_layout, make_site_tables
 from pynngp_tpu_torch.ops.suffstats import CUDA_M
 from pynngp_tpu_torch.priors import logit_transform
 from pynngp_tpu_torch.samplers.mwg import (
@@ -100,7 +101,13 @@ class LatentNNGP:
 
     ``device`` is "cuda" (kernel 3 for B/F, float32 only) or "cpu" (its plain
     PyTorch version, any float dtype); there is no automatic choice, and
-    "cuda" without a card raises."""
+    "cuda" without a card raises.
+
+    The table layout follows n, as in the reference: coords (distances
+    recomputed in the kernel, no distance table made) above
+    ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites, dist at or below;
+    ``precompute_distances=False`` leaves the dist layout to compute its
+    tables from the ordered coordinates in the model's dtype."""
 
     def __init__(
         self,
@@ -115,6 +122,7 @@ class LatentNNGP:
         dtype=torch.float32,
         jitter: float = 1e-6,
         w_update: str = "chromatic",
+        precompute_distances: bool = True,
         noise="homogeneous",
         mesh=None,
         collapsed: bool = True,
@@ -138,13 +146,23 @@ class LatentNNGP:
         # sampler's sigma2-conditioned update
         self.collapsed = collapsed
 
-        sd = prepare_spatial_data(coords, y, m, x=x, ordering=ordering,
-                                  distance=distance, dtype=dtype, device=device)
+        # the table layout by n alone, as the reference chooses it
+        # (pynngp_tpu/models/latent.py:155-163); the coords layout needs no
+        # distance tables, so none are made for it
+        coords = np.asarray(coords)
+        self.lane_layout = choose_layout(
+            "auto", coords.shape[0], isinstance(get_distance(distance), Euclidean))
+        on_coords = self.lane_layout == "coords"
+        sd = prepare_spatial_data(
+            coords, y, m, x=x, ordering=ordering, distance=distance, dtype=dtype,
+            device=device, precompute_distances=precompute_distances and not on_coords)
         self.table = tab = sd.table
         self.y, self.x = sd.y, sd.x
         self.n = sd.y.shape[0]
         self.p = 0 if sd.x is None else sd.x.shape[1]
-        self.tables = make_site_tables(sd.vecchia, dtype=dtype, device=device)
+        self.tables = make_site_tables(
+            sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
+            coords_host=coords[tab.order] if on_coords else None)
         self.m = self.tables.m
         if device.type == "cuda" and self.m not in CUDA_M:
             raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")

@@ -1,10 +1,13 @@
 """Response NNGP model: y ~ NNGP(0, sigma2 (rho_phi + alpha I)) with
 alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
 
-Ported: homogeneous noise, one device, the distance-plane table layout,
-every kernel of :mod:`pynngp_tpu_torch.kernels`, the general and the
-sampled-nu Matern among them; fixed effects (``x=``) on every path.  Every
-other option of the reference raises.
+Ported: homogeneous noise, one device, both table layouts (``lane_layout``:
+"dist", distance planes; "coords", coordinate planes with the distances
+recomputed in the kernels, Euclidean only; "auto", the default, coords above
+``site_tables.COORDS_LAYOUT_MIN_SITES`` sites), every kernel of
+:mod:`pynngp_tpu_torch.kernels`, the general and the sampled-nu Matern among
+them; fixed effects (``x=``) on every path.  Every other option of the
+reference raises.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
   - theta = (phi, alpha) block, (phi, alpha, nu) with ``Matern()``: Metropolis on unconstrained coordinates
@@ -45,6 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pynngp_tpu_torch.distance import Euclidean, get_distance
 from pynngp_tpu_torch.kernels import get_kernel
 from pynngp_tpu_torch.models.base import (
     check_device,
@@ -54,7 +58,11 @@ from pynngp_tpu_torch.models.base import (
 )
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.diff_suffstats import diff_suffstats
-from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
+from pynngp_tpu_torch.ops.site_tables import (
+    choose_layout,
+    make_site_tables,
+    with_children,
+)
 from pynngp_tpu_torch.ops.suffstats import CUDA_M, suffstats
 from pynngp_tpu_torch.priors import log_transform, logit_transform
 from pynngp_tpu_torch.samplers.hmc import make_hmc_kernel
@@ -99,7 +107,12 @@ class ResponseNNGP:
 
     ``device`` is "cuda" (the fused CUDA kernels, float32 only) or "cpu"
     (their plain PyTorch versions, any float dtype); there is no automatic
-    choice, and "cuda" without a card raises."""
+    choice, and "cuda" without a card raises.
+
+    ``lane_layout`` is the reference's: "auto" takes the coords table layout
+    above ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites and the dist layout
+    at or below; "coords" with a metric other than Euclidean falls back to
+    dist.  On the coords layout no distance table is made."""
 
     def __init__(
         self,
@@ -115,14 +128,11 @@ class ResponseNNGP:
         jitter: float = 1e-6,
         joint_theta: bool = False,
         collapsed: bool = True,
-        lane_layout: str = "dist",
+        lane_layout: str = "auto",
         mesh=None,
         noise="homogeneous",
         device="cuda",
     ):
-        if lane_layout != "dist":
-            raise NotImplementedError("only the distance-plane table layout "
-                                      "(lane_layout='dist') is ported")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device sharding) is not "
                                       "ported yet")
@@ -137,13 +147,22 @@ class ResponseNNGP:
         # (same joint posterior, far better mixing on the (sigma2, phi) ridge)
         self.collapsed = collapsed
 
+        coords = np.asarray(coords)
+        self.lane_layout = choose_layout(
+            lane_layout, coords.shape[0],
+            isinstance(get_distance(distance), Euclidean))
+        on_coords = self.lane_layout == "coords"
         sd = prepare_spatial_data(coords, y, m, x=x, ordering=ordering,
-                                  distance=distance, dtype=dtype, device=device)
+                                  distance=distance, dtype=dtype, device=device,
+                                  precompute_distances=not on_coords)
         self.table = sd.table
         self.n = sd.y.shape[0]
         self.y, self.x = sd.y, sd.x
         self.p = 0 if sd.x is None else sd.x.shape[1]
-        self.tables = make_site_tables(sd.vecchia, dtype=dtype, device=device)
+        # the coords layout takes the float64 ordered coordinates
+        self.tables = make_site_tables(
+            sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
+            coords_host=coords[sd.table.order] if on_coords else None)
         if device.type == "cuda" and self.tables.m not in CUDA_M:
             raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")
         if self.p:

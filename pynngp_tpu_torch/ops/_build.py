@@ -55,6 +55,16 @@ _SIGNATURES = {
     "vecchia_grad_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "vecchia_grad_y_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vecchia_bf_nu_f32": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # the coords-layout instances: the coordinate planes in the place of the
+    # distance planes, and the coordinate dimension d after m
+    "vecchia_suffstats_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_suffstats_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_grad_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "vecchia_grad_y_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_grad_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "vecchia_grad_y_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_bf_coords_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "vecchia_bf_nu_coords_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

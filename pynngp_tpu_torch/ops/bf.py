@@ -6,7 +6,10 @@ and runs :func:`bf_reference`, its plain PyTorch version, for CPU tensors.
 Chains are an explicit leading axis: ``phi`` and ``alpha`` are (C,) tensors,
 the tables are shared by all chains.  The general-nu Matern (``Matern()``
 with a (C,) ``nu``, or ``Matern(nu=0.8)``) launches the kernel's GENERAL
-instances (``csrc/vecchia_bf_nu.cu``), counted in ``COUNT_NU``.
+instances (``csrc/vecchia_bf_nu.cu``), counted in ``COUNT_NU``.  Tables in the
+coords layout launch the COORDS instances of either set
+(``csrc/vecchia_bf_coords.cu``, ``csrc/vecchia_bf_nu_coords.cu``), counted in
+``COUNT_COORDS`` and ``COUNT_NU_COORDS``.
 
 Layout.  B comes out plane-major, ``(C, m, n_pad)``, and F as ``(C, n_pad)``:
 the layout the kernel stores coalesced and the one the models consume (the
@@ -28,19 +31,24 @@ import torch
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import SiteTables, unpack_distances
 from pynngp_tpu_torch.ops.suffstats import (
-    GENERAL_FAMILY,
     cuda_args,
+    family_arg,
+    instance,
     kernel_nu,
     params_array,
     plain_nu,
+    shape_args,
 )
 from pynngp_tpu_torch.vecchia import conditional_system
 
-__all__ = ["COUNT", "COUNT_NU", "bf", "bf_planes", "bf_reference",
-           "plane_suffstats"]
+__all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "bf",
+           "bf_planes", "bf_reference", "plane_suffstats"]
 
 COUNT = _build.LaunchCount("vecchia_bf")
 COUNT_NU = _build.LaunchCount("vecchia_bf_nu")  # the GENERAL instances
+COUNT_COORDS = _build.LaunchCount("vecchia_bf_coords")  # COORDS
+COUNT_NU_COORDS = _build.LaunchCount("vecchia_bf_nu_coords")
+COUNTS = {c.name: c for c in (COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)}
 
 
 def bf_reference(kernel, tables: SiteTables, params):
@@ -48,10 +56,10 @@ def bf_reference(kernel, tables: SiteTables, params):
     over (C, n_pad) systems and two triangular solves.  Returns B
     (C, m, n_pad) and F (C, n_pad) in the tables' dtype."""
     d_in, d_nn = unpack_distances(tables)
-    site = torch.arange(tables.n_pad, device=d_in.device)
+    site = torch.arange(tables.n_pad, device=tables.device)
     valid = site < tables.n
     # slot k of site i is a real neighbor iff i > k; a padded site has none
-    mask = (site[:, None] > torch.arange(tables.m, device=d_in.device)) & valid[:, None]
+    mask = (site[:, None] > torch.arange(tables.m, device=tables.device)) & valid[:, None]
     phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
     c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
                                       mask, nu=plain_nu(kernel, params),
@@ -64,26 +72,19 @@ def bf_reference(kernel, tables: SiteTables, params):
     return b.transpose(1, 2).contiguous(), f
 
 
-def _count(kernel):
-    return COUNT_NU if kernel.family == GENERAL_FAMILY else COUNT
-
-
 def _launch(kernel, tables: SiteTables, params):
     params, _ = cuda_args(tables, params)
     chains = params.shape[0]
-    dev = tables.d_in.device
+    dev = tables.device
     b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                     device=dev)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
-    head = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-            tables.n_pad, tables.m, chains)
+    head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
+            *shape_args(tables), chains, *family_arg(kernel))
     tail = (b.data_ptr(), f.data_ptr(), _build.stream_handle(dev))
-    general = kernel.family == GENERAL_FAMILY
-    name = "vecchia_bf" + ("_nu" if general else "") + "_f32"
-    # only the closed-form entry takes the family
-    family = () if general else (kernel.family,)
-    _build.check(getattr(_build.library(), name)(*head, *family, *tail), name)
-    _count(kernel).launches += 1
+    name = instance("vecchia_bf", kernel, tables)
+    _build.check(getattr(_build.library(), name + "_f32")(*head, *tail), name)
+    COUNTS[name].launches += 1
     return b, f
 
 
@@ -100,13 +101,13 @@ def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None):
     B is 0 in invalid slots; padded sites hold B = 0, F = 1.  CUDA tensors
     launch kernel 3; CPU tensors run :func:`bf_reference`.
     """
-    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
-                          tables.d_in.device, kernel_nu(kernel, nu))
-    if tables.d_in.is_cuda:
+    params = params_array(phi, alpha, jitter, tables.n, tables.dtype,
+                          tables.device, kernel_nu(kernel, nu))
+    if tables.device.type == "cuda":
         return _launch(kernel, tables, params)
-    if tables.d_in.device.type != "cpu":
-        raise ValueError(f"no kernel for device {tables.d_in.device}")
-    _count(kernel).plain += 1
+    if tables.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.device}")
+    COUNTS[instance("vecchia_bf", kernel, tables)].plain += 1
     return bf_reference(kernel, tables, params)
 
 

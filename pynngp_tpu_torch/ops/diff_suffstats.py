@@ -16,7 +16,10 @@ it stays exact because its acceptance rests on energies.
 The general-nu Matern (family 6, sampled or static nu) runs the GENERAL
 instances (``csrc/vecchia_grad_nu.cu``, ``csrc/vecchia_grad_y_nu.cu``), which
 always return eight sums, the last two zero for a static nu; their launches
-are counted in ``COUNT_NU`` and ``COUNT_Y_NU``.
+are counted in ``COUNT_NU`` and ``COUNT_Y_NU``.  Tables in the coords layout
+launch the COORDS instances of all four sets (``csrc/vecchia_grad_coords.cu``,
+``..._y_coords.cu``, ``..._nu_coords.cu``, ``..._y_nu_coords.cu``), counted
+in the ``_COORDS`` counts of the same names.
 
 When y requires grad (the reference's ``y_grad=True``: with fixed effects y
 is the residual y - X beta) the forward runs the ``EMIT_Y`` instances of
@@ -54,25 +57,30 @@ from pynngp_tpu_torch.ops.suffstats import (
     GENERAL_FAMILY,
     _factor,
     cuda_args,
+    instance,
     kernel_nu,
     params_array,
+    shape_args,
     suffstats,
     y_stride,
 )
 
-__all__ = ["COUNT", "COUNT_Y", "COUNT_NU", "COUNT_Y_NU", "DiffSuffstats",
-           "diff_suffstats", "dquad_dy", "grad_reference", "value_and_grad_sums"]
+__all__ = ["COUNT", "COUNT_Y", "COUNT_NU", "COUNT_Y_NU", "COUNT_COORDS",
+           "COUNT_Y_COORDS", "COUNT_NU_COORDS", "COUNT_Y_NU_COORDS",
+           "DiffSuffstats", "diff_suffstats", "dquad_dy", "grad_reference",
+           "value_and_grad_sums"]
 
 COUNT = _build.LaunchCount("vecchia_grad")
 COUNT_Y = _build.LaunchCount("vecchia_grad_y")  # the EMIT_Y instances
 COUNT_NU = _build.LaunchCount("vecchia_grad_nu")  # GENERAL
 COUNT_Y_NU = _build.LaunchCount("vecchia_grad_y_nu")  # GENERAL and EMIT_Y
-
-
-def _count(kernel, emit_y: bool):
-    general = kernel.family == GENERAL_FAMILY
-    return ((COUNT_Y_NU if general else COUNT_Y) if emit_y
-            else (COUNT_NU if general else COUNT))
+# the same four sets on the coords layout (COORDS)
+COUNT_COORDS = _build.LaunchCount("vecchia_grad_coords")
+COUNT_Y_COORDS = _build.LaunchCount("vecchia_grad_y_coords")
+COUNT_NU_COORDS = _build.LaunchCount("vecchia_grad_nu_coords")
+COUNT_Y_NU_COORDS = _build.LaunchCount("vecchia_grad_y_nu_coords")
+COUNTS = {c.name: c for c in (COUNT, COUNT_Y, COUNT_NU, COUNT_Y_NU, COUNT_COORDS,
+                              COUNT_Y_COORDS, COUNT_NU_COORDS, COUNT_Y_NU_COORDS)}
 
 
 def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
@@ -137,17 +145,17 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
 def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
     params, y = cuda_args(tables, params, y)
     chains = params.shape[0]
-    dev = tables.d_in.device
+    dev = tables.device
     general = kernel.family == GENERAL_FAMILY
     part = torch.empty((8 if general else 6, chains, tables.n_pad // BLOCK),
                        dtype=torch.float32, device=dev)
     # the GENERAL entries take with_nu where the closed-form ones take family
     selector = int(kernel.samples_nu) if general else kernel.family
-    args = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
-            tables.m, chains, selector, part.data_ptr())
-    name = "vecchia_grad" + ("_y" if emit_y else "") + ("_nu" if general else "") + "_f32"
-    entry = getattr(_build.library(), name)
+    args = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
+            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y),
+            *shape_args(tables), chains, selector, part.data_ptr())
+    name = instance("vecchia_grad", kernel, tables, emit_y)
+    entry = getattr(_build.library(), name + "_f32")
     if emit_y:
         b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                         device=dev)
@@ -156,7 +164,7 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
     else:
         code = entry(*args, _build.stream_handle(dev))
     _build.check(code, name)
-    _count(kernel, emit_y).launches += 1
+    COUNTS[name].launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return (sums, b, rof) if emit_y else sums
 
@@ -166,14 +174,14 @@ def value_and_grad_sums(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6,
     """(6, C) value and derivative sums ((8, C) for the general-nu Matern),
     and with ``emit_y`` also B (C, m, n_pad) and r/F (C, n_pad): kernel 2 for
     CUDA tensors, :func:`grad_reference` for CPU tensors."""
-    device = phi.device if isinstance(phi, torch.Tensor) else tables.d_in.device
-    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype, device,
+    device = phi.device if isinstance(phi, torch.Tensor) else tables.device
+    params = params_array(phi, alpha, jitter, tables.n, tables.dtype, device,
                           kernel_nu(kernel, nu))
-    if tables.d_in.is_cuda:
+    if tables.device.type == "cuda":
         return _launch(kernel, tables, params, y, emit_y)
-    if tables.d_in.device.type != "cpu":
-        raise ValueError(f"no kernel for device {tables.d_in.device}")
-    _count(kernel, emit_y).plain += 1
+    if tables.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.device}")
+    COUNTS[instance("vecchia_grad", kernel, tables, emit_y)].plain += 1
     return grad_reference(kernel, tables, params.detach(), y.detach(), emit_y)
 
 

@@ -1,17 +1,24 @@
 """Plane-major per-site tables for the CUDA Vecchia kernels — the counterpart
-of the dist layout of ``make_lane_cache`` (``pynngp_tpu/ops/pallas_bf.py:170``).
+of ``make_lane_cache`` (``pynngp_tpu/ops/pallas_bf.py:170``) in both of its
+layouts.
 
 The TPU kernels take one site per lane over (8, 128) tiles.  On the GPU one
 thread handles one (site, chain), so the tables are plane-major and
 contiguous: plane p holds one scalar for every site, and adjacent threads
-read adjacent addresses.
+read adjacent addresses.  Two layouts, as ``LaneCache`` has:
 
-- ``d_in``  (m, n_pad): site -> neighbor-slot distances;
-- ``d_tri`` (m(m-1)/2, n_pad): neighbor-pair distances, packed strict lower
-  triangle, plane ``tri_index(i, k)`` for the (i, k), i > k pair;
+- ``"dist"`` (any metric): ``tab_a`` (m, n_pad) holds the site -> neighbor-slot
+  distances, ``tab_b`` (m(m-1)/2, n_pad) the neighbor-pair distances, packed
+  strict lower triangle, plane ``tri_index(i, k)`` for the (i, k), i > k pair;
+- ``"coords"`` (Euclidean only): ``tab_a`` (d, n_pad) holds the site's own
+  coordinates, ``tab_b`` (m d, n_pad) its neighbors', plane ``k d + a`` for
+  coordinate a of slot k; the kernels recompute every distance.  The
+  coordinates are centred in float64 and rounded to float32 whatever the
+  tables' dtype, as the reference rounds them (``pallas_bf.py:238-257``).
+
+Both layouts also hold
 - ``nn_idx`` (m, n_pad) int32: neighbor ids, from which each thread gathers
-  y_N itself.
-
+  y_N itself;
 - ``child_flat`` (n, max_children) int64, optional (:func:`with_children`):
   the reverse index that the y cotangent of the differentiable suffstats
   gathers through.
@@ -19,8 +26,12 @@ read adjacent addresses.
 n is padded only to the CUDA block size.  There is no mask plane: every
 ordering packs site i's min(i, m) preceding neighbors into the low slots, so
 slot k is valid iff site > k (``pallas_bf.py:357-374``).  Padded entries are
-zero.  Distances never depend on the hyperparameters, so the tables are
+zero.  Neither layout depends on the hyperparameters, so the tables are
 built once per dataset.
+
+:func:`choose_layout` is the models' rule for the layout: the reference's,
+"Euclidean and more than a threshold of sites", with the threshold
+:data:`COORDS_LAYOUT_MIN_SITES` measured on the H100.
 """
 
 from __future__ import annotations
@@ -31,24 +42,75 @@ import numpy as np
 import torch
 
 from pynngp_tpu_torch.neighbors import build_children_table
+from pynngp_tpu_torch.vecchia import neighbor_distances
 
-__all__ = ["BLOCK", "SiteTables", "make_site_tables", "padded_size",
-           "tri_index", "unpack_distances", "with_children"]
+__all__ = ["BLOCK", "COORDS_LAYOUT_MIN_SITES", "LAYOUTS", "SiteTables",
+           "choose_layout", "make_site_tables", "padded_size", "tri_index",
+           "unpack_distances", "with_children"]
 
 BLOCK = 128  # CUDA threads per block along sites (csrc/vecchia_common.cuh)
+LAYOUTS = ("dist", "coords")
+MAX_DIM = 3  # coordinate dimensions the coords kernels take (kMaxDim)
+
+# "auto" takes the coords layout above this many sites, dist at or below it.
+# Measured by chip_smoke.py's layout phase (layout_rule) on an NVIDIA H100
+# 80GB HBM3 at 700 W, for bench_ess's default recipe (--sampler best: its MWG
+# and its NUTS branch on one set-up): dist runs it faster at every size
+# measured with m=15, the models' default (10,000 to 300,000 sites; 113 s
+# against 126 s at 300,000), coords at 500,000 with m=20 (config 5; 493 s
+# against 569 s).  The crossover lies between those two sizes, where m also
+# changes.  At m=15 coords wins the MWG branch alone from 100,000 sites and
+# loses the NUTS branch alone at every size.  chip_smoke.py fails if this
+# constant takes another layout than the measurement at a size it measures.
+COORDS_LAYOUT_MIN_SITES = 300_000
+
+
+def choose_layout(lane_layout: str, n: int, euclidean: bool = True) -> str:
+    """The table layout a model runs: ``"auto"`` is coords above
+    :data:`COORDS_LAYOUT_MIN_SITES` sites and dist below; coords needs the
+    Euclidean metric and falls back to dist without it, as the reference's
+    ``_coords_layout`` condition does (``pynngp_tpu/models/response.py:135-143``).
+    ``euclidean`` is always True until a non-Euclidean metric is ported
+    (``distance.get_distance`` knows only Euclidean and raises otherwise)."""
+    if lane_layout not in ("auto",) + LAYOUTS:
+        raise ValueError(f"lane_layout must be 'auto', 'dist' or 'coords', got "
+                         f"{lane_layout!r}")
+    if lane_layout == "auto":
+        lane_layout = "coords" if n > COORDS_LAYOUT_MIN_SITES else "dist"
+    return lane_layout if euclidean else "dist"
 
 
 class SiteTables(NamedTuple):
-    d_in: torch.Tensor  # (m, n_pad)
-    d_tri: torch.Tensor  # (max(m(m-1)/2, 1), n_pad)
+    tab_a: torch.Tensor  # dist: (m, n_pad) distances; coords: (d, n_pad)
+    tab_b: torch.Tensor  # dist: (max(m(m-1)/2, 1), n_pad); coords: (m d, n_pad)
     nn_idx: torch.Tensor  # (m, n_pad) int32
     n: int  # true site count
     n_pad: int  # padded site count, a multiple of BLOCK
     child_flat: Optional[torch.Tensor] = None  # (n, max_children) int64
+    layout: str = "dist"
 
     @property
     def m(self) -> int:
         return self.nn_idx.shape[0]
+
+    @property
+    def dim(self) -> int:
+        """Coordinate dimension d (coords layout only)."""
+        if self.layout != "coords":
+            raise ValueError("the dist layout holds no coordinates")
+        return self.tab_a.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tab_a.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tab_a.dtype
+
+    def to(self, dtype) -> "SiteTables":
+        """The same tables with the floating planes cast to ``dtype``."""
+        return self._replace(tab_a=self.tab_a.to(dtype), tab_b=self.tab_b.to(dtype))
 
 
 def tri_index(i: int, k: int) -> int:
@@ -68,28 +130,57 @@ def _tri_rows_cols(m: int):
     return iu, ku
 
 
-def make_site_tables(data, dtype=torch.float32, device="cpu") -> SiteTables:
+def make_site_tables(data, dtype=torch.float32, device="cpu", layout="dist",
+                     coords_host=None) -> SiteTables:
     """Host-side relayout of a :class:`~pynngp_tpu_torch.vecchia.VecchiaData`
-    (its neighbor ids and distance tables) into plane-major tables."""
+    into plane-major tables.
+
+    ``layout="dist"`` reads the data's distance tables or, where it holds
+    none, computes them from its coordinates (``make_lane_cache`` does the
+    same).  ``layout="coords"``
+    reads coordinates: ``coords_host``, the (n, d) float64 coordinates in
+    ordered space, where the caller has them (the models do), else the data's
+    own ``coords``, already in the data's dtype (a UTM-style offset of 1e6 in
+    float32 is quantized to 0.06 before the centring can save it)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be 'dist' or 'coords', got {layout!r}")
     nn_idx_host = data.nn_idx.cpu().numpy()
     n, m = nn_idx_host.shape
     n_pad = padded_size(n)
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    p = max(m * (m - 1) // 2, 1)
     nn_idx = np.zeros((m, n_pad), np.int32)
     nn_idx[:, :n] = nn_idx_host.T
-    d_in = np.zeros((m, n_pad), np_dtype)
-    d_in[:, :n] = np.asarray(data.nn_dist).T
-    d_tri = np.zeros((p, n_pad), np_dtype)
-    if m > 1:
-        iu, ku = _tri_rows_cols(m)
-        d_tri[:, :n] = np.asarray(data.nn_cross_dist)[:, iu, ku].T
+    if layout == "coords":
+        pts = np.asarray(data.coords.cpu().numpy() if coords_host is None
+                         else coords_host, np.float64)
+        if pts.shape[0] != n or not 1 <= pts.shape[1] <= MAX_DIM:
+            raise ValueError(f"coords must be (n={n}, d) with d in [1, "
+                             f"{MAX_DIM}], got {pts.shape}")
+        # distances do not change under a shift, and float32 planes of
+        # coordinates with a large offset would lose ~eps |x| of each distance
+        pts = pts - pts.mean(axis=0, keepdims=True)
+        d = pts.shape[1]
+        tab_a = np.zeros((d, n_pad), np.float32)
+        tab_b = np.zeros((m * d, n_pad), np.float32)
+        tab_a[:, :n] = pts.T
+        tab_b[:, :n] = pts[nn_idx_host].reshape(n, m * d).T
+    else:
+        d_in, d_nn = data.nn_dist, data.nn_cross_dist
+        if d_in is None or d_nn is None:
+            d_in, d_nn = (t.cpu().numpy() for t in neighbor_distances(data))
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        tab_a = np.zeros((m, n_pad), np_dtype)
+        tab_a[:, :n] = d_in.T
+        tab_b = np.zeros((max(m * (m - 1) // 2, 1), n_pad), np_dtype)
+        if m > 1:
+            iu, ku = _tri_rows_cols(m)
+            tab_b[:, :n] = d_nn[:, iu, ku].T
     return SiteTables(
-        d_in=torch.as_tensor(d_in, device=device),
-        d_tri=torch.as_tensor(d_tri, device=device),
+        tab_a=torch.as_tensor(tab_a, device=device).to(dtype),
+        tab_b=torch.as_tensor(tab_b, device=device).to(dtype),
         nn_idx=torch.as_tensor(nn_idx, device=device),
         n=n,
         n_pad=n_pad,
+        layout=layout,
     )
 
 
@@ -99,7 +190,8 @@ def with_children(tables: SiteTables) -> SiteTables:
     position ``k * n_pad + i`` of B[k, i] in a plane-major (m * n_pad) weight
     array.  Rows are padded with 0, the position of slot 0 of site 0, which
     has no neighbors: a weight array is exactly 0 there, so a sum over a row
-    needs no mask.  Built once per dataset, on the host."""
+    needs no mask.  Built once per dataset, on the host, from ``nn_idx``
+    alone, so either layout takes it."""
     if tables.child_flat is not None:
         return tables
     n, m = tables.n, tables.m
@@ -112,16 +204,27 @@ def with_children(tables: SiteTables) -> SiteTables:
         child_flat=torch.as_tensor(flat, device=tables.nn_idx.device))
 
 
+def _euclidean(a, b):
+    """sqrt(sum_a (x_a - x'_a)^2) over the leading coordinate axis, in the
+    planes' dtype, as ``_dist_access`` forms it (``pallas_bf.py:392-404``)."""
+    return torch.sqrt(((a - b) ** 2).sum(0))
+
+
 def unpack_distances(tables: SiteTables):
-    """(d_in (n_pad, m), d_nn (n_pad, m, m)) site-major views of the tables,
-    for the plain versions of the kernels."""
-    m = tables.m
-    d_in = tables.d_in.T
-    d_nn = torch.zeros((tables.n_pad, m, m), dtype=d_in.dtype,
-                       device=d_in.device)
+    """(d_in (n_pad, m), d_nn (n_pad, m, m)) site-major distances of either
+    layout, for the plain versions of the kernels.  The coords layout's are
+    recomputed from its coordinate planes in the tables' dtype."""
+    m, dev = tables.m, tables.device
+    d_nn = torch.zeros((tables.n_pad, m, m), dtype=tables.dtype, device=dev)
+    iu, ku = (torch.as_tensor(a, device=dev) for a in _tri_rows_cols(m))
+    if tables.layout == "coords":
+        d = tables.dim
+        nbr = tables.tab_b.reshape(m, d, tables.n_pad)  # (m, d, n_pad)
+        d_in = _euclidean(tables.tab_a[:, None], nbr.transpose(0, 1)).T
+        d_tri = _euclidean(nbr[iu].transpose(0, 1), nbr[ku].transpose(0, 1))
+    else:
+        d_in, d_tri = tables.tab_a.T, tables.tab_b[:len(iu)]
     if m > 1:
-        iu, ku = (torch.as_tensor(a, device=d_in.device)
-                  for a in _tri_rows_cols(m))
-        d_nn[:, iu, ku] = tables.d_tri.T
-        d_nn[:, ku, iu] = tables.d_tri.T
+        d_nn[:, iu, ku] = d_tri.T
+        d_nn[:, ku, iu] = d_tri.T
     return d_in, d_nn

@@ -8,7 +8,11 @@ CPU tensors.  Chains are an explicit leading axis: ``phi`` and ``alpha`` are
 shared, or (C, n), one row per chain (the residual y - X beta with fixed
 effects).  The general-nu Matern (``kernel.family == 6``: ``Matern()`` with a
 (C,) ``nu`` per chain, or ``Matern(nu=0.8)``) launches the kernel's GENERAL
-instances (``csrc/vecchia_suffstats_nu.cu``), counted in ``COUNT_NU``.
+instances (``csrc/vecchia_suffstats_nu.cu``), counted in ``COUNT_NU``.  Tables
+in the coords layout launch the COORDS instances of either set
+(``csrc/vecchia_suffstats_coords.cu``, ``csrc/vecchia_suffstats_nu_coords.cu``),
+counted in ``COUNT_COORDS`` and ``COUNT_NU_COORDS``; :func:`instance` names
+the instance a launch runs, and every wrapper counts a launch under it.
 """
 
 from __future__ import annotations
@@ -16,16 +20,35 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
-from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
+from pynngp_tpu_torch.ops.site_tables import (
+    BLOCK,
+    MAX_DIM,
+    SiteTables,
+    unpack_distances,
+)
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
-__all__ = ["COUNT", "COUNT_NU", "CUDA_M", "GENERAL_FAMILY", "kernel_nu",
-           "params_array", "suffstats", "suffstats_reference", "loglik"]
+__all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "CUDA_M",
+           "GENERAL_FAMILY", "instance", "kernel_nu", "params_array",
+           "suffstats", "suffstats_reference", "loglik"]
 
 COUNT = _build.LaunchCount("vecchia_suffstats")
 COUNT_NU = _build.LaunchCount("vecchia_suffstats_nu")  # the GENERAL instances
+COUNT_COORDS = _build.LaunchCount("vecchia_suffstats_coords")  # COORDS
+COUNT_NU_COORDS = _build.LaunchCount("vecchia_suffstats_nu_coords")
+COUNTS = {c.name: c for c in (COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)}
 CUDA_M = (7, 10, 15, 20)  # neighbor counts the CUDA kernels are built for
 GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
+
+
+def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False) -> str:
+    """The kernel instance a launch of ``base`` runs, named as its C entry
+    without ``_f32`` and as its launch count: ``_y`` for the EMIT_Y
+    instances, ``_nu`` for the general-nu Matern, ``_coords`` for tables in
+    the coords layout."""
+    return (base + ("_y" if emit_y else "")
+            + ("_nu" if kernel.family == GENERAL_FAMILY else "")
+            + ("_coords" if tables.layout == "coords" else ""))
 
 
 def kernel_nu(kernel, nu=None):
@@ -60,8 +83,8 @@ def _plain_inputs(tables: SiteTables, y):
     """Site-major distances, slot masks, y_N and y_own for the plain
     versions; y is (n,) or (C, n)."""
     d_in, d_nn = unpack_distances(tables)
-    site = torch.arange(tables.n_pad, device=d_in.device)
-    mask = site[:, None] > torch.arange(tables.m, device=d_in.device)[None, :]
+    site = torch.arange(tables.n_pad, device=tables.device)
+    mask = site[:, None] > torch.arange(tables.m, device=tables.device)[None, :]
     y_nbr = y[..., tables.nn_idx.T.long()] * mask.to(y.dtype)  # (..., n_pad, m)
     y_own = torch.nn.functional.pad(y, (0, tables.n_pad - tables.n))
     valid = site < tables.n
@@ -119,13 +142,19 @@ def cuda_args(tables: SiteTables, params, y=None):
                          f"got m={tables.m}")
     if tables.n_pad % BLOCK:
         raise ValueError(f"n_pad={tables.n_pad} is not a multiple of {BLOCK}")
-    for name, t in (("d_in", tables.d_in), ("d_tri", tables.d_tri)):
+    for name, t in (("tab_a", tables.tab_a), ("tab_b", tables.tab_b)):
         if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+    if tables.layout == "coords" and not (
+            1 <= tables.dim <= MAX_DIM
+            and tables.tab_b.shape[0] == tables.m * tables.dim):
+        raise ValueError(f"coords tables need d in [1, {MAX_DIM}] and m d "
+                         f"neighbor planes, got {tuple(tables.tab_a.shape)}, "
+                         f"{tuple(tables.tab_b.shape)}")
     if tables.nn_idx.dtype != torch.int32 or not tables.nn_idx.is_contiguous():
         raise ValueError("nn_idx must be a contiguous int32 tensor")
     if y is not None:
-        if y.dtype != torch.float32 or y.device != tables.d_in.device:
+        if y.dtype != torch.float32 or y.device != tables.device:
             raise ValueError("y must be a float32 tensor on the tables' device")
         if y.shape not in ((tables.n,), (params.shape[0], tables.n)):
             raise ValueError(f"y must have shape ({tables.n},) or "
@@ -136,7 +165,7 @@ def cuda_args(tables: SiteTables, params, y=None):
         raise ValueError(f"n={tables.n} sites exceeds the kernels' 2^24 limit")
     if params.dim() != 2 or params.shape[-1] != 6:
         raise ValueError("params must be (C, 6)")
-    params = params.detach().to(device=tables.d_in.device,
+    params = params.detach().to(device=tables.device,
                                 dtype=torch.float32).contiguous()
     return params, y
 
@@ -146,29 +175,34 @@ def y_stride(y) -> int:
     return 0 if y.dim() == 1 else y.shape[-1]
 
 
-def _count(kernel):
-    return COUNT_NU if kernel.family == GENERAL_FAMILY else COUNT
+def shape_args(tables: SiteTables) -> tuple:
+    """(n_pad, m), and d for the coords layout: the arguments every C entry
+    takes after its tables (and nn_idx and y), before the chain count."""
+    coords = (tables.dim,) if tables.layout == "coords" else ()
+    return (tables.n_pad, tables.m, *coords)
+
+
+def family_arg(kernel) -> tuple:
+    """The closed-form entries take the family; the general-nu ones none."""
+    return () if kernel.family == GENERAL_FAMILY else (kernel.family,)
 
 
 def _launch(kernel, tables: SiteTables, params, y):
     params, y = cuda_args(tables, params, y)
     chains = params.shape[0]
-    dev = tables.d_in.device
+    dev = tables.device
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
     resid = torch.empty_like(f)
     part = torch.empty((2, chains, tables.n_pad // BLOCK), dtype=torch.float32,
                        device=dev)
-    head = (params.data_ptr(), tables.d_in.data_ptr(), tables.d_tri.data_ptr(),
-            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), tables.n_pad,
-            tables.m, chains)
+    head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
+            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y),
+            *shape_args(tables), chains, *family_arg(kernel))
     tail = (f.data_ptr(), resid.data_ptr(), part.data_ptr(),
             _build.stream_handle(dev))
-    general = kernel.family == GENERAL_FAMILY
-    name = "vecchia_suffstats" + ("_nu" if general else "") + "_f32"
-    # only the closed-form entry takes the family
-    family = () if general else (kernel.family,)
-    _build.check(getattr(_build.library(), name)(*head, *family, *tail), name)
-    _count(kernel).launches += 1
+    name = instance("vecchia_suffstats", kernel, tables)
+    _build.check(getattr(_build.library(), name + "_f32")(*head, *tail), name)
+    COUNTS[name].launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return sums[0], sums[1], f, resid
 
@@ -187,13 +221,13 @@ def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
     excluded from the sums.  CUDA tensors launch kernel 1; CPU tensors run
     :func:`suffstats_reference`.
     """
-    params = params_array(phi, alpha, jitter, tables.n, tables.d_in.dtype,
-                          tables.d_in.device, kernel_nu(kernel, nu))
-    if tables.d_in.is_cuda:
+    params = params_array(phi, alpha, jitter, tables.n, tables.dtype,
+                          tables.device, kernel_nu(kernel, nu))
+    if tables.device.type == "cuda":
         return _launch(kernel, tables, params, y)
-    if tables.d_in.device.type != "cpu":
-        raise ValueError(f"no kernel for device {tables.d_in.device}")
-    _count(kernel).plain += 1
+    if tables.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.device}")
+    COUNTS[instance("vecchia_suffstats", kernel, tables)].plain += 1
     return suffstats_reference(kernel, tables, params, y)
 
 

@@ -17,7 +17,7 @@ the hand-written kernels in :mod:`pynngp_tpu_torch.ops`.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ __all__ = [
     "vecchia_bf",
     "vecchia_suffstats",
     "vecchia_loglik",
+    "neighbor_distances",
     "LOG_2PI",
 ]
 
@@ -44,14 +45,16 @@ class VecchiaData(NamedTuple):
     ``coords``, ``nn_idx`` (int64) and ``nn_mask`` are tensors on the model's
     device.  ``nn_dist`` (n, m) and ``nn_cross_dist`` (n, m, m) are the
     hyperparameter-independent distance tables, kept as host numpy arrays:
-    the site-table builder consumes them on the host.
+    the site-table builder consumes them on the host.  Both are None when
+    the data was made with ``precompute_distances=False`` (the coords table
+    layout recomputes distances and needs neither).
     """
 
     coords: torch.Tensor  # (n, d)
     nn_idx: torch.Tensor  # (n, m) int64
     nn_mask: torch.Tensor  # (n, m) bool
-    nn_dist: np.ndarray  # (n, m)
-    nn_cross_dist: np.ndarray  # (n, m, m)
+    nn_dist: Optional[np.ndarray] = None  # (n, m)
+    nn_cross_dist: Optional[np.ndarray] = None  # (n, m, m)
 
     @property
     def n(self) -> int:
@@ -69,25 +72,47 @@ def make_vecchia_data(
     distance="euclidean",
     dtype=torch.float32,
     device="cpu",
+    precompute_distances: bool = True,
+    table=None,
 ):
-    """Host-side setup: order sites, build the neighbor table, compute the
-    distance tables in float64 numpy and keep them in ``dtype``.
+    """Host-side setup: order sites, build the neighbor table (unless
+    ``table``, a :class:`~pynngp_tpu_torch.neighbors.NeighborTable` of these
+    coordinates, is given) and, with ``precompute_distances``, compute the
+    distance tables in float64 numpy and keep them in ``dtype`` (without it
+    no (n, m, m) array is made).
 
     Returns (data, table): ``data`` has coords in ordered space; use
     ``table.order`` / ``table.inverse_order`` to map user arrays.
     """
     coords = np.asarray(coords)
     dist_fn = get_distance(distance)
-    table = build_neighbor_table(coords, m, ordering=ordering)
+    if table is None:
+        table = build_neighbor_table(coords, m, ordering=ordering)
     pts_host = coords[table.order]
     pts = torch.as_tensor(pts_host, dtype=dtype, device=device)
     nn_idx = torch.as_tensor(table.nn_idx, dtype=torch.int64, device=device)
     nn_mask = torch.as_tensor(table.nn_mask, device=device)
+    if not precompute_distances:
+        return VecchiaData(pts, nn_idx, nn_mask), table
     nbr = pts_host[table.nn_idx]  # (n, m, d)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     d_in = dist_fn.one_to_many_np(pts_host, nbr).astype(np_dtype)
     d_nn = dist_fn.pairwise_np(nbr, nbr).astype(np_dtype)
     return VecchiaData(pts, nn_idx, nn_mask, d_in, d_nn), table
+
+
+def neighbor_distances(data: VecchiaData):
+    """(d_in (n, m), d_nn (n, m, m)) distance tables of ``data`` as tensors on
+    its device: the precomputed ones, or the Euclidean distances of its
+    coordinates where it holds none (``pynngp_tpu.vecchia._distances``)."""
+    dev = data.coords.device
+    if data.nn_dist is not None and data.nn_cross_dist is not None:
+        return (torch.as_tensor(data.nn_dist, device=dev),
+                torch.as_tensor(data.nn_cross_dist, device=dev))
+    nbr = data.coords[data.nn_idx]  # (n, m, d)
+    d_in = torch.sqrt(((data.coords[:, None, :] - nbr) ** 2).sum(-1))
+    d_nn = torch.sqrt(((nbr[:, :, None, :] - nbr[:, None, :, :]) ** 2).sum(-1))
+    return d_in, d_nn
 
 
 def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask, nu=None,
@@ -138,8 +163,7 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
       alpha has one.
     """
     dev = data.coords.device
-    d_in = torch.as_tensor(data.nn_dist, device=dev)
-    d_nn = torch.as_tensor(data.nn_cross_dist, device=dev)
+    d_in, d_nn = neighbor_distances(data)
     dtype = d_in.dtype
     phi = torch.as_tensor(params["phi"], dtype=dtype, device=dev)
     alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)

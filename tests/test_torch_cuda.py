@@ -34,11 +34,15 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _problem(dev, n=1500, m=7, seed=3):
+def _problem(dev, n=1500, m=7, seed=3, layout="dist"):
     rng = np.random.default_rng(seed)
-    data, tab = make_vecchia_data(rng.uniform(size=(n, 2)), m)
-    tab32 = make_site_tables(data, dtype=torch.float32, device=dev)
-    tab64 = tab32._replace(d_in=tab32.d_in.double(), d_tri=tab32.d_tri.double())
+    coords = rng.uniform(size=(n, 2))
+    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist")
+    tab32 = make_site_tables(data, dtype=torch.float32, device=dev, layout=layout,
+                             coords_host=coords[tab.order])
+    # the same float32 tables in float64: on the coords layout the plain
+    # version recomputes the distances from the same coordinates
+    tab64 = tab32.to(torch.float64)
     y = torch.as_tensor(rng.standard_normal(n)[tab.order], dtype=torch.float32,
                         device=dev)
     phi = torch.tensor([0.1, 0.3, 0.5], device=dev)
@@ -403,3 +407,167 @@ def test_sampled_nu_models_on_card_go_through_the_general_instances(card):
     assert all(c.launches > 0 and c.plain == 0 for c in counts)
     for out in (draws, mwg, latent):
         assert out["nu"].shape == (2, 5) and np.isfinite(out["nu"]).all()
+
+
+# ---- the coords table layout (distances recomputed inside the kernels) -----
+# The dist rows' own limits: the float32 distances the coords instances
+# recompute differ from the dist tables' by a few ulps, far below them.
+
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: repr(k))
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_coords_forward_and_bf_kernels_match_plain(card, kern, m):
+    """Kernels 1 and 3 on the coords layout (their COORDS instances) against
+    the float64 plain versions on the same coordinate planes, at the limits
+    of test_forward_kernel_matches_plain and test_bf_kernel_matches_plain."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout="coords")
+    before = (fops.COUNT.launches, fops.COUNT_COORDS.launches, bops.COUNT_COORDS.launches)
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y)
+    b, f3 = bops.bf_planes(kern, tab32, phi, alpha)
+    torch.cuda.synchronize()
+    assert (fops.COUNT.launches, fops.COUNT_COORDS.launches,
+            bops.COUNT_COORDS.launches) == (before[0], before[1] + 1, before[2] + 1)
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y.double())
+    b_p, f3_p = bops.bf_reference(kern, tab64, params)
+    n = tab32.n
+    torch.testing.assert_close(ld.double(), ld_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=2e-3, atol=1e-4)
+    torch.testing.assert_close(b[:, :, :n].double(), b_p[:, :, :n], rtol=0.0, atol=3e-5)
+    torch.testing.assert_close(f3[:, :n].double(), f3_p[:, :n], rtol=3e-5, atol=0.0)
+    assert (b[:, :, n:] == 0).all() and (f3[:, n:] == 1).all()
+
+
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: repr(k))
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_coords_grad_kernel_matches_plain(card, kern, m):
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout="coords")
+    before = dops.COUNT_COORDS.launches
+    got = dops.value_and_grad_sums(kern, tab32, phi, alpha, y).double()
+    assert dops.COUNT_COORDS.launches == before + 1
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    want = dops.grad_reference(kern, tab64, params, y.double())
+    torch.testing.assert_close(got[:2], want[:2], rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(got[2:], want[2:], rtol=2e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_coords_grad_y_kernel_matches_plain(card, m, per_chain):
+    """The EMIT_Y and COORDS instances at the limits of
+    test_grad_y_kernel_matches_plain, and the y cotangent through the gather
+    against autograd of the float64 plain version (rtol 2e-3, atol 2e-4)."""
+    kern = kernels.Exponential()
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout="coords")
+    tab32, tab64 = with_children(tab32), with_children(tab64)
+    if per_chain:
+        rng = np.random.default_rng(4)
+        y = y + 0.1 * torch.as_tensor(rng.standard_normal((3, tab32.n)),
+                                      dtype=torch.float32, device=card)
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    before = dops.COUNT_Y_COORDS.launches
+    sums, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, emit_y=True)
+    dy = dops.dquad_dy(tab32, b, rof)
+    torch.cuda.synchronize()
+    assert dops.COUNT_Y_COORDS.launches == before + 1
+    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, y.double(), emit_y=True)
+    n = tab32.n
+    torch.testing.assert_close(sums.double()[:2], want[:2], rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(sums.double()[2:], want[2:], rtol=2e-4, atol=0.0)
+    torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=3e-5)
+    torch.testing.assert_close(rof.double(), rof_p, rtol=2e-3, atol=1e-4)
+    assert (b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all()
+    assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
+    y64 = (y.double() if per_chain else y.double().expand(3, n)).clone().requires_grad_(True)
+    _, q, _, _ = fops.suffstats_reference(kern, tab64, params, y64)
+    (dy_p,) = torch.autograd.grad(q.sum(), y64)
+    torch.testing.assert_close(dy.double(), dy_p, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("kern,sampled", NU_KERNELS, ids=_NU_IDS)
+@pytest.mark.parametrize("m", [7, 10, 15, 20])
+def test_coords_general_nu_kernels_match_plain(card, kern, sampled, m):
+    """The general-nu COORDS instances of kernels 1, 2, 2-EMIT_Y and 3 at the
+    limits of the general-nu tests above."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout="coords")
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card,
+                               fops.kernel_nu(kern, None if nu is None else nu.double()))
+    counts = (fops.COUNT_NU_COORDS, dops.COUNT_NU_COORDS, dops.COUNT_Y_NU_COORDS,
+              bops.COUNT_NU_COORDS)
+    before = [c.launches for c in counts]
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y, nu=nu)
+    sums = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, nu=nu).double()
+    sums_y, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, emit_y=True,
+                                              nu=nu)
+    b3, f3 = bops.bf_planes(kern, tab32, phi, alpha, nu=nu)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counts] == [v + 1 for v in before]
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y.double())
+    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, y.double(), emit_y=True)
+    b3_p, f3_p = bops.bf_reference(kern, tab64, params)
+    n = tab32.n
+    torch.testing.assert_close(ld.double(), ld_p, rtol=5e-5, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=5e-5, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=2e-3, atol=2e-4)
+    for got in (sums, sums_y.double()):
+        torch.testing.assert_close(got[:2], want[:2], rtol=5e-5, atol=0.0)
+        torch.testing.assert_close(got[2:6], want[2:6], rtol=2e-4, atol=0.0)
+        if sampled:
+            torch.testing.assert_close(got[6:], want[6:], rtol=5e-2, atol=0.0)
+        else:
+            assert (got[6:] == 0).all()
+    torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(rof.double(), rof_p, rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(b3[:, :, :n].double(), b3_p[:, :, :n], rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(f3[:, :n].double(), f3_p[:, :n], rtol=1e-4, atol=0.0)
+    assert (b3[:, :, n:] == 0).all() and (f3[:, n:] == 1).all()
+
+
+def test_coords_launch_refuses_a_coordinate_dimension_above_three(card):
+    tab32, _, y, phi, alpha = _problem(card, layout="coords")
+    wide = tab32._replace(tab_a=torch.zeros((4, tab32.n_pad), device=card),
+                          tab_b=torch.zeros((4 * tab32.m, tab32.n_pad), device=card))
+    with pytest.raises(ValueError, match="coords tables"):
+        fops.suffstats(kernels.SqExp(), wide, phi, alpha, y)
+
+
+def test_models_on_the_coords_layout_go_through_its_instances(card):
+    """ResponseNNGP(lane_layout="coords") and, with the threshold moved below
+    n, LatentNNGP on the card: fit_map, NUTS and MWG launch the COORDS
+    instances of kernels 2 and 1, the latent sampler kernel 3's, with fixed
+    effects kernel 2's EMIT_Y ones, and no plain version runs."""
+    from pynngp_tpu_torch.ops import site_tables
+
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(2000, 2))
+    x = np.column_stack([np.ones(2000), rng.standard_normal(2000)])
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2000)
+    counts = (fops.COUNT_COORDS, dops.COUNT_COORDS, bops.COUNT_COORDS,
+              dops.COUNT_Y_COORDS)
+    for c in counts:
+        c.reset()
+    model = ResponseNNGP(coords, y, m=7, lane_layout="coords", device=card)
+    mp = model.fit_map(n_steps=20)
+    model.sample_nuts(5, n_burn=5, n_chains=2, max_depth=3, init_u=mp.u,
+                      init_inv_mass=mp.laplace_cov)
+    model.sample(5, n_burn=5, n_chains=2)
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), m=7, x=x,
+                         lane_layout="coords", device=card)
+    fixed.fit_map(n_steps=5)
+    old = site_tables.COORDS_LAYOUT_MIN_SITES
+    site_tables.COORDS_LAYOUT_MIN_SITES = 1000
+    try:
+        latent = LatentNNGP(coords, y, m=7, device=card)
+    finally:
+        site_tables.COORDS_LAYOUT_MIN_SITES = old
+    assert latent.lane_layout == "coords"
+    draws = latent.sample(5, n_burn=5, n_chains=2)
+    assert all(c.launches > 0 and c.plain == 0 for c in counts)
+    assert np.isfinite(draws["phi"]).all()

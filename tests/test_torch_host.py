@@ -125,16 +125,17 @@ def test_site_tables_match_lane_cache():
     got = make_site_tables(data, dtype=torch.float32)
     assert got.n == want.n == n
     assert got.n_pad == want.n_pad == 1536 and got.n_pad % BLOCK == 0
-    assert got.d_in.shape == (m, got.n_pad)
-    assert got.d_tri.shape == (m * (m - 1) // 2, got.n_pad)
-    for name in ("d_in", "d_tri", "nn_idx"):
+    assert got.layout == want.layout == "dist"
+    assert got.tab_a.shape == (m, got.n_pad)
+    assert got.tab_b.shape == (m * (m - 1) // 2, got.n_pad)
+    for name in ("tab_a", "tab_b", "nn_idx"):
         a, b = getattr(got, name), getattr(want, name)
         assert a.dtype == b.dtype and a.is_contiguous()
         assert torch.equal(a, b), name
     # packed-plane order: plane tri_index(i, k) holds the (i, k) pair
     i, k = 5, 2
     np.testing.assert_array_equal(
-        got.d_tri[tri_index(i, k), :n].numpy(),
+        got.tab_b[tri_index(i, k), :n].numpy(),
         data.nn_cross_dist[:, i, k],
     )
 
@@ -189,7 +190,8 @@ _SMALL = np.random.default_rng(2).uniform(size=(60, 2))
     # the general-nu Matern is ported; with per-site noise it still is not
     ({"kernel": "matern", "noise": "heterogeneous"}, NotImplementedError),
     ({"ordering": "maxmin"}, NotImplementedError),
-    ({"lane_layout": "coords"}, NotImplementedError),
+    # the coords layout is ported; with per-site noise it still is not
+    ({"lane_layout": "coords", "noise": "heterogeneous"}, NotImplementedError),
     ({"device": "mps"}, ValueError),
 ], ids=["x", "mesh", "hetero", "dotproduct", "general_nu", "maxmin", "coords",
         "mps"])

@@ -1,0 +1,58 @@
+"""Registers and kernel times of two trees of pynngp_tpu_torch on one card,
+in turns (parent, change, change, parent), so that a change can be held to
+its parent within one machine's noise.
+
+    rm -rf parent_check && mkdir parent_check \
+        && git archive <parent commit> | tar -x -C parent_check
+    python3 tools/compare_parent.py          # from the root of the change
+
+``parent_check/`` is git-ignored.  Each round runs in a process of its own
+from the tree's root, so that it imports and builds that tree's package
+(``build/pynngp_tpu_torch/`` under each root), and prints the tree's
+``ptxas -v`` summary by m, the closed-form kernel times of
+``chip_smoke.time_kernels`` at n=100,000, m=15 and the general-nu ones of
+``chip_smoke.time_kernels_nu`` at n=25,000, m=10, 16 chains each.  The last
+line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
+"""
+import json
+import os
+import subprocess
+import sys
+
+ROUND = r'''
+import json, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+out = {"build_s": info["seconds"],
+       "ptxas": {m: cs.ptxas_summary(info["ptxas"], m) for m in (7, 10, 15, 20)}}
+case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev)
+out["closed"] = {k: v for k, v in cs.time_kernels(case).items()
+                 if not k.endswith("_plain")}
+del case
+nu = cs.Case(25000, 10, cs.Matern(), 16, seed=5, dev=dev, nu=cs.nu_spread(16))
+out["nu"] = cs.time_kernels_nu(nu, plain=False)
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def main() -> int:
+    root = os.getcwd()
+    results = []
+    for tree in ("parent_check", ".", ".", "parent_check"):
+        run = subprocess.run([sys.executable, "-c", ROUND], capture_output=True,
+                             text=True, cwd=os.path.join(root, tree))
+        print(tree, run.returncode, run.stderr[-2000:] if run.returncode else "",
+              flush=True)
+        found = [line for line in run.stdout.splitlines() if line.startswith("RESULT ")]
+        if not found:
+            return 1
+        results.append((tree, json.loads(found[0][len("RESULT "):])))
+        print(tree, json.dumps(results[-1][1]), flush=True)
+    print("PARENT_CHECK " + json.dumps(results), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
