@@ -36,10 +36,19 @@ checks that it went through its kernels:
   general-nu coords instances, with fixed effects kernel 2's EMIT_Y and
   kernel 3's).
 
+- with heterogeneous (per-site) noise, v ~ U(0.25, 4): the response NNGP on
+  the main path's data (bench_ess's MWG recipe, run cut), with fixed effects
+  (MWG and NUTS), and the latent-w NNGP at config 2's size, with and without
+  fixed effects (the V^-1-weighted beta update).
+
 Before the paths: every coords instance against its plain version, both
 layouts timed on the same sites at n=10,000 to 500,000, and each layout's
 host set-up (seconds, table sizes, peak host memory) at those sizes, from
-which the layout rule is printed (``site_tables.COORDS_LAYOUT_MIN_SITES``).
+which the layout rule is printed (``site_tables.COORDS_LAYOUT_MIN_SITES``);
+every instance launched with noise weights (``..._hetero``) against its
+plain version and timed, the coords instances with d = 4, and m = 12 and
+m = 17 run on the M = 15 and M = 20 instances against their plain versions
+and timed against those instances' own m.
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -64,6 +73,7 @@ from pynngp_tpu_torch import bessel, diagnostics
 from pynngp_tpu_torch.kernels import Exponential, Matern, SqExp
 from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.noise import HeterogeneousNoise
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
@@ -123,6 +133,15 @@ KERNEL_ROWS = {
     "vecchia_bf_nu_coords": ("pynngp_tpu_torch/csrc/vecchia_bf_nu_coords.cu",
                              "pynngp_tpu/ops/pallas_bf.py:957", bf_ops.COUNT_NU_COORDS),
 }
+# the same sixteen instances launched with per-site noise weights (the hetero
+# branch of each Pallas body), counted apart
+_HETERO_LINES = {"suffstats": 430, "grad": 743, "bf": 951}
+_COUNTS = {**fwd_ops.COUNTS, **diff_ops.COUNTS, **bf_ops.COUNTS}
+KERNEL_ROWS.update({
+    name + "_hetero": (src, f"pynngp_tpu/ops/pallas_bf.py:{_HETERO_LINES[name.split('_')[1]]}",
+                       _COUNTS[name + "_hetero"])
+    for name, (src, _, _) in list(KERNEL_ROWS.items())
+})
 N_NU, M_NU = 25_000, 10  # bench.py's config 3
 # Published peaks of one H100 SXM: device memory rate, float32 rate outside
 # the tensor cores, and the special-function rate that follows from it (an SM
@@ -140,17 +159,26 @@ def _require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bench_field(n: int, seed: int = 0):
+def bench_field(n: int, seed: int = 0, noise_v=None):
     """bench.py's bench_ess generator: an RFF draw from a sqexp GP with
-    lengthscale ~0.07 on the unit square plus N(0, 0.3^2) noise."""
+    lengthscale ~0.07 on the unit square plus N(0, 0.3^2) noise; with
+    ``noise_v``, per-site weights in the sites' order, N(0, 0.3^2 v_i) from
+    the same draws."""
     rng = np.random.default_rng(seed)
     coords = rng.uniform(size=(n, 2))
     n_feat = 256
     freqs = rng.normal(scale=20.0, size=(n_feat, 2))
     phases = rng.uniform(0, 2 * np.pi, n_feat)
     w = np.sqrt(2 / n_feat) * np.cos(coords @ freqs.T + phases).sum(axis=1)
-    y = w + 0.3 * rng.standard_normal(n)
+    scale = 0.3 if noise_v is None else 0.3 * np.sqrt(noise_v)
+    y = w + scale * rng.standard_normal(n)
     return coords, y
+
+
+def noise_weights(n: int):
+    """Per-site noise weights v ~ U(0.25, 4) from default_rng(7), in the
+    sites' order (the reference's tests/test_noise_models.py:47-61 recipe)."""
+    return np.random.default_rng(7).uniform(0.25, 4.0, n)
 
 
 def config3_field(n: int = 25_000, m: int = 10):
@@ -194,29 +222,37 @@ def config3_field(n: int = 25_000, m: int = 10):
 def ptxas_summary(ptxas: str, m: int) -> str:
     """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
     instance of every kernel.  The template arguments after M are EMIT_Y
-    (kernel 2 only), GENERAL, the general-nu Matern, and COORDS, the coords
-    table layout."""
+    (kernel 2 only), GENERAL, the general-nu Matern, COORDS, the coords
+    table layout, ANY_D, the rolled coords instance for d > 3 (``_anyd``),
+    and, kernel 3 only, HETERO (``_hetero``); trees before slice 6 have
+    neither of the last two."""
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(rf"(suffstats|grad|bf)_kernelILi{m}E((?:Lb[01]E)+)", line)
+        found = re.search(rf"(suffstats|grad|bf)(?:_nu)?_kernelILi{m}E((?:Lb[01]E)+)", line)
         if "Compiling entry function" not in line or not found:
             continue
         name, flags = found.group(1), re.findall(r"Lb([01])E", found.group(2))
+        core = 3 if name == "grad" else 2  # (EMIT_Y,) GENERAL, COORDS
         if name == "grad" and flags[0] == "1":
             name = "grad_y"
-        if flags[-2] == "1":
+        if flags[core - 2] == "1":
             name += "_nu"
-        if flags[-1] == "1":
+        if flags[core - 1] == "1":
             name += "_coords"
-        spill = regs = "?"
+        if flags[core:core + 1] == ["1"]:
+            name += "_anyd"
+        if flags[core + 1:core + 2] == ["1"]:  # kernel 3's HETERO instances
+            name += "_hetero"
+        spill = regs = frame = "?"
         for nxt in lines[i + 1:i + 4]:
             if "spill stores" in nxt:
                 parts = nxt.split(",")
+                frame = parts[0].split()[0]
                 spill = "/".join(p.split()[0] for p in parts[1:3])
             if "registers" in nxt:
                 regs = nxt.split("Used")[1].split("registers")[0].strip()
-        out.append(f"{name}<{m}> {regs} regs spill {spill} B")
+        out.append(f"{name}<{m}> {regs} regs frame {frame} spill {spill} B")
     return "; ".join(sorted(out))
 
 
@@ -224,7 +260,9 @@ class Case:
     """Site tables, y and per-chain parameters of one parity case, in float32
     for the kernels and the same values in float64 for the oracle.  In the
     coords layout both hold the same float32 coordinate planes, and the
-    float64 oracle recomputes the distances from them."""
+    float64 oracle recomputes the distances from them.  ``v32`` / ``v64``
+    are per-site noise weights in ordered site space (:meth:`with_noise`),
+    None for homogeneous noise."""
 
     def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None,
                  layout="dist"):
@@ -232,6 +270,8 @@ class Case:
         data, table = make_vecchia_data(coords, m, dtype=torch.float64,
                                         precompute_distances=layout == "dist")
         self.n, self.m, self.kernel, self.layout = n, m, kernel, layout
+        self.order = table.order
+        self.v32 = self.v64 = None
         self.tab32 = with_children(make_site_tables(
             data, dtype=torch.float32, device=dev, layout=layout,
             coords_host=np.asarray(coords)[table.order]))
@@ -264,6 +304,15 @@ class Case:
         out.chunk = chunk
         return out
 
+    def with_noise(self, v):
+        """The same case with per-site noise weights ``v`` (n,) in the sites'
+        order: float32 for the kernels, the same values in float64."""
+        out = copy.copy(self)
+        out.v32 = torch.as_tensor(v[self.order], dtype=torch.float32,
+                                  device=self.y32.device)
+        out.v64 = out.v32.double()
+        return out
+
     def params64(self, sl, requires_grad=False, alpha=None):
         alpha = self.alpha if alpha is None else alpha
         phi = self.phi[sl].double().requires_grad_(requires_grad)
@@ -275,7 +324,8 @@ class Case:
         return phi, alpha, pr
 
     def chunks(self):
-        return [slice(i, i + self.chunk) for i in range(0, self.phi.shape[0], self.chunk)]
+        chains = self.phi.shape[0]
+        return [slice(i, min(i + self.chunk, chains)) for i in range(0, chains, self.chunk)]
 
 
 def _rel(a, b):
@@ -291,10 +341,11 @@ def check_forward(case: Case, label: str) -> dict:
     """Kernel 1 against its plain version (float64 on the card, chunked over
     chains); tolerances of tests/test_pallas.py:62-70."""
     logdet, quad, f, r = fwd_ops.suffstats(case.kernel, case.tab32, case.phi,
-                                           case.alpha, case.y32, case.jitter)
+                                           case.alpha, case.y32, case.jitter,
+                                           noise_v=case.v32)
     torch.cuda.synchronize()
     ref = [fwd_ops.suffstats_reference(case.kernel, case.tab64,
-                                       case.params64(sl)[2], case.y64)
+                                       case.params64(sl)[2], case.y64, case.v64)
            for sl in case.chunks()]
     ld_ref, q_ref, f_ref, r_ref = (torch.cat(x) for x in zip(*ref))
     n = case.n
@@ -318,13 +369,14 @@ def check_forward(case: Case, label: str) -> dict:
 def check_grad(case: Case, label: str, grad_rtol: float) -> dict:
     """Kernel 2 against autograd through the plain float64 version."""
     sums = diff_ops.value_and_grad_sums(case.kernel, case.tab32, case.phi,
-                                        case.alpha, case.y32, case.jitter)
+                                        case.alpha, case.y32, case.jitter,
+                                        noise_v=case.v32)
     torch.cuda.synchronize()
     refs = []
     for sl in case.chunks():
         phi, alpha, pr = case.params64(sl, requires_grad=True)
         ld, q, _, _ = fwd_ops.suffstats_reference(case.kernel, case.tab64, pr,
-                                                  case.y64)
+                                                  case.y64, case.v64)
         dld = torch.autograd.grad(ld.sum(), (phi, alpha), retain_graph=True)
         dq = torch.autograd.grad(q.sum(), (phi, alpha))
         refs.append(torch.stack([ld.detach(), q.detach(), dld[0], dq[0],
@@ -356,10 +408,11 @@ def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool) -> dict:
     correct float32 factorizations disagree (tests/test_pallas.py:34-38), so
     that case is printed and only its padded sites are held."""
     alpha = torch.zeros_like(case.alpha) if zero_alpha else case.alpha
-    b, f = bf_ops.bf_planes(case.kernel, case.tab32, case.phi, alpha, case.jitter)
+    b, f = bf_ops.bf_planes(case.kernel, case.tab32, case.phi, alpha, case.jitter,
+                            noise_v=case.v32)
     torch.cuda.synchronize()
     ref = [bf_ops.bf_reference(case.kernel, case.tab64,
-                               case.params64(sl, alpha=alpha)[2])
+                               case.params64(sl, alpha=alpha)[2], case.v64)
            for sl in case.chunks()]
     b_ref, f_ref = (torch.cat(x) for x in zip(*ref))
     n = case.n
@@ -394,7 +447,8 @@ def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float) -> d
     B = 0 and r/F = 0 exactly, and so does every invalid slot of B."""
     y32 = case.y32_chains if per_chain else case.y32
     sums, b, rof = diff_ops.value_and_grad_sums(
-        case.kernel, case.tab32, case.phi, case.alpha, y32, case.jitter, emit_y=True)
+        case.kernel, case.tab32, case.phi, case.alpha, y32, case.jitter, emit_y=True,
+        noise_v=case.v32)
     dy = diff_ops.dquad_dy(case.tab32, b, rof)
     torch.cuda.synchronize()
     n, m = case.n, case.m
@@ -406,8 +460,9 @@ def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float) -> d
         y64 = y32[sl].double() if per_chain else case.y64.expand(width, n)
         y64 = y64.clone().requires_grad_(True)
         s_ref, b_ref, rof_ref = diff_ops.grad_reference(
-            case.kernel, case.tab64, pr, y64.detach(), emit_y=True)
-        _, q, _, _ = fwd_ops.suffstats_reference(case.kernel, case.tab64, pr, y64)
+            case.kernel, case.tab64, pr, y64.detach(), emit_y=True, noise_v=case.v64)
+        _, q, _, _ = fwd_ops.suffstats_reference(case.kernel, case.tab64, pr, y64,
+                                                  case.v64)
         (dy_ref,) = torch.autograd.grad(q.sum(), y64)
         refs.append((s_ref, b_ref, rof_ref, dy_ref))
     s_ref = torch.cat([r[0] for r in refs], dim=1)
@@ -476,24 +531,26 @@ def check_general_nu(case: Case, label: str) -> dict:
     divides the series' noise by that width.  Padded sites and invalid slots
     exactly 0 (kernel 3: B = 0, F = 1)."""
     k, t32, t64, n, m = case.kernel, case.tab32, case.tab64, case.n, case.m
-    jit = case.jitter
+    jit, v32, v64 = case.jitter, case.v32, case.v64
     logdet, quad, f, r = fwd_ops.suffstats(k, t32, case.phi, case.alpha, case.y32,
-                                           jit, nu=case.nu)
-    b3, f3 = bf_ops.bf_planes(k, t32, case.phi, case.alpha, jit, nu=case.nu)
+                                           jit, nu=case.nu, noise_v=v32)
+    b3, f3 = bf_ops.bf_planes(k, t32, case.phi, case.alpha, jit, nu=case.nu,
+                              noise_v=v32)
     sums = diff_ops.value_and_grad_sums(k, t32, case.phi, case.alpha, case.y32, jit,
-                                        nu=case.nu)
+                                        nu=case.nu, noise_v=v32)
     sums_y, b, rof = diff_ops.value_and_grad_sums(
-        k, t32, case.phi, case.alpha, case.y32_chains, jit, emit_y=True, nu=case.nu)
+        k, t32, case.phi, case.alpha, case.y32_chains, jit, emit_y=True, nu=case.nu,
+        noise_v=v32)
     dy = diff_ops.dquad_dy(t32, b, rof)
     torch.cuda.synchronize()
     refs = []
     for sl in case.chunks():
         _, _, pr = case.params64(sl)
-        fwd = fwd_ops.suffstats_reference(k, t64, pr, case.y64)
-        bf = bf_ops.bf_reference(k, t64, pr)
-        s_ref = diff_ops.grad_reference(k, t64, pr, case.y64)
+        fwd = fwd_ops.suffstats_reference(k, t64, pr, case.y64, v64)
+        bf = bf_ops.bf_reference(k, t64, pr, v64)
+        s_ref = diff_ops.grad_reference(k, t64, pr, case.y64, noise_v=v64)
         sy_ref, b_ref, rof_ref = diff_ops.grad_reference(
-            k, t64, pr, case.y32_chains[sl].double(), emit_y=True)
+            k, t64, pr, case.y32_chains[sl].double(), emit_y=True, noise_v=v64)
         refs.append((*fwd, *bf, s_ref, sy_ref, b_ref, rof_ref,
                      diff_ops.dquad_dy(t64, b_ref, rof_ref)))
     cat = lambda i, dim=0: torch.cat([ref[i] for ref in refs], dim=dim)
@@ -711,7 +768,10 @@ def kernel_bounds(case: Case) -> dict:
                            + (m + 1) * sites * 4,
                            m**3 / 3 + 7 * m * m, 2 * corr + m),
     }
-    out, sfx, shown = {}, _suffix(case), {}
+    if case.v32 is not None:
+        work = {name: (nbytes + noise_bytes(t, name), flops + noise_flops(m, name), sfu)
+                for name, (nbytes, flops, sfu) in work.items()}
+    out, sfx, shown = {}, _suffix(case) + _hetero(case), {}
     for name, (nbytes, flops, sfu) in work.items():
         flops, sfu = flops * sites + dist_flops, sfu * sites + dist_sfu
         byte_ms = nbytes / PEAK_BYTES * 1e3
@@ -721,8 +781,29 @@ def kernel_bounds(case: Case) -> dict:
         shown[name + sfx] = {"bound_ms": out[name + sfx][0],
                              "bound_by": out[name + sfx][1], "bytes": nbytes,
                              "flops": flops, "special": sfu}
-    print(f"kernel bounds [{case.layout}]: " + json.dumps(shown), flush=True)
+    print(f"kernel bounds [{case.layout}{_hetero(case)} n{case.n} m{case.m}]: "
+          + json.dumps(shown), flush=True)
     return out
+
+
+def _hetero(case: Case) -> str:
+    """The row-name suffix of a case with noise weights."""
+    return "" if case.v32 is None else "_hetero"
+
+
+def noise_bytes(t, name: str) -> int:
+    """Bytes the noise weights add to a kernel's reads: v at the m neighbors
+    and at the site, (m + 1) planes of n_pad floats, the reference's
+    _noise_planes (pallas_bf.py:510-518); kernel 3 also reads the neighbor
+    ids it gathers them through."""
+    ids = t.nn_idx.numel() * 4 if name.startswith("vecchia_bf") else 0
+    return (t.m + 1) * t.n_pad * 4 + ids
+
+
+def noise_flops(m: int, name: str) -> int:
+    """Operations the noise weights add per (site, chain): the m + 1
+    products alpha v, and in kernel 2 the v weights of its two alpha sums."""
+    return 3 * m + 1 if name.startswith("vecchia_grad") else m + 1
 
 
 def distance_work(t) -> tuple:
@@ -871,8 +952,11 @@ def kernel_bounds_nu(case: Case) -> dict:
                                    sites * (m**3 / 3 + 7 * m * m) + k2_static[0],
                                    k2_static[1] + m * sites),
     }
+    if case.v32 is not None:
+        work = {name: (nbytes + noise_bytes(t, name), ops + noise_flops(m, name) * sites,
+                       sfu) for name, (nbytes, ops, sfu) in work.items()}
     dist_flops, dist_sfu = distance_work(t)
-    work = {name.replace("_nu", "_nu" + _suffix(case), 1):
+    work = {name.replace("_nu", "_nu" + _suffix(case), 1) + _hetero(case):
             (nbytes, ops + dist_flops, sfu + dist_sfu)
             for name, (nbytes, ops, sfu) in work.items()}
     out = {}
@@ -881,7 +965,8 @@ def kernel_bounds_nu(case: Case) -> dict:
         op_ms = max(ops / PEAK_FLOPS, sfu / PEAK_SFU) * 1e3
         out[name] = (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations")
     entries = sum(e for key in flops for _, _, e in flops[key])
-    print(f"general-nu kernel bounds [{case.layout} n{case.n} m{case.m}]: " + json.dumps({
+    print(f"general-nu kernel bounds [{case.layout}{_hetero(case)} n{case.n} m{case.m}]: "
+          + json.dumps({
         "bessel_evaluations_per_entry_kernel_1": 1,
         "bessel_evaluations_per_entry_kernel_2": 3,
         "bessel_evaluations_per_entry_kernel_2_static_nu": 1,
@@ -993,14 +1078,16 @@ def main_path(dev) -> dict:
     return res
 
 
-def config2_field(n: int, scale: float, rng):
+def config2_field(n: int, scale: float, rng, noise_v=None):
     """bench.py's ``_field`` (l.724-730): a 128-feature RFF draw on uniform
-    sites plus N(0, 0.3^2) noise, from the caller's generator."""
+    sites plus N(0, 0.3^2) noise, from the caller's generator; with
+    ``noise_v``, N(0, 0.3^2 v_i) from the same draws."""
     coords = rng.uniform(size=(n, 2))
     freqs = rng.normal(scale=scale, size=(128, 2))
     ph = rng.uniform(0, 2 * np.pi, 128)
     w = np.sqrt(2 / 128) * np.cos(coords @ freqs.T + ph).sum(axis=1)
-    return coords, w + 0.3 * rng.standard_normal(n)
+    sd = 0.3 if noise_v is None else 0.3 * np.sqrt(noise_v)
+    return coords, w + sd * rng.standard_normal(n)
 
 
 def _step_ms(step, state, gen, steps: int):
@@ -2058,7 +2145,271 @@ def time_layouts(dist: Case, coords: Case, warm: int, reps: int) -> dict:
     return out
 
 
+# ---- heterogeneous noise, any m <= 20, coords with any d (slice 6) --------
+
+
+def time_hetero(case: Case, warm: int, reps: int, plain: tuple) -> dict:
+    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 launched with the
+    case's noise weights, and of their float32 plain versions (``plain`` =
+    (warm, reps)), named by the hetero rows."""
+    k, t, v, nu, jit = case.kernel, case.tab32, case.v32, case.nu, case.jitter
+    args = (case.phi, case.alpha)
+    params = fwd_ops.params_array(*args, jit, case.n, torch.float32, case.phi.device,
+                                  fwd_ops.kernel_nu(k, nu))
+    ys = case.y32_chains
+    calls = {
+        ("vecchia_suffstats", False): (
+            lambda: fwd_ops.suffstats(k, t, *args, case.y32, jit, nu=nu, noise_v=v),
+            lambda: fwd_ops.suffstats_reference(k, t, params, case.y32, v)),
+        ("vecchia_grad", False): (
+            lambda: diff_ops.value_and_grad_sums(k, t, *args, case.y32, jit, nu=nu,
+                                                 noise_v=v),
+            lambda: diff_ops.grad_reference(k, t, params, case.y32, noise_v=v)),
+        ("vecchia_grad", True): (
+            lambda: diff_ops.value_and_grad_sums(k, t, *args, ys, jit, emit_y=True, nu=nu,
+                                                 noise_v=v),
+            lambda: diff_ops.grad_reference(k, t, params, ys, emit_y=True, noise_v=v)),
+        ("vecchia_bf", False): (
+            lambda: bf_ops.bf_planes(k, t, *args, jit, nu=nu, noise_v=v),
+            lambda: bf_ops.bf_reference(k, t, params, v)),
+    }
+    times = {}
+    for (base, emit_y), (launch, plain_call) in calls.items():
+        name = fwd_ops.instance(base, k, t, emit_y, hetero=True)
+        times[name] = _time_ms(launch, warm, reps)
+        times[name + "_plain"] = _time_ms(plain_call, *plain)
+    print(f"hetero kernel times [{case.layout} n{case.n} m{case.m}]: "
+          + json.dumps({**{f"{n}_ms": ms for n, ms in times.items()},
+                        "chains": case.phi.shape[0]}), flush=True)
+    return times
+
+
+def hetero_parity(main: Case, small: Case) -> dict:
+    """The closed-form instances of one layout launched with per-site noise
+    weights (v ~ U(0.25, 4)) against their float64 plain versions with the
+    same weights, with the homogeneous rows' own checks and limits, at the
+    main path's shapes and at n=1,500, m=7; returns the max_abs_err of each
+    hetero row.  At alpha = 0 the weights change nothing (alpha v = 0), so
+    kernel 3 is held at the case's alpha only."""
+    sfx, lay = _suffix(main), main.layout
+    big, little = f"hetero {lay} n{main.n} m{main.m} sqexp", f"hetero {lay} n1500 m7 exponential"
+    fwd = check_forward(main, big)
+    check_forward(small, little)
+    grad = check_grad(main, big, grad_rtol=2e-3)
+    check_grad(small, little, grad_rtol=2e-4)
+    bf = check_bf(main, big, zero_alpha=False, gated=True)
+    check_bf(small, little, zero_alpha=False, gated=True)
+    grad_y = check_grad_y(main, big, False, grad_rtol=2e-3)
+    check_grad_y(main, big, True, grad_rtol=2e-3)
+    check_grad_y(small, little, False, grad_rtol=2e-4)
+    check_grad_y(small, little, True, grad_rtol=2e-4)
+    return {f"vecchia_suffstats{sfx}_hetero": fwd["f_max_abs_err"],
+            f"vecchia_grad{sfx}_hetero": grad["max_abs_err"],
+            f"vecchia_bf{sfx}_hetero": bf["b_max_abs_err"],
+            f"vecchia_grad_y{sfx}_hetero": grad_y["b_max_abs_err"]}
+
+
+def four_dimensional_parity(dev) -> dict:
+    """d = 4 on the closed-form coords instances (the fourth coordinate read
+    where it is used) against their plain versions at n=1,500, m=7, with the
+    dist rows' checks and limits; the sites uniform on the unit 4-cube."""
+    rng = np.random.default_rng(3)
+    coords = rng.uniform(size=(1500, 4))
+    y = np.sin(4.0 * coords[:, 0] + 2.0 * coords[:, 3]) + 0.3 * rng.standard_normal(1500)
+    case = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev, field=(coords, y),
+                layout="coords")
+    _require(case.tab32.dim == 4, "the d=4 case has the wrong coordinate planes")
+    label = "coords d4 n1500 m7 exponential"
+    fwd = check_forward(case, label)
+    grad = check_grad(case, label, grad_rtol=2e-4)
+    bf = check_bf(case, label, zero_alpha=False, gated=True)
+    check_bf(case, label, zero_alpha=True, gated=True)
+    grad_y = check_grad_y(case, label, False, grad_rtol=2e-4)
+    check_grad_y(case, label, True, grad_rtol=2e-4)
+    return {"vecchia_suffstats_coords": fwd["f_max_abs_err"],
+            "vecchia_grad_coords": grad["max_abs_err"],
+            "vecchia_bf_coords": bf["b_max_abs_err"],
+            "vecchia_grad_y_coords": grad_y["b_max_abs_err"]}
+
+
+def m_between_instances(dev, exact15: Case) -> dict:
+    """Any m <= 20 on the card: m = 12 runs on the M = 15 instances and
+    m = 17 on M = 20 (slots k >= m identity rows that read nothing).  At the
+    main path's n and sites: kernels 1, 2, 2-EMIT_Y (shared and per-chain y)
+    and 3 against their plain versions with the main path's limits, on four
+    of the 16 chains (two a float64 plain call); then all 16 chains timed in
+    turns against the instance's own m (m, M, M, m), which is what running
+    on the larger instance costs.  Returns the max_abs_err of each row."""
+    errs, costs = {}, {}
+    for m, built in ((12, 15), (17, 20)):
+        _require(fwd_ops.cuda_instance_m(m) == built, f"m={m} is not run on M={built}")
+        case = Case(N_MAIN, m, SqExp(), CHAINS, seed=0, dev=dev)
+        sub = case.subset(slice(None, None, 4), chunk=2)
+        label = f"n{N_MAIN} m{m} on M={built} sqexp"
+        fwd = check_forward(sub, label)
+        grad = check_grad(sub, label, grad_rtol=2e-3)
+        bf = check_bf(sub, label, zero_alpha=False, gated=True)
+        grad_y = check_grad_y(sub, label, False, grad_rtol=2e-3)
+        check_grad_y(sub, label, True, grad_rtol=2e-3)
+        for name, err in (("vecchia_suffstats", fwd["f_max_abs_err"]),
+                          ("vecchia_grad", grad["max_abs_err"]),
+                          ("vecchia_bf", bf["b_max_abs_err"]),
+                          ("vecchia_grad_y", grad_y["b_max_abs_err"])):
+            errs[name] = max(errs.get(name, 0.0), err)
+        exact = exact15 if built == 15 else Case(N_MAIN, built, SqExp(), CHAINS, seed=0,
+                                                 dev=dev)
+        mean = {"m": {}, "M": {}}
+        for which, c in (("m", case), ("M", exact), ("M", exact), ("m", case)):
+            for name, ms in time_layout_kernels(c, 10, 50).items():
+                mean[which][name] = mean[which].get(name, 0.0) + ms / 2
+        costs[f"m{m}_on_M{built}"] = {
+            "ms": mean["m"], f"ms_m{built}": mean["M"],
+            "ratio": {name: mean["m"][name] / mean["M"][name] for name in mean["m"]}}
+        del case, sub, exact
+        torch.cuda.empty_cache()
+    print("m between built instances [n100000, 16 chains]: " + json.dumps(costs),
+          flush=True)
+    return errs
+
+
+def hetero_main_path(dev) -> dict:
+    """Heterogeneous noise on the main path: bench_field's n=100,000 signal
+    plus N(0, 0.09 v_i) noise from the same draws, v ~ U(0.25, 4)
+    (noise_weights), ResponseNNGP(noise=HeterogeneousNoise(v)), m=15, sqexp;
+    bench_ess's MWG recipe with the main path's fit_map(250) and 16 x (800 +
+    1200) pilot, the run cut to 16 x (500 + 1500) (the recipe has 500 +
+    6000).  Kernel 1's hetero instance per proposal, kernel 2's in MAP."""
+    v = noise_weights(N_MAIN)
+    coords, y = bench_field(N_MAIN, seed=0, noise_v=v)
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN,
+                         noise=HeterogeneousNoise(v), device=dev)
+    setup_s = time.perf_counter() - t0
+    res = {"setup_s": setup_s,
+           **_mwg_recipe(model, (800, 1200), (500, 1500), f"hetero_n{N_MAIN}_m{M_MAIN}")}
+    draws = res.pop("draws")
+    del res["map_fit"], res["init"]
+    launches = _read_counts("hetero response",
+                            ("vecchia_suffstats_hetero", "vecchia_grad_hetero"))
+    res.update(launches=launches, plain_calls=0)
+    print("hetero main path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite hetero draws")
+    _require(draws["phi"].shape == (CHAINS, 1500), "hetero draws have the wrong shape")
+    tau2 = res["posterior_mean"]["tau2"]
+    _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+             f"hetero posterior mean tau2 {tau2} is not within 2x of 0.09")
+    return res
+
+
+def hetero_fixed_effects_path(dev) -> dict:
+    """Path 16's data plus x @ [1, -2]: MWG with 16 chains cut to 100 + 100
+    steps (kernel 3's hetero instance at each of the two proposals of a
+    step), then fit_map(150) with x= and NUTS with 4 chains cut to 50 + 50 at
+    max_depth 6 from the Laplace fit (kernel 2's EMIT_Y hetero instance and
+    the y-cotangent gather per leapfrog).  Gate: the slope within 0.1 of -2
+    from both."""
+    v = noise_weights(N_MAIN)
+    coords, y = bench_field(N_MAIN, seed=0, noise_v=v)
+    x = np.column_stack([np.ones(N_MAIN), np.random.default_rng(1).standard_normal(N_MAIN)])
+    beta_true = np.array([1.0, -2.0])
+    _reset_counts()
+    model = ResponseNNGP(coords, y + x @ beta_true, kernel="sqexp", m=M_MAIN, x=x,
+                         noise=HeterogeneousNoise(v), device=dev)
+    t0 = time.perf_counter()
+    mwg = model.sample(100, n_burn=100, n_chains=CHAINS, seed=0,
+                       init={"sigma2": 1.0, "phi": 0.1, "alpha": 0.1})
+    mwg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=150)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_launches = diff_ops.COUNTS["vecchia_grad_y_hetero"].launches
+    t0 = time.perf_counter()
+    draws = model.sample_nuts(50, n_burn=50, n_chains=4, seed=0, max_depth=6,
+                              init_u=mp.u, init_inv_mass=mp.laplace_cov, init_jitter=2.0)
+    nuts_s = time.perf_counter() - t0
+    launches = _read_counts("hetero fixed effects",
+                            ("vecchia_bf_hetero", "vecchia_grad_y_hetero"))
+    slopes = {"mwg": float(mwg["beta"][..., 1].mean()),
+              "nuts": float(draws["beta"][..., 1].mean())}
+    res = {
+        "mwg_s": mwg_s, "mwg_ms_per_step": mwg_s * 1e3 / 200, "map_s": map_s,
+        "nuts_s": nuts_s,
+        **_nuts_summary(draws, 50, "vecchia_grad_y_hetero",
+                        launches["vecchia_grad_y_hetero"] - map_launches),
+        "slope_mean": slopes, "beta_true": beta_true.tolist(),
+        "mwg_posterior_mean": {k: float(np.mean(mwg[k])) for k in ("sigma2", "phi", "tau2")},
+        "launches": launches, "plain_calls": 0,
+    }
+    print("hetero fixed-effects path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(a).all() for out in (mwg, draws) for a in out.values()),
+             "non-finite hetero fixed-effects draws")
+    _require(launches["vecchia_bf_hetero"] >= 2 * 200,
+             "fewer kernel-3 launches than two a MWG step")
+    for sampler, slope in slopes.items():
+        _require(abs(slope - beta_true[1]) <= 0.1,
+                 f"hetero {sampler} posterior mean slope {slope} is not within 0.1 of -2")
+    return res
+
+
+def hetero_latent_path(dev) -> dict:
+    """LatentNNGP(exponential, m=15) on config 2's shapes (n=10,000, its
+    field from default_rng(0)) with N(0, 0.09 v_i) noise from the same draws,
+    v ~ U(0.25, 4): 8 chains cut to 300 + 300 steps, w_every=8 (config 2's
+    recipe has 500 + 1000); then the same data plus x @ [1, -2], 8 chains
+    150 + 150 from the first run's posterior means, through the V^-1-weighted
+    beta update.  Kernel 3 runs at alpha = 0 without the weights.  Gates:
+    all draws finite, tau2 within 2x of 0.09 in both, the slope within 0.1
+    of -2."""
+    n, chains = 10_000, 8
+    v = noise_weights(n)
+    coords, y = config2_field(n, 10.0, np.random.default_rng(0), noise_v=v)
+    noise = HeterogeneousNoise(v)
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = LatentNNGP(coords, y, kernel="exponential", m=M_MAIN, noise=noise, device=dev)
+    setup_s = time.perf_counter() - t0
+    init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1, "tau2": float(np.var(y)) * 0.15}
+    t0 = time.perf_counter()
+    draws = model.sample(300, n_burn=300, n_chains=chains, seed=0, init=init, w_every=8)
+    run_s = time.perf_counter() - t0
+    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
+    x = np.column_stack([np.ones(n), np.random.default_rng(1).standard_normal(n)])
+    beta_true = np.array([1.0, -2.0])
+    fixed = LatentNNGP(coords, y + x @ beta_true, kernel="exponential", m=M_MAIN, x=x,
+                       noise=noise, device=dev)
+    t0 = time.perf_counter()
+    with_x = fixed.sample(150, n_burn=150, n_chains=chains, seed=1, init=means,
+                          collect_w=False)
+    x_s = time.perf_counter() - t0
+    launches = _read_counts("hetero latent", ("vecchia_bf",))
+    means_x = {k: float(np.mean(with_x[k])) for k in ("sigma2", "phi", "tau2")}
+    slope = float(with_x["beta"][..., 1].mean())
+    res = {
+        "setup_s": setup_s, "run_s": run_s, "ms_per_step": run_s * 1e3 / 600,
+        "colors": model.n_colors, "posterior_mean": means,
+        "fixed_effects": {"run_s": x_s, "posterior_mean": means_x, "slope_mean": slope,
+                          "intercept_mean": float(with_x["beta"][..., 0].mean())},
+        "launches": launches, "plain_calls": 0, "w_shape": list(draws["w"].shape),
+    }
+    res["min_ess"], res["rhat_max"] = _chain_stats(draws)
+    print("hetero latent path [n10000]: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(a).all() for out in (draws, with_x) for a in out.values()),
+             "non-finite hetero latent draws")
+    _require(draws["w"].shape == (chains, -(-300 // 8), n),
+             f"w draws have the wrong shape {draws['w'].shape}")
+    for label, m_ in (("", means), (" with fixed effects", means_x)):
+        _require(TAU2_TRUE / 2 <= m_["tau2"] <= TAU2_TRUE * 2,
+                 f"hetero latent posterior mean tau2{label} {m_['tau2']} is not within "
+                 "2x of 0.09")
+    _require(abs(slope - beta_true[1]) <= 0.1,
+             f"hetero latent posterior mean slope {slope} is not within 0.1 of -2")
+    return res
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -2095,6 +2446,15 @@ def main() -> int:
     times = time_kernels(main_case)
     bounds = kernel_bounds(main_case)
 
+    # per-site noise weights through the closed-form dist instances, and any
+    # m <= 20 on the next larger built instance
+    hetero_main = main_case.with_noise(noise_weights(N_MAIN))
+    hetero_small = small_case.with_noise(noise_weights(1500))
+    errs_hetero = hetero_parity(hetero_main, hetero_small)
+    times.update(time_hetero(hetero_main, 10, 100, (1, 3)))
+    bounds.update(kernel_bounds(hetero_main))
+    errs_m = m_between_instances(dev, main_case)
+
     # the coords instances of the closed-form kernels on the same sites
     coords_main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, layout="coords")
     coords_small = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev, layout="coords")
@@ -2107,6 +2467,14 @@ def main() -> int:
                   .items() if name.endswith("_coords")})
     times.update(time_plain(coords_main))
     bounds.update(kernel_bounds(coords_main))
+    hetero_main = coords_main.with_noise(noise_weights(N_MAIN))
+    errs_hetero.update(hetero_parity(hetero_main,
+                                     coords_small.with_noise(noise_weights(1500))))
+    times.update(time_hetero(hetero_main, 10, 100, (1, 3)))
+    bounds.update(kernel_bounds(hetero_main))
+    del hetero_main, hetero_small
+    for name, err in four_dimensional_parity(dev).items():
+        errs[name] = max(errs[name], err)
     del main_case, coords_main, coords_small
 
     # the general-nu instances: config 3's data and shapes, and the small case
@@ -2123,6 +2491,11 @@ def main() -> int:
     check_static_nu(small_nu, "n1500 m7")
     times.update(time_kernels_nu(nu_case, plain=True))
     bounds.update(kernel_bounds_nu(nu_case))
+    nu_hetero = nu_case.with_noise(noise_weights(N_NU))
+    nu_hetero_err = check_general_nu(nu_hetero, f"hetero n{N_NU} m{M_NU}")
+    check_general_nu(small_nu.with_noise(noise_weights(1500)), "hetero n1500 m7")
+    times.update(time_hetero(nu_hetero, 5, 50, (1, 1)))
+    bounds.update(kernel_bounds_nu(nu_hetero))
     # and their coords instances
     nu_coords = Case(N_NU, M_NU, Matern(), CHAINS, seed=5, dev=dev, field=field3,
                      nu=nu_spread(CHAINS), layout="coords")
@@ -2135,6 +2508,14 @@ def main() -> int:
     compare_layouts(nu_case, nu_coords, f"general nu n{N_NU} m{M_NU}")
     times.update(time_kernels_nu(nu_coords, plain=True))
     bounds.update(kernel_bounds_nu(nu_coords))
+    nu_coords_hetero = nu_coords.with_noise(noise_weights(N_NU))
+    nu_coords_hetero_err = check_general_nu(nu_coords_hetero,
+                                            f"hetero coords n{N_NU} m{M_NU}")
+    check_general_nu(small_nu_coords.with_noise(noise_weights(1500)),
+                     "hetero coords n1500 m7")
+    times.update(time_hetero(nu_coords_hetero, 5, 50, (1, 1)))
+    bounds.update(kernel_bounds_nu(nu_coords_hetero))
+    del nu_hetero, nu_coords_hetero
     del nu_case, small_nu, small_case, nu_coords, small_nu_coords
     torch.cuda.empty_cache()
     # the same instances at the main path's shapes, for the table of kernels
@@ -2190,6 +2571,10 @@ def main() -> int:
     paths["config5_latent"] = config5_latent_path(dev)
     torch.cuda.empty_cache()
     paths["matern_nu_coords"] = matern_nu_coords_path(dev, field3, map3)
+    torch.cuda.empty_cache()
+    paths["hetero"] = hetero_main_path(dev)
+    paths["hetero_fixed_effects"] = hetero_fixed_effects_path(dev)
+    paths["hetero_latent"] = hetero_latent_path(dev)
 
     errs.update({
         "vecchia_suffstats": fwd["f_max_abs_err"],
@@ -2204,12 +2589,23 @@ def main() -> int:
         "vecchia_grad_nu_coords": nu_coords_err["sums_max_abs_err"],
         "vecchia_grad_y_nu_coords": nu_coords_err["b_max_abs_err"],
         "vecchia_bf_nu_coords": nu_coords_err["bf_b_max_abs_err"],
+        **errs_hetero,
     })
+    for sfx, err in (("", nu_hetero_err), ("_coords", nu_coords_hetero_err)):
+        errs.update({f"vecchia_suffstats_nu{sfx}_hetero": err["f_max_abs_err"],
+                     f"vecchia_grad_nu{sfx}_hetero": err["sums_max_abs_err"],
+                     f"vecchia_grad_y_nu{sfx}_hetero": err["b_max_abs_err"],
+                     f"vecchia_bf_nu{sfx}_hetero": err["bf_b_max_abs_err"]})
+    for name, err in errs_m.items():  # m = 12 and 17 on the dist instances
+        errs[name] = max(errs[name], err)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
+          f"{info['seconds']:.1f} s of it", flush=True)
     # launches: the sum over the paths, each counted from 0; no single
     # PyTorch call computes any of these functions (torch.special has K_0 and
     # K_1 only), so library_ms is null.  ms, plain_ms and bound_ms of the
-    # closed-form rows (either layout) are at n=100,000, m=15, of the
-    # general-nu rows at config 3's n=25,000, m=10, 16 chains each
+    # closed-form rows (either layout, with or without noise weights) are at
+    # n=100,000, m=15, of the general-nu rows at config 3's n=25,000, m=10,
+    # 16 chains each
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p["launches"][name] for p in paths.values()),

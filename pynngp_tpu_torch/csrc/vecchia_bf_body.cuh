@@ -8,9 +8,10 @@
 // driven by _run_bf l.991 and pallas_bf l.1036; its coords branch through
 // _dist_access, l.377 and l.957).  For every (site, chain) it
 // builds the m x m unit-variance neighbor correlation C (+ alpha + jitter on
-// valid diagonal slots, identity rows for invalid slots), factors it with the
-// unrolled Cholesky-Crout recurrence, forward-solves u = L^-1 c, writes
-// F = 1 + alpha - u.u and back-substitutes B = L^-T u.  B is exactly 0 in
+// valid diagonal slots, alpha v at the neighbor under heterogeneous noise,
+// identity rows for invalid slots), factors it with the unrolled
+// Cholesky-Crout recurrence, forward-solves u = L^-1 c, writes
+// F = 1 + alpha (alpha v_i with v) - u.u and back-substitutes B = L^-T u.  B is exactly 0 in
 // invalid slots.  These are the outputs the latent-w Gibbs sweep and the
 // conjugate beta update consume; there is no reduction and no partial.
 //
@@ -29,7 +30,9 @@
 // and (m + 1) * 4 bytes of stores against ~m^3/6 + m^2 dependent FMAs and
 // m(m+1)/2 exponentials: latency- and register-bound like kernel 2, because
 // the back-substitution reads column i of L for every k > i and so keeps all
-// of L live to the end (105 + 15 + 15 + 15 floats at m = 15).  Its floor on
+// of L live to the end (105 + 15 + 15 + 15 floats at m = 15, in local memory:
+// "Loop structure", vecchia_common.cuh).  With noise weights it also reads
+// nn_idx and v at the neighbors and v at the site.  Its floor on
 // an H100 is set by operations, the special-function rate of the
 // exponentials, just above the bytes it must move (chip_smoke.py,
 // kernel_bounds); it runs far above both.  The general-nu instances replace
@@ -45,11 +48,21 @@
 namespace vecchia {
 namespace {
 
-template <int M, bool GENERAL, bool COORDS>
+// ANY_D: the coords instance for d > kMaxDim (vecchia_common.cuh).  HETERO:
+// the instance launched with noise weights.  Kernel 3 is the one body that
+// takes noise as a template parameter: it gathers nothing else through nn_idx,
+// and the weights' loads behind a runtime branch cost its homogeneous
+// instances 2.5-5% on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), where
+// kernels 1 and 2 pay under 1%.
+template <int M, bool GENERAL, bool COORDS, bool ANY_D = false, bool HETERO = false>
 __global__ void __launch_bounds__(kBlock)
 bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
-          const float* __restrict__ tab_b, int n_pad, int dim, int family,
+          const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
+          const float* __restrict__ v, int n_pad, int m, int dim, int family,
           float* __restrict__ b_out, float* __restrict__ f_out) {
+  // the loops over the slots run to M, unrolled; in the ANY_D instance to
+  // the call's m, which keeps them rolled
+  const int top = ANY_D ? m : M;
   const int chain = blockIdx.y;
   const int site = blockIdx.x * kBlock + threadIdx.x;
   const float* pr = params + chain * kParams;
@@ -57,88 +70,107 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   const float alpha = pr[1];
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
-  float* b_site = b_out + static_cast<size_t>(chain) * M * n_pad + site;
+  float* b_site = b_out + static_cast<size_t>(chain) * m * n_pad + site;  // m planes
   float* f_site = f_out + static_cast<size_t>(chain) * n_pad + site;
   const MaternSet* set = chain_matern_set<GENERAL>(pr, false);  // before any thread leaves
 
   if (site >= n) {  // padded site: B = 0, F = 1
 #pragma unroll
-    for (int i = 0; i < M; ++i) b_site[static_cast<size_t>(i) * n_pad] = 0.0f;
+    for (int i = 0; i < top; ++i) {
+      if (i < m) b_site[static_cast<size_t>(i) * n_pad] = 0.0f;
+    }
     *f_site = 1.0f;
     return;
   }
   const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
+  const Guard g(site, m);
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
   float u[M];  // L^-1 c
 
 #pragma unroll
-  for (int k = 0; k < M; ++k) {
-    // slot k is a real neighbor iff site > k (identity row otherwise)
-    const float mk = site > k ? 1.0f : 0.0f;
-    float acc = 1.0f + mk * (alpha + jitter);
+  for (int k = 0; k < top; ++k) {
+    // slot k is a real neighbor iff k < m and site > k (identity row
+    // otherwise; one past m reads the last slot's planes, Guard)
+    const float mk = g.mask(k);
+    float nugget = alpha;
+    if constexpr (HETERO) {
+      nugget = alpha * v[nn_idx[static_cast<size_t>(g.at(k)) * n_pad + site]];
+    }
+    float acc = 1.0f + mk * (nugget + jitter);
 #pragma unroll
     for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
     const float inv = 1.0f / sqrtf(acc);
     inv_diag[k] = inv;
-    float au =
-        corr<GENERAL>(family, dist_in<COORDS>(tab_a, tab_b, own, k, dim, n_pad, site), phi, set) *
-        mk;
+    float au = corr<GENERAL>(family, dist_in<COORDS, ANY_D>(tab_a, tab_b, own, g, k, dim,
+                                                            n_pad, site),
+                             phi, set) *
+               mk;
 #pragma unroll
     for (int j = 0; j < k; ++j) au -= low[tri(k, j)] * u[j];
     u[k] = au * inv;
 #pragma unroll
-    for (int i = k + 1; i < M; ++i) {
-      const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
-      float a =
-          corr<GENERAL>(family, dist_pair<COORDS>(tab_b, i, k, dim, n_pad, site), phi, set) * mi;
+    for (int i = k + 1; i < top; ++i) {
+      const float mi = g.mask(i);  // mask_i * mask_k, as i > k
+      float a = corr<GENERAL>(family, dist_pair<COORDS, ANY_D>(tab_b, g, i, k, dim, n_pad, site),
+                              phi, set) *
+                mi;
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
     }
   }
 
-  float ff = 1.0f + alpha;
+  float ff = 1.0f + (HETERO ? alpha * v[site] : alpha);
 #pragma unroll
-  for (int k = 0; k < M; ++k) ff -= u[k] * u[k];
+  for (int k = 0; k < top; ++k) ff -= u[k] * u[k];
   *f_site = ff;
 
-  // back-substitution B = L^-T u, last slot first
+  // back-substitution B = L^-T u, last slot first; the call's B has m planes
   float b[M];
 #pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
+  for (int i = top - 1; i >= 0; --i) {
     float ab = u[i];
 #pragma unroll
-    for (int k = i + 1; k < M; ++k) ab -= low[tri(k, i)] * b[k];
+    for (int k = i + 1; k < top; ++k) ab -= low[tri(k, i)] * b[k];
     b[i] = ab * inv_diag[i];
-    b_site[static_cast<size_t>(i) * n_pad] = b[i];
+    if (i < m) b_site[static_cast<size_t>(i) * n_pad] = b[i];
   }
 }
 
-// Validates the launch shape, picks the M instance and launches on `stream`
-// without synchronising; returns cudaGetLastError().
+// Validates the launch shape, picks the instance (M >= m, or the ANY_D one
+// for coords with d > kMaxDim) and launches on `stream` without
+// synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
-int launch_bf(const float* params, const float* tab_a, const float* tab_b, int n_pad, int m,
-              int dim, int chains, int family, float* b_out, float* f_out, void* stream) {
-  if (!valid_launch<COORDS>(n_pad, chains, dim)) {
+int launch_bf(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
+              const float* v, int n_pad, int m, int dim, int chains, int family, float* b_out,
+              float* f_out, void* stream) {
+  if (!valid_launch<COORDS>(n_pad, chains, dim) || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_pad / kBlock, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VECCHIA_BF_CASE(MM)                                                                \
-  case MM:                                                                                 \
-    bf_kernel<MM, GENERAL, COORDS><<<grid, kBlock, 0, s>>>(params, tab_a, tab_b, n_pad, dim, \
-                                                           family, b_out, f_out);          \
-    break;
-  switch (m) {
-    VECCHIA_BF_CASE(7)
-    VECCHIA_BF_CASE(10)
-    VECCHIA_BF_CASE(15)
-    VECCHIA_BF_CASE(20)
+#define VECCHIA_BF_LAUNCH(MM, ANY)                                                          \
+  if (v != nullptr) {                                                                       \
+    bf_kernel<MM, GENERAL, COORDS, ANY, true><<<grid, kBlock, 0, s>>>(                      \
+        params, tab_a, tab_b, nn_idx, v, n_pad, m, dim, family, b_out, f_out);              \
+  } else {                                                                                  \
+    bf_kernel<MM, GENERAL, COORDS, ANY, false><<<grid, kBlock, 0, s>>>(                     \
+        params, tab_a, tab_b, nn_idx, v, n_pad, m, dim, family, b_out, f_out);              \
+  }
+  if (COORDS && dim > kMaxDim) {
+    VECCHIA_BF_LAUNCH(kAnyDimM, COORDS);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (launch_m(m)) {
+    case 7: VECCHIA_BF_LAUNCH(7, false); break;
+    case 10: VECCHIA_BF_LAUNCH(10, false); break;
+    case 15: VECCHIA_BF_LAUNCH(15, false); break;
+    case 20: VECCHIA_BF_LAUNCH(20, false); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef VECCHIA_BF_CASE
+#undef VECCHIA_BF_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,11 +4,12 @@
 #include "vecchia_bf_body.cuh"
 
 // C interface: the arguments of vecchia_bf_f32 with the coordinate planes in
-// the place of the distance planes and their dimension d in [1, 3]: co (d,
+// the place of the distance planes and their dimension d >= 1: co (d,
 // n_pad), cn (m d, n_pad), plane k d + a for coordinate a of slot k.
 extern "C" int vecchia_bf_coords_f32(const float* params, const float* co, const float* cn,
-                                     int n_pad, int m, int dim, int chains, int family,
-                                     float* b_out, float* f_out, void* stream) {
-  return vecchia::launch_bf<false, true>(params, co, cn, n_pad, m, dim, chains, family, b_out,
-                                         f_out, stream);
+                                     const int* nn_idx, const float* v, int n_pad, int m,
+                                     int dim, int chains, int family, float* b_out,
+                                     float* f_out, void* stream) {
+  return vecchia::launch_bf<false, true>(params, co, cn, nn_idx, v, n_pad, m, dim, chains,
+                                         family, b_out, f_out, stream);
 }

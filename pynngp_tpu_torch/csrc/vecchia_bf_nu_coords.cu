@@ -7,8 +7,9 @@
 // C interface: the arguments of vecchia_bf_coords_f32 without `family`; nu is
 // slot 4 of each chain's params row.
 extern "C" int vecchia_bf_nu_coords_f32(const float* params, const float* co, const float* cn,
-                                        int n_pad, int m, int dim, int chains, float* b_out,
-                                        float* f_out, void* stream) {
-  return vecchia::launch_bf<true, true>(params, co, cn, n_pad, m, dim, chains,
+                                        const int* nn_idx, const float* v, int n_pad, int m,
+                                        int dim, int chains, float* b_out, float* f_out,
+                                        void* stream) {
+  return vecchia::launch_bf<true, true>(params, co, cn, nn_idx, v, n_pad, m, dim, chains,
                                         vecchia::kMaternGeneral, b_out, f_out, stream);
 }

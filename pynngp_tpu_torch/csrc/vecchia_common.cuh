@@ -13,12 +13,31 @@
 //   coords (COORDS = true, Euclidean only): tab_a (d, n_pad) the site's own
 //          centred coordinates, tab_b (m d, n_pad) its neighbors', plane
 //          k d + a for coordinate a of slot k; every distance is recomputed
-//          as sqrt(sum_a (x_a - x'_a)^2), d a launch argument in [1, 3].
+//          as sqrt(sum_a (x_a - x'_a)^2), d >= 1 a launch argument.
+// m, the call's neighbor count, is a launch argument too: a call runs on the
+// smallest built instance M >= m (launch_m), and slots k >= m are identity
+// rows (Guard).  The tables of an m-call have m (or m(m-1)/2, or m d)
+// planes, the leading planes of the M layout: tri(i, k) for i < m and
+// k d + a for k < m do not depend on M.
+//
+// Heterogeneous noise.  Every body takes `v`, the per-site noise weights in
+// ordered site space padded to n_pad with 1 (the reference's _noise_planes,
+// pallas_bf.py:510-518), or null for homogeneous noise; the branch on it is
+// the same for every thread of a launch.  With v, the relative nugget of
+// neighbor slot k is alpha v[nn_idx[k]] and the site's own alpha v[site]
+// (reference vecchia.py:140-143); each thread gathers v through nn_idx where
+// it uses it, as it gathers y, and keeps none of it live.
 // Per-chain parameters as a (C, 6) float32
 // array [phi, alpha, jitter, n, nu, off], mirroring _params_vec
 // (pallas_bf.py:496).  nu is read by the general-nu Matern instances alone
 // (GENERAL = true; vecchia_bessel.cuh); off is read by none and stays in the
 // row for the site-sharded variants.
+//
+// Loop structure.  Every body unrolls its loops over M, and the factor lives
+// in registers.  Kernel 2 with its nested loops left rolled (an unroll count
+// of M on them) and the factor in local memory ran 1.4-1.8x faster on an
+// NVIDIA H100 80GB HBM3 at 700 W, kernels 1 and 3 4-62% slower at m = 20
+// (PERF.md): a redesign for a later change, with the layout rule it moves.
 //
 // GENERAL is a template parameter of every body beside M.  The closed-form
 // instances (GENERAL = false) take rho and d rho / d phi from the switch
@@ -105,10 +124,24 @@ __device__ __forceinline__ float drho_dphi(int family, float d, float phi) {
   }
 }
 
-constexpr int kMaxDim = 3;  // coordinate dimensions the coords layout takes
+// Coordinate dimensions held in registers for the site's own coordinates in
+// the coords layout; up to kMaxDim coordinates the accessors below are
+// straight-line code.  A launch with d > kMaxDim runs an instance of its own
+// (ANY_D, one a source: see kAnyDimM), which reads every coordinate from the
+// fourth on where it uses it, in a loop, and keeps every loop rolled.
+// Holding more coordinates would cost every coords instance registers, and a
+// loop in the common instances cost them 12-15% of their time (measured on
+// the H100: every distance became a branch in a body that is otherwise one
+// straight-line block).
+constexpr int kMaxDim = 3;
 
-// The site's own coordinates (coords layout), loaded once per thread; the
-// dist layout has none.  Unused entries (a >= dim) are 0.
+// The instance that runs coords launches with d > kMaxDim: arrays for the
+// largest M, and loops that run to the call's m, which nvcc cannot unroll, so
+// that it compiles in seconds.
+constexpr int kAnyDimM = 20;
+
+// The site's own first kMaxDim coordinates (coords layout), loaded once per
+// thread; the dist layout has none.  Unused entries (a >= dim) are 0.
 template <bool COORDS>
 struct OwnCoords {
   float x[COORDS ? kMaxDim : 1];
@@ -127,33 +160,62 @@ __device__ __forceinline__ OwnCoords<COORDS> load_own(const float* __restrict__ 
   return own;
 }
 
-// Coordinate a of neighbor slot k, read where it is used.  The load is a
-// volatile asm statement so that the compiler neither merges the reads of one
-// coordinate nor hoists them: merged, the m d neighbor coordinates would stay
-// live in registers through the whole factorization, in bodies that already
-// spill at m = 15 (the reference's note at pallas_bf.py:388-391 found the same
-// on the TPU, where hoisting them blew its fast memory).  A re-read is an L1
-// hit: a block's neighbor planes are m d * 512 bytes.
-__device__ __forceinline__ float nbr_coord(const float* __restrict__ tab_b, int k, int a,
-                                           int dim, int n_pad, int site) {
-  const float* at = tab_b + static_cast<size_t>(k * dim + a) * n_pad + site;
+// A float32 load that the compiler neither merges with another read of the
+// same address nor hoists: a volatile asm statement.
+__device__ __forceinline__ float load_where_used(const float* at) {
   float v;
   asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(at));
   return v;
 }
 
+// Coordinate a of neighbor slot k, read where it is used.  Merged, the m d
+// neighbor coordinates would stay live in registers through the whole
+// factorization, in bodies that already spill at m = 15 (the reference's
+// note at pallas_bf.py:388-391 found the same on the TPU, where hoisting them
+// blew its fast memory).  A re-read is an L1 hit: a block's neighbor planes
+// are m d * 512 bytes.
+__device__ __forceinline__ float nbr_coord(const float* __restrict__ tab_b, int k, int a,
+                                           int dim, int n_pad, int site) {
+  return load_where_used(tab_b + static_cast<size_t>(k * dim + a) * n_pad + site);
+}
+
+// The m guard.  A call with m < M neighbors runs the M instance; its tables
+// have only m planes (m(m-1)/2 pair planes, m d coordinate planes), so a slot
+// or pair at or past m reads slot 0's planes instead (a select on the index:
+// no branch around the load, which cost kernels 1 and 3 6-10%) and is masked
+// by the caller: slot k is a real neighbor iff min(site, m) > k.  Exact calls
+// (m = M) run the same code with one select an index.  Kernel 2, whose
+// registers a select on every load pushed past 255, branches around the
+// loads instead.
+struct Guard {
+  int lim;  // min(site, m): slot k is valid iff lim > k
+  int m;
+  __device__ __forceinline__ Guard(int site, int m_) : lim(min(site, m_)), m(m_) {}
+  __device__ __forceinline__ float mask(int k) const { return lim > k ? 1.0f : 0.0f; }
+  __device__ __forceinline__ int at(int k) const { return k < m ? k : 0; }
+};
+
 // Distance from the site to its neighbor slot k.
-template <bool COORDS>
+template <bool COORDS, bool ANY_D>
 __device__ __forceinline__ float dist_in(const float* __restrict__ tab_a,
                                          const float* __restrict__ tab_b,
-                                         const OwnCoords<COORDS>& own, int k, int dim,
-                                         int n_pad, int site) {
+                                         const OwnCoords<COORDS>& own, const Guard& g, int k,
+                                         int dim, int n_pad, int site) {
+  k = g.at(k);
   if constexpr (COORDS) {
     float acc = 0.0f;
 #pragma unroll
     for (int a = 0; a < kMaxDim; ++a) {
       if (a < dim) {
         const float diff = own.x[a] - nbr_coord(tab_b, k, a, dim, n_pad, site);
+        acc += diff * diff;
+      }
+    }
+    if constexpr (ANY_D) {
+#pragma unroll 1
+      for (int a = kMaxDim; a < dim; ++a) {
+        const float diff = load_where_used(tab_a + static_cast<size_t>(a) * n_pad + site) -
+                           nbr_coord(tab_b, k, a, dim, n_pad, site);
         acc += diff * diff;
       }
     }
@@ -164,10 +226,12 @@ __device__ __forceinline__ float dist_in(const float* __restrict__ tab_a,
 }
 
 // Distance between neighbor slots i and k, i > k.
-template <bool COORDS>
-__device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, int i, int k,
-                                           int dim, int n_pad, int site) {
+template <bool COORDS, bool ANY_D>
+__device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, const Guard& g,
+                                           int i, int k, int dim, int n_pad, int site) {
   if constexpr (COORDS) {
+    i = g.at(i);
+    k = g.at(k);
     float acc = 0.0f;
 #pragma unroll
     for (int a = 0; a < kMaxDim; ++a) {
@@ -177,17 +241,49 @@ __device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, int 
         acc += diff * diff;
       }
     }
+    if constexpr (ANY_D) {
+#pragma unroll 1
+      for (int a = kMaxDim; a < dim; ++a) {
+        const float diff = nbr_coord(tab_b, i, a, dim, n_pad, site) -
+                           nbr_coord(tab_b, k, a, dim, n_pad, site);
+        acc += diff * diff;
+      }
+    }
     return sqrtf(acc);
   } else {
-    return tab_b[static_cast<size_t>(tri(i, k)) * n_pad + site];
+    return tab_b[static_cast<size_t>(i < g.m ? tri(i, k) : 0) * n_pad + site];
   }
+}
+
+// Relative nugget of a neighbor whose site id is `nb`: alpha, or alpha v at
+// the neighbor under heterogeneous noise.
+__device__ __forceinline__ float slot_nugget(float alpha, const float* __restrict__ v, int nb) {
+  return v != nullptr ? alpha * v[nb] : alpha;
+}
+
+// The site's own relative nugget: alpha, or alpha v[site].
+__device__ __forceinline__ float own_nugget(float alpha, const float* __restrict__ v,
+                                            int site) {
+  return v != nullptr ? alpha * v[site] : alpha;
+}
+
+// The built instance M a call with m neighbors runs on: the smallest of
+// 7, 10, 15, 20 at or above m, or 0 (refused) above 20 or below 1.  The m = 20
+// value-and-gradient instances already hold 255 registers and spill.
+__host__ inline int launch_m(int m) {
+  if (m < 1) return 0;
+  if (m <= 7) return 7;
+  if (m <= 10) return 10;
+  if (m <= 15) return 15;
+  if (m <= 20) return 20;
+  return 0;
 }
 
 // Launch-shape checks shared by the three launchers.
 template <bool COORDS>
 __host__ inline bool valid_launch(int n_pad, int chains, int dim) {
   return n_pad > 0 && n_pad % kBlock == 0 && chains > 0 && chains <= 65535 &&
-         (!COORDS || (dim >= 1 && dim <= kMaxDim));
+         (!COORDS || dim >= 1);
 }
 
 // rho of either set of instances.  `set` is the block's MaternSet (GENERAL)

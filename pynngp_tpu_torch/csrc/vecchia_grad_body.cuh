@@ -11,11 +11,14 @@
 // driven by _run_grad l.867; its coords branch through _dist_access, l.377 and
 // l.752).  For
 // every (site, chain) it makes the same factorization as kernel 1,
-// back-substitutes p = L^-T u and q = L^-T v (p = C^-1 c, q = C^-1 y_N), and
+// back-substitutes p = L^-T u and q = L^-T w (w = L^-1 y_N; p = C^-1 c,
+// q = C^-1 y_N), and
 // contracts them with dC/dphi (from drho_dphi) and dC/dalpha (the masked
-// identity):
+// identity; diag(v) at the neighbors under heterogeneous noise, the
+// reference's _grad_kernel l.743-835):
 //   dF/dphi = -2 p.dc + p' dC p,   dr/dphi = -dc.q + p' dC q,
-//   dF/dalpha = 1 + p.p,           dr/dalpha = p.q.
+//   dF/dalpha = 1 + p.p,           dr/dalpha = p.q,
+//   with v: dF/dalpha = v_i + p' diag(v_N) p,   dr/dalpha = p' diag(v_N) q.
 // It writes, per (block, chain), partials of logdet, quad, dlogdet/dphi,
 // dquad/dphi, dlogdet/dalpha and dquad/dalpha over the sites < n; the
 // wrapper (ops/diff_suffstats.py) sums them in float64.  One pass over the
@@ -52,8 +55,11 @@
 // per thread plus a second read of the pair distances for the dC contraction (L2-resident
 // for the block), against ~m^3/6 + m^2 dependent FMAs: latency- and
 // register-bound on the serial recurrence.  At m = 15 the factor alone is
-// about 120 live floats per thread (105 off-diagonal + 15 inverse diagonal),
-// and p, q, u, v and dc add 75 more, so expect spills; ptxas -v reports them.
+// about 120 floats per thread (105 off-diagonal + 15 inverse diagonal), and
+// p, q, u, w and dc add 75 more: in registers they spilled, so they live in
+// local memory ("Loop structure", vecchia_common.cuh); ptxas -v reports the
+// stack.  With noise weights a thread also gathers v at its neighbors twice
+// (the diagonal, the alpha sums) and at itself: (2m + 1) * 4 bytes more.
 // EMIT_Y adds (m + 1) * 4 bytes of stores per thread.  In the coords layout
 // every pair distance is recomputed twice, in the factorization and in the
 // contractions (d subtractions and multiply-adds and a sqrt each time, from
@@ -67,13 +73,16 @@
 namespace vecchia {
 namespace {
 
-template <int M, bool EMIT_Y, bool GENERAL, bool COORDS>
+template <int M, bool EMIT_Y, bool GENERAL, bool COORDS, bool ANY_D = false>
 __global__ void __launch_bounds__(kBlock)
 grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
             const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
-            const float* __restrict__ y_all, int y_stride, int n_pad, int dim, int family,
-            float* __restrict__ part, float* __restrict__ b_out,
-            float* __restrict__ rof_out, bool with_nu) {
+            const float* __restrict__ y_all, int y_stride, const float* __restrict__ v,
+            int n_pad, int m, int dim, int family, float* __restrict__ part,
+            float* __restrict__ b_out, float* __restrict__ rof_out, bool with_nu) {
+  // the loops over the slots run to M, unrolled; in the ANY_D instance to
+  // the call's m, which keeps them rolled
+  const int top = ANY_D ? m : M;
   const int chain = blockIdx.y;
   const int site = blockIdx.x * kBlock + threadIdx.x;
   const float* pr = params + chain * kParams;
@@ -84,47 +93,61 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   const int n = static_cast<int>(pr[3]);
   const MaternSet* set = chain_matern_set<GENERAL>(pr, with_nu);
   const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
+  const Guard g(site, m);
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
   float u[M];   // L^-1 c
-  float v[M];   // L^-1 y_N
+  float w[M];   // L^-1 y_N
   float dc[M];  // dc/dphi (masked)
   [[maybe_unused]] float dcn[GENERAL ? M : 1];  // dc/dnu (masked), GENERAL only
 
 #pragma unroll
-  for (int k = 0; k < M; ++k) {
-    const float mk = site > k ? 1.0f : 0.0f;
-    float acc = 1.0f + mk * (alpha + jitter);
+  for (int k = 0; k < top; ++k) {
+    // slot k is a real neighbor iff k < m and site > k (identity row
+    // otherwise; one past m reads the last slot's planes, Guard)
+    const float mk = g.mask(k);
+    float nugget = alpha;
+    float au = 0.0f;
+    float aw = 0.0f;
+    dc[k] = 0.0f;
+    if constexpr (GENERAL) dcn[k] = 0.0f;
+    if (k < m) {  // a branch, not a select: kernel 2 holds too many registers
+      const int nb = nn_idx[static_cast<size_t>(k) * n_pad + site];
+      nugget = slot_nugget(alpha, v, nb);
+      const float dk = dist_in<COORDS, ANY_D>(tab_a, tab_b, own, g, k, dim, n_pad, site);
+      if constexpr (GENERAL) {
+        const float2 rd = rho_drho_general(dk, &set->at);
+        dc[k] = rd.y * mk;
+        dcn[k] = with_nu ? drho_dnu_general(dk, set) * mk : 0.0f;
+        au = rd.x * mk;
+      } else {
+        dc[k] = drho_dphi(family, dk, phi) * mk;
+        au = rho(family, dk, phi) * mk;
+      }
+      aw = y[nb] * mk;
+    }
+    float acc = 1.0f + mk * (nugget + jitter);
 #pragma unroll
     for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
     const float inv = 1.0f / sqrtf(acc);
     inv_diag[k] = inv;
-    const size_t at = static_cast<size_t>(k) * n_pad + site;
-    const float dk = dist_in<COORDS>(tab_a, tab_b, own, k, dim, n_pad, site);
-    float au;
-    if constexpr (GENERAL) {
-      const float2 rd = rho_drho_general(dk, &set->at);
-      dc[k] = rd.y * mk;
-      dcn[k] = with_nu ? drho_dnu_general(dk, set) * mk : 0.0f;
-      au = rd.x * mk;
-    } else {
-      dc[k] = drho_dphi(family, dk, phi) * mk;
-      au = rho(family, dk, phi) * mk;
-    }
-    float av = y[nn_idx[at]] * mk;
 #pragma unroll
     for (int j = 0; j < k; ++j) {
       au -= low[tri(k, j)] * u[j];
-      av -= low[tri(k, j)] * v[j];
+      aw -= low[tri(k, j)] * w[j];
     }
     u[k] = au * inv;
-    v[k] = av * inv;
+    w[k] = aw * inv;
 #pragma unroll
-    for (int i = k + 1; i < M; ++i) {
-      const float mi = site > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
-      float a =
-          corr<GENERAL>(family, dist_pair<COORDS>(tab_b, i, k, dim, n_pad, site), phi, set) * mi;
+    for (int i = k + 1; i < top; ++i) {
+      const float mi = g.mask(i);  // mask_i * mask_k, as i > k
+      float a = 0.0f;
+      if (i < m) {
+        a = corr<GENERAL>(family, dist_pair<COORDS, ANY_D>(tab_b, g, i, k, dim, n_pad, site),
+                          phi, set) *
+            mi;
+      }
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
@@ -132,37 +155,47 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   }
 
   const bool valid = site < n;
-  float ff = 1.0f + alpha;
+  float ff = 1.0f + own_nugget(alpha, v, site);
   float r = valid ? y[site] : 0.0f;
 #pragma unroll
-  for (int k = 0; k < M; ++k) {
+  for (int k = 0; k < top; ++k) {
     ff -= u[k] * u[k];
-    r -= u[k] * v[k];
+    r -= u[k] * w[k];
   }
 
-  // back-substitution p = L^-T u, q = L^-T v (zero on invalid slots)
+  // back-substitution p = L^-T u, q = L^-T w (exactly zero on invalid
+  // slots).  dC/dalpha is the masked identity, diag(v) at the neighbors with
+  // v: pp = p' dC/dalpha p and pq = p' dC/dalpha q, v re-gathered where used
   float p[M];
   float q[M];
   float pp = 0.0f;
   float pq = 0.0f;
 #pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
+  for (int i = top - 1; i >= 0; --i) {
     float ap = u[i];
-    float aq = v[i];
+    float aq = w[i];
 #pragma unroll
-    for (int k = i + 1; k < M; ++k) {
+    for (int k = i + 1; k < top; ++k) {
       ap -= low[tri(k, i)] * p[k];
       aq -= low[tri(k, i)] * q[k];
     }
     p[i] = ap * inv_diag[i];
     q[i] = aq * inv_diag[i];
-    pp += p[i] * p[i];
-    pq += p[i] * q[i];
+    if (v != nullptr) {  // p = 0 past the call's m: any in-bounds weight will do
+      const float vi = v[nn_idx[static_cast<size_t>(g.at(i)) * n_pad + site]];
+      pp += vi * p[i] * p[i];
+      pq += vi * p[i] * q[i];
+    } else {
+      pp += p[i] * p[i];
+      pq += p[i] * q[i];
+    }
   }
   if constexpr (EMIT_Y) {
-    float* b_site = b_out + static_cast<size_t>(chain) * M * n_pad + site;
+    float* b_site = b_out + static_cast<size_t>(chain) * m * n_pad + site;  // m planes
 #pragma unroll
-    for (int i = 0; i < M; ++i) b_site[static_cast<size_t>(i) * n_pad] = valid ? p[i] : 0.0f;
+    for (int i = 0; i < top; ++i) {
+      if (i < m) b_site[static_cast<size_t>(i) * n_pad] = valid ? p[i] : 0.0f;
+    }
   }
 
   // contractions with dC/dphi (diagonal-free: drho(0) = 0) and, GENERAL with
@@ -172,7 +205,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   [[maybe_unused]] float df_nu = 0.0f;
   [[maybe_unused]] float dr_nu = 0.0f;
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
+  for (int i = 0; i < top; ++i) {
     df_phi -= 2.0f * p[i] * dc[i];
     dr_phi -= dc[i] * q[i];
     if constexpr (GENERAL) {
@@ -181,12 +214,13 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
     }
   }
 #pragma unroll
-  for (int i = 0; i < M; ++i) {
+  for (int i = 0; i < top; ++i) {
 #pragma unroll
-    for (int j = i + 1; j < M; ++j) {
-      const float mj = site > j ? 1.0f : 0.0f;  // mask_i * mask_j, as j > i
+    for (int j = i + 1; j < top; ++j) {
+      if (j >= m) continue;
+      const float mj = g.mask(j);  // mask_i * mask_j, as j > i
       if constexpr (GENERAL) {
-        const float dij = dist_pair<COORDS>(tab_b, j, i, dim, n_pad, site);
+        const float dij = dist_pair<COORDS, ANY_D>(tab_b, g, j, i, dim, n_pad, site);
         const float dcij = rho_drho_general(dij, &set->at).y * mj;
         df_phi += 2.0f * p[i] * p[j] * dcij;
         dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
@@ -197,13 +231,14 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
         }
       } else {
         const float dcij =
-            drho_dphi(family, dist_pair<COORDS>(tab_b, j, i, dim, n_pad, site), phi) * mj;
+            drho_dphi(family, dist_pair<COORDS, ANY_D>(tab_b, g, j, i, dim, n_pad, site), phi) *
+            mj;
         df_phi += 2.0f * p[i] * p[j] * dcij;
         dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
       }
     }
   }
-  const float df_a = 1.0f + pp;
+  const float df_a = (v != nullptr ? v[site] : 1.0f) + pp;
   const float dr_a = pq;
 
   const float inv_f = valid ? 1.0f / ff : 0.0f;
@@ -238,31 +273,35 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   }
 }
 
-// Validates the launch shape, picks the M instance and launches on `stream`
-// without synchronising; returns cudaGetLastError().
+// Validates the launch shape, picks the instance (M >= m, or the ANY_D one
+// for coords with d > kMaxDim) and launches on `stream` without
+// synchronising; returns cudaGetLastError().
 template <bool EMIT_Y, bool GENERAL, bool COORDS>
 int launch_grad(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
-                const float* y, int y_stride, int n_pad, int m, int dim, int chains, int family,
-                bool with_nu, float* part, float* b_out, float* rof_out, void* stream) {
-  if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0) {
+                const float* y, int y_stride, const float* v, int n_pad, int m, int dim,
+                int chains, int family, bool with_nu, float* part, float* b_out,
+                float* rof_out, void* stream) {
+  if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0 || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_pad / kBlock, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VECCHIA_GRAD_CASE(MM)                                                              \
-  case MM:                                                                                 \
-    grad_kernel<MM, EMIT_Y, GENERAL, COORDS><<<grid, kBlock, 0, s>>>(                      \
-        params, tab_a, tab_b, nn_idx, y, y_stride, n_pad, dim, family, part, b_out, rof_out, \
-        with_nu);                                                                          \
-    break;
-  switch (m) {
-    VECCHIA_GRAD_CASE(7)
-    VECCHIA_GRAD_CASE(10)
-    VECCHIA_GRAD_CASE(15)
-    VECCHIA_GRAD_CASE(20)
+#define VECCHIA_GRAD_LAUNCH(MM, ANY)                                                      \
+  grad_kernel<MM, EMIT_Y, GENERAL, COORDS, ANY><<<grid, kBlock, 0, s>>>(                  \
+      params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, family, part, b_out,   \
+      rof_out, with_nu)
+  if (COORDS && dim > kMaxDim) {
+    VECCHIA_GRAD_LAUNCH(kAnyDimM, COORDS);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (launch_m(m)) {
+    case 7: VECCHIA_GRAD_LAUNCH(7, false); break;
+    case 10: VECCHIA_GRAD_LAUNCH(10, false); break;
+    case 15: VECCHIA_GRAD_LAUNCH(15, false); break;
+    case 20: VECCHIA_GRAD_LAUNCH(20, false); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef VECCHIA_GRAD_CASE
+#undef VECCHIA_GRAD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

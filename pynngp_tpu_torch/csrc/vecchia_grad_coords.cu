@@ -5,13 +5,13 @@
 #include "vecchia_grad_body.cuh"
 
 // C interface: the arguments of vecchia_grad_f32 with the coordinate planes in
-// the place of the distance planes and their dimension d in [1, 3]: co (d,
+// the place of the distance planes and their dimension d >= 1: co (d,
 // n_pad), cn (m d, n_pad), plane k d + a for coordinate a of slot k.
 extern "C" int vecchia_grad_coords_f32(const float* params, const float* co, const float* cn,
                                        const int* nn_idx, const float* y, int y_stride,
-                                       int n_pad, int m, int dim, int chains, int family,
-                                       float* part, void* stream) {
-  return vecchia::launch_grad<false, false, true>(params, co, cn, nn_idx, y, y_stride, n_pad, m,
-                                                  dim, chains, family, false, part, nullptr,
+                                       const float* v, int n_pad, int m, int dim, int chains,
+                                       int family, float* part, void* stream) {
+  return vecchia::launch_grad<false, false, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad,
+                                                  m, dim, chains, family, false, part, nullptr,
                                                   nullptr, stream);
 }

@@ -10,10 +10,10 @@
 // row; part is (8, C, n_pad / 128): the six sums of vecchia_grad_f32, then
 // dlogdet/dnu and dquad/dnu (zeros without `with_nu`).
 extern "C" int vecchia_grad_nu_f32(const float* params, const float* d_in, const float* d_tri,
-                                   const int* nn_idx, const float* y, int y_stride, int n_pad,
-                                   int m, int chains, int with_nu, float* part,
-                                   void* stream) {
-  return vecchia::launch_grad<false, true, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m,
-                                                  0, chains, vecchia::kMaternGeneral,
+                                   const int* nn_idx, const float* y, int y_stride,
+                                   const float* v, int n_pad, int m, int chains, int with_nu,
+                                   float* part, void* stream) {
+  return vecchia::launch_grad<false, true, false>(params, d_in, d_tri, nn_idx, y, y_stride, v,
+                                                  n_pad, m, 0, chains, vecchia::kMaternGeneral,
                                                   with_nu != 0, part, nullptr, nullptr, stream);
 }

@@ -7,11 +7,11 @@
 
 // C interface: the arguments of vecchia_grad_coords_f32 with `with_nu` in the
 // place of `family`; part is (8, C, n_pad / 128) as for vecchia_grad_nu_f32.
-extern "C" int vecchia_grad_nu_coords_f32(const float* params, const float* co,
-                                          const float* cn, const int* nn_idx, const float* y,
-                                          int y_stride, int n_pad, int m, int dim, int chains,
+extern "C" int vecchia_grad_nu_coords_f32(const float* params, const float* co, const float* cn,
+                                          const int* nn_idx, const float* y, int y_stride,
+                                          const float* v, int n_pad, int m, int dim, int chains,
                                           int with_nu, float* part, void* stream) {
-  return vecchia::launch_grad<false, true, true>(params, co, cn, nn_idx, y, y_stride, n_pad, m,
-                                                 dim, chains, vecchia::kMaternGeneral,
+  return vecchia::launch_grad<false, true, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad,
+                                                 m, dim, chains, vecchia::kMaternGeneral,
                                                  with_nu != 0, part, nullptr, nullptr, stream);
 }

@@ -5,12 +5,11 @@
 
 // C interface: the arguments of vecchia_grad_nu_f32, and the two outputs of
 // vecchia_grad_y_f32, b_out (C, m, n_pad) and rof_out (C, n_pad).
-extern "C" int vecchia_grad_y_nu_f32(const float* params, const float* d_in,
-                                     const float* d_tri, const int* nn_idx, const float* y,
-                                     int y_stride, int n_pad, int m, int chains, int with_nu,
-                                     float* part, float* b_out, float* rof_out,
-                                     void* stream) {
-  return vecchia::launch_grad<true, true, false>(params, d_in, d_tri, nn_idx, y, y_stride, n_pad, m, 0,
-                                                 chains, vecchia::kMaternGeneral, with_nu != 0,
-                                                 part, b_out, rof_out, stream);
+extern "C" int vecchia_grad_y_nu_f32(const float* params, const float* d_in, const float* d_tri,
+                                     const int* nn_idx, const float* y, int y_stride,
+                                     const float* v, int n_pad, int m, int chains, int with_nu,
+                                     float* part, float* b_out, float* rof_out, void* stream) {
+  return vecchia::launch_grad<true, true, false>(params, d_in, d_tri, nn_idx, y, y_stride, v,
+                                                 n_pad, m, 0, chains, vecchia::kMaternGeneral,
+                                                 with_nu != 0, part, b_out, rof_out, stream);
 }

@@ -5,15 +5,16 @@
 
 // C interface, bound with ctypes by pynngp_tpu_torch/ops/_build.py.
 //   params (C, 6); d_in (m, n_pad); d_tri (m(m-1)/2, n_pad); nn_idx (m, n_pad)
-//   int32; y (n,) with y_stride 0, or (C, n) with y_stride n; f_out, r_out
-//   (C, n_pad); part (2, C, n_pad / 128).
+//   int32; y (n,) with y_stride 0, or (C, n) with y_stride n; v (n_pad,) the
+//   per-site noise weights padded with 1, or null for homogeneous noise;
+//   m <= 20 (the instance M >= m runs); f_out, r_out (C, n_pad); part
+//   (2, C, n_pad / 128).
 // Launches on `stream` without synchronising; returns cudaGetLastError().
-extern "C" int vecchia_suffstats_f32(const float* params, const float* d_in,
-                                     const float* d_tri, const int* nn_idx, const float* y,
-                                     int y_stride, int n_pad, int m, int chains, int family,
-                                     float* f_out, float* r_out, float* part,
-                                     void* stream) {
-  return vecchia::launch_suffstats<false, false>(params, d_in, d_tri, nn_idx, y, y_stride,
+extern "C" int vecchia_suffstats_f32(const float* params, const float* d_in, const float* d_tri,
+                                     const int* nn_idx, const float* y, int y_stride,
+                                     const float* v, int n_pad, int m, int chains, int family,
+                                     float* f_out, float* r_out, float* part, void* stream) {
+  return vecchia::launch_suffstats<false, false>(params, d_in, d_tri, nn_idx, y, y_stride, v,
                                                  n_pad, m, 0, chains, family, f_out, r_out,
                                                  part, stream);
 }

@@ -1,10 +1,18 @@
-"""Latent-w NNGP model: y_i = x_i'beta + w_i + eps_i, eps ~ N(0, tau2),
-w ~ NNGP(0, sigma2 rho_phi) (counterpart of ``pynngp_tpu.models.latent``).
+"""Latent-w NNGP model: y_i = x_i'beta + w_i + eps_i, eps_i ~ N(0, tau2 v_i),
+w ~ NNGP(0, sigma2 rho_phi) (counterpart of ``pynngp_tpu.models.latent``);
+v = 1 under homogeneous noise, known per-site weights under
+``HeterogeneousNoise(v)``.
 
-Ported: coordinate ordering, Euclidean distance, homogeneous noise, one
-device, every kernel of :mod:`pynngp_tpu_torch.kernels` (with ``Matern()``
-the theta block is (phi, nu), otherwise phi alone).  Every other option of
-the reference raises.
+Ported: coordinate ordering, Euclidean distance, homogeneous and
+heterogeneous noise, one device, every kernel of
+:mod:`pynngp_tpu_torch.kernels` (with ``Matern()`` the theta block is (phi,
+nu), otherwise phi alone).  Every other option of the reference raises.
+
+One departure from the reference: under heterogeneous noise the beta | w,
+tau2 update is weighted by V^-1 = diag(1/v), the exact conditional
+(precision X' V^-1 X / tau2 + I / s^2, right-hand side X' V^-1 (y - w) /
+tau2).  The reference's (``pynngp_tpu/models/latent.py:654-661``) leaves out
+the weights; with v = 1 the two agree exactly.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
   - w: site-by-site Gibbs, two implementations with the same stationary law:
@@ -14,14 +22,16 @@ Sampler (Metropolis-within-Gibbs, batched over C chains):
         pass per colour instead of n sequential steps;
       * ``w_update='sequential'``: the reference's site-by-site scan, a
         Python loop over sites kept as the semantics oracle (CPU sizes);
-  - tau2: conjugate inverse-gamma from the measurement residuals;
-  - beta: conjugate Gaussian linear model on y - w;
+  - tau2: conjugate inverse-gamma from the measurement residuals, each
+    weighted by 1/v_i;
+  - beta: conjugate Gaussian linear model on y - w, weighted by 1/v;
   - phi (and nu): random-walk Metropolis, one B/F rebuild per proposal (kernel 3,
     ``ops/bf.py``), against the sigma2-collapsed marginal
     (``collapsed=True``, the default) or the sigma2-conditioned target;
   - sigma2: conjugate inverse-gamma from the Vecchia quadratic form of w.
 
-The per-site conditional of w_i:
+The per-site conditional of w_i (tau2 below is tau2 v_i under
+heterogeneous noise):
   v_i  = [ 1/tau2 + 1/(s2 F_i) + sum_j B_{j,l}^2/(s2 F_j) ]^{-1}
   mu_i = v_i [ (y_i - x_i'b)/tau2 + B_i.w_{N(i)}/(s2 F_i)
                + sum_j B_{j,l} (w_j - sum_{k != l} B_{j,k} w_{N(j)_k})/(s2 F_j) ]
@@ -57,9 +67,10 @@ from pynngp_tpu_torch.neighbors import (
     color_moral_graph,
     color_site_table,
 )
+from pynngp_tpu_torch.noise import get_noise
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.site_tables import choose_layout, make_site_tables
-from pynngp_tpu_torch.ops.suffstats import CUDA_M
+from pynngp_tpu_torch.ops.suffstats import cuda_instance_m
 from pynngp_tpu_torch.priors import logit_transform
 from pynngp_tpu_torch.samplers.mwg import (
     adapt_log_step,
@@ -134,8 +145,7 @@ class LatentNNGP:
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device sharding) is not "
                                       "ported yet")
-        if noise != "homogeneous":
-            raise NotImplementedError("only homogeneous noise is ported")
+        self.noise = get_noise(noise)
         self.device = device = check_device(device, dtype)
         self.kernel = get_kernel(kernel)
         self.dtype = dtype
@@ -164,10 +174,23 @@ class LatentNNGP:
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
             coords_host=coords[tab.order] if on_coords else None)
         self.m = self.tables.m
-        if device.type == "cuda" and self.m not in CUDA_M:
-            raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")
+        if device.type == "cuda":
+            cuda_instance_m(self.m)
+        # heterogeneous measurement noise tau2 v_i: the weights in ordered
+        # site space (the reference's latent.py:123-130), None for v = 1.
+        # Kernel 3 runs the latent process at alpha = 0 and never sees them.
+        self._noise_w = None
+        if self.noise.name == "heterogeneous":
+            v = np.asarray(self.noise.v.cpu(), dtype=np.float64)
+            if v.shape != (self.n,):
+                raise ValueError(f"the noise weights v must have shape ({self.n},), "
+                                 f"got {v.shape}")
+            self._noise_w = self._tensor(v[tab.order])
         if self.p:
-            self._xtx = self.x.T @ self.x
+            # X' V^-1 (the weighted beta update; X' without weights)
+            self._xt_vinv = (self.x if self._noise_w is None
+                             else self.x / self._noise_w[:, None]).T
+            self._xtx = self._xt_vinv @ self.x
 
         # static structure of the sweeps, built once on the host
         ch = build_children_table(tab.nn_idx, tab.nn_mask)
@@ -234,6 +257,17 @@ class LatentNNGP:
         """x'beta per chain, (C, n); 0 without fixed effects."""
         return 0.0 if self.p == 0 else beta @ self.x.T
 
+    def _noise_var(self, tau2):
+        """The measurement-noise variance per chain: tau2 (C, 1), or tau2 v_i
+        (C, n) under heterogeneous noise."""
+        tau2 = tau2[:, None]
+        return tau2 if self._noise_w is None else tau2 * self._noise_w
+
+    def _weighted_sq(self, r):
+        """sum_i r_i^2 / v_i per chain (v = 1 under homogeneous noise)."""
+        sq = r * r
+        return _site_sum(sq if self._noise_w is None else sq / self._noise_w)
+
     # ---- w full-conditional pieces ------------------------------------
     def _child_terms(self, b, fprec):
         """Per (site, child slot): B_{j,l} and 1/(s2 F_j) of child j, both
@@ -255,7 +289,7 @@ class LatentNNGP:
         b_child, fp_child = self._child_terms(b, fprec)
         # child j's residual without i's own contribution
         resid_excl = resid[:, self.child_idx] + b_child * w[:, :, None]
-        tau2 = tau2[:, None]
+        tau2 = self._noise_var(tau2)
         prec = 1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1)
         rhs = ((self.y - self._mean(beta)) / tau2 + mu_own * fprec
                + (b_child * fp_child * resid_excl).sum(-1))
@@ -284,7 +318,7 @@ class LatentNNGP:
         its children, is a gather through ``_pair_gather`` and a dense sum."""
         n = self.n
         fprec = 1.0 / (sigma2[:, None] * f[:, :n])
-        tau2 = tau2[:, None]
+        tau2 = self._noise_var(tau2)
         ytil = (self.y - self._mean(beta)) / tau2
         b_child, fp_child = self._child_terms(b, fprec)
         prec = 1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1)
@@ -327,7 +361,7 @@ class LatentNNGP:
         for CPU-sized problems and tests."""
         n = self.n
         fprec = 1.0 / (sigma2[:, None] * f[:, :n])
-        tau2 = tau2[:, None]
+        tau2 = self._noise_var(tau2)
         ytil = (self.y - self._mean(beta)) / tau2
         b_child, fp_child = self._child_terms(b, fprec)
         prec = 1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1)
@@ -383,10 +417,17 @@ class LatentNNGP:
                 + self._log_prior_theta(theta_u, nat))
 
     def loglik(self, state: LatentState):
-        """Per-chain record: log p(y | w, tau2) + log p(w | theta, sigma2)."""
+        """Per-chain record: log p(y | w, tau2) + log p(w | theta, sigma2);
+        under heterogeneous noise log p(y | w, tau2) sums log(tau2 v_i), as
+        the reference's (``latent.py:563-567``)."""
         r = self.y - self._mean(state.beta) - state.w
-        ll_y = -0.5 * (self.n * (LOG_2PI + torch.log(state.tau2))
-                       + _site_sum(r * r) / state.tau2)
+        if self._noise_w is None:
+            ll_y = -0.5 * (self.n * (LOG_2PI + torch.log(state.tau2))
+                           + _site_sum(r * r) / state.tau2)
+        else:
+            nvar = self._noise_var(state.tau2)
+            ll_y = -0.5 * (self.n * LOG_2PI + _site_sum(torch.log(nvar))
+                           + _site_sum(r * r / nvar))
         ll_w = -0.5 * (self.n * (LOG_2PI + torch.log(state.sigma2))
                        + state.logdet + state.quad_w / state.sigma2)
         return ll_y + ll_w
@@ -453,18 +494,16 @@ class LatentNNGP:
         # collapsed mode sigma2 is drawn after the theta sweep instead, from
         # the post-theta quad (see _collapsed_value).
         _, quad_w, _ = plane_suffstats(state.b, state.f, w, self._nbr)
-        pr_s, pr_t = self.priors["sigma2"], self.priors["tau2"]
+        pr_s = self.priors["sigma2"]
         sigma2 = state.sigma2
         if not self.collapsed:
             sigma2 = sample_inverse_gamma(gen, pr_s.a + 0.5 * self.n,
                                           pr_s.b + 0.5 * quad_w)
 
         # 3. tau2 | w, beta
-        r = self.y - self._mean(state.beta) - w
-        tau2 = sample_inverse_gamma(gen, pr_t.a + 0.5 * self.n,
-                                    pr_t.b + 0.5 * _site_sum(r * r))
+        tau2 = sample_inverse_gamma(gen, *self._tau2_conditional(w, state.beta))
 
-        # 4. beta | w, tau2: conjugate linear model on y - w
+        # 4. beta | w, tau2: conjugate linear model on y - w (weighted by 1/v)
         beta = state.beta
         if self.p:
             beta, _, _ = self._draw_beta(
@@ -499,13 +538,23 @@ class LatentNNGP:
             iteration=state.iteration + 1,
         )
 
+    def _tau2_conditional(self, w, beta):
+        """(shape, scale) of the inverse-gamma tau2 | w, beta: the prior's
+        plus n/2 and half the sum of squared residuals, each weighted by
+        1/v_i under heterogeneous noise (the reference's latent.py:642-650)."""
+        pr_t = self.priors["tau2"]
+        r = self.y - self._mean(beta) - w
+        return pr_t.a + 0.5 * self.n, pr_t.b + 0.5 * self._weighted_sq(r)
+
     def _draw_beta(self, w, tau2, eps):
-        """beta | w, tau2 from standard normals ``eps`` (C, p); returns
-        (beta, mean, Cholesky factor of the precision)."""
+        """beta | w, tau2 from standard normals ``eps`` (C, p): precision
+        X' V^-1 X / tau2 + I / s^2 and right-hand side X' V^-1 (y - w) / tau2,
+        V = diag(v) (the identity under homogeneous noise).  Returns (beta,
+        mean, Cholesky factor of the precision)."""
         eye = torch.eye(self.p, dtype=self.dtype, device=self.device)
         prec = (self._xtx / tau2[:, None, None]
                 + eye / self.priors["beta_scale"] ** 2)
-        rhs = ((self.y - w) @ self.x) / tau2[:, None]
+        rhs = ((self.y - w) @ self._xt_vinv.T) / tau2[:, None]
         return sample_gaussian_precision(prec, rhs, eps)
 
     def collect(self, state: LatentState, collect_w: bool = False):

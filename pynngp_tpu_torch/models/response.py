@@ -1,7 +1,9 @@
 """Response NNGP model: y ~ NNGP(0, sigma2 (rho_phi + alpha I)) with
 alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
 
-Ported: homogeneous noise, one device, both table layouts (``lane_layout``:
+Ported: homogeneous and heterogeneous noise (``noise``: per-site variance
+tau2 v_i with known weights v, so that the relative nugget is alpha v), one
+device, both table layouts (``lane_layout``:
 "dist", distance planes; "coords", coordinate planes with the distances
 recomputed in the kernels, Euclidean only; "auto", the default, coords above
 ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites), every kernel of
@@ -56,6 +58,7 @@ from pynngp_tpu_torch.models.base import (
     prepare_spatial_data,
     run_chains_chunked,
 )
+from pynngp_tpu_torch.noise import get_noise
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.diff_suffstats import diff_suffstats
 from pynngp_tpu_torch.ops.site_tables import (
@@ -63,7 +66,7 @@ from pynngp_tpu_torch.ops.site_tables import (
     make_site_tables,
     with_children,
 )
-from pynngp_tpu_torch.ops.suffstats import CUDA_M, suffstats
+from pynngp_tpu_torch.ops.suffstats import cuda_instance_m, noise_plane, suffstats
 from pynngp_tpu_torch.priors import log_transform, logit_transform
 from pynngp_tpu_torch.samplers.hmc import make_hmc_kernel
 from pynngp_tpu_torch.samplers.mapfit import map_fit, value_and_grad
@@ -136,8 +139,7 @@ class ResponseNNGP:
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device sharding) is not "
                                       "ported yet")
-        if noise != "homogeneous":
-            raise NotImplementedError("only homogeneous noise is ported")
+        self.noise = get_noise(noise)
         self.device = device = check_device(device, dtype)
         self.kernel = get_kernel(kernel)
         self.dtype = dtype
@@ -163,8 +165,18 @@ class ResponseNNGP:
         self.tables = make_site_tables(
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
             coords_host=coords[sd.table.order] if on_coords else None)
-        if device.type == "cuda" and self.tables.m not in CUDA_M:
-            raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}")
+        if device.type == "cuda":
+            cuda_instance_m(self.tables.m)
+        # heterogeneous noise: the weights v permuted into ordered site space
+        # (the reference's response.py:159-165) and padded for the kernels;
+        # the relative nugget becomes alpha v
+        self._noise_v = None
+        if self.noise.name == "heterogeneous":
+            v = np.asarray(self.noise.v.cpu(), dtype=np.float64)
+            if v.shape != (self.n,):
+                raise ValueError(f"the noise weights v must have shape ({self.n},), "
+                                 f"got {v.shape}")
+            self._noise_v = noise_plane(self.tables, v[sd.table.order])
         if self.p:
             # (m, n) neighbor ids, plane-major like B, and X at the neighbors
             self._nbr = torch.as_tensor(sd.table.nn_idx.T.astype(np.int64),
@@ -229,10 +241,10 @@ class ResponseNNGP:
         if self.p == 0:
             logdet, quad, _, _ = suffstats(self.kernel, self.tables, nat["phi"],
                                            nat["alpha"], self.y, self.jitter,
-                                           nat.get("nu"))
+                                           nat.get("nu"), self._noise_v)
             return {"logdet": logdet, "quad": quad}
         b, f = bf_planes(self.kernel, self.tables, nat["phi"], nat["alpha"],
-                         self.jitter, nat.get("nu"))
+                         self.jitter, nat.get("nu"), self._noise_v)
         logdet, quad, _ = plane_suffstats(b, f, self.y - beta @ self.x.T,
                                           self._nbr)
         return {"b": b, "f": f, "logdet": logdet, "quad": quad}
@@ -436,7 +448,8 @@ class ResponseNNGP:
             y = self.y - beta.reshape(-1, self.p).to(self.device) @ self.x.T
         nu = nat["nu"].reshape(-1) if self._sample_nu else None
         logdet, quad = diff_suffstats(self.kernel, self.tables, phi.reshape(-1),
-                                      alpha.reshape(-1), y, self.jitter, nu)
+                                      alpha.reshape(-1), y, self.jitter, nu,
+                                      self._noise_v)
         logdet, quad = logdet.reshape(phi.shape), quad.reshape(phi.shape)
         return -0.5 * (self.n * (LOG_2PI + torch.log(sigma2)) + logdet
                        + quad / sigma2)

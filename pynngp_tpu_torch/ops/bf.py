@@ -18,6 +18,12 @@ a child's weight is one flat index ``slot * n_pad + site``), so nothing is
 transposed on the way.  :func:`bf` returns the ``(C, n, m)`` / ``(C, n)``
 views in the reference's row-major layout, for tests and callers that want it.
 
+Heterogeneous noise (``noise_v``, the reference's ``pallas_bf(...,
+noise_v=)``, ``pallas_bf.py:1036``): the relative nugget alpha v at the
+neighbors and at the site; the same instances with a pointer to v (gathered
+in the kernel through ``nn_idx``), counted under ``<instance>_hetero``.  The
+latent model passes alpha = 0 and no v, as the reference does.
+
 Padded sites (site >= n) hold B = 0 and F = 1, from the kernel and from the
 plain version alike: their table entries are zero, so with alpha = 0 their
 system would be the singular all-ones matrix.  A consumer may take log F or
@@ -35,8 +41,11 @@ from pynngp_tpu_torch.ops.suffstats import (
     family_arg,
     instance,
     kernel_nu,
+    noise_plane,
+    noise_terms,
     params_array,
     plain_nu,
+    pointer,
     shape_args,
 )
 from pynngp_tpu_torch.vecchia import conditional_system
@@ -48,47 +57,51 @@ COUNT = _build.LaunchCount("vecchia_bf")
 COUNT_NU = _build.LaunchCount("vecchia_bf_nu")  # the GENERAL instances
 COUNT_COORDS = _build.LaunchCount("vecchia_bf_coords")  # COORDS
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_bf_nu_coords")
-COUNTS = {c.name: c for c in (COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)}
+COUNTS = _build.with_hetero_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
 
 
-def bf_reference(kernel, tables: SiteTables, params):
+def bf_reference(kernel, tables: SiteTables, params, noise_v=None):
     """Plain PyTorch version of kernel 3: batched ``torch.linalg.cholesky``
     over (C, n_pad) systems and two triangular solves.  Returns B
-    (C, m, n_pad) and F (C, n_pad) in the tables' dtype."""
+    (C, m, n_pad) and F (C, n_pad) in the tables' dtype.  ``noise_v``:
+    per-site noise weights, (n,) or padded (n_pad,), or None."""
     d_in, d_nn = unpack_distances(tables)
     site = torch.arange(tables.n_pad, device=tables.device)
     valid = site < tables.n
     # slot k of site i is a real neighbor iff i > k; a padded site has none
     mask = (site[:, None] > torch.arange(tables.m, device=tables.device)) & valid[:, None]
     phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
+    alpha_nbr, alpha_own = noise_terms(tables, alpha, noise_plane(tables, noise_v))
     c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
                                       mask, nu=plain_nu(kernel, params),
-                                      fused=True)
+                                      fused=True, alpha_nbr=alpha_nbr)
     low = torch.linalg.cholesky(c_mat)  # (C, n_pad, m, m)
     u = torch.linalg.solve_triangular(low, c_vec[..., None], upper=False)
     b = torch.linalg.solve_triangular(low.mT, u, upper=True)[..., 0]
-    f = 1.0 + alpha - (u[..., 0] * u[..., 0]).sum(-1)
+    f = 1.0 + alpha_own - (u[..., 0] * u[..., 0]).sum(-1)
     f = torch.where(valid, f, torch.ones((), dtype=f.dtype, device=f.device))
     return b.transpose(1, 2).contiguous(), f
 
 
-def _launch(kernel, tables: SiteTables, params):
-    params, _ = cuda_args(tables, params)
+def _launch(kernel, tables: SiteTables, params, noise_v):
+    params, _, v = cuda_args(tables, params, noise_v=noise_v)
     chains = params.shape[0]
     dev = tables.device
     b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                     device=dev)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
     head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
-            *shape_args(tables), chains, *family_arg(kernel))
+            tables.nn_idx.data_ptr(), pointer(v), *shape_args(tables), chains,
+            *family_arg(kernel))
     tail = (b.data_ptr(), f.data_ptr(), _build.stream_handle(dev))
-    name = instance("vecchia_bf", kernel, tables)
-    _build.check(getattr(_build.library(), name + "_f32")(*head, *tail), name)
-    COUNTS[name].launches += 1
+    entry = instance("vecchia_bf", kernel, tables)
+    _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
+    COUNTS[instance("vecchia_bf", kernel, tables, hetero=v is not None)].launches += 1
     return b, f
 
 
-def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None):
+def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None,
+              noise_v=None):
     """Plane-major (B (C, m, n_pad), F (C, n_pad)) of the unit-variance
     Vecchia factorization, per chain.
 
@@ -98,23 +111,26 @@ def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None):
       phi, alpha: (C,) per-chain range and relative nugget (scalars give
         C = 1); alpha is 0 for the latent process.
       nu: (C,) per-chain smoothness, for a kernel that samples it only.
+      noise_v: per-site noise weights v, (n,) or padded (n_pad,): the
+        relative nugget becomes alpha v.
     B is 0 in invalid slots; padded sites hold B = 0, F = 1.  CUDA tensors
     launch kernel 3; CPU tensors run :func:`bf_reference`.
     """
     params = params_array(phi, alpha, jitter, tables.n, tables.dtype,
                           tables.device, kernel_nu(kernel, nu))
     if tables.device.type == "cuda":
-        return _launch(kernel, tables, params)
+        return _launch(kernel, tables, params, noise_v)
     if tables.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.device}")
-    COUNTS[instance("vecchia_bf", kernel, tables)].plain += 1
-    return bf_reference(kernel, tables, params)
+    COUNTS[instance("vecchia_bf", kernel, tables,
+                    hetero=noise_v is not None)].plain += 1
+    return bf_reference(kernel, tables, params, noise_v)
 
 
-def bf(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None):
+def bf(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None, noise_v=None):
     """(B (C, n, m), F (C, n)): :func:`bf_planes` as row-major views over the
     true sites, the layout ``pallas_bf`` returns.  No copy is made."""
-    b, f = bf_planes(kernel, tables, phi, alpha, jitter, nu)
+    b, f = bf_planes(kernel, tables, phi, alpha, jitter, nu, noise_v)
     return b[:, :, :tables.n].transpose(1, 2), f[:, :tables.n]
 
 

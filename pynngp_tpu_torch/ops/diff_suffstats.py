@@ -34,6 +34,13 @@ depend on y.
 
 y is (n,), shared by all chains, or (C, n), one row per chain.
 
+Heterogeneous noise (``noise_v``, the reference's ``make_diff_suffstats(...,
+noise_v=)``, ``pallas_bf.py:1051``): the relative nugget is alpha v, so
+dC/dalpha is diag(v) at the neighbors and dF/dalpha gains v at the site
+(``_grad_kernel`` l.804-806, 835).  The same instances run with a pointer to
+v; their launches count under ``<instance>_hetero``.  The y cotangent's
+gather does not change (``_dy`` l.1082).
+
 phi, alpha and nu may live on the host while the tables and y live on the card:
 the (C, 6) parameter rows go to the card, and the (C,) sums and derivatives
 come back to phi's device.  A sampler whose state is a few numbers per chain
@@ -44,6 +51,8 @@ Per site (u = L^-1 c, v = L^-1 y_N, p = C^-1 c, q = C^-1 y_N):
   F = (1+alpha) - u.u,          r = y_0 - u.v
   dF/dphi = -2 p.(dc/dphi) + p'(dC/dphi)p,   dr/dphi = -(dc/dphi).q + p'(dC/dphi)q
   dF/dalpha = 1 + p.p,          dr/dalpha = p.q
+  (with v: F = (1 + alpha v_0) - u.u, dF/dalpha = v_0 + p' diag(v_N) p,
+  dr/dalpha = p' diag(v_N) q)
 and d/dt sum log F = sum dF/F,  d/dt sum r^2/F = sum (2 r dr F - r^2 dF)/F^2.
 """
 
@@ -59,7 +68,9 @@ from pynngp_tpu_torch.ops.suffstats import (
     cuda_args,
     instance,
     kernel_nu,
+    noise_plane,
     params_array,
+    pointer,
     shape_args,
     suffstats,
     y_stride,
@@ -79,25 +90,28 @@ COUNT_COORDS = _build.LaunchCount("vecchia_grad_coords")
 COUNT_Y_COORDS = _build.LaunchCount("vecchia_grad_y_coords")
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_grad_nu_coords")
 COUNT_Y_NU_COORDS = _build.LaunchCount("vecchia_grad_y_nu_coords")
-COUNTS = {c.name: c for c in (COUNT, COUNT_Y, COUNT_NU, COUNT_Y_NU, COUNT_COORDS,
-                              COUNT_Y_COORDS, COUNT_NU_COORDS, COUNT_Y_NU_COORDS)}
+COUNTS = _build.with_hetero_counts(COUNT, COUNT_Y, COUNT_NU, COUNT_Y_NU, COUNT_COORDS,
+                                   COUNT_Y_COORDS, COUNT_NU_COORDS, COUNT_Y_NU_COORDS)
 
 
-def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
+def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False,
+                   noise_v=None):
     """Plain PyTorch version of kernel 2: (6, C) sums of logdet, quad,
     dlogdet/dphi, dquad/dphi, dlogdet/dalpha, dquad/dalpha, accumulated in
     float64 and cast to the tables' dtype; (8, C) for the general-nu Matern,
     with dlogdet/dnu and dquad/dnu (zeros for a static nu), as its kernel
     instances write them.  With ``emit_y`` it returns
     (sums, B (C, m, n_pad), r/F (C, n_pad)) as the EMIT_Y kernel writes them:
-    B and r/F exactly 0 at padded sites, B also in invalid slots."""
-    fac = _factor(kernel, tables, params, y)
-    low, u, v, f, valid = fac["low"], fac["u"], fac["v"], fac["f"], fac["valid"]
+    B and r/F exactly 0 at padded sites, B also in invalid slots.
+    ``noise_v``: per-site noise weights, (n,) or padded (n_pad,), or None."""
+    v = noise_plane(tables, noise_v)
+    fac = _factor(kernel, tables, params, y, v)
+    low, u, w, f, valid = fac["low"], fac["u"], fac["w"], fac["f"], fac["valid"]
     mask_f = fac["mask"].to(f.dtype)
-    r = fac["y_own"] - (u * v).sum(-1)
-    # back-substitution p = L^-T u, q = L^-T v
+    r = fac["y_own"] - (u * w).sum(-1)
+    # back-substitution p = L^-T u, q = L^-T w
     p = torch.linalg.solve_triangular(low.mT, u[..., None], upper=True)[..., 0]
-    q = torch.linalg.solve_triangular(low.mT, v[..., None], upper=True)[..., 0]
+    q = torch.linalg.solve_triangular(low.mT, w[..., None], upper=True)[..., 0]
     phi = params[:, 0:1]
     general = kernel.family == GENERAL_FAMILY
     nu = params[:, 4:5] if general else None
@@ -115,8 +129,13 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
                 -(dc * q).sum(-1) + (p_dc * q).sum(-1))
 
     df_phi, dr_phi = contract(kernel.dcorrelation_dphi)
-    df_a = 1.0 + (p * p).sum(-1)
-    dr_a = (p * q).sum(-1)
+    if v is None:
+        df_a = 1.0 + (p * p).sum(-1)
+        dr_a = (p * q).sum(-1)
+    else:  # dC/dalpha = diag(v) at the neighbors, dF/dalpha gains v_0
+        wgt = v[tables.nn_idx.T.long()] * mask_f  # (C, n_pad, m)
+        df_a = v + (wgt * p * p).sum(-1)
+        dr_a = (wgt * p * q).sum(-1)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     inv_f = torch.where(valid, 1.0 / f, zero)
     r_over_f = r * inv_f
@@ -142,8 +161,8 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False):
     return sums, b.transpose(1, 2).contiguous(), torch.where(valid, r_over_f, zero)
 
 
-def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
-    params, y = cuda_args(tables, params, y)
+def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v):
+    params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
     general = kernel.family == GENERAL_FAMILY
@@ -152,7 +171,7 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
     # the GENERAL entries take with_nu where the closed-form ones take family
     selector = int(kernel.samples_nu) if general else kernel.family
     args = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
-            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y),
+            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), pointer(v),
             *shape_args(tables), chains, selector, part.data_ptr())
     name = instance("vecchia_grad", kernel, tables, emit_y)
     entry = getattr(_build.library(), name + "_f32")
@@ -164,25 +183,28 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool):
     else:
         code = entry(*args, _build.stream_handle(dev))
     _build.check(code, name)
-    COUNTS[name].launches += 1
+    COUNTS[instance("vecchia_grad", kernel, tables, emit_y, v is not None)].launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return (sums, b, rof) if emit_y else sums
 
 
 def value_and_grad_sums(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6,
-                        emit_y: bool = False, nu=None):
+                        emit_y: bool = False, nu=None, noise_v=None):
     """(6, C) value and derivative sums ((8, C) for the general-nu Matern),
     and with ``emit_y`` also B (C, m, n_pad) and r/F (C, n_pad): kernel 2 for
-    CUDA tensors, :func:`grad_reference` for CPU tensors."""
+    CUDA tensors, :func:`grad_reference` for CPU tensors.  ``noise_v``: the
+    per-site noise weights (``ops.suffstats.noise_plane``) or None."""
     device = phi.device if isinstance(phi, torch.Tensor) else tables.device
     params = params_array(phi, alpha, jitter, tables.n, tables.dtype, device,
                           kernel_nu(kernel, nu))
     if tables.device.type == "cuda":
-        return _launch(kernel, tables, params, y, emit_y)
+        return _launch(kernel, tables, params, y, emit_y, noise_v)
     if tables.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.device}")
-    COUNTS[instance("vecchia_grad", kernel, tables, emit_y)].plain += 1
-    return grad_reference(kernel, tables, params.detach(), y.detach(), emit_y)
+    COUNTS[instance("vecchia_grad", kernel, tables, emit_y,
+                    noise_v is not None)].plain += 1
+    return grad_reference(kernel, tables, params.detach(), y.detach(), emit_y,
+                          noise_v)
 
 
 def dquad_dy(tables: SiteTables, b, rof):
@@ -205,27 +227,30 @@ class DiffSuffstats(torch.autograd.Function):
     """(logdet, quad) per chain as a differentiable function of (phi, alpha,
     y) and, for a kernel that samples it, nu.
 
-    ``apply(phi, alpha, y, kernel, tables, jitter, nu)`` with phi, alpha and
-    nu of shape (C,) (nu is None for a kernel that samples none) and y of
-    shape (n,) or (C, n)."""
+    ``apply(phi, alpha, y, kernel, tables, jitter, nu[, noise_v])`` with
+    phi, alpha and nu of shape (C,) (nu is None for a kernel that samples
+    none), y of shape (n,) or (C, n), and ``noise_v`` the per-site noise
+    weights, None or left out for homogeneous noise."""
 
     @staticmethod
-    def forward(ctx, phi, alpha, y, kernel, tables, jitter, nu):
+    def forward(ctx, phi, alpha, y, kernel, tables, jitter, nu, noise_v=None):
         ctx.y_shared = y.dim() == 1
         ctx.with_nu = nu is not None
         needs = ctx.needs_input_grad
         if needs[2]:
             sums, b, rof = value_and_grad_sums(kernel, tables, phi, alpha, y,
-                                               jitter, emit_y=True, nu=nu)
+                                               jitter, emit_y=True, nu=nu,
+                                               noise_v=noise_v)
             sums = sums.to(phi)  # phi's device and dtype
             ctx.tables = tables
             ctx.save_for_backward(sums[2:], b, rof)
         elif needs[0] or needs[1] or needs[6]:
             sums = value_and_grad_sums(kernel, tables, phi, alpha, y, jitter,
-                                       nu=nu).to(phi)
+                                       nu=nu, noise_v=noise_v).to(phi)
             ctx.save_for_backward(sums[2:])
         else:
-            logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu)
+            logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu,
+                                           noise_v)
             return logdet.to(phi), quad.to(phi)
         return sums[0], sums[1]
 
@@ -241,12 +266,14 @@ class DiffSuffstats(torch.autograd.Function):
             dy = g_q[:, None].to(emitted[1]) * dquad_dy(ctx.tables, *emitted)
             if ctx.y_shared:  # one y for all chains: their cotangents add up
                 dy = dy.sum(0)
-        return dphi, dalpha, dy, None, None, None, dnu
+        return dphi, dalpha, dy, None, None, None, dnu, None
 
 
-def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
+def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None,
+                   noise_v=None):
     """(logdet, quad) per chain; differentiable in phi, alpha, y and, for a
-    kernel that samples it, the per-chain ``nu``.
+    kernel that samples it, the per-chain ``nu``; ``noise_v`` the per-site
+    noise weights (``ops.suffstats.noise_plane``) or None.
 
     A differentiated call (grad enabled and phi, alpha, nu or y requiring
     grad) runs kernel 2 once, its EMIT_Y instances when y requires grad (the
@@ -260,6 +287,6 @@ def diff_suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=No
         nu = torch.atleast_1d(nu).expand_as(phi)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (phi, alpha, y, nu)):
-        return DiffSuffstats.apply(phi, alpha, y, kernel, tables, jitter, nu)
-    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu)
+        return DiffSuffstats.apply(phi, alpha, y, kernel, tables, jitter, nu, noise_v)
+    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu, noise_v)
     return logdet.to(phi), quad.to(phi)

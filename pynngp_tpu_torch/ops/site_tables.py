@@ -50,7 +50,6 @@ __all__ = ["BLOCK", "COORDS_LAYOUT_MIN_SITES", "LAYOUTS", "SiteTables",
 
 BLOCK = 128  # CUDA threads per block along sites (csrc/vecchia_common.cuh)
 LAYOUTS = ("dist", "coords")
-MAX_DIM = 3  # coordinate dimensions the coords kernels take (kMaxDim)
 
 # "auto" takes the coords layout above this many sites, dist at or below it.
 # Measured by chip_smoke.py's layout phase (layout_rule) on an NVIDIA H100
@@ -152,9 +151,9 @@ def make_site_tables(data, dtype=torch.float32, device="cpu", layout="dist",
     if layout == "coords":
         pts = np.asarray(data.coords.cpu().numpy() if coords_host is None
                          else coords_host, np.float64)
-        if pts.shape[0] != n or not 1 <= pts.shape[1] <= MAX_DIM:
-            raise ValueError(f"coords must be (n={n}, d) with d in [1, "
-                             f"{MAX_DIM}], got {pts.shape}")
+        if pts.ndim != 2 or pts.shape[0] != n or pts.shape[1] < 1:
+            raise ValueError(f"coords must be (n={n}, d) with d >= 1, got "
+                             f"{pts.shape}")
         # distances do not change under a shift, and float32 planes of
         # coordinates with a large offset would lose ~eps |x| of each distance
         pts = pts - pts.mean(axis=0, keepdims=True)

@@ -13,6 +13,16 @@ in the coords layout launch the COORDS instances of either set
 (``csrc/vecchia_suffstats_coords.cu``, ``csrc/vecchia_suffstats_nu_coords.cu``),
 counted in ``COUNT_COORDS`` and ``COUNT_NU_COORDS``; :func:`instance` names
 the instance a launch runs, and every wrapper counts a launch under it.
+
+Heterogeneous noise (``noise_v``, the reference's ``noise_v`` of
+``pallas_suffstats``, ``pallas_bf.py:598``): per-site weights v in ordered
+site space make the relative nugget alpha v, at the neighbors on the
+diagonal of C and at the site in F.  The same instances run, with a pointer
+to v (:func:`noise_plane`) where homogeneous calls pass a null one; such
+launches count under the instance's name with ``_hetero``.
+
+Any m <= 20 runs on the card: a call launches the smallest built instance
+M >= m (:func:`cuda_instance_m`), whose slots k >= m are identity rows.
 """
 
 from __future__ import annotations
@@ -20,35 +30,64 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
-from pynngp_tpu_torch.ops.site_tables import (
-    BLOCK,
-    MAX_DIM,
-    SiteTables,
-    unpack_distances,
-)
+from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
 __all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "CUDA_M",
-           "GENERAL_FAMILY", "instance", "kernel_nu", "params_array",
-           "suffstats", "suffstats_reference", "loglik"]
+           "GENERAL_FAMILY", "cuda_instance_m", "instance", "kernel_nu",
+           "noise_plane", "params_array", "suffstats", "suffstats_reference",
+           "loglik"]
 
 COUNT = _build.LaunchCount("vecchia_suffstats")
 COUNT_NU = _build.LaunchCount("vecchia_suffstats_nu")  # the GENERAL instances
 COUNT_COORDS = _build.LaunchCount("vecchia_suffstats_coords")  # COORDS
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_suffstats_nu_coords")
-COUNTS = {c.name: c for c in (COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)}
+COUNTS = _build.with_hetero_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
 CUDA_M = (7, 10, 15, 20)  # neighbor counts the CUDA kernels are built for
 GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
 
 
-def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False) -> str:
+def cuda_instance_m(m: int) -> int:
+    """The built instance M a call with m neighbors runs on: the smallest of
+    :data:`CUDA_M` at or above m (``launch_m`` of csrc/vecchia_common.cuh).
+    Above 20 it raises: the m = 20 value-and-gradient instances already hold
+    255 registers and spill, so no larger one is built."""
+    for built in CUDA_M:
+        if 1 <= m <= built:
+            return built
+    raise ValueError(f"the CUDA kernels take 1 <= m <= {CUDA_M[-1]} (built "
+                     f"instances M in {CUDA_M}; a call runs on the smallest "
+                     f"M >= m), got m={m}")
+
+
+def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
+             hetero: bool = False) -> str:
     """The kernel instance a launch of ``base`` runs, named as its C entry
     without ``_f32`` and as its launch count: ``_y`` for the EMIT_Y
     instances, ``_nu`` for the general-nu Matern, ``_coords`` for tables in
-    the coords layout."""
+    the coords layout; ``_hetero`` names a launch with noise weights, which
+    runs the same entry and counts apart."""
     return (base + ("_y" if emit_y else "")
             + ("_nu" if kernel.family == GENERAL_FAMILY else "")
-            + ("_coords" if tables.layout == "coords" else ""))
+            + ("_coords" if tables.layout == "coords" else "")
+            + ("_hetero" if hetero else ""))
+
+
+def noise_plane(tables: SiteTables, noise_v):
+    """The per-site noise weights v as the kernels read them: (n_pad,) in
+    the tables' dtype and on their device, padded with 1 (the reference's
+    ``_noise_planes``, ``pallas_bf.py:510-518``: F stays positive at padded
+    sites); None for homogeneous noise.  ``noise_v`` is (n,) in ordered site
+    space, or already (n_pad,)."""
+    if noise_v is None:
+        return None
+    v = torch.as_tensor(noise_v, dtype=tables.dtype, device=tables.device)
+    if v.shape == (tables.n_pad,):
+        return v.contiguous()
+    if v.shape != (tables.n,):
+        raise ValueError(f"noise_v must have shape ({tables.n},) or "
+                         f"({tables.n_pad},), got {tuple(v.shape)}")
+    return torch.nn.functional.pad(v, (0, tables.n_pad - tables.n), value=1.0)
 
 
 def kernel_nu(kernel, nu=None):
@@ -97,60 +136,68 @@ def plain_nu(kernel, params):
     return params[:, 4:5] if kernel.family == GENERAL_FAMILY else None
 
 
-def _factor(kernel, tables, params, y):
-    """Batched factorization shared by the plain versions of both kernels."""
+def noise_terms(tables: SiteTables, alpha, v):
+    """(relative nugget at each neighbor slot (C, n_pad, m), the site's own
+    (C, n_pad)) under the (n_pad,) weights ``v`` (:func:`noise_plane`), for
+    the plain versions; (None, alpha) for homogeneous noise."""
+    if v is None:
+        return None, alpha
+    return alpha[..., None] * v[tables.nn_idx.T.long()], alpha * v
+
+
+def _factor(kernel, tables, params, y, v=None):
+    """Batched factorization shared by the plain versions of both kernels;
+    ``v`` the (n_pad,) noise weights or None."""
     d_in, d_nn, mask, y_nbr, y_own, valid = _plain_inputs(tables, y)
     phi, alpha, jitter = params[:, 0:1], params[:, 1:2], params[:, 2:3]
+    alpha_nbr, alpha_own = noise_terms(tables, alpha, v)
     c_mat, c_vec = conditional_system(kernel, phi, alpha, jitter, d_in, d_nn,
                                       mask, nu=plain_nu(kernel, params),
-                                      fused=True)
+                                      fused=True, alpha_nbr=alpha_nbr)
     # a system that is not positive definite (a chain at a non-finite or
     # absurd point) gives NaN, as the kernels do, and raises nothing: the
     # gradient samplers treat a NaN energy as a divergence
     low, info = torch.linalg.cholesky_ex(c_mat)  # (C, n_pad, m, m)
     low = torch.where(info[..., None, None] > 0, torch.nan, low)
     u = torch.linalg.solve_triangular(low, c_vec[..., None], upper=False)
-    v = torch.linalg.solve_triangular(low, y_nbr[..., None], upper=False)
-    u, v = u[..., 0], v[..., 0]
-    f = 1.0 + alpha - (u * u).sum(-1)  # (C, n_pad)
+    w = torch.linalg.solve_triangular(low, y_nbr[..., None], upper=False)
+    u, w = u[..., 0], w[..., 0]
+    f = 1.0 + alpha_own - (u * u).sum(-1)  # (C, n_pad)
     return dict(d_in=d_in, d_nn=d_nn, mask=mask, valid=valid, low=low, u=u,
-                v=v, f=f, y_own=y_own)
+                w=w, f=f, y_own=y_own)
 
 
-def suffstats_reference(kernel, tables: SiteTables, params, y):
+def suffstats_reference(kernel, tables: SiteTables, params, y, noise_v=None):
     """Plain PyTorch version of kernel 1: batched ``torch.linalg.cholesky``
     over (C, n_pad) systems.  Returns (logdet (C,), quad (C,), f (C, n_pad),
     resid (C, n_pad)), sums accumulated in float64 and cast to the tables'
-    dtype.  Differentiable in ``params``."""
-    fac = _factor(kernel, tables, params, y)
+    dtype.  Differentiable in ``params``.  ``noise_v``: per-site noise
+    weights, (n,) or padded (n_pad,), or None."""
+    fac = _factor(kernel, tables, params, y, noise_plane(tables, noise_v))
     f, valid = fac["f"], fac["valid"]
-    resid = fac["y_own"] - (fac["u"] * fac["v"]).sum(-1)
+    resid = fac["y_own"] - (fac["u"] * fac["w"]).sum(-1)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     logdet = torch.where(valid, torch.log(f), zero).sum(-1, dtype=torch.float64)
     quad = torch.where(valid, resid * resid / f, zero).sum(-1, dtype=torch.float64)
     return logdet.to(f.dtype), quad.to(f.dtype), f, resid
 
 
-def cuda_args(tables: SiteTables, params, y=None):
-    """Validate the inputs of a CUDA launch; returns (params, y) as
-    contiguous float32 tensors (y stays None for a kernel that reads none).
-    y is (n,), shared by all chains, or (C, n): :func:`y_stride` of it is the
-    kernels' chain stride.  ``params`` may live on the host (a sampler that
-    keeps its few parameters there): the (C, 6) rows are copied to the card."""
-    if tables.m not in CUDA_M:
-        raise ValueError(f"the CUDA kernels are built for m in {CUDA_M}, "
-                         f"got m={tables.m}")
+def cuda_args(tables: SiteTables, params, y=None, noise_v=None):
+    """Validate the inputs of a CUDA launch; returns (params, y, v) as
+    contiguous float32 tensors (y stays None for a kernel that reads none, v
+    for homogeneous noise).  y is (n,), shared by all chains, or (C, n):
+    :func:`y_stride` of it is the kernels' chain stride.  ``params`` may live
+    on the host (a sampler that keeps its few parameters there): the (C, 6)
+    rows are copied to the card."""
+    cuda_instance_m(tables.m)
     if tables.n_pad % BLOCK:
         raise ValueError(f"n_pad={tables.n_pad} is not a multiple of {BLOCK}")
     for name, t in (("tab_a", tables.tab_a), ("tab_b", tables.tab_b)):
         if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
-    if tables.layout == "coords" and not (
-            1 <= tables.dim <= MAX_DIM
-            and tables.tab_b.shape[0] == tables.m * tables.dim):
-        raise ValueError(f"coords tables need d in [1, {MAX_DIM}] and m d "
-                         f"neighbor planes, got {tuple(tables.tab_a.shape)}, "
-                         f"{tuple(tables.tab_b.shape)}")
+    if tables.layout == "coords" and tables.tab_b.shape[0] != tables.m * tables.dim:
+        raise ValueError(f"coords tables need m d neighbor planes, got "
+                         f"{tuple(tables.tab_a.shape)}, {tuple(tables.tab_b.shape)}")
     if tables.nn_idx.dtype != torch.int32 or not tables.nn_idx.is_contiguous():
         raise ValueError("nn_idx must be a contiguous int32 tensor")
     if y is not None:
@@ -167,7 +214,13 @@ def cuda_args(tables: SiteTables, params, y=None):
         raise ValueError("params must be (C, 6)")
     params = params.detach().to(device=tables.device,
                                 dtype=torch.float32).contiguous()
-    return params, y
+    v = noise_plane(tables, noise_v)
+    return params, y, None if v is None else v.detach()
+
+
+def pointer(t):
+    """A tensor's address for a C entry, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def y_stride(y) -> int:
@@ -187,8 +240,8 @@ def family_arg(kernel) -> tuple:
     return () if kernel.family == GENERAL_FAMILY else (kernel.family,)
 
 
-def _launch(kernel, tables: SiteTables, params, y):
-    params, y = cuda_args(tables, params, y)
+def _launch(kernel, tables: SiteTables, params, y, noise_v):
+    params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
@@ -196,18 +249,19 @@ def _launch(kernel, tables: SiteTables, params, y):
     part = torch.empty((2, chains, tables.n_pad // BLOCK), dtype=torch.float32,
                        device=dev)
     head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
-            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y),
+            tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), pointer(v),
             *shape_args(tables), chains, *family_arg(kernel))
     tail = (f.data_ptr(), resid.data_ptr(), part.data_ptr(),
             _build.stream_handle(dev))
-    name = instance("vecchia_suffstats", kernel, tables)
-    _build.check(getattr(_build.library(), name + "_f32")(*head, *tail), name)
-    COUNTS[name].launches += 1
+    entry = instance("vecchia_suffstats", kernel, tables)
+    _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
+    COUNTS[instance("vecchia_suffstats", kernel, tables, hetero=v is not None)].launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return sums[0], sums[1], f, resid
 
 
-def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
+def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None,
+              noise_v=None):
     """(logdet, quad, f, resid) of the unit-variance Vecchia factorization,
     per chain.
 
@@ -217,6 +271,8 @@ def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
       phi, alpha: (C,) per-chain range and relative nugget (scalars give C=1).
       y: (n,) ordered values shared by all chains, or (C, n) per chain.
       nu: (C,) per-chain smoothness, for a kernel that samples it only.
+      noise_v: per-site noise weights v in ordered site space, (n,) or padded
+        (n_pad,) (:func:`noise_plane`): the relative nugget becomes alpha v.
     Returns logdet, quad as (C,) and f, resid as (C, n_pad); padded sites are
     excluded from the sums.  CUDA tensors launch kernel 1; CPU tensors run
     :func:`suffstats_reference`.
@@ -224,17 +280,19 @@ def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None):
     params = params_array(phi, alpha, jitter, tables.n, tables.dtype,
                           tables.device, kernel_nu(kernel, nu))
     if tables.device.type == "cuda":
-        return _launch(kernel, tables, params, y)
+        return _launch(kernel, tables, params, y, noise_v)
     if tables.device.type != "cpu":
         raise ValueError(f"no kernel for device {tables.device}")
-    COUNTS[instance("vecchia_suffstats", kernel, tables)].plain += 1
-    return suffstats_reference(kernel, tables, params, y)
+    COUNTS[instance("vecchia_suffstats", kernel, tables,
+                    hetero=noise_v is not None)].plain += 1
+    return suffstats_reference(kernel, tables, params, y, noise_v)
 
 
 def loglik(kernel, tables: SiteTables, phi, y, sigma2, alpha, jitter=1e-6,
-           nu=None):
+           nu=None, noise_v=None):
     """Response-model Vecchia log-likelihood per chain (``pallas_loglik``)."""
-    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu)
+    logdet, quad, _, _ = suffstats(kernel, tables, phi, alpha, y, jitter, nu,
+                                   noise_v)
     sigma2 = torch.as_tensor(sigma2, dtype=logdet.dtype, device=logdet.device)
     return -0.5 * (tables.n * (LOG_2PI + torch.log(sigma2)) + logdet
                    + quad / sigma2)

@@ -116,13 +116,17 @@ def neighbor_distances(data: VecchiaData):
 
 
 def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask, nu=None,
-                       fused=False):
+                       fused=False, alpha_nbr=None):
     """Masked neighbor correlation C_N (..., m, m) and cross-correlation
     c (..., m) of the unit-variance conditionals.
 
     ``phi``, ``alpha`` and, for a kernel that reads one, ``nu`` broadcast
     against ``d_in.shape[:-1]``: 0-d tensors for one parameter set, or shape
     (C, 1) against (n, m) tables for C chains (giving (C, n, m, m)).
+    ``alpha_nbr``, the relative nugget of each neighbor slot under
+    heterogeneous noise (alpha v at the neighbor; shaped like ``d_in``, with
+    a leading chain axis where there are chains), takes alpha's place on the
+    diagonal (``pynngp_tpu/vecchia.py:140-143``).
     ``fused`` takes rho as the fused kernels do (``fused_correlation``: the
     general Matern's floor of t), for their plain versions."""
     rho = kernel.fused_correlation if fused else kernel.correlation
@@ -139,7 +143,11 @@ def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask, nu=None,
     mask_f = mask.to(dtype)
     mask2 = mask_f[..., :, None] * mask_f[..., None, :]
     rho_nn = rho(d_nn, kparams(None, None))
-    diag_add = (alpha + jitter)[..., None, None] * eye
+    if alpha_nbr is None:
+        diag_add = (alpha + jitter)[..., None, None] * eye
+    else:  # jitter broadcasts as alpha does, one axis further out
+        jitter = torch.as_tensor(jitter, dtype=dtype, device=d_in.device)
+        diag_add = (alpha_nbr + jitter[..., None])[..., None] * eye
     # valid slots: rho + alpha + jitter on the diagonal; masked slots:
     # identity row/column (=> B = 0 there)
     c_mat = (rho_nn + diag_add) * mask2 + eye * (1.0 - mask2 * eye)
@@ -154,8 +162,12 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
       kernel: correlation kernel (:mod:`pynngp_tpu_torch.kernels`).
       params: {"phi": scalar or (C,)} in natural space, and "nu" likewise
         for a kernel that samples it (``Matern()``).
-      alpha: relative nugget tau^2/sigma^2, scalar or (C,) (0 for the latent
-        process).  Per-site (heterogeneous) nuggets are not ported yet.
+      alpha: relative nugget tau^2/sigma^2 (0 for the latent process): a
+        scalar, (C,) per chain, or per site (heterogeneous noise, alpha v in
+        ordered site space) as (n,), or (C, n) per chain; a 1-D alpha of
+        length n is read as per site.  Site i's own diagonal gets alpha[i]
+        and its neighbor block's diagonal alpha[nn_idx[i]]
+        (``pynngp_tpu/vecchia.py:140-143``).
 
     Returns:
       B: (n, m) weights (0 in masked slots), F: (n,) conditional variances of
@@ -167,20 +179,24 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
     dtype = d_in.dtype
     phi = torch.as_tensor(params["phi"], dtype=dtype, device=dev)
     alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)
-    if phi.ndim > 1 or alpha.ndim > 1:
-        raise NotImplementedError("per-site nuggets (heterogeneous noise) "
-                                  "are not ported yet")
     nu = None
     if kernel.samples_nu:
         nu = torch.as_tensor(params["nu"], dtype=dtype, device=dev)
-    if phi.ndim or alpha.ndim or (nu is not None and nu.ndim):
+    # a per-site alpha (n,) or (C, n) is alpha v at every neighbor slot on
+    # the diagonal, (n, m) or (C, n, m), and stays per site in F
+    per_site = alpha.ndim == 2 or (alpha.ndim == 1 and alpha.shape[0] == data.n)
+    alpha_nbr = alpha[..., data.nn_idx] if per_site else None
+    chained = {"phi": phi, "nu": nu, "alpha": None if per_site else alpha}
+    chained = {k: t for k, t in chained.items() if t is not None}
+    if any(t.ndim for t in chained.values()):
         # chains: (C, 1) against the (n, m) tables
-        cols = [torch.atleast_1d(t) for t in (phi, alpha, nu) if t is not None]
-        cols = [t.reshape(-1, 1) for t in torch.broadcast_tensors(*cols)]
-        phi, alpha = cols[0], cols[1]
-        nu = cols[2] if nu is not None else None
+        cols = torch.broadcast_tensors(*(torch.atleast_1d(t) for t in chained.values()))
+        chained = {k: t.reshape(-1, 1) for k, t in zip(chained, cols)}
+        phi, nu = chained["phi"], chained.get("nu")
+        alpha = chained.get("alpha", alpha)
     c_mat, c_vec = conditional_system(
-        kernel, phi, alpha, jitter, d_in, d_nn, data.nn_mask, nu=nu
+        kernel, phi, alpha, jitter, d_in, d_nn, data.nn_mask, nu=nu,
+        alpha_nbr=alpha_nbr,
     )
     chol = torch.linalg.cholesky(c_mat)
     tmp = torch.linalg.solve_triangular(chol, c_vec[..., None], upper=False)

@@ -119,6 +119,33 @@ def test_coords_site_tables_match_lane_cache(dtype, offset):
     np.testing.assert_allclose(d_in[:n].double().numpy(), exact, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_coords_site_tables_in_four_dimensions_match_lane_cache(dtype):
+    """d = 4: make_site_tables(layout="coords") takes any coordinate
+    dimension, as the reference's coords lane cache does, and the two agree
+    bit for bit: (4, n_pad) own and (4 m, n_pad) neighbor planes."""
+    rng = np.random.default_rng(19)
+    n, m = 400, 7
+    coords = rng.uniform(size=(n, 4))
+    jdata, jtab = jvecchia.make_vecchia_data(coords, m, precompute_distances=False)
+    cache = pb.make_lane_cache(jdata, dtype=getattr(jnp, dtype), layout="coords",
+                               coords_host=coords[jtab.order])
+    want = convert.site_tables_from_lane_cache(
+        np.asarray(cache.tab_a), np.asarray(cache.tab_b), np.asarray(cache.nn_idx),
+        n, layout="coords")
+    data, tab = vecchia.make_vecchia_data(coords, m, precompute_distances=False)
+    got = make_site_tables(data, dtype=getattr(torch, dtype), layout="coords",
+                           coords_host=coords[tab.order])
+    assert got.dim == 4 and got.tab_b.shape == (4 * m, got.n_pad)
+    for name in ("tab_a", "tab_b", "nn_idx"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    d_in, _ = unpack_distances(got)
+    pts = coords[tab.order]
+    exact = np.sqrt(((pts[:, None, :] - pts[tab.nn_idx]) ** 2).sum(-1))
+    np.testing.assert_allclose(d_in[:n].double().numpy(), exact, atol=1e-6)
+
+
 def test_convert_refuses_a_cache_over_other_sites(problem):
     c = problem["cache"]
     with pytest.raises(ValueError, match="coords-layout"):
@@ -295,6 +322,35 @@ def test_response_model_on_coords_matches_reference():
         before = fops.COUNT_COORDS.plain
         ll = tm.full_loglik(torch.tensor(u)[None])
         assert fops.COUNT_COORDS.plain == before + 1
+    np.testing.assert_allclose(ll[0].item(), float(jm.full_loglik(jnp.asarray(u))),
+                               rtol=1e-8)
+    jv, jg = jax.value_and_grad(jm.full_logpost)(jnp.asarray(u))
+    tv, tg = tm.full_value_and_grad(torch.tensor(u)[None])
+    np.testing.assert_allclose(tv[0].item(), float(jv), rtol=1e-8)
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(tg[0].numpy(), jg, rtol=1e-8, atol=1e-8 * np.abs(jg).max())
+
+
+def test_response_model_on_coords_in_four_dimensions_matches_reference():
+    """d = 4 on the coords layout (the port's kernels read the coordinates
+    from the fourth on where they use them; the plain versions take any d):
+    ResponseNNGP(lane_layout="coords") against the reference's Pallas coords
+    branch, n = 400, m = 7, the log-likelihood and the log-posterior's value
+    and gradient, rtol 1e-8 (the gradient also atol 1e-8 of its largest
+    entry), at a point exact in float32."""
+    rng = np.random.default_rng(14)
+    n = 400
+    coords = rng.uniform(size=(n, 4))
+    y = np.sin(4.0 * coords[:, 0] + 2.0 * coords[:, 3]) + 0.3 * rng.standard_normal(n)
+    kwargs = dict(kernel="exponential", m=7, jitter=2.0**-20, lane_layout="coords")
+    jm = JaxResponseNNGP(coords, y, backend="pallas", dtype=jnp.float64,
+                         priors={"phi": jpriors.Uniform(0.0625, 0.5625)}, **kwargs)
+    tm = ResponseNNGP(coords, y, device="cpu", dtype=torch.float64,
+                      priors={"phi": priors.Uniform(0.0625, 0.5625)}, **kwargs)
+    assert tm.tables.layout == "coords" and tm.tables.dim == 4
+    u = np.array([0.2, 0.0, 0.2])
+    with torch.no_grad():
+        ll = tm.full_loglik(torch.tensor(u)[None])
     np.testing.assert_allclose(ll[0].item(), float(jm.full_loglik(jnp.asarray(u))),
                                rtol=1e-8)
     jv, jg = jax.value_and_grad(jm.full_logpost)(jnp.asarray(u))

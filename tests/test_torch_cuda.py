@@ -34,9 +34,9 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _problem(dev, n=1500, m=7, seed=3, layout="dist"):
+def _problem(dev, n=1500, m=7, seed=3, layout="dist", dim=2):
     rng = np.random.default_rng(seed)
-    coords = rng.uniform(size=(n, 2))
+    coords = rng.uniform(size=(n, dim))
     data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist")
     tab32 = make_site_tables(data, dtype=torch.float32, device=dev, layout=layout,
                              coords_host=coords[tab.order])
@@ -530,12 +530,11 @@ def test_coords_general_nu_kernels_match_plain(card, kern, sampled, m):
     assert (b3[:, :, n:] == 0).all() and (f3[:, n:] == 1).all()
 
 
-def test_coords_launch_refuses_a_coordinate_dimension_above_three(card):
+def test_coords_launch_refuses_tables_without_m_d_neighbor_planes(card):
     tab32, _, y, phi, alpha = _problem(card, layout="coords")
-    wide = tab32._replace(tab_a=torch.zeros((4, tab32.n_pad), device=card),
-                          tab_b=torch.zeros((4 * tab32.m, tab32.n_pad), device=card))
+    short = tab32._replace(tab_b=tab32.tab_b[:-1].contiguous())
     with pytest.raises(ValueError, match="coords tables"):
-        fops.suffstats(kernels.SqExp(), wide, phi, alpha, y)
+        fops.suffstats(kernels.SqExp(), short, phi, alpha, y)
 
 
 def test_models_on_the_coords_layout_go_through_its_instances(card):
@@ -571,3 +570,160 @@ def test_models_on_the_coords_layout_go_through_its_instances(card):
     draws = latent.sample(5, n_burn=5, n_chains=2)
     assert all(c.launches > 0 and c.plain == 0 for c in counts)
     assert np.isfinite(draws["phi"]).all()
+
+
+# ---- heterogeneous noise, any m <= 20, coords with any d ---------------------
+# Every instance against its plain version on the same float32 tables, at the
+# limits its homogeneous rows hold.
+
+CLOSED_LIMITS = {"value": 5e-4, "deriv": 2e-4, "nu": None, "f": (1e-4, 1e-6),
+                 "r": (2e-3, 1e-4), "b": 3e-5, "f3": 3e-5, "rof": (2e-3, 1e-4)}
+GENERAL_LIMITS = {"value": 5e-5, "deriv": 2e-4, "nu": 5e-2, "f": (1e-3, 1e-5),
+                  "r": (2e-3, 2e-4), "b": 1e-4, "f3": 1e-4, "rof": (2e-3, 2e-4)}
+
+
+def _weights(n):
+    """Per-site noise weights in ordered site space, v ~ U(0.25, 4)."""
+    return np.random.default_rng(7).uniform(0.25, 4.0, n)
+
+
+def _check_instances(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
+    """Kernels 1, 2, 2-EMIT_Y and 3 at the tables' m (any m <= 20: the
+    instance M >= m runs) against their float64 plain versions; one launch
+    of each instance's count (``_hetero`` with weights) and no other."""
+    limits = GENERAL_LIMITS if nu is not None else CLOSED_LIMITS
+    hetero = noise_v is not None
+    v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
+                                                       device=card)
+    v64 = None if noise_v is None else torch.as_tensor(noise_v, device=card)
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6), tab32.n,
+                               torch.float64, card,
+                               fops.kernel_nu(kern, None if nu is None else nu.double()))
+    names = [fops.instance("vecchia_suffstats", kern, tab32, hetero=hetero),
+             fops.instance("vecchia_grad", kern, tab32, hetero=hetero),
+             fops.instance("vecchia_grad", kern, tab32, True, hetero),
+             fops.instance("vecchia_bf", kern, tab32, hetero=hetero)]
+    counts = [fops.COUNTS[names[0]], dops.COUNTS[names[1]], dops.COUNTS[names[2]],
+              bops.COUNTS[names[3]]]
+    before = [c.launches for c in counts]
+    n, m = tab32.n, tab32.m
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y, nu=nu, noise_v=v32)
+    sums = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, nu=nu, noise_v=v32)
+    sums_y, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, y, emit_y=True,
+                                              nu=nu, noise_v=v32)
+    b3, f3 = bops.bf_planes(kern, tab32, phi, alpha, nu=nu, noise_v=v32)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counts] == [x + 1 for x in before], names
+    y64 = y.double()
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y64, v64)
+    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, y64, True, v64)
+    b3_p, f3_p = bops.bf_reference(kern, tab64, params, v64)
+    value_rtol = limits["value"] if nu is not None else 3e-4
+    torch.testing.assert_close(ld.double(), ld_p, rtol=value_rtol, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=value_rtol, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=limits["f"][0],
+                               atol=limits["f"][1])
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=limits["r"][0],
+                               atol=limits["r"][1])
+    for got in (sums.double(), sums_y.double()):
+        torch.testing.assert_close(got[:2], want[:2], rtol=limits["value"], atol=0.0)
+        torch.testing.assert_close(got[2:6], want[2:6], rtol=limits["deriv"], atol=0.0)
+        if limits["nu"] is not None and kern.samples_nu:
+            torch.testing.assert_close(got[6:], want[6:], rtol=limits["nu"], atol=0.0)
+    assert b.shape == b3.shape == (phi.shape[0], m, tab32.n_pad)
+    torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=limits["b"])
+    torch.testing.assert_close(rof.double(), rof_p, rtol=limits["rof"][0],
+                               atol=limits["rof"][1])
+    assert (b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all()
+    assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
+    torch.testing.assert_close(b3[:, :, :n].double(), b3_p[:, :, :n], rtol=0.0,
+                               atol=limits["b"])
+    torch.testing.assert_close(f3[:, :n].double(), f3_p[:, :n], rtol=limits["f3"],
+                               atol=0.0)
+    assert (b3[:, :, n:] == 0).all() and (f3[:, n:] == 1).all()
+
+
+HETERO_FAMILIES = [(kernels.Exponential(), False), (kernels.Matern(), True)]
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
+@pytest.mark.parametrize("m", [7, 20])
+def test_hetero_instances_match_plain(card, layout, kern, sampled, m):
+    """All sixteen instances launched with per-site weights (v ~ U(0.25, 4)
+    at the neighbors on the diagonal, at the site in F, diag(v) in the alpha
+    sums) against their plain versions."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout=layout)
+    tab32, tab64 = with_children(tab32), with_children(tab64)
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    _check_instances(card, kern, nu, tab32, tab64, y, phi, alpha, _weights(tab32.n))
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("m", [12, 17])
+def test_m_between_built_instances_runs_on_the_larger_one(card, layout, hetero, m):
+    """m = 12 on the M = 15 instances and m = 17 on M = 20: slots k >= m are
+    identity rows that read nothing (the tables have m planes), and B has m
+    planes."""
+    assert fops.cuda_instance_m(m) == {12: 15, 17: 20}[m]
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout=layout)
+    tab32, tab64 = with_children(tab32), with_children(tab64)
+    _check_instances(card, kernels.SqExp(), None, tab32, tab64, y, phi, alpha,
+                     _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
+def test_coords_in_four_dimensions_match_plain(card, kern, sampled):
+    """d = 4 on the coords instances: the fourth coordinate is read where it
+    is used, the first three are held as before."""
+    tab32, tab64, y, phi, alpha = _problem(card, layout="coords", dim=4)
+    assert tab32.dim == 4
+    tab32, tab64 = with_children(tab32), with_children(tab64)
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    _check_instances(card, kern, nu, tab32, tab64, y, phi, alpha)
+
+
+def test_m_above_twenty_raises_on_the_card(card):
+    tab32, _, y, phi, alpha = _problem(card, m=21)
+    with pytest.raises(ValueError, match="m <= 20"):
+        fops.suffstats(kernels.SqExp(), tab32, phi, alpha, y)
+    with pytest.raises(ValueError, match="m <= 20"):
+        ResponseNNGP(np.random.default_rng(0).uniform(size=(500, 2)), np.ones(500),
+                     m=21, device=card)
+
+
+def test_hetero_models_on_card_go_through_the_hetero_instances(card):
+    """ResponseNNGP(noise=HeterogeneousNoise(v)) on the card: MWG launches
+    kernel 1 with weights, fit_map and NUTS kernel 2, with fixed effects MWG
+    kernel 3 and fit_map kernel 2's EMIT_Y instances; LatentNNGP with the
+    weights launches kernel 3 without them (alpha = 0); no plain version
+    runs."""
+    from pynngp_tpu_torch.noise import HeterogeneousNoise
+
+    rng = np.random.default_rng(0)
+    n = 2000
+    coords = rng.uniform(size=(n, 2))
+    v = rng.uniform(0.25, 4.0, n)
+    x = np.column_stack([np.ones(n), rng.standard_normal(n)])
+    y = np.sin(5 * coords[:, 0]) + np.sqrt(0.09 * v) * rng.standard_normal(n)
+    hetero = [fops.COUNTS["vecchia_suffstats_hetero"], dops.COUNTS["vecchia_grad_hetero"],
+              bops.COUNTS["vecchia_bf_hetero"], dops.COUNTS["vecchia_grad_y_hetero"]]
+    for c in hetero + [bops.COUNT]:
+        c.reset()
+    noise = HeterogeneousNoise(v)
+    model = ResponseNNGP(coords, y, m=7, noise=noise, device=card)
+    mp = model.fit_map(n_steps=20)
+    model.sample_nuts(5, n_burn=5, n_chains=2, max_depth=3, init_u=mp.u,
+                      init_inv_mass=mp.laplace_cov)
+    draws = model.sample(5, n_burn=5, n_chains=2)
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), m=7, x=x, noise=noise,
+                         device=card)
+    fixed.fit_map(n_steps=5)
+    fixed.sample(5, n_burn=5, n_chains=2)
+    latent = LatentNNGP(coords, y, m=7, noise=noise, device=card)
+    latent.sample(5, n_burn=5, n_chains=2, collect_w=False)
+    assert all(c.launches > 0 and c.plain == 0 for c in hetero), \
+        [(c.name, c.launches, c.plain) for c in hetero]
+    assert bops.COUNT.launches > 0 and np.isfinite(draws["tau2"]).all()
+

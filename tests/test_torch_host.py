@@ -2,7 +2,10 @@
 tables, the latent sampler's children, colour and pair tables, diagnostics,
 the plane-major site tables, and a JAX-free import."""
 
+import ctypes
+import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -15,9 +18,13 @@ from pynngp_tpu import diagnostics as jdiag
 from pynngp_tpu import native as jnative
 from pynngp_tpu import neighbors as jnbr
 from pynngp_tpu import vecchia as jvecchia
+from pynngp_tpu.models.response import ResponseNNGP as JaxResponseNNGP
 from pynngp_tpu.ops import pallas_bf as pb
 from pynngp_tpu_torch import convert, diagnostics, neighbors
 from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.noise import HeterogeneousNoise
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops.suffstats import cuda_instance_m
 from pynngp_tpu_torch.ops.site_tables import BLOCK, make_site_tables, tri_index
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
@@ -180,25 +187,66 @@ def test_port_runs_without_jax_or_triton():
 
 
 _SMALL = np.random.default_rng(2).uniform(size=(60, 2))
+_WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
 
 
 @pytest.mark.parametrize("kwargs,exc", [
     ({"x": np.ones(60)}, ValueError),
     ({"mesh": object()}, NotImplementedError),
-    ({"noise": "heterogeneous"}, NotImplementedError),
+    # heterogeneous noise is ported; without its weights it raises TypeError,
+    # as the reference's get_noise does
+    ({"noise": "heterogeneous"}, TypeError),
     ({"distance": "dotproduct"}, NotImplementedError),
-    # the general-nu Matern is ported; with per-site noise it still is not
-    ({"kernel": "matern", "noise": "heterogeneous"}, NotImplementedError),
+    # the general-nu Matern and the coords layout with per-site noise are
+    # ported: they build and give finite values (exc None)
+    ({"kernel": "matern", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
     ({"ordering": "maxmin"}, NotImplementedError),
-    # the coords layout is ported; with per-site noise it still is not
-    ({"lane_layout": "coords", "noise": "heterogeneous"}, NotImplementedError),
+    ({"lane_layout": "coords", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
     ({"device": "mps"}, ValueError),
 ], ids=["x", "mesh", "hetero", "dotproduct", "general_nu", "maxmin", "coords",
         "mps"])
 def test_unported_options_raise(kwargs, exc):
+    """Options the port does not have raise (the reference's own error for
+    bare heterogeneous noise); the ported ones build and run."""
     args = {"m": 5, "device": "cpu", **kwargs}
+    if exc is None:
+        model = ResponseNNGP(_SMALL, np.sin(6.0 * _SMALL[:, 0]), dtype=torch.float64,
+                             **args)
+        with torch.no_grad():
+            u = torch.zeros((1, model.full_dim()), dtype=torch.float64)
+            assert torch.isfinite(model.full_logpost(u)).all()
+        return
     with pytest.raises(exc):
         ResponseNNGP(_SMALL, np.ones(60), **args)
+    if exc is TypeError:  # the reference raises the same
+        with pytest.raises(TypeError):
+            JaxResponseNNGP(_SMALL, np.ones(60), m=5, noise="heterogeneous")
+
+
+def test_cuda_instance_m_takes_the_smallest_built_m():
+    """Any 1 <= m <= 20 runs on the card, on the smallest built instance
+    M >= m; above 20 (and below 1) it raises and names the built ones."""
+    want = {**{m: 7 for m in range(1, 8)}, **{m: 10 for m in range(8, 11)},
+            **{m: 15 for m in range(11, 16)}, **{m: 20 for m in range(16, 21)}}
+    assert {m: cuda_instance_m(m) for m in range(1, 21)} == want
+    for m in (0, 21, 25):
+        with pytest.raises(ValueError, match="7, 10, 15, 20"):
+            cuda_instance_m(m)
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Every C entry of csrc/*.cu is bound with one ctypes type per
+    parameter, in order: a pointer for each pointer, an int for each int
+    (a pointer passed as an int would be cut to 32 bits)."""
+    entries = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "pynngp_tpu_torch", "csrc", "*.cu"))):
+        with open(path) as fh:
+            for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', fh.read()):
+                entries[name] = ["p" if "*" in a else "i" for a in params.split(",")]
+    assert set(entries) == set(_build._SIGNATURES)
+    for name, kinds in entries.items():
+        bound = ["p" if t is ctypes.c_void_p else "i" for t in _build._SIGNATURES[name]]
+        assert bound == kinds, name
 
 
 def test_cuda_device_without_card_raises():

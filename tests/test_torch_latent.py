@@ -17,6 +17,7 @@ import torch
 from pynngp_tpu.models.latent import LatentNNGP as JaxLatentNNGP
 from pynngp_tpu_torch import convert
 from pynngp_tpu_torch.models.latent import LatentNNGP
+from pynngp_tpu_torch.noise import HeterogeneousNoise
 from pynngp_tpu_torch.ops import bf as bf_ops
 
 N, M = 200, 6
@@ -277,14 +278,18 @@ def test_other_sampler_modes_run_and_recover_the_slope(w_update, collapsed):
 
 
 _SMALL = np.random.default_rng(2).uniform(size=(60, 2))
+_WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
 
 
 @pytest.mark.parametrize("kwargs,exc", [
     ({"mesh": object()}, NotImplementedError),
-    ({"noise": "heterogeneous"}, NotImplementedError),
+    # heterogeneous noise is ported; without its weights it raises TypeError,
+    # as the reference's get_noise does
+    ({"noise": "heterogeneous"}, TypeError),
     ({"distance": "dotproduct"}, NotImplementedError),
-    # the general-nu Matern is ported; with per-site noise it still is not
-    ({"kernel": "matern", "noise": "heterogeneous"}, NotImplementedError),
+    # the general-nu Matern with per-site noise is ported: it builds and
+    # gives finite values (exc None)
+    ({"kernel": "matern", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
     ({"ordering": "maxmin"}, NotImplementedError),
     ({"w_update": "blocked"}, ValueError),
     ({"x": np.ones(60)}, ValueError),
@@ -292,9 +297,22 @@ _SMALL = np.random.default_rng(2).uniform(size=(60, 2))
 ], ids=["mesh", "hetero", "dotproduct", "general_nu", "maxmin", "w_update",
         "x_shape", "mps"])
 def test_unported_options_raise(kwargs, exc):
+    """Options the port does not have raise (the reference's own error for
+    bare heterogeneous noise); the ported ones build and run."""
     args = {"m": 5, "device": "cpu", **kwargs}
+    if exc is None:
+        model = LatentNNGP(_SMALL, np.sin(6.0 * _SMALL[:, 0]), dtype=torch.float64,
+                           jitter=1e-4, **args)
+        state = model.init_state(2, {"phi": 0.3, "nu": 1.0})
+        state = model.step(torch.Generator().manual_seed(0), state)
+        assert all(torch.isfinite(t.double()).all() for t in state)
+        assert torch.isfinite(model.loglik(state)).all()
+        return
     with pytest.raises(exc):
         LatentNNGP(_SMALL, np.ones(60), **args)
+    if exc is TypeError:  # the reference raises the same
+        with pytest.raises(TypeError):
+            JaxLatentNNGP(_SMALL, np.ones(60), m=5, noise="heterogeneous")
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

@@ -10,9 +10,10 @@ its parent within one machine's noise.
 from the tree's root, so that it imports and builds that tree's package
 (``build/pynngp_tpu_torch/`` under each root), and prints the tree's
 ``ptxas -v`` summary by m, the closed-form kernel times of
-``chip_smoke.time_kernels`` at n=100,000, m=15 and the general-nu ones of
-``chip_smoke.time_kernels_nu`` at n=25,000, m=10, 16 chains each.  The last
-line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
+``chip_smoke.time_kernels`` (dist) and ``chip_smoke.time_layout_kernels``
+(coords) at n=100,000, m=15 and n=500,000, m=20 (config 5), and the
+general-nu ones of ``chip_smoke.time_kernels_nu`` at n=25,000, m=10 on either
+layout, 16 chains each.  The last line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
 """
 import json
 import os
@@ -31,8 +32,18 @@ case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev)
 out["closed"] = {k: v for k, v in cs.time_kernels(case).items()
                  if not k.endswith("_plain")}
 del case
-nu = cs.Case(25000, 10, cs.Matern(), 16, seed=5, dev=dev, nu=cs.nu_spread(16))
-out["nu"] = cs.time_kernels_nu(nu, plain=False)
+case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev, layout="coords")
+out["closed"].update(cs.time_layout_kernels(case, 20, 200))
+del case
+for layout in ("dist", "coords"):
+    nu = cs.Case(25000, 10, cs.Matern(), 16, seed=5, dev=dev, nu=cs.nu_spread(16),
+                 layout=layout)
+    out["nu"] = {**out.get("nu", {}), **cs.time_kernels_nu(nu, plain=False)}
+    del nu
+    big = cs.Case(500000, 20, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+    out["m20"] = {**out.get("m20", {}), **cs.time_layout_kernels(big, 3, 10)}
+    del big
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 '''
 

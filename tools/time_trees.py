@@ -1,0 +1,85 @@
+"""Kernel times and resource use of several trees of pynngp_tpu_torch on one
+card, in turns, so that variants of the kernels can be held to each other
+within one machine's noise.
+
+    mkdir -p archive_check/A && git archive HEAD | tar -x -C archive_check/A
+    # ... edit archive_check/A/pynngp_tpu_torch/csrc, make B, C likewise ...
+    python3 tools/time_trees.py A B C        # from the root of the checkout
+
+``archive_check/`` is git-ignored and copied to the card's machine.  Each tree
+runs in a process of its own from its root (so that it builds and imports its
+own package), in the order given and then reversed.  A round prints the
+tree's ``ptxas -v`` summary by m and the times of ``chip_smoke``'s
+``time_layout_kernels`` (kernels 1, 2, 2-EMIT_Y, 3 and kernel 2 at 4 chains)
+at n=100,000, m=15 on both layouts, of ``time_kernels_nu`` at n=25,000, m=10,
+and, where the tree takes it, of m=12 on the M=15 instances.  At the end the
+mean of each time by tree, and ``cuobjdump -res-usage`` (registers and stack)
+of each tree's m=15 and m=20 kernels.  Dropping the M = 7 and 20 launch cases
+from a variant's bodies builds it in under a minute.
+"""
+import json
+import os
+import subprocess
+import sys
+
+ROUND = r'''
+import json, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+out = {"build_s": info["seconds"], "lib": info["lib"],
+       "ptxas": {m: cs.ptxas_summary(info["ptxas"], m) for m in (7, 10, 15, 20)}}
+for layout in ("dist", "coords"):
+    case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+    out.update(cs.time_layout_kernels(case, 20, 200))
+    del case
+    nu = cs.Case(25000, 10, cs.Matern(), 16, seed=5, dev=dev, nu=cs.nu_spread(16),
+                 layout=layout)
+    out.update(cs.time_kernels_nu(nu, plain=False))
+    del nu
+    try:  # m = 12 on the M = 15 instances, in trees that take it
+        case = cs.Case(100000, 12, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+        out.update({k + "_m12": ms for k, ms in cs.time_layout_kernels(case, 20, 200).items()})
+        del case
+    except (ValueError, RuntimeError) as err:
+        out["m12_error"] = str(err)[:200]
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def main() -> int:
+    root = os.getcwd()
+    trees = sys.argv[1:]
+    results = []
+    for tree in trees + trees[::-1]:
+        run = subprocess.run([sys.executable, "-c", ROUND], capture_output=True, text=True,
+                             cwd=os.path.join(root, "archive_check", tree))
+        found = [line for line in run.stdout.splitlines() if line.startswith("RESULT ")]
+        if not found:
+            print(tree, run.returncode, run.stderr[-3000:], flush=True)
+            return 1
+        results.append((tree, json.loads(found[0][len("RESULT "):])))
+        print(tree, "build", results[-1][1]["build_s"], flush=True)
+    names = sorted({k for _, r in results for k, v in r.items()
+                    if isinstance(v, float) and k != "build_s"})
+    for name in names:
+        row = {}
+        for tree, r in results:
+            if name in r:
+                row.setdefault(tree, []).append(r[name])
+        print(f"{name:40s} " + "  ".join(f"{t} {sum(v) / len(v):.4f}" for t, v in row.items()),
+              flush=True)
+    for tree, r in results[:len(trees)]:
+        print(tree, json.dumps(r["ptxas"]), flush=True)
+        usage = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-res-usage", r["lib"]],
+                               capture_output=True, text=True).stdout.splitlines()
+        for name, res in zip(usage, usage[1:]):
+            if "Function" in name and ("ILi15E" in name or "ILi20E" in name):
+                print(tree, name.split()[-1][:90], res.split("SHARED")[0].strip(), flush=True)
+    print("TIME_TREES " + json.dumps(results), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
