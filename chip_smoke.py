@@ -29,7 +29,7 @@ checks that it went through its kernels:
 - on the coords table layout (every distance recomputed in the kernels from
   coordinate planes): ``bench.py``'s config 5 probe (``bench_setup500k``,
   uncut: set-up phases and 50 log-likelihood evaluations at n=500,000, m=20),
-  the response NNGP at that size with the default layout (bench_ess's MWG
+  the response NNGP at that size on coords (bench_ess's MWG
   recipe cut, and a short NUTS run), its fixed effects (``fit_map(x=)``), the
   latent-w NNGP at that size, and config 3's model with
   ``lane_layout="coords"`` against the dist layout (kernels 1 and 2's
@@ -46,9 +46,13 @@ layouts timed on the same sites at n=10,000 to 500,000, and each layout's
 host set-up (seconds, table sizes, peak host memory) at those sizes, from
 which the layout rule is printed (``site_tables.COORDS_LAYOUT_MIN_SITES``);
 every instance launched with noise weights (``..._hetero``) against its
-plain version and timed, the coords instances with d = 4, and m = 12 and
+plain version and timed, the coords instances with d = 4, m = 12 and
 m = 17 run on the M = 15 and M = 20 instances against their plain versions
-and timed against those instances' own m.
+and timed against those instances' own m, and m = 25 and m = 32 on the
+rolled instances of all three kernels, both layouts.  After the build it
+prints the registers, stack, shared bytes and warps an SM of every instance
+of kernels 1 and 2 (the tile kernels: a block of up to four chains, one warp
+each, over a 32-site tile staged in shared memory).
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -74,7 +78,7 @@ from pynngp_tpu_torch.kernels import Exponential, Matern, SqExp
 from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.noise import HeterogeneousNoise
-from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import _build, geometry
 from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
@@ -223,9 +227,10 @@ def ptxas_summary(ptxas: str, m: int) -> str:
     """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
     instance of every kernel.  The template arguments after M are EMIT_Y
     (kernel 2 only), GENERAL, the general-nu Matern, COORDS, the coords
-    table layout, ANY_D, the rolled coords instance for d > 3 (``_anyd``),
-    and, kernel 3 only, HETERO (``_hetero``); trees before slice 6 have
-    neither of the last two."""
+    table layout, ROLLED, the rolled instance for m > 20 or d > 3
+    (``_rolled``; M = 32, slice 6's coords-only ANY_D at M = 20), and,
+    kernel 3 only, HETERO (``_hetero``); trees before slice 6 have neither
+    of the last two."""
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
@@ -241,7 +246,7 @@ def ptxas_summary(ptxas: str, m: int) -> str:
         if flags[core - 1] == "1":
             name += "_coords"
         if flags[core:core + 1] == ["1"]:
-            name += "_anyd"
+            name += "_rolled"
         if flags[core + 1:core + 2] == ["1"]:  # kernel 3's HETERO instances
             name += "_hetero"
         spill = regs = frame = "?"
@@ -634,12 +639,25 @@ def check_kve(dev) -> dict:
     return {"max_rel_err": worst}
 
 
+# Card clocks (at up to 2 GHz) of the sleep that _time_ms puts ahead of each
+# call it times: enough for the host to enqueue that many microseconds of
+# wrapper work.
+SLEEP_CYCLES_PER_CALL = 1_000_000
+
+
 def _time_ms(fn, warm: int, reps: int) -> float:
+    """Card milliseconds of one call of ``fn``: CUDA events around ``reps``
+    calls after ``warm`` more.  A sleep kernel ahead of the first event
+    keeps the card busy while the host enqueues the calls, so that a kernel
+    shorter than its wrapper's host work is timed on the card, not at the
+    host's pace; a call that waits for the card is timed with its host work,
+    as before."""
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -1936,8 +1954,10 @@ def config5_probe(dev) -> dict:
 
 
 def config5_response_path(dev) -> dict:
-    """The response NNGP at config 5's size with the default layout (coords
-    at this n): bench_ess's field at n=500,000 (seed 0, noise sd 0.3), m=20,
+    """The response NNGP at config 5's size on the coords layout (the
+    reference's default at this n; the port's is dist up to
+    COORDS_LAYOUT_MIN_SITES): bench_ess's field at n=500,000 (seed 0, noise
+    sd 0.3), m=20,
     sqexp; fit_map(250), then bench_ess's MWG recipe cut to a 16 x 300
     correlated-RW pilot (100 burn-in) and 16 x 600 independence-mixture
     draws after 300 burn-in; then NUTS, 4 chains x 30 draws after 30 burn-in
@@ -1946,10 +1966,9 @@ def config5_response_path(dev) -> dict:
     coords, y = bench_field(N_C5, seed=0)
     _reset_counts()
     t0 = time.perf_counter()
-    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_C5, device=dev)
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_C5, device=dev,
+                         lane_layout="coords")
     setup_s = time.perf_counter() - t0
-    _require(model.lane_layout == "coords",
-             f"the default layout at n={N_C5} is {model.lane_layout}")
     res = {"setup_s": setup_s, "lane_layout": model.lane_layout,
            **_mwg_recipe(model, (100, 200), (300, 600), f"n{N_C5}_m{M_C5}")}
     draws, mp = res.pop("draws"), res.pop("map_fit")
@@ -1991,16 +2010,16 @@ def config5_response_path(dev) -> dict:
 
 def config5_fixed_effects_path(dev) -> dict:
     """Config 5's field plus x @ [1, -2] with an intercept and one covariate:
-    fit_map(150) with x=, every step one launch of kernel 2's EMIT_Y coords
-    instances and one y-cotangent gather; the MAP slope must be within 0.1
-    of -2."""
+    fit_map(150) with x= on the coords layout, every step one launch of
+    kernel 2's EMIT_Y coords instances and one y-cotangent gather; the MAP
+    slope must be within 0.1 of -2."""
     coords, y = bench_field(N_C5, seed=0)
     x = np.column_stack([np.ones(N_C5), np.random.default_rng(1).standard_normal(N_C5)])
     beta_true = np.array([1.0, -2.0])
     _reset_counts()
     t0 = time.perf_counter()
     model = ResponseNNGP(coords, y + x @ beta_true, kernel="sqexp", m=M_C5, x=x,
-                         device=dev)
+                         device=dev, lane_layout="coords")
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mp = model.fit_map(n_steps=150)
@@ -2020,14 +2039,22 @@ def config5_fixed_effects_path(dev) -> dict:
 
 def config5_latent_path(dev) -> dict:
     """The latent-w NNGP at config 5's size on config 5's field: m=20,
-    exponential, the layout by n (coords here), 8 chains, 100 draws after
-    100 burn-in, w_every=8.  One launch of kernel 3's coords instances a
-    step, for the proposal of the theta block (phi)."""
+    exponential, on the coords layout, 8 chains, 100 draws after 100
+    burn-in, w_every=8.  One launch of kernel 3's coords instances a step,
+    for the proposal of the theta block (phi).  The latent model takes its
+    layout by n alone, as the reference's does, and the reference's
+    threshold (200,000) takes coords here: the path builds the model under
+    that threshold."""
     n, chains, n_burn, n_draws = N_C5, 8, 100, 100
     coords, y = bench_field(n, seed=0)
     _reset_counts()
     t0 = time.perf_counter()
-    model = LatentNNGP(coords, y, kernel="exponential", m=M_C5, device=dev)
+    port_threshold = site_tables.COORDS_LAYOUT_MIN_SITES
+    site_tables.COORDS_LAYOUT_MIN_SITES = 200_000
+    try:
+        model = LatentNNGP(coords, y, kernel="exponential", m=M_C5, device=dev)
+    finally:
+        site_tables.COORDS_LAYOUT_MIN_SITES = port_threshold
     setup_s = time.perf_counter() - t0
     _require(model.lane_layout == "coords",
              f"the latent model's layout at n={n} is {model.lane_layout}")
@@ -2272,6 +2299,85 @@ def m_between_instances(dev, exact15: Case) -> dict:
     return errs
 
 
+def large_m_instances(dev) -> dict:
+    """m = 25 and m = 32 on the card: the rolled instances of all three
+    kernels (arrays for 32, loops to m) on both layouts at n=10,000, 16
+    chains, against their plain versions on four of the chains (two a float64
+    plain call), closed form (kernels 1, 2, 2-EMIT_Y with a shared and a
+    per-chain y, 3) and sampled nu; then all 16 chains timed.  Limits: the
+    closed-form rows' (gradients rtol 2e-3, the limit of sums over 10^5
+    float32 site terms, here 10^4) and NU_LIMITS.  Returns the max_abs_err of
+    each closed-form row."""
+    errs, times = {}, {}
+    for m in (25, 32):
+        _require(fwd_ops.cuda_instance_m(m) == 32, f"m={m} does not run rolled")
+        for layout in LAYOUTS:
+            case = Case(10_000, m, SqExp(), CHAINS, seed=0, dev=dev, layout=layout)
+            sub = case.subset(slice(None, None, 4), chunk=2)
+            label = f"{layout} n10000 m{m} rolled sqexp"
+            fwd = check_forward(sub, label)
+            grad = check_grad(sub, label, grad_rtol=2e-3)
+            bf = check_bf(sub, label, zero_alpha=False, gated=True)
+            grad_y = check_grad_y(sub, label, False, grad_rtol=2e-3)
+            check_grad_y(sub, label, True, grad_rtol=2e-3)
+            sfx = _suffix(case)
+            for name, err in ((f"vecchia_suffstats{sfx}", fwd["f_max_abs_err"]),
+                              (f"vecchia_grad{sfx}", grad["max_abs_err"]),
+                              (f"vecchia_bf{sfx}", bf["b_max_abs_err"]),
+                              (f"vecchia_grad_y{sfx}", grad_y["b_max_abs_err"])):
+                errs[name] = max(errs.get(name, 0.0), err)
+            times[f"{layout}_m{m}"] = time_layout_kernels(case, 3, 20)
+            nu = Case(10_000, m, Matern(), CHAINS, seed=0, dev=dev, nu=nu_spread(CHAINS),
+                      layout=layout)
+            check_general_nu(nu.subset(slice(None, None, 4), chunk=2), f"{label} nu")
+            del case, sub, nu
+            torch.cuda.empty_cache()
+    print("m above 20 on the rolled instances [n10000, 16 chains]: " + json.dumps(times),
+          flush=True)
+    return errs
+
+
+def tile_resources(info: dict) -> dict:
+    """Registers, stack and static shared bytes of every instance of kernels
+    1 and 2 (``cuobjdump -res-usage`` of the built library), the tile ring's
+    bytes at 16 chains with a shared y (ops/geometry.py; the rolled instances
+    at m = 25) and the warps an SM those allow by the card's occupancy rules
+    (65,536 registers an SM given out 256 to a warp, 233,472 bytes of shared
+    memory an SM with 1,024 reserved a block, 64 warps and 32 blocks an
+    SM)."""
+    usage = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-res-usage", info["lib"]],
+                           capture_output=True, text=True, timeout=300,
+                           check=True).stdout.splitlines()
+    out = {}
+    for line, res in zip(usage, usage[1:]):
+        found = re.search(r"(suffstats|grad)(?:_nu)?_kernelILi(\d+)E((?:Lb[01]E)+)", line)
+        if "Function" not in line or not found:
+            continue
+        name, big_m = found.group(1), int(found.group(2))
+        flags = re.findall(r"Lb([01])E", found.group(3))
+        core = 1 if name == "grad" else 0  # kernel 2's first flag is EMIT_Y
+        if name == "grad" and flags[0] == "1":
+            name = "grad_y"
+        general, coords, rolled = (flags[core:core + 3] + ["0", "0", "0"])[:3]
+        name += ("_nu" if general == "1" else "") + ("_coords" if coords == "1" else "")
+        stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
+        regs, stack, static = (int(stats.get(k, 0)) for k in ("REG", "STACK", "SHARED"))
+        m = 25 if rolled == "1" else big_m
+        dim = 2 if coords == "1" else 0
+        geo = geometry.geometry(100_096, m, CHAINS, "coords" if dim else "dist", dim)
+        warps = geo.block // 32
+        per_warp = -(-regs * 32 // 256) * 256
+        blocks = min(65_536 // per_warp // warps, 233_472 // (geo.smem_bytes + static + 1024),
+                     64 // warps, 32)
+        key = f"{name}<{'rolled' if rolled == '1' else big_m}>"
+        out[key] = {"registers": regs, "stack": stack, "static_shared": static,
+                    "ring_bytes": geo.smem_bytes, "warps_per_sm": blocks * warps}
+    print("tile kernels' resources [16 chains, shared y; ring at m = 25 for the rolled]: "
+          + json.dumps(out), flush=True)
+    _require(len(out) == 60, f"expected 60 instances of kernels 1 and 2, found {len(out)}")
+    return out
+
+
 def hetero_main_path(dev) -> dict:
     """Heterogeneous noise on the main path: bench_field's n=100,000 signal
     plus N(0, 0.09 v_i) noise from the same draws, v ~ U(0.25, 4)
@@ -2427,7 +2533,8 @@ def main() -> int:
     print(f"build: {info['seconds']:.1f} s (cached={info['cached']}), "
           f"{info['nvcc']}, torch {torch.__version__} cuda {torch.version.cuda}, "
           "ptxas: " + "; ".join(ptxas_summary(info["ptxas"], m)
-                                for m in fwd_ops.CUDA_M), flush=True)
+                                for m in fwd_ops.CUDA_M + (geometry.MAX_M,)), flush=True)
+    tile_resources(info)
 
     main_case = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev)
     small_case = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev)
@@ -2454,6 +2561,8 @@ def main() -> int:
     times.update(time_hetero(hetero_main, 10, 100, (1, 3)))
     bounds.update(kernel_bounds(hetero_main))
     errs_m = m_between_instances(dev, main_case)
+    errs_m.update({name: max(err, errs_m.get(name, 0.0))
+                   for name, err in large_m_instances(dev).items()})
 
     # the coords instances of the closed-form kernels on the same sites
     coords_main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, layout="coords")
@@ -2596,7 +2705,7 @@ def main() -> int:
                      f"vecchia_grad_nu{sfx}_hetero": err["sums_max_abs_err"],
                      f"vecchia_grad_y_nu{sfx}_hetero": err["b_max_abs_err"],
                      f"vecchia_bf_nu{sfx}_hetero": err["bf_b_max_abs_err"]})
-    for name, err in errs_m.items():  # m = 12 and 17 on the dist instances
+    for name, err in errs_m.items():  # m = 12, 17, 25 and 32
         errs[name] = max(errs[name], err)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{info['seconds']:.1f} s of it", flush=True)

@@ -20,9 +20,9 @@
 // is the singular all-ones matrix.  Nothing downstream has to slice them off
 // before it takes a log or a reciprocal of F.
 //
-// Design.  One thread per (site, chain) as in kernels 1 and 2: blocks of
-// kBlock threads along sites, gridDim.y = chains, the tables shared by all
-// chains.  B is written plane-major, (C, m, n_pad), so the 32 threads of a
+// Design.  One thread per (site, chain), as kernels 1 and 2 had it before
+// their tile ring (vecchia_tile.cuh): blocks of kBlock threads along sites,
+// gridDim.y = chains, the tables shared by all chains.  B is written plane-major, (C, m, n_pad), so the 32 threads of a
 // warp store 32 adjacent floats of one plane; the sweep reads it in that
 // layout and nothing is transposed.
 //
@@ -30,7 +30,7 @@
 // and (m + 1) * 4 bytes of stores against ~m^3/6 + m^2 dependent FMAs and
 // m(m+1)/2 exponentials: latency- and register-bound like kernel 2, because
 // the back-substitution reads column i of L for every k > i and so keeps all
-// of L live to the end (105 + 15 + 15 + 15 floats at m = 15, in local memory:
+// of L live to the end (105 + 15 + 15 + 15 floats at m = 15, in registers:
 // "Loop structure", vecchia_common.cuh).  With noise weights it also reads
 // nn_idx and v at the neighbors and v at the site.  Its floor on
 // an H100 is set by operations, the special-function rate of the
@@ -48,21 +48,22 @@
 namespace vecchia {
 namespace {
 
-// ANY_D: the coords instance for d > kMaxDim (vecchia_common.cuh).  HETERO:
+// ROLLED: the rolled instance, for 20 < m <= kRolledM on either layout and
+// for coords with d > kMaxDim (vecchia_common.cuh).  HETERO:
 // the instance launched with noise weights.  Kernel 3 is the one body that
 // takes noise as a template parameter: it gathers nothing else through nn_idx,
 // and the weights' loads behind a runtime branch cost its homogeneous
 // instances 2.5-5% on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), where
 // kernels 1 and 2 pay under 1%.
-template <int M, bool GENERAL, bool COORDS, bool ANY_D = false, bool HETERO = false>
+template <int M, bool GENERAL, bool COORDS, bool ROLLED = false, bool HETERO = false>
 __global__ void __launch_bounds__(kBlock)
 bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
           const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
           const float* __restrict__ v, int n_pad, int m, int dim, int family,
           float* __restrict__ b_out, float* __restrict__ f_out) {
-  // the loops over the slots run to M, unrolled; in the ANY_D instance to
+  // the loops over the slots run to M, unrolled; in the ROLLED instance to
   // the call's m, which keeps them rolled
-  const int top = ANY_D ? m : M;
+  const int top = ROLLED ? m : M;
   const int chain = blockIdx.y;
   const int site = blockIdx.x * kBlock + threadIdx.x;
   const float* pr = params + chain * kParams;
@@ -103,7 +104,7 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
     for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
     const float inv = 1.0f / sqrtf(acc);
     inv_diag[k] = inv;
-    float au = corr<GENERAL>(family, dist_in<COORDS, ANY_D>(tab_a, tab_b, own, g, k, dim,
+    float au = corr<GENERAL>(family, dist_in<COORDS, ROLLED>(tab_a, tab_b, own, g, k, dim,
                                                             n_pad, site),
                              phi, set) *
                mk;
@@ -113,7 +114,7 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 #pragma unroll
     for (int i = k + 1; i < top; ++i) {
       const float mi = g.mask(i);  // mask_i * mask_k, as i > k
-      float a = corr<GENERAL>(family, dist_pair<COORDS, ANY_D>(tab_b, g, i, k, dim, n_pad, site),
+      float a = corr<GENERAL>(family, dist_pair<COORDS, ROLLED>(tab_b, g, i, k, dim, n_pad, site),
                               phi, set) *
                 mi;
 #pragma unroll
@@ -139,9 +140,9 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   }
 }
 
-// Validates the launch shape, picks the instance (M >= m, or the ANY_D one
-// for coords with d > kMaxDim) and launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// Validates the launch shape, picks the instance (M >= m for m <= 20; the
+// rolled one for larger m and for coords with d > kMaxDim) and launches on
+// `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_bf(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
               const float* v, int n_pad, int m, int dim, int chains, int family, float* b_out,
@@ -159,8 +160,8 @@ int launch_bf(const float* params, const float* tab_a, const float* tab_b, const
     bf_kernel<MM, GENERAL, COORDS, ANY, false><<<grid, kBlock, 0, s>>>(                     \
         params, tab_a, tab_b, nn_idx, v, n_pad, m, dim, family, b_out, f_out);              \
   }
-  if (COORDS && dim > kMaxDim) {
-    VECCHIA_BF_LAUNCH(kAnyDimM, COORDS);
+  if (launch_m(m) == kRolledM || (COORDS && dim > kMaxDim)) {
+    VECCHIA_BF_LAUNCH(kRolledM, true);
     return static_cast<int>(cudaGetLastError());
   }
   switch (launch_m(m)) {

@@ -1,9 +1,11 @@
 // Shared device helpers of the fused Vecchia kernels (vecchia_suffstats_body.cuh,
-// vecchia_grad_body.cuh, vecchia_bf_body.cuh): the correlation families and their
-// phi-derivatives (counterparts of _rho_fn and _drho_fn in
-// pynngp_tpu/ops/pallas_bf.py:312,656), the packed-triangle index, the
-// distance accessors of the two table layouts (_dist_access, l.377), and the
-// deterministic block reduction.
+// vecchia_grad_body.cuh, vecchia_bf_body.cuh): the packed-triangle index, the
+// instance choice by m, and, as kernel 3 uses them, the correlation families
+// (counterpart of _rho_fn in pynngp_tpu/ops/pallas_bf.py:312) and the
+// distance accessors of the two table layouts on global memory
+// (_dist_access, l.377).  Kernels 1 and 2 read the distances from a
+// shared-memory tile and take the closed forms with their phi-derivatives
+// (_drho_fn, l.656) from vecchia_tile.cuh.
 //
 // Layout (pynngp_tpu_torch/ops/site_tables.py): plane-major tables of n_pad
 // sites, n_pad a multiple of kBlock, in one of two layouts, a compile-time
@@ -15,9 +17,10 @@
 //          k d + a for coordinate a of slot k; every distance is recomputed
 //          as sqrt(sum_a (x_a - x'_a)^2), d >= 1 a launch argument.
 // m, the call's neighbor count, is a launch argument too: a call runs on the
-// smallest built instance M >= m (launch_m), and slots k >= m are identity
-// rows (Guard).  The tables of an m-call have m (or m(m-1)/2, or m d)
-// planes, the leading planes of the M layout: tri(i, k) for i < m and
+// smallest built instance M >= m (launch_m) for m <= 20, and slots k >= m
+// are identity rows; 20 < m <= kRolledM runs the rolled instance (arrays for
+// kRolledM, loops to m).  The tables of an m-call have m (or m(m-1)/2, or
+// m d) planes, the leading planes of the M layout: tri(i, k) for i < m and
 // k d + a for k < m do not depend on M.
 //
 // Heterogeneous noise.  Every body takes `v`, the per-site noise weights in
@@ -25,19 +28,18 @@
 // pallas_bf.py:510-518), or null for homogeneous noise; the branch on it is
 // the same for every thread of a launch.  With v, the relative nugget of
 // neighbor slot k is alpha v[nn_idx[k]] and the site's own alpha v[site]
-// (reference vecchia.py:140-143); each thread gathers v through nn_idx where
-// it uses it, as it gathers y, and keeps none of it live.
+// (reference vecchia.py:140-143).
 // Per-chain parameters as a (C, 6) float32
 // array [phi, alpha, jitter, n, nu, off], mirroring _params_vec
 // (pallas_bf.py:496).  nu is read by the general-nu Matern instances alone
 // (GENERAL = true; vecchia_bessel.cuh); off is read by none and stays in the
 // row for the site-sharded variants.
 //
-// Loop structure.  Every body unrolls its loops over M, and the factor lives
-// in registers.  Kernel 2 with its nested loops left rolled (an unroll count
-// of M on them) and the factor in local memory ran 1.4-1.8x faster on an
-// NVIDIA H100 80GB HBM3 at 700 W, kernels 1 and 3 4-62% slower at m = 20
-// (PERF.md): a redesign for a later change, with the layout rule it moves.
+// Loop structure.  The bodies unroll their loops over M and nvcc keeps the
+// factor in registers, except kernel 2, whose loops nested in a slot loop
+// stay rolled (its factor in local memory: faster there, PERF.md), and
+// the rolled instance of each source, whose loops run to the call's m and
+// whose arrays live in local memory.
 //
 // GENERAL is a template parameter of every body beside M.  The closed-form
 // instances (GENERAL = false) take rho and d rho / d phi from the switch
@@ -96,38 +98,10 @@ __device__ __forceinline__ float rho(int family, float d, float phi) {
   }
 }
 
-// d rho / d phi.  Zero at d = 0 for every family, so dC/dphi has no diagonal.
-__device__ __forceinline__ float drho_dphi(int family, float d, float phi) {
-  switch (family) {
-    case kSqExp: {
-      const float t = d / phi;
-      return expf(-(t * t)) * 2.0f * d * d / (phi * phi * phi);
-    }
-    case kExponential:
-      return expf(-d / phi) * d / (phi * phi);
-    case kSpherical: {
-      const float t = d / phi;
-      return t < 1.0f ? 1.5f * t * (1.0f - t * t) / phi : 0.0f;
-    }
-    case kMatern12: {
-      const float t = d / phi;
-      return expf(-t) * t / phi;
-    }
-    case kMatern32: {
-      const float t = 1.7320508075688772f * d / phi;
-      return expf(-t) * t * t / phi;
-    }
-    default: {  // kMatern52
-      const float t = 2.23606797749979f * d / phi;
-      return expf(-t) * t * t * (1.0f + t) / (3.0f * phi);
-    }
-  }
-}
-
 // Coordinate dimensions held in registers for the site's own coordinates in
 // the coords layout; up to kMaxDim coordinates the accessors below are
-// straight-line code.  A launch with d > kMaxDim runs an instance of its own
-// (ANY_D, one a source: see kAnyDimM), which reads every coordinate from the
+// straight-line code.  A launch with d > kMaxDim runs the rolled instance
+// (ROLLED, one a source: see kRolledM), which reads every coordinate from the
 // fourth on where it uses it, in a loop, and keeps every loop rolled.
 // Holding more coordinates would cost every coords instance registers, and a
 // loop in the common instances cost them 12-15% of their time (measured on
@@ -135,10 +109,12 @@ __device__ __forceinline__ float drho_dphi(int family, float d, float phi) {
 // straight-line block).
 constexpr int kMaxDim = 3;
 
-// The instance that runs coords launches with d > kMaxDim: arrays for the
-// largest M, and loops that run to the call's m, which nvcc cannot unroll, so
-// that it compiles in seconds.
-constexpr int kAnyDimM = 20;
+// The rolled instance: arrays for the largest m the kernels take, and loops
+// that run to the call's m, which nvcc cannot unroll, so that it compiles in
+// seconds.  It runs every launch with 20 < m <= kRolledM, and coords launches
+// with d > kMaxDim.  State per (site, chain) grows as m^2 (the factor alone
+// is m(m-1)/2 floats), so no larger m is taken.
+constexpr int kRolledM = 32;
 
 // The site's own first kMaxDim coordinates (coords layout), loaded once per
 // thread; the dist layout has none.  Unused entries (a >= dim) are 0.
@@ -196,7 +172,7 @@ struct Guard {
 };
 
 // Distance from the site to its neighbor slot k.
-template <bool COORDS, bool ANY_D>
+template <bool COORDS, bool ROLLED>
 __device__ __forceinline__ float dist_in(const float* __restrict__ tab_a,
                                          const float* __restrict__ tab_b,
                                          const OwnCoords<COORDS>& own, const Guard& g, int k,
@@ -211,7 +187,7 @@ __device__ __forceinline__ float dist_in(const float* __restrict__ tab_a,
         acc += diff * diff;
       }
     }
-    if constexpr (ANY_D) {
+    if constexpr (ROLLED) {
 #pragma unroll 1
       for (int a = kMaxDim; a < dim; ++a) {
         const float diff = load_where_used(tab_a + static_cast<size_t>(a) * n_pad + site) -
@@ -226,7 +202,7 @@ __device__ __forceinline__ float dist_in(const float* __restrict__ tab_a,
 }
 
 // Distance between neighbor slots i and k, i > k.
-template <bool COORDS, bool ANY_D>
+template <bool COORDS, bool ROLLED>
 __device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, const Guard& g,
                                            int i, int k, int dim, int n_pad, int site) {
   if constexpr (COORDS) {
@@ -241,7 +217,7 @@ __device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, cons
         acc += diff * diff;
       }
     }
-    if constexpr (ANY_D) {
+    if constexpr (ROLLED) {
 #pragma unroll 1
       for (int a = kMaxDim; a < dim; ++a) {
         const float diff = nbr_coord(tab_b, i, a, dim, n_pad, site) -
@@ -255,12 +231,6 @@ __device__ __forceinline__ float dist_pair(const float* __restrict__ tab_b, cons
   }
 }
 
-// Relative nugget of a neighbor whose site id is `nb`: alpha, or alpha v at
-// the neighbor under heterogeneous noise.
-__device__ __forceinline__ float slot_nugget(float alpha, const float* __restrict__ v, int nb) {
-  return v != nullptr ? alpha * v[nb] : alpha;
-}
-
 // The site's own relative nugget: alpha, or alpha v[site].
 __device__ __forceinline__ float own_nugget(float alpha, const float* __restrict__ v,
                                             int site) {
@@ -268,14 +238,17 @@ __device__ __forceinline__ float own_nugget(float alpha, const float* __restrict
 }
 
 // The built instance M a call with m neighbors runs on: the smallest of
-// 7, 10, 15, 20 at or above m, or 0 (refused) above 20 or below 1.  The m = 20
-// value-and-gradient instances already hold 255 registers and spill.
+// 7, 10, 15, 20 at or above m, kRolledM (the rolled instance) for
+// 20 < m <= kRolledM, or 0 (refused) above kRolledM or below 1.  The m = 20
+// value-and-gradient instances already hold 255 registers, so larger m run
+// rolled.
 __host__ inline int launch_m(int m) {
   if (m < 1) return 0;
   if (m <= 7) return 7;
   if (m <= 10) return 10;
   if (m <= 15) return 15;
   if (m <= 20) return 20;
+  if (m <= kRolledM) return kRolledM;
   return 0;
 }
 
@@ -305,31 +278,6 @@ __device__ __forceinline__ const MaternSet* chain_matern_set(const float* pr, bo
     return block_matern_set(pr[0], pr[4], with_nu);
   } else {
     return nullptr;
-  }
-}
-
-// Sums each of vals[0..NV) over the block and writes the v-th sum to
-// out[v * out_stride + out_index].  Warp shuffles, then one shared-memory
-// pass over the warps: a fixed order, so the result is deterministic.
-template <int NV>
-__device__ __forceinline__ void block_sum_store(const float (&vals)[NV], float* out,
-                                                int out_stride, int out_index) {
-  __shared__ float partial[NV][kBlock / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    float s = vals[v];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) partial[v][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kBlock / 32; ++w) s += partial[threadIdx.x][w];
-    out[threadIdx.x * out_stride + out_index] = s;
   }
 }
 

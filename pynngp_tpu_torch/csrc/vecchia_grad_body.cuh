@@ -13,7 +13,7 @@
 // every (site, chain) it makes the same factorization as kernel 1,
 // back-substitutes p = L^-T u and q = L^-T w (w = L^-1 y_N; p = C^-1 c,
 // q = C^-1 y_N), and
-// contracts them with dC/dphi (from drho_dphi) and dC/dalpha (the masked
+// contracts them with dC/dphi (ClosedForm::drho) and dC/dalpha (the masked
 // identity; diag(v) at the neighbors under heterogeneous noise, the
 // reference's _grad_kernel l.743-835):
 //   dF/dphi = -2 p.dc + p' dC p,   dr/dphi = -dc.q + p' dC q,
@@ -51,49 +51,63 @@
 // chain (y_stride = n): with fixed effects the residual y - X beta differs by
 // chain.
 //
-// What bounds it.  The same reads as kernel 1, about (m^2/2 + 2m) * 4 bytes
-// per thread plus a second read of the pair distances for the dC contraction (L2-resident
-// for the block), against ~m^3/6 + m^2 dependent FMAs: latency- and
-// register-bound on the serial recurrence.  At m = 15 the factor alone is
-// about 120 floats per thread (105 off-diagonal + 15 inverse diagonal), and
-// p, q, u, w and dc add 75 more: in registers they spilled, so they live in
-// local memory ("Loop structure", vecchia_common.cuh); ptxas -v reports the
-// stack.  With noise weights a thread also gathers v at its neighbors twice
-// (the diagonal, the alpha sums) and at itself: (2m + 1) * 4 bytes more.
-// EMIT_Y adds (m + 1) * 4 bytes of stores per thread.  In the coords layout
-// every pair distance is recomputed twice, in the factorization and in the
-// contractions (d subtractions and multiply-adds and a sqrt each time, from
-// coordinates read where they are used), in the place of two plane reads.
+// Design.  As kernel 1's (vecchia_suffstats_body.cuh, vecchia_tile.cuh): a
+// block is a group of up to kMaxGroup chains, one warp a chain, over tiles
+// of 32 consecutive sites whose tables, y_N and v_N come into a
+// shared-memory stage by cp.async, the next tile's tables while the warps
+// work on this one.  The dC contractions read the pair distances from the
+// stage a second time, and v at the neighbors twice (the diagonal, the alpha
+// sums), at no cost in device memory.  The slot loops unroll over M, the
+// loops nested in them stay rolled and the factor lives in local memory (see
+// below); the rolled instance (arrays for kRolledM, loops to m) runs
+// 20 < m <= 32 and coords with d > kMaxDim.
+//
+// What bounded the design before it (one thread per (site, chain); NVIDIA
+// H100 80GB HBM3, 700 W, tools/time_trees.py --m15, PERF.md; n=100,000,
+// m=15, 16 chains): 6.19 ms a launch, 4.73 ms without a table or nn_idx load,
+// so the loads were a quarter of it; the rest the same arithmetic as kernel
+// 1's (a division a correlation, the family switch, 1/sqrtf), with 228
+// registers and 8 warps an SM.  This design stages the tables (the dC
+// contractions read the pair planes from the stage too), takes ClosedForm's
+// rho and d rho / d phi on one exponential, and leaves every loop nested in a
+// slot loop rolled (an unroll count of M): the factor, u, w, p, q and dc in
+// local memory, 128 registers and 16 warps an SM at m = 15.  ~1.0 ms.  What
+// bounds it now: the serial recurrence and back-substitution, ~m^3/6 + m^2
+// dependent FMAs, through L1.  EMIT_Y adds (m + 1) * 4 bytes of stores a
+// thread.  In the coords layout every pair distance is recomputed twice, in
+// the factorization and in the contractions (d subtractions and
+// multiply-adds and a square root each time, from the staged coordinates).
 #pragma once
 
 #include <cstddef>
 
-#include "vecchia_common.cuh"
+#include "vecchia_tile.cuh"
 
 namespace vecchia {
 namespace {
 
-template <int M, bool EMIT_Y, bool GENERAL, bool COORDS, bool ANY_D = false>
-__global__ void __launch_bounds__(kBlock)
-grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
-            const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
-            const float* __restrict__ y_all, int y_stride, const float* __restrict__ v,
-            int n_pad, int m, int dim, int family, float* __restrict__ part,
-            float* __restrict__ b_out, float* __restrict__ rof_out, bool with_nu) {
-  // the loops over the slots run to M, unrolled; in the ANY_D instance to
-  // the call's m, which keeps them rolled
-  const int top = ANY_D ? m : M;
-  const int chain = blockIdx.y;
-  const int site = blockIdx.x * kBlock + threadIdx.x;
-  const float* pr = params + chain * kParams;
-  const float* y = y_all + static_cast<size_t>(chain) * y_stride;
-  const float phi = pr[0];
-  const float alpha = pr[1];
-  const float jitter = pr[2];
-  const int n = static_cast<int>(pr[3]);
-  const MaternSet* set = chain_matern_set<GENERAL>(pr, with_nu);
-  const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
-  const Guard g(site, m);
+// One warp's (site, chain) systems of one staged tile: adds its valid
+// site's NV sums to the lane's, and with EMIT_Y writes B and r/F.
+template <int M, bool EMIT_Y, bool GENERAL, bool COORDS, bool ROLLED, int NV>
+__device__ __forceinline__ void grad_site(const float* st, const TileShape& s, int ml, int ycopy,
+                                          bool hetero, int site, int m, int dim,
+                                          const ClosedForm& cf, float alpha, float jitter, int n,
+                                          const MaternSet* set, bool with_nu,
+                                          const float* __restrict__ y,
+                                          const float* __restrict__ v, int n_pad,
+                                          float* __restrict__ b_chain,
+                                          float* __restrict__ rof_row, float (&acc)[NV]) {
+  // the loops over the slots run to M; in the rolled instance to the call's
+  // m.  An explicit unroll count of M leaves every loop nested in a slot
+  // loop rolled and the factor in local memory (128 registers at M = 15
+  // where full unrolling held 226-238; PERF.md)
+  const int top = ROLLED ? m : M;
+  constexpr int kUnroll = ROLLED ? 1 : M;
+  const int lane = threadIdx.x & 31;
+  const float* sy = st + (s.off_y + ycopy * ml) * kTile + lane;
+  const float* sv = st + s.off_v * kTile + lane;
+  const TileDistances<COORDS, ROLLED> dist(st, s, dim);
+  const int lim = min(site, m);  // slot k is a real neighbor iff lim > k
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
@@ -102,53 +116,47 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   float dc[M];  // dc/dphi (masked)
   [[maybe_unused]] float dcn[GENERAL ? M : 1];  // dc/dnu (masked), GENERAL only
 
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int k = 0; k < top; ++k) {
-    // slot k is a real neighbor iff k < m and site > k (identity row
-    // otherwise; one past m reads the last slot's planes, Guard)
-    const float mk = g.mask(k);
-    float nugget = alpha;
+    // slots at or past m read zeros from the stage and are masked; their
+    // special functions are skipped
+    const float mk = lim > k ? 1.0f : 0.0f;
+    const float nugget = hetero ? alpha * sv[k * kTile] : alpha;
     float au = 0.0f;
-    float aw = 0.0f;
     dc[k] = 0.0f;
     if constexpr (GENERAL) dcn[k] = 0.0f;
-    if (k < m) {  // a branch, not a select: kernel 2 holds too many registers
-      const int nb = nn_idx[static_cast<size_t>(k) * n_pad + site];
-      nugget = slot_nugget(alpha, v, nb);
-      const float dk = dist_in<COORDS, ANY_D>(tab_a, tab_b, own, g, k, dim, n_pad, site);
+    if (k < m) {
+      const float dk = dist.in(k);
       if constexpr (GENERAL) {
         const float2 rd = rho_drho_general(dk, &set->at);
         dc[k] = rd.y * mk;
         dcn[k] = with_nu ? drho_dnu_general(dk, set) * mk : 0.0f;
         au = rd.x * mk;
       } else {
-        dc[k] = drho_dphi(family, dk, phi) * mk;
-        au = rho(family, dk, phi) * mk;
+        const float2 rd = cf.rho_drho(dk);
+        dc[k] = rd.y * mk;
+        au = rd.x * mk;
       }
-      aw = y[nb] * mk;
     }
-    float acc = 1.0f + mk * (nugget + jitter);
-#pragma unroll
-    for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
-    const float inv = 1.0f / sqrtf(acc);
+    float aw = sy[k * kTile] * mk;
+    float acc2 = 1.0f + mk * (nugget + jitter);
+#pragma unroll (kUnroll)
+    for (int j = 0; j < k; ++j) acc2 -= low[tri(k, j)] * low[tri(k, j)];
+    const float inv = rsqrtf(acc2);
     inv_diag[k] = inv;
-#pragma unroll
+#pragma unroll (kUnroll)
     for (int j = 0; j < k; ++j) {
       au -= low[tri(k, j)] * u[j];
       aw -= low[tri(k, j)] * w[j];
     }
     u[k] = au * inv;
     w[k] = aw * inv;
-#pragma unroll
+#pragma unroll (kUnroll)
     for (int i = k + 1; i < top; ++i) {
-      const float mi = g.mask(i);  // mask_i * mask_k, as i > k
+      const float mi = lim > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
       float a = 0.0f;
-      if (i < m) {
-        a = corr<GENERAL>(family, dist_pair<COORDS, ANY_D>(tab_b, g, i, k, dim, n_pad, site),
-                          phi, set) *
-            mi;
-      }
-#pragma unroll
+      if (i < m) a = tile_rho<GENERAL>(cf, dist.pair(i, k), set) * mi;
+#pragma unroll (kUnroll)
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
     }
@@ -157,7 +165,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   const bool valid = site < n;
   float ff = 1.0f + own_nugget(alpha, v, site);
   float r = valid ? y[site] : 0.0f;
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int k = 0; k < top; ++k) {
     ff -= u[k] * u[k];
     r -= u[k] * w[k];
@@ -165,34 +173,29 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 
   // back-substitution p = L^-T u, q = L^-T w (exactly zero on invalid
   // slots).  dC/dalpha is the masked identity, diag(v) at the neighbors with
-  // v: pp = p' dC/dalpha p and pq = p' dC/dalpha q, v re-gathered where used
+  // v: pp = p' dC/dalpha p and pq = p' dC/dalpha q
   float p[M];
   float q[M];
   float pp = 0.0f;
   float pq = 0.0f;
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int i = top - 1; i >= 0; --i) {
     float ap = u[i];
     float aq = w[i];
-#pragma unroll
+#pragma unroll (kUnroll)
     for (int k = i + 1; k < top; ++k) {
       ap -= low[tri(k, i)] * p[k];
       aq -= low[tri(k, i)] * q[k];
     }
     p[i] = ap * inv_diag[i];
     q[i] = aq * inv_diag[i];
-    if (v != nullptr) {  // p = 0 past the call's m: any in-bounds weight will do
-      const float vi = v[nn_idx[static_cast<size_t>(g.at(i)) * n_pad + site]];
-      pp += vi * p[i] * p[i];
-      pq += vi * p[i] * q[i];
-    } else {
-      pp += p[i] * p[i];
-      pq += p[i] * q[i];
-    }
+    const float vi = hetero ? sv[i * kTile] : 1.0f;  // p = 0 past the call's m
+    pp += vi * p[i] * p[i];
+    pq += vi * p[i] * q[i];
   }
   if constexpr (EMIT_Y) {
-    float* b_site = b_out + static_cast<size_t>(chain) * m * n_pad + site;  // m planes
-#pragma unroll
+    float* b_site = b_chain + site;  // m planes
+#pragma unroll (kUnroll)
     for (int i = 0; i < top; ++i) {
       if (i < m) b_site[static_cast<size_t>(i) * n_pad] = valid ? p[i] : 0.0f;
     }
@@ -204,7 +207,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   float dr_phi = 0.0f;
   [[maybe_unused]] float df_nu = 0.0f;
   [[maybe_unused]] float dr_nu = 0.0f;
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int i = 0; i < top; ++i) {
     df_phi -= 2.0f * p[i] * dc[i];
     dr_phi -= dc[i] * q[i];
@@ -213,14 +216,14 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
       dr_nu -= dcn[i] * q[i];
     }
   }
-#pragma unroll
+#pragma unroll (kUnroll)
   for (int i = 0; i < top; ++i) {
-#pragma unroll
+#pragma unroll (kUnroll)
     for (int j = i + 1; j < top; ++j) {
       if (j >= m) continue;
-      const float mj = g.mask(j);  // mask_i * mask_j, as j > i
+      const float mj = lim > j ? 1.0f : 0.0f;  // mask_i * mask_j, as j > i
+      const float dij = dist.pair(j, i);
       if constexpr (GENERAL) {
-        const float dij = dist_pair<COORDS, ANY_D>(tab_b, g, j, i, dim, n_pad, site);
         const float dcij = rho_drho_general(dij, &set->at).y * mj;
         df_phi += 2.0f * p[i] * p[j] * dcij;
         dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
@@ -230,9 +233,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
           dr_nu += (p[i] * q[j] + p[j] * q[i]) * dcnij;
         }
       } else {
-        const float dcij =
-            drho_dphi(family, dist_pair<COORDS, ANY_D>(tab_b, g, j, i, dim, n_pad, site), phi) *
-            mj;
+        const float dcij = cf.drho(dij) * mj;
         df_phi += 2.0f * p[i] * p[j] * dcij;
         dr_phi += (p[i] * q[j] + p[j] * q[i]) * dcij;
       }
@@ -244,54 +245,120 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   const float inv_f = valid ? 1.0f / ff : 0.0f;
   const float r_over_f = r * inv_f;
   const float ratio2 = r_over_f * r_over_f;
-  if constexpr (EMIT_Y) {
-    rof_out[static_cast<size_t>(chain) * n_pad + site] = valid ? r_over_f : 0.0f;
-  }
+  if constexpr (EMIT_Y) rof_row[site] = valid ? r_over_f : 0.0f;
   // d(r^2/F) = 2 r dr / F - (r/F)^2 dF; r_over_f carries the validity mask
+  acc[0] += valid ? logf(ff) : 0.0f;
+  acc[1] += r * r_over_f;
+  acc[2] += df_phi * inv_f;
+  acc[3] += 2.0f * r_over_f * dr_phi - ratio2 * df_phi;
+  acc[4] += df_a * inv_f;
+  acc[5] += 2.0f * r_over_f * dr_a - ratio2 * df_a;
   if constexpr (GENERAL) {
-    const float sums[8] = {
-        valid ? logf(ff) : 0.0f,
-        r * r_over_f,
-        df_phi * inv_f,
-        2.0f * r_over_f * dr_phi - ratio2 * df_phi,
-        df_a * inv_f,
-        2.0f * r_over_f * dr_a - ratio2 * df_a,
-        df_nu * inv_f,
-        2.0f * r_over_f * dr_nu - ratio2 * df_nu,
-    };
-    block_sum_store<8>(sums, part, gridDim.y * gridDim.x, chain * gridDim.x + blockIdx.x);
-  } else {
-    const float sums[6] = {
-        valid ? logf(ff) : 0.0f,
-        r * r_over_f,
-        df_phi * inv_f,
-        2.0f * r_over_f * dr_phi - ratio2 * df_phi,
-        df_a * inv_f,
-        2.0f * r_over_f * dr_a - ratio2 * df_a,
-    };
-    block_sum_store<6>(sums, part, gridDim.y * gridDim.x, chain * gridDim.x + blockIdx.x);
+    acc[6] += df_nu * inv_f;
+    acc[7] += 2.0f * r_over_f * dr_nu - ratio2 * df_nu;
   }
 }
 
-// Validates the launch shape, picks the instance (M >= m, or the ANY_D one
-// for coords with d > kMaxDim) and launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// The block's loop over its tiles: stage, gather, factor and contract
+// (vecchia_tile.cuh); one partial of each sum per (block, chain).
+template <int M, bool EMIT_Y, bool GENERAL, bool COORDS, bool ROLLED = false>
+__global__ void __launch_bounds__(kTile * kMaxGroup)
+grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
+            const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
+            const float* __restrict__ y_all, int y_stride, const float* __restrict__ v,
+            int n_pad, int m, int dim, int chains, int family,
+            float* __restrict__ part, float* __restrict__ b_out, float* __restrict__ rof_out,
+            bool with_nu) {
+  constexpr int NV = GENERAL ? 8 : 6;
+  extern __shared__ __align__(16) float ring[];
+  const int ml = ROLLED ? m : M;
+  const int group = blockDim.x / kTile;
+  const int c0 = blockIdx.y * group;
+  const int warp = threadIdx.x / kTile;
+  const int chain = c0 + warp;
+  const bool active = chain < chains;  // a ragged last group has spare warps
+  const int ycopies = y_stride != 0 ? group : 1;
+  const TileShape s = tile_shape(m, ml, dim, COORDS, ycopies, v != nullptr);
+  const int stage_words = s.planes * kTile;
+  const int safe = min(chain, chains - 1);
+  const float* pr = params + safe * kParams;
+  const float phi = pr[0];
+  const float alpha = pr[1];
+  const float jitter = pr[2];
+  const int n = static_cast<int>(pr[3]);
+  const float* y = y_all + static_cast<size_t>(safe) * y_stride;
+  const MaternSet* set = warp_matern_set<GENERAL>(pr, with_nu);
+  const ClosedForm cf = GENERAL ? ClosedForm{} : closed_form(family, phi);
+  float* b_chain = EMIT_Y ? b_out + static_cast<size_t>(safe) * m * n_pad : nullptr;
+  float* rof_row = EMIT_Y ? rof_out + static_cast<size_t>(safe) * n_pad : nullptr;
+
+  for (int i = threadIdx.x; i < kStages * stage_words; i += blockDim.x) ring[i] = 0.0f;
+  __syncthreads();
+  const int tiles = n_pad / kTile;
+  if (blockIdx.x < tiles) issue_tables(ring, s, tab_a, tab_b, nn_idx, n_pad, blockIdx.x);
+  cp_async_commit();
+  float acc[NV] = {};
+  int i = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+    float* st = ring + (i % kStages) * stage_words;
+    const int next = tile + gridDim.x;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's tables are in; every warp is done with the last
+    issue_gathers(st, s, ml, y_all, y_stride, ycopies, c0, chains, v);
+    cp_async_commit();
+    if (next < tiles) {
+      issue_tables(ring + ((i + 1) % kStages) * stage_words, s, tab_a, tab_b, nn_idx, n_pad,
+                   next);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // the gathers, not the next tile's tables
+    __syncthreads();
+    if (active) {
+      grad_site<M, EMIT_Y, GENERAL, COORDS, ROLLED, NV>(
+          st, s, ml, y_stride != 0 ? warp : 0, v != nullptr, tile * kTile + (threadIdx.x & 31),
+          m, dim, cf, alpha, jitter, n, set, with_nu, y, v, n_pad, b_chain, rof_row,
+          acc);
+    }
+  }
+  if (active) warp_sum_store<NV>(acc, part, chains * gridDim.x, chain * gridDim.x + blockIdx.x);
+}
+
+// Validates the launch shape and the wrapper's geometry (group chains a
+// block, grid_x blocks along the tiles, the ring's bytes), picks the
+// instance (M >= m for m <= 20; the rolled one for larger m and for coords
+// with d > kMaxDim) and launches on `stream` without synchronising; returns
+// cudaGetLastError().
 template <bool EMIT_Y, bool GENERAL, bool COORDS>
 int launch_grad(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
                 const float* y, int y_stride, const float* v, int n_pad, int m, int dim,
-                int chains, int family, bool with_nu, float* part, float* b_out,
-                float* rof_out, void* stream) {
+                int chains, int family, bool with_nu, int group, int grid_x,
+                int smem_bytes, float* part, float* b_out, float* rof_out, void* stream) {
   if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0 || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(n_pad / kBlock, chains);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VECCHIA_GRAD_LAUNCH(MM, ANY)                                                      \
-  grad_kernel<MM, EMIT_Y, GENERAL, COORDS, ANY><<<grid, kBlock, 0, s>>>(                  \
-      params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, family, part, b_out,   \
-      rof_out, with_nu)
-  if (COORDS && dim > kMaxDim) {
-    VECCHIA_GRAD_LAUNCH(kAnyDimM, COORDS);
+  const bool rolled = rolled_launch(m, COORDS, dim);
+  const TileShape s = tile_shape(m, rolled ? m : launch_m(m), dim, COORDS,
+                                 y_stride != 0 ? group : 1, v != nullptr);
+  if (!valid_tiles(s, group, grid_x, smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(grid_x, (chains + group - 1) / group);
+  const dim3 block(kTile * group);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VECCHIA_GRAD_LAUNCH(MM, ROLL)                                                       \
+  {                                                                                         \
+    auto kern = grad_kernel<MM, EMIT_Y, GENERAL, COORDS, ROLL>;                             \
+    if (smem_bytes > 48 * 1024) {                                                           \
+      const cudaError_t err = cudaFuncSetAttribute(                                         \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);                   \
+      if (err != cudaSuccess) return static_cast<int>(err);                                 \
+    }                                                                                       \
+    kern<<<grid, block, smem_bytes, st>>>(params, tab_a, tab_b, nn_idx, y, y_stride, v,     \
+                                         n_pad, m, dim, chains, family, part, b_out,        \
+                                         rof_out, with_nu);                                 \
+  }
+  if (rolled) {
+    VECCHIA_GRAD_LAUNCH(kRolledM, true);
     return static_cast<int>(cudaGetLastError());
   }
   switch (launch_m(m)) {

@@ -6,12 +6,14 @@
 #include "vecchia_grad_body.cuh"
 
 // C interface: the arguments of vecchia_grad_coords_f32 with `with_nu` in the
-// place of `family`; part is (8, C, n_pad / 128) as for vecchia_grad_nu_f32.
+// place of `family`; part is (8, C, grid_x) as for vecchia_grad_nu_f32.
 extern "C" int vecchia_grad_nu_coords_f32(const float* params, const float* co, const float* cn,
                                           const int* nn_idx, const float* y, int y_stride,
                                           const float* v, int n_pad, int m, int dim, int chains,
-                                          int with_nu, float* part, void* stream) {
-  return vecchia::launch_grad<false, true, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad,
-                                                 m, dim, chains, vecchia::kMaternGeneral,
-                                                 with_nu != 0, part, nullptr, nullptr, stream);
+                                          int with_nu, int group, int grid_x, int smem_bytes,
+                                          float* part, void* stream) {
+  return vecchia::launch_grad<false, true, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad, m,
+                                                 dim, chains, vecchia::kMaternGeneral, with_nu != 0,
+                                                 group, grid_x, smem_bytes, part, nullptr, nullptr,
+                                                 stream);
 }

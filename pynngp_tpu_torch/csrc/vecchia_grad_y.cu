@@ -10,10 +10,11 @@
 //   r/F per site; both exactly 0 at padded sites, b_out also in invalid slots.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int vecchia_grad_y_f32(const float* params, const float* d_in, const float* d_tri,
-                                  const int* nn_idx, const float* y, int y_stride,
-                                  const float* v, int n_pad, int m, int chains, int family,
-                                  float* part, float* b_out, float* rof_out, void* stream) {
+                                  const int* nn_idx, const float* y, int y_stride, const float* v,
+                                  int n_pad, int m, int chains, int family, int group, int grid_x,
+                                  int smem_bytes, float* part, float* b_out, float* rof_out,
+                                  void* stream) {
   return vecchia::launch_grad<true, false, false>(params, d_in, d_tri, nn_idx, y, y_stride, v,
-                                                  n_pad, m, 0, chains, family, false, part,
-                                                  b_out, rof_out, stream);
+                                                  n_pad, m, 0, chains, family, false, group, grid_x,
+                                                  smem_bytes, part, b_out, rof_out, stream);
 }

@@ -8,12 +8,12 @@
 // planes in the place of the distance planes and their dimension d >= 1:
 //   co (d, n_pad) the sites' centred coordinates; cn (m d, n_pad) their
 //   neighbors', plane k d + a for coordinate a of slot k.
-extern "C" int vecchia_suffstats_coords_f32(const float* params, const float* co,
-                                            const float* cn, const int* nn_idx, const float* y,
-                                            int y_stride, const float* v, int n_pad, int m,
-                                            int dim, int chains, int family, float* f_out,
-                                            float* r_out, float* part, void* stream) {
-  return vecchia::launch_suffstats<false, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad,
-                                                m, dim, chains, family, f_out, r_out, part,
-                                                stream);
+extern "C" int vecchia_suffstats_coords_f32(const float* params, const float* co, const float* cn,
+                                            const int* nn_idx, const float* y, int y_stride,
+                                            const float* v, int n_pad, int m, int dim, int chains,
+                                            int family, int group, int grid_x, int smem_bytes,
+                                            float* f_out, float* r_out, float* part, void* stream) {
+  return vecchia::launch_suffstats<false, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad, m,
+                                                dim, chains, family, group, grid_x, smem_bytes,
+                                                f_out, r_out, part, stream);
 }

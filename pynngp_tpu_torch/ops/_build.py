@@ -38,35 +38,39 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family, f,
-    # r, part, stream (v: the per-site noise weights, or null)
-    "vecchia_suffstats_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family,
-    # part, stream
-    "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # group, grid_x, smem_bytes, f, r, part, stream (v: the per-site
+    # noise weights, or null; the four ints: ops/geometry.py)
+    "vecchia_suffstats_f32":
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family,
-    # part, b, rof, stream
-    "vecchia_grad_y_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # group, grid_x, smem_bytes, part, stream
+    "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family,
+    # group, grid_x, smem_bytes, part, b, rof, stream
+    "vecchia_grad_y_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # params, d_in, d_tri, nn_idx, v, n_pad, m, chains, family, b, f, stream
     "vecchia_bf_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # the general-nu Matern instances: no family; kernel 2 takes with_nu in
     # its place
-    "vecchia_suffstats_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_grad_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
-    "vecchia_grad_y_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_suffstats_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_grad_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "vecchia_grad_y_nu_f32":
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vecchia_bf_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # the coords-layout instances: the coordinate planes in the place of the
     # distance planes, and the coordinate dimension d after m
     "vecchia_suffstats_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vecchia_suffstats_nu_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_grad_coords_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_grad_coords_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "vecchia_grad_y_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_grad_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_grad_nu_coords_f32":
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "vecchia_grad_y_nu_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vecchia_bf_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "vecchia_bf_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }

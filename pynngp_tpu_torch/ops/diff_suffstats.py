@@ -61,7 +61,7 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
-from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables
+from pynngp_tpu_torch.ops.site_tables import SiteTables
 from pynngp_tpu_torch.ops.suffstats import (
     GENERAL_FAMILY,
     _factor,
@@ -73,6 +73,7 @@ from pynngp_tpu_torch.ops.suffstats import (
     pointer,
     shape_args,
     suffstats,
+    tile_geometry,
     y_stride,
 )
 
@@ -166,13 +167,14 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v):
     chains = params.shape[0]
     dev = tables.device
     general = kernel.family == GENERAL_FAMILY
-    part = torch.empty((8 if general else 6, chains, tables.n_pad // BLOCK),
+    geo, geo_args = tile_geometry(kernel, tables, chains, y, v)
+    part = torch.empty((8 if general else 6, chains, geo.grid[0]),
                        dtype=torch.float32, device=dev)
     # the GENERAL entries take with_nu where the closed-form ones take family
     selector = int(kernel.samples_nu) if general else kernel.family
     args = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
             tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), pointer(v),
-            *shape_args(tables), chains, selector, part.data_ptr())
+            *shape_args(tables), chains, selector, *geo_args, part.data_ptr())
     name = instance("vecchia_grad", kernel, tables, emit_y)
     entry = getattr(_build.library(), name + "_f32")
     if emit_y:

@@ -54,14 +54,15 @@ LAYOUTS = ("dist", "coords")
 # "auto" takes the coords layout above this many sites, dist at or below it.
 # Measured by chip_smoke.py's layout phase (layout_rule) on an NVIDIA H100
 # 80GB HBM3 at 700 W, for bench_ess's default recipe (--sampler best: its MWG
-# and its NUTS branch on one set-up): dist runs it faster at every size
-# measured with m=15, the models' default (10,000 to 300,000 sites; 113 s
-# against 126 s at 300,000), coords at 500,000 with m=20 (config 5; 493 s
-# against 569 s).  The crossover lies between those two sizes, where m also
-# changes.  At m=15 coords wins the MWG branch alone from 100,000 sites and
-# loses the NUTS branch alone at every size.  chip_smoke.py fails if this
-# constant takes another layout than the measurement at a size it measures.
-COORDS_LAYOUT_MIN_SITES = 300_000
+# and its NUTS branch on one set-up), with kernels 1 and 2 on their tile
+# design: dist runs it faster at every size measured, 10,000 to 300,000
+# sites with m=15 (22.2 s against 26.8 s at 300,000) and 500,000 with m=20
+# (config 5; 173.1 s against 176.5 s, the set-up 13.6 s against 1.2 s).  At
+# m=15 coords wins the NUTS branch alone from 100,000 sites and loses the
+# MWG branch alone at every size.  The threshold is the largest size
+# measured, where the margin is 2%.  chip_smoke.py fails if this constant
+# takes another layout than the measurement at a size it measures.
+COORDS_LAYOUT_MIN_SITES = 500_000
 
 
 def choose_layout(lane_layout: str, n: int, euclidean: bool = True) -> str:

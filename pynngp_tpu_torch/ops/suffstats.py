@@ -21,8 +21,11 @@ diagonal of C and at the site in F.  The same instances run, with a pointer
 to v (:func:`noise_plane`) where homogeneous calls pass a null one; such
 launches count under the instance's name with ``_hetero``.
 
-Any m <= 20 runs on the card: a call launches the smallest built instance
-M >= m (:func:`cuda_instance_m`), whose slots k >= m are identity rows.
+Any m <= 32 runs on the card: a call with m <= 20 launches the smallest
+built instance M >= m (:func:`cuda_instance_m`), whose slots k >= m are
+identity rows, and 20 < m <= 32 the rolled instance, whose loops run to m.
+Kernels 1 and 2 launch in the tile geometry of :mod:`.geometry`: a block
+is a group of chains that share one staged tile of sites.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops.geometry import CUDA_M, cuda_instance_m, geometry
 from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
@@ -43,21 +47,7 @@ COUNT_NU = _build.LaunchCount("vecchia_suffstats_nu")  # the GENERAL instances
 COUNT_COORDS = _build.LaunchCount("vecchia_suffstats_coords")  # COORDS
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_suffstats_nu_coords")
 COUNTS = _build.with_hetero_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
-CUDA_M = (7, 10, 15, 20)  # neighbor counts the CUDA kernels are built for
 GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
-
-
-def cuda_instance_m(m: int) -> int:
-    """The built instance M a call with m neighbors runs on: the smallest of
-    :data:`CUDA_M` at or above m (``launch_m`` of csrc/vecchia_common.cuh).
-    Above 20 it raises: the m = 20 value-and-gradient instances already hold
-    255 registers and spill, so no larger one is built."""
-    for built in CUDA_M:
-        if 1 <= m <= built:
-            return built
-    raise ValueError(f"the CUDA kernels take 1 <= m <= {CUDA_M[-1]} (built "
-                     f"instances M in {CUDA_M}; a call runs on the smallest "
-                     f"M >= m), got m={m}")
 
 
 def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
@@ -240,17 +230,27 @@ def family_arg(kernel) -> tuple:
     return () if kernel.family == GENERAL_FAMILY else (kernel.family,)
 
 
+def tile_geometry(kernel, tables: SiteTables, chains: int, y, v):
+    """(geometry, its three C arguments: group, grid_x, ring bytes) of a
+    kernel 1 or 2 launch (:func:`.geometry.geometry`)."""
+    geo = geometry(tables.n_pad, tables.m, chains, tables.layout,
+                   tables.dim if tables.layout == "coords" else 0,
+                   y_shared=y.dim() == 1, hetero=v is not None,
+                   general=kernel.family == GENERAL_FAMILY)
+    return geo, (geo.group, geo.grid[0], geo.smem_bytes)
+
+
 def _launch(kernel, tables: SiteTables, params, y, noise_v):
     params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
+    geo, geo_args = tile_geometry(kernel, tables, chains, y, v)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
     resid = torch.empty_like(f)
-    part = torch.empty((2, chains, tables.n_pad // BLOCK), dtype=torch.float32,
-                       device=dev)
+    part = torch.empty((2, chains, geo.grid[0]), dtype=torch.float32, device=dev)
     head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
             tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), pointer(v),
-            *shape_args(tables), chains, *family_arg(kernel))
+            *shape_args(tables), chains, *family_arg(kernel), *geo_args)
     tail = (f.data_ptr(), resid.data_ptr(), part.data_ptr(),
             _build.stream_handle(dev))
     entry = instance("vecchia_suffstats", kernel, tables)

@@ -588,9 +588,10 @@ def _weights(n):
 
 
 def _check_instances(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
-    """Kernels 1, 2, 2-EMIT_Y and 3 at the tables' m (any m <= 20: the
-    instance M >= m runs) against their float64 plain versions; one launch
-    of each instance's count (``_hetero`` with weights) and no other."""
+    """Kernels 1, 2, 2-EMIT_Y and 3 at the tables' m (any m <= 32: the
+    instance M >= m runs, the rolled one above 20) against their float64
+    plain versions; one launch of each instance's count (``_hetero`` with
+    weights) and no other."""
     limits = GENERAL_LIMITS if nu is not None else CLOSED_LIMITS
     hetero = noise_v is not None
     v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
@@ -685,12 +686,17 @@ def test_coords_in_four_dimensions_match_plain(card, kern, sampled):
 
 
 def test_m_above_twenty_raises_on_the_card(card):
-    tab32, _, y, phi, alpha = _problem(card, m=21)
-    with pytest.raises(ValueError, match="m <= 20"):
-        fops.suffstats(kernels.SqExp(), tab32, phi, alpha, y)
-    with pytest.raises(ValueError, match="m <= 20"):
+    """m = 21 runs on the rolled instances against the plain versions; above
+    the cap of 32 a launch and a model raise and name it."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=21)
+    _check_instances(card, kernels.SqExp(), None, with_children(tab32),
+                     with_children(tab64), y, phi, alpha)
+    tab33, _, y33, _, _ = _problem(card, m=33)
+    with pytest.raises(ValueError, match="m <= 32"):
+        fops.suffstats(kernels.SqExp(), tab33, phi, alpha, y33)
+    with pytest.raises(ValueError, match="m <= 32"):
         ResponseNNGP(np.random.default_rng(0).uniform(size=(500, 2)), np.ones(500),
-                     m=21, device=card)
+                     m=33, device=card)
 
 
 def test_hetero_models_on_card_go_through_the_hetero_instances(card):
@@ -727,3 +733,98 @@ def test_hetero_models_on_card_go_through_the_hetero_instances(card):
         [(c.name, c.launches, c.plain) for c in hetero]
     assert bops.COUNT.launches > 0 and np.isfinite(draws["tau2"]).all()
 
+
+
+# ---- the tile kernels (chains side by side over a staged site tile) --------
+# Kernels 1 and 2 run a block of up to four chains, one warp each, over a
+# 32-site tile in shared memory: ragged chain groups, any m <= 32 (the rolled
+# instances above 20), d = 4 coords, noise weights and one y row a chain, at
+# the limits of the rows above.
+
+
+def _chain_params(card, chains):
+    phi = torch.linspace(0.08, 0.5, chains, device=card)
+    alpha = torch.linspace(0.05, 0.3, chains, device=card)
+    return phi, alpha
+
+
+@pytest.mark.parametrize("m", [1, 7, 12, 20, 25, 32])
+@pytest.mark.parametrize("chains", [1, 2, 3, 5, 17])
+def test_tile_kernels_take_any_chain_count_and_m(card, chains, m):
+    tab32, tab64, y, _, _ = _problem(card, m=m)
+    phi, alpha = _chain_params(card, chains)
+    _check_instances(card, kernels.Exponential(), None, with_children(tab32),
+                     with_children(tab64), y, phi, alpha)
+
+
+def _check_per_chain_y(card, kern, tab32, tab64, y, phi, alpha, noise_v=None):
+    """Kernels 1, 2 and 2-EMIT_Y with one y row a chain, (C, n), against
+    their plain versions at the closed-form rows' limits."""
+    limits = CLOSED_LIMITS
+    n = tab32.n
+    ys = y[None, :] + 0.1 * torch.arange(phi.shape[0], device=card)[:, None]
+    v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
+                                                       device=card)
+    v64 = None if noise_v is None else v32.double()
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6), n,
+                               torch.float64, card)
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, ys, noise_v=v32)
+    sums, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, ys, emit_y=True,
+                                            noise_v=v32)
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, ys.double(), v64)
+    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, ys.double(), True, v64)
+    torch.testing.assert_close(ld.double(), ld_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=limits["f"][0],
+                               atol=limits["f"][1])
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=limits["r"][0],
+                               atol=limits["r"][1])
+    torch.testing.assert_close(sums.double()[:2], want[:2], rtol=limits["value"], atol=0.0)
+    torch.testing.assert_close(sums.double()[2:6], want[2:6], rtol=limits["deriv"], atol=0.0)
+    torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=limits["b"])
+    torch.testing.assert_close(rof.double(), rof_p, rtol=limits["rof"][0],
+                               atol=limits["rof"][1])
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout,dim", [("dist", 2), ("coords", 2), ("coords", 4)],
+                         ids=["dist", "coords", "coords_d4"])
+@pytest.mark.parametrize("m", [7, 25, 32])
+def test_tile_kernels_with_per_chain_y(card, m, layout, dim, hetero):
+    """One y row a chain (the ring holds a y plane set a warp), on both
+    layouts and in four dimensions, with and without noise weights, with a
+    ragged group of five chains."""
+    tab32, tab64, y, _, _ = _problem(card, m=m, layout=layout, dim=dim)
+    phi, alpha = _chain_params(card, 5)
+    _check_per_chain_y(card, kernels.SqExp(), tab32, tab64, y, phi, alpha,
+                       _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
+@pytest.mark.parametrize("m", [25, 32])
+def test_large_m_runs_every_kernel_on_both_layouts(card, m, kern, sampled, layout, hetero):
+    """m = 25 and 32 in all three kernels (kernel 3's rolled instance with
+    arrays for 32 too), closed form and sampled nu."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout=layout)
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    _check_instances(card, kern, nu, with_children(tab32), with_children(tab64), y,
+                     phi, alpha, _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+def test_tile_kernels_are_bitwise_deterministic(card, layout):
+    """Two launches on the same inputs give the same bits: each block sums
+    its tiles in a fixed order and no atomic enters a sum."""
+    tab32, _, y, _, _ = _problem(card, n=20_000, m=15, layout=layout)
+    phi, alpha = _chain_params(card, 6)
+    kern = kernels.SqExp()
+    ys = y[None, :] + 0.1 * torch.arange(6, device=card)[:, None]
+    runs = [(fops.suffstats(kern, tab32, phi, alpha, y),
+             dops.value_and_grad_sums(kern, tab32, phi, alpha, y),
+             dops.value_and_grad_sums(kern, tab32, phi, alpha, ys, emit_y=True))
+            for _ in range(2)]
+    flat = [[t for part in run for t in (part if isinstance(part, tuple) else (part,))]
+            for run in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))

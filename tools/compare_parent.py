@@ -13,7 +13,11 @@ from the tree's root, so that it imports and builds that tree's package
 ``chip_smoke.time_kernels`` (dist) and ``chip_smoke.time_layout_kernels``
 (coords) at n=100,000, m=15 and n=500,000, m=20 (config 5), and the
 general-nu ones of ``chip_smoke.time_kernels_nu`` at n=25,000, m=10 on either
-layout, 16 chains each.  The last line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
+layout, 16 chains each; kernel 2 also at 4 chains (the NUTS recipe's launch)
+and 2 (config 3's), and kernel 1 at 1 chain (config 5's probe).  Both trees
+are timed by the same function (this script's, put in place of each tree's
+``chip_smoke._time_ms``): card time, a sleep kernel ahead of the timed calls
+covering the host's enqueueing.  The last line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
 """
 import json
 import os
@@ -24,13 +28,38 @@ ROUND = r'''
 import json, torch
 import chip_smoke as cs
 from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
+from pynngp_tpu_torch.ops import suffstats as fwd_ops
 dev = torch.device("cuda", 0)
+
+
+def _time_ms(fn, warm, reps):
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000 * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+cs._time_ms = _time_ms
 info = _build.build_info()
 out = {"build_s": info["seconds"],
        "ptxas": {m: cs.ptxas_summary(info["ptxas"], m) for m in (7, 10, 15, 20)}}
 case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev)
 out["closed"] = {k: v for k, v in cs.time_kernels(case).items()
                  if not k.endswith("_plain")}
+k, t, y = case.kernel, case.tab32, case.y32
+out["closed"]["vecchia_grad_4_chains"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+    k, t, case.phi[:4], case.alpha[:4], y, case.jitter), 20, 200)
+out["closed"]["vecchia_suffstats_1_chain"] = cs._time_ms(lambda: fwd_ops.suffstats(
+    k, t, case.phi[:1], case.alpha[:1], y, case.jitter), 20, 200)
 del case
 case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev, layout="coords")
 out["closed"].update(cs.time_layout_kernels(case, 20, 200))
@@ -42,6 +71,9 @@ for layout in ("dist", "coords"):
     del nu
     big = cs.Case(500000, 20, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
     out["m20"] = {**out.get("m20", {}), **cs.time_layout_kernels(big, 3, 10)}
+    out["m20"]["vecchia_suffstats_1_chain" + ("_coords" if layout == "coords" else "")] = (
+        cs._time_ms(lambda: fwd_ops.suffstats(big.kernel, big.tab32, big.phi[:1],
+                                              big.alpha[:1], big.y32, big.jitter), 5, 50))
     del big
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)

@@ -16,6 +16,13 @@ and, where the tree takes it, of m=12 on the M=15 instances.  At the end the
 mean of each time by tree, and ``cuobjdump -res-usage`` (registers and stack)
 of each tree's m=15 and m=20 kernels.  Dropping the M = 7 and 20 launch cases
 from a variant's bodies builds it in under a minute.
+
+    python3 tools/time_trees.py --m15 A B C
+
+times only what trees built for M = 15 alone can run: kernels 1, 2,
+2-EMIT_Y and 3 at n=100,000, m=15 on both layouts at 16 chains, and kernels
+1 and 2 at 4 chains, with chain 0's logdet as a check that a variant still
+computes the same function.
 """
 import json
 import os
@@ -47,13 +54,42 @@ for layout in ("dist", "coords"):
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
+# trees built for M = 15 only
+ROUND_M15 = r'''
+import json, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import suffstats as fwd_ops
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+out = {"build_s": info["seconds"], "lib": info["lib"],
+       "ptxas": {15: cs.ptxas_summary(info["ptxas"], 15)}}
+for layout in ("dist", "coords"):
+    case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+    sfx = "_coords" if layout == "coords" else ""
+    out.update(cs.time_layout_kernels(case, 20, 200))
+    k, t, y = case.kernel, case.tab32, case.y32
+    out["vecchia_suffstats_4_chains" + sfx] = cs._time_ms(
+        lambda: fwd_ops.suffstats(k, t, case.phi[:4], case.alpha[:4], y, case.jitter), 20, 200)
+    out["logdet_chain0" + sfx] = float(
+        fwd_ops.suffstats(k, t, case.phi, case.alpha, y, case.jitter)[0][0])
+    del case
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
 
 def main() -> int:
     root = os.getcwd()
     trees = sys.argv[1:]
+    code = ROUND
+    if trees[:1] == ["--m15"]:
+        trees, code = trees[1:], ROUND_M15
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
     results = []
     for tree in trees + trees[::-1]:
-        run = subprocess.run([sys.executable, "-c", ROUND], capture_output=True, text=True,
+        run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                              cwd=os.path.join(root, "archive_check", tree))
         found = [line for line in run.stdout.splitlines() if line.startswith("RESULT ")]
         if not found:
