@@ -49,10 +49,14 @@ every instance launched with noise weights (``..._hetero``) against its
 plain version and timed, the coords instances with d = 4, m = 12 and
 m = 17 run on the M = 15 and M = 20 instances against their plain versions
 and timed against those instances' own m, and m = 25 and m = 32 on the
-rolled instances of all three kernels, both layouts.  After the build it
-prints the registers, stack, shared bytes and warps an SM of every instance
-of kernels 1 and 2 (the tile kernels: a block of up to four chains, one warp
-each, over a 32-site tile staged in shared memory).
+rolled instances of all three kernels, both layouts, and m = 40 and m = 64
+on their large-m instances (one thread a (site, chain), its state in a
+scratch buffer), both layouts, with and without noise weights, closed form
+and sampled nu.  After the build it prints the registers, stack, shared
+bytes and warps an SM of every tile instance of the three kernels (a block
+of up to four chains, one warp each, over a 32-site tile staged in shared
+memory).  After the paths above, both models at m = 40 on config 2's field,
+through the large-m instances.
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -146,6 +150,16 @@ KERNEL_ROWS.update({
                        _COUNTS[name + "_hetero"])
     for name, (src, _, _) in list(KERNEL_ROWS.items())
 })
+# the large-m instance of every source, with and without noise weights (m >
+# 32: one thread a (site, chain), its state in a scratch buffer; the large-m
+# branch of each Pallas body is the body itself at a static m), counted apart
+KERNEL_ROWS.update({
+    name.removesuffix("_hetero") + "_large" + ("_hetero" if name.endswith("_hetero") else ""): (
+        "pynngp_tpu_torch/csrc/vecchia_large_m.cuh", tpu,
+        _COUNTS[name.removesuffix("_hetero") + "_large"
+                + ("_hetero" if name.endswith("_hetero") else "")])
+    for name, (_, tpu, _) in list(KERNEL_ROWS.items())
+})
 N_NU, M_NU = 25_000, 10  # bench.py's config 3
 # Published peaks of one H100 SXM: device memory rate, float32 rate outside
 # the tensor cores, and the special-function rate that follows from it (an SM
@@ -229,8 +243,9 @@ def ptxas_summary(ptxas: str, m: int) -> str:
     (kernel 2 only), GENERAL, the general-nu Matern, COORDS, the coords
     table layout, ROLLED, the rolled instance for m > 20 or d > 3
     (``_rolled``; M = 32, slice 6's coords-only ANY_D at M = 20), and,
-    kernel 3 only, HETERO (``_hetero``); trees before slice 6 have neither
-    of the last two."""
+    kernel 3 only, HETERO (``_hetero``, its launches with noise weights;
+    none in slice 7's tree); trees before slice 6 have neither of the last
+    two."""
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
@@ -789,7 +804,7 @@ def kernel_bounds(case: Case) -> dict:
     if case.v32 is not None:
         work = {name: (nbytes + noise_bytes(t, name), flops + noise_flops(m, name), sfu)
                 for name, (nbytes, flops, sfu) in work.items()}
-    out, sfx, shown = {}, _suffix(case) + _hetero(case), {}
+    out, sfx, shown = {}, _suffix(case) + _large(case) + _hetero(case), {}
     for name, (nbytes, flops, sfu) in work.items():
         flops, sfu = flops * sites + dist_flops, sfu * sites + dist_sfu
         byte_ms = nbytes / PEAK_BYTES * 1e3
@@ -799,7 +814,7 @@ def kernel_bounds(case: Case) -> dict:
         shown[name + sfx] = {"bound_ms": out[name + sfx][0],
                              "bound_by": out[name + sfx][1], "bytes": nbytes,
                              "flops": flops, "special": sfu}
-    print(f"kernel bounds [{case.layout}{_hetero(case)} n{case.n} m{case.m}]: "
+    print(f"kernel bounds [{case.layout}{_large(case)}{_hetero(case)} n{case.n} m{case.m}]: "
           + json.dumps(shown), flush=True)
     return out
 
@@ -807,6 +822,11 @@ def kernel_bounds(case: Case) -> dict:
 def _hetero(case: Case) -> str:
     """The row-name suffix of a case with noise weights."""
     return "" if case.v32 is None else "_hetero"
+
+
+def _large(case: Case) -> str:
+    """The row-name suffix of a case with m > 32 (the large-m instances)."""
+    return "_large" if geometry.large(case.m) else ""
 
 
 def noise_bytes(t, name: str) -> int:
@@ -974,7 +994,7 @@ def kernel_bounds_nu(case: Case) -> dict:
         work = {name: (nbytes + noise_bytes(t, name), ops + noise_flops(m, name) * sites,
                        sfu) for name, (nbytes, ops, sfu) in work.items()}
     dist_flops, dist_sfu = distance_work(t)
-    work = {name.replace("_nu", "_nu" + _suffix(case), 1) + _hetero(case):
+    work = {name.replace("_nu", "_nu" + _suffix(case), 1) + _large(case) + _hetero(case):
             (nbytes, ops + dist_flops, sfu + dist_sfu)
             for name, (nbytes, ops, sfu) in work.items()}
     out = {}
@@ -2175,10 +2195,11 @@ def time_layouts(dist: Case, coords: Case, warm: int, reps: int) -> dict:
 # ---- heterogeneous noise, any m <= 20, coords with any d (slice 6) --------
 
 
-def time_hetero(case: Case, warm: int, reps: int, plain: tuple) -> dict:
-    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 launched with the
-    case's noise weights, and of their float32 plain versions (``plain`` =
-    (warm, reps)), named by the hetero rows."""
+def time_instances(case: Case, warm: int, reps: int, plain: tuple) -> dict:
+    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 at the case's shapes,
+    with its noise weights if it has them, and of their float32 plain
+    versions (``plain`` = (warm, reps)), named by the rows of the instances
+    they launch (``_large`` for m > 32, ``_hetero`` with weights)."""
     k, t, v, nu, jit = case.kernel, case.tab32, case.v32, case.nu, case.jitter
     args = (case.phi, case.alpha)
     params = fwd_ops.params_array(*args, jit, case.n, torch.float32, case.phi.device,
@@ -2202,10 +2223,10 @@ def time_hetero(case: Case, warm: int, reps: int, plain: tuple) -> dict:
     }
     times = {}
     for (base, emit_y), (launch, plain_call) in calls.items():
-        name = fwd_ops.instance(base, k, t, emit_y, hetero=True)
+        name = fwd_ops.instance(base, k, t, emit_y, hetero=v is not None)
         times[name] = _time_ms(launch, warm, reps)
         times[name + "_plain"] = _time_ms(plain_call, *plain)
-    print(f"hetero kernel times [{case.layout} n{case.n} m{case.m}]: "
+    print(f"kernel times by instance [{case.layout} n{case.n} m{case.m}]: "
           + json.dumps({**{f"{n}_ms": ms for n, ms in times.items()},
                         "chains": case.phi.shape[0]}), flush=True)
     return times
@@ -2337,11 +2358,125 @@ def large_m_instances(dev) -> dict:
     return errs
 
 
+LARGE_M = (40, 64)  # the large-m phase's m
+N_LARGE = 10_000
+
+
+def large_m_kernels(dev) -> tuple:
+    """m = 40 and 64 on the large-m instances of all three kernels (m > 32:
+    one thread a (site, chain), its state in a scratch buffer) on both
+    layouts at n=10,000: against their plain versions on four of the 16
+    chains (two a float64 plain call), with and without noise weights,
+    closed form (kernels 1, 2, 2-EMIT_Y with a shared and a per-chain y, 3)
+    at the closed-form limits (gradients rtol 2e-3, as at m = 25 and 32) and
+    sampled nu at NU_LIMITS.  Then the ``_large`` rows timed with their
+    plain versions and bounds: the closed forms at m = 64, 16 chains, the
+    general-nu instances at m = 40, 4 chains (their float32 plain versions
+    at m = 64 and 16 chains would hold tens of GB of Bessel intermediates).
+    Returns (max_abs_err, ms, bound) by row."""
+    errs, times, bounds = {}, {}, {}
+
+    def record(c, fwd, grad, bf, grad_y):
+        sfx = _suffix(c) + _large(c) + _hetero(c)
+        for name, err in ((f"vecchia_suffstats{sfx}", fwd), (f"vecchia_grad{sfx}", grad),
+                          (f"vecchia_bf{sfx}", bf), (f"vecchia_grad_y{sfx}", grad_y)):
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    for m in LARGE_M:
+        _require(geometry.large(m) and fwd_ops.cuda_instance_m(m) == m,
+                 f"m={m} does not run the large-m instance")
+        for layout in LAYOUTS:
+            case = Case(N_LARGE, m, SqExp(), CHAINS, seed=0, dev=dev, layout=layout)
+            for c in (case, case.with_noise(noise_weights(N_LARGE))):
+                sub = c.subset(slice(None, None, 4), chunk=2)
+                label = f"{layout}{_hetero(c)} n{N_LARGE} m{m} large sqexp"
+                fwd = check_forward(sub, label)
+                grad = check_grad(sub, label, grad_rtol=2e-3)
+                bf = check_bf(sub, label, zero_alpha=False, gated=True)
+                grad_y = check_grad_y(sub, label, False, grad_rtol=2e-3)
+                check_grad_y(sub, label, True, grad_rtol=2e-3)
+                record(c, fwd["f_max_abs_err"], grad["max_abs_err"], bf["b_max_abs_err"],
+                       grad_y["b_max_abs_err"])
+                if m == LARGE_M[-1]:
+                    times.update(time_instances(c, 2, 5, (1, 1)))
+                    bounds.update(kernel_bounds(c))
+            nu = Case(N_LARGE, m, Matern(), CHAINS, seed=0, dev=dev, nu=nu_spread(CHAINS),
+                      layout=layout)
+            for c in (nu, nu.with_noise(noise_weights(N_LARGE))):
+                label = f"{layout}{_hetero(c)} n{N_LARGE} m{m} large nu"
+                err = check_general_nu(c.subset(slice(None, None, 4), chunk=2), label)
+                sfx = _suffix(c) + _large(c) + _hetero(c)
+                for name, key in (("vecchia_suffstats_nu", "f_max_abs_err"),
+                                  ("vecchia_grad_nu", "sums_max_abs_err"),
+                                  ("vecchia_grad_y_nu", "b_max_abs_err"),
+                                  ("vecchia_bf_nu", "bf_b_max_abs_err")):
+                    row = name.replace("_nu", "_nu" + _suffix(c), 1) + _large(c) + _hetero(c)
+                    errs[row] = max(errs.get(row, 0.0), err[key])
+                if m == LARGE_M[0]:
+                    four = c.subset(slice(0, 4))
+                    times.update(time_instances(four, 2, 5, (1, 1)))
+                    bounds.update(kernel_bounds_nu(four))
+            del case, nu
+            torch.cuda.empty_cache()
+    print("large-m instances [n10000]: " + json.dumps(
+        {"max_abs_err": errs, "ms": times,
+         "bound_ms": {k: v[0] for k, v in bounds.items()}}), flush=True)
+    return errs, times, bounds
+
+
+def large_m_path(dev) -> dict:
+    """Both models at m = 40 (the large-m instances) on config 2's field
+    (n=10,000): the response NNGP's fit_map(50) and 8 chains of MWG, 100 +
+    100 (kernels 2 and 1); with x @ [1, -2], fit_map(20) and MWG 50 + 50
+    (kernel 2-EMIT_Y, and kernel 3 twice a step); the latent NNGP, 8 chains,
+    100 + 100 (kernel 3).  Short runs: the gates are finite draws and the
+    slope within 0.1 of -2."""
+    n, m, chains = 10_000, 40, 8
+    coords, y = config2_field(n, 10.0, np.random.default_rng(0))
+    x = np.column_stack([np.ones(n), np.random.default_rng(1).standard_normal(n)])
+    init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1, "alpha": 0.2}
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="exponential", m=m, device=dev)
+    mp = model.fit_map(n_steps=50)
+    draws = model.sample(100, n_burn=100, n_chains=chains, seed=0, init=init)
+    response_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), kernel="exponential",
+                         m=m, x=x, device=dev)
+    fixed.fit_map(n_steps=20)
+    fixed_draws = fixed.sample(50, n_burn=50, n_chains=chains, seed=0, init=init)
+    fixed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    latent = LatentNNGP(coords, y, kernel="exponential", m=m, device=dev)
+    latent_draws = latent.sample(100, n_burn=100, n_chains=chains, seed=0,
+                                 init={"sigma2": init["sigma2"], "phi": 0.1,
+                                       "tau2": float(np.var(y)) * 0.15}, collect_w=False)
+    latent_s = time.perf_counter() - t0
+    launches = _read_counts("large m", ("vecchia_suffstats_large", "vecchia_grad_large",
+                                        "vecchia_grad_y_large", "vecchia_bf_large"))
+    slope = float(fixed_draws["beta"].mean(axis=(0, 1))[1])
+    res = {
+        "response_s": response_s, "fixed_effects_s": fixed_s, "latent_s": latent_s,
+        "map_logpost": float(mp.value),
+        "posterior_mean": {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")},
+        "latent_posterior_mean": {k: float(np.mean(latent_draws[k]))
+                                  for k in ("sigma2", "phi", "tau2")},
+        "slope": slope, "launches": launches, "plain_calls": 0,
+    }
+    print("large-m path [n10000 m40]: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for d in (draws, fixed_draws, latent_draws)
+                 for v in d.values()), "non-finite draws at m = 40")
+    _require(abs(slope + 2.0) <= 0.1, f"posterior mean slope {slope} is not within 0.1 of -2")
+    return res
+
+
 def tile_resources(info: dict) -> dict:
-    """Registers, stack and static shared bytes of every instance of kernels
-    1 and 2 (``cuobjdump -res-usage`` of the built library), the tile ring's
-    bytes at 16 chains with a shared y (ops/geometry.py; the rolled instances
-    at m = 25) and the warps an SM those allow by the card's occupancy rules
+    """Registers, stack and static shared bytes of every tile instance of
+    the three kernels (``cuobjdump -res-usage`` of the built library), the
+    tile ring's bytes at 16 chains with a shared y (none for kernel 3;
+    ops/geometry.py; the rolled instances at m = 25) and the warps an SM
+    those allow by the card's occupancy rules
     (65,536 registers an SM given out 256 to a warp, 233,472 bytes of shared
     memory an SM with 1,024 reserved a block, 64 warps and 32 blocks an
     SM)."""
@@ -2350,7 +2485,7 @@ def tile_resources(info: dict) -> dict:
                            check=True).stdout.splitlines()
     out = {}
     for line, res in zip(usage, usage[1:]):
-        found = re.search(r"(suffstats|grad)(?:_nu)?_kernelILi(\d+)E((?:Lb[01]E)+)", line)
+        found = re.search(r"(suffstats|grad|bf)(?:_nu)?_kernelILi(\d+)E((?:Lb[01]E)+)", line)
         if "Function" not in line or not found:
             continue
         name, big_m = found.group(1), int(found.group(2))
@@ -2358,13 +2493,16 @@ def tile_resources(info: dict) -> dict:
         core = 1 if name == "grad" else 0  # kernel 2's first flag is EMIT_Y
         if name == "grad" and flags[0] == "1":
             name = "grad_y"
-        general, coords, rolled = (flags[core:core + 3] + ["0", "0", "0"])[:3]
+        # kernel 3 alone has a fourth flag, HETERO (its launches with noise weights)
+        general, coords, rolled, hetero = (flags[core:core + 4] + ["0"] * 4)[:4]
         name += ("_nu" if general == "1" else "") + ("_coords" if coords == "1" else "")
+        name += "_hetero" if hetero == "1" else ""
         stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
         regs, stack, static = (int(stats.get(k, 0)) for k in ("REG", "STACK", "SHARED"))
         m = 25 if rolled == "1" else big_m
         dim = 2 if coords == "1" else 0
-        geo = geometry.geometry(100_096, m, CHAINS, "coords" if dim else "dist", dim)
+        geo = geometry.geometry(100_096, m, CHAINS, "coords" if dim else "dist", dim,
+                                hetero=hetero == "1", with_y=not name.startswith("bf"))
         warps = geo.block // 32
         per_warp = -(-regs * 32 // 256) * 256
         blocks = min(65_536 // per_warp // warps, 233_472 // (geo.smem_bytes + static + 1024),
@@ -2374,7 +2512,8 @@ def tile_resources(info: dict) -> dict:
                     "ring_bytes": geo.smem_bytes, "warps_per_sm": blocks * warps}
     print("tile kernels' resources [16 chains, shared y; ring at m = 25 for the rolled]: "
           + json.dumps(out), flush=True)
-    _require(len(out) == 60, f"expected 60 instances of kernels 1 and 2, found {len(out)}")
+    _require(len(out) == 100, f"expected 100 tile instances of the three kernels, found "
+             f"{len(out)}")
     return out
 
 
@@ -2558,11 +2697,14 @@ def main() -> int:
     hetero_main = main_case.with_noise(noise_weights(N_MAIN))
     hetero_small = small_case.with_noise(noise_weights(1500))
     errs_hetero = hetero_parity(hetero_main, hetero_small)
-    times.update(time_hetero(hetero_main, 10, 100, (1, 3)))
+    times.update(time_instances(hetero_main, 10, 100, (1, 3)))
     bounds.update(kernel_bounds(hetero_main))
     errs_m = m_between_instances(dev, main_case)
     errs_m.update({name: max(err, errs_m.get(name, 0.0))
                    for name, err in large_m_instances(dev).items()})
+    errs_large, times_large, bounds_large = large_m_kernels(dev)
+    times.update(times_large)
+    bounds.update(bounds_large)
 
     # the coords instances of the closed-form kernels on the same sites
     coords_main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, layout="coords")
@@ -2579,7 +2721,7 @@ def main() -> int:
     hetero_main = coords_main.with_noise(noise_weights(N_MAIN))
     errs_hetero.update(hetero_parity(hetero_main,
                                      coords_small.with_noise(noise_weights(1500))))
-    times.update(time_hetero(hetero_main, 10, 100, (1, 3)))
+    times.update(time_instances(hetero_main, 10, 100, (1, 3)))
     bounds.update(kernel_bounds(hetero_main))
     del hetero_main, hetero_small
     for name, err in four_dimensional_parity(dev).items():
@@ -2603,7 +2745,7 @@ def main() -> int:
     nu_hetero = nu_case.with_noise(noise_weights(N_NU))
     nu_hetero_err = check_general_nu(nu_hetero, f"hetero n{N_NU} m{M_NU}")
     check_general_nu(small_nu.with_noise(noise_weights(1500)), "hetero n1500 m7")
-    times.update(time_hetero(nu_hetero, 5, 50, (1, 1)))
+    times.update(time_instances(nu_hetero, 5, 50, (1, 1)))
     bounds.update(kernel_bounds_nu(nu_hetero))
     # and their coords instances
     nu_coords = Case(N_NU, M_NU, Matern(), CHAINS, seed=5, dev=dev, field=field3,
@@ -2622,7 +2764,7 @@ def main() -> int:
                                             f"hetero coords n{N_NU} m{M_NU}")
     check_general_nu(small_nu_coords.with_noise(noise_weights(1500)),
                      "hetero coords n1500 m7")
-    times.update(time_hetero(nu_coords_hetero, 5, 50, (1, 1)))
+    times.update(time_instances(nu_coords_hetero, 5, 50, (1, 1)))
     bounds.update(kernel_bounds_nu(nu_coords_hetero))
     del nu_hetero, nu_coords_hetero
     del nu_case, small_nu, small_case, nu_coords, small_nu_coords
@@ -2684,6 +2826,7 @@ def main() -> int:
     paths["hetero"] = hetero_main_path(dev)
     paths["hetero_fixed_effects"] = hetero_fixed_effects_path(dev)
     paths["hetero_latent"] = hetero_latent_path(dev)
+    paths["large_m"] = large_m_path(dev)
 
     errs.update({
         "vecchia_suffstats": fwd["f_max_abs_err"],
@@ -2707,6 +2850,7 @@ def main() -> int:
                      f"vecchia_bf_nu{sfx}_hetero": err["bf_b_max_abs_err"]})
     for name, err in errs_m.items():  # m = 12, 17, 25 and 32
         errs[name] = max(errs[name], err)
+    errs.update(errs_large)  # m = 40 and 64
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{info['seconds']:.1f} s of it", flush=True)
     # launches: the sum over the paths, each counted from 0; no single
@@ -2714,7 +2858,8 @@ def main() -> int:
     # K_1 only), so library_ms is null.  ms, plain_ms and bound_ms of the
     # closed-form rows (either layout, with or without noise weights) are at
     # n=100,000, m=15, of the general-nu rows at config 3's n=25,000, m=10,
-    # 16 chains each
+    # 16 chains each; of the _large rows at n=10,000, m=64, 16 chains (closed
+    # form) and m=40, 4 chains (general nu)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p["launches"][name] for p in paths.values()),

@@ -9,6 +9,8 @@ The package imports no JAX; ``pynngp_tpu`` stays the reference it is tested
 against.
 """
 
+import torch
+
 from pynngp_tpu_torch.diagnostics import ess, split_rhat
 from pynngp_tpu_torch.kernels import Exponential, Matern, Spherical, SqExp, get_kernel
 from pynngp_tpu_torch.models.latent import LatentNNGP, LatentState
@@ -22,6 +24,28 @@ from pynngp_tpu_torch.vecchia import (
     vecchia_loglik,
     vecchia_suffstats,
 )
+
+
+
+def _settle_cpu_math() -> None:
+    """One serial call of each vectorized CPU function the plain versions
+    use, in float32 and float64, before any call runs on several threads.
+
+    torch's first vectorized float64 exp of a process, when several threads
+    run it at once, came out up to 3.3e-9 off (relative) over one thread's
+    share of the elements in 3 of 120 fresh processes on a loaded 8-core
+    host, and never in 150 after a serial call of 16 elements: a race in the
+    lazy set-up of the vectorized kernel.  The plain versions are held to
+    the reference at rtol 1e-8, so the race failed a comparison of B now and
+    then (tests/test_torch_cpu_math.py)."""
+    for dtype in (torch.float32, torch.float64):
+        x = torch.full((64,), 0.5, dtype=dtype)
+        for fn in (torch.exp, torch.log, torch.log1p, torch.sqrt, torch.sin,
+                   torch.sinh, torch.cosh, torch.lgamma):
+            fn(x)
+
+
+_settle_cpu_math()
 
 __all__ = [
     "ResponseNNGP",

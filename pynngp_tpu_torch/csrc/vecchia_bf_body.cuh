@@ -2,121 +2,105 @@
 // variances F, shared by its four translation units: vecchia_bf.cu (closed-form
 // rho, GENERAL = false) and vecchia_bf_nu.cu (general-nu Matern, GENERAL = true)
 // on the dist table layout, and the same two with _coords (COORDS = true:
-// distances recomputed from coordinate planes, vecchia_common.cuh).
+// distances recomputed from coordinate planes).
 //
 // Replaces the Pallas kernel _bf_kernel (pynngp_tpu/ops/pallas_bf.py:941,
 // driven by _run_bf l.991 and pallas_bf l.1036; its coords branch through
 // _dist_access, l.377 and l.957).  For every (site, chain) it
 // builds the m x m unit-variance neighbor correlation C (+ alpha + jitter on
 // valid diagonal slots, alpha v at the neighbor under heterogeneous noise,
-// identity rows for invalid slots), factors it with the unrolled
-// Cholesky-Crout recurrence, forward-solves u = L^-1 c, writes
-// F = 1 + alpha (alpha v_i with v) - u.u and back-substitutes B = L^-T u.  B is exactly 0 in
-// invalid slots.  These are the outputs the latent-w Gibbs sweep and the
-// conjugate beta update consume; there is no reduction and no partial.
+// identity rows for invalid slots), factors it with the Cholesky-Crout
+// recurrence, forward-solves u = L^-1 c, writes
+// F = 1 + alpha (alpha v_i with v) - u.u and back-substitutes B = L^-T u.  B is
+// exactly 0 in invalid slots.  These are the outputs the latent-w Gibbs sweep
+// and the conjugate beta update consume; there is no reduction and no partial.
 //
 // Padded sites (site >= n) write B = 0 and F = 1 and factor nothing: their
 // table entries are zero, so with alpha = 0 (the latent model) their system
 // is the singular all-ones matrix.  Nothing downstream has to slice them off
 // before it takes a log or a reciprocal of F.
 //
-// Design.  One thread per (site, chain), as kernels 1 and 2 had it before
-// their tile ring (vecchia_tile.cuh): blocks of kBlock threads along sites,
-// gridDim.y = chains, the tables shared by all chains.  B is written plane-major, (C, m, n_pad), so the 32 threads of a
-// warp store 32 adjacent floats of one plane; the sweep reads it in that
-// layout and nothing is transposed.
+// Design.  Kernels 1 and 2's (vecchia_tile.cuh): a block is a group of up to
+// kMaxGroup chains, one warp a chain, over tiles of 32 consecutive sites
+// whose distance or coordinate planes come into a shared-memory stage by
+// cp.async, the next tile's while the warps factor this one; with noise
+// weights the stage also holds nn_idx and v at the neighbors, gathered
+// through it.  Kernel 3 has no y, so its stage has no y planes, and without
+// v no nn_idx planes either (nothing is gathered).  The closed forms take
+// ClosedForm (1/phi once a chain, one branch-free formula) and the pivot
+// rsqrtf.  B is written plane-major, (C, m, n_pad): a warp is 32 consecutive
+// sites of one chain, so each plane's store is one 128-byte line, and the
+// sweep reads B in that layout.  m <= 20 runs on the smallest built M >= m,
+// unrolled with the factor in registers; 20 < m <= kRolledM and coords with
+// d > kMaxDim on the rolled instance; m > kRolledM on the large-m instance
+// (vecchia_large_m.cuh).
 //
-// What bounds it.  Per thread about (m^2/2 + m/2) * 4 bytes of table reads
-// and (m + 1) * 4 bytes of stores against ~m^3/6 + m^2 dependent FMAs and
-// m(m+1)/2 exponentials: latency- and register-bound like kernel 2, because
-// the back-substitution reads column i of L for every k > i and so keeps all
-// of L live to the end (105 + 15 + 15 + 15 floats at m = 15, in registers:
-// "Loop structure", vecchia_common.cuh).  With noise weights it also reads
-// nn_idx and v at the neighbors and v at the site.  Its floor on
-// an H100 is set by operations, the special-function rate of the
-// exponentials, just above the bytes it must move (chip_smoke.py,
-// kernel_bounds); it runs far above both.  The general-nu instances replace
-// each exponential by a Bessel evaluation (vecchia_bessel.cuh).  The coords
-// layout reads (m + 1) d coordinates for the m(m+1)/2 distances and recomputes
-// each (d subtractions and multiply-adds and a sqrt).
+// What bounded the design before it (one thread per (site, chain), reading
+// its tables from global memory), on an NVIDIA H100 80GB HBM3 at 700 W:
+// 2.2 ms at n=100,000, m=15, 16 chains, 2.3% of its bound (PERF.md), with a
+// correctly rounded division a correlation, the family switch inside its
+// unrolled code and 1/sqrtf at each pivot, what cost kernels 1 and 2 most of
+// their time.  What bounds it: the back-substitution reads column i of L for
+// every k > i, so all of L stays live to the end (105 + 3 x 15 floats at
+// m = 15), and the serial recurrence's latency at the warps an SM its
+// registers allow.
 #pragma once
 
 #include <cstddef>
 
-#include "vecchia_common.cuh"
+#include "vecchia_large_m.cuh"
+#include "vecchia_tile.cuh"
 
 namespace vecchia {
 namespace {
 
-// ROLLED: the rolled instance, for 20 < m <= kRolledM on either layout and
-// for coords with d > kMaxDim (vecchia_common.cuh).  HETERO:
-// the instance launched with noise weights.  Kernel 3 is the one body that
-// takes noise as a template parameter: it gathers nothing else through nn_idx,
-// and the weights' loads behind a runtime branch cost its homogeneous
-// instances 2.5-5% on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), where
-// kernels 1 and 2 pay under 1%.
-template <int M, bool GENERAL, bool COORDS, bool ROLLED = false, bool HETERO = false>
-__global__ void __launch_bounds__(kBlock)
-bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
-          const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
-          const float* __restrict__ v, int n_pad, int m, int dim, int family,
-          float* __restrict__ b_out, float* __restrict__ f_out) {
-  // the loops over the slots run to M, unrolled; in the ROLLED instance to
+// One warp's (site, chain) systems of one staged tile: writes B (m planes of
+// b_chain) and F of its site.
+template <int M, bool GENERAL, bool COORDS, bool ROLLED, bool HETERO>
+__device__ __forceinline__ void bf_site(const float* st, const TileShape& s, int site, int m,
+                                        int dim, const ClosedForm& cf, float alpha,
+                                        float jitter, int n, const MaternSet* set,
+                                        const float* __restrict__ v, int n_pad,
+                                        float* __restrict__ b_chain,
+                                        float* __restrict__ f_row) {
+  // the loops over the slots run to M, unrolled; in the rolled instance to
   // the call's m, which keeps them rolled
   const int top = ROLLED ? m : M;
-  const int chain = blockIdx.y;
-  const int site = blockIdx.x * kBlock + threadIdx.x;
-  const float* pr = params + chain * kParams;
-  const float phi = pr[0];
-  const float alpha = pr[1];
-  const float jitter = pr[2];
-  const int n = static_cast<int>(pr[3]);
-  float* b_site = b_out + static_cast<size_t>(chain) * m * n_pad + site;  // m planes
-  float* f_site = f_out + static_cast<size_t>(chain) * n_pad + site;
-  const MaternSet* set = chain_matern_set<GENERAL>(pr, false);  // before any thread leaves
-
+  float* b_site = b_chain + site;  // m planes
   if (site >= n) {  // padded site: B = 0, F = 1
 #pragma unroll
     for (int i = 0; i < top; ++i) {
       if (i < m) b_site[static_cast<size_t>(i) * n_pad] = 0.0f;
     }
-    *f_site = 1.0f;
+    f_row[site] = 1.0f;
     return;
   }
-  const OwnCoords<COORDS> own = load_own<COORDS>(tab_a, n_pad, site, dim);
-  const Guard g(site, m);
+  const float* sv = st + s.off_v * kTile + (threadIdx.x & 31);
+  const TileDistances<COORDS, ROLLED> dist(st, s, dim);
+  const int lim = min(site, m);  // slot k is a real neighbor iff lim > k
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
-  float u[M];  // L^-1 c
+  float u[M];  // L^-1 c, then B = L^-T u over it
 
 #pragma unroll
   for (int k = 0; k < top; ++k) {
-    // slot k is a real neighbor iff k < m and site > k (identity row
-    // otherwise; one past m reads the last slot's planes, Guard)
-    const float mk = g.mask(k);
-    float nugget = alpha;
-    if constexpr (HETERO) {
-      nugget = alpha * v[nn_idx[static_cast<size_t>(g.at(k)) * n_pad + site]];
-    }
+    // slots at or past m read zeros from the stage and are masked
+    const float mk = lim > k ? 1.0f : 0.0f;
+    const float nugget = HETERO ? alpha * sv[k * kTile] : alpha;
     float acc = 1.0f + mk * (nugget + jitter);
 #pragma unroll
     for (int j = 0; j < k; ++j) acc -= low[tri(k, j)] * low[tri(k, j)];
-    const float inv = 1.0f / sqrtf(acc);
+    const float inv = rsqrtf(acc);
     inv_diag[k] = inv;
-    float au = corr<GENERAL>(family, dist_in<COORDS, ROLLED>(tab_a, tab_b, own, g, k, dim,
-                                                            n_pad, site),
-                             phi, set) *
-               mk;
+    float au = tile_rho<GENERAL>(cf, dist.in(k), set) * mk;
 #pragma unroll
     for (int j = 0; j < k; ++j) au -= low[tri(k, j)] * u[j];
     u[k] = au * inv;
 #pragma unroll
     for (int i = k + 1; i < top; ++i) {
-      const float mi = g.mask(i);  // mask_i * mask_k, as i > k
-      float a = corr<GENERAL>(family, dist_pair<COORDS, ROLLED>(tab_b, g, i, k, dim, n_pad, site),
-                              phi, set) *
-                mi;
+      const float mi = lim > i ? 1.0f : 0.0f;  // mask_i * mask_k, as i > k
+      float a = tile_rho<GENERAL>(cf, dist.pair(i, k), set) * mi;
 #pragma unroll
       for (int j = 0; j < k; ++j) a -= low[tri(i, j)] * low[tri(k, j)];
       low[tri(i, k)] = a * inv;
@@ -126,41 +110,127 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   float ff = 1.0f + (HETERO ? alpha * v[site] : alpha);
 #pragma unroll
   for (int k = 0; k < top; ++k) ff -= u[k] * u[k];
-  *f_site = ff;
+  f_row[site] = ff;
 
   // back-substitution B = L^-T u, last slot first; the call's B has m planes
-  float b[M];
 #pragma unroll
   for (int i = top - 1; i >= 0; --i) {
     float ab = u[i];
 #pragma unroll
-    for (int k = i + 1; k < top; ++k) ab -= low[tri(k, i)] * b[k];
-    b[i] = ab * inv_diag[i];
-    if (i < m) b_site[static_cast<size_t>(i) * n_pad] = b[i];
+    for (int k = i + 1; k < top; ++k) ab -= low[tri(k, i)] * u[k];
+    u[i] = ab * inv_diag[i];
+    if (i < m) b_site[static_cast<size_t>(i) * n_pad] = u[i];
   }
 }
 
-// Validates the launch shape, picks the instance (M >= m for m <= 20; the
-// rolled one for larger m and for coords with d > kMaxDim) and launches on
+// The block's loop over its tiles: stage (and gather v), factor, store.
+// HETERO: the instance launched with noise weights.  Kernel 3 is the one
+// body that takes noise as a template parameter: with the nullable pointer of
+// kernels 1 and 2 (a runtime branch) its coords instance at M = 15 held 254
+// registers where it holds 217 now, and ran 7% slower (0.489 against
+// 0.454 ms at n=100,000, 16 chains; the other instances within 2%; NVIDIA
+// H100 80GB HBM3, 700 W, tools/time_trees.py --bf, PERF.md).
+template <int M, bool GENERAL, bool COORDS, bool ROLLED, bool HETERO>
+__global__ void __launch_bounds__(kTile * kMaxGroup)
+bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
+          const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
+          const float* __restrict__ v, int n_pad, int m, int dim, int chains, int family,
+          float* __restrict__ b_out, float* __restrict__ f_out) {
+  extern __shared__ __align__(16) float ring[];
+  const int ml = ROLLED ? m : M;
+  const int group = blockDim.x / kTile;
+  const int c0 = blockIdx.y * group;
+  const int warp = threadIdx.x / kTile;
+  const int chain = c0 + warp;
+  const bool active = chain < chains;  // a ragged last group has spare warps
+  const TileShape s = tile_shape(m, ml, dim, COORDS, 0, HETERO, HETERO);
+  const int stage_words = s.planes * kTile;
+  const int safe = min(chain, chains - 1);
+  const float* pr = params + safe * kParams;
+  const float phi = pr[0];
+  const float alpha = pr[1];
+  const float jitter = pr[2];
+  const int n = static_cast<int>(pr[3]);
+  const MaternSet* set = warp_matern_set<GENERAL>(pr, false);
+  const ClosedForm cf = GENERAL ? ClosedForm{} : closed_form(family, phi);
+  float* b_chain = b_out + static_cast<size_t>(safe) * m * n_pad;
+  float* f_row = f_out + static_cast<size_t>(safe) * n_pad;
+
+  for (int i = threadIdx.x; i < kStages * stage_words; i += blockDim.x) ring[i] = 0.0f;
+  __syncthreads();
+  const int tiles = n_pad / kTile;
+  if (blockIdx.x < tiles) issue_tables(ring, s, tab_a, tab_b, nn_idx, n_pad, blockIdx.x);
+  cp_async_commit();
+  int i = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+    float* st = ring + (i % kStages) * stage_words;
+    const int next = tile + gridDim.x;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's tables are in; every warp is done with the last
+    if constexpr (HETERO) {
+      issue_gathers(st, s, ml, nullptr, 0, 0, c0, chains, v);
+      cp_async_commit();
+    }
+    if (next < tiles) {
+      issue_tables(ring + ((i + 1) % kStages) * stage_words, s, tab_a, tab_b, nn_idx, n_pad,
+                   next);
+    }
+    cp_async_commit();
+    if constexpr (HETERO) {
+      cp_async_wait<1>();  // the gathers, not the next tile's tables
+      __syncthreads();
+    }
+    if (active) {
+      bf_site<M, GENERAL, COORDS, ROLLED, HETERO>(st, s, tile * kTile + (threadIdx.x & 31),
+                                                  m, dim, cf, alpha, jitter, n, set, v, n_pad,
+                                                  b_chain, f_row);
+    }
+  }
+}
+
+// Validates the launch shape and the wrapper's geometry (group chains a
+// block, grid_x blocks along the tiles, the ring's bytes; for m > kRolledM
+// grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
+// the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
+// and for coords with d > kMaxDim; the large-m one above) and launches on
 // `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_bf(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
-              const float* v, int n_pad, int m, int dim, int chains, int family, float* b_out,
-              float* f_out, void* stream) {
+              const float* v, int n_pad, int m, int dim, int chains, int family, int group,
+              int grid_x, int smem_bytes, double* scratch, float* b_out, float* f_out,
+              void* stream) {
   if (!valid_launch<COORDS>(n_pad, chains, dim) || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(n_pad / kBlock, chains);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VECCHIA_BF_LAUNCH(MM, ANY)                                                          \
-  if (v != nullptr) {                                                                       \
-    bf_kernel<MM, GENERAL, COORDS, ANY, true><<<grid, kBlock, 0, s>>>(                      \
-        params, tab_a, tab_b, nn_idx, v, n_pad, m, dim, family, b_out, f_out);              \
-  } else {                                                                                  \
-    bf_kernel<MM, GENERAL, COORDS, ANY, false><<<grid, kBlock, 0, s>>>(                     \
-        params, tab_a, tab_b, nn_idx, v, n_pad, m, dim, family, b_out, f_out);              \
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (large_launch(m)) {
+    if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_bf_large<GENERAL, COORDS>(params, tab_a, tab_b, nn_idx, v, n_pad, m, dim,
+                                            chains, family, grid_x, scratch, b_out, f_out, st);
   }
-  if (launch_m(m) == kRolledM || (COORDS && dim > kMaxDim)) {
+  const bool rolled = rolled_launch(m, COORDS, dim);
+  const TileShape s = tile_shape(m, rolled ? m : launch_m(m), dim, COORDS, 0, v != nullptr,
+                                 v != nullptr);
+  if (!valid_tiles(s, group, grid_x, smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(grid_x, (chains + group - 1) / group);
+  const dim3 block(kTile * group);
+#define VECCHIA_BF_LAUNCH(MM, ROLL)                                                         \
+  {                                                                                         \
+    auto kern = v != nullptr ? bf_kernel<MM, GENERAL, COORDS, ROLL, true>                  \
+                             : bf_kernel<MM, GENERAL, COORDS, ROLL, false>;                 \
+    if (smem_bytes > 48 * 1024) {                                                           \
+      const cudaError_t err = cudaFuncSetAttribute(                                         \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);                   \
+      if (err != cudaSuccess) return static_cast<int>(err);                                 \
+    }                                                                                       \
+    kern<<<grid, block, smem_bytes, st>>>(params, tab_a, tab_b, nn_idx, v, n_pad, m, dim,   \
+                                         chains, family, b_out, f_out);                     \
+  }
+  if (rolled) {
     VECCHIA_BF_LAUNCH(kRolledM, true);
     return static_cast<int>(cudaGetLastError());
   }

@@ -8,8 +8,10 @@
 // n_pad), cn (m d, n_pad), plane k d + a for coordinate a of slot k.
 extern "C" int vecchia_bf_coords_f32(const float* params, const float* co, const float* cn,
                                      const int* nn_idx, const float* v, int n_pad, int m,
-                                     int dim, int chains, int family, float* b_out,
+                                     int dim, int chains, int family, int group, int grid_x,
+                                     int smem_bytes, double* scratch, float* b_out,
                                      float* f_out, void* stream) {
   return vecchia::launch_bf<false, true>(params, co, cn, nn_idx, v, n_pad, m, dim, chains,
-                                         family, b_out, f_out, stream);
+                                         family, group, grid_x, smem_bytes, scratch, b_out,
+                                         f_out, stream);
 }

@@ -8,7 +8,9 @@
 // of each chain's params row.
 extern "C" int vecchia_bf_nu_f32(const float* params, const float* d_in, const float* d_tri,
                                  const int* nn_idx, const float* v, int n_pad, int m,
-                                 int chains, float* b_out, float* f_out, void* stream) {
+                                 int chains, int group, int grid_x, int smem_bytes,
+                                 double* scratch, float* b_out, float* f_out, void* stream) {
   return vecchia::launch_bf<true, false>(params, d_in, d_tri, nn_idx, v, n_pad, m, 0, chains,
-                                         vecchia::kMaternGeneral, b_out, f_out, stream);
+                                         vecchia::kMaternGeneral, group, grid_x, smem_bytes,
+                                         scratch, b_out, f_out, stream);
 }

@@ -8,8 +8,10 @@
 // slot 4 of each chain's params row.
 extern "C" int vecchia_bf_nu_coords_f32(const float* params, const float* co, const float* cn,
                                         const int* nn_idx, const float* v, int n_pad, int m,
-                                        int dim, int chains, float* b_out, float* f_out,
-                                        void* stream) {
+                                        int dim, int chains, int group, int grid_x,
+                                        int smem_bytes, double* scratch, float* b_out,
+                                        float* f_out, void* stream) {
   return vecchia::launch_bf<true, true>(params, co, cn, nn_idx, v, n_pad, m, dim, chains,
-                                        vecchia::kMaternGeneral, b_out, f_out, stream);
+                                        vecchia::kMaternGeneral, group, grid_x, smem_bytes,
+                                        scratch, b_out, f_out, stream);
 }

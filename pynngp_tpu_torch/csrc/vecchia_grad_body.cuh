@@ -60,7 +60,8 @@
 // sums), at no cost in device memory.  The slot loops unroll over M, the
 // loops nested in them stay rolled and the factor lives in local memory (see
 // below); the rolled instance (arrays for kRolledM, loops to m) runs
-// 20 < m <= 32 and coords with d > kMaxDim.
+// 20 < m <= 32 and coords with d > kMaxDim, and the large-m instance
+// (vecchia_large_m.cuh) m > 32.
 //
 // What bounded the design before it (one thread per (site, chain); NVIDIA
 // H100 80GB HBM3, 700 W, tools/time_trees.py --m15, PERF.md; n=100,000,
@@ -81,6 +82,7 @@
 
 #include <cstddef>
 
+#include "vecchia_large_m.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -324,17 +326,27 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 }
 
 // Validates the launch shape and the wrapper's geometry (group chains a
-// block, grid_x blocks along the tiles, the ring's bytes), picks the
-// instance (M >= m for m <= 20; the rolled one for larger m and for coords
-// with d > kMaxDim) and launches on `stream` without synchronising; returns
-// cudaGetLastError().
+// block, grid_x blocks along the tiles, the ring's bytes; for m > kRolledM
+// grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
+// the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
+// and for coords with d > kMaxDim; the large-m one above) and launches on
+// `stream` without synchronising; returns cudaGetLastError().
 template <bool EMIT_Y, bool GENERAL, bool COORDS>
 int launch_grad(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
                 const float* y, int y_stride, const float* v, int n_pad, int m, int dim,
                 int chains, int family, bool with_nu, int group, int grid_x,
-                int smem_bytes, float* part, float* b_out, float* rof_out, void* stream) {
+                int smem_bytes, double* scratch, float* part, float* b_out, float* rof_out,
+                void* stream) {
   if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0 || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (large_launch(m)) {
+    if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_grad_large<EMIT_Y, GENERAL, COORDS>(
+        params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, with_nu,
+        grid_x, scratch, part, b_out, rof_out, static_cast<cudaStream_t>(stream));
   }
   const bool rolled = rolled_launch(m, COORDS, dim);
   const TileShape s = tile_shape(m, rolled ? m : launch_m(m), dim, COORDS,

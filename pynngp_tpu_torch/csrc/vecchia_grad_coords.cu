@@ -10,9 +10,9 @@
 extern "C" int vecchia_grad_coords_f32(const float* params, const float* co, const float* cn,
                                        const int* nn_idx, const float* y, int y_stride,
                                        const float* v, int n_pad, int m, int dim, int chains,
-                                       int family, int group, int grid_x, int smem_bytes,
+                                       int family, int group, int grid_x, int smem_bytes, double* scratch,
                                        float* part, void* stream) {
   return vecchia::launch_grad<false, false, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad, m,
                                                   dim, chains, family, false, group, grid_x,
-                                                  smem_bytes, part, nullptr, nullptr, stream);
+                                                  smem_bytes, scratch, part, nullptr, nullptr, stream);
 }

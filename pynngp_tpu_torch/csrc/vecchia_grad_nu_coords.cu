@@ -10,10 +10,10 @@
 extern "C" int vecchia_grad_nu_coords_f32(const float* params, const float* co, const float* cn,
                                           const int* nn_idx, const float* y, int y_stride,
                                           const float* v, int n_pad, int m, int dim, int chains,
-                                          int with_nu, int group, int grid_x, int smem_bytes,
+                                          int with_nu, int group, int grid_x, int smem_bytes, double* scratch,
                                           float* part, void* stream) {
   return vecchia::launch_grad<false, true, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad, m,
                                                  dim, chains, vecchia::kMaternGeneral, with_nu != 0,
-                                                 group, grid_x, smem_bytes, part, nullptr, nullptr,
+                                                 group, grid_x, smem_bytes, scratch, part, nullptr, nullptr,
                                                  stream);
 }

@@ -28,7 +28,8 @@
 // warp's shuffle tree writes its chain's partial.  The loops over the slots
 // unroll over the template parameter M and the factor lives in registers;
 // the rolled instance (ROLLED: arrays for kRolledM, loops to m, in local
-// memory) runs 20 < m <= 32 and coords with d > kMaxDim.
+// memory) runs 20 < m <= 32 and coords with d > kMaxDim; m > 32 runs the
+// large-m instance (vecchia_large_m.cuh).
 //
 // What bounded the design before it (one thread per (site, chain), blocks of
 // 128 sites of one chain), on an NVIDIA H100 80GB HBM3 at 700 W
@@ -55,6 +56,7 @@
 
 #include <cstddef>
 
+#include "vecchia_large_m.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -221,18 +223,27 @@ __global__ void __launch_bounds__(kTile * kMaxGroup) suffstats_nu_kernel(VECCHIA
 #undef VECCHIA_SUFFSTATS_ARGS
 
 // Validates the launch shape and the wrapper's geometry (group chains a
-// block, grid_x blocks along the tiles, the ring's bytes), picks the
-// instance (M >= m for m <= 20; the rolled one for larger m and for coords
-// with d > kMaxDim) and launches on `stream` without synchronising; returns
-// cudaGetLastError().
+// block, grid_x blocks along the tiles, the ring's bytes; for m > kRolledM
+// grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
+// the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
+// and for coords with d > kMaxDim; the large-m one above) and launches on
+// `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_suffstats(const float* params, const float* tab_a, const float* tab_b,
                      const int* nn_idx, const float* y, int y_stride, const float* v,
                      int n_pad, int m, int dim, int chains, int family, int group, int grid_x,
-                     int smem_bytes, float* f_out, float* r_out, float* part,
+                     int smem_bytes, double* scratch, float* f_out, float* r_out, float* part,
                      void* stream) {
   if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0 || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (large_launch(m)) {
+    if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_suffstats_large<GENERAL, COORDS>(
+        params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, grid_x,
+        scratch, f_out, r_out, part, static_cast<cudaStream_t>(stream));
   }
   const bool rolled = rolled_launch(m, COORDS, dim);
   const TileShape s = tile_shape(m, rolled ? m : launch_m(m), dim, COORDS,

@@ -9,9 +9,9 @@
 extern "C" int vecchia_suffstats_nu_f32(const float* params, const float* d_in, const float* d_tri,
                                         const int* nn_idx, const float* y, int y_stride,
                                         const float* v, int n_pad, int m, int chains, int group,
-                                        int grid_x, int smem_bytes, float* f_out, float* r_out,
+                                        int grid_x, int smem_bytes, double* scratch, float* f_out, float* r_out,
                                         float* part, void* stream) {
   return vecchia::launch_suffstats<true, false>(params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad,
                                                 m, 0, chains, vecchia::kMaternGeneral, group,
-                                                grid_x, smem_bytes, f_out, r_out, part, stream);
+                                                grid_x, smem_bytes, scratch, f_out, r_out, part, stream);
 }

@@ -11,9 +11,9 @@ extern "C" int vecchia_suffstats_nu_coords_f32(const float* params, const float*
                                                const float* cn, const int* nn_idx, const float* y,
                                                int y_stride, const float* v, int n_pad, int m,
                                                int dim, int chains, int group, int grid_x,
-                                               int smem_bytes, float* f_out, float* r_out,
+                                               int smem_bytes, double* scratch, float* f_out, float* r_out,
                                                float* part, void* stream) {
   return vecchia::launch_suffstats<true, true>(params, co, cn, nn_idx, y, y_stride, v, n_pad, m,
                                                dim, chains, vecchia::kMaternGeneral, group, grid_x,
-                                               smem_bytes, f_out, r_out, part, stream);
+                                               smem_bytes, scratch, f_out, r_out, part, stream);
 }

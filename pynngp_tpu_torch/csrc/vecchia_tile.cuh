@@ -1,15 +1,16 @@
-// The site-tile ring of kernels 1 and 2 (vecchia_suffstats_body.cuh,
-// vecchia_grad_body.cuh): a block is a group of chains, one warp a chain, and
-// its warps share one tile of kTile consecutive sites at a time.  The block
-// copies the tile's tables (the distance or coordinate planes and nn_idx)
-// into shared memory with cp.async, 16 bytes a copy, then gathers y (shared
-// by the chains, or one row per warp) and the noise weights v at the tile's
+// The site-tile ring of the three kernels (vecchia_suffstats_body.cuh,
+// vecchia_grad_body.cuh, vecchia_bf_body.cuh) for m <= kRolledM: a block is
+// a group of chains, one warp a chain, and its warps share one tile of kTile
+// consecutive sites at a time.  The block copies the tile's tables (the
+// distance or coordinate planes and nn_idx) into shared memory with
+// cp.async, 16 bytes a copy, then gathers y (shared by the chains, or one row
+// per warp; none for kernel 3) and the noise weights v at the tile's
 // neighbors through the staged nn_idx with 4-byte cp.async copies.  The
 // warps then read every distance, y_N and v_N of the factorization from
 // shared memory.  The ring has two stages: the next tile's tables are in
 // flight while the warps factor this one.  Each block walks the tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ... (static: the sums' order is fixed) and keeps
-// per-lane sums across them.
+// blockIdx.x + gridDim.x, ... (static: the sums' order is fixed) and, in
+// kernels 1 and 2, keeps per-lane sums across them.
 //
 // A stage, in planes of kTile words (plane p of the tile's sites at
 // [p * kTile, (p + 1) * kTile)):
@@ -17,8 +18,9 @@
 //   coords: [0, d) the sites' own coordinates, then ml d neighbor planes,
 //           k d + a for coordinate a of slot k;
 //   then ml nn_idx planes, ycopies x ml y_N planes (ycopies 1 for a shared
-//   y, the group's chain count for one row a chain) and, with noise
-//   weights, ml v_N planes.
+//   y, the group's chain count for one row a chain, 0 in kernel 3) and, with
+//   noise weights, ml v_N planes.  A stage without y and v (kernel 3 under
+//   homogeneous noise) holds no nn_idx planes: nothing is gathered.
 // ml is the instance's M, or the call's m in the rolled instance.  The call's
 // tables have m slots: only their planes are copied, and the ring is zeroed
 // once, so a slot at or past m reads a zero distance, coordinate and y, and
@@ -51,15 +53,21 @@ struct TileShape {
   int planes;   // planes of one stage
 };
 
+// `gathers`: whether the stage holds nn_idx planes, for y or v; kernels 1
+// and 2 always gather y (the default), kernel 3 only v.  A constant at every
+// call: computed from a runtime ycopies inside kernels 1 and 2, it moved
+// their register allocation (2-EMIT_Y coords at M = 15 from 128 to 168
+// registers, 13% slower on the H100).
 __host__ __device__ __forceinline__ TileShape tile_shape(int m, int ml, int dim, bool coords,
-                                                         int ycopies, bool hetero) {
+                                                         int ycopies, bool hetero,
+                                                         bool gathers = true) {
   TileShape s;
   s.rows_a = coords ? dim : m;
   s.rows_b = coords ? m * dim : m * (m - 1) / 2;
-  s.rows_nn = m;
+  s.rows_nn = gathers ? m : 0;
   s.off_b = coords ? dim : ml;
   s.off_nn = s.off_b + (coords ? ml * dim : ml * (ml - 1) / 2);
-  s.off_y = s.off_nn + ml;
+  s.off_y = s.off_nn + (gathers ? ml : 0);
   s.off_v = s.off_y + ycopies * ml;
   s.planes = s.off_v + (hetero ? ml : 0);
   return s;
@@ -259,10 +267,10 @@ __device__ __forceinline__ const MaternSet* warp_matern_set(const float* pr, boo
 // formula of t = min(scale d, t_max):
 //   rho = (1 + c1 t + c2 t^2 + c3 t^3) exp(-(e1 t + e2 t^2)),
 //   d rho / d phi = (d1 t + d2 t^2 + d3 t^3) exp(-(e1 t + e2 t^2)),
-// the same functions as rho() of vecchia_common.cuh and its phi-derivative, with
-// 1/phi taken once a chain instead of a division a correlation, and no
-// branch on the family inside the unrolled factorization (a branch there
-// splits the straight-line code that the scheduler interleaves).
+// the closed forms of the reference's _rho_fn and _drho_fn (pallas_bf.py:312,
+// 656), with 1/phi taken once a chain instead of a division a correlation,
+// and no branch on the family inside the unrolled factorization (a branch
+// there splits the straight-line code that the scheduler interleaves).
 struct ClosedForm {
   float scale, t_max, c1, c2, c3, e1, e2, d1, d2, d3;
 
@@ -325,6 +333,15 @@ __host__ __forceinline__ bool rolled_launch(int m, bool coords, int dim) {
 __host__ inline bool valid_tiles(const TileShape& s, int group, int grid_x, int smem_bytes) {
   return group >= 1 && group <= kMaxGroup && grid_x >= 1 &&
          smem_bytes == kStages * s.planes * kTile * 4 && smem_bytes <= kMaxRingBytes;
+}
+
+// The same for the large-m instances (vecchia_large_m.cuh): one chain a
+// block (group 1), no ring, grid_x blocks of kBlock sites along the sites
+// at most, and a scratch buffer.
+__host__ inline bool valid_large(int n_pad, int group, int grid_x, int smem_bytes,
+                                 const double* scratch) {
+  return group == 1 && smem_bytes == 0 && grid_x >= 1 && grid_x <= n_pad / kBlock &&
+         scratch != nullptr;
 }
 
 }  // namespace vecchia

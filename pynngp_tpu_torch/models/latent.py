@@ -69,8 +69,8 @@ from pynngp_tpu_torch.neighbors import (
 )
 from pynngp_tpu_torch.noise import get_noise
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
+from pynngp_tpu_torch.ops.geometry import check_card_m
 from pynngp_tpu_torch.ops.site_tables import choose_layout, make_site_tables
-from pynngp_tpu_torch.ops.suffstats import cuda_instance_m
 from pynngp_tpu_torch.priors import logit_transform
 from pynngp_tpu_torch.samplers.mwg import (
     adapt_log_step,
@@ -175,7 +175,7 @@ class LatentNNGP:
             coords_host=coords[tab.order] if on_coords else None)
         self.m = self.tables.m
         if device.type == "cuda":
-            cuda_instance_m(self.m)
+            check_card_m(self.tables.n_pad, self.m)
         # heterogeneous measurement noise tau2 v_i: the weights in ordered
         # site space (the reference's latent.py:123-130), None for v = 1.
         # Kernel 3 runs the latent process at alpha = 0 and never sees them.

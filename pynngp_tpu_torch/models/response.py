@@ -61,12 +61,13 @@ from pynngp_tpu_torch.models.base import (
 from pynngp_tpu_torch.noise import get_noise
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.diff_suffstats import diff_suffstats
+from pynngp_tpu_torch.ops.geometry import check_card_m
 from pynngp_tpu_torch.ops.site_tables import (
     choose_layout,
     make_site_tables,
     with_children,
 )
-from pynngp_tpu_torch.ops.suffstats import cuda_instance_m, noise_plane, suffstats
+from pynngp_tpu_torch.ops.suffstats import noise_plane, suffstats
 from pynngp_tpu_torch.priors import log_transform, logit_transform
 from pynngp_tpu_torch.samplers.hmc import make_hmc_kernel
 from pynngp_tpu_torch.samplers.mapfit import map_fit, value_and_grad
@@ -166,7 +167,7 @@ class ResponseNNGP:
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
             coords_host=coords[sd.table.order] if on_coords else None)
         if device.type == "cuda":
-            cuda_instance_m(self.tables.m)
+            check_card_m(self.tables.n_pad, self.tables.m)
         # heterogeneous noise: the weights v permuted into ordered site space
         # (the reference's response.py:159-165) and padded for the kernels;
         # the relative nugget becomes alpha v

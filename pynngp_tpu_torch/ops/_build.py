@@ -26,7 +26,7 @@ import threading
 import time
 
 __all__ = ["LaunchCount", "BUILD_DIR", "library", "build_info", "check",
-           "stream_handle", "with_hetero_counts"]
+           "stream_handle", "with_variant_counts"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -39,40 +39,46 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family,
-    # group, grid_x, smem_bytes, f, r, part, stream (v: the per-site
-    # noise weights, or null; the four ints: ops/geometry.py)
+    # group, grid_x, smem_bytes, scratch, f, r, part, stream (v: the
+    # per-site noise weights, or null; group, grid_x, smem_bytes and the
+    # scratch buffer of the large-m instances: ops/geometry.py)
     "vecchia_suffstats_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family,
-    # group, grid_x, smem_bytes, part, stream
-    "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # group, grid_x, smem_bytes, scratch, part, stream
+    "vecchia_grad_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # params, d_in, d_tri, nn_idx, y, y_stride, v, n_pad, m, chains, family,
-    # group, grid_x, smem_bytes, part, b, rof, stream
-    "vecchia_grad_y_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # params, d_in, d_tri, nn_idx, v, n_pad, m, chains, family, b, f, stream
-    "vecchia_bf_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # group, grid_x, smem_bytes, scratch, part, b, rof, stream
+    "vecchia_grad_y_f32":
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # params, d_in, d_tri, nn_idx, v, n_pad, m, chains, family, group, grid_x,
+    # smem_bytes, scratch, b, f, stream
+    "vecchia_bf_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # the general-nu Matern instances: no family; kernel 2 takes with_nu in
     # its place
-    "vecchia_suffstats_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_grad_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "vecchia_suffstats_nu_f32":
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vecchia_grad_nu_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "vecchia_grad_y_nu_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_bf_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vecchia_bf_nu_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # the coords-layout instances: the coordinate planes in the place of the
     # distance planes, and the coordinate dimension d after m
     "vecchia_suffstats_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vecchia_suffstats_nu_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_grad_coords_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vecchia_grad_coords_f32":
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "vecchia_grad_y_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vecchia_grad_nu_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "vecchia_grad_y_nu_coords_f32":
-        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vecchia_bf_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "vecchia_bf_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vecchia_bf_coords_f32":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vecchia_bf_nu_coords_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -90,15 +96,16 @@ class LaunchCount:
         self.plain = 0
 
 
-def with_hetero_counts(*counts: LaunchCount) -> dict:
-    """{name: count} of a wrapper's counts and, for each, a count of the same
-    instance's launches with heterogeneous-noise weights, ``<name>_hetero``:
-    the same C entry, counted apart so that a run shows which paths drove
-    the weights through it."""
+def with_variant_counts(*counts: LaunchCount) -> dict:
+    """{name: count} of a wrapper's counts and, for each, counts of the same
+    source's launches with heterogeneous-noise weights (``<name>_hetero``:
+    the same C entry), of its large-m instance (``<name>_large``: m > 32)
+    and of both (``<name>_large_hetero``), counted apart so that a run shows
+    which paths drove which instance."""
     out = {}
     for count in counts:
-        out[count.name] = count
-        out[count.name + "_hetero"] = LaunchCount(count.name + "_hetero")
+        for sfx in ("", "_hetero", "_large", "_large_hetero"):
+            out[count.name + sfx] = count if not sfx else LaunchCount(count.name + sfx)
     return out
 
 

@@ -38,9 +38,11 @@ from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import SiteTables, unpack_distances
 from pynngp_tpu_torch.ops.suffstats import (
     cuda_args,
+    entry_name,
     family_arg,
     instance,
     kernel_nu,
+    launch_geometry,
     noise_plane,
     noise_terms,
     params_array,
@@ -57,7 +59,7 @@ COUNT = _build.LaunchCount("vecchia_bf")
 COUNT_NU = _build.LaunchCount("vecchia_bf_nu")  # the GENERAL instances
 COUNT_COORDS = _build.LaunchCount("vecchia_bf_coords")  # COORDS
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_bf_nu_coords")
-COUNTS = _build.with_hetero_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
+COUNTS = _build.with_variant_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
 
 
 def bf_reference(kernel, tables: SiteTables, params, noise_v=None):
@@ -87,15 +89,17 @@ def _launch(kernel, tables: SiteTables, params, noise_v):
     params, _, v = cuda_args(tables, params, noise_v=noise_v)
     chains = params.shape[0]
     dev = tables.device
+    _, geo_args, scratch = launch_geometry(kernel, tables, chains, None, v)
     b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                     device=dev)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
     head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
             tables.nn_idx.data_ptr(), pointer(v), *shape_args(tables), chains,
-            *family_arg(kernel))
+            *family_arg(kernel), *geo_args)
     tail = (b.data_ptr(), f.data_ptr(), _build.stream_handle(dev))
-    entry = instance("vecchia_bf", kernel, tables)
+    entry = entry_name("vecchia_bf", kernel, tables)
     _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
+    del scratch  # the launch is enqueued: the allocator orders any reuse after it
     COUNTS[instance("vecchia_bf", kernel, tables, hetero=v is not None)].launches += 1
     return b, f
 

@@ -66,6 +66,7 @@ from pynngp_tpu_torch.ops.suffstats import (
     GENERAL_FAMILY,
     _factor,
     cuda_args,
+    entry_name,
     instance,
     kernel_nu,
     noise_plane,
@@ -73,7 +74,7 @@ from pynngp_tpu_torch.ops.suffstats import (
     pointer,
     shape_args,
     suffstats,
-    tile_geometry,
+    launch_geometry,
     y_stride,
 )
 
@@ -91,7 +92,7 @@ COUNT_COORDS = _build.LaunchCount("vecchia_grad_coords")
 COUNT_Y_COORDS = _build.LaunchCount("vecchia_grad_y_coords")
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_grad_nu_coords")
 COUNT_Y_NU_COORDS = _build.LaunchCount("vecchia_grad_y_nu_coords")
-COUNTS = _build.with_hetero_counts(COUNT, COUNT_Y, COUNT_NU, COUNT_Y_NU, COUNT_COORDS,
+COUNTS = _build.with_variant_counts(COUNT, COUNT_Y, COUNT_NU, COUNT_Y_NU, COUNT_COORDS,
                                    COUNT_Y_COORDS, COUNT_NU_COORDS, COUNT_Y_NU_COORDS)
 
 
@@ -167,15 +168,15 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v):
     chains = params.shape[0]
     dev = tables.device
     general = kernel.family == GENERAL_FAMILY
-    geo, geo_args = tile_geometry(kernel, tables, chains, y, v)
-    part = torch.empty((8 if general else 6, chains, geo.grid[0]),
+    grid_x, geo_args, scratch = launch_geometry(kernel, tables, chains, y, v)
+    part = torch.empty((8 if general else 6, chains, grid_x),
                        dtype=torch.float32, device=dev)
     # the GENERAL entries take with_nu where the closed-form ones take family
     selector = int(kernel.samples_nu) if general else kernel.family
     args = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
             tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), pointer(v),
             *shape_args(tables), chains, selector, *geo_args, part.data_ptr())
-    name = instance("vecchia_grad", kernel, tables, emit_y)
+    name = entry_name("vecchia_grad", kernel, tables, emit_y)
     entry = getattr(_build.library(), name + "_f32")
     if emit_y:
         b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
@@ -185,6 +186,7 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v):
     else:
         code = entry(*args, _build.stream_handle(dev))
     _build.check(code, name)
+    del scratch  # the launch is enqueued: the allocator orders any reuse after it
     COUNTS[instance("vecchia_grad", kernel, tables, emit_y, v is not None)].launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return (sums, b, rof) if emit_y else sums

@@ -1,13 +1,20 @@
-"""Launch geometry of kernels 1 and 2 (``csrc/vecchia_tile.cuh``).
+"""Launch geometry of the three kernels (``csrc/vecchia_tile.cuh``,
+``csrc/vecchia_large_m.cuh``).
 
-A block is a group of up to :data:`GROUP` chains, one warp of 32 threads a
-chain, and its warps share one tile of :data:`TILE` consecutive sites at a
-time: the tile's table planes, its ``nn_idx`` planes, y at the neighbors
-(once for a shared y, one row a warp for a (C, n) y) and, with noise
-weights, v at the neighbors are staged in shared memory, two tiles at a
-time (the next one's tables load while the warps work on this one).  Blocks walk the tiles in a stride of ``grid[0]``, so each chain
-gets ``grid[0]`` partial sums.  The C launcher recomputes the ring's bytes
-from the same layout and refuses a launch whose bytes differ.
+For m <= 32 a block is a group of up to :data:`GROUP` chains, one warp of
+32 threads a chain, and its warps share one tile of :data:`TILE` consecutive
+sites at a time: the tile's table planes, its ``nn_idx`` planes, y at the
+neighbors (once for a shared y, one row a warp for a (C, n) y; none for
+kernel 3) and, with noise weights, v at the neighbors are staged in shared
+memory, two tiles at a time (the next one's tables load while the warps
+work on this one).  Blocks walk the tiles in a stride of ``grid[0]``, so
+each chain of kernels 1 and 2 gets ``grid[0]`` partial sums.  The C launcher
+recomputes the ring's bytes from the same layout and refuses a launch whose
+bytes differ.
+
+For m > 32 the ring does not fit (one stage at m = 64 on the dist layout is
+283 KB), and the large-m instances run one thread per (site, chain) with
+their state in a device scratch buffer (:func:`large_geometry`).
 
 Everything here is plain arithmetic on the call's shapes, so the CPU tests
 hold it without a card.
@@ -18,12 +25,13 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-__all__ = ["CUDA_M", "GROUP", "MAX_M", "RING_BYTES", "SHARED_BYTES", "STAGES",
-           "TILE", "TILES_PER_BLOCK", "Geometry", "cuda_instance_m", "geometry",
-           "ring_planes", "rolled"]
+__all__ = ["CUDA_M", "GROUP", "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M",
+           "RING_BYTES", "SHARED_BYTES", "STAGES", "TILE", "TILES_PER_BLOCK",
+           "Geometry", "LargeGeometry", "check_card_m", "cuda_instance_m", "geometry",
+           "large", "large_geometry", "large_state_doubles", "ring_planes", "rolled"]
 
 CUDA_M = (7, 10, 15, 20)  # the unrolled instances M; a call runs the smallest M >= m
-MAX_M = 32  # the rolled instance (kRolledM) takes 20 < m <= 32
+MAX_M = 32  # the rolled instance (kRolledM) takes 20 < m <= 32; above, the large-m one
 MAX_DIM_UNROLLED = 3  # kMaxDim: coords with more dimensions run rolled
 TILE = 32  # sites of a tile (kTile): the lanes of a warp
 GROUP = 4  # chains a block at most (kMaxGroup)
@@ -32,26 +40,35 @@ TILES_PER_BLOCK = 4  # tiles a block walks at most
 FILL_WARPS = 132 * 32  # warps a launch should hold to fill an H100's 132 SMs
 SHARED_BYTES = 232_448  # shared memory one block may take on an H100
 RING_BYTES = SHARED_BYTES - 2048  # kMaxRingBytes: less the warps' MaternSets
+LARGE_BLOCK = 128  # threads (sites of one chain) a block of the large-m instances
+LARGE_BLOCKS = 132 * 8  # blocks a large-m launch keeps: 32 warps on each of 132 SMs
+# the most scratch a large-m launch may take: the (site, chain) state of its
+# threads, large_state_doubles(m) float64 words each
+LARGE_SCRATCH_BYTES = 4 << 30
 
 
 def cuda_instance_m(m: int) -> int:
     """The built instance M a call with m neighbors runs on: the smallest of
-    :data:`CUDA_M` at or above m, or :data:`MAX_M` (the rolled instance,
-    whose loops run to m) for 20 < m <= 32 (``launch_m`` of
-    csrc/vecchia_common.cuh).  Above 32 it raises: the state of one
-    (site, chain) grows as m^2 (the factor alone is m(m-1)/2 floats)."""
+    :data:`CUDA_M` at or above m, :data:`MAX_M` (the rolled instance, whose
+    loops run to m) for 20 < m <= 32, and m itself above 32 (the large-m
+    instance, its state sized by m at run time; ``launch_m`` of
+    csrc/vecchia_common.cuh).  Below 1 it raises."""
+    if m < 1:
+        raise ValueError(f"the CUDA kernels take m >= 1 neighbors, got m={m}")
     for built in CUDA_M + (MAX_M,):
-        if 1 <= m <= built:
+        if m <= built:
             return built
-    raise ValueError(f"the CUDA kernels take 1 <= m <= {MAX_M} (unrolled "
-                     f"instances M in {CUDA_M}, a call runs on the smallest "
-                     f"M >= m; the rolled instance above {CUDA_M[-1]}), got "
-                     f"m={m}")
+    return m
+
+
+def large(m: int) -> bool:
+    """Whether a call with m neighbors runs the large-m instance."""
+    return m > MAX_M
 
 
 def rolled(m: int, layout: str, dim: int) -> bool:
-    """Whether a call runs the rolled instance: m > 20, or coords with more
-    than three dimensions."""
+    """Whether a tile call runs the rolled instance: 20 < m <= 32, or coords
+    with more than three dimensions."""
     return cuda_instance_m(m) == MAX_M or (layout == "coords" and dim > MAX_DIM_UNROLLED)
 
 
@@ -59,12 +76,14 @@ def ring_planes(m: int, layout: str = "dist", dim: int = 0, ycopies: int = 1,
                 hetero: bool = False) -> int:
     """32-float planes of one stage (``tile_shape`` of csrc/vecchia_tile.cuh):
     the table planes (dist: ml distances and ml(ml-1)/2 pairs; coords: d own
-    and ml d neighbor coordinates), ml nn_idx planes, ``ycopies`` x ml y
-    planes and, with noise weights, ml v planes; ml is the instance's M, or
-    m when the rolled instance runs."""
+    and ml d neighbor coordinates), ml nn_idx planes where anything is
+    gathered through them (y or v), ``ycopies`` x ml y planes (0 for kernel
+    3) and, with noise weights, ml v planes; ml is the instance's M, or m
+    when the rolled instance runs."""
     ml = m if rolled(m, layout, dim) else cuda_instance_m(m)
     tables = dim + ml * dim if layout == "coords" else ml + ml * (ml - 1) // 2
-    return tables + ml + ycopies * ml + (ml if hetero else 0)
+    gathers = ycopies > 0 or hetero
+    return tables + (ml if gathers else 0) + ycopies * ml + (ml if hetero else 0)
 
 
 class Geometry(NamedTuple):
@@ -75,20 +94,25 @@ class Geometry(NamedTuple):
 
 
 def geometry(n_pad: int, m: int, chains: int, layout: str = "dist", dim: int = 0,
-             y_shared: bool = True, hetero: bool = False, general: bool = False) -> Geometry:
-    """The launch of kernel 1 or 2 for ``chains`` chains over ``n_pad``
-    sites (a multiple of 128) with m neighbors: a block takes ``group`` =
-    min(chains, GROUP) chains, and the last group may be ragged; up to
-    TILES_PER_BLOCK tiles a block (one for the ``general``-nu instances);
-    raises
-    where the ring does not fit in a block's shared memory (coords with
-    more than 21 dimensions at m = 32)."""
+             y_shared: bool = True, hetero: bool = False, general: bool = False,
+             with_y: bool = True) -> Geometry:
+    """The tile launch of kernel 1 or 2, or of kernel 3 (``with_y=False``:
+    no y planes), for ``chains`` chains over ``n_pad`` sites (a multiple of
+    128) with m <= 32 neighbors: a block takes ``group`` = min(chains,
+    GROUP) chains, and the last group may be ragged; up to TILES_PER_BLOCK
+    tiles a block (one for the ``general``-nu instances); raises where the
+    ring does not fit in a block's shared memory (coords with more than 21
+    dimensions at m = 32) and for m > 32 (:func:`large_geometry`)."""
     if n_pad % TILE or n_pad <= 0:
         raise ValueError(f"n_pad={n_pad} is not a positive multiple of {TILE}")
     if not 1 <= chains <= 65535:
         raise ValueError(f"chains={chains} out of range")
+    if large(m):
+        raise ValueError(f"the tile ring takes m <= {MAX_M}; m={m} runs the large-m "
+                         f"instance (large_geometry)")
     group = min(chains, GROUP)
-    planes = ring_planes(m, layout, dim, 1 if y_shared else group, hetero)
+    ycopies = (1 if y_shared else group) if with_y else 0
+    planes = ring_planes(m, layout, dim, ycopies, hetero)
     smem_bytes = STAGES * planes * TILE * 4
     if smem_bytes > RING_BYTES:
         raise ValueError(f"the tile ring of m={m} neighbors in {dim} dimensions "
@@ -102,3 +126,50 @@ def geometry(n_pad: int, m: int, chains: int, layout: str = "dist", dim: int = 0
     per_block = 1 if general else max(1, min(TILES_PER_BLOCK, tiles * chains // FILL_WARPS))
     grid = (math.ceil(tiles / per_block), math.ceil(chains / group))
     return Geometry(grid, TILE * group, group, smem_bytes)
+
+
+def large_state_doubles(m: int) -> int:
+    """float64 words of one (site, chain)'s state in the large-m instances'
+    scratch buffer (``LargeState`` of csrc/vecchia_large_m.cuh): the strict
+    lower triangle of L and six vectors of m."""
+    return m * (m - 1) // 2 + 6 * m
+
+
+class LargeGeometry(NamedTuple):
+    grid: tuple  # (blocks of LARGE_BLOCK sites along the sites, chains)
+    block: int  # threads: LARGE_BLOCK sites of one chain
+    scratch_bytes: int  # large_state_doubles(m) float64 words for each thread
+
+
+def large_geometry(n_pad: int, m: int, chains: int) -> LargeGeometry:
+    """The launch of a large-m instance (m > 32) for ``chains`` chains over
+    ``n_pad`` sites (a multiple of 128): one chain a block, blocks of
+    LARGE_BLOCK sites walking the sites in a stride of ``grid[0]``, as many
+    as LARGE_BLOCKS blocks in all allow and the scratch buffer's
+    LARGE_SCRATCH_BYTES.  Raises where one block a chain already needs more
+    scratch than that."""
+    if n_pad % LARGE_BLOCK or n_pad <= 0:
+        raise ValueError(f"n_pad={n_pad} is not a positive multiple of {LARGE_BLOCK}")
+    if not 1 <= chains <= 65535:
+        raise ValueError(f"chains={chains} out of range")
+    if not large(m):
+        raise ValueError(f"m={m} runs the tile ring (geometry), not the large-m instance")
+    per_block = LARGE_BLOCK * large_state_doubles(m) * 8  # bytes of one block's state
+    fit = LARGE_SCRATCH_BYTES // (per_block * chains)
+    if fit < 1:
+        raise ValueError(f"m={m} neighbors for {chains} chains need "
+                         f"{per_block * chains} bytes of scratch for one block a "
+                         f"chain, more than the LARGE_SCRATCH_BYTES = "
+                         f"{LARGE_SCRATCH_BYTES} a launch may take")
+    grid_x = max(1, min(n_pad // LARGE_BLOCK, math.ceil(LARGE_BLOCKS / chains), fit))
+    return LargeGeometry((grid_x, chains), LARGE_BLOCK, grid_x * chains * per_block)
+
+
+def check_card_m(n_pad: int, m: int) -> None:
+    """Raise where the card cannot take m neighbors over ``n_pad`` sites
+    for one chain: m < 1, or a large-m launch whose one block needs more
+    than LARGE_SCRATCH_BYTES of scratch.  The models call it as they build
+    their tables on the card; a launch checks its own chain count."""
+    cuda_instance_m(m)
+    if large(m):
+        large_geometry(n_pad, m, 1)

@@ -21,11 +21,13 @@ diagonal of C and at the site in F.  The same instances run, with a pointer
 to v (:func:`noise_plane`) where homogeneous calls pass a null one; such
 launches count under the instance's name with ``_hetero``.
 
-Any m <= 32 runs on the card: a call with m <= 20 launches the smallest
+Any m >= 1 runs on the card: a call with m <= 20 launches the smallest
 built instance M >= m (:func:`cuda_instance_m`), whose slots k >= m are
-identity rows, and 20 < m <= 32 the rolled instance, whose loops run to m.
-Kernels 1 and 2 launch in the tile geometry of :mod:`.geometry`: a block
-is a group of chains that share one staged tile of sites.
+identity rows, 20 < m <= 32 the rolled instance, whose loops run to m, and
+m > 32 the large-m instance.  Up to m = 32 the three kernels launch in the
+tile geometry of :mod:`.geometry` (a block is a group of chains that share
+one staged tile of sites); above it one thread a (site, chain) with its
+state in a scratch buffer (:func:`launch_geometry`).
 """
 
 from __future__ import annotations
@@ -33,12 +35,19 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
-from pynngp_tpu_torch.ops.geometry import CUDA_M, cuda_instance_m, geometry
+from pynngp_tpu_torch.ops.geometry import (
+    CUDA_M,
+    cuda_instance_m,
+    geometry,
+    large,
+    large_geometry,
+)
 from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
 __all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "CUDA_M",
-           "GENERAL_FAMILY", "cuda_instance_m", "instance", "kernel_nu",
+           "GENERAL_FAMILY", "cuda_instance_m", "entry_name", "instance", "kernel_nu",
+           "launch_geometry",
            "noise_plane", "params_array", "suffstats", "suffstats_reference",
            "loglik"]
 
@@ -46,20 +55,27 @@ COUNT = _build.LaunchCount("vecchia_suffstats")
 COUNT_NU = _build.LaunchCount("vecchia_suffstats_nu")  # the GENERAL instances
 COUNT_COORDS = _build.LaunchCount("vecchia_suffstats_coords")  # COORDS
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_suffstats_nu_coords")
-COUNTS = _build.with_hetero_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
+COUNTS = _build.with_variant_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
 GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
+
+
+def entry_name(base: str, kernel, tables: SiteTables, emit_y: bool = False) -> str:
+    """The C entry (less ``_f32``) a launch of ``base`` calls: ``_y`` for the
+    EMIT_Y instances, ``_nu`` for the general-nu Matern, ``_coords`` for
+    tables in the coords layout."""
+    return (base + ("_y" if emit_y else "")
+            + ("_nu" if kernel.family == GENERAL_FAMILY else "")
+            + ("_coords" if tables.layout == "coords" else ""))
 
 
 def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
              hetero: bool = False) -> str:
-    """The kernel instance a launch of ``base`` runs, named as its C entry
-    without ``_f32`` and as its launch count: ``_y`` for the EMIT_Y
-    instances, ``_nu`` for the general-nu Matern, ``_coords`` for tables in
-    the coords layout; ``_hetero`` names a launch with noise weights, which
-    runs the same entry and counts apart."""
-    return (base + ("_y" if emit_y else "")
-            + ("_nu" if kernel.family == GENERAL_FAMILY else "")
-            + ("_coords" if tables.layout == "coords" else "")
+    """The kernel instance a launch of ``base`` runs, named as its launch
+    count: its C entry (:func:`entry_name`), ``_large`` for m > 32 (the
+    large-m instance of the same entry) and ``_hetero`` for a launch with
+    noise weights (the same entry again)."""
+    return (entry_name(base, kernel, tables, emit_y)
+            + ("_large" if large(tables.m) else "")
             + ("_hetero" if hetero else ""))
 
 
@@ -230,31 +246,41 @@ def family_arg(kernel) -> tuple:
     return () if kernel.family == GENERAL_FAMILY else (kernel.family,)
 
 
-def tile_geometry(kernel, tables: SiteTables, chains: int, y, v):
-    """(geometry, its three C arguments: group, grid_x, ring bytes) of a
-    kernel 1 or 2 launch (:func:`.geometry.geometry`)."""
+def launch_geometry(kernel, tables: SiteTables, chains: int, y, v):
+    """(grid_x, the four C arguments group, grid_x, ring bytes and scratch
+    pointer, the scratch tensor or None) of a launch of any kernel; ``y`` is
+    None for kernel 3.  m <= 32: the tile geometry
+    (:func:`.geometry.geometry`), no scratch; m > 32: the large-m instance
+    (:func:`.geometry.large_geometry`): group 1, no ring, and a scratch
+    buffer that the caller keeps until the launch is enqueued."""
+    if large(tables.m):
+        geo = large_geometry(tables.n_pad, tables.m, chains)
+        scratch = torch.empty(geo.scratch_bytes // 8, dtype=torch.float64,
+                              device=tables.device)
+        return geo.grid[0], (1, geo.grid[0], 0, scratch.data_ptr()), scratch
     geo = geometry(tables.n_pad, tables.m, chains, tables.layout,
                    tables.dim if tables.layout == "coords" else 0,
-                   y_shared=y.dim() == 1, hetero=v is not None,
-                   general=kernel.family == GENERAL_FAMILY)
-    return geo, (geo.group, geo.grid[0], geo.smem_bytes)
+                   y_shared=y is None or y.dim() == 1, hetero=v is not None,
+                   general=kernel.family == GENERAL_FAMILY, with_y=y is not None)
+    return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, None), None
 
 
 def _launch(kernel, tables: SiteTables, params, y, noise_v):
     params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
-    geo, geo_args = tile_geometry(kernel, tables, chains, y, v)
+    grid_x, geo_args, scratch = launch_geometry(kernel, tables, chains, y, v)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
     resid = torch.empty_like(f)
-    part = torch.empty((2, chains, geo.grid[0]), dtype=torch.float32, device=dev)
+    part = torch.empty((2, chains, grid_x), dtype=torch.float32, device=dev)
     head = (params.data_ptr(), tables.tab_a.data_ptr(), tables.tab_b.data_ptr(),
             tables.nn_idx.data_ptr(), y.data_ptr(), y_stride(y), pointer(v),
             *shape_args(tables), chains, *family_arg(kernel), *geo_args)
     tail = (f.data_ptr(), resid.data_ptr(), part.data_ptr(),
             _build.stream_handle(dev))
-    entry = instance("vecchia_suffstats", kernel, tables)
+    entry = entry_name("vecchia_suffstats", kernel, tables)
     _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
+    del scratch  # the launch is enqueued: the allocator orders any reuse after it
     COUNTS[instance("vecchia_suffstats", kernel, tables, hetero=v is not None)].launches += 1
     sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
     return sums[0], sums[1], f, resid

@@ -51,6 +51,11 @@ def _problem(m):
                              nn_cross_dist=jnp.asarray(jdata.nn_cross_dist,
                                                        jnp.float64))
     data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
+    # both packages build the float32 tables from the same float64 distances:
+    # a comparison of B below holds the factorizations, not the tables
+    for name in ("nn_dist", "nn_cross_dist"):
+        ref, got = np.asarray(getattr(jdata, name)), getattr(data, name)
+        assert ref.dtype == got.dtype == np.float32 and np.array_equal(ref, got), name
     data64 = data._replace(coords=data.coords.double(),
                            nn_dist=data.nn_dist.astype(np.float64),
                            nn_cross_dist=data.nn_cross_dist.astype(np.float64))

@@ -17,6 +17,7 @@ from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.ops import bf as bops
 from pynngp_tpu_torch.ops import diff_suffstats as dops
+from pynngp_tpu_torch.ops import geometry
 from pynngp_tpu_torch.ops import suffstats as fops
 from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
 from pynngp_tpu_torch.vecchia import make_vecchia_data
@@ -686,17 +687,23 @@ def test_coords_in_four_dimensions_match_plain(card, kern, sampled):
 
 
 def test_m_above_twenty_raises_on_the_card(card):
-    """m = 21 runs on the rolled instances against the plain versions; above
-    the cap of 32 a launch and a model raise and name it."""
+    """m = 21 runs on the rolled instances and m = 33 on the large-m ones
+    against the plain versions, and a model takes m = 33; what still raises
+    is a launch whose one block a chain needs more scratch than
+    LARGE_SCRATCH_BYTES, and it names the bytes."""
     tab32, tab64, y, phi, alpha = _problem(card, m=21)
     _check_instances(card, kernels.SqExp(), None, with_children(tab32),
                      with_children(tab64), y, phi, alpha)
-    tab33, _, y33, _, _ = _problem(card, m=33)
-    with pytest.raises(ValueError, match="m <= 32"):
-        fops.suffstats(kernels.SqExp(), tab33, phi, alpha, y33)
-    with pytest.raises(ValueError, match="m <= 32"):
-        ResponseNNGP(np.random.default_rng(0).uniform(size=(500, 2)), np.ones(500),
-                     m=33, device=card)
+    tab33, tab33_64, y33, _, _ = _problem(card, m=33)
+    _check_instances(card, kernels.SqExp(), None, with_children(tab33),
+                     with_children(tab33_64), y33, phi, alpha)
+    chains = geometry.LARGE_SCRATCH_BYTES // (128 * geometry.large_state_doubles(33) * 8) + 1
+    many_phi, many_alpha = (t.repeat(chains // 3 + 1)[:chains] for t in (phi, alpha))
+    with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
+        fops.suffstats(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
+    model = ResponseNNGP(np.random.default_rng(0).uniform(size=(500, 2)), np.ones(500),
+                         m=33, device=card)
+    assert model.tables.m == 33
 
 
 def test_hetero_models_on_card_go_through_the_hetero_instances(card):
@@ -828,3 +835,134 @@ def test_tile_kernels_are_bitwise_deterministic(card, layout):
     flat = [[t for part in run for t in (part if isinstance(part, tuple) else (part,))]
             for run in runs]
     assert all(torch.equal(a, b) for a, b in zip(*flat))
+
+
+# ---- kernel 3 on the tile ring, and every kernel at m > 32 -------------------
+# Kernel 3 runs the ring of kernels 1 and 2 (no y planes; nn_idx and v only
+# with noise weights): ragged chain groups, any m <= 32, d = 4, noise
+# weights, alpha = 0, at the limits of its rows above.  m = 40 and 64 run the
+# large-m instances of all three kernels (one thread a (site, chain), state in
+# a scratch buffer) at the rows' limits.
+
+
+def _check_bf(card, kern, tab32, tab64, phi, alpha, noise_v=None, jitter=1e-6,
+              b_atol=3e-5, f_rtol=3e-5):
+    """Kernel 3 against its float64 plain version: B atol, F rtol over the
+    sites < n, padded sites B = 0 and F = 1 exactly; one launch counted."""
+    v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
+                                                       device=card)
+    count = bops.COUNTS[fops.instance("vecchia_bf", kern, tab32, hetero=v32 is not None)]
+    before = count.launches
+    b, f = bops.bf_planes(kern, tab32, phi, alpha, jitter=jitter, noise_v=v32)
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(jitter), tab32.n,
+                               torch.float64, card)
+    b_p, f_p = bops.bf_reference(kern, tab64, params,
+                                 None if v32 is None else v32.double())
+    n, m = tab32.n, tab32.m
+    assert b.shape == (phi.shape[0], m, tab32.n_pad) and torch.isfinite(b).all()
+    torch.testing.assert_close(b[:, :, :n].double(), b_p[:, :, :n], rtol=0.0, atol=b_atol)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=f_rtol, atol=0.0)
+    assert (b[:, :, n:] == 0).all() and (f[:, n:] == 1).all()
+    assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("m", [1, 7, 12, 20, 25, 32])
+@pytest.mark.parametrize("chains", [1, 3, 5, 16])
+def test_kernel_3_tile_takes_any_chain_count_and_m(card, chains, m, hetero):
+    tab32, tab64, _, _, _ = _problem(card, m=m)
+    phi, alpha = _chain_params(card, chains)
+    _check_bf(card, kernels.Exponential(), tab32, tab64, phi, alpha,
+              _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("kern", [kernels.Exponential(), kernels.Matern(nu=0.5),
+                                  kernels.Spherical()], ids=lambda k: repr(k))
+@pytest.mark.parametrize("m", [7, 15, 25])
+def test_kernel_3_tile_without_nugget(card, kern, m):
+    """alpha = 0, no jitter (the latent model's systems), ragged five chains:
+    B atol 1e-3, F rtol 1e-3, as test_bf_kernel_without_nugget."""
+    tab32, tab64, _, _, _ = _problem(card, m=m)
+    phi, _ = _chain_params(card, 5)
+    _check_bf(card, kern, tab32, tab64, phi, torch.zeros_like(phi), jitter=0.0,
+              b_atol=1e-3, f_rtol=1e-3)
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("m", [7, 15, 20])
+def test_kernel_3_tile_on_coords_in_four_dimensions(card, m, hetero):
+    """d = 4 (the rolled coords instance) and d = 2 at the same m."""
+    for dim in (2, 4):
+        tab32, tab64, _, _, _ = _problem(card, m=m, layout="coords", dim=dim)
+        phi, alpha = _chain_params(card, 5)
+        _check_bf(card, kernels.SqExp(), tab32, tab64, phi, alpha,
+                  _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("m", [15, 40])
+def test_kernel_3_launches_are_bitwise_equal(card, layout, m):
+    """Two launches of kernel 3 (the tile ring at m = 15, the large-m
+    instance at m = 40) on the same inputs give the same bits, with and
+    without noise weights."""
+    tab32, _, _, _, _ = _problem(card, n=20_000 if m <= 32 else 3_000, m=m, layout=layout)
+    phi, alpha = _chain_params(card, 6)
+    v = torch.as_tensor(_weights(tab32.n), dtype=torch.float32, device=card)
+    for noise in (None, v):
+        runs = [bops.bf_planes(kernels.SqExp(), tab32, phi, alpha, noise_v=noise)
+                for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
+@pytest.mark.parametrize("m", [40, 64])
+def test_large_m_instances_match_plain(card, m, kern, sampled, layout, hetero):
+    """m = 40 and 64 on the large-m instances of all three kernels (kernel 2
+    with EMIT_Y too), closed form and sampled nu, both layouts, with and
+    without noise weights; their launches count under ``..._large``."""
+    tab32, tab64, y, phi, alpha = _problem(card, m=m, layout=layout)
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    assert fops.instance("vecchia_bf", kern, tab32).endswith("_large")
+    _check_instances(card, kern, nu, with_children(tab32), with_children(tab64), y,
+                     phi, alpha, _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("layout,dim", [("dist", 2), ("coords", 2), ("coords", 4)],
+                         ids=["dist", "coords", "coords_d4"])
+def test_large_m_with_per_chain_y_and_ragged_chains(card, layout, dim):
+    """m = 40: one y row a chain, five chains, with noise weights."""
+    tab32, tab64, y, _, _ = _problem(card, m=40, layout=layout, dim=dim)
+    phi, alpha = _chain_params(card, 5)
+    _check_per_chain_y(card, kernels.SqExp(), tab32, tab64, y, phi, alpha,
+                       _weights(tab32.n))
+
+
+def test_models_at_large_m_go_through_the_large_instances(card):
+    """ResponseNNGP and LatentNNGP with m = 40 on the card: MWG launches
+    kernel 1's large-m instance, fit_map kernel 2's (with fixed effects its
+    EMIT_Y one), the latent sweep and the fixed-effects MWG kernel 3's; no
+    plain version runs."""
+    rng = np.random.default_rng(0)
+    n = 2000
+    coords = rng.uniform(size=(n, 2))
+    x = np.column_stack([np.ones(n), rng.standard_normal(n)])
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(n)
+    large = [fops.COUNTS["vecchia_suffstats_large"], dops.COUNTS["vecchia_grad_large"],
+             dops.COUNTS["vecchia_grad_y_large"], bops.COUNTS["vecchia_bf_large"]]
+    for c in large:
+        c.reset()
+    model = ResponseNNGP(coords, y, m=40, device=card)
+    model.fit_map(n_steps=5)
+    draws = model.sample(5, n_burn=5, n_chains=2)
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), m=40, x=x, device=card)
+    fixed.fit_map(n_steps=5)
+    fixed.sample(5, n_burn=5, n_chains=2)
+    LatentNNGP(coords, y, m=40, device=card).sample(5, n_burn=5, n_chains=2,
+                                                    collect_w=False)
+    assert all(c.launches > 0 and c.plain == 0 for c in large), \
+        [(c.name, c.launches, c.plain) for c in large]
+    assert np.isfinite(draws["tau2"]).all()

@@ -224,15 +224,17 @@ def test_unported_options_raise(kwargs, exc):
 
 
 def test_cuda_instance_m_takes_the_smallest_built_m():
-    """Any 1 <= m <= 32 runs on the card: up to 20 on the smallest built
-    instance M >= m, above it (21 and 25 among them) on the rolled instance
-    with arrays for 32; above 32 (and below 1) it raises and names the cap."""
+    """Any m >= 1 runs on the card: up to 20 on the smallest built instance
+    M >= m, above it (21 and 25 among them) on the rolled instance with
+    arrays for 32, above 32 (33 and 40 among them) on the large-m instance,
+    sized by m itself; below 1 it raises and names the bound."""
     want = {**{m: 7 for m in range(1, 8)}, **{m: 10 for m in range(8, 11)},
             **{m: 15 for m in range(11, 16)}, **{m: 20 for m in range(16, 21)},
             **{m: 32 for m in range(21, 33)}}
     assert {m: cuda_instance_m(m) for m in range(1, 33)} == want
-    for m in (0, 33, 40):
-        with pytest.raises(ValueError, match="m <= 32"):
+    assert {m: cuda_instance_m(m) for m in (33, 40, 64)} == {33: 33, 40: 40, 64: 64}
+    for m in (0, -1):
+        with pytest.raises(ValueError, match="m >= 1"):
             cuda_instance_m(m)
 
 

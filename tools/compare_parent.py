@@ -14,7 +14,11 @@ from the tree's root, so that it imports and builds that tree's package
 (coords) at n=100,000, m=15 and n=500,000, m=20 (config 5), and the
 general-nu ones of ``chip_smoke.time_kernels_nu`` at n=25,000, m=10 on either
 layout, 16 chains each; kernel 2 also at 4 chains (the NUTS recipe's launch)
-and 2 (config 3's), and kernel 1 at 1 chain (config 5's probe).  Both trees
+and 2 (config 3's), and kernel 1 at 1 chain (config 5's probe).  Kernel 3
+also with noise weights (n=100,000, m=15 on both layouts, the general-nu
+instances at n=25,000, m=10), at config 2's launch (n=10,000, m=15,
+exponential, 8 chains, alpha = 0) and at config 5's latent run's (n=500,000,
+m=20, exponential, 8 chains, alpha = 0; both layouts).  Both trees
 are timed by the same function (this script's, put in place of each tree's
 ``chip_smoke._time_ms``): card time, a sleep kernel ahead of the timed calls
 covering the host's enqueueing.  The last line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
@@ -28,6 +32,7 @@ ROUND = r'''
 import json, torch
 import chip_smoke as cs
 from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import bf as bf_ops
 from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
 dev = torch.device("cuda", 0)
@@ -60,20 +65,42 @@ out["closed"]["vecchia_grad_4_chains"] = cs._time_ms(lambda: diff_ops.value_and_
     k, t, case.phi[:4], case.alpha[:4], y, case.jitter), 20, 200)
 out["closed"]["vecchia_suffstats_1_chain"] = cs._time_ms(lambda: fwd_ops.suffstats(
     k, t, case.phi[:1], case.alpha[:1], y, case.jitter), 20, 200)
+
+
+def bf_ms(case, kernel, chains, hetero=False, zero_alpha=False, warm=20, reps=200, nu=None):
+    # kernel 3 on the case's tables under `kernel`, its first `chains`
+    # chains, with its noise weights or alpha = 0 if asked
+    phi, alpha = case.phi[:chains], case.alpha[:chains]
+    alpha = torch.zeros_like(alpha) if zero_alpha else alpha
+    v = case.with_noise(cs.noise_weights(case.n)).v32 if hetero else None
+    return cs._time_ms(lambda: bf_ops.bf_planes(kernel, case.tab32, phi, alpha, case.jitter,
+                                                nu=nu, noise_v=v), warm, reps)
+
+
+out["bf"] = {"vecchia_bf_hetero": bf_ms(case, case.kernel, 16, hetero=True)}
 del case
 case = cs.Case(100000, 15, cs.SqExp(), 16, seed=0, dev=dev, layout="coords")
 out["closed"].update(cs.time_layout_kernels(case, 20, 200))
+out["bf"]["vecchia_bf_coords_hetero"] = bf_ms(case, case.kernel, 16, hetero=True)
 del case
+c2 = cs.Case(10000, 15, cs.Exponential(), 8, seed=0, dev=dev)
+out["bf"]["vecchia_bf_config2_8_chains_alpha0"] = bf_ms(c2, c2.kernel, 8, zero_alpha=True)
+del c2
 for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
     nu = cs.Case(25000, 10, cs.Matern(), 16, seed=5, dev=dev, nu=cs.nu_spread(16),
                  layout=layout)
     out["nu"] = {**out.get("nu", {}), **cs.time_kernels_nu(nu, plain=False)}
+    out["bf"][f"vecchia_bf_nu{sfx}_hetero"] = bf_ms(nu, nu.kernel, 16, hetero=True, warm=5,
+                                                    reps=50, nu=nu.nu)
     del nu
     big = cs.Case(500000, 20, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
     out["m20"] = {**out.get("m20", {}), **cs.time_layout_kernels(big, 3, 10)}
-    out["m20"]["vecchia_suffstats_1_chain" + ("_coords" if layout == "coords" else "")] = (
+    out["m20"]["vecchia_suffstats_1_chain" + sfx] = (
         cs._time_ms(lambda: fwd_ops.suffstats(big.kernel, big.tab32, big.phi[:1],
                                               big.alpha[:1], big.y32, big.jitter), 5, 50))
+    out["bf"][f"vecchia_bf{sfx}_path14_8_chains_alpha0"] = bf_ms(
+        big, cs.Exponential(), 8, zero_alpha=True, warm=3, reps=20)
     del big
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)

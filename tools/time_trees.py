@@ -23,6 +23,13 @@ times only what trees built for M = 15 alone can run: kernels 1, 2,
 2-EMIT_Y and 3 at n=100,000, m=15 on both layouts at 16 chains, and kernels
 1 and 2 at 4 chains, with chain 0's logdet as a check that a variant still
 computes the same function.
+
+    python3 tools/time_trees.py --bf A B C
+
+times kernel 3 alone: both layouts at n=100,000, m=15 and 20, 16 and 8
+chains (16 also with noise weights), its general-nu instances at n=25,000,
+m=10, and the launches of config 2 (n=10,000, 8 chains) and of config 5's
+latent run (n=500,000, m=20, coords, 8 chains), both at alpha = 0.
 """
 import json
 import os
@@ -77,6 +84,54 @@ for layout in ("dist", "coords"):
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
+# kernel 3 alone: both layouts at n=100,000, m=15 and 20, 16 and 8 chains,
+# with noise weights at 16; the general-nu instances at config 3's shape;
+# config 2's launch (n=10,000, m=15, exponential, 8 chains, alpha = 0) and
+# path 14's (n=500,000, m=20, exponential, 8 chains, coords, alpha = 0);
+# the sum of B as a check that a variant computes the same function
+ROUND_BF = r'''
+import json, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import bf as bf_ops
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+out = {"build_s": info["seconds"], "lib": info["lib"],
+       "ptxas": {m: cs.ptxas_summary(info["ptxas"], m) for m in (10, 15, 20)}}
+
+
+def bf_ms(case, chains, hetero=False, zero_alpha=False, warm=10, reps=100):
+    k, t = case.kernel, case.tab32
+    phi, alpha = case.phi[:chains], case.alpha[:chains]
+    alpha = torch.zeros_like(alpha) if zero_alpha else alpha
+    v = case.with_noise(cs.noise_weights(case.n)).v32 if hetero else None
+    return cs._time_ms(lambda: bf_ops.bf_planes(k, t, phi, alpha, case.jitter, noise_v=v),
+                       warm, reps)
+
+
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    for m in (15, 20):
+        case = cs.Case(100000, m, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+        for chains in (16, 8):
+            out[f"bf{sfx}_m{m}_{chains}_chains"] = bf_ms(case, chains)
+        out[f"bf{sfx}_m{m}_16_chains_hetero"] = bf_ms(case, 16, hetero=True)
+        out[f"sum_b{sfx}_m{m}"] = float(bf_ops.bf_planes(
+            case.kernel, case.tab32, case.phi, case.alpha, case.jitter)[0].double().sum())
+        del case
+    nu = cs.Case(25000, 10, cs.Matern(), 16, seed=5, dev=dev, nu=cs.nu_spread(16),
+                 layout=layout)
+    out[f"bf_nu{sfx}_m10_16_chains"] = cs._time_ms(lambda: bf_ops.bf_planes(
+        nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.jitter, nu=nu.nu), 5, 50)
+    del nu
+c2 = cs.Case(10000, 15, cs.Exponential(), 8, seed=0, dev=dev)
+out["bf_config2_8_chains_alpha0"] = bf_ms(c2, 8, zero_alpha=True)
+del c2
+p14 = cs.Case(500000, 20, cs.Exponential(), 8, seed=0, dev=dev, layout="coords")
+out["bf_coords_path14_8_chains_alpha0"] = bf_ms(p14, 8, zero_alpha=True, warm=3, reps=20)
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
 
 def main() -> int:
     root = os.getcwd()
@@ -84,6 +139,8 @@ def main() -> int:
     code = ROUND
     if trees[:1] == ["--m15"]:
         trees, code = trees[1:], ROUND_M15
+    elif trees[:1] == ["--bf"]:
+        trees, code = trees[1:], ROUND_BF
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
