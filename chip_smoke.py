@@ -56,7 +56,12 @@ and sampled nu.  After the build it prints the registers, stack, shared
 bytes and warps an SM of every tile instance of the three kernels (a block
 of up to four chains, one warp each, over a 32-site tile staged in shared
 memory).  After the paths above, both models at m = 40 on config 2's field,
-through the large-m instances.
+through the large-m instances; then ``bench.py``'s config 4, uncut (tempered
+SMC with 512 particles at n=50,000, m=10: kernel 1 at 512 chains, held to its
+plain version at that launch and timed beside its bound), ADVI on the first
+model (kernel 2 at eight points a step, mean-field and full rank), and an
+interrupt and resume of MWG, NUTS and the latent model from the checkpoints of
+``run_chains_chunked``, each equal to its uninterrupted run bit for bit.
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -66,12 +71,14 @@ last lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import hashlib
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -94,6 +101,7 @@ from pynngp_tpu_torch.ops.site_tables import (
     unpack_distances,
     with_children,
 )
+from pynngp_tpu_torch.samplers import smc, vi
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
@@ -2653,6 +2661,276 @@ def hetero_latent_path(dev) -> dict:
     return res
 
 
+# ---- tempered SMC, ADVI and checkpoint / resume (slice 9) ----------------
+
+N_C4, M_C4, PARTICLES_C4, MOVES_C4 = 50_000, 10, 512, 3  # bench.py's config 4
+# the reference's config-4 run (CONFIGS_r05.json), printed beside the port's:
+# how many tempering stages the adaptive schedule takes on this data, and the
+# evidence it ends with
+REFERENCE_C4 = {"stages": 147, "log_z": -14967.27}
+
+
+def config4_field():
+    """bench.py's full-run data stream (l.722-730): ``default_rng(0)``, whose
+    first two fields are config 2's (n=10,000, scale 10) and config 3's
+    discarded one (n=25,000, scale 15), then config 4's (n=50,000, scale
+    18; l.900)."""
+    rng = np.random.default_rng(0)
+    config2_field(10_000, 10.0, rng)
+    config2_field(25_000, 15.0, rng)
+    return config2_field(N_C4, 18.0, rng)
+
+
+def _weighted_means(draws) -> dict:
+    w = np.exp(draws["logw"] - np.logaddexp.reduce(draws["logw"]))
+    return {k: float(np.sum(w * draws[k])) for k in ("sigma2", "phi", "tau2")}
+
+
+def config4_path(dev) -> dict:
+    """bench.py's config 4 (l.897-918), uncut: ResponseNNGP(sqexp, m=10) at
+    n=50,000, then sample_smc(n_particles=512, n_move=3, seed=0), timed from
+    the model's construction as bench.py times it.  Each stage's three moves
+    evaluate all 512 particles in one launch of kernel 1 each.  Gates: beta
+    reaches 1 within max_stages, log Z finite, the weighted tau2 mean within
+    2x of 0.09, kernel 1 launched 1 + 3 x stages times and kernel 2 never.
+    Then the device idle share of a stage, and kernel 1 at this launch's
+    shape against its plain version and timed beside its bound."""
+    coords, y = config4_field()
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_C4, device=dev)
+    draws, infos = model.sample_smc(n_particles=PARTICLES_C4, n_move=MOVES_C4, seed=0)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts("config 4 SMC", ("vecchia_suffstats",))
+    stages = len(infos)
+    means = _weighted_means(draws)
+    res = {
+        f"config4_smc_particles_per_sec_n{N_C4}": PARTICLES_C4 * stages / seconds,
+        "seconds": seconds, "stages": stages, "log_z": draws["log_z"],
+        "reference_run": REFERENCE_C4, "final_beta": float(infos[-1]["beta"]),
+        "final_ess": float(infos[-1]["ess"]),
+        "mean_accept": float(np.mean([float(i["accept"]) for i in infos])),
+        "resampled_stages": int(sum(bool(i["resampled"]) for i in infos)),
+        "weighted_posterior_mean": means, "launches": launches, "plain_calls": 0,
+    }
+    print("config 4 SMC path: " + json.dumps(res), flush=True)
+    _require(res["final_beta"] >= 1.0 - 1e-9,
+             f"SMC stopped at beta {res['final_beta']} after {stages} stages")
+    _require(np.isfinite(draws["log_z"]), "config 4's log Z is not finite")
+    _require(all(np.isfinite(draws[k]).all() for k in ("sigma2", "phi", "tau2", "logw")),
+             "non-finite SMC particles")
+    _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
+             f"SMC weighted mean tau2 {means['tau2']} is not within 2x of 0.09")
+    _require(launches["vecchia_suffstats"] == 1 + MOVES_C4 * stages,
+             f"kernel 1 launched {launches['vecchia_suffstats']} times, not "
+             f"1 + {MOVES_C4} x {stages}")
+    _require(sum(v for k, v in launches.items() if k != "vecchia_suffstats") == 0,
+             f"the SMC launched another kernel than kernel 1: {launches}")
+
+    # where a stage's time goes, from a fresh cloud at beta = 0
+    gen = torch.Generator().manual_seed(1)
+    stage = smc.make_smc_stage(model.full_logprior, model.full_loglik, MOVES_C4)
+    with torch.no_grad():
+        u0 = model.sample_prior_u(gen, PARTICLES_C4)
+        zero = torch.zeros((), dtype=u0.dtype)
+        state = smc.SMCState(u=u0, loglik=model.full_loglik(u0),
+                             logprior=model.full_logprior(u0),
+                             logw=torch.zeros(PARTICLES_C4, dtype=u0.dtype), beta=zero,
+                             log_z=zero, scale=torch.ones((), dtype=u0.dtype))
+        prof = profile_steps(lambda g, s: stage(g, s)[0], state, gen)
+    print("config 4 SMC stage profile: " + json.dumps(prof), flush=True)
+    res["stage_profile"] = prof
+
+    # kernel 1 at the shape the stages launch it: 512 chains over n=50,000,
+    # m=10, against its plain version (float64 on the card, 16 chains a
+    # call) and timed beside its bound
+    case = Case(N_C4, M_C4, SqExp(), PARTICLES_C4, seed=0, dev=dev, field=(coords, y))
+    case.chunk = 16
+    res["parity"] = check_forward(case, f"n{N_C4} m{M_C4} {PARTICLES_C4} chains")
+    res["kernel_ms"] = _time_ms(lambda: fwd_ops.suffstats(
+        case.kernel, case.tab32, case.phi, case.alpha, case.y32, case.jitter), 5, 50)
+    res["bound_ms"], res["bound_by"] = kernel_bounds(case)["vecchia_suffstats"]
+    print(f"kernel 1 at config 4's launch [n{N_C4} m{M_C4}, {PARTICLES_C4} chains]: "
+          + json.dumps({k: res[k] for k in ("kernel_ms", "bound_ms", "bound_by")}),
+          flush=True)
+    return res
+
+
+def advi_path(dev, mwg_means: dict) -> dict:
+    """ADVI on the main path's model and data (n=100,000, m=15, sqexp):
+    fit_advi(n_steps=2000, n_mc=8, seed=0), then a full-rank fit of 500
+    steps; each step one launch of kernel 2 for its eight points.  Gates:
+    each fit's ELBO higher over its last 100 steps than over its first 100,
+    the mean-field draws' tau2 within 2x of 0.09, kernel 2 launched once a
+    step and no other kernel, every draw finite."""
+    coords, y = bench_field(N_MAIN, seed=0)
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
+    _reset_counts()
+    fits, seconds = {}, {}
+    for name, steps, full_rank in (("mean_field", 2000, False), ("full_rank", 500, True)):
+        t0 = time.perf_counter()
+        fits[name] = model.fit_advi(n_steps=steps, n_mc=8, full_rank=full_rank, seed=0)
+        seconds[name] = time.perf_counter() - t0
+    launches = _read_counts("ADVI", ("vecchia_grad",))
+    res = {"launches": launches, "plain_calls": 0, "mwg_posterior_mean": mwg_means}
+    for name, (draws, fit) in fits.items():
+        elbo = fit.elbo_trace.numpy()
+        steps = len(elbo)
+        res[name] = {
+            "seconds": seconds[name], "steps": steps,
+            "ms_per_step": seconds[name] * 1e3 / steps,
+            "elbo_first_100": float(elbo[:100].mean()),
+            "elbo_last_100": float(elbo[-100:].mean()),
+            "posterior_mean": {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")},
+            "posterior_sd": {k: float(np.std(draws[k])) for k in ("sigma2", "phi", "tau2")},
+        }
+    print("ADVI path: " + json.dumps(res), flush=True)
+    for name, (draws, fit) in fits.items():
+        _require(all(np.isfinite(v).all() for v in draws.values())
+                 and bool(torch.isfinite(fit.elbo_trace).all()),
+                 f"non-finite ADVI draws or ELBO ({name})")
+        _require(res[name]["elbo_last_100"] > res[name]["elbo_first_100"],
+                 f"the {name} ELBO did not rise")
+    tau2 = res["mean_field"]["posterior_mean"]["tau2"]
+    _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+             f"ADVI posterior mean tau2 {tau2} is not within 2x of 0.09")
+    _require(launches["vecchia_grad"] == 2500
+             and sum(launches.values()) == launches["vecchia_grad"],
+             f"ADVI's 2,500 steps made other launches than one of kernel 2 each: {launches}")
+    # where a step's time goes: one-step fits from the mean-field result
+    gen = torch.Generator().manual_seed(1)
+    mu = fits["mean_field"][1].mu
+    step = lambda g, u: vi.advi_fit(model.full_logpost, model.full_dim(), g, n_steps=1,
+                                    n_mc=8, init_mu=u, dtype=model.dtype).mu
+    res["step_profile"] = profile_steps(step, mu, gen)
+    print("ADVI step profile: " + json.dumps(res["step_profile"]), flush=True)
+    return res
+
+
+class _Interrupt(Exception):
+    pass
+
+
+class _StopAfter:
+    """Stands in for ``obj.name`` and raises on the call after ``limit``
+    calls: a run stopped mid-chunk, as a preemption stops it."""
+
+    def __init__(self, obj, name, limit):
+        self.obj, self.name, self.orig = obj, name, getattr(obj, name)
+        self.calls, self.limit = 0, limit
+        setattr(obj, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        if self.calls > self.limit:
+            raise _Interrupt
+        return self.orig(*args, **kwargs)
+
+    def restore(self):
+        delattr(self.obj, self.name)
+
+
+def _stopped_and_resumed(run, obj, name, limit, ckpt_kw) -> dict:
+    """``run(**kw)`` stopped at ``obj.name``'s call ``limit + 1``, then run
+    again with the same arguments, which resumes from the checkpoint."""
+    stop = _StopAfter(obj, name, limit)
+    try:
+        run(**ckpt_kw)
+        raise SmokeFailure(f"the run did not stop after {limit} calls of {name}")
+    except _Interrupt:
+        pass
+    finally:
+        stop.restore()
+    return run(**ckpt_kw)
+
+
+def _same_draws(want: dict, got: dict, label: str) -> None:
+    _require(want.keys() == got.keys()
+             and all(np.array_equal(want[k], got[k]) for k in want),
+             f"the resumed {label} run's draws differ from the uninterrupted run's")
+
+
+def resume_path(dev, tmp: str) -> dict:
+    """Interrupt and resume on the card, every checkpoint under ``tmp``: the
+    main path's model with 16 chains of MWG, 200 + 400 steps in chunks of
+    100, checkpointed every chunk, stopped after 450 steps and resumed; NUTS
+    on the same model (path 5's recipe cut to 4 chains x (20 + 20), chunks
+    of 10) and the latent model on config 2's field (n=10,000, 8 chains, 50
+    + 100, w_every=8, chunks of 25), each stopped inside its last chunk.
+    Gates: each resumed run's draws equal to the uninterrupted run's bit for
+    bit; a resume with another thin, collect_every or config raises a
+    ValueError naming it."""
+    from pynngp_tpu_torch.config import NNGPConfig
+
+    coords, y = bench_field(N_MAIN, seed=0)
+    _reset_counts()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
+    cfg = NNGPConfig(model="response", kernel="sqexp", m=M_MAIN, sampler="mwg",
+                     n_samples=400, n_burn=200, n_chains=CHAINS)
+    mwg = lambda **kw: model.sample(400, n_burn=200, n_chains=CHAINS, seed=3,
+                                    chunk=100, **kw)
+    ck = os.path.join(tmp, "mwg")
+    ckpt_kw = dict(checkpoint_path=ck, checkpoint_every=1, config=cfg)
+    res = {}
+    t0 = time.perf_counter()
+    want = mwg()
+    res["mwg_run_s"] = time.perf_counter() - t0
+    digests = {"mwg": _digest(want)}
+    t0 = time.perf_counter()
+    got = _stopped_and_resumed(mwg, model, "step", 450, ckpt_kw)
+    res["mwg_stopped_and_resumed_s"] = time.perf_counter() - t0
+    _same_draws(want, got, "MWG")
+    refusals = {}
+    for label, key, other in (
+            ("thin", "thin", dict(thin=2)),
+            ("collect_every", "collect_every", dict(collect_every={"loglik": 2})),
+            ("config", "n_chains", dict(config=dataclasses.replace(cfg, n_chains=8)))):
+        try:
+            mwg(**{**ckpt_kw, **other})
+            raise SmokeFailure(f"a resume with another {label} did not raise")
+        except ValueError as err:
+            _require(key in str(err), f"the refusal does not name {key}: {err}")
+            refusals[label] = str(err)[:160]
+    res["refusals"] = refusals
+
+    mp = model.fit_map(n_steps=250)
+    nuts = lambda **kw: model.sample_nuts(20, n_burn=20, n_chains=4, seed=0, max_depth=6,
+                                          init_u=mp.u, init_inv_mass=mp.laplace_cov,
+                                          init_jitter=2.0, chunk=10, **kw)
+    count = _StopAfter(model, "full_value_and_grad", 10**9)
+    try:
+        want = nuts()
+    finally:
+        count.restore()
+    got = _stopped_and_resumed(nuts, model, "full_value_and_grad", count.calls - 5,
+                               dict(checkpoint_path=os.path.join(tmp, "nuts"),
+                                    checkpoint_every=1))
+    _same_draws(want, got, "NUTS")
+    res["nuts_value_and_grad_calls"] = count.calls
+    digests["nuts"] = _digest(want)
+
+    n = 10_000
+    lat_coords, lat_y = config2_field(n, 10.0, np.random.default_rng(0))
+    latent = LatentNNGP(lat_coords, lat_y, kernel="exponential", m=M_MAIN, device=dev)
+    init = {"sigma2": float(np.var(lat_y)) * 0.8, "phi": 0.1,
+            "tau2": float(np.var(lat_y)) * 0.15}
+    lat = lambda **kw: latent.sample(100, n_burn=50, n_chains=8, seed=0, init=init,
+                                     w_every=8, chunk=25, **kw)
+    want = lat()
+    got = _stopped_and_resumed(lat, latent, "step", 140,
+                               dict(checkpoint_path=os.path.join(tmp, "latent"),
+                                    checkpoint_every=1))
+    _same_draws(want, got, "latent")
+    res["latent_w_shape"] = list(got["w"].shape)
+    digests["latent"] = _digest(want)
+    res["launches"] = _read_counts("resume", ("vecchia_suffstats", "vecchia_grad",
+                                              "vecchia_bf"))
+    res["plain_calls"] = 0
+    res["draws_sha256"] = digests
+    print("resume path: " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2800,6 +3078,12 @@ def main() -> int:
 
     paths = {"response": main_path(dev)}
     mwg_ess = paths["response"][f"min_ess_per_sec_n{N_MAIN}_m{M_MAIN}"]
+    # paths 20 and 21 early in the process: late in it torch.profiler has
+    # recorded no device time over a window (tools/profile_window.py)
+    paths["config4_smc"] = config4_path(dev)
+    torch.cuda.empty_cache()
+    paths["advi"] = advi_path(dev, paths["response"]["posterior_mean"])
+    torch.cuda.empty_cache()
     paths.update({
         "latent_n10000": latent_path(dev),
         "latent_n100000": latent_path_large(dev),
@@ -2827,6 +3111,10 @@ def main() -> int:
     paths["hetero_fixed_effects"] = hetero_fixed_effects_path(dev)
     paths["hetero_latent"] = hetero_latent_path(dev)
     paths["large_m"] = large_m_path(dev)
+    # the checkpoints go under the checkout's git-ignored build directory
+    os.makedirs(os.path.dirname(_build.BUILD_DIR), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
+        paths["resume"] = resume_path(dev, tmp)
 
     errs.update({
         "vecchia_suffstats": fwd["f_max_abs_err"],

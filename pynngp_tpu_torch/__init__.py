@@ -1,16 +1,19 @@
 """pynngp_tpu_torch: the PyTorch + CUDA port of pynngp_tpu for NVIDIA Hopper.
 
 The response NNGP (Vecchia) model, with fixed effects, homogeneous or
-per-site noise, Metropolis-within-Gibbs sampling and a MAP/Laplace fit, and
-the latent-w NNGP model with its chromatic Gibbs sweep, over hand-written CUDA kernels for the fused Vecchia
-sufficient statistics, their value + gradient pass and the explicit kriging
-weights B/F (``csrc/``, built with nvcc at first use).  CPU tensors run the kernels' plain PyTorch versions.
-The package imports no JAX; ``pynngp_tpu`` stays the reference it is tested
-against.
+per-site noise, Metropolis-within-Gibbs, NUTS, HMC, tempered SMC, ADVI and a
+MAP/Laplace fit, and the latent-w NNGP model with its chromatic Gibbs sweep,
+over hand-written CUDA kernels for the fused Vecchia sufficient statistics,
+their value + gradient pass and the explicit kriging weights B/F (``csrc/``,
+built with nvcc at first use); the chunked multi-chain driver with
+checkpoints and config sidecars (``NNGPConfig``).  CPU tensors run the
+kernels' plain PyTorch versions.  The package imports no JAX;
+``pynngp_tpu`` stays the reference it is tested against.
 """
 
 import torch
 
+from pynngp_tpu_torch.config import NNGPConfig
 from pynngp_tpu_torch.diagnostics import ess, split_rhat
 from pynngp_tpu_torch.kernels import Exponential, Matern, Spherical, SqExp, get_kernel
 from pynngp_tpu_torch.models.latent import LatentNNGP, LatentState
@@ -43,11 +46,15 @@ def _settle_cpu_math() -> None:
         for fn in (torch.exp, torch.log, torch.log1p, torch.sqrt, torch.sin,
                    torch.sinh, torch.cosh, torch.lgamma):
             fn(x)
+        # the SMC sampler's weights
+        torch.logsumexp(x, 0)
+        torch.cumsum(x, 0)
 
 
 _settle_cpu_math()
 
 __all__ = [
+    "NNGPConfig",
     "ResponseNNGP",
     "ResponseState",
     "LatentNNGP",

@@ -12,10 +12,13 @@ from pynngp_tpu_torch.models.response import ResponseState
 from pynngp_tpu_torch.ops.site_tables import LAYOUTS, SiteTables, padded_size
 from pynngp_tpu_torch.samplers.hmc import DualAveraging, HMCInfo, HMCState, Welford
 from pynngp_tpu_torch.samplers.nuts import NUTSInfo, NUTSState
+from pynngp_tpu_torch.samplers.smc import SMCState
+from pynngp_tpu_torch.samplers.vi import ADVIResult
 
 __all__ = ["site_tables_from_lane_cache", "bf_planes_from_rows",
            "response_state_from_jax", "latent_state_from_jax",
-           "nuts_state_from_jax", "hmc_state_from_jax"]
+           "nuts_state_from_jax", "hmc_state_from_jax", "smc_state_from_jax",
+           "advi_result_from_jax"]
 
 
 def site_tables_from_lane_cache(tab_a, tab_b, nn_idx, n, device="cpu",
@@ -148,3 +151,20 @@ def nuts_state_from_jax(state_np, dtype=None, device="cpu") -> NUTSState:
 def hmc_state_from_jax(state_np, dtype=None, device="cpu") -> HMCState:
     """The port's batched :class:`HMCState` from a reference ``HMCState``."""
     return _gradient_state(HMCState, HMCInfo, state_np, dtype, device)
+
+
+def smc_state_from_jax(state_np, dtype=None, device="cpu") -> SMCState:
+    """The port's :class:`SMCState` from a reference ``SMCState`` whose fields
+    are numpy arrays (the same fields, the particle axis leading)."""
+    return SMCState(*(torch.tensor(np.asarray(getattr(state_np, name)), dtype=dtype,
+                                   device=device) for name in SMCState._fields))
+
+
+def advi_result_from_jax(res_np, dtype=None, device="cpu") -> ADVIResult:
+    """The port's :class:`ADVIResult` from a reference ``ADVIResult`` whose
+    arrays are numpy arrays."""
+    field = lambda name: torch.tensor(np.asarray(getattr(res_np, name)), dtype=dtype,
+                                      device=device)
+    return ADVIResult(mu=field("mu"), log_sd=field("log_sd"),
+                      chol_factor=field("chol_factor"), elbo_trace=field("elbo_trace"),
+                      full_rank=bool(res_np.full_rank))

@@ -10,6 +10,7 @@ needs an honest time and at the end.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Callable, NamedTuple, Optional
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from pynngp_tpu_torch.priors import InverseGamma, Uniform
+from pynngp_tpu_torch.utils import checkpoint
 from pynngp_tpu_torch.utils.metrics import MetricsLogger
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
@@ -105,6 +107,10 @@ def run_chains_chunked(
     chunk: int = 256,
     metrics=None,
     collect_every: dict = None,
+    checkpoint_path: str = None,
+    checkpoint_every: int = 0,
+    config=None,
+    health_fn: Callable = None,
 ):
     """Host-chunked multi-chain MCMC driver.
 
@@ -114,10 +120,23 @@ def run_chains_chunked(
     retained draw.  Burn-in runs ``n_burn`` steps, then ``n_samples`` draws
     are kept, one every ``thin`` steps.  ``metrics`` is a MetricsLogger, a
     path (JSON lines appended to that file), or True (lines to stderr): one
-    line per chunk of ``chunk`` iterations, with its time and rate.
+    line per chunk of ``chunk`` iterations, with its time and rate and the
+    fields of ``health_fn(state) -> dict`` when given.
     ``collect_every`` maps collect keys to a keep-every-k stride: those keys
     keep only draws with index i % k == 0.  Draws are kept on the device and
     copied to the host once.
+
+    Checkpoints: with ``checkpoint_path`` and ``checkpoint_every`` = K > 0,
+    every K-th chunk saves the state and the generator's state
+    (``<path>.npz``, ``<path>.json``) and, once draws are kept, the draws so
+    far (``<path>.draws.npz``); with ``config`` (an NNGPConfig or a dict)
+    the config goes into the descriptor and beside it as
+    ``<path>.config.json``.  A run that finds ``<path>.npz`` resumes from it,
+    and gives the draws of the run that was stopped bit for bit, since every
+    random number comes from ``gen``.  The checkpoint records the run's
+    n_chains, n_samples, n_burn, thin, chunk and collect_every; a resume
+    whose values differ raises a ``ValueError`` naming the first that
+    differs, and so does a ``config`` that differs from the stored one.
 
     Returns (final_state, draws) with draws as numpy (n_chains, n_draws, ...).
     """
@@ -127,34 +146,105 @@ def run_chains_chunked(
     elif isinstance(metrics, (str, os.PathLike)):
         owned = open(metrics, "a")
         metrics = MetricsLogger(stream=owned)
+    run = {"n_chains": n_chains, "n_samples": n_samples, "n_burn": n_burn,
+           "thin": thin, "chunk": chunk, "collect_every": dict(collect_every or {})}
+    ckpt = (_Checkpoints(checkpoint_path, checkpoint_every, run, config, gen)
+            if checkpoint_path else None)
     try:
-        return _run(gen, init_fn, step_fn, collect_fn, n_chains, n_samples,
-                    n_burn, thin, chunk, metrics, collect_every or {})
+        return _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt,
+                    health_fn)
     finally:
         if owned is not None:
             owned.close()
 
 
-def _run(gen, init_fn, step_fn, collect_fn, n_chains, n_samples, n_burn, thin,
-         chunk, metrics, collect_every):
-    states = init_fn(n_chains)
+class _Checkpoints:
+    """Saving and resuming a chunked run's progress at ``path``."""
+
+    def __init__(self, path, every, run, config, gen):
+        self.path, self.every, self.run = path, every, run
+        self.config, self.gen = config, gen
+        self.chunks = 0
+
+    def resume(self, states):
+        """(state, burn_done, draws_done, the draws so far as numpy
+        (rows, C, ...) by key) from an existing checkpoint, or None."""
+        if not os.path.exists(checkpoint.npz_path(self.path)):
+            return None
+        with open(checkpoint.meta_path(self.path)) as fh:
+            extra = json.load(fh).get("extra", {})
+        stored = extra.get("run", {})
+        for key, want in self.run.items():
+            if stored.get(key) != want:
+                raise ValueError(
+                    f"checkpoint {self.path} was written by a run with "
+                    f"{key}={stored.get(key)!r}; this run has {key}={want!r}")
+        states, gen_state = checkpoint.load_state(
+            self.path, (states, self.gen.get_state()), config=self.config)
+        self.gen.set_state(gen_state)
+        burn_done, draws_done = int(extra["burn_done"]), int(extra["draws_done"])
+        prior = {}
+        if draws_done:
+            with np.load(self.path + ".draws.npz") as z:
+                prior = {key: z[key] for key in z.files}
+        return states, burn_done, draws_done, prior
+
+    def chunk_done(self, states, burn_done, draws_done, buffers):
+        """Count a finished chunk; every ``every``-th saves the draws kept so
+        far (first, so that the state never runs ahead of them), then the
+        state and its descriptor."""
+        self.chunks += 1
+        if not self.every or self.chunks % self.every:
+            return
+        if draws_done:
+            stride = self.run["collect_every"]
+            rows = {key: buf[:-(-draws_done // stride.get(key, 1))].cpu().numpy()
+                    for key, buf in buffers.items()}
+            checkpoint.write_atomic(self.path + ".draws.npz",
+                                    lambda fh: np.savez(fh, **rows))
+        checkpoint.save_state(
+            self.path, (states, self.gen.get_state()),
+            extra={"burn_done": burn_done, "draws_done": draws_done,
+                   "run": self.run},
+            config=self.config)
+        if self.config is not None:
+            cfg = checkpoint.config_dict(self.config)
+            checkpoint.write_atomic(
+                self.path + ".config.json",
+                lambda fh: fh.write(json.dumps(cfg, indent=2).encode()))
+
+
+def _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt, health_fn):
+    n_samples, n_burn, thin = run["n_samples"], run["n_burn"], run["thin"]
+    chunk, collect_every = run["chunk"], run["collect_every"]
+    states = init_fn(run["n_chains"])
+    it = got = 0
+    prior = {}
+    resumed = ckpt.resume(states) if ckpt is not None else None
+    if resumed is not None:
+        states, it, got, prior = resumed
+        if metrics is not None:
+            metrics.log("resume", burn_done=it, draws_done=got)
 
     def emit(phase, done, total, iters, t0):
         if metrics is None:
             return
         _synchronize(states)  # honest per-chunk timing costs one sync
         dt = time.perf_counter() - t0
+        fields = health_fn(states) if health_fn is not None else {}
         metrics.log(phase, done=int(done), total=int(total),
                     seconds=round(dt, 3),
-                    iters_per_sec=round(iters / dt, 3) if dt > 0 else None)
+                    iters_per_sec=round(iters / dt, 3) if dt > 0 else None,
+                    **fields)
 
-    it = 0
     while it < n_burn:
         t0 = time.perf_counter()
         steps = min(chunk, n_burn - it)
         for _ in range(steps):
             states = step_fn(gen, states)
         it += steps
+        if ckpt is not None:
+            ckpt.chunk_done(states, it, 0, {})
         emit("burn", it, n_burn, steps, t0)
 
     buffers = {}
@@ -162,15 +252,16 @@ def _run(gen, init_fn, step_fn, collect_fn, n_chains, n_samples, n_burn, thin,
     def record(out, i):
         for key, val in out.items():
             stride = collect_every.get(key, 1)
-            if i % stride:
-                continue
             if key not in buffers:
                 rows = -(-n_samples // stride)
                 buffers[key] = torch.empty((rows,) + tuple(val.shape),
                                            dtype=val.dtype, device=val.device)
-            buffers[key][i // stride] = val
+                if key in prior:  # the draws of a resumed run so far
+                    done = prior[key]
+                    buffers[key][:len(done)] = torch.from_numpy(done).to(val.device)
+            if i % stride == 0:
+                buffers[key][i // stride] = val
 
-    got = 0
     draws_per_chunk = max(1, chunk // thin)
     while got < n_samples:
         t0 = time.perf_counter()
@@ -180,7 +271,10 @@ def _run(gen, init_fn, step_fn, collect_fn, n_chains, n_samples, n_burn, thin,
                 states = step_fn(gen, states)
             record(collect_fn(states), got)
             got += 1
+        if ckpt is not None:
+            ckpt.chunk_done(states, n_burn, got, buffers)
         emit("sample", got, n_samples, todo * thin, t0)
-    # (n_draws, n_chains, ...) -> (n_chains, n_draws, ...), one copy per key
-    draws = {k: np.swapaxes(b.cpu().numpy(), 0, 1) for k, b in buffers.items()}
-    return states, draws
+    # (n_draws, n_chains, ...) -> (n_chains, n_draws, ...), one copy per key;
+    # a run resumed after its last draw returns the stored draws
+    draws = {k: b.cpu().numpy() for k, b in buffers.items()} or prior
+    return states, {k: np.swapaxes(v, 0, 1) for k, v in draws.items()}

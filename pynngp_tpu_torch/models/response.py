@@ -81,6 +81,8 @@ from pynngp_tpu_torch.samplers.mwg import (
     sample_inverse_gamma,
 )
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
+from pynngp_tpu_torch.samplers.smc import smc_sample
+from pynngp_tpu_torch.samplers.vi import advi_fit, advi_sample
 from pynngp_tpu_torch.vecchia import LOG_2PI
 
 __all__ = ["ResponseNNGP", "ResponseState"]
@@ -592,6 +594,72 @@ class ResponseNNGP:
         return self._sample_gradient(make, ("accept_prob",), n_samples, n_burn,
                                      thin, n_chains, seed, init, init_u,
                                      init_inv_mass, init_jitter, driver_kwargs)
+
+    def sample_prior_u(self, gen: torch.Generator, n: int):
+        """n unconstrained vectors (n, full_dim) from the prior, on ``gen``'s
+        device (SMC's initial particles): sigma2 and tau2 inverse-gamma (as
+        scale / Gamma(shape) draws from ``gen``), phi and nu uniform inside
+        their bounds by 1e-6, beta N(0, (0.1 beta_scale)^2)."""
+        like = dict(dtype=self.dtype, device=gen.device)
+        pr_s, pr_t = self.priors["sigma2"], self.priors["tau2"]
+        sigma2 = sample_inverse_gamma(gen, pr_s.a, torch.full((n,), pr_s.b, **like))
+        tau2 = sample_inverse_gamma(gen, pr_t.a, torch.full((n,), pr_t.b, **like))
+
+        def uniform(prior):
+            lo, hi = prior.lo + 1e-6, prior.hi - 1e-6
+            return lo + (hi - lo) * torch.rand((n,), generator=gen, **like)
+
+        cols = [torch.log(sigma2), self._t_phi.inverse(uniform(self.priors["phi"])),
+                torch.log(tau2)]
+        if self._sample_nu:
+            cols.append(self._t_nu.inverse(uniform(self.priors["nu"])))
+        u = torch.stack(cols, dim=1)
+        if self.p:
+            beta = 0.1 * self.priors["beta_scale"] * torch.randn(
+                (n, self.p), generator=gen, **like)
+            u = torch.cat([u, beta], dim=1)
+        return u
+
+    def _draws_of(self, u) -> dict:
+        """Numpy draws of the natural parameters (and beta) of points u."""
+        nat, beta = self._unpack_full(u)
+        draws = {k: _numpy(v) for k, v in nat.items()}
+        if self.p:
+            draws["beta"] = _numpy(beta)
+        return draws
+
+    def sample_smc(self, n_particles: int = 1024, n_move: int = 5, seed: int = 0,
+                   verbose: bool = False, **kwargs):
+        """Adaptive tempered SMC over the joint posterior
+        (``samplers/smc.py``).  Returns (draws: per-particle natural
+        parameters, beta with fixed effects, 'logw' and 'log_z'; the list of
+        per-stage info dicts).  The particles and the generator live on the
+        host; the initial evaluation and every move evaluate all particles in
+        one launch of kernel 1.  ``kwargs`` go to ``smc_sample``
+        (target_ess_frac, resample_ess_frac, max_stages)."""
+        gen = torch.Generator().manual_seed(seed)
+        state, infos = smc_sample(self.full_logprior, self.full_loglik,
+                                  self.sample_prior_u, gen, n_particles=n_particles,
+                                  n_move=n_move, verbose=verbose, **kwargs)
+        draws = self._draws_of(state.u)
+        draws["logw"] = _numpy(state.logw)
+        draws["log_z"] = float(state.log_z)
+        return draws, infos
+
+    def fit_advi(self, n_steps: int = 2000, n_mc: int = 8, learning_rate: float = 1e-2,
+                 full_rank: bool = False, n_draws: int = 1000, seed: int = 0):
+        """ADVI over the joint posterior (``samplers/vi.py``), from the
+        default start plus 0.1 N(0, 1) per coordinate; returns (numpy draws
+        of ``n_draws`` points of q, ADVIResult).  The variational parameters
+        and the generator live on the host; a step is one launch of kernel 2
+        for its ``n_mc`` points."""
+        gen = torch.Generator().manual_seed(seed)
+        u0 = self._full_init_u().cpu()
+        u0 = u0 + 0.1 * torch.randn(u0.shape, generator=gen, dtype=self.dtype)
+        res = advi_fit(self.full_logpost, self.full_dim(), gen, n_steps=n_steps,
+                       n_mc=n_mc, learning_rate=learning_rate, full_rank=full_rank,
+                       init_mu=u0, dtype=self.dtype)
+        return self._draws_of(advi_sample(res, gen, n_draws)), res
 
     def theta_proposal_cov(self, laplace_cov):
         """Project the full-u Laplace covariance onto the Metropolis theta

@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["MAPResult", "map_fit", "laplace_moments", "value_and_grad"]
+__all__ = ["MAPResult", "adam_step", "map_fit", "laplace_moments", "value_and_grad"]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 _FD_STEP = 1e-3  # first-pass finite-difference step of the Laplace Hessian
@@ -28,6 +28,18 @@ class MAPResult(NamedTuple):
     laplace_cov: torch.Tensor  # (k, k) dense posterior covariance estimate
     converged: torch.Tensor  # |grad|_inf below tolerance at the end
     trace: torch.Tensor  # (n_steps,) log-posterior trace
+
+
+def adam_step(param, grad, mu, nu, step: int, learning_rate: float):
+    """Step ``step`` (from 1) of ``optax.adam(learning_rate)`` on one tensor,
+    descending ``grad``: returns (param, first moment, second moment), each
+    operation in optax's order (``scale_by_adam``, then the update scaled by
+    -learning_rate and added)."""
+    mu = (1.0 - _B1) * grad + _B1 * mu
+    nu = (1.0 - _B2) * (grad * grad) + _B2 * nu
+    mu_hat = mu / (1.0 - _B1**step)
+    nu_hat = nu / (1.0 - _B2**step)
+    return param - learning_rate * (mu_hat / (torch.sqrt(nu_hat) + _EPS)), mu, nu
 
 
 def value_and_grad(logpost_fn: Callable, u):
@@ -54,11 +66,7 @@ def map_fit(logpost_fn: Callable, u0, n_steps: int = 300,
     for step in range(1, n_steps + 1):
         v, g = value_and_grad(logpost_fn, u[None])
         v, g = v[0], -g[0]  # minimize the negated log-posterior, as optax
-        mu = (1.0 - _B1) * g + _B1 * mu
-        nu = (1.0 - _B2) * (g * g) + _B2 * nu
-        mu_hat = mu / (1.0 - _B1**step)
-        nu_hat = nu / (1.0 - _B2**step)
-        u_new = u - learning_rate * mu_hat / (torch.sqrt(nu_hat) + _EPS)
+        u_new, mu, nu = adam_step(u, g, mu, nu, step, learning_rate)
         better = v > best_v
         best_u = torch.where(better, u, best_u)
         best_v = torch.where(better, v, best_v)

@@ -966,3 +966,86 @@ def test_models_at_large_m_go_through_the_large_instances(card):
     assert all(c.launches > 0 and c.plain == 0 for c in large), \
         [(c.name, c.launches, c.plain) for c in large]
     assert np.isfinite(draws["tau2"]).all()
+
+
+# ---- the launches of tempered SMC and ADVI, checkpoints on the card -------
+
+
+@pytest.mark.parametrize("chains", [512, 1000, 1001])
+def test_kernel_1_at_the_smc_particle_counts(card, chains):
+    """Kernel 1 as bench.py's config 4 launches it, one chain a particle:
+    n=50,000, m=10, at 512 chains (128 groups of four), 1,000 (250 groups)
+    and 1,001 (a ragged last group of one), against its plain version at the
+    closed-form limits; the plain version takes 25 chains a call."""
+    n, m = 50_000, 10
+    tab32, tab64, y, _, _ = _problem(card, n=n, m=m, seed=4)
+    phi = torch.linspace(0.02, 0.4, chains, device=card)
+    alpha = torch.linspace(0.01, 0.5, chains, device=card)
+    launches = fops.COUNT.launches
+    ld, q, f, r = fops.suffstats(kernels.SqExp(), tab32, phi, alpha, y)
+    torch.cuda.synchronize()
+    assert fops.COUNT.launches == launches + 1
+    for lo in range(0, chains, 25):
+        sl = slice(lo, min(lo + 25, chains))
+        params = fops.params_array(phi[sl].double(), alpha[sl].double(),
+                                   np.float32(1e-6), n, torch.float64, card)
+        ld_p, q_p, f_p, r_p = fops.suffstats_reference(kernels.SqExp(), tab64, params,
+                                                       y.double())
+        torch.testing.assert_close(ld[sl].double(), ld_p, rtol=3e-4, atol=0.0)
+        torch.testing.assert_close(q[sl].double(), q_p, rtol=3e-4, atol=0.0)
+        torch.testing.assert_close(f[sl, :n].double(), f_p[:, :n], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(r[sl, :n].double(), r_p[:, :n], rtol=2e-3, atol=1e-4)
+
+
+def test_kernel_2_at_advi_points_with_the_gradient(card):
+    """One ADVI step's launch: eight points through ``diff_suffstats`` with
+    autograd (kernel 2 once), against autograd through the float64 plain
+    version: values rtol 5e-4, phi and alpha gradients 2e-4."""
+    tab32, tab64, y, _, _ = _problem(card)
+    phi = torch.linspace(0.05, 0.5, 8, device=card).requires_grad_(True)
+    alpha = torch.linspace(0.02, 0.4, 8, device=card).requires_grad_(True)
+    launches = (fops.COUNT.launches, dops.COUNT.launches)
+    ld, q = dops.diff_suffstats(kernels.SqExp(), tab32, phi, alpha, y)
+    dphi, dalpha = torch.autograd.grad((ld + 0.5 * q).sum(), (phi, alpha))
+    torch.cuda.synchronize()
+    assert (fops.COUNT.launches, dops.COUNT.launches) == (launches[0], launches[1] + 1)
+    phi64 = phi.detach().double().requires_grad_(True)
+    alpha64 = alpha.detach().double().requires_grad_(True)
+    params = fops.params_array(phi64, alpha64, np.float32(1e-6), tab32.n, torch.float64,
+                               card)
+    ld_p, q_p, _, _ = fops.suffstats_reference(kernels.SqExp(), tab64, params, y.double())
+    dphi_p, dalpha_p = torch.autograd.grad((ld_p + 0.5 * q_p).sum(), (phi64, alpha64))
+    torch.testing.assert_close(ld.detach().double(), ld_p.detach(), rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(q.detach().double(), q_p.detach(), rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(dphi.double(), dphi_p, rtol=2e-4, atol=0.0)
+    torch.testing.assert_close(dalpha.double(), dalpha_p, rtol=2e-4, atol=0.0)
+
+
+def test_load_state_onto_a_card_template(card, tmp_path):
+    """A card model's MWG state saved and loaded onto a card template comes
+    back on the card, bit for bit."""
+    from pynngp_tpu_torch.utils.checkpoint import load_state, save_state
+
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(1500, 2))
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(1500)
+    model = ResponseNNGP(coords, y, m=7, device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    state = model.step(gen, model.init_state(4))
+    save_state(str(tmp_path / "ckpt"), state)
+    restored = load_state(str(tmp_path / "ckpt"), model.init_state(4))
+    for a, b in zip(state, restored):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+
+
+def test_a_card_generator_state_round_trip(card, tmp_path):
+    from pynngp_tpu_torch.utils.checkpoint import load_state, save_state
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    torch.randn(1000, generator=gen, device=card)
+    save_state(str(tmp_path / "g"), (gen.get_state(),))
+    want = torch.randn(1000, generator=gen, device=card)
+    other = torch.Generator(device=card).manual_seed(0)
+    (state,) = load_state(str(tmp_path / "g"), (other.get_state(),))
+    other.set_state(state)
+    assert torch.equal(torch.randn(1000, generator=other, device=card), want)
