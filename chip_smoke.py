@@ -62,6 +62,12 @@ plain version at that launch and timed beside its bound), ADVI on the first
 model (kernel 2 at eight points a step, mean-field and full rank), and an
 interrupt and resume of MWG, NUTS and the latent model from the checkpoints of
 ``run_chains_chunked``, each equal to its uninterrupted run bit for bit.
+Last, slice 10's four: prediction at 10,000 new sites from the main path's
+draws through the ``SeqNNGP`` facade (``torch.linalg`` on the card), the
+facade's defaults end to end (the latent model on config 2's field, sample,
+summary, predict), the max-min and natural orderings at n=100,000, and the
+dot-product distance on 20,000 sites of the sphere (kernels 1-3 on its
+dissimilarity tables, MWG, prediction, and the neighbor-table cache).
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -84,10 +90,11 @@ import time
 import numpy as np
 import torch
 
-from pynngp_tpu_torch import bessel, diagnostics
+from pynngp_tpu_torch import bessel, diagnostics, neighbors
 from pynngp_tpu_torch.kernels import Exponential, Matern, SqExp
 from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
+from pynngp_tpu_torch.models.seq import SeqNNGP
 from pynngp_tpu_torch.noise import HeterogeneousNoise
 from pynngp_tpu_torch.ops import _build, geometry
 from pynngp_tpu_torch.ops import bf as bf_ops
@@ -101,6 +108,7 @@ from pynngp_tpu_torch.ops.site_tables import (
     unpack_distances,
     with_children,
 )
+from pynngp_tpu_torch.predict import build_prediction_table, predict_draws
 from pynngp_tpu_torch.samplers import smc, vi
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
 from pynngp_tpu_torch.vecchia import make_vecchia_data
@@ -288,14 +296,16 @@ class Case:
     """Site tables, y and per-chain parameters of one parity case, in float32
     for the kernels and the same values in float64 for the oracle.  In the
     coords layout both hold the same float32 coordinate planes, and the
-    float64 oracle recomputes the distances from them.  ``v32`` / ``v64``
+    float64 oracle recomputes the distances from them; ``distance`` names
+    the metric of the dist layout's tables.  ``v32`` / ``v64``
     are per-site noise weights in ordered site space (:meth:`with_noise`),
     None for homogeneous noise."""
 
     def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None,
-                 layout="dist"):
+                 layout="dist", distance="euclidean"):
         coords, y = field if field is not None else bench_field(n, seed)
         data, table = make_vecchia_data(coords, m, dtype=torch.float64,
+                                        distance=distance,
                                         precompute_distances=layout == "dist")
         self.n, self.m, self.kernel, self.layout = n, m, kernel, layout
         self.order = table.order
@@ -1099,10 +1109,11 @@ def _mwg_recipe(model, pilot: tuple, run: tuple, tag: str) -> dict:
     }
 
 
-def main_path(dev) -> dict:
+def main_path(dev) -> tuple:
     """bench.py's bench_ess MWG branch on the port: the same generator and
     seed, fit_map(250), a 16 x 1200 correlated-RW pilot with 800 burn-in,
-    then 16 x 6000 independence-mixture draws with 500 burn-in."""
+    then 16 x 6000 independence-mixture draws with 500 burn-in.  Returns
+    (the path's numbers, its draws)."""
     coords, y = bench_field(N_MAIN, seed=0)
     _reset_counts()
     t0 = time.perf_counter()
@@ -1121,7 +1132,7 @@ def main_path(dev) -> dict:
     tau2 = res["posterior_mean"]["tau2"]
     _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
              f"posterior mean tau2 {tau2} is not within 2x of 0.09")
-    return res
+    return res, draws
 
 
 def config2_field(n: int, scale: float, rng, noise_v=None):
@@ -2931,11 +2942,369 @@ def resume_path(dev, tmp: str) -> dict:
     return res
 
 
+# ---- prediction, the facade, the orderings, the dot-product distance -----
+# (slice 10)
+
+
+N_PRED = 10_000  # path 23's new sites
+N_SPHERE, N_SPHERE_HELD = 20_000, 2_000  # path 26's training and held-out sites
+
+
+def bench_surface(coords0, n: int = N_MAIN, seed: int = 0):
+    """bench_field(n, seed)'s noiseless RFF field evaluated at ``coords0``:
+    the same frequencies and phases, drawn after the n sites."""
+    rng = np.random.default_rng(seed)
+    rng.uniform(size=(n, 2))
+    freqs = rng.normal(scale=20.0, size=(256, 2))
+    phases = rng.uniform(0, 2 * np.pi, 256)
+    return np.sqrt(2 / 256) * np.cos(coords0 @ freqs.T + phases).sum(axis=1)
+
+
+def sphere_field(n: int, seed: int = 0):
+    """n sites on the unit sphere (unit vectors in R^3, uniform) and a
+    256-feature RFF draw of a GP over their 3-D coordinates with frequencies
+    N(0, 5^2 I) (a Gaussian kernel of the chord, lengthscale sqrt(2)/5),
+    plus N(0, 0.3^2) noise; returns (coords, y, the noiseless field).  On
+    unit vectors the cosine dissimilarity is half the squared chord, so that
+    kernel is the exponential kernel of the dissimilarity with phi = 1/25."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.standard_normal((n, 3))
+    xyz /= np.linalg.norm(xyz, axis=1, keepdims=True)
+    freqs = rng.normal(scale=5.0, size=(256, 3))
+    phases = rng.uniform(0, 2 * np.pi, 256)
+    w = np.sqrt(2 / 256) * np.cos(xyz @ freqs.T + phases).sum(axis=1)
+    return xyz, w + 0.3 * rng.standard_normal(n), w
+
+
+def _coverage(samples, y0) -> float:
+    """Share of sites whose y0 lies in the central 95% interval of their
+    predictive samples ((S, n0), on any device)."""
+    q = torch.quantile(samples.double(), torch.tensor([0.025, 0.975], dtype=torch.float64,
+                                                      device=samples.device), dim=0)
+    y0 = torch.as_tensor(y0, device=samples.device)
+    return float(((y0 >= q[0]) & (y0 <= q[1])).double().mean())
+
+
+# Limits of the card's float32 prediction against the port's float64 CPU
+# run on the same draws (path 23).  The response model's C_N carries the
+# relative nugget alpha = tau2 / sigma2 (~0.09 here), so its condition number
+# is below (m + alpha) / alpha ~ 170, and a float32 factor and solves lose
+# about 170 x 6e-8 x m ~ 2e-4 of the weights; the mean sums 15 of them times
+# |y| <= ~2: mean atol 2e-3.  The variance is sigma2 (1 - c' C^-1 c) + tau2
+# >= tau2 = 0.09, whose cancellation loses ~2e-4 sigma2: var rtol 1e-3.
+PRED_MEAN_ATOL, PRED_VAR_RTOL = 2e-3, 1e-3
+
+
+def _prediction_parity(kernel, gp, coords0, param_draws, out, sites: int, draws: int,
+                       label: str) -> dict:
+    """The card's float32 ``mean`` / ``var`` on the first ``sites`` sites and
+    ``draws`` draws against predict_draws in float64 on the CPU, on the same
+    float32-rounded training coordinates and y."""
+    table64 = build_prediction_table(gp._train_coords, coords0[:sites], gp.m,
+                                     metric=gp.distance, dtype=torch.float64,
+                                     device="cpu")
+    first = {k: v[:draws] for k, v in param_draws.items()}
+    want = predict_draws(kernel, table64, gp.model.y.double().cpu(), first)
+    res = {
+        "mean_max_abs_err": float((out["mean"][:draws, :sites].double().cpu()
+                                   - want["mean"]).abs().max()),
+        "var_max_rel_err": float(((out["var"][:draws, :sites].double().cpu()
+                                   - want["var"]) / want["var"]).abs().max()),
+        "mean_atol": PRED_MEAN_ATOL, "var_rtol": PRED_VAR_RTOL,
+    }
+    print(f"prediction parity [{label}]: " + json.dumps(res), flush=True)
+    _require(res["mean_max_abs_err"] <= PRED_MEAN_ATOL
+             and res["var_max_rel_err"] <= PRED_VAR_RTOL,
+             f"the card's prediction disagrees with the float64 CPU run [{label}]")
+    return res
+
+
+def _flat_thinned(draws: dict, thin: int) -> dict:
+    """(sigma2, tau2, phi) over the flattened chains, one in ``thin``: the
+    draws the facade's predict takes."""
+    return {k: np.asarray(draws[k]).reshape(-1)[::thin] for k in ("sigma2", "tau2", "phi")}
+
+
+def prediction_path(dev, draws) -> dict:
+    """Path 23: prediction at the main path's full width through the
+    facade.  SeqNNGP(sqexp, m=15, response) on path 1's data; predict at
+    10,000 new sites (uniform, default_rng(1)) from path 1's 16 x 6,000
+    draws, one in 100 (960 draws), with samples.  Gates: finite outputs on
+    the card, the central 95% predictive intervals covering y0 (the field
+    there plus N(0, 0.09) from default_rng(2)) at 0.93-0.97, the posterior
+    mean's RMSE against the noiseless field below the noise sd 0.3, and the
+    float32 mean and var against the float64 CPU run on 500 sites x 16
+    draws (PRED_MEAN_ATOL, PRED_VAR_RTOL)."""
+    coords, y = bench_field(N_MAIN, seed=0)
+    coords0 = np.random.default_rng(1).uniform(size=(N_PRED, 2))
+    truth = bench_surface(coords0)
+    y0 = truth + 0.3 * np.random.default_rng(2).standard_normal(N_PRED)
+    thin = 100
+    _reset_counts()
+    t0 = time.perf_counter()
+    gp = SeqNNGP(y, coords, m=M_MAIN, cov_model="sqexp", model="response", device=dev)
+    setup_s = time.perf_counter() - t0
+    # first linear-algebra calls of the process load their libraries: warm up
+    gp.predict(coords0[:100], draws=draws, thin=6_000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_prediction_table(gp._train_coords, coords0, M_MAIN, device=dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    out = gp.predict(coords0, draws=draws, thin=thin, generator=gen)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    n_draws = out["mean"].shape[0]
+    _require(all(v.is_cuda for v in out.values()), "prediction left the card")
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    pm = out["mean"].mean(0).double().cpu().numpy()
+    res = {
+        "setup_s": setup_s, "table_s": table_s, "predict_s": predict_s,
+        "draws": n_draws, "sites": N_PRED, "m": M_MAIN,
+        "ms_per_draw": (predict_s - table_s) * 1e3 / n_draws,
+        "rmse_vs_field": float(np.sqrt(np.mean((pm - truth) ** 2))), "noise_sd": 0.3,
+        "coverage_95": _coverage(out["samples"], y0), "finite": finite,
+        "parity": _prediction_parity(gp.kernel, gp, coords0, _flat_thinned(draws, thin),
+                                     out, 500, 16, "path 23"),
+        "launches": _read_counts("prediction", ()), "plain_calls": 0,
+    }
+    print("prediction path: " + json.dumps(res), flush=True)
+    _require(finite, "non-finite predictions")
+    _require(n_draws == 960, f"{n_draws} prediction draws, not 960")
+    _require(0.93 <= res["coverage_95"] <= 0.97,
+             f"95% interval coverage {res['coverage_95']} outside 0.93-0.97")
+    _require(res["rmse_vs_field"] < 0.3,
+             f"posterior-mean RMSE {res['rmse_vs_field']} is not below 0.3")
+    return res
+
+
+def facade_path(dev) -> dict:
+    """Path 24: the facade's defaults end to end.  Config 2's field at n =
+    11,000 (default_rng(0)); SeqNNGP(y, coords) on the first 10,000 (the
+    latent model, exponential, m = 15: kernel 3), sample(500, n_burn=500,
+    n_chains=8), summary(), predict at the 1,000 held out.  Gates: finite
+    draws and predictions, tau2 within 2x of 0.09, the predictive mean's
+    correlation with the held-out y above 0.7 (tests/test_seq_facade.py:27)."""
+    coords, y = config2_field(11_000, 10.0, np.random.default_rng(0))
+    train, test = slice(0, 10_000), slice(10_000, 11_000)
+    _reset_counts()
+    t0 = time.perf_counter()
+    gp = SeqNNGP(y[train], coords[train], device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    draws = gp.sample(500, n_burn=500, n_chains=8)
+    sample_s = time.perf_counter() - t0
+    summary = gp.summary()
+    t0 = time.perf_counter()
+    out = gp.predict(coords[test], generator=torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    pm = out["mean"].mean(0).double().cpu().numpy()
+    res = {
+        "setup_s": setup_s, "sample_s": sample_s, "predict_s": predict_s,
+        "summary": {k: {q: v[q] for q in ("mean", "q2.5", "q97.5", "ess", "rhat")}
+                    for k, v in summary.items() if k in ("sigma2", "tau2", "phi")},
+        "prediction_draws": out["mean"].shape[0],
+        "corr_heldout": float(np.corrcoef(pm, y[test])[0, 1]),
+        "rmse_heldout": float(np.sqrt(np.mean((pm - y[test]) ** 2))),
+        "coverage_95": _coverage(out["samples"], y[test]),
+        "launches": _read_counts("facade", ("vecchia_bf",)), "plain_calls": 0,
+    }
+    print("facade path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite draws")
+    _require(all(bool(torch.isfinite(v).all()) for v in out.values()),
+             "non-finite predictions")
+    tau2 = summary["tau2"]["mean"]
+    _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+             f"posterior mean tau2 {tau2} is not within 2x of 0.09")
+    _require(res["corr_heldout"] > 0.7,
+             f"predictive mean correlation {res['corr_heldout']} is not above 0.7")
+    return res
+
+
+def _map_init(model, mp) -> dict:
+    """MWG's start at a MAP fit (as _mwg_recipe takes it)."""
+    u0 = mp.u.cpu().numpy()
+    sig0, tau0 = float(np.exp(u0[0])), float(np.exp(u0[2]))
+    return {"sigma2": sig0, "phi": float(model._t_phi.forward(torch.as_tensor(u0[1]))),
+            "alpha": tau0 / sig0}
+
+
+def orderings_path(dev) -> dict:
+    """Path 25: the max-min and natural orderings at full width, on path 1's
+    data (n=100,000, m=15, sqexp).  ResponseNNGP(ordering="maxmin") (the
+    native max-min order), fit_map(250), then 16 chains of correlated-RW MWG
+    from the MAP, 200 + 400 (kernels 1 and 2); ordering="none" and
+    "coordinate": the value and gradient at the max-min MAP (kernel 2).
+    Gates: tau2 within 2x of 0.09; the other orders' values and gradients
+    finite (they are other models, so they are printed, not compared)."""
+    coords, y = bench_field(N_MAIN, seed=0)
+    t0 = time.perf_counter()
+    neighbors.order_maxmin(coords)
+    order_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, ordering="maxmin",
+                         device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=250)
+    map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    draws = model.sample(400, n_burn=200, n_chains=CHAINS, seed=5,
+                         init=_map_init(model, mp),
+                         proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
+    run_s = time.perf_counter() - t0
+    min_ess, max_rhat = _chain_stats(draws)
+    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
+    at_map = {"maxmin": float(mp.value)}
+    finite = True
+    for ordering in ("none", "coordinate"):
+        t0 = time.perf_counter()
+        other = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, ordering=ordering,
+                             device=dev)
+        other_setup_s = time.perf_counter() - t0
+        value, grad = other.full_value_and_grad(mp.u[None].to(dev))
+        value, grad = value.double().cpu(), grad.double().cpu()
+        finite &= bool(torch.isfinite(value).all() and torch.isfinite(grad).all())
+        at_map[ordering] = {"value": float(value[0]), "grad": grad[0].tolist(),
+                            "setup_s": other_setup_s}
+        del other
+    res = {
+        "maxmin_order_s": order_s, "setup_s": setup_s, "map_s": map_s, "run_s": run_s,
+        "min_ess": min_ess, "rhat_max": max_rhat, "posterior_mean": means,
+        "value_at_map": at_map,
+        "launches": _read_counts("orderings", ("vecchia_suffstats", "vecchia_grad")),
+        "plain_calls": 0,
+    }
+    print("orderings path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite draws")
+    _require(finite, "a non-finite value or gradient at the MAP on another order")
+    _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
+             f"posterior mean tau2 {means['tau2']} is not within 2x of 0.09")
+    return res
+
+
+def dotproduct_path(dev, tmp: str) -> dict:
+    """Path 26: the dot-product distance on the sphere.  sphere_field(22,000);
+    the first 20,000 sites train ResponseNNGP(distance="dotproduct",
+    exponential, m=15) through the facade (the dist layout: the tables hold
+    the cosine dissimilarities), fit_map(150), 16 chains of correlated-RW
+    MWG from the MAP, 200 + 400, and predict at the 2,000 held out (one
+    draw in 10).  Before the model, kernels 1-3 on these tables against
+    their float64 plain versions at the closed-form rows' limits, timed at
+    16 chains beside their bounds.  Gates: those, tau2 within 2x of 0.09,
+    the 95% coverage of path 23, and the cache: the same table built twice
+    with the cache in ``tmp``, the second loaded from its file, bit for
+    bit."""
+    coords, y, truth = sphere_field(N_SPHERE + N_SPHERE_HELD)
+    train, test = slice(0, N_SPHERE), slice(N_SPHERE, None)
+    case = Case(N_SPHERE, M_MAIN, Exponential(), CHAINS, seed=0, dev=dev,
+                field=(coords[train], y[train]), distance="dotproduct")
+    label = f"dotproduct n{N_SPHERE} m{M_MAIN}"
+    parity = {"forward": check_forward(case, label),
+              "grad": check_grad(case, label, grad_rtol=2e-3),
+              "bf": check_bf(case, label, zero_alpha=False, gated=True)}
+    k, t = case.kernel, case.tab32
+    times = {
+        "vecchia_suffstats": _time_ms(lambda: fwd_ops.suffstats(
+            k, t, case.phi, case.alpha, case.y32, case.jitter), 20, 200),
+        "vecchia_grad": _time_ms(lambda: diff_ops.value_and_grad_sums(
+            k, t, case.phi, case.alpha, case.y32, case.jitter), 20, 200),
+        "vecchia_bf": _time_ms(lambda: bf_ops.bf_planes(
+            k, t, case.phi, case.alpha, case.jitter), 20, 200),
+    }
+    bounds = kernel_bounds(case)
+    kernels_res = {name: {"ms": ms, "bound_ms": bounds[name][0],
+                          "share_of_bound": bounds[name][0] / ms}
+                   for name, ms in times.items()}
+    print(f"dot-product kernels [{label}, {CHAINS} chains]: " + json.dumps(kernels_res),
+          flush=True)
+    del case, t
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    gp = SeqNNGP(y[train], coords[train], m=M_MAIN, cov_model="exponential",
+                 model="response", distance="dotproduct", device=dev)
+    setup_s = time.perf_counter() - t0
+    model = gp.model
+    _require(model.lane_layout == "dist", f"the dot-product model took {model.lane_layout}")
+    t0 = time.perf_counter()
+    mp = model.fit_map(n_steps=150)
+    map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    draws = gp.sample(400, n_burn=200, n_chains=CHAINS, seed=6, init=_map_init(model, mp),
+                      proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = gp.predict(coords[test], thin=10,
+                     generator=torch.Generator(device=dev).manual_seed(8))
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    _require(all(v.is_cuda for v in out.values()), "prediction left the card")
+    launches = _read_counts("dot-product", ("vecchia_suffstats", "vecchia_grad"))
+    min_ess, max_rhat = _chain_stats(draws)
+    means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
+    pm = out["mean"].mean(0).double().cpu().numpy()
+
+    # the cache: one build stores the table, the next loads it
+    env = os.environ.get("PYNNGP_NEIGHBOR_CACHE")
+    os.environ["PYNNGP_NEIGHBOR_CACHE"] = tmp
+    build = neighbors._build_neighbor_table_impl
+    try:
+        t0 = time.perf_counter()
+        first = neighbors.build_neighbor_table(coords[train], M_MAIN, metric="dotproduct")
+        cache_first_s = time.perf_counter() - t0
+        stored = os.listdir(tmp)
+
+        def rebuilt(*args, **kwargs):
+            raise SmokeFailure("the cached neighbor table was rebuilt, not loaded")
+
+        neighbors._build_neighbor_table_impl = rebuilt
+        t0 = time.perf_counter()
+        second = neighbors.build_neighbor_table(coords[train], M_MAIN, metric="dotproduct")
+        cache_second_s = time.perf_counter() - t0
+    finally:
+        neighbors._build_neighbor_table_impl = build
+        os.environ["PYNNGP_NEIGHBOR_CACHE"] = env
+    same = all(np.array_equal(a, b) for a, b in zip(first, second))
+    res = {
+        "kernels": kernels_res, "setup_s": setup_s, "map_s": map_s, "run_s": run_s,
+        "predict_s": predict_s, "prediction_draws": out["mean"].shape[0],
+        "min_ess": min_ess, "rhat_max": max_rhat, "posterior_mean": means,
+        "rmse_vs_field": float(np.sqrt(np.mean((pm - truth[test]) ** 2))),
+        "coverage_95": _coverage(out["samples"], y[test]),
+        "cache": {"first_s": cache_first_s, "second_s": cache_second_s,
+                  "files": stored, "bitwise_equal": same},
+        "parity_max_abs_err": {"suffstats_f": parity["forward"]["f_max_abs_err"],
+                               "grad": parity["grad"]["max_abs_err"],
+                               "bf_b": parity["bf"]["b_max_abs_err"]},
+        "launches": launches, "plain_calls": 0,
+    }
+    print("dot-product path: " + json.dumps(res), flush=True)
+    _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite draws")
+    _require(all(bool(torch.isfinite(v).all()) for v in out.values()),
+             "non-finite predictions")
+    _require(TAU2_TRUE / 2 <= means["tau2"] <= TAU2_TRUE * 2,
+             f"posterior mean tau2 {means['tau2']} is not within 2x of 0.09")
+    _require(0.93 <= res["coverage_95"] <= 0.97,
+             f"95% interval coverage {res['coverage_95']} outside 0.93-0.97")
+    _require(len(stored) == 1 and same, f"the cache check failed: {res['cache']}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    # every neighbor table of this run is built, not loaded from an earlier
+    # run's cache, so that the set-up seconds stay cold builds; path 26
+    # turns the cache on, in a temporary directory, for its one check
+    os.environ["PYNNGP_NEIGHBOR_CACHE"] = "0"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -3076,7 +3445,8 @@ def main() -> int:
         layouts[key]["setup"] = layout_setup(n, m)
     layout_rule(layouts)
 
-    paths = {"response": main_path(dev)}
+    paths = {}
+    paths["response"], main_draws = main_path(dev)
     mwg_ess = paths["response"][f"min_ess_per_sec_n{N_MAIN}_m{M_MAIN}"]
     # paths 20 and 21 early in the process: late in it torch.profiler has
     # recorded no device time over a window (tools/profile_window.py)
@@ -3115,6 +3485,17 @@ def main() -> int:
     os.makedirs(os.path.dirname(_build.BUILD_DIR), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
         paths["resume"] = resume_path(dev, tmp)
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    paths["prediction"] = prediction_path(dev, main_draws)
+    torch.cuda.empty_cache()
+    paths["facade"] = facade_path(dev)
+    torch.cuda.empty_cache()
+    paths["orderings"] = orderings_path(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
+        paths["dotproduct"] = dotproduct_path(dev, tmp)
+    print(f"paths 23-26: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     errs.update({
         "vecchia_suffstats": fwd["f_max_abs_err"],

@@ -1,11 +1,14 @@
 """pynngp_tpu_torch: the PyTorch + CUDA port of pynngp_tpu for NVIDIA Hopper.
 
-The response NNGP (Vecchia) model, with fixed effects, homogeneous or
-per-site noise, Metropolis-within-Gibbs, NUTS, HMC, tempered SMC, ADVI and a
-MAP/Laplace fit, and the latent-w NNGP model with its chromatic Gibbs sweep,
-over hand-written CUDA kernels for the fused Vecchia sufficient statistics,
-their value + gradient pass and the explicit kriging weights B/F (``csrc/``,
-built with nvcc at first use); the chunked multi-chain driver with
+The ``SeqNNGP`` workflow (construct -> sample -> predict) over the response
+NNGP (Vecchia) model, with fixed effects, homogeneous or per-site noise,
+Metropolis-within-Gibbs, NUTS, HMC, tempered SMC, ADVI and a MAP/Laplace
+fit, and the latent-w NNGP model with its chromatic Gibbs sweep; kriging
+prediction for every posterior draw; the Euclidean and dot-product distances
+and the coordinate, max-min and natural orderings.  The models run on
+hand-written CUDA kernels for the fused Vecchia sufficient statistics, their
+value + gradient pass and the explicit kriging weights B/F (``csrc/``, built
+with nvcc at first use), under the chunked multi-chain driver with
 checkpoints and config sidecars (``NNGPConfig``).  CPU tensors run the
 kernels' plain PyTorch versions.  The package imports no JAX;
 ``pynngp_tpu`` stays the reference it is tested against.
@@ -14,12 +17,15 @@ kernels' plain PyTorch versions.  The package imports no JAX;
 import torch
 
 from pynngp_tpu_torch.config import NNGPConfig
-from pynngp_tpu_torch.diagnostics import ess, split_rhat
+from pynngp_tpu_torch.diagnostics import ess, split_rhat, summarize
+from pynngp_tpu_torch.distance import DotProduct, Euclidean
 from pynngp_tpu_torch.kernels import Exponential, Matern, Spherical, SqExp, get_kernel
 from pynngp_tpu_torch.models.latent import LatentNNGP, LatentState
 from pynngp_tpu_torch.models.response import ResponseNNGP, ResponseState
+from pynngp_tpu_torch.models.seq import SeqNNGP
 from pynngp_tpu_torch.neighbors import NeighborTable, build_neighbor_table
 from pynngp_tpu_torch.noise import HeterogeneousNoise, HomogeneousNoise, get_noise
+from pynngp_tpu_torch.predict import build_prediction_table, predict_draws
 from pynngp_tpu_torch.vecchia import (
     VecchiaData,
     make_vecchia_data,
@@ -55,6 +61,7 @@ _settle_cpu_math()
 
 __all__ = [
     "NNGPConfig",
+    "SeqNNGP",
     "ResponseNNGP",
     "ResponseState",
     "LatentNNGP",
@@ -67,6 +74,8 @@ __all__ = [
     "HomogeneousNoise",
     "HeterogeneousNoise",
     "get_noise",
+    "Euclidean",
+    "DotProduct",
     "NeighborTable",
     "build_neighbor_table",
     "VecchiaData",
@@ -74,6 +83,9 @@ __all__ = [
     "vecchia_bf",
     "vecchia_suffstats",
     "vecchia_loglik",
+    "build_prediction_table",
+    "predict_draws",
     "ess",
     "split_rhat",
+    "summarize",
 ]

@@ -76,9 +76,7 @@ class NNGPConfig:
                     device="cuda"):
         """Instantiate the configured model on data, on ``device``.  A mesh
         (``mesh_chains`` or ``mesh_sites`` above 1) raises
-        ``NotImplementedError``, as do the options the models do not port
-        yet (an ordering other than "coordinate", a distance other than
-        Euclidean)."""
+        ``NotImplementedError``."""
         if self.mesh_chains > 1 or self.mesh_sites > 1:
             raise NotImplementedError(
                 f"mesh_chains={self.mesh_chains}, mesh_sites={self.mesh_sites}: "

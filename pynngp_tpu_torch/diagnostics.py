@@ -1,12 +1,13 @@
 """MCMC diagnostics (numpy copy of ``pynngp_tpu.diagnostics``): effective
-sample size (Geyer initial monotone sequence over an FFT autocovariance) and
-split R-hat.  Host-side post-processing of the draws."""
+sample size (Geyer initial monotone sequence over an FFT autocovariance),
+split R-hat and the per-parameter summary.  Host-side post-processing of the
+draws."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ess", "split_rhat"]
+__all__ = ["ess", "split_rhat", "summarize"]
 
 
 def _autocov(x):
@@ -62,3 +63,24 @@ def split_rhat(chains) -> float:
     b = n2 * chain_means.var(ddof=1)
     var_plus = (n2 - 1.0) / n2 * w + b / n2
     return float(np.sqrt(var_plus / w)) if w > 0 else np.nan
+
+
+def summarize(draws: dict, params=None) -> dict:
+    """Posterior mean / sd / 2.5-50-97.5% quantiles / ESS / R-hat of each
+    scalar parameter: every draw array of at most two axes ((draws,) or
+    (chains, draws)) unless ``params`` names them."""
+    out = {}
+    params = params or [k for k, v in draws.items() if np.asarray(v).ndim <= 2]
+    for name in params:
+        v = np.asarray(draws[name], dtype=np.float64)
+        flat = v.reshape(-1)
+        out[name] = {
+            "mean": float(flat.mean()),
+            "sd": float(flat.std(ddof=1)) if flat.size > 1 else 0.0,
+            "q2.5": float(np.percentile(flat, 2.5)),
+            "q50": float(np.percentile(flat, 50.0)),
+            "q97.5": float(np.percentile(flat, 97.5)),
+            "ess": ess(v),
+            "rhat": split_rhat(v) if v.ndim == 2 and v.shape[0] > 1 else np.nan,
+        }
+    return out

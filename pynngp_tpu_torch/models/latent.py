@@ -3,8 +3,9 @@ w ~ NNGP(0, sigma2 rho_phi) (counterpart of ``pynngp_tpu.models.latent``);
 v = 1 under homogeneous noise, known per-site weights under
 ``HeterogeneousNoise(v)``.
 
-Ported: coordinate ordering, Euclidean distance, homogeneous and
-heterogeneous noise, one device, every kernel of
+Ported: every ordering, the Euclidean and (up to
+:data:`NON_EUCLIDEAN_MAX_SITES` sites) the dot-product distance,
+homogeneous and heterogeneous noise, one device, every kernel of
 :mod:`pynngp_tpu_torch.kernels` (with ``Matern()`` the theta block is (phi,
 nu), otherwise phi alone).  Every other option of the reference raises.
 
@@ -80,7 +81,12 @@ from pynngp_tpu_torch.samplers.mwg import (
 )
 from pynngp_tpu_torch.vecchia import LOG_2PI
 
-__all__ = ["LatentNNGP", "LatentState"]
+__all__ = ["LatentNNGP", "LatentState", "NON_EUCLIDEAN_MAX_SITES"]
+
+# Above this many sites the reference's latent model forces the coords
+# layout (pynngp_tpu/models/latent.py:161), which refuses a non-Euclidean
+# metric (pynngp_tpu/ops/pallas_bf.py:216-217); the port refuses the same.
+NON_EUCLIDEAN_MAX_SITES = 200_000
 
 
 class LatentState(NamedTuple):
@@ -118,7 +124,8 @@ class LatentNNGP:
     recomputed in the kernel, no distance table made) above
     ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites, dist at or below;
     ``precompute_distances=False`` leaves the dist layout to compute its
-    tables from the ordered coordinates in the model's dtype."""
+    tables from the ordered coordinates in the model's dtype (Euclidean
+    only)."""
 
     def __init__(
         self,
@@ -160,8 +167,19 @@ class LatentNNGP:
         # (pynngp_tpu/models/latent.py:155-163); the coords layout needs no
         # distance tables, so none are made for it
         coords = np.asarray(coords)
-        self.lane_layout = choose_layout(
-            "auto", coords.shape[0], isinstance(get_distance(distance), Euclidean))
+        dist_fn = get_distance(distance)
+        euclidean = isinstance(dist_fn, Euclidean)
+        if not euclidean and coords.shape[0] > NON_EUCLIDEAN_MAX_SITES:
+            raise ValueError(
+                f"the latent model takes distance {dist_fn.name!r} up to "
+                f"{NON_EUCLIDEAN_MAX_SITES} sites, got n={coords.shape[0]}: "
+                "above that the reference forces the coords layout, which "
+                "needs the Euclidean metric")
+        if not euclidean and not precompute_distances:
+            raise ValueError(
+                f"distance {dist_fn.name!r} needs precompute_distances=True: "
+                "tables computed from the coordinates are Euclidean")
+        self.lane_layout = choose_layout("auto", coords.shape[0], euclidean)
         on_coords = self.lane_layout == "coords"
         sd = prepare_spatial_data(
             coords, y, m, x=x, ordering=ordering, distance=distance, dtype=dtype,

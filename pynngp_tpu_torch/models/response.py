@@ -8,8 +8,10 @@ device, both table layouts (``lane_layout``:
 recomputed in the kernels, Euclidean only; "auto", the default, coords above
 ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites), every kernel of
 :mod:`pynngp_tpu_torch.kernels`, the general and the sampled-nu Matern among
-them; fixed effects (``x=``) on every path.  Every other option of the
-reference raises.
+them; fixed effects (``x=``) on every path; every ordering ("coordinate",
+"maxmin", "none") and both distances (Euclidean; "dotproduct", whose
+dissimilarities the kernels read from dist-layout tables).  Every other
+option of the reference raises.
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
   - theta = (phi, alpha) block, (phi, alpha, nu) with ``Matern()``: Metropolis on unconstrained coordinates

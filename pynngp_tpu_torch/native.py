@@ -1,5 +1,6 @@
 """ctypes loader for the native C++ host preprocessing: the neighbor
-search, the children (reverse) index and the moral-graph colouring.
+search, the children (reverse) index, the moral-graph colouring and the
+max-min ordering.
 
 The C++ source is the reference package's ``pynngp_tpu/cpp/nngp_native.cpp``,
 read by path and compiled with g++ at first use into ``build/pynngp_tpu_torch/``
@@ -22,7 +23,7 @@ import threading
 import numpy as np
 
 __all__ = ["get_lib", "native_available", "neighbor_table", "children_table",
-           "color_moral"]
+           "color_moral", "order_maxmin"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_ROOT, "pynngp_tpu", "cpp", "nngp_native.cpp")
@@ -99,6 +100,11 @@ class _NativeLib:
                 ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p,
             ]
             lib.nngp_color_moral.restype = ctypes.c_int32
+            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+            lib.nngp_order_maxmin.argtypes = [
+                f64p, ctypes.c_int32, ctypes.c_int32, i64p,
+            ]
+            lib.nngp_order_maxmin.restype = ctypes.c_int32
             self._lib = lib
             return lib
 
@@ -168,3 +174,19 @@ def color_moral(nn_idx, nn_mask, child_idx, child_slot, child_mask):
         n, m, child_idx.shape[1], colors,
     )
     return colors
+
+
+def order_maxmin(coords: np.ndarray):
+    """(n,) int64 exact max-min ordering for d <= 3, or None where the
+    native library is missing or refuses the input (d > 3); the caller then
+    takes the Python lazy-heap path (``neighbors.order_maxmin``)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(coords, np.float64)
+    n, d = pts.shape
+    if d > 3:
+        return None
+    order = np.zeros(n, np.int64)
+    rc = lib.nngp_order_maxmin(pts, n, d, order)
+    return order if rc == 0 else None

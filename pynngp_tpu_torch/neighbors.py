@@ -1,32 +1,47 @@
 """Host-side nearest-preceding-neighbor tables and the latent sampler's
 static structure: children index, moral-graph colouring, per-colour site and
 (parent, child) pair tables (numpy copy of the reference's
-``pynngp_tpu.neighbors`` for the coordinate ordering and Euclidean metric).
+``pynngp_tpu.neighbors``).
 
 The table is static-shape: ``(n, m)`` int32 neighbor ids plus a boolean
 validity mask (site i has min(i, m) preceding neighbors, packed in the low
 slots).  It is built once per dataset on the host; the tests hold it to the
-reference's table bit for bit.
+reference's table bit for bit, for every ordering and metric.
+
+Orderings: "coordinate" (sort by the first coordinate), "maxmin" (each site
+the one farthest from all sites before it) and "none" (the users' order).
+Metrics: "euclidean" and "dotproduct" (:mod:`pynngp_tpu_torch.distance`).
 
 Exact blocked algorithm: for a block of sites [i0, i0+B), the m nearest
 preceding neighbors of site i are a subset of (the m nearest within [0, i0),
-from a kd-tree on those points) union (all in-block preceding sites).  Both
-candidate sets are merged and the m smallest distances kept.  The native C++
-kd-tree (:mod:`pynngp_tpu_torch.native`) computes the same table faster.
+from a kd-tree on those points for Euclidean, by brute force otherwise)
+union (all in-block preceding sites).  Both candidate sets are merged and
+the m smallest distances kept.  The native C++ kd-tree
+(:mod:`pynngp_tpu_torch.native`) computes the same Euclidean table faster.
+
+Tables can be cached on disk (``$PYNNGP_NEIGHBOR_CACHE``) under the
+reference's key and file format, so a table stored by either package loads
+in the other.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import heapq
+import hashlib
+import os
+import tempfile
+import zipfile
+from typing import NamedTuple, Optional
 
 import numpy as np
 from scipy.spatial import cKDTree
 
 __all__ = ["NeighborTable", "build_neighbor_table", "order_by_coordinate",
-           "ChildrenTable", "build_children_table", "color_moral_graph",
-           "color_site_table", "color_child_pairs"]
+           "order_maxmin", "ChildrenTable", "build_children_table",
+           "color_moral_graph", "color_site_table", "color_child_pairs"]
 
-_BLOCK_SIZE = 2048  # sites per block of the exact blocked search
+# n at or below which the max-min order takes the exact O(n^2) sweep
+MAXMIN_DENSE_MAX_SITES = 4096
 
 
 class NeighborTable(NamedTuple):
@@ -59,39 +74,269 @@ def order_by_coordinate(coords: np.ndarray, axis: int = 0) -> np.ndarray:
     return np.argsort(coords[:, axis], kind="stable")
 
 
-def _pairwise_dist(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(axis=-1)
-    return np.sqrt(np.maximum(d2, 0.0))
+def order_maxmin(coords: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Exact max-min ordering: each site is the one farthest (Euclidean)
+    from all sites ordered before it, starting from the site nearest the
+    centroid.
+
+    Up to :data:`MAXMIN_DENSE_MAX_SITES` sites the O(n^2) farthest-point
+    sweep; above it the native C++ order for d <= 3, else a lazy max-heap of
+    stale upper bounds verified in batches against the selected set, which
+    is held as a logarithmic forest of kd-trees.  The three paths give the
+    same max-min distance profile; ties may break differently.  ``seed`` is
+    unused (the algorithm is deterministic) and kept for the reference's
+    signature.
+    """
+    coords = np.asarray(coords, dtype=np.float64)
+    n = coords.shape[0]
+    if n <= MAXMIN_DENSE_MAX_SITES:
+        return _order_maxmin_dense(coords)
+    if coords.shape[1] <= 3:
+        from pynngp_tpu_torch import native
+
+        order = native.order_maxmin(coords)
+        if order is not None:
+            return order
+    return _order_maxmin_heap(coords)
+
+
+def _order_maxmin_dense(coords: np.ndarray) -> np.ndarray:
+    """O(n^2) exact farthest-point ordering (the oracle of the heap path)."""
+    n = coords.shape[0]
+    center = coords.mean(axis=0)
+    first = int(np.argmin(((coords - center) ** 2).sum(axis=1)))
+    order = np.empty(n, dtype=np.int64)
+    order[0] = first
+    mindist = ((coords - coords[first]) ** 2).sum(axis=1)
+    mindist[first] = -np.inf
+    for i in range(1, n):
+        nxt = int(np.argmax(mindist))
+        order[i] = nxt
+        d = ((coords - coords[nxt]) ** 2).sum(axis=1)
+        np.minimum(mindist, d, out=mindist)
+        mindist[nxt] = -np.inf
+    return order
+
+
+class _SelectedSet:
+    """Selected sites as a logarithmic forest of static kd-trees plus a
+    linear buffer.
+
+    Insertions append to the buffer; a full buffer becomes a kd-tree run,
+    and runs of equal size merge, so at most log2(n / cap) trees exist.  A
+    nearest-selected query is one cKDTree query a run plus a brute pass over
+    the buffer."""
+
+    def __init__(self, coords, buffer_cap=1024):
+        self.coords = coords
+        self.cap = buffer_cap
+        self.buffer: list = []
+        self.runs: list = []  # (size, idx_array, cKDTree)
+
+    def add(self, i: int) -> None:
+        self.buffer.append(i)
+        if len(self.buffer) >= self.cap:
+            idx = np.asarray(self.buffer, dtype=np.int64)
+            self.buffer.clear()
+            while self.runs and self.runs[-1][0] == idx.shape[0]:
+                _, prev, _ = self.runs.pop()
+                idx = np.concatenate([prev, idx])
+            self.runs.append((idx.shape[0], idx, cKDTree(self.coords[idx])))
+
+    def query(self, pts: np.ndarray) -> np.ndarray:
+        """Distance from each row of pts to its nearest selected site."""
+        best = np.full(pts.shape[0], np.inf)
+        for _, _, tree in self.runs:
+            # one worker: a batch is ~256 points, less than a thread's start
+            np.minimum(best, tree.query(pts)[0], out=best)
+        if self.buffer:
+            bc = self.coords[np.asarray(self.buffer, dtype=np.int64)]
+            d2 = ((pts[:, None, :] - bc[None, :, :]) ** 2).sum(axis=-1)
+            np.minimum(best, np.sqrt(d2.min(axis=1)), out=best)
+        return best
+
+
+def _order_maxmin_heap(coords: np.ndarray, batch: int = 256) -> np.ndarray:
+    """Max-min ordering by a lazy max-heap of upper bounds (any d)."""
+    n = coords.shape[0]
+    center = coords.mean(axis=0)
+    first = int(np.argmin(((coords - center) ** 2).sum(axis=1)))
+    order = np.empty(n, dtype=np.int64)
+    order[0] = first
+    selected = np.zeros(n, dtype=bool)
+    selected[first] = True
+    sel = _SelectedSet(coords)
+    sel.add(first)
+
+    # (-upper bound, site); bounds only tighten as sites are selected, so a
+    # stale entry over-estimates and is verified when it is popped
+    d0 = np.sqrt(((coords - coords[first]) ** 2).sum(axis=1))
+    heap = [(-d0[i], i) for i in range(n) if i != first]
+    heapq.heapify(heap)
+
+    count = 1
+    while count < n:
+        cand = []
+        while heap and len(cand) < batch:
+            _, i = heapq.heappop(heap)
+            if not selected[i]:
+                cand.append(i)
+        ci = np.asarray(cand, dtype=np.int64)
+        d_true = sel.query(coords[ci])  # against every selected site
+        next_ub = -heap[0][0] if heap else -np.inf
+        # Greedy within the verified batch: d_true over `live` is current
+        # (verified at the batch's start and corrected after every
+        # selection in it) and `live` is sorted descending, so its front
+        # beats every candidate of the batch; if it also beats the heap's
+        # best (stale-high) bound it is a true max-min choice.
+        live = list(np.argsort(-d_true))
+        while live:
+            pos = live.pop(0)
+            i = int(ci[pos])
+            d = d_true[pos]
+            if d < next_ub:
+                # an unverified candidate may beat it: back to the heap
+                # with the tightened bound
+                heapq.heappush(heap, (-d, i))
+                continue
+            order[count] = i
+            count += 1
+            selected[i] = True
+            sel.add(i)
+            if live:
+                lv = np.asarray(live, dtype=np.int64)
+                dd = np.sqrt(((coords[ci[lv]] - coords[i]) ** 2).sum(axis=-1))
+                upd = dd < d_true[lv]
+                if upd.any():
+                    d_true[lv[upd]] = dd[upd]
+                    live = lv[np.argsort(-d_true[lv])].tolist()
+    return order
+
+
+def _pairwise_dist(a: np.ndarray, b: np.ndarray, metric: str) -> np.ndarray:
+    if metric == "euclidean":
+        d2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(axis=-1)
+        return np.sqrt(np.maximum(d2, 0.0))
+    if metric == "dotproduct":
+        an = a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-12)
+        bn = b / np.maximum(np.linalg.norm(b, axis=-1, keepdims=True), 1e-12)
+        return np.maximum(1.0 - an @ bn.T, 0.0)
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def _cache_dir() -> Optional[str]:
+    """The table cache's directory, or None when caching is off
+    (``PYNNGP_NEIGHBOR_CACHE`` = 0, off or no; a path names the directory;
+    otherwise ``$XDG_CACHE_HOME`` or ``~/.cache``, under pynngp_tpu/neighbors,
+    the reference's directory)."""
+    flag = os.environ.get("PYNNGP_NEIGHBOR_CACHE", "1")
+    if flag in ("0", "off", "no"):
+        return None
+    if flag not in ("1", "on", "yes", ""):
+        return flag
+    root = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(root, "pynngp_tpu", "neighbors")
+
+
+def _table_cache_key(coords: np.ndarray, m: int, ordering: str, metric: str,
+                     seed: int) -> str:
+    """The reference's key ("v1"): a table stored by either package loads in
+    the other."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(coords).tobytes())
+    h.update(f"|{coords.shape}|{m}|{ordering}|{metric}|{seed}|v1".encode())
+    return h.hexdigest()[:24]
+
+
+def _table_cache_load(path: str) -> Optional[NeighborTable]:
+    """The table stored at ``path``, or None for a file that is not one."""
+    try:
+        with np.load(path) as z:
+            return NeighborTable(order=z["order"], inverse_order=z["inverse_order"],
+                                 nn_idx=z["nn_idx"], nn_mask=z["nn_mask"])
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None
+
+
+def _table_cache_store(path: str, table: NeighborTable) -> None:
+    """Store ``table`` at ``path`` under a temporary name first, so that a
+    reader never sees half a file.  The cache is best effort: a directory
+    that cannot be written leaves the build's result as it is."""
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+        os.close(fd)
+        np.savez(tmp, order=table.order, inverse_order=table.inverse_order,
+                 nn_idx=table.nn_idx, nn_mask=table.nn_mask)
+        os.replace(tmp + ".npz", path)  # np.savez appends .npz to the name
+        os.unlink(tmp)
+    except OSError:
+        pass
 
 
 def build_neighbor_table(
     coords: np.ndarray,
     m: int,
     ordering: str = "coordinate",
+    metric: str = "euclidean",
+    block_size: int = 2048,
+    seed: int = 0,
     use_native: str = "auto",
+    cache: bool = True,
 ) -> NeighborTable:
-    """Build the (n, m) nearest-preceding-neighbor table (Euclidean).
+    """Build the (n, m) nearest-preceding-neighbor table.
 
     Args:
       coords: (n, d) site coordinates (original order).
       m: number of neighbors (conditioning-set size); capped at n - 1.
-      ordering: only 'coordinate' is ported.
-      use_native: 'auto' uses the C++ kd-tree when g++ can build it (d <= 8);
-        'never' forces the scipy path.
+      ordering: "coordinate", "maxmin" or "none".
+      metric: "euclidean" (kd-tree) or "dotproduct" (blocked brute force:
+        kd-trees do not apply to the cosine dissimilarity).
+      block_size: sites a block of the exact blocked search.
+      seed: part of the cache key (the orderings are deterministic).
+      use_native: "auto" uses the C++ kd-tree when g++ can build it
+        (Euclidean, d <= 8); "never" forces the numpy/scipy path.
+      cache: keep the table on disk, keyed by (coordinates, m, ordering,
+        metric, seed), under ``$PYNNGP_NEIGHBOR_CACHE`` (0 / off / no: no
+        cache; a path: that directory; else ``~/.cache/pynngp_tpu``).
     """
-    if ordering != "coordinate":
-        raise NotImplementedError(
-            f"ordering {ordering!r} is not ported yet (only 'coordinate')"
-        )
     coords = np.asarray(coords, dtype=np.float64)
+    cache_path = None
+    if cache:
+        cdir = _cache_dir()
+        if cdir is not None:
+            key = _table_cache_key(coords, m, ordering, metric, seed)
+            cache_path = os.path.join(cdir, f"nn-{key}.npz")
+            if os.path.exists(cache_path):
+                hit = _table_cache_load(cache_path)
+                if hit is not None and hit.nn_idx.shape == (
+                        coords.shape[0], int(min(m, coords.shape[0] - 1))):
+                    return hit
+    table = _build_neighbor_table_impl(coords, m, ordering, metric, block_size,
+                                       seed, use_native)
+    if cache_path is not None:
+        _table_cache_store(cache_path, table)
+    return table
+
+
+def _build_neighbor_table_impl(coords, m, ordering, metric, block_size, seed,
+                               use_native) -> NeighborTable:
     n = coords.shape[0]
     m = int(min(m, n - 1))
-    order = order_by_coordinate(coords)
+    if ordering == "coordinate":
+        order = order_by_coordinate(coords)
+    elif ordering == "maxmin":
+        order = order_maxmin(coords, seed=seed)
+    elif ordering == "none":
+        order = np.arange(n, dtype=np.int64)
+    else:
+        raise ValueError(f"unknown ordering {ordering!r}")
     pts = coords[order]
     inverse = np.empty(n, dtype=np.int64)
     inverse[order] = np.arange(n)
 
-    if use_native == "auto" and coords.shape[1] <= 8:
+    if use_native == "auto" and metric == "euclidean" and coords.shape[1] <= 8:
         from pynngp_tpu_torch import native
 
         if native.native_available():
@@ -100,21 +345,27 @@ def build_neighbor_table(
 
     nn_idx = np.zeros((n, m), dtype=np.int32)
     nn_mask = np.zeros((n, m), dtype=bool)
-    for i0 in range(0, n, _BLOCK_SIZE):
-        i1 = min(i0 + _BLOCK_SIZE, n)
+    use_tree = metric == "euclidean"
+    for i0 in range(0, n, block_size):
+        i1 = min(i0 + block_size, n)
         blk = pts[i0:i1]
-        # candidates from the preceding region [0, i0): m nearest via tree
+        # candidates from the preceding region [0, i0): its m nearest
         if i0 > 0:
             k = min(m, i0)
-            tdist, tidx = cKDTree(pts[:i0]).query(blk, k=k, workers=-1)
-            if k == 1:
-                tdist = tdist[:, None]
-                tidx = tidx[:, None]
+            if use_tree:
+                tdist, tidx = cKDTree(pts[:i0]).query(blk, k=k, workers=-1)
+                if k == 1:
+                    tdist = tdist[:, None]
+                    tidx = tidx[:, None]
+            else:
+                dmat = _pairwise_dist(blk, pts[:i0], metric)
+                tidx = np.argpartition(dmat, kth=k - 1, axis=1)[:, :k]
+                tdist = np.take_along_axis(dmat, tidx, axis=1)
         else:
             tdist = np.full((i1 - i0, 0), np.inf)
             tidx = np.zeros((i1 - i0, 0), dtype=np.int64)
         # candidates from in-block preceding sites [i0, i): all of them
-        bdist = _pairwise_dist(blk, blk)
+        bdist = _pairwise_dist(blk, blk, metric)
         rows = np.arange(i1 - i0)
         bdist = np.where(rows[None, :] < rows[:, None], bdist, np.inf)
         bidx = np.broadcast_to(np.arange(i0, i1)[None, :], bdist.shape)

@@ -70,8 +70,8 @@ def choose_layout(lane_layout: str, n: int, euclidean: bool = True) -> str:
     :data:`COORDS_LAYOUT_MIN_SITES` sites and dist below; coords needs the
     Euclidean metric and falls back to dist without it, as the reference's
     ``_coords_layout`` condition does (``pynngp_tpu/models/response.py:135-143``).
-    ``euclidean`` is always True until a non-Euclidean metric is ported
-    (``distance.get_distance`` knows only Euclidean and raises otherwise)."""
+    ``euclidean`` is False for the dot-product distance, whose tables then
+    hold its dissimilarities in [0, 2] on the dist layout."""
     if lane_layout not in ("auto",) + LAYOUTS:
         raise ValueError(f"lane_layout must be 'auto', 'dist' or 'coords', got "
                          f"{lane_layout!r}")

@@ -87,7 +87,8 @@ def make_vecchia_data(
     coords = np.asarray(coords)
     dist_fn = get_distance(distance)
     if table is None:
-        table = build_neighbor_table(coords, m, ordering=ordering)
+        table = build_neighbor_table(coords, m, ordering=ordering,
+                                     metric=dist_fn.name)
     pts_host = coords[table.order]
     pts = torch.as_tensor(pts_host, dtype=dtype, device=device)
     nn_idx = torch.as_tensor(table.nn_idx, dtype=torch.int64, device=device)

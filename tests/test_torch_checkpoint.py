@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from pynngp_tpu import neighbors as jneighbors
 from pynngp_tpu.config import NNGPConfig as JaxNNGPConfig
 from pynngp_tpu.utils.metrics import chain_health as jax_chain_health
 from pynngp_tpu_torch.config import NNGPConfig
@@ -303,9 +304,19 @@ def test_build_model_gives_the_configured_model(model, field):
     assert type(ref).__name__ == type(built).__name__
 
 
-@pytest.mark.parametrize("change", [dict(mesh_chains=2), dict(mesh_sites=4),
-                                    dict(ordering="maxmin"), dict(ordering="none")])
-def test_build_model_raises_on_what_is_not_ported(change, field):
+@pytest.mark.parametrize("change,exc", [
+    (dict(mesh_chains=2), NotImplementedError), (dict(mesh_sites=4), NotImplementedError),
+    # the max-min and natural orderings are ported: the model builds on them
+    (dict(ordering="maxmin"), None), (dict(ordering="none"), None),
+], ids=["change0", "change1", "change2", "change3"])
+def test_build_model_raises_on_what_is_not_ported(change, exc, field):
     coords, _, y = field
-    with pytest.raises(NotImplementedError):
+    if exc is None:
+        built = NNGPConfig(**change).build_model(coords, y, dtype=torch.float64,
+                                                 device="cpu")
+        ref = jneighbors.build_neighbor_table(coords, built.tables.m, cache=False,
+                                              **change)
+        np.testing.assert_array_equal(built.table.order, ref.order)
+        return
+    with pytest.raises(exc):
         NNGPConfig(**change).build_model(coords, y, dtype=torch.float64, device="cpu")

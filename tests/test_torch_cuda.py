@@ -1049,3 +1049,115 @@ def test_a_card_generator_state_round_trip(card, tmp_path):
     (state,) = load_state(str(tmp_path / "g"), (other.get_state(),))
     other.set_state(state)
     assert torch.equal(torch.randn(1000, generator=other, device=card), want)
+
+
+# ---- the dot-product distance, prediction and the facade on the card ------
+
+
+def _sphere(n, seed):
+    """n unit vectors in R^3 (sites on a globe) and a smooth field of them
+    plus N(0, 0.09)."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.standard_normal((n, 3))
+    xyz /= np.linalg.norm(xyz, axis=1, keepdims=True)
+    y = np.sin(3.0 * xyz[:, 0]) * np.cos(2.0 * xyz[:, 2]) + 0.3 * rng.standard_normal(n)
+    return xyz, y
+
+
+@pytest.mark.parametrize("kern", [kernels.Exponential(), kernels.Matern(nu=0.5)],
+                         ids=lambda k: repr(k))
+@pytest.mark.parametrize("m", [7, 15])
+def test_kernels_on_dotproduct_tables_match_plain(card, kern, m):
+    """Kernels 1-3 on dist tables of the cosine dissimilarity (values in
+    [0, 2], neighbors at ~1e-3 on 1,500 sites of the sphere), phi scaled to
+    them, at the limits of the Euclidean tests above.  On unit vectors the
+    dissimilarity is half the squared chord, so the exponential kernel of it
+    is the Gaussian kernel of the chord, positive definite; the smoother
+    families of it are not (their float32 factors fail here)."""
+    coords, y_host = _sphere(1500, seed=3)
+    data, tab = make_vecchia_data(coords, m, distance="dotproduct")
+    tab32 = make_site_tables(data, dtype=torch.float32, device=card, layout="dist")
+    tab64 = tab32.to(torch.float64)
+    assert float(tab64.tab_a.max()) <= 2.0
+    y = torch.as_tensor(y_host[tab.order], dtype=torch.float32, device=card)
+    phi = torch.tensor([0.01, 0.03, 0.05], device=card)
+    alpha = torch.tensor([0.05, 0.15, 0.3], device=card)
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6),
+                               tab32.n, torch.float64, card)
+    n = tab32.n
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y)
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y.double())
+    torch.testing.assert_close(ld.double(), ld_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=3e-4, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=2e-3, atol=1e-4)
+    got = dops.value_and_grad_sums(kern, tab32, phi, alpha, y).double()
+    want = dops.grad_reference(kern, tab64, params, y.double())
+    torch.testing.assert_close(got[:2], want[:2], rtol=5e-4, atol=0.0)
+    torch.testing.assert_close(got[2:], want[2:], rtol=2e-4, atol=0.0)
+    b, f3 = bops.bf_planes(kern, tab32, phi, alpha)
+    b_p, f3_p = bops.bf_reference(kern, tab64, params)
+    torch.testing.assert_close(b[:, :, :n].double(), b_p[:, :, :n], rtol=0.0, atol=3e-5)
+    torch.testing.assert_close(f3[:, :n].double(), f3_p[:, :n], rtol=3e-5, atol=0.0)
+
+
+def test_prediction_on_the_card_matches_the_cpu(card):
+    """predict_draws on a float32 table on the card against the float64 run
+    on the CPU, with the samples drawn on the card.  Response model (sqexp,
+    relative nugget >= 0.04, so C_N's condition number is below ~(m +
+    alpha) / alpha = 400): mean within 2e-3, var within rtol 1e-3 (400 x
+    float32's 6e-8 x m, times a margin).  Latent model (exponential, no
+    nugget, 1e-6 jitter): mean within 1e-2 and var within rtol 1e-2, the
+    conditioning of the bare correlation at neighbor distances ~phi / 10."""
+    from pynngp_tpu_torch.predict import build_prediction_table, predict_draws
+
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(size=(2000, 2))
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2000)
+    new = rng.uniform(size=(300, 2))
+    draws = {"sigma2": rng.uniform(0.8, 1.2, 20), "tau2": rng.uniform(0.05, 0.15, 20),
+             "phi": rng.uniform(0.1, 0.3, 20)}
+    t32 = build_prediction_table(coords, new, 15, device=card)
+    t64 = build_prediction_table(coords, new, 15, dtype=torch.float64, device="cpu")
+    assert t32.nn_cross.is_cuda and torch.equal(t32.nn_idx.cpu(), t64.nn_idx)
+    w = rng.standard_normal((20, 2000))
+    for kern, kw, tol in ((kernels.SqExp(), {"values": y}, (2e-3, 1e-3)),
+                          (kernels.Exponential(), {"values": None, "values_draws": w},
+                           (1e-2, 1e-2))):
+        got = predict_draws(kern, t32, draws=draws,
+                            generator=torch.Generator(device=card).manual_seed(0), **kw)
+        want = predict_draws(kern, t64, draws=draws, **kw)
+        assert all(t.is_cuda and t.dtype == torch.float32 for t in got.values())
+        assert torch.isfinite(got["samples"]).all()
+        torch.testing.assert_close(got["mean"].cpu().double(), want["mean"],
+                                   rtol=0.0, atol=tol[0])
+        torch.testing.assert_close(got["var"].cpu().double(), want["var"],
+                                   rtol=tol[1], atol=0.0)
+
+
+def test_facade_and_the_new_options_on_the_card(card):
+    """SeqNNGP's default latent model (kernel 3) and the response model on
+    the max-min order (kernel 1) and on the dot-product distance (kernel 1
+    on its dist tables): sample, summarize and predict on the card, no
+    plain version."""
+    from pynngp_tpu_torch import SeqNNGP
+
+    counts = [fops.COUNT, bops.COUNT]
+    before = [(c.launches, c.plain) for c in counts]
+    rng = np.random.default_rng(1)
+    coords = rng.uniform(size=(2200, 2))
+    y = np.sin(5 * coords[:, 0]) + 0.3 * rng.standard_normal(2200)
+    xyz, y_sphere = _sphere(2200, seed=2)
+    for gp, new in (
+            (SeqNNGP(y[:2000], coords[:2000], device=card), coords[2000:]),
+            (SeqNNGP(y[:2000], coords[:2000], model="response", cov_model="sqexp",
+                     ordering="maxmin", device=card), coords[2000:]),
+            (SeqNNGP(y_sphere[:2000], xyz[:2000], model="response",
+                     distance="dotproduct", device=card), xyz[2000:])):
+        gp.sample(20, n_burn=20, n_chains=2, seed=0)
+        assert np.isfinite(gp.summary()["tau2"]["mean"])
+        out = gp.predict(new, generator=torch.Generator(device=card).manual_seed(0))
+        assert out["mean"].shape == (40, 200) and out["samples"].is_cuda
+        assert torch.isfinite(out["samples"]).all()
+    for c, (launches, plain) in zip(counts, before):
+        assert c.launches > launches and c.plain == plain, c.name

@@ -35,7 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("m", [7, 15])
 def test_neighbor_table_matches_reference(use_native, m):
     coords = np.random.default_rng(5).uniform(size=(3000, 2))
-    got = neighbors.build_neighbor_table(coords, m, use_native=use_native)
+    # no cache on either side: each call builds its table on its own path
+    got = neighbors.build_neighbor_table(coords, m, use_native=use_native,
+                                         cache=False)
     want = jnbr.build_neighbor_table(coords, m, use_native=use_native,
                                      cache=False)
     np.testing.assert_array_equal(got.order, want.order)
@@ -196,11 +198,12 @@ _WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
     # heterogeneous noise is ported; without its weights it raises TypeError,
     # as the reference's get_noise does
     ({"noise": "heterogeneous"}, TypeError),
-    ({"distance": "dotproduct"}, NotImplementedError),
-    # the general-nu Matern and the coords layout with per-site noise are
-    # ported: they build and give finite values (exc None)
+    # the general-nu Matern, the dot-product distance, the max-min ordering
+    # and the coords layout with per-site noise are ported: they build and
+    # give finite values (exc None)
+    ({"distance": "dotproduct"}, None),
     ({"kernel": "matern", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
-    ({"ordering": "maxmin"}, NotImplementedError),
+    ({"ordering": "maxmin"}, None),
     ({"lane_layout": "coords", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
     ({"device": "mps"}, ValueError),
 ], ids=["x", "mesh", "hetero", "dotproduct", "general_nu", "maxmin", "coords",
@@ -263,14 +266,24 @@ def test_cuda_device_without_card_raises():
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port (nor chip_smoke.py) imports jax, optax or the
-    reference package."""
+    """No module of the port (nor chip_smoke.py, nor the port's examples)
+    imports jax, optax or the reference package; the port's modules import
+    no scikit-learn either (the image example reads its bundled photograph
+    where it is installed)."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths += glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
     for dirpath, _, files in os.walk(os.path.join(ROOT, "pynngp_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    names = {os.path.relpath(p, ROOT) for p in paths}
+    assert {"pynngp_tpu_torch/predict.py", "pynngp_tpu_torch/models/seq.py",
+            "pynngp_tpu_torch/smoke.py", "examples/torch_spatial_regression.py",
+            "examples/torch_image_kriging.py"} <= names
     for path in paths:
         with open(path) as fh:
             src = fh.read()
-        for bad in ("import jax", "from jax", "import optax", "from pynngp_tpu.",
-                    "import pynngp_tpu\n", "from pynngp_tpu import"):
+        bad_imports = ["import jax", "from jax", "import optax", "from pynngp_tpu.",
+                       "import pynngp_tpu\n", "from pynngp_tpu import"]
+        if not os.path.relpath(path, ROOT).startswith("examples"):
+            bad_imports += ["import sklearn", "from sklearn"]
+        for bad in bad_imports:
             assert bad not in src, (path, bad)

@@ -286,11 +286,12 @@ _WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
     # heterogeneous noise is ported; without its weights it raises TypeError,
     # as the reference's get_noise does
     ({"noise": "heterogeneous"}, TypeError),
-    ({"distance": "dotproduct"}, NotImplementedError),
-    # the general-nu Matern with per-site noise is ported: it builds and
-    # gives finite values (exc None)
+    # the dot-product distance, the general-nu Matern with per-site noise
+    # and the max-min ordering are ported: they build and give finite
+    # values (exc None)
+    ({"distance": "dotproduct"}, None),
     ({"kernel": "matern", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
-    ({"ordering": "maxmin"}, NotImplementedError),
+    ({"ordering": "maxmin"}, None),
     ({"w_update": "blocked"}, ValueError),
     ({"x": np.ones(60)}, ValueError),
     ({"device": "mps"}, ValueError),

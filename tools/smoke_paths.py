@@ -1,12 +1,16 @@
 """Run some of ``chip_smoke.py``'s paths alone on the card, with their gates:
 
-    python3 tools/smoke_paths.py [config4] [advi] [resume]
+    python3 tools/smoke_paths.py [config4] [advi] [resume] [prediction]
+                                 [facade] [orderings] [dotproduct]
 
-(all three when none is named): path 20, ``bench.py``'s config 4 with
+(all seven when none is named): path 20, ``bench.py``'s config 4 with
 tempered SMC; path 21, ADVI on the main path's model (its MWG means are not
-run here); path 22, interrupt and resume of MWG, NUTS and the latent model.
-A quicker check of those paths than the whole script; it builds the
-kernels first, and fails as the script does."""
+run here); path 22, interrupt and resume of MWG, NUTS and the latent model;
+path 23, prediction from the main path's draws (the main path runs first);
+path 24, the facade's defaults; path 25, the max-min and natural orderings;
+path 26, the dot-product distance and the neighbor-table cache.  A quicker
+check of those paths than the whole script; it builds the kernels first,
+and fails as the script does."""
 
 import os
 import subprocess
@@ -20,7 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from pynngp_tpu_torch.ops import _build  # noqa: E402
 
-PATHS = ("config4", "advi", "resume")
+PATHS = ("config4", "advi", "resume", "prediction", "facade", "orderings",
+         "dotproduct")
 
 
 def main(names) -> int:
@@ -31,6 +36,8 @@ def main(names) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["PYNNGP_NEIGHBOR_CACHE"] = "0"  # cold set-ups, as chip_smoke.py
+    os.makedirs(os.path.dirname(_build.BUILD_DIR), exist_ok=True)
     dev = torch.device("cuda", 0)
     print(f"build: {_build.build_info()['seconds']:.1f} s", flush=True)
     for name in names or PATHS:
@@ -40,9 +47,17 @@ def main(names) -> int:
         elif name == "advi":
             cs.advi_path(dev, {})
         elif name == "resume":
-            os.makedirs(os.path.dirname(_build.BUILD_DIR), exist_ok=True)
             with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
                 cs.resume_path(dev, tmp)
+        elif name == "prediction":
+            cs.prediction_path(dev, cs.main_path(dev)[1])
+        elif name == "facade":
+            cs.facade_path(dev)
+        elif name == "orderings":
+            cs.orderings_path(dev)
+        elif name == "dotproduct":
+            with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
+                cs.dotproduct_path(dev, tmp)
         else:
             raise SystemExit(f"unknown path {name!r}; choose from {PATHS}")
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
