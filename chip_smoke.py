@@ -68,6 +68,11 @@ facade's defaults end to end (the latent model on config 2's field, sample,
 summary, predict), the max-min and natural orderings at n=100,000, and the
 dot-product distance on 20,000 sites of the sphere (kernels 1-3 on its
 dissimilarity tables, MWG, prediction, and the neighbor-table cache).
+Then slice 11's three: the shard offset of every kernel (path 27: five
+cases, each on meshes (1, 2), (1, 4) and (2, 2) of cuda:0, per-site outputs
+bit for bit against the unsharded launch), config 5 on a (1, 4) mesh of
+cuda:0 through both models' ``mesh=`` (path 28), and two processes on gloo
+sharing the card, the chains split across them (path 29).
 
 Each path starts with every launch count at 0.  Any failure exits non-zero.
 Without a CUDA device it exits 1 and prints no result.  The line before the
@@ -80,6 +85,7 @@ import copy
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -105,9 +111,11 @@ from pynngp_tpu_torch.ops import site_tables
 from pynngp_tpu_torch.ops.site_tables import (
     LAYOUTS,
     make_site_tables,
+    shard_site_tables,
     unpack_distances,
     with_children,
 )
+from pynngp_tpu_torch.parallel import make_mesh
 from pynngp_tpu_torch.predict import build_prediction_table, predict_draws
 from pynngp_tpu_torch.samplers import smc, vi
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
@@ -176,6 +184,9 @@ KERNEL_ROWS.update({
                 + ("_hetero" if name.endswith("_hetero") else "")])
     for name, (_, tpu, _) in list(KERNEL_ROWS.items())
 })
+# every row's launches in calls over several cells of a mesh (slice 11),
+# counted apart and added to the row's launches
+SHARDED = {name: _COUNTS[name + "_sharded"] for name in KERNEL_ROWS}
 N_NU, M_NU = 25_000, 10  # bench.py's config 3
 # Published peaks of one H100 SXM: device memory rate, float32 rate outside
 # the tensor cores, and the special-function rate that follows from it (an SM
@@ -302,7 +313,7 @@ class Case:
     None for homogeneous noise."""
 
     def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None,
-                 layout="dist", distance="euclidean"):
+                 layout="dist", distance="euclidean", shards=1):
         coords, y = field if field is not None else bench_field(n, seed)
         data, table = make_vecchia_data(coords, m, dtype=torch.float64,
                                         distance=distance,
@@ -312,7 +323,7 @@ class Case:
         self.v32 = self.v64 = None
         self.tab32 = with_children(make_site_tables(
             data, dtype=torch.float32, device=dev, layout=layout,
-            coords_host=np.asarray(coords)[table.order]))
+            coords_host=np.asarray(coords)[table.order], shards=shards))
         self.tab64 = self.tab32.to(torch.float64)
         self.y32 = torch.as_tensor(y[table.order], dtype=torch.float32, device=dev)
         self.y64 = self.y32.double()
@@ -1047,16 +1058,25 @@ def _chain_stats(draws):
 
 
 def _reset_counts() -> None:
-    for _, _, count in KERNEL_ROWS.values():
+    for name, (_, _, count) in KERNEL_ROWS.items():
         count.reset()
+        SHARDED[name].reset()
 
 
 def _read_counts(path: str, expected: tuple) -> dict:
-    """Launch counts since the last reset; fails unless every kernel of
-    ``expected`` was launched and no plain version was called."""
-    launches = {name: row[2].launches for name, row in KERNEL_ROWS.items()}
-    plain = {name: row[2].plain for name, row in KERNEL_ROWS.items()}
-    _require(all(launches[name] > 0 for name in expected),
+    """Launch counts since the last reset, each row's sharded launches (a
+    call over several mesh cells) included and also listed under
+    ``<row>_sharded`` where there were any; fails unless every kernel of
+    ``expected`` (row names, or ``<row>_sharded``) was launched and no plain
+    version was called."""
+    sharded = {name + "_sharded": SHARDED[name].launches for name in KERNEL_ROWS
+               if SHARDED[name].launches}
+    launches = {name: row[2].launches + SHARDED[name].launches
+                for name, row in KERNEL_ROWS.items()}
+    plain = {name: row[2].plain + SHARDED[name].plain
+             for name, row in KERNEL_ROWS.items()}
+    launches.update(sharded)
+    _require(all(launches.get(name, 0) > 0 for name in expected),
              f"a kernel was not launched on the {path} path: {launches}")
     _require(all(v == 0 for v in plain.values()),
              f"the {path} path reached a plain version: {plain}")
@@ -3296,6 +3316,396 @@ def dotproduct_path(dev, tmp: str) -> dict:
     return res
 
 
+# ---- the shard offset, meshes on one card, processes (slice 11) ----------
+
+
+def _sum_launches(*counts: dict) -> dict:
+    """Launch counts of several phases of one path, added name by name."""
+    out = {}
+    for c in counts:
+        for name, launches in c.items():
+            out[name] = out.get(name, 0) + launches
+    return out
+
+
+# the meshes of path 27, all of them cuda:0 repeated (one card runs every
+# shard in turn); tables built for 4 site shards cut into 2 as well
+OFFSET_MESHES = ((1, 2), (1, 4), (2, 2))
+# Bound on a sum of the sharded call against the unsharded launch, in units
+# of 2^-24 (float32's unit roundoff) of the sum of |per-site terms|.  The
+# per-site terms of the two are the same bits (gated), and both sum them in
+# float32 within a block, then the blocks' partials in float64, then round
+# to float32 once.  A term passes through at most 12 float32 additions on
+# its way to a partial (at most 4 sites a thread on the tile kernels, 2 on
+# the large-m instance at these shapes, then a 5-level warp tree and, on the
+# large-m instance, the block's 4 warps), so each sum is within
+# 12 u sum|terms| + u |sum| of the exact one: the two within twice that.
+SUM_ULPS = 24
+U32 = 2.0**-24
+
+
+def _offset_launches(case: Case, tables) -> dict:
+    """Every kernel of the case on ``tables`` (unsharded or sharded): kernel
+    1 and kernel 2 with the per-chain y, kernel 2's EMIT_Y instances and
+    kernel 3.  Per-site outputs and the float64 sums."""
+    k, y, nu, v = case.kernel, case.y32_chains, case.nu, case.v32
+    ld, q, f, r = fwd_ops.suffstats(k, tables, case.phi, case.alpha, y, case.jitter,
+                                    nu, v)
+    sums = diff_ops.value_and_grad_sums(k, tables, case.phi, case.alpha, y,
+                                        case.jitter, nu=nu, noise_v=v)
+    sums_y, b, rof = diff_ops.value_and_grad_sums(k, tables, case.phi, case.alpha, y,
+                                                  case.jitter, emit_y=True, nu=nu,
+                                                  noise_v=v)
+    b3, f3 = bf_ops.bf_planes(k, tables, case.phi, case.alpha, case.jitter, nu, v)
+    torch.cuda.synchronize()
+    return {"sums1": torch.stack([ld, q]).double(), "f": f, "r": r,
+            "sums2": sums.double(), "sums2_y": sums_y.double(), "b": b, "rof": rof,
+            "bf_b": b3, "bf_f": f3}
+
+
+def _abs_term_sums(case: Case) -> dict:
+    """sum over the valid sites of |per-site term| of each sum, in float64:
+    kernel 2's from its plain version on the card (chunked over chains),
+    kernel 1's (the same two as kernel 2's first) from it too."""
+    parts = []
+    for sl in case.chunks():
+        _, _, pr = case.params64(sl)
+        terms, _, _ = diff_ops.grad_terms(case.kernel, case.tab64, pr,
+                                          case.y32_chains[sl].double(), case.v64)
+        parts.append(terms.abs().sum(-1))
+    t2 = torch.cat(parts, dim=1)
+    return {"sums1": t2[:2], "sums2": t2, "sums2_y": t2}
+
+
+def shard_offset_case(case: Case, label: str, times: bool = False) -> dict:
+    """Path 27 on one case: every instance's per-site outputs on meshes
+    OFFSET_MESHES of cuda:0 against the unsharded launch on the same tables,
+    bit for bit, and the sums within SUM_ULPS; the last shard holds padded
+    sites past n."""
+    dev = case.y32.device
+    _reset_counts()
+    want = _offset_launches(case, case.tab32)
+    terms = _abs_term_sums(case)
+    res = {"n": case.n, "m": case.m, "layout": case.layout,
+           "hetero": case.v32 is not None, "n_pad": case.tab32.n_pad}
+    per_site = ("f", "r", "b", "rof", "bf_b", "bf_f")
+    for shape in OFFSET_MESHES:
+        mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        sharded = shard_site_tables(case.tab32, mesh)
+        last = sharded.cells[0][-1]
+        _require(last.off + last.n_pad > case.n >= last.off,
+                 f"the last shard holds no padded site past n [{label} {shape}]")
+        got = _offset_launches(case, sharded)
+        # the same bits (NaN included), compared as integers
+        same = {key: bool(torch.equal(got[key].view(torch.int32),
+                                      want[key].view(torch.int32))) for key in per_site}
+        worst = 0.0
+        for key in ("sums1", "sums2", "sums2_y"):
+            bound = (SUM_ULPS * U32 * terms[key]
+                     + U32 * (got[key].abs() + want[key].abs()))
+            worst = max(worst, float(((got[key] - want[key]).abs() / bound).max()))
+        key = f"mesh_{shape[0]}x{shape[1]}"
+        res[key] = {"bitwise": same, "sums_over_bound": worst,
+                    "sums_max_abs_diff": max(float((got[k] - want[k]).abs().max())
+                                             for k in ("sums1", "sums2", "sums2_y")),
+                    "shard_sites": last.n_pad, "last_shard_padded": last.reach - case.n}
+        _require(all(same.values()),
+                 f"sharded per-site outputs differ from the unsharded launch "
+                 f"[{label} {shape}]: {same}")
+        _require(worst <= 1.0, f"sharded sums beyond {SUM_ULPS} ulps of sum|terms| "
+                 f"[{label} {shape}]: {worst}")
+        if times:  # one call of each kernel, unsharded and on this mesh
+            k, y = case.kernel, case.y32_chains
+            for name, tab in (("unsharded", case.tab32), (key, sharded)):
+                res.setdefault("ms", {})[name] = {
+                    "suffstats": _time_ms(lambda: fwd_ops.suffstats(
+                        k, tab, case.phi, case.alpha, y, case.jitter), 10, 50),
+                    "grad": _time_ms(lambda: diff_ops.value_and_grad_sums(
+                        k, tab, case.phi, case.alpha, y, case.jitter), 10, 50),
+                    "grad_y": _time_ms(lambda: diff_ops.value_and_grad_sums(
+                        k, tab, case.phi, case.alpha, y, case.jitter, emit_y=True),
+                        10, 50),
+                    "bf": _time_ms(lambda: bf_ops.bf_planes(
+                        k, tab, case.phi, case.alpha, case.jitter), 10, 50)}
+        del sharded, got
+    res["launches"] = _read_counts(f"shard offset {label}", ())
+    _require(any(name.endswith("_sharded") for name in res["launches"]),
+             f"no sharded launch was counted [{label}]")
+    print(f"shard offset [{label}]: " + json.dumps(
+        {**res, "launches": {k: v for k, v in res["launches"].items() if v}}), flush=True)
+    return res
+
+
+def shard_offset_path(dev, field3) -> dict:
+    """Path 27: the shard offset of all three kernels and the large-m body
+    on one card, on meshes (1, 2), (1, 4) and (2, 2) of cuda:0: the main
+    case (n=100,000, m=15, sqexp, 16 chains), config 3's general-nu case
+    (n=25,000, m=10, sampled nu), the coords layout at the main case's
+    shapes, the main case with noise weights, and m=40 (n=10,000, the
+    large-m instances).  Tables built for 4 site shards."""
+    t0 = time.perf_counter()
+    out = {}
+    main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, shards=4)
+    out["main"] = shard_offset_case(main, "main", times=True)
+    out["hetero"] = shard_offset_case(main.with_noise(noise_weights(N_MAIN)), "hetero")
+    del main
+    out["coords"] = shard_offset_case(
+        Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, layout="coords",
+             shards=4), "coords")
+    out["general_nu"] = shard_offset_case(
+        Case(N_NU, M_NU, Matern(), CHAINS, seed=5, dev=dev, field=field3,
+             nu=nu_spread(CHAINS), shards=4), "general nu")
+    out["m40"] = shard_offset_case(
+        Case(N_LARGE, 40, SqExp(), CHAINS, seed=0, dev=dev, shards=4), "m40")
+    torch.cuda.empty_cache()
+    out["launches"] = _sum_launches(*(case["launches"] for case in out.values()))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"path 27: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def _loglik_rate(model, u, warm: int = 5) -> tuple:
+    """(log-likelihoods (k,), evaluations a second) of ``model`` at the k
+    points u, one point a call (kernel 1, no gradient), after ``warm``
+    calls."""
+    with torch.no_grad():
+        for i in range(warm):
+            model.full_loglik(u[i:i + 1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.cat([model.full_loglik(u[i:i + 1]) for i in range(u.shape[0])])
+        torch.cuda.synchronize()
+    return out.double(), u.shape[0] / (time.perf_counter() - t0)
+
+
+# Path 28's limits on the mesh model against the unsharded one (float32 on
+# the card): the log-likelihood and the value with fixed effects rtol 1e-5,
+# as path 27 bounds a sum by 24 ulps of the sum of |terms| and here those
+# are within a few times |log-likelihood|; the gradient 1e-4 of the largest
+# entry (its phi and alpha entries are such sums with cancellation, its beta
+# entries the same gather of the same planes); one latent step's w 1e-3 of
+# max |w| and its scalars rtol 1e-3 (the sharded sweep sums a site's child
+# terms in another order, over ~20-40 colour passes).
+MESH_LL_RTOL, MESH_GRAD_TOL, MESH_STEP_TOL = 1e-5, 1e-4, 1e-3
+
+
+def config5_mesh_path(dev) -> dict:
+    """Path 28: config 5 (n=500,000, m=20, sqexp, the coords layout) on a
+    (1, 4) mesh of cuda:0 against the unsharded model: 50 log-likelihoods
+    and their rate (the ratio is the cost of the partitioning on one card,
+    printed, not gated), a cut MWG run (16 chains, 150 + 150 steps from near
+    the generator's values; tau2 within 2x of 0.09), the value and gradient
+    with x @ [1, -2] at 4 points, and the latent model (exponential, the
+    coords layout as config5_latent_path builds it): one step against the
+    unsharded step from the same generator state, then a cut run (8 chains,
+    20 + 20 steps)."""
+    t_all = time.perf_counter()
+    coords, y = bench_field(N_C5, seed=0)
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    res = {"mesh": mesh.shape}
+    one = ResponseNNGP(coords, y, kernel="sqexp", m=M_C5, device=dev, lane_layout="coords")
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_C5, device=dev,
+                         lane_layout="coords", mesh=mesh)
+    res["setup_s"] = time.perf_counter() - t0
+    k = 50
+    u = torch.zeros((k, 3), dtype=torch.float32, device=dev)
+    u[:, 1] = one._t_phi.inverse(torch.linspace(0.04, 0.1, k, device=dev))
+    u[:, 2] = math.log(TAU2_TRUE)
+    ll_one, rate_one = _loglik_rate(one, u)
+    ll_mesh, rate_mesh = _loglik_rate(model, u)
+    ll_rel = float(((ll_mesh - ll_one).abs() / ll_one.abs()).max())
+    res.update(loglik_max_rel_diff=ll_rel, evals_per_sec_unsharded=rate_one,
+               evals_per_sec_mesh=rate_mesh, partition_overhead=rate_one / rate_mesh)
+    _require(ll_rel <= MESH_LL_RTOL, f"mesh log-likelihoods differ by {ll_rel}")
+    t0 = time.perf_counter()
+    init = {"sigma2": 1.0, "phi": 0.07, "alpha": TAU2_TRUE}
+    draws = model.sample(150, n_burn=150, n_chains=CHAINS, seed=3, init=init)
+    res["mwg_run_s"] = time.perf_counter() - t0
+    res["mwg_posterior_mean"] = {key: float(np.mean(draws[key]))
+                                 for key in ("sigma2", "phi", "tau2")}
+    res["mwg_rhat_max"] = _chain_stats(draws)[1]
+    res["launches"] = _read_counts("config 5 mesh", ("vecchia_suffstats_coords_sharded",))
+    _require(all(np.isfinite(v).all() for v in draws.values()),
+             "non-finite mesh MWG draws")
+    tau2 = res["mwg_posterior_mean"]["tau2"]
+    _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
+             f"mesh MWG posterior mean tau2 {tau2} is not within 2x of 0.09")
+    del one, model, draws
+    torch.cuda.empty_cache()
+
+    # fixed effects: the EMIT_Y instances a shard and the y cotangent over
+    # the gathered planes
+    x = np.column_stack([np.ones(N_C5), np.random.default_rng(1).standard_normal(N_C5)])
+    yx = y + x @ np.array([1.0, -2.0])
+    _reset_counts()
+    pair = [ResponseNNGP(coords, yx, kernel="sqexp", m=M_C5, x=x, device=dev,
+                         lane_layout="coords", mesh=msh) for msh in (None, mesh)]
+    ux = torch.tensor([[0.0, 0.0, math.log(TAU2_TRUE), 1.0, -2.0]], dtype=torch.float32)
+    ux = ux + 0.05 * torch.arange(4, dtype=torch.float32)[:, None]
+    (v1, g1), (v2, g2) = (mdl.full_value_and_grad(ux) for mdl in pair)
+    fe = {"value_max_rel_diff": float(((v2 - v1).abs() / v1.abs()).max()),
+          "grad_max_abs_diff_over_max": float((g2 - g1).abs().max() / g1.abs().max()),
+          "launches": _read_counts("config 5 mesh fixed effects",
+                                   ("vecchia_grad_y_coords_sharded",))}
+    res["fixed_effects"] = fe
+    _require(fe["value_max_rel_diff"] <= MESH_LL_RTOL and
+             fe["grad_max_abs_diff_over_max"] <= MESH_GRAD_TOL,
+             f"mesh value and gradient with fixed effects differ: {fe}")
+    del pair
+    torch.cuda.empty_cache()
+
+    # the latent model: B/F a shard and the sharded chromatic sweep
+    port_threshold = site_tables.COORDS_LAYOUT_MIN_SITES
+    site_tables.COORDS_LAYOUT_MIN_SITES = 200_000
+    try:
+        pair = [LatentNNGP(coords, y, kernel="exponential", m=M_C5, device=dev,
+                           mesh=msh) for msh in (None, mesh)]
+    finally:
+        site_tables.COORDS_LAYOUT_MIN_SITES = port_threshold
+    _reset_counts()
+    chains = 8
+    linit = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1, "tau2": float(np.var(y)) * 0.15}
+    stepped = []
+    for mdl in pair:
+        state = mdl.init_state(chains, linit)
+        stepped.append(mdl.step(torch.Generator(device=dev).manual_seed(11), state))
+    (s1, s2) = stepped
+    step_diff = {"w": float((s2.w - s1.w).abs().max() / s1.w.abs().max())}
+    for name in ("sigma2", "tau2", "value", "logdet", "quad_w"):
+        a, b = getattr(s1, name).double(), getattr(s2, name).double()
+        step_diff[name] = float(((b - a).abs() / a.abs()).max())
+    step_diff["phi"] = float((s2.theta_u - s1.theta_u).abs().max())
+    res["latent_step_diff"] = step_diff
+    _require(all(v <= MESH_STEP_TOL for v in step_diff.values()),
+             f"the mesh latent step differs from the unsharded one: {step_diff}")
+    t0 = time.perf_counter()
+    ldraws = pair[1].sample(20, n_burn=20, n_chains=chains, seed=0, init=linit,
+                            w_every=10)
+    res["latent_run_s"] = time.perf_counter() - t0
+    res["latent_launches"] = _read_counts("config 5 mesh latent",
+                                          ("vecchia_bf_coords_sharded",))
+    res["latent_posterior_mean"] = {key: float(np.mean(ldraws[key]))
+                                    for key in ("sigma2", "phi", "tau2")}
+    _require(all(np.isfinite(v).all() for v in ldraws.values()),
+             "non-finite mesh latent draws")
+    res["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t_all
+    res["launches"] = _sum_launches(res.pop("launches"), fe.pop("launches"),
+                                    res.pop("latent_launches"))
+    print("path 28 (config 5 on a 1x4 mesh of one card): " + json.dumps(res), flush=True)
+    del pair, ldraws
+    torch.cuda.empty_cache()
+    return res
+
+
+# path 29: two processes on gloo, one card; each process's share of the
+# chains, its cut MWG run, and the worker's time limit
+PROCESS_CHAINS, PROCESS_STEPS, PROCESS_TIMEOUT_S = 8, (300, 300), 240
+
+
+def process_worker(port: int, rank: int) -> int:
+    """One of path 29's two processes (``chip_smoke.py --process-worker
+    PORT RANK``): the main path's model on a (2, 2) mesh whose chains axis
+    runs across the processes (this process's share: 1 x 2 of cuda:0),
+    gloo over localhost.  Checks what tests/_distributed_worker.py checks:
+    the site-sharded log-likelihood equals the process-local unsharded
+    value, and a chain-sharded all_reduce equals the local sum; then runs
+    its 8 of 16 chains, cut, and gathers the draws on rank 0."""
+    import torch.distributed as tdist
+
+    from pynngp_tpu_torch.parallel import (global_mesh, initialize_distributed,
+                                           process_chain_slice)
+
+    os.environ["PYNNGP_NEIGHBOR_CACHE"] = "0"
+    dev = torch.device("cuda", 0)
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = global_mesh(2, 2, devices=[dev, dev])
+    _require(mesh.shape == {"chains": 1, "sites": 2}, f"process mesh {mesh.shape}")
+    coords, y = bench_field(N_MAIN, seed=0)
+    local = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
+    model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev, mesh=mesh)
+    chains = process_chain_slice(2 * PROCESS_CHAINS)
+    u = torch.zeros((2 * PROCESS_CHAINS, 3), dtype=torch.float32, device=dev)
+    u[:, 1] = local._t_phi.inverse(torch.linspace(0.05, 0.1, 2 * PROCESS_CHAINS,
+                                                  device=dev))
+    u[:, 2] = math.log(TAU2_TRUE)
+    with torch.no_grad():
+        mine = model.full_loglik(u[chains]).double()
+        every = local.full_loglik(u).double()
+    rel = float(((mine - every[chains]).abs() / every[chains].abs()).max())
+    _require(rel <= MESH_LL_RTOL, f"rank {rank}: sharded log-likelihood off by {rel}")
+    total = mine.sum()
+    tdist.all_reduce(total)  # a CUDA tensor: gloo moves it for all_reduce
+    sum_rel = float((total - every.sum()).abs() / every.sum().abs())
+    _require(sum_rel <= MESH_LL_RTOL, f"rank {rank}: all_reduce off by {sum_rel}")
+    mp = model.fit_map(n_steps=150)
+    u0 = mp.u.cpu().numpy()
+    init = {"sigma2": float(np.exp(u0[0])), "phi": float(model._t_phi.forward(
+        torch.as_tensor(u0[1]))), "alpha": float(np.exp(u0[2] - u0[0]))}
+    t0 = time.perf_counter()
+    # the main path's pilot proposal: joint moves along the projected Laplace
+    # covariance (the (sigma2, phi) ridge defeats componentwise steps)
+    draws = model.sample(PROCESS_STEPS[1], n_burn=PROCESS_STEPS[0],
+                         n_chains=PROCESS_CHAINS, seed=100 + rank, init=init,
+                         proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
+    run_s = time.perf_counter() - t0
+    pooled = {}
+    for key in ("sigma2", "phi", "tau2"):  # CPU tensors: gloo gathers them
+        mine_d = torch.as_tensor(np.ascontiguousarray(draws[key]))
+        parts = [torch.empty_like(mine_d) for _ in range(2)]
+        tdist.all_gather(parts, mine_d)
+        pooled[key] = torch.cat(parts).numpy()
+    res = {"rank": rank, "loglik_rel": rel, "all_reduce_rel": sum_rel,
+           "run_s": run_s, "launches": _read_counts(
+               f"process {rank}", ("vecchia_suffstats_sharded", "vecchia_grad_sharded"))}
+    if rank == 0:
+        res["pooled_chains"] = pooled["phi"].shape[0]
+        res["rhat_pooled"] = _chain_stats(pooled)[1]
+        res["posterior_mean"] = {k: float(np.mean(v)) for k, v in pooled.items()}
+    tdist.destroy_process_group()
+    print("PROCESS OK " + json.dumps(res), flush=True)
+    return 0
+
+
+def processes_path() -> dict:
+    """Path 29: two processes on gloo on cuda:0 (NCCL refuses two ranks on
+    one card), each running :func:`process_worker` with its own time limit;
+    both must print their OK line.  Prints R-hat over the pooled draws."""
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    me = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, me, "--process-worker", str(port), str(rank)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=os.path.dirname(me))
+             for rank in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=PROCESS_TIMEOUT_S)
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = []
+    for rank, (rc, out, err) in enumerate(outs):
+        ok = [line for line in out.splitlines() if line.startswith("PROCESS OK ")]
+        _require(rc == 0 and ok, f"process {rank} failed (rc={rc}):\n{out[-2000:]}\n"
+                 f"{err[-3000:]}")
+        lines.append(json.loads(ok[0][len("PROCESS OK "):]))
+    res = {"processes": lines, "seconds": time.perf_counter() - t0,
+           "launches": _sum_launches(*(line.pop("launches") for line in lines))}
+    print("path 29 (two processes on gloo, one card): " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3496,6 +3906,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
         paths["dotproduct"] = dotproduct_path(dev, tmp)
     print(f"paths 23-26: {time.perf_counter() - t_new:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    paths["shard_offset"] = shard_offset_path(dev, field3)
+    paths["config5_mesh"] = config5_mesh_path(dev)
+    paths["processes"] = processes_path()
+    print(f"paths 27-29: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     errs.update({
         "vecchia_suffstats": fwd["f_max_abs_err"],
@@ -3522,7 +3938,9 @@ def main() -> int:
     errs.update(errs_large)  # m = 40 and 64
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{info['seconds']:.1f} s of it", flush=True)
-    # launches: the sum over the paths, each counted from 0; no single
+    # launches: the sum over the paths, each counted from 0 (path 29's in its
+    # two processes), launches_sharded the part of them made by calls over
+    # several cells of a mesh (paths 27-29); no single
     # PyTorch call computes any of these functions (torch.special has K_0 and
     # K_1 only), so library_ms is null.  ms, plain_ms and bound_ms of the
     # closed-form rows (either layout, with or without noise weights) are at
@@ -3533,6 +3951,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p["launches"][name] for p in paths.values()),
          "launches_by_path": {k: p["launches"][name] for k, p in paths.items()},
+         "launches_sharded": sum(p["launches"].get(name + "_sharded", 0)
+                                 for p in paths.values()),
          "max_abs_err": errs[name], "ms": times[name],
          "plain_ms": times[name + "_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -3545,4 +3965,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--process-worker":
+        sys.exit(process_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

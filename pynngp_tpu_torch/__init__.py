@@ -9,8 +9,10 @@ and the coordinate, max-min and natural orderings.  The models run on
 hand-written CUDA kernels for the fused Vecchia sufficient statistics, their
 value + gradient pass and the explicit kriging weights B/F (``csrc/``, built
 with nvcc at first use), under the chunked multi-chain driver with
-checkpoints and config sidecars (``NNGPConfig``).  CPU tensors run the
-kernels' plain PyTorch versions.  The package imports no JAX;
+checkpoints and config sidecars (``NNGPConfig``).  Both models shard sites
+and chains over a mesh of devices (``mesh=``, :mod:`.parallel`); several
+processes join over ``torch.distributed``.  CPU tensors run the kernels'
+plain PyTorch versions.  The package imports no JAX;
 ``pynngp_tpu`` stays the reference it is tested against.
 """
 
@@ -25,6 +27,20 @@ from pynngp_tpu_torch.models.response import ResponseNNGP, ResponseState
 from pynngp_tpu_torch.models.seq import SeqNNGP
 from pynngp_tpu_torch.neighbors import NeighborTable, build_neighbor_table
 from pynngp_tpu_torch.noise import HeterogeneousNoise, HomogeneousNoise, get_noise
+from pynngp_tpu_torch.parallel import (
+    global_mesh,
+    host_local_to_global,
+    initialize_distributed,
+    make_mesh,
+    make_sharded_bf,
+    make_sharded_chromatic,
+    make_sharded_loglik,
+    make_sharded_suffstats,
+    pad_data_for_sharding,
+    process_chain_slice,
+    shard_color_tables,
+    shard_vecchia_data,
+)
 from pynngp_tpu_torch.predict import build_prediction_table, predict_draws
 from pynngp_tpu_torch.vecchia import (
     VecchiaData,
@@ -88,4 +104,17 @@ __all__ = [
     "ess",
     "split_rhat",
     "summarize",
+    # several devices and processes (parallel/)
+    "make_mesh",
+    "make_sharded_bf",
+    "make_sharded_chromatic",
+    "make_sharded_loglik",
+    "make_sharded_suffstats",
+    "pad_data_for_sharding",
+    "shard_color_tables",
+    "shard_vecchia_data",
+    "initialize_distributed",
+    "global_mesh",
+    "host_local_to_global",
+    "process_chain_slice",
 ]

@@ -4,9 +4,10 @@ beside checkpoints.  The field names and defaults are the reference's, so
 that a JSON file written by either package loads in the other field for
 field.
 
-``backend`` is carried for the file's sake only: the port has one backend,
-and the device is the caller's argument to :meth:`NNGPConfig.build_model`,
-as it is to the models."""
+``backend`` is passed to the models, which take it and ignore it: the port
+has one backend.  The device is the caller's argument to
+:meth:`NNGPConfig.build_model`, as it is to the models; ``mesh_chains`` and
+``mesh_sites`` are carried and, as in the reference, not read."""
 
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ class NNGPConfig:
     ordering: str = "coordinate"  # coordinate | maxmin | none
     distance: str = "euclidean"  # euclidean | dotproduct
     jitter: float = 1e-6
-    backend: str = "auto"  # auto | pallas | xla (the reference's; not read here)
+    backend: str = "auto"  # auto | pallas | xla (the reference's; the port has one)
     # sampler
     sampler: str = "mwg"  # mwg | nuts | hmc | smc | advi
     n_samples: int = 1000
@@ -74,19 +75,17 @@ class NNGPConfig:
 
     def build_model(self, coords, y, x=None, priors=None, dtype=None,
                     device="cuda"):
-        """Instantiate the configured model on data, on ``device``.  A mesh
-        (``mesh_chains`` or ``mesh_sites`` above 1) raises
-        ``NotImplementedError``."""
-        if self.mesh_chains > 1 or self.mesh_sites > 1:
-            raise NotImplementedError(
-                f"mesh_chains={self.mesh_chains}, mesh_sites={self.mesh_sites}: "
-                "multi-device sharding is not ported yet")
+        """Instantiate the configured model on data, on ``device``, as the
+        reference's ``build_model`` does: an unsharded model whatever
+        ``mesh_chains`` and ``mesh_sites`` say (a mesh is passed to the
+        model's constructor, ``parallel.make_mesh``), with ``backend``
+        passed on and ignored."""
         kern = (get_kernel(self.kernel, nu=self.matern_nu)
                 if self.kernel == "matern" else get_kernel(self.kernel))
         common = dict(kernel=kern, m=self.m, x=x, ordering=self.ordering,
                       distance=self.distance, priors=priors,
                       dtype=dtype or torch.float32, jitter=self.jitter,
-                      device=device)
+                      backend=self.backend, device=device)
         if self.model == "response":
             return ResponseNNGP(coords, y, **common)
         if self.model == "latent":

@@ -57,8 +57,8 @@ namespace {
 // One warp's (site, chain) systems of one staged tile: writes B (m planes of
 // b_chain) and F of its site.
 template <int M, bool GENERAL, bool COORDS, bool ROLLED, bool HETERO>
-__device__ __forceinline__ void bf_site(const float* st, const TileShape& s, int site, int m,
-                                        int dim, const ClosedForm& cf, float alpha,
+__device__ __forceinline__ void bf_site(const float* st, const TileShape& s, int site,
+                                        int gsite, int m, int dim, const ClosedForm& cf, float alpha,
                                         float jitter, int n, const MaternSet* set,
                                         const float* __restrict__ v, int n_pad,
                                         float* __restrict__ b_chain,
@@ -67,7 +67,7 @@ __device__ __forceinline__ void bf_site(const float* st, const TileShape& s, int
   // the call's m, which keeps them rolled
   const int top = ROLLED ? m : M;
   float* b_site = b_chain + site;  // m planes
-  if (site >= n) {  // padded site: B = 0, F = 1
+  if (gsite >= n) {  // padded site: B = 0, F = 1
 #pragma unroll
     for (int i = 0; i < top; ++i) {
       if (i < m) b_site[static_cast<size_t>(i) * n_pad] = 0.0f;
@@ -77,7 +77,7 @@ __device__ __forceinline__ void bf_site(const float* st, const TileShape& s, int
   }
   const float* sv = st + s.off_v * kTile + (threadIdx.x & 31);
   const TileDistances<COORDS, ROLLED> dist(st, s, dim);
-  const int lim = min(site, m);  // slot k is a real neighbor iff lim > k
+  const int lim = min(gsite, m);  // slot k is a real neighbor iff lim > k
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
@@ -107,7 +107,7 @@ __device__ __forceinline__ void bf_site(const float* st, const TileShape& s, int
     }
   }
 
-  float ff = 1.0f + (HETERO ? alpha * v[site] : alpha);
+  float ff = 1.0f + (HETERO ? alpha * v[gsite] : alpha);
 #pragma unroll
   for (int k = 0; k < top; ++k) ff -= u[k] * u[k];
   f_row[site] = ff;
@@ -151,6 +151,7 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   const float alpha = pr[1];
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
+  const int off = static_cast<int>(pr[5]);  // the shard's first global site
   const MaternSet* set = warp_matern_set<GENERAL>(pr, false);
   const ClosedForm cf = GENERAL ? ClosedForm{} : closed_form(family, phi);
   float* b_chain = b_out + static_cast<size_t>(safe) * m * n_pad;
@@ -181,9 +182,9 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
       __syncthreads();
     }
     if (active) {
-      bf_site<M, GENERAL, COORDS, ROLLED, HETERO>(st, s, tile * kTile + (threadIdx.x & 31),
-                                                  m, dim, cf, alpha, jitter, n, set, v, n_pad,
-                                                  b_chain, f_row);
+      const int site = tile * kTile + (threadIdx.x & 31);
+      bf_site<M, GENERAL, COORDS, ROLLED, HETERO>(st, s, site, site + off, m, dim, cf, alpha,
+                                                  jitter, n, set, v, n_pad, b_chain, f_row);
     }
   }
 }

@@ -34,8 +34,18 @@
 // Per-chain parameters as a (C, 6) float32
 // array [phi, alpha, jitter, n, nu, off], mirroring _params_vec
 // (pallas_bf.py:496).  nu is read by the general-nu Matern instances alone
-// (GENERAL = true; vecchia_bessel.cuh); off is read by none and stays in the
-// row for the site-sharded variants.
+// (GENERAL = true; vecchia_bessel.cuh).
+//
+// Shards.  off is the global index of a launch's first site: a launch over
+// one shard of the sites (ops/site_tables.shard_site_tables; reference
+// _site_idx, pallas_bf.py:357) takes that shard's tables, n_pad sites wide,
+// and n, the global count.  Every body keeps two indices apart: `site`
+// indexes the shard's tables, the tile ring and every output row (f, r, r/F,
+// B); `gsite = site + off` decides the slot masks (min(gsite, m) > k), the
+// validity (gsite < n) and every read of a vector held whole on each shard:
+// the own y[gsite] and v[gsite].  Neighbor gathers go through the global
+// nn_idx.  n and off ride in float32 and are exact below 2^24, which the
+// wrappers check.  off = 0 is the unsharded launch.
 //
 // Loop structure.  The tile bodies unroll their loops over M and nvcc keeps
 // the factor in registers, except kernel 2, whose loops nested in a slot
@@ -91,10 +101,10 @@ constexpr int kMaxDim = 3;
 // the large-m instance, whose state lives in a device scratch buffer.
 constexpr int kRolledM = 32;
 
-// The site's own relative nugget: alpha, or alpha v[site].
+// The site's own relative nugget: alpha, or alpha v[gsite] (global index).
 __device__ __forceinline__ float own_nugget(float alpha, const float* __restrict__ v,
-                                            int site) {
-  return v != nullptr ? alpha * v[site] : alpha;
+                                            int gsite) {
+  return v != nullptr ? alpha * v[gsite] : alpha;
 }
 
 // The built instance M a call with m neighbors runs on: the smallest of

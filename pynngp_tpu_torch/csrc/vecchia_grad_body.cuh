@@ -92,7 +92,7 @@ namespace {
 // site's NV sums to the lane's, and with EMIT_Y writes B and r/F.
 template <int M, bool EMIT_Y, bool GENERAL, bool COORDS, bool ROLLED, int NV>
 __device__ __forceinline__ void grad_site(const float* st, const TileShape& s, int ml, int ycopy,
-                                          bool hetero, int site, int m, int dim,
+                                          bool hetero, int site, int gsite, int m, int dim,
                                           const ClosedForm& cf, float alpha, float jitter, int n,
                                           const MaternSet* set, bool with_nu,
                                           const float* __restrict__ y,
@@ -109,7 +109,7 @@ __device__ __forceinline__ void grad_site(const float* st, const TileShape& s, i
   const float* sy = st + (s.off_y + ycopy * ml) * kTile + lane;
   const float* sv = st + s.off_v * kTile + lane;
   const TileDistances<COORDS, ROLLED> dist(st, s, dim);
-  const int lim = min(site, m);  // slot k is a real neighbor iff lim > k
+  const int lim = min(gsite, m);  // slot k is a real neighbor iff lim > k
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float inv_diag[M];
@@ -164,9 +164,9 @@ __device__ __forceinline__ void grad_site(const float* st, const TileShape& s, i
     }
   }
 
-  const bool valid = site < n;
-  float ff = 1.0f + own_nugget(alpha, v, site);
-  float r = valid ? y[site] : 0.0f;
+  const bool valid = gsite < n;
+  float ff = 1.0f + own_nugget(alpha, v, gsite);
+  float r = valid ? y[gsite] : 0.0f;
 #pragma unroll (kUnroll)
   for (int k = 0; k < top; ++k) {
     ff -= u[k] * u[k];
@@ -241,7 +241,7 @@ __device__ __forceinline__ void grad_site(const float* st, const TileShape& s, i
       }
     }
   }
-  const float df_a = (v != nullptr ? v[site] : 1.0f) + pp;
+  const float df_a = (v != nullptr ? v[gsite] : 1.0f) + pp;
   const float dr_a = pq;
 
   const float inv_f = valid ? 1.0f / ff : 0.0f;
@@ -288,6 +288,7 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
   const float alpha = pr[1];
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
+  const int off = static_cast<int>(pr[5]);  // the shard's first global site
   const float* y = y_all + static_cast<size_t>(safe) * y_stride;
   const MaternSet* set = warp_matern_set<GENERAL>(pr, with_nu);
   const ClosedForm cf = GENERAL ? ClosedForm{} : closed_form(family, phi);
@@ -316,10 +317,10 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
     cp_async_wait<1>();  // the gathers, not the next tile's tables
     __syncthreads();
     if (active) {
+      const int site = tile * kTile + (threadIdx.x & 31);
       grad_site<M, EMIT_Y, GENERAL, COORDS, ROLLED, NV>(
-          st, s, ml, y_stride != 0 ? warp : 0, v != nullptr, tile * kTile + (threadIdx.x & 31),
-          m, dim, cf, alpha, jitter, n, set, with_nu, y, v, n_pad, b_chain, rof_row,
-          acc);
+          st, s, ml, y_stride != 0 ? warp : 0, v != nullptr, site, site + off, m, dim, cf,
+          alpha, jitter, n, set, with_nu, y, v, n_pad, b_chain, rof_row, acc);
     }
   }
   if (active) warp_sum_store<NV>(acc, part, chains * gridDim.x, chain * gridDim.x + blockIdx.x);

@@ -168,15 +168,16 @@ __device__ __forceinline__ LargeState large_state(double* __restrict__ scratch, 
 // Builds and factors one (site, chain) system into `st`: L (strict lower),
 // 1/diag, u = L^-1 c; with WITH_Y w = L^-1 y_N; with WITH_D the masked
 // d c / d phi (and, GENERAL with `with_nu`, d c / d nu; zeros without).
-// Slot k is a real neighbor iff min(site, m) > k; invalid slots are identity
-// rows.
+// `site` indexes the shard's tables, `gsite` = site + off is the global
+// index: slot k is a real neighbor iff min(gsite, m) > k; invalid slots are
+// identity rows.
 template <bool GENERAL, bool COORDS, bool WITH_Y, bool WITH_D>
 __device__ void large_factor(const LargeState& st, const GlobalDistances<COORDS>& dist,
                              const int* __restrict__ nn_idx, const float* __restrict__ y,
                              const float* __restrict__ v, int n_pad, int m, int site,
-                             const ClosedForm64& cf, float alpha, float jitter,
+                             int gsite, const ClosedForm64& cf, float alpha, float jitter,
                              const MaternSet* set, bool with_nu) {
-  const int lim = min(site, m);
+  const int lim = min(gsite, m);
 #pragma unroll 1
   for (int k = 0; k < m; ++k) {
     const double mk = lim > k ? 1.0 : 0.0;
@@ -261,6 +262,7 @@ struct LargeChain {
   int chain;
   float phi, alpha, jitter;
   int n;
+  int off;  // the shard's first global site
   const float* pr;
 
   __device__ __forceinline__ explicit LargeChain(const float* __restrict__ params)
@@ -269,6 +271,7 @@ struct LargeChain {
     alpha = pr[1];
     jitter = pr[2];
     n = static_cast<int>(pr[3]);
+    off = static_cast<int>(pr[5]);
   }
 };
 
@@ -291,9 +294,10 @@ suffstats_large_kernel(const float* __restrict__ params, const float* __restrict
   // the block's sites, then grid_x blocks further on
   for (int site = blockIdx.x * kBlock + threadIdx.x; site < n_pad; site += gridDim.x * kBlock) {
     const GlobalDistances<COORDS> dist(tab_a, tab_b, dim, n_pad, site);
-    large_factor<GENERAL, COORDS, true, false>(st, dist, nn_idx, y, v, n_pad, m, site, cf,
-                                               c.alpha, c.jitter, set, false);
-    double ff = 1.0 + (v != nullptr ? static_cast<double>(c.alpha) * v[site] : c.alpha);
+    const int gsite = site + c.off;
+    large_factor<GENERAL, COORDS, true, false>(st, dist, nn_idx, y, v, n_pad, m, site, gsite,
+                                               cf, c.alpha, c.jitter, set, false);
+    double ff = 1.0 + (v != nullptr ? static_cast<double>(c.alpha) * v[gsite] : c.alpha);
     double bdoty = 0.0;
 #pragma unroll 1
     for (int k = 0; k < m; ++k) {
@@ -301,8 +305,8 @@ suffstats_large_kernel(const float* __restrict__ params, const float* __restrict
       ff -= u * u;
       bdoty += u * st.vec(kW, k);
     }
-    const bool valid = site < c.n;
-    const double resid = (valid ? y[site] : 0.0) - bdoty;
+    const bool valid = gsite < c.n;
+    const double resid = (valid ? y[gsite] : 0.0) - bdoty;
     f_out[static_cast<size_t>(c.chain) * n_pad + site] = static_cast<float>(ff);
     r_out[static_cast<size_t>(c.chain) * n_pad + site] = static_cast<float>(resid);
     sums[0] += valid ? static_cast<float>(log(ff)) : 0.0f;
@@ -332,12 +336,13 @@ grad_large_kernel(const float* __restrict__ params, const float* __restrict__ ta
   // the block's sites, then grid_x blocks further on
   for (int site = blockIdx.x * kBlock + threadIdx.x; site < n_pad; site += gridDim.x * kBlock) {
     const GlobalDistances<COORDS> dist(tab_a, tab_b, dim, n_pad, site);
-    large_factor<GENERAL, COORDS, true, true>(st, dist, nn_idx, y, v, n_pad, m, site, cf,
-                                              c.alpha, c.jitter, set, with_nu);
-    const bool valid = site < c.n;
-    const int lim = min(site, m);
-    double ff = 1.0 + (v != nullptr ? static_cast<double>(c.alpha) * v[site] : c.alpha);
-    double r = valid ? y[site] : 0.0;
+    const int gsite = site + c.off;
+    large_factor<GENERAL, COORDS, true, true>(st, dist, nn_idx, y, v, n_pad, m, site, gsite,
+                                              cf, c.alpha, c.jitter, set, with_nu);
+    const bool valid = gsite < c.n;
+    const int lim = min(gsite, m);
+    double ff = 1.0 + (v != nullptr ? static_cast<double>(c.alpha) * v[gsite] : c.alpha);
+    double r = valid ? y[gsite] : 0.0;
 #pragma unroll 1
     for (int k = 0; k < m; ++k) {
       const double u = st.vec(kU, k);
@@ -400,7 +405,7 @@ grad_large_kernel(const float* __restrict__ params, const float* __restrict__ ta
         }
       }
     }
-    const double df_a = (v != nullptr ? v[site] : 1.0) + pp;
+    const double df_a = (v != nullptr ? v[gsite] : 1.0) + pp;
     const double dr_a = pq;
     const double inv_f = valid ? 1.0 / ff : 0.0;
     const double r_over_f = r * inv_f;
@@ -440,7 +445,8 @@ bf_large_kernel(const float* __restrict__ params, const float* __restrict__ tab_
   for (int site = blockIdx.x * kBlock + threadIdx.x; site < n_pad; site += gridDim.x * kBlock) {
     float* b_site = b_out + static_cast<size_t>(c.chain) * m * n_pad + site;  // m planes
     float* f_site = f_out + static_cast<size_t>(c.chain) * n_pad + site;
-    if (site >= c.n) {
+    const int gsite = site + c.off;
+    if (gsite >= c.n) {
 #pragma unroll 1
       for (int i = 0; i < m; ++i) b_site[static_cast<size_t>(i) * n_pad] = 0.0f;
       *f_site = 1.0f;
@@ -448,8 +454,8 @@ bf_large_kernel(const float* __restrict__ params, const float* __restrict__ tab_
     }
     const GlobalDistances<COORDS> dist(tab_a, tab_b, dim, n_pad, site);
     large_factor<GENERAL, COORDS, false, false>(st, dist, nn_idx, nullptr, v, n_pad, m, site,
-                                                cf, c.alpha, c.jitter, set, false);
-    double ff = 1.0 + (v != nullptr ? static_cast<double>(c.alpha) * v[site] : c.alpha);
+                                                gsite, cf, c.alpha, c.jitter, set, false);
+    double ff = 1.0 + (v != nullptr ? static_cast<double>(c.alpha) * v[gsite] : c.alpha);
 #pragma unroll 1
     for (int k = 0; k < m; ++k) ff -= st.vec(kU, k) * st.vec(kU, k);
     *f_site = static_cast<float>(ff);

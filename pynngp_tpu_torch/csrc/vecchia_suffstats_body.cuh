@@ -66,8 +66,8 @@ namespace {
 // adds log F and r^2/F of its valid site to the lane's sums.
 template <int M, bool GENERAL, bool COORDS, bool ROLLED>
 __device__ __forceinline__ void suffstats_site(const float* st, const TileShape& s, int ml,
-                                               int ycopy, bool hetero, int site, int m,
-                                               int dim, const ClosedForm& cf, float alpha,
+                                               int ycopy, bool hetero, int site, int gsite,
+                                               int m, int dim, const ClosedForm& cf, float alpha,
                                                float jitter, int n, const MaternSet* set,
                                                const float* __restrict__ y,
                                                const float* __restrict__ v,
@@ -81,7 +81,7 @@ __device__ __forceinline__ void suffstats_site(const float* st, const TileShape&
   const float* sy = st + (s.off_y + ycopy * ml) * kTile + lane;
   const float* sv = st + s.off_v * kTile + lane;
   const TileDistances<COORDS, ROLLED> dist(st, s, dim);
-  const int lim = min(site, m);  // slot k is a real neighbor iff lim > k
+  const int lim = min(gsite, m);  // slot k is a real neighbor iff lim > k
 
   float low[tri(M, 0)];  // strict lower triangle of L, packed by tri(i, k)
   float u[M];            // L^-1 c
@@ -115,15 +115,15 @@ __device__ __forceinline__ void suffstats_site(const float* st, const TileShape&
     }
   }
 
-  float ff = 1.0f + own_nugget(alpha, v, site);
+  float ff = 1.0f + own_nugget(alpha, v, gsite);
   float bdoty = 0.0f;
 #pragma unroll
   for (int k = 0; k < top; ++k) {
     ff -= u[k] * u[k];
     bdoty += u[k] * w[k];
   }
-  const bool valid = site < n;
-  const float resid = (valid ? y[site] : 0.0f) - bdoty;
+  const bool valid = gsite < n;
+  const float resid = (valid ? y[gsite] : 0.0f) - bdoty;
   f_row[site] = ff;
   r_row[site] = resid;
   sum_logf += valid ? logf(ff) : 0.0f;
@@ -153,6 +153,7 @@ __device__ __forceinline__ void suffstats_tiles(
   const float alpha = pr[1];
   const float jitter = pr[2];
   const int n = static_cast<int>(pr[3]);
+  const int off = static_cast<int>(pr[5]);  // the shard's first global site
   const float* y = y_all + static_cast<size_t>(min(chain, chains - 1)) * y_stride;
   const MaternSet* set = warp_matern_set<GENERAL>(pr, false);
   const ClosedForm cf = GENERAL ? ClosedForm{} : closed_form(family, phi);
@@ -182,9 +183,10 @@ __device__ __forceinline__ void suffstats_tiles(
     cp_async_wait<1>();  // the gathers, not the next tile's tables
     __syncthreads();
     if (active) {
+      const int site = tile * kTile + (threadIdx.x & 31);
       suffstats_site<M, GENERAL, COORDS, ROLLED>(
-          st, s, ml, y_stride != 0 ? warp : 0, v != nullptr, tile * kTile + (threadIdx.x & 31),
-          m, dim, cf, alpha, jitter, n, set, y, v, f_row, r_row, sum_logf, sum_q);
+          st, s, ml, y_stride != 0 ? warp : 0, v != nullptr, site, site + off, m, dim, cf,
+          alpha, jitter, n, set, y, v, f_row, r_row, sum_logf, sum_q);
     }
   }
   if (active) {

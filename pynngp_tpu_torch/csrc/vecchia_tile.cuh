@@ -24,7 +24,8 @@
 // ml is the instance's M, or the call's m in the rolled instance.  The call's
 // tables have m slots: only their planes are copied, and the ring is zeroed
 // once, so a slot at or past m reads a zero distance, coordinate and y, and
-// is masked as before (slot k is real iff min(site, m) > k).
+// is masked as before (slot k is real iff min(gsite, m) > k, gsite the
+// global site index: vecchia_common.cuh).
 // pynngp_tpu_torch/ops/geometry.py computes the same plane count for the
 // wrapper, which passes the bytes; the launcher refuses bytes that differ.
 #pragma once

@@ -36,10 +36,15 @@ class SpatialData(NamedTuple):
     x: Optional[torch.Tensor]  # (n, p) ordered covariates, or None
 
 
-def check_device(device, dtype) -> torch.device:
+def check_device(device, dtype, mesh=None) -> torch.device:
     """The models' device rule: "cuda" (float32 only; raises without a card)
-    or "cpu"; there is no automatic choice."""
+    or "cpu"; there is no automatic choice.  With a mesh the model lives on
+    the mesh's first device, which must be of the type asked for."""
     device = torch.device(device)
+    if mesh is not None:
+        if mesh.first.type != device.type:
+            raise ValueError(f"device={device} but the mesh starts on {mesh.first}")
+        device = mesh.first
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch sees no CUDA device")

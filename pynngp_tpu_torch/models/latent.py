@@ -5,9 +5,18 @@ v = 1 under homogeneous noise, known per-site weights under
 
 Ported: every ordering, the Euclidean and (up to
 :data:`NON_EUCLIDEAN_MAX_SITES` sites) the dot-product distance,
-homogeneous and heterogeneous noise, one device, every kernel of
-:mod:`pynngp_tpu_torch.kernels` (with ``Matern()`` the theta block is (phi,
-nu), otherwise phi alone).  Every other option of the reference raises.
+homogeneous and heterogeneous noise, one device or a (chains, sites) mesh
+of them (``mesh``), every kernel of :mod:`pynngp_tpu_torch.kernels` (with
+``Matern()`` the theta block is (phi, nu), otherwise phi alone).
+``backend`` is taken and ignored: the port has one.  Every other option of
+the reference raises.
+
+On a mesh (the reference's latent.py:173-210) the B/F build runs one launch
+of kernel 3 a mesh cell on the tables cut over its sites axis, and the w
+sweep is ``parallel.make_sharded_chromatic``: each cell updates its
+round-robin share of every colour (``parallel.shard_color_tables``) and the
+deltas add up on the first device, where the state lives.  A mesh needs
+``w_update='chromatic'``, as in the reference.
 
 One departure from the reference: under heterogeneous noise the beta | w,
 tau2 update is weighted by V^-1 = diag(1/v), the exact conditional
@@ -71,7 +80,15 @@ from pynngp_tpu_torch.neighbors import (
 from pynngp_tpu_torch.noise import get_noise
 from pynngp_tpu_torch.ops.bf import bf_planes, plane_suffstats
 from pynngp_tpu_torch.ops.geometry import check_card_m
-from pynngp_tpu_torch.ops.site_tables import choose_layout, make_site_tables
+from pynngp_tpu_torch.ops.site_tables import (
+    choose_layout,
+    make_site_tables,
+    shard_site_tables,
+)
+from pynngp_tpu_torch.parallel.sharded import (
+    make_sharded_chromatic,
+    shard_color_tables,
+)
 from pynngp_tpu_torch.priors import logit_transform
 from pynngp_tpu_torch.samplers.mwg import (
     adapt_log_step,
@@ -125,7 +142,11 @@ class LatentNNGP:
     ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites, dist at or below;
     ``precompute_distances=False`` leaves the dist layout to compute its
     tables from the ordered coordinates in the model's dtype (Euclidean
-    only)."""
+    only).
+
+    ``mesh``: a (chains, sites) mesh (``parallel.make_mesh``) to shard the
+    sites and chains over; the model then lives on its first device, whose
+    type ``device`` names."""
 
     def __init__(
         self,
@@ -141,6 +162,7 @@ class LatentNNGP:
         jitter: float = 1e-6,
         w_update: str = "chromatic",
         precompute_distances: bool = True,
+        backend: str = "auto",
         noise="homogeneous",
         mesh=None,
         collapsed: bool = True,
@@ -149,11 +171,13 @@ class LatentNNGP:
         if w_update not in ("chromatic", "sequential"):
             raise ValueError("w_update must be 'chromatic' or 'sequential', "
                              f"got {w_update!r}")
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device sharding) is not "
-                                      "ported yet")
+        if mesh is not None and w_update == "sequential":
+            raise ValueError("mesh sharding requires w_update='chromatic' (the "
+                             "sequential scan is the single-device semantics "
+                             "oracle)")
+        self.mesh = mesh
         self.noise = get_noise(noise)
-        self.device = device = check_device(device, dtype)
+        self.device = device = check_device(device, dtype, mesh)
         self.kernel = get_kernel(kernel)
         self.dtype = dtype
         self.jitter = jitter
@@ -190,7 +214,8 @@ class LatentNNGP:
         self.p = 0 if sd.x is None else sd.x.shape[1]
         self.tables = make_site_tables(
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
-            coords_host=coords[tab.order] if on_coords else None)
+            coords_host=coords[tab.order] if on_coords else None,
+            shards=1 if mesh is None else mesh.shape["sites"])
         self.m = self.tables.m
         if device.type == "cuda":
             check_card_m(self.tables.n_pad, self.m)
@@ -237,6 +262,12 @@ class LatentNNGP:
         gather = _pair_gather_table(pp, pm, sites.shape[1], ch.max_children)
         self._gather_shape = gather.shape[1:]  # (max_sz, max_c)
         self._pair_gather = index(gather.reshape(gather.shape[0], -1))
+        if mesh is not None:
+            self.tables = shard_site_tables(self.tables, mesh)
+            # each site shard's round-robin share of every colour
+            csites, csmask = shard_color_tables(self.colors, mesh.shape["sites"])
+            self._csites, self._csmask = index(csites), flag(csmask)
+            self._sh_chrom = make_sharded_chromatic(mesh, self.n_colors)
 
         self.priors = default_priors(coords, y, priors)
         self._sample_nu = self.kernel.samples_nu
@@ -373,6 +404,21 @@ class LatentNNGP:
             resid.index_add_(1, pc_c, -bcp_c * delta.index_select(1, pp_c))
         return w
 
+    def _update_w_chromatic_sharded(self, eps, w, b, f, sigma2, tau2, beta):
+        """The chromatic sweep over the mesh (``make_sharded_chromatic``):
+        the same conditional moments as :meth:`_update_w_chromatic`, each
+        cell updating its share of every colour from the same pre-colour
+        state; equal to the single-device sweep up to rounding."""
+        fprec = 1.0 / (sigma2[:, None] * f[:, :self.n])
+        tau2 = self._noise_var(tau2)
+        ytil = (self.y - self._mean(beta)) / tau2
+        b_child, fp_child = self._child_terms(b, fprec)
+        v = 1.0 / (1.0 / tau2 + fprec + (b_child * b_child * fp_child).sum(-1))
+        resid = w - self._own_mean(w, b)
+        return self._sh_chrom(self._csites, self._csmask, w, resid, eps,
+                              self.child_idx, b_child, fp_child, v, torch.sqrt(v),
+                              ytil, fprec)
+
     def _update_w_sequential(self, eps, w, b, f, sigma2, tau2, beta):
         """The reference sampler's semantics: sites in order, each from its
         full conditional given the latest w.  A Python loop over n sites,
@@ -503,8 +549,12 @@ class LatentNNGP:
                               device=self.device)
 
         # 1. w | rest
-        sweep = (self._update_w_chromatic if self.w_update == "chromatic"
-                 else self._update_w_sequential)
+        if self.mesh is not None:
+            sweep = self._update_w_chromatic_sharded
+        elif self.w_update == "chromatic":
+            sweep = self._update_w_chromatic
+        else:
+            sweep = self._update_w_sequential
         w = sweep(eps, state.w, state.b, state.f, state.sigma2, state.tau2,
                   state.beta)
 

@@ -3,15 +3,26 @@ alpha = tau2/sigma2 (counterpart of ``pynngp_tpu.models.response``).
 
 Ported: homogeneous and heterogeneous noise (``noise``: per-site variance
 tau2 v_i with known weights v, so that the relative nugget is alpha v), one
-device, both table layouts (``lane_layout``:
+device or a (chains, sites) mesh of them (``mesh``, ``parallel.make_mesh``),
+both table layouts (``lane_layout``:
 "dist", distance planes; "coords", coordinate planes with the distances
 recomputed in the kernels, Euclidean only; "auto", the default, coords above
 ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites), every kernel of
 :mod:`pynngp_tpu_torch.kernels`, the general and the sampled-nu Matern among
 them; fixed effects (``x=``) on every path; every ordering ("coordinate",
 "maxmin", "none") and both distances (Euclidean; "dotproduct", whose
-dissimilarities the kernels read from dist-layout tables).  Every other
-option of the reference raises.
+dissimilarities the kernels read from dist-layout tables).  ``backend`` is
+taken and ignored: the port has one.  Every other option of the reference
+raises.
+
+On a mesh the site tables are cut over its sites axis
+(``ops.site_tables.shard_site_tables``) and every kernel launch of the model
+becomes one launch a mesh cell, the chains split over its chain rows; the
+sums add up, and B/F and the y cotangent's planes are gathered, on the
+mesh's first device, where the model's state and data live.  With fixed
+effects the gradient samplers run on the kernels too (the y cotangent runs
+over the gathered planes), where the reference's mesh falls back to XLA
+(``pynngp_tpu/models/response.py:117-122``).
 
 Sampler (Metropolis-within-Gibbs, batched over C chains):
   - theta = (phi, alpha) block, (phi, alpha, nu) with ``Matern()``: Metropolis on unconstrained coordinates
@@ -67,6 +78,7 @@ from pynngp_tpu_torch.ops.geometry import check_card_m
 from pynngp_tpu_torch.ops.site_tables import (
     choose_layout,
     make_site_tables,
+    shard_site_tables,
     with_children,
 )
 from pynngp_tpu_torch.ops.suffstats import noise_plane, suffstats
@@ -120,7 +132,14 @@ class ResponseNNGP:
     ``lane_layout`` is the reference's: "auto" takes the coords table layout
     above ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites and the dist layout
     at or below; "coords" with a metric other than Euclidean falls back to
-    dist.  On the coords layout no distance table is made."""
+    dist.  On the coords layout no distance table is made;
+    ``precompute_distances=False`` leaves the dist layout to compute its
+    tables from the ordered coordinates in the model's dtype (Euclidean
+    only).
+
+    ``mesh``: a (chains, sites) mesh (``parallel.make_mesh``) to shard the
+    sites and chains over; the model then lives on its first device, whose
+    type ``device`` names."""
 
     def __init__(
         self,
@@ -136,16 +155,16 @@ class ResponseNNGP:
         jitter: float = 1e-6,
         joint_theta: bool = False,
         collapsed: bool = True,
+        precompute_distances: bool = True,
+        backend: str = "auto",
         lane_layout: str = "auto",
         mesh=None,
         noise="homogeneous",
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device sharding) is not "
-                                      "ported yet")
+        self.mesh = mesh
         self.noise = get_noise(noise)
-        self.device = device = check_device(device, dtype)
+        self.device = device = check_device(device, dtype, mesh)
         self.kernel = get_kernel(kernel)
         self.dtype = dtype
         self.jitter = jitter
@@ -155,13 +174,17 @@ class ResponseNNGP:
         self.collapsed = collapsed
 
         coords = np.asarray(coords)
-        self.lane_layout = choose_layout(
-            lane_layout, coords.shape[0],
-            isinstance(get_distance(distance), Euclidean))
+        dist_fn = get_distance(distance)
+        euclidean = isinstance(dist_fn, Euclidean)
+        if not euclidean and not precompute_distances:
+            raise ValueError(
+                f"distance {dist_fn.name!r} needs precompute_distances=True: "
+                "tables computed from the coordinates are Euclidean")
+        self.lane_layout = choose_layout(lane_layout, coords.shape[0], euclidean)
         on_coords = self.lane_layout == "coords"
-        sd = prepare_spatial_data(coords, y, m, x=x, ordering=ordering,
-                                  distance=distance, dtype=dtype, device=device,
-                                  precompute_distances=not on_coords)
+        sd = prepare_spatial_data(
+            coords, y, m, x=x, ordering=ordering, distance=distance, dtype=dtype,
+            device=device, precompute_distances=precompute_distances and not on_coords)
         self.table = sd.table
         self.n = sd.y.shape[0]
         self.y, self.x = sd.y, sd.x
@@ -169,7 +192,8 @@ class ResponseNNGP:
         # the coords layout takes the float64 ordered coordinates
         self.tables = make_site_tables(
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
-            coords_host=coords[sd.table.order] if on_coords else None)
+            coords_host=coords[sd.table.order] if on_coords else None,
+            shards=1 if mesh is None else mesh.shape["sites"])
         if device.type == "cuda":
             check_card_m(self.tables.n_pad, self.tables.m)
         # heterogeneous noise: the weights v permuted into ordered site space
@@ -189,6 +213,8 @@ class ResponseNNGP:
             self._x_nbr = self.x[self._nbr]  # (m, n, p)
             # reverse neighbor index, for the y cotangent of full_loglik
             self.tables = with_children(self.tables)
+        if mesh is not None:
+            self.tables = shard_site_tables(self.tables, mesh)
 
         self.priors = default_priors(coords, y, priors)
         # Metropolis block layout: [phi, alpha(, nu)]
@@ -637,7 +663,8 @@ class ResponseNNGP:
         parameters, beta with fixed effects, 'logw' and 'log_z'; the list of
         per-stage info dicts).  The particles and the generator live on the
         host; the initial evaluation and every move evaluate all particles in
-        one launch of kernel 1.  ``kwargs`` go to ``smc_sample``
+        one launch of kernel 1 (on a mesh one a cell: the particles split
+        over its chains axis).  ``kwargs`` go to ``smc_sample``
         (target_ess_frac, resample_ess_frac, max_stages)."""
         gen = torch.Generator().manual_seed(seed)
         state, infos = smc_sample(self.full_logprior, self.full_loglik,

@@ -495,7 +495,8 @@ def color_site_table(colors: np.ndarray):
     return sites, mask
 
 
-def color_child_pairs(colors, sites, smask, child_idx, child_mask):
+def color_child_pairs(colors, sites, smask, child_idx, child_mask,
+                      n_shards: int = 0):
     """Packed (parent, child) pair tables per colour for the chromatic sweep.
 
     The per-site child table pads every row to the global max child count
@@ -508,8 +509,12 @@ def color_child_pairs(colors, sites, smask, child_idx, child_mask):
           value tables,
       pm: validity (pads carry False, and 0 in the other three).
     Row length = max over colours of the live-pair count (~ class size * m).
-    Within a row the pairs are in parent-ascending order.  The site-sharded
-    variant of the reference (``n_shards`` > 0) is not ported.
+    Within a row the pairs are in parent-ascending order.
+
+    With ``n_shards`` > 0 the tables follow
+    ``parallel.shard_color_tables``'s round-robin partitions instead: shard
+    s owns every parent at position t with t % n_shards == s, at shard-row
+    position t // n_shards; returns (n_shards, n_colors, P) arrays.
     """
     n_colors = sites.shape[0]
     n, max_c = child_idx.shape
@@ -519,22 +524,35 @@ def color_child_pairs(colors, sites, smask, child_idx, child_mask):
         pos[row] = np.arange(len(row))
     ii, kk = np.nonzero(child_mask)  # every live pair, parent-ascending
     jj = child_idx[ii, kk]
-    key = colors[ii]
+    cc = colors[ii]
+    if n_shards:
+        ss = pos[ii] % n_shards
+        ppos = pos[ii] // n_shards
+        key = cc * n_shards + ss
+        n_rows = n_colors * n_shards
+    else:
+        ppos = pos[ii]
+        key = cc
+        n_rows = n_colors
     order = np.argsort(key, kind="stable")
-    counts = np.bincount(key, minlength=n_colors)
+    counts = np.bincount(key, minlength=n_rows)
     p_max = max(int(counts.max()), 1)
-    shape = (n_colors, p_max)
+    shape = (n_rows, p_max)
     pp = np.zeros(shape, np.int32)
     pc = np.zeros(shape, np.int32)
     pf = np.zeros(shape, np.int32)
     pm = np.zeros(shape, bool)
     off = np.concatenate([[0], np.cumsum(counts)])
-    io, jo, ko, po = ii[order], jj[order], kk[order], pos[ii][order]
-    for r in range(n_colors):
+    io, jo, ko, po = ii[order], jj[order], kk[order], ppos[order]
+    for r in range(n_rows):
         sl = slice(off[r], off[r + 1])
         ln = int(counts[r])
         pp[r, :ln] = po[sl]
         pc[r, :ln] = jo[sl]
         pf[r, :ln] = io[sl] * max_c + ko[sl]
         pm[r, :ln] = True
+    if n_shards:
+        # (colour * S + shard) rows -> (shard, colour, P)
+        resh = lambda a: a.reshape(n_colors, n_shards, p_max).swapaxes(0, 1)
+        return resh(pp), resh(pc), resh(pf), resh(pm)
     return pp, pc, pf, pm

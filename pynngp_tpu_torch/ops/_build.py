@@ -96,15 +96,19 @@ class LaunchCount:
         self.plain = 0
 
 
+VARIANTS = ("", "_hetero", "_large", "_large_hetero")
+
+
 def with_variant_counts(*counts: LaunchCount) -> dict:
     """{name: count} of a wrapper's counts and, for each, counts of the same
     source's launches with heterogeneous-noise weights (``<name>_hetero``:
-    the same C entry), of its large-m instance (``<name>_large``: m > 32)
-    and of both (``<name>_large_hetero``), counted apart so that a run shows
-    which paths drove which instance."""
+    the same C entry), of its large-m instance (``<name>_large``: m > 32),
+    of both (``<name>_large_hetero``), and of each of these in a call over
+    several cells of a mesh (``..._sharded``), counted apart so that a run
+    shows which paths drove which instance."""
     out = {}
     for count in counts:
-        for sfx in ("", "_hetero", "_large", "_large_hetero"):
+        for sfx in VARIANTS + tuple(v + "_sharded" for v in VARIANTS):
             out[count.name + sfx] = count if not sfx else LaunchCount(count.name + sfx)
     return out
 

@@ -28,6 +28,11 @@ Padded sites (site >= n) hold B = 0 and F = 1, from the kernel and from the
 plain version alike: their table entries are zero, so with alpha = 0 their
 system would be the singular all-ones matrix.  A consumer may take log F or
 1/F over all n_pad sites; sums over sites still run over ``[:n]``.
+
+Shards (the reference's ``make_sharded_pallas_bf``, ``pallas_bf.py:1346``):
+on :class:`~.site_tables.ShardedTables` :func:`bf_planes` makes one launch a
+mesh cell and concatenates the shards' planes along the sites on the mesh's
+first device, the reference's all_gather.
 """
 
 from __future__ import annotations
@@ -35,14 +40,16 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
-from pynngp_tpu_torch.ops.site_tables import SiteTables, unpack_distances
+from pynngp_tpu_torch.ops.site_tables import ShardedTables, SiteTables, unpack_distances
 from pynngp_tpu_torch.ops.suffstats import (
     cuda_args,
     entry_name,
     family_arg,
+    global_sites,
     instance,
     kernel_nu,
     launch_geometry,
+    map_cells,
     noise_plane,
     noise_terms,
     params_array,
@@ -66,9 +73,9 @@ def bf_reference(kernel, tables: SiteTables, params, noise_v=None):
     """Plain PyTorch version of kernel 3: batched ``torch.linalg.cholesky``
     over (C, n_pad) systems and two triangular solves.  Returns B
     (C, m, n_pad) and F (C, n_pad) in the tables' dtype.  ``noise_v``:
-    per-site noise weights, (n,) or padded (n_pad,), or None."""
+    per-site noise weights, (n,) or padded, or None."""
     d_in, d_nn = unpack_distances(tables)
-    site = torch.arange(tables.n_pad, device=tables.device)
+    site = global_sites(tables)
     valid = site < tables.n
     # slot k of site i is a real neighbor iff i > k; a padded site has none
     mask = (site[:, None] > torch.arange(tables.m, device=tables.device)) & valid[:, None]
@@ -85,7 +92,7 @@ def bf_reference(kernel, tables: SiteTables, params, noise_v=None):
     return b.transpose(1, 2).contiguous(), f
 
 
-def _launch(kernel, tables: SiteTables, params, noise_v):
+def _launch(kernel, tables: SiteTables, params, noise_v, sharded=False):
     params, _, v = cuda_args(tables, params, noise_v=noise_v)
     chains = params.shape[0]
     dev = tables.device
@@ -98,10 +105,23 @@ def _launch(kernel, tables: SiteTables, params, noise_v):
             *family_arg(kernel), *geo_args)
     tail = (b.data_ptr(), f.data_ptr(), _build.stream_handle(dev))
     entry = entry_name("vecchia_bf", kernel, tables)
-    _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
+    with torch.cuda.device(dev):
+        _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
     del scratch  # the launch is enqueued: the allocator orders any reuse after it
-    COUNTS[instance("vecchia_bf", kernel, tables, hetero=v is not None)].launches += 1
+    COUNTS[instance("vecchia_bf", kernel, tables, hetero=v is not None,
+                    sharded=sharded)].launches += 1
     return b, f
+
+
+def _one(kernel, tables: SiteTables, params, noise_v, sharded=False):
+    """Kernel 3 on CUDA tables, its plain version on CPU tables."""
+    if tables.device.type == "cuda":
+        return _launch(kernel, tables, params, noise_v, sharded)
+    if tables.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.device}")
+    COUNTS[instance("vecchia_bf", kernel, tables, hetero=noise_v is not None,
+                    sharded=sharded)].plain += 1
+    return bf_reference(kernel, tables, params, noise_v)
 
 
 def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None,
@@ -119,16 +139,16 @@ def bf_planes(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None,
         relative nugget becomes alpha v.
     B is 0 in invalid slots; padded sites hold B = 0, F = 1.  CUDA tensors
     launch kernel 3; CPU tensors run :func:`bf_reference`.
+    :class:`ShardedTables` make one launch a mesh cell; B and F come back
+    whole on the first device.
     """
     params = params_array(phi, alpha, jitter, tables.n, tables.dtype,
-                          tables.device, kernel_nu(kernel, nu))
-    if tables.device.type == "cuda":
-        return _launch(kernel, tables, params, noise_v)
-    if tables.device.type != "cpu":
-        raise ValueError(f"no kernel for device {tables.device}")
-    COUNTS[instance("vecchia_bf", kernel, tables,
-                    hetero=noise_v is not None)].plain += 1
-    return bf_reference(kernel, tables, params, noise_v)
+                          tables.device, kernel_nu(kernel, nu), tables.off)
+    if isinstance(tables, ShardedTables):
+        return tuple(map_cells(
+            tables, params, None, noise_v,
+            lambda t, p, _, v_c, several: _one(kernel, t, p, v_c, several), (2, 1)))
+    return _one(kernel, tables, params, noise_v)
 
 
 def bf(kernel, tables: SiteTables, phi, alpha, jitter=1e-6, nu=None, noise_v=None):

@@ -47,6 +47,15 @@ come back to phi's device.  A sampler whose state is a few numbers per chain
 can then keep it, and the prior and transform arithmetic around this call,
 off the card, where each of those tiny operations would be a kernel launch.
 
+Shards (the reference's ``make_sharded_diff_suffstats``,
+``pallas_bf.py:1195``): on :class:`~.site_tables.ShardedTables` a call makes
+one launch a mesh cell (``ops.suffstats.map_cells``) and adds the float64
+partial sums over the site shards on the mesh's first device.  With y
+requiring grad every shard's EMIT_Y B and r/F planes are gathered there, in
+the global layout, and the y cotangent runs the same gather over the global
+reverse index; the reference's sharded path drops that cotangent
+(``pallas_bf.py:1204-1206``).
+
 Per site (u = L^-1 c, v = L^-1 y_N, p = C^-1 c, q = C^-1 y_N):
   F = (1+alpha) - u.u,          r = y_0 - u.v
   dF/dphi = -2 p.(dc/dphi) + p'(dC/dphi)p,   dr/dphi = -(dc/dphi).q + p'(dC/dphi)q
@@ -61,7 +70,7 @@ from __future__ import annotations
 import torch
 
 from pynngp_tpu_torch.ops import _build
-from pynngp_tpu_torch.ops.site_tables import SiteTables
+from pynngp_tpu_torch.ops.site_tables import ShardedTables, SiteTables
 from pynngp_tpu_torch.ops.suffstats import (
     GENERAL_FAMILY,
     _factor,
@@ -69,12 +78,14 @@ from pynngp_tpu_torch.ops.suffstats import (
     entry_name,
     instance,
     kernel_nu,
+    launch_geometry,
+    map_cells,
     noise_plane,
+    own_plane,
     params_array,
     pointer,
     shape_args,
     suffstats,
-    launch_geometry,
     y_stride,
 )
 
@@ -105,7 +116,24 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False,
     instances write them.  With ``emit_y`` it returns
     (sums, B (C, m, n_pad), r/F (C, n_pad)) as the EMIT_Y kernel writes them:
     B and r/F exactly 0 at padded sites, B also in invalid slots.
-    ``noise_v``: per-site noise weights, (n,) or padded (n_pad,), or None."""
+    ``noise_v``: per-site noise weights, (n,) or padded, or None."""
+    out = _reference64(kernel, tables, params, y, emit_y, noise_v)
+    if not emit_y:
+        return out.to(tables.dtype)
+    return (out[0].to(tables.dtype),) + out[1:]
+
+
+def _reference64(kernel, tables: SiteTables, params, y, emit_y=False, noise_v=None):
+    """:func:`grad_reference` with its sums left in float64."""
+    terms, b, rof = grad_terms(kernel, tables, params, y, noise_v)
+    sums = terms.sum(-1, dtype=torch.float64)
+    return (sums, b, rof) if emit_y else sums
+
+
+def grad_terms(kernel, tables: SiteTables, params, y, noise_v=None):
+    """The per-site terms of kernel 2's sums, (6 or 8, C, n_pad) (0 at
+    padded sites), and B (C, m, n_pad) and r/F (C, n_pad) as the EMIT_Y
+    instances write them: the plain version before its sums."""
     v = noise_plane(tables, noise_v)
     fac = _factor(kernel, tables, params, y, v)
     low, u, w, f, valid = fac["low"], fac["u"], fac["w"], fac["f"], fac["valid"]
@@ -136,7 +164,7 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False,
         dr_a = (p * q).sum(-1)
     else:  # dC/dalpha = diag(v) at the neighbors, dF/dalpha gains v_0
         wgt = v[tables.nn_idx.T.long()] * mask_f  # (C, n_pad, m)
-        df_a = v + (wgt * p * p).sum(-1)
+        df_a = own_plane(tables, v) + (wgt * p * p).sum(-1)
         dr_a = (wgt * p * q).sum(-1)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     inv_f = torch.where(valid, 1.0 / f, zero)
@@ -155,15 +183,14 @@ def grad_reference(kernel, tables: SiteTables, params, y, emit_y: bool = False,
         terms += [df_nu * inv_f, 2.0 * r_over_f * dr_nu - ratio2 * df_nu]
     elif general:
         terms += [torch.zeros_like(f), torch.zeros_like(f)]
-    # (6 or 8, C, n_pad)
-    sums = torch.stack(terms).sum(-1, dtype=torch.float64).to(f.dtype)
-    if not emit_y:
-        return sums
     b = torch.where((fac["mask"] & valid[:, None]), p, zero)  # (C, n_pad, m)
-    return sums, b.transpose(1, 2).contiguous(), torch.where(valid, r_over_f, zero)
+    return (torch.stack(terms), b.transpose(1, 2).contiguous(),
+            torch.where(valid, r_over_f, zero))
 
 
-def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v):
+def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v,
+            sharded=False):
+    """One launch of kernel 2; its sums in float64."""
     params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
@@ -178,37 +205,57 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v):
             *shape_args(tables), chains, selector, *geo_args, part.data_ptr())
     name = entry_name("vecchia_grad", kernel, tables, emit_y)
     entry = getattr(_build.library(), name + "_f32")
-    if emit_y:
-        b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
-                        device=dev)
-        rof = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
-        code = entry(*args, b.data_ptr(), rof.data_ptr(), _build.stream_handle(dev))
-    else:
-        code = entry(*args, _build.stream_handle(dev))
+    with torch.cuda.device(dev):
+        if emit_y:
+            b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
+                            device=dev)
+            rof = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
+            code = entry(*args, b.data_ptr(), rof.data_ptr(), _build.stream_handle(dev))
+        else:
+            code = entry(*args, _build.stream_handle(dev))
     _build.check(code, name)
     del scratch  # the launch is enqueued: the allocator orders any reuse after it
-    COUNTS[instance("vecchia_grad", kernel, tables, emit_y, v is not None)].launches += 1
-    sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
+    COUNTS[instance("vecchia_grad", kernel, tables, emit_y, v is not None,
+                    sharded)].launches += 1
+    sums = part.sum(-1, dtype=torch.float64)
     return (sums, b, rof) if emit_y else sums
+
+
+def _one(kernel, tables: SiteTables, params, y, emit_y, noise_v, sharded=False):
+    """Kernel 2 on CUDA tables, its plain version on CPU tables; sums in
+    float64."""
+    if tables.device.type == "cuda":
+        return _launch(kernel, tables, params, y, emit_y, noise_v, sharded)
+    if tables.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.device}")
+    COUNTS[instance("vecchia_grad", kernel, tables, emit_y,
+                    noise_v is not None, sharded)].plain += 1
+    return _reference64(kernel, tables, params.detach(), y.detach(), emit_y,
+                        noise_v)
 
 
 def value_and_grad_sums(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6,
                         emit_y: bool = False, nu=None, noise_v=None):
     """(6, C) value and derivative sums ((8, C) for the general-nu Matern),
     and with ``emit_y`` also B (C, m, n_pad) and r/F (C, n_pad): kernel 2 for
-    CUDA tensors, :func:`grad_reference` for CPU tensors.  ``noise_v``: the
-    per-site noise weights (``ops.suffstats.noise_plane``) or None."""
+    CUDA tensors, :func:`grad_reference` for CPU tensors; one launch a mesh
+    cell on :class:`ShardedTables`, the results on the first device.
+    ``noise_v``: the per-site noise weights (``ops.suffstats.noise_plane``)
+    or None."""
     device = phi.device if isinstance(phi, torch.Tensor) else tables.device
     params = params_array(phi, alpha, jitter, tables.n, tables.dtype, device,
-                          kernel_nu(kernel, nu))
-    if tables.device.type == "cuda":
-        return _launch(kernel, tables, params, y, emit_y, noise_v)
-    if tables.device.type != "cpu":
-        raise ValueError(f"no kernel for device {tables.device}")
-    COUNTS[instance("vecchia_grad", kernel, tables, emit_y,
-                    noise_v is not None)].plain += 1
-    return grad_reference(kernel, tables, params.detach(), y.detach(), emit_y,
-                          noise_v)
+                          kernel_nu(kernel, nu), tables.off)
+    if isinstance(tables, ShardedTables):
+        out = map_cells(
+            tables, params, y, noise_v,
+            lambda t, p, y_c, v_c, several: _one(kernel, t, p, y_c, emit_y, v_c, several),
+            (None, 2, 1) if emit_y else (None,))
+        out = tuple(out) if emit_y else out[0]
+    else:
+        out = _one(kernel, tables, params, y, emit_y, noise_v)
+    if not emit_y:
+        return out.to(tables.dtype)
+    return (out[0].to(tables.dtype),) + tuple(out[1:])
 
 
 def dquad_dy(tables: SiteTables, b, rof):

@@ -23,11 +23,22 @@ Both layouts also hold
   the reverse index that the y cotangent of the differentiable suffstats
   gathers through.
 
-n is padded only to the CUDA block size.  There is no mask plane: every
+n is padded to the CUDA block size, times the number of site shards when
+the tables are built for a mesh (``shards``), as ``make_lane_cache(shards=)``
+pads its tile axis.  There is no mask plane: every
 ordering packs site i's min(i, m) preceding neighbors into the low slots, so
 slot k is valid iff site > k (``pallas_bf.py:357-374``).  Padded entries are
 zero.  Neither layout depends on the hyperparameters, so the tables are
 built once per dataset.
+
+Shards (the counterpart of ``shard_lane_cache``, ``pallas_bf.py:1173``):
+:func:`shard_site_tables` cuts tables built with ``shards=S`` into S column
+blocks of ``n_pad / S`` sites, each a :class:`SiteTables` whose ``off`` is the
+global index of its first site and whose ``n`` stays the global count; the
+kernels mask and validate by the global index ``site + off``
+(``csrc/vecchia_common.cuh``).  :class:`ShardedTables` holds one such block
+per cell of a (chains, sites) mesh, on that cell's device, and
+:func:`chain_groups` splits a call's chains over the mesh's chain rows.
 
 :func:`choose_layout` is the models' rule for the layout: the reference's,
 "Euclidean and more than a threshold of sites", with the threshold
@@ -44,12 +55,16 @@ import torch
 from pynngp_tpu_torch.neighbors import build_children_table
 from pynngp_tpu_torch.vecchia import neighbor_distances
 
-__all__ = ["BLOCK", "COORDS_LAYOUT_MIN_SITES", "LAYOUTS", "SiteTables",
-           "choose_layout", "make_site_tables", "padded_size", "tri_index",
+__all__ = ["BLOCK", "COORDS_LAYOUT_MIN_SITES", "LAYOUTS", "MAX_SITE_INDEX",
+           "ShardedTables", "SiteTables", "chain_groups", "choose_layout",
+           "make_site_tables", "padded_size", "shard_site_tables", "tri_index",
            "unpack_distances", "with_children"]
 
 BLOCK = 128  # CUDA threads per block along sites (csrc/vecchia_common.cuh)
 LAYOUTS = ("dist", "coords")
+# n and off ride the kernels' float32 params row, exact below 2^24: every
+# global site index of a launch, up to off + n_pad - 1, must stay below it
+MAX_SITE_INDEX = 2**24
 
 # "auto" takes the coords layout above this many sites, dist at or below it.
 # Measured by chip_smoke.py's layout phase (layout_rule) on an NVIDIA H100
@@ -88,10 +103,16 @@ class SiteTables(NamedTuple):
     n_pad: int  # padded site count, a multiple of BLOCK
     child_flat: Optional[torch.Tensor] = None  # (n, max_children) int64
     layout: str = "dist"
+    off: int = 0  # global index of the first site (a shard's tables)
 
     @property
     def m(self) -> int:
         return self.nn_idx.shape[0]
+
+    @property
+    def reach(self) -> int:
+        """One past the last global site index the tables hold."""
+        return self.off + self.n_pad
 
     @property
     def dim(self) -> int:
@@ -118,8 +139,10 @@ def tri_index(i: int, k: int) -> int:
     return i * (i - 1) // 2 + k
 
 
-def padded_size(n: int) -> int:
-    return -(-n // BLOCK) * BLOCK
+def padded_size(n: int, shards: int = 1) -> int:
+    """n rounded up to a multiple of BLOCK * shards."""
+    unit = BLOCK * shards
+    return -(-n // unit) * unit
 
 
 def _tri_rows_cols(m: int):
@@ -131,7 +154,7 @@ def _tri_rows_cols(m: int):
 
 
 def make_site_tables(data, dtype=torch.float32, device="cpu", layout="dist",
-                     coords_host=None) -> SiteTables:
+                     coords_host=None, shards: int = 1) -> SiteTables:
     """Host-side relayout of a :class:`~pynngp_tpu_torch.vecchia.VecchiaData`
     into plane-major tables.
 
@@ -141,12 +164,14 @@ def make_site_tables(data, dtype=torch.float32, device="cpu", layout="dist",
     reads coordinates: ``coords_host``, the (n, d) float64 coordinates in
     ordered space, where the caller has them (the models do), else the data's
     own ``coords``, already in the data's dtype (a UTM-style offset of 1e6 in
-    float32 is quantized to 0.06 before the centring can save it)."""
+    float32 is quantized to 0.06 before the centring can save it).
+    ``shards``: pad the sites to a multiple of ``BLOCK * shards``, so that
+    :func:`shard_site_tables` can cut them into that many site shards."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be 'dist' or 'coords', got {layout!r}")
     nn_idx_host = data.nn_idx.cpu().numpy()
     n, m = nn_idx_host.shape
-    n_pad = padded_size(n)
+    n_pad = padded_size(n, shards)
     nn_idx = np.zeros((m, n_pad), np.int32)
     nn_idx[:, :n] = nn_idx_host.T
     if layout == "coords":
@@ -202,6 +227,98 @@ def with_children(tables: SiteTables) -> SiteTables:
                     + ch.child_idx, 0)
     return tables._replace(
         child_flat=torch.as_tensor(flat, device=tables.nn_idx.device))
+
+
+class ShardedTables(NamedTuple):
+    """Site tables cut into the site shards of a (chains, sites) mesh:
+    ``cells[g][s]`` is shard s on the device of mesh cell (g, s), a
+    :class:`SiteTables` of ``n_pad / S`` sites at ``off = s n_pad / S``.
+    Cells on one device share one copy.  ``n``, ``n_pad`` and ``child_flat``
+    (the reverse index over the global plane-major layout) are the global
+    tables', on the mesh's first device, where every sharded call gathers
+    its results."""
+
+    cells: tuple
+    n: int
+    n_pad: int
+    child_flat: Optional[torch.Tensor] = None
+    layout: str = "dist"
+
+    off = 0  # the global tables start at site 0
+
+    @property
+    def reach(self) -> int:
+        return self.n_pad
+
+    @property
+    def first(self) -> SiteTables:
+        return self.cells[0][0]
+
+    @property
+    def m(self) -> int:
+        return self.first.m
+
+    @property
+    def device(self) -> torch.device:
+        return self.first.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.first.dtype
+
+    @property
+    def n_cells(self) -> int:
+        return len(self.cells) * len(self.cells[0])
+
+
+def shard_site_tables(tables: SiteTables, mesh) -> ShardedTables:
+    """Cut ``tables`` (built with ``shards=mesh.shape["sites"]``) into the
+    mesh's site shards, each a contiguous copy on its cells' devices.
+
+    The blocks are cut from the global tables, never rebuilt per shard: the
+    coords layout centres on the global mean, and its float32 planes would
+    change with a per-shard centre.  A block of the plane-major tables is a
+    strided view (the kernels take n_pad as the plane stride), hence the
+    copy."""
+    rows, cols = mesh.shape["chains"], mesh.shape["sites"]
+    if tables.off or tables.n_pad % (BLOCK * cols):
+        raise ValueError(f"n_pad={tables.n_pad} does not cut into {cols} site "
+                         f"shards of whole {BLOCK}-site blocks: build the "
+                         f"tables with shards={cols}")
+    width = tables.n_pad // cols
+    copies = {}
+
+    def cell(s, device):
+        key = (s, torch.device(device))
+        if key not in copies:
+            cut = lambda t: t[:, s * width:(s + 1) * width].contiguous().to(device)
+            copies[key] = tables._replace(
+                tab_a=cut(tables.tab_a), tab_b=cut(tables.tab_b),
+                nn_idx=cut(tables.nn_idx), n_pad=width, child_flat=None,
+                off=s * width)
+        return copies[key]
+
+    cells = tuple(tuple(cell(s, mesh.devices[g][s]) for s in range(cols))
+                  for g in range(rows))
+    child_flat = tables.child_flat
+    if child_flat is not None:
+        child_flat = child_flat.to(cells[0][0].device)
+    return ShardedTables(cells=cells, n=tables.n, n_pad=tables.n_pad,
+                         child_flat=child_flat, layout=tables.layout)
+
+
+def chain_groups(chains: int, rows: int):
+    """(chain row g, slice of its chains) of a call's ``chains`` split into
+    ``rows`` contiguous groups, the first ``chains % rows`` one chain
+    larger; rows left without a chain are left out."""
+    per, extra = divmod(chains, rows)
+    out, start = [], 0
+    for g in range(rows):
+        stop = start + per + (g < extra)
+        if stop > start:
+            out.append((g, slice(start, stop)))
+        start = stop
+    return out
 
 
 def _euclidean(a, b):

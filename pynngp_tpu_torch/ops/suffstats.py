@@ -28,6 +28,16 @@ m > 32 the large-m instance.  Up to m = 32 the three kernels launch in the
 tile geometry of :mod:`.geometry` (a block is a group of chains that share
 one staged tile of sites); above it one thread a (site, chain) with its
 state in a scratch buffer (:func:`launch_geometry`).
+
+Shards.  Tables of one site shard (``SiteTables.off`` > 0) launch the same
+instances with ``off`` in the params row; :class:`~.site_tables.ShardedTables`
+make one launch a cell of their mesh (:func:`map_cells`: the chains split
+over the chain rows, every site shard of a row on its device), and the
+per-shard float64 partial sums add up on the mesh's first device, where the
+per-site outputs are concatenated along the sites: the reference's
+``make_sharded_diff_suffstats`` forward (``pallas_bf.py:1195``), its psum a
+sum on one device.  A launch of a call with more than one cell counts under
+the instance's name with ``_sharded``.
 """
 
 from __future__ import annotations
@@ -42,14 +52,21 @@ from pynngp_tpu_torch.ops.geometry import (
     large,
     large_geometry,
 )
-from pynngp_tpu_torch.ops.site_tables import BLOCK, SiteTables, unpack_distances
+from pynngp_tpu_torch.ops.site_tables import (
+    BLOCK,
+    MAX_SITE_INDEX,
+    ShardedTables,
+    SiteTables,
+    chain_groups,
+    unpack_distances,
+)
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
 __all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "CUDA_M",
            "GENERAL_FAMILY", "cuda_instance_m", "entry_name", "instance", "kernel_nu",
            "launch_geometry",
-           "noise_plane", "params_array", "suffstats", "suffstats_reference",
-           "loglik"]
+           "map_cells", "noise_plane", "params_array", "suffstats",
+           "suffstats_reference", "loglik"]
 
 COUNT = _build.LaunchCount("vecchia_suffstats")
 COUNT_NU = _build.LaunchCount("vecchia_suffstats_nu")  # the GENERAL instances
@@ -69,31 +86,41 @@ def entry_name(base: str, kernel, tables: SiteTables, emit_y: bool = False) -> s
 
 
 def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
-             hetero: bool = False) -> str:
+             hetero: bool = False, sharded: bool = False) -> str:
     """The kernel instance a launch of ``base`` runs, named as its launch
     count: its C entry (:func:`entry_name`), ``_large`` for m > 32 (the
-    large-m instance of the same entry) and ``_hetero`` for a launch with
-    noise weights (the same entry again)."""
+    large-m instance of the same entry), ``_hetero`` for a launch with
+    noise weights and ``_sharded`` for one of a call over several mesh cells
+    (the same entry again)."""
     return (entry_name(base, kernel, tables, emit_y)
             + ("_large" if large(tables.m) else "")
-            + ("_hetero" if hetero else ""))
+            + ("_hetero" if hetero else "")
+            + ("_sharded" if sharded else ""))
 
 
 def noise_plane(tables: SiteTables, noise_v):
-    """The per-site noise weights v as the kernels read them: (n_pad,) in
-    the tables' dtype and on their device, padded with 1 (the reference's
-    ``_noise_planes``, ``pallas_bf.py:510-518``: F stays positive at padded
-    sites); None for homogeneous noise.  ``noise_v`` is (n,) in ordered site
-    space, or already (n_pad,)."""
+    """The per-site noise weights v as the kernels read them, whole on every
+    shard: (max(n, reach),) in the tables' dtype and on their device, padded
+    with 1 (the reference's ``_noise_planes``, ``pallas_bf.py:510-518``: F
+    stays positive at padded sites); None for homogeneous noise.  ``noise_v``
+    is (n,) in ordered site space, or already padded past n to at least the
+    tables' reach (off + n_pad; (n_pad,) for unsharded tables)."""
     if noise_v is None:
         return None
     v = torch.as_tensor(noise_v, dtype=tables.dtype, device=tables.device)
-    if v.shape == (tables.n_pad,):
+    if v.dim() == 1 and v.shape[0] > tables.n and v.shape[0] >= tables.reach:
         return v.contiguous()
     if v.shape != (tables.n,):
         raise ValueError(f"noise_v must have shape ({tables.n},) or "
-                         f"({tables.n_pad},), got {tuple(v.shape)}")
-    return torch.nn.functional.pad(v, (0, tables.n_pad - tables.n), value=1.0)
+                         f"({max(tables.reach, tables.n + 1)},), got "
+                         f"{tuple(v.shape)}")
+    return torch.nn.functional.pad(v, (0, max(0, tables.reach - tables.n)),
+                                   value=1.0)
+
+
+def own_plane(tables: SiteTables, v):
+    """The weights of the tables' own sites, v[off:off + n_pad], or None."""
+    return None if v is None else v[tables.off:tables.reach]
 
 
 def kernel_nu(kernel, nu=None):
@@ -110,10 +137,11 @@ def kernel_nu(kernel, nu=None):
     return kernel.static_nu if kernel.family == GENERAL_FAMILY else 0.0
 
 
-def params_array(phi, alpha, jitter, n, dtype, device=None, nu=0.0):
+def params_array(phi, alpha, jitter, n, dtype, device=None, nu=0.0, off=0):
     """(C, 6) per-chain parameter rows [phi, alpha, jitter, n, nu, off] in
-    ``dtype``, mirroring ``_params_vec`` (``pallas_bf.py:496``).  off stays
-    0: no ported kernel reads it.  Differentiable in phi, alpha and nu."""
+    ``dtype``, mirroring ``_params_vec`` (``pallas_bf.py:496``): n the global
+    site count, off the global index of the launch's first site (0 but for
+    a site shard).  Differentiable in phi, alpha and nu."""
     phi = torch.atleast_1d(torch.as_tensor(phi, dtype=dtype, device=device))
     full = lambda v: torch.full_like(phi, float(v))
     # a Python number becomes a fill on phi's device: as_tensor would copy it
@@ -121,17 +149,56 @@ def params_array(phi, alpha, jitter, n, dtype, device=None, nu=0.0):
     column = lambda v: (v.to(dtype=dtype, device=phi.device).expand_as(phi)
                         if isinstance(v, torch.Tensor) else full(v))
     return torch.stack([phi, column(alpha), full(jitter), full(n), column(nu),
-                        full(0.0)], dim=-1)
+                        full(off)], dim=-1)
+
+
+def map_cells(sharded: ShardedTables, params, y, noise_v, launch, site_axes):
+    """Run a call over ``sharded``: one ``launch(tables, params, y, v,
+    several)`` for every chain row g with chains and every site shard of it,
+    on the shard's device, with the row's params rows carrying the shard's
+    off, and y ((n,) or the row's rows of (C, n)) and the global noise
+    weights (:func:`noise_plane`) held whole on every shard; ``several`` says
+    the call has more than one cell.  The outputs are joined on the mesh's
+    first device: element i, a tuple element of every launch's output (or
+    the output itself), is concatenated along the sites (dim
+    ``site_axes[i]``) or, where that is None, its float64 sums added over the
+    shards; then the rows are concatenated along the chains (dim 0; the last
+    dim for sums)."""
+    v = noise_plane(sharded, noise_v)
+    several = sharded.n_cells > 1
+    dev = sharded.device
+    rows = []
+    for g, chains in chain_groups(params.shape[0], len(sharded.cells)):
+        outs = []
+        for tables in sharded.cells[g]:
+            cell = tables.device
+            p = params[chains].to(cell)
+            p = torch.cat([p[:, :5], torch.full_like(p[:, 5:], float(tables.off))], 1)
+            y_c = None if y is None else (y if y.dim() == 1 else y[chains]).to(cell)
+            out = launch(tables, p, y_c, None if v is None else v.to(cell), several)
+            outs.append(out if isinstance(out, tuple) else (out,))
+        rows.append([torch.cat([o[i].to(dev) for o in outs], axis) if axis is not None
+                     else torch.stack([o[i].to(dev) for o in outs]).sum(0)
+                     for i, axis in enumerate(site_axes)])
+    return [torch.cat([r[i] for r in rows], 0 if axis is not None else -1)
+            for i, axis in enumerate(site_axes)]
+
+
+def global_sites(tables: SiteTables):
+    """(n_pad,) global index of each of the tables' sites, site + off."""
+    return torch.arange(tables.off, tables.reach, device=tables.device)
 
 
 def _plain_inputs(tables: SiteTables, y):
     """Site-major distances, slot masks, y_N and y_own for the plain
-    versions; y is (n,) or (C, n)."""
+    versions; y is (n,) or (C, n).  The masks, the validity and y_own go by
+    the global site index, as the kernels'."""
     d_in, d_nn = unpack_distances(tables)
-    site = torch.arange(tables.n_pad, device=tables.device)
+    site = global_sites(tables)
     mask = site[:, None] > torch.arange(tables.m, device=tables.device)[None, :]
     y_nbr = y[..., tables.nn_idx.T.long()] * mask.to(y.dtype)  # (..., n_pad, m)
-    y_own = torch.nn.functional.pad(y, (0, tables.n_pad - tables.n))
+    y_own = torch.nn.functional.pad(y, (0, max(0, tables.reach - tables.n)))
+    y_own = y_own[..., tables.off:tables.reach]
     valid = site < tables.n
     return d_in, d_nn, mask, y_nbr, y_own, valid
 
@@ -144,11 +211,11 @@ def plain_nu(kernel, params):
 
 def noise_terms(tables: SiteTables, alpha, v):
     """(relative nugget at each neighbor slot (C, n_pad, m), the site's own
-    (C, n_pad)) under the (n_pad,) weights ``v`` (:func:`noise_plane`), for
-    the plain versions; (None, alpha) for homogeneous noise."""
+    (C, n_pad)) under the weights ``v`` (:func:`noise_plane`), for the plain
+    versions; (None, alpha) for homogeneous noise."""
     if v is None:
         return None, alpha
-    return alpha[..., None] * v[tables.nn_idx.T.long()], alpha * v
+    return alpha[..., None] * v[tables.nn_idx.T.long()], alpha * own_plane(tables, v)
 
 
 def _factor(kernel, tables, params, y, v=None):
@@ -173,18 +240,24 @@ def _factor(kernel, tables, params, y, v=None):
                 w=w, f=f, y_own=y_own)
 
 
-def suffstats_reference(kernel, tables: SiteTables, params, y, noise_v=None):
-    """Plain PyTorch version of kernel 1: batched ``torch.linalg.cholesky``
-    over (C, n_pad) systems.  Returns (logdet (C,), quad (C,), f (C, n_pad),
-    resid (C, n_pad)), sums accumulated in float64 and cast to the tables'
-    dtype.  Differentiable in ``params``.  ``noise_v``: per-site noise
-    weights, (n,) or padded (n_pad,), or None."""
+def _reference64(kernel, tables: SiteTables, params, y, noise_v=None):
+    """:func:`suffstats_reference` with its sums left in float64."""
     fac = _factor(kernel, tables, params, y, noise_plane(tables, noise_v))
     f, valid = fac["f"], fac["valid"]
     resid = fac["y_own"] - (fac["u"] * fac["w"]).sum(-1)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     logdet = torch.where(valid, torch.log(f), zero).sum(-1, dtype=torch.float64)
     quad = torch.where(valid, resid * resid / f, zero).sum(-1, dtype=torch.float64)
+    return logdet, quad, f, resid
+
+
+def suffstats_reference(kernel, tables: SiteTables, params, y, noise_v=None):
+    """Plain PyTorch version of kernel 1: batched ``torch.linalg.cholesky``
+    over (C, n_pad) systems.  Returns (logdet (C,), quad (C,), f (C, n_pad),
+    resid (C, n_pad)), sums accumulated in float64 and cast to the tables'
+    dtype.  Differentiable in ``params``.  ``noise_v``: per-site noise
+    weights, (n,) or padded (:func:`noise_plane`), or None."""
+    logdet, quad, f, resid = _reference64(kernel, tables, params, y, noise_v)
     return logdet.to(f.dtype), quad.to(f.dtype), f, resid
 
 
@@ -198,6 +271,11 @@ def cuda_args(tables: SiteTables, params, y=None, noise_v=None):
     cuda_instance_m(tables.m)
     if tables.n_pad % BLOCK:
         raise ValueError(f"n_pad={tables.n_pad} is not a multiple of {BLOCK}")
+    if tables.n >= MAX_SITE_INDEX or tables.reach > MAX_SITE_INDEX:
+        # n and off ride the float32 params row, exact below 2^24
+        raise ValueError(f"n={tables.n} sites, global site indices up to "
+                         f"off + n_pad - 1 = {tables.reach - 1}: the kernels "
+                         f"take them below 2^24 = {MAX_SITE_INDEX}")
     for name, t in (("tab_a", tables.tab_a), ("tab_b", tables.tab_b)):
         if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
@@ -214,8 +292,6 @@ def cuda_args(tables: SiteTables, params, y=None, noise_v=None):
                              f"({params.shape[0]}, {tables.n}), got "
                              f"{tuple(y.shape)}")
         y = y.detach().contiguous()
-    if tables.n >= 2**24:  # n rides the float32 params row (exact below 2^24)
-        raise ValueError(f"n={tables.n} sites exceeds the kernels' 2^24 limit")
     if params.dim() != 2 or params.shape[-1] != 6:
         raise ValueError("params must be (C, 6)")
     params = params.detach().to(device=tables.device,
@@ -265,7 +341,8 @@ def launch_geometry(kernel, tables: SiteTables, chains: int, y, v):
     return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, None), None
 
 
-def _launch(kernel, tables: SiteTables, params, y, noise_v):
+def _launch(kernel, tables: SiteTables, params, y, noise_v, sharded=False):
+    """One launch of kernel 1; its sums in float64."""
     params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
@@ -279,11 +356,25 @@ def _launch(kernel, tables: SiteTables, params, y, noise_v):
     tail = (f.data_ptr(), resid.data_ptr(), part.data_ptr(),
             _build.stream_handle(dev))
     entry = entry_name("vecchia_suffstats", kernel, tables)
-    _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
+    with torch.cuda.device(dev):
+        _build.check(getattr(_build.library(), entry + "_f32")(*head, *tail), entry)
     del scratch  # the launch is enqueued: the allocator orders any reuse after it
-    COUNTS[instance("vecchia_suffstats", kernel, tables, hetero=v is not None)].launches += 1
-    sums = part.sum(-1, dtype=torch.float64).to(torch.float32)
+    COUNTS[instance("vecchia_suffstats", kernel, tables, hetero=v is not None,
+                    sharded=sharded)].launches += 1
+    sums = part.sum(-1, dtype=torch.float64)
     return sums[0], sums[1], f, resid
+
+
+def _one(kernel, tables: SiteTables, params, y, noise_v, sharded=False):
+    """Kernel 1 on CUDA tables, its plain version on CPU tables; sums in
+    float64."""
+    if tables.device.type == "cuda":
+        return _launch(kernel, tables, params, y, noise_v, sharded)
+    if tables.device.type != "cpu":
+        raise ValueError(f"no kernel for device {tables.device}")
+    COUNTS[instance("vecchia_suffstats", kernel, tables,
+                    hetero=noise_v is not None, sharded=sharded)].plain += 1
+    return _reference64(kernel, tables, params, y, noise_v)
 
 
 def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None,
@@ -298,20 +389,22 @@ def suffstats(kernel, tables: SiteTables, phi, alpha, y, jitter=1e-6, nu=None,
       y: (n,) ordered values shared by all chains, or (C, n) per chain.
       nu: (C,) per-chain smoothness, for a kernel that samples it only.
       noise_v: per-site noise weights v in ordered site space, (n,) or padded
-        (n_pad,) (:func:`noise_plane`): the relative nugget becomes alpha v.
+        (:func:`noise_plane`): the relative nugget becomes alpha v.
     Returns logdet, quad as (C,) and f, resid as (C, n_pad); padded sites are
     excluded from the sums.  CUDA tensors launch kernel 1; CPU tensors run
-    :func:`suffstats_reference`.
+    :func:`suffstats_reference`.  :class:`ShardedTables` make one launch a
+    mesh cell, and f, resid come back whole on the first device.
     """
     params = params_array(phi, alpha, jitter, tables.n, tables.dtype,
-                          tables.device, kernel_nu(kernel, nu))
-    if tables.device.type == "cuda":
-        return _launch(kernel, tables, params, y, noise_v)
-    if tables.device.type != "cpu":
-        raise ValueError(f"no kernel for device {tables.device}")
-    COUNTS[instance("vecchia_suffstats", kernel, tables,
-                    hetero=noise_v is not None)].plain += 1
-    return suffstats_reference(kernel, tables, params, y, noise_v)
+                          tables.device, kernel_nu(kernel, nu), tables.off)
+    if isinstance(tables, ShardedTables):
+        logdet, quad, f, resid = map_cells(
+            tables, params, y, noise_v,
+            lambda t, p, y_c, v_c, several: _one(kernel, t, p, y_c, v_c, several),
+            (None, None, 1, 1))
+    else:
+        logdet, quad, f, resid = _one(kernel, tables, params, y, noise_v)
+    return logdet.to(f.dtype), quad.to(f.dtype), f, resid
 
 
 def loglik(kernel, tables: SiteTables, phi, y, sigma2, alpha, jitter=1e-6,

@@ -305,7 +305,9 @@ def test_build_model_gives_the_configured_model(model, field):
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(mesh_chains=2), NotImplementedError), (dict(mesh_sites=4), NotImplementedError),
+    # mesh_chains and mesh_sites are carried and not read, as in the
+    # reference's build_model: the model is unsharded
+    (dict(mesh_chains=2), None), (dict(mesh_sites=4), None),
     # the max-min and natural orderings are ported: the model builds on them
     (dict(ordering="maxmin"), None), (dict(ordering="none"), None),
 ], ids=["change0", "change1", "change2", "change3"])
@@ -314,9 +316,20 @@ def test_build_model_raises_on_what_is_not_ported(change, exc, field):
     if exc is None:
         built = NNGPConfig(**change).build_model(coords, y, dtype=torch.float64,
                                                  device="cpu")
-        ref = jneighbors.build_neighbor_table(coords, built.tables.m, cache=False,
-                                              **change)
-        np.testing.assert_array_equal(built.table.order, ref.order)
+        if "ordering" in change:
+            ref = jneighbors.build_neighbor_table(coords, built.tables.m, cache=False,
+                                                  **change)
+            np.testing.assert_array_equal(built.table.order, ref.order)
+            return
+        # the reference's build_model builds the same unsharded model
+        ref = JaxNNGPConfig(**change).build_model(coords, y, dtype=jnp.float64)
+        assert built.mesh is None and ref.mesh is None
+        assert type(built).__name__ == type(ref).__name__
+        np.testing.assert_array_equal(built.table.order, ref.table.order)
+        u = np.array([0.1, -0.3, -2.0])
+        want = float(ref.full_loglik(jnp.asarray(u)))
+        got = float(built.full_loglik(torch.as_tensor(u)[None])[0])
+        np.testing.assert_allclose(got, want, rtol=1e-8)
         return
     with pytest.raises(exc):
         NNGPConfig(**change).build_model(coords, y, dtype=torch.float64, device="cpu")

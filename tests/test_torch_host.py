@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,6 +27,7 @@ from pynngp_tpu_torch.noise import HeterogeneousNoise
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.suffstats import cuda_instance_m
 from pynngp_tpu_torch.ops.site_tables import BLOCK, make_site_tables, tri_index
+from pynngp_tpu_torch.parallel import make_mesh
 from pynngp_tpu_torch.vecchia import make_vecchia_data
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,7 +196,8 @@ _WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
 
 @pytest.mark.parametrize("kwargs,exc", [
     ({"x": np.ones(60)}, ValueError),
-    ({"mesh": object()}, NotImplementedError),
+    # a mesh is ported: two site shards on the CPU build and run
+    ({"mesh": make_mesh(1, 2, devices=["cpu", "cpu"])}, None),
     # heterogeneous noise is ported; without its weights it raises TypeError,
     # as the reference's get_noise does
     ({"noise": "heterogeneous"}, TypeError),
@@ -206,18 +209,28 @@ _WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
     ({"ordering": "maxmin"}, None),
     ({"lane_layout": "coords", "noise": HeterogeneousNoise(_WEIGHTS)}, None),
     ({"device": "mps"}, ValueError),
+    # the reference's constructor arguments: distances computed from the
+    # coordinates, and a backend the port takes and ignores
+    ({"precompute_distances": False, "backend": "xla"}, None),
 ], ids=["x", "mesh", "hetero", "dotproduct", "general_nu", "maxmin", "coords",
-        "mps"])
+        "mps", "reference_args"])
 def test_unported_options_raise(kwargs, exc):
     """Options the port does not have raise (the reference's own error for
-    bare heterogeneous noise); the ported ones build and run."""
+    bare heterogeneous noise); the ported ones build and run, and where the
+    reference takes the same arguments, give its full_loglik."""
     args = {"m": 5, "device": "cpu", **kwargs}
     if exc is None:
-        model = ResponseNNGP(_SMALL, np.sin(6.0 * _SMALL[:, 0]), dtype=torch.float64,
-                             **args)
+        y = np.sin(6.0 * _SMALL[:, 0])
+        model = ResponseNNGP(_SMALL, y, dtype=torch.float64, **args)
         with torch.no_grad():
             u = torch.zeros((1, model.full_dim()), dtype=torch.float64)
             assert torch.isfinite(model.full_logpost(u)).all()
+            if "backend" in kwargs:
+                ref = JaxResponseNNGP(_SMALL, y, m=5, dtype=jnp.float64, **kwargs)
+                np.testing.assert_allclose(
+                    model.full_loglik(u).numpy(),
+                    np.asarray(ref.full_loglik(jnp.zeros(model.full_dim()))),
+                    rtol=1e-8)
         return
     with pytest.raises(exc):
         ResponseNNGP(_SMALL, np.ones(60), **args)

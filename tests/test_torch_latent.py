@@ -19,6 +19,7 @@ from pynngp_tpu_torch import convert
 from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.noise import HeterogeneousNoise
 from pynngp_tpu_torch.ops import bf as bf_ops
+from pynngp_tpu_torch.parallel import make_mesh
 
 N, M = 200, 6
 INIT = {"phi": 0.3, "sigma2": 0.9, "tau2": 0.15}
@@ -282,7 +283,8 @@ _WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"mesh": object()}, NotImplementedError),
+    # a mesh is ported: two site shards on the CPU build and run
+    ({"mesh": make_mesh(1, 2, devices=["cpu", "cpu"])}, None),
     # heterogeneous noise is ported; without its weights it raises TypeError,
     # as the reference's get_noise does
     ({"noise": "heterogeneous"}, TypeError),
@@ -295,19 +297,34 @@ _WEIGHTS = np.random.default_rng(3).uniform(0.25, 4.0, 60)
     ({"w_update": "blocked"}, ValueError),
     ({"x": np.ones(60)}, ValueError),
     ({"device": "mps"}, ValueError),
+    # the reference's backend argument, taken and ignored
+    ({"backend": "pallas"}, None),
 ], ids=["mesh", "hetero", "dotproduct", "general_nu", "maxmin", "w_update",
-        "x_shape", "mps"])
+        "x_shape", "mps", "backend"])
 def test_unported_options_raise(kwargs, exc):
     """Options the port does not have raise (the reference's own error for
-    bare heterogeneous noise); the ported ones build and run."""
+    bare heterogeneous noise); the ported ones build and run, and with the
+    reference's backend argument give its log-density pieces."""
     args = {"m": 5, "device": "cpu", **kwargs}
     if exc is None:
-        model = LatentNNGP(_SMALL, np.sin(6.0 * _SMALL[:, 0]), dtype=torch.float64,
-                           jitter=1e-4, **args)
+        y = np.sin(6.0 * _SMALL[:, 0])
+        # the reference's Pallas kernels take phi and the jitter in float32:
+        # the comparison uses values it holds exactly
+        jitter = 2.0**-13 if "backend" in kwargs else 1e-4
+        model = LatentNNGP(_SMALL, y, dtype=torch.float64, jitter=jitter, **args)
         state = model.init_state(2, {"phi": 0.3, "nu": 1.0})
         state = model.step(torch.Generator().manual_seed(0), state)
         assert all(torch.isfinite(t.double()).all() for t in state)
         assert torch.isfinite(model.loglik(state)).all()
+        if "backend" in kwargs:
+            ref = JaxLatentNNGP(_SMALL, y, m=5, dtype=jnp.float64, jitter=jitter,
+                                **kwargs)
+            w = np.random.default_rng(4).standard_normal(60)
+            got = model._suffstats(model._unconstrained(0.25)[None],
+                                   torch.as_tensor(w)[None])
+            want = ref._suffstats(ref._unconstrained(0.25), jnp.asarray(w))
+            np.testing.assert_allclose([float(got[2][0]), float(got[3][0])],
+                                       [float(want[2]), float(want[3])], rtol=1e-8)
         return
     with pytest.raises(exc):
         LatentNNGP(_SMALL, np.ones(60), **args)

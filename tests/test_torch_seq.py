@@ -73,6 +73,30 @@ def test_facade_predict_on_given_draws_matches_the_reference(field, model, covar
                                    rtol=1e-8, err_msg=key)
 
 
+@pytest.mark.parametrize("model", ["latent", "response"])
+def test_facade_takes_the_references_backend(field, model):
+    """SeqNNGP passes the reference's ``backend`` to the model, which takes
+    it and ignores it: the model is the reference facade's (the same
+    log-likelihood pieces, rtol 1e-8)."""
+    coords, y, _ = field
+    ours = SeqNNGP(y[:N], coords[:N], m=8, model=model, dtype=torch.float64,
+                   device="cpu", backend="xla")
+    ref = JaxSeqNNGP(y[:N], coords[:N], m=8, model=model, dtype=jnp.float64,
+                     backend="xla")
+    if model == "response":
+        u = np.array([0.1, -0.3, -2.0])
+        got = ours._model.full_loglik(torch.as_tensor(u)[None])[0]
+        want = ref._model.full_loglik(jnp.asarray(u))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-8)
+        return
+    w = np.random.default_rng(4).standard_normal(N)
+    got = ours._model._suffstats(ours._model._unconstrained(0.3)[None],
+                                 torch.as_tensor(w)[None])
+    want = ref._model._suffstats(ref._model._unconstrained(0.3), jnp.asarray(w))
+    np.testing.assert_allclose([float(got[2][0]), float(got[3][0])],
+                               [float(want[2]), float(want[3])], rtol=1e-8)
+
+
 def test_summarize_is_the_references():
     rng = np.random.default_rng(6)
     draws = {"phi": rng.standard_normal((3, 200)), "tau2": rng.gamma(2.0, size=400),

@@ -2,13 +2,17 @@
 
     python3 tools/smoke_paths.py [config4] [advi] [resume] [prediction]
                                  [facade] [orderings] [dotproduct]
+                                 [offset] [mesh] [processes]
 
-(all seven when none is named): path 20, ``bench.py``'s config 4 with
+(all ten when none is named): path 20, ``bench.py``'s config 4 with
 tempered SMC; path 21, ADVI on the main path's model (its MWG means are not
 run here); path 22, interrupt and resume of MWG, NUTS and the latent model;
 path 23, prediction from the main path's draws (the main path runs first);
 path 24, the facade's defaults; path 25, the max-min and natural orderings;
-path 26, the dot-product distance and the neighbor-table cache.  A quicker
+path 26, the dot-product distance and the neighbor-table cache; path 27,
+the shard offset on meshes of one card (config 3's field is made first);
+path 28, config 5 on a 1 x 4 mesh of one card; path 29, two processes on
+gloo on one card.  A quicker
 check of those paths than the whole script; it builds the kernels first,
 and fails as the script does."""
 
@@ -25,7 +29,7 @@ import chip_smoke as cs  # noqa: E402
 from pynngp_tpu_torch.ops import _build  # noqa: E402
 
 PATHS = ("config4", "advi", "resume", "prediction", "facade", "orderings",
-         "dotproduct")
+         "dotproduct", "offset", "mesh", "processes")
 
 
 def main(names) -> int:
@@ -58,6 +62,12 @@ def main(names) -> int:
         elif name == "dotproduct":
             with tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR)) as tmp:
                 cs.dotproduct_path(dev, tmp)
+        elif name == "offset":
+            cs.shard_offset_path(dev, cs.config3_field(cs.N_NU, cs.M_NU))
+        elif name == "mesh":
+            cs.config5_mesh_path(dev)
+        elif name == "processes":
+            cs.processes_path()
         else:
             raise SystemExit(f"unknown path {name!r}; choose from {PATHS}")
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
