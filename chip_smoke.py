@@ -50,12 +50,15 @@ plain version and timed, the coords instances with d = 4, m = 12 and
 m = 17 run on the M = 15 and M = 20 instances against their plain versions
 and timed against those instances' own m, and m = 25 and m = 32 on the
 rolled instances of all three kernels, both layouts, and m = 40 and m = 64
-on their large-m instances (one thread a (site, chain), its state in a
+on their large-m instances (kernels 1 and 3 a warp a (site, chain) system
+in shared memory, kernel 2 one thread a (site, chain), its state in a
 scratch buffer), both layouts, with and without noise weights, closed form
-and sampled nu.  After the build it prints the registers, stack, shared
-bytes and warps an SM of every tile instance of the three kernels (a block
-of up to four chains, one warp each, over a 32-site tile staged in shared
-memory).  After the paths above, both models at m = 40 on config 2's field,
+and sampled nu, with kernels 1 and 3 also at m = geometry.M_SMEM + 1 on the
+scratch body and the factor-only yardstick (``torch.linalg.cholesky_ex`` on
+the m = 64 correlation batch).  After the build it prints the registers,
+stack, shared bytes and warps an SM of every tile instance of the three
+kernels (a block of up to four chains, one warp each, over a 32-site tile
+staged in shared memory) and of kernels 1 and 3's shared-memory bodies.  After the paths above, both models at m = 40 on config 2's field,
 through the large-m instances; then ``bench.py``'s config 4, uncut (tempered
 SMC with 512 particles at n=50,000, m=10: kernel 1 at 512 chains, held to its
 plain version at that launch and timed beside its bound), ADVI on the first
@@ -119,7 +122,7 @@ from pynngp_tpu_torch.parallel import make_mesh
 from pynngp_tpu_torch.predict import build_prediction_table, predict_draws
 from pynngp_tpu_torch.samplers import smc, vi
 from pynngp_tpu_torch.samplers.nuts import make_nuts_kernel
-from pynngp_tpu_torch.vecchia import make_vecchia_data
+from pynngp_tpu_torch.vecchia import conditional_system, make_vecchia_data
 
 N_MAIN, M_MAIN, CHAINS = 100_000, 15, 16
 TAU2_TRUE = 0.09  # the generator's noise variance, 0.3^2
@@ -175,11 +178,14 @@ KERNEL_ROWS.update({
     for name, (src, _, _) in list(KERNEL_ROWS.items())
 })
 # the large-m instance of every source, with and without noise weights (m >
-# 32: one thread a (site, chain), its state in a scratch buffer; the large-m
-# branch of each Pallas body is the body itself at a static m), counted apart
+# 32: kernels 1 and 3 a warp a (site, chain) system in shared memory up to
+# geometry.M_SMEM, kernel 2 one thread a (site, chain), its state in a
+# scratch buffer; the large-m branch of each Pallas body is the body itself
+# at a static m), counted apart
 KERNEL_ROWS.update({
     name.removesuffix("_hetero") + "_large" + ("_hetero" if name.endswith("_hetero") else ""): (
-        "pynngp_tpu_torch/csrc/vecchia_large_m.cuh", tpu,
+        "pynngp_tpu_torch/csrc/" + ("vecchia_large_m.cuh" if name.startswith("vecchia_grad")
+                                    else "vecchia_large_smem.cuh"), tpu,
         _COUNTS[name.removesuffix("_hetero") + "_large"
                 + ("_hetero" if name.endswith("_hetero") else "")])
     for name, (_, tpu, _) in list(KERNEL_ROWS.items())
@@ -2403,6 +2409,7 @@ N_LARGE = 10_000
 
 def large_m_kernels(dev) -> tuple:
     """m = 40 and 64 on the large-m instances of all three kernels (m > 32:
+    kernels 1 and 3 a warp a (site, chain) system in shared memory, kernel 2
     one thread a (site, chain), its state in a scratch buffer) on both
     layouts at n=10,000: against their plain versions on four of the 16
     chains (two a float64 plain call), with and without noise weights,
@@ -2412,7 +2419,9 @@ def large_m_kernels(dev) -> tuple:
     plain versions and bounds: the closed forms at m = 64, 16 chains, the
     general-nu instances at m = 40, 4 chains (their float32 plain versions
     at m = 64 and 16 chains would hold tens of GB of Bessel intermediates).
-    Returns (max_abs_err, ms, bound) by row."""
+    Then kernels 1 and 3 once each at m = M_SMEM + 1, the scratch body
+    (:func:`scratch_body_check`), and the factor-only yardstick
+    (:func:`factor_only_ms`).  Returns (max_abs_err, ms, bound) by row."""
     errs, times, bounds = {}, {}, {}
 
     def record(c, fwd, grad, bf, grad_y):
@@ -2457,10 +2466,65 @@ def large_m_kernels(dev) -> tuple:
                     bounds.update(kernel_bounds_nu(four))
             del case, nu
             torch.cuda.empty_cache()
+    factor_ms = factor_only_ms(dev)
     print("large-m instances [n10000]: " + json.dumps(
-        {"max_abs_err": errs, "ms": times,
+        {"max_abs_err": errs, "ms": times, "factor_only_ms": factor_ms,
          "bound_ms": {k: v[0] for k, v in bounds.items()}}), flush=True)
+    scratch_body_check(dev)
     return errs, times, bounds
+
+
+def factor_only_ms(dev) -> dict:
+    """The factor-only yardstick: ``torch.linalg.cholesky_ex`` on the
+    (C n_pad, 64, 64) float64 correlation batch of the m = 64 rows (n=10,000,
+    16 chains, sqexp, both layouts give the same systems; dist here), timed
+    and printed beside them.  It factors only: no solves, no sums, no
+    correlations; it is not the rows' library call (none computes their
+    function) and the port never calls it."""
+    case = Case(N_LARGE, LARGE_M[-1], SqExp(), CHAINS, seed=0, dev=dev)
+    t = case.tab64
+    d_in, d_nn = unpack_distances(t)
+    mask = fwd_ops.global_sites(t)[:, None] > torch.arange(case.m, device=dev)
+    _, _, pr = case.params64(slice(None))
+    c_mat, _ = conditional_system(case.kernel, pr[:, 0:1], pr[:, 1:2], pr[:, 2:3], d_in,
+                                  d_nn, mask, fused=True)
+    batch = c_mat.reshape(-1, case.m, case.m).contiguous()
+    del c_mat, d_in, d_nn, mask
+    ms = _time_ms(lambda: torch.linalg.cholesky_ex(batch), 2, 5)
+    out = {"label": "factor only", "batch": list(batch.shape), "dtype": "float64",
+           "ms": ms}
+    print("factor-only yardstick [torch.linalg.cholesky_ex, m=64, n10000, 16 chains]: "
+          + json.dumps(out), flush=True)
+    del batch, case
+    torch.cuda.empty_cache()
+    return out
+
+
+def scratch_body_check(dev) -> dict:
+    """Kernels 1 and 3 at m = M_SMEM + 1 (n=1,000, 4 chains), the first m
+    they run on the scratch body: one launch each against its float64 plain
+    version at the closed-form limits, counted under ``_large_scratch``."""
+    m = geometry.M_SMEM + 1
+    _require(geometry.large_body("vecchia_suffstats", m) == "scratch"
+             and geometry.large_body("vecchia_bf", m) == "scratch"
+             and geometry.large_body("vecchia_bf", m - 1) == "smem",
+             f"m={m} does not run kernels 1 and 3's scratch body")
+    case = Case(1_000, m, SqExp(), 4, seed=0, dev=dev)
+    counts = (fwd_ops.COUNTS["vecchia_suffstats_large_scratch"],
+              bf_ops.COUNTS["vecchia_bf_large_scratch"])
+    before = [c.launches for c in counts]
+    label = f"n1000 m{m} scratch body sqexp"
+    t0 = time.perf_counter()
+    fwd = check_forward(case.subset(slice(None)), label)
+    bf = check_bf(case.subset(slice(None)), label, zero_alpha=False, gated=True)
+    launches = [c.launches - b for c, b in zip(counts, before)]
+    _require(launches == [1, 1], f"the scratch body was not launched once each: {launches}")
+    out = {"m": m, "launches": launches, "f_max_abs_err": fwd["f_max_abs_err"],
+           "b_max_abs_err": bf["b_max_abs_err"], "seconds": time.perf_counter() - t0}
+    print("scratch body above M_SMEM: " + json.dumps(out), flush=True)
+    del case
+    torch.cuda.empty_cache()
+    return out
 
 
 def large_m_path(dev) -> dict:
@@ -2553,6 +2617,28 @@ def tile_resources(info: dict) -> dict:
           + json.dumps(out), flush=True)
     _require(len(out) == 100, f"expected 100 tile instances of the three kernels, found "
              f"{len(out)}")
+    smem = {}
+    for line, res in zip(usage, usage[1:]):
+        found = re.search(r"(suffstats|bf)_smem_kernelILb([01])ELb([01])E", line)
+        if "Function" not in line or not found:
+            continue
+        name = (found.group(1) + ("_nu" if found.group(2) == "1" else "")
+                + ("_coords" if found.group(3) == "1" else ""))
+        stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
+        regs, stack, static = (int(stats.get(k, 0)) for k in ("REG", "STACK", "SHARED"))
+        row = {"registers": regs, "stack": stack, "static_shared": static}
+        for m in LARGE_M:
+            geo = geometry.smem_geometry(10_112, m, CHAINS)
+            warps = geo.block // 32
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(65_536 // per_warp // warps,
+                         233_472 // (geo.smem_bytes + static + 1024), 64 // warps, 32)
+            row[f"m{m}"] = {"group": geo.group, "dynamic_shared": geo.smem_bytes,
+                            "warps_per_sm": blocks * warps}
+        smem[name] = row
+    print("shared-memory bodies' resources [kernels 1 and 3, 32 < m <= "
+          f"{geometry.M_SMEM}; 16 chains]: " + json.dumps(smem), flush=True)
+    _require(len(smem) == 8, f"expected 8 shared-memory kernels, found {len(smem)}")
     return out
 
 
@@ -3337,8 +3423,9 @@ OFFSET_MESHES = ((1, 2), (1, 4), (2, 2))
 # float32 within a block, then the blocks' partials in float64, then round
 # to float32 once.  A term passes through at most 12 float32 additions on
 # its way to a partial (at most 4 sites a thread on the tile kernels, 2 on
-# the large-m instance at these shapes, then a 5-level warp tree and, on the
-# large-m instance, the block's 4 warps), so each sum is within
+# kernel 2's large-m instance at these shapes, then a 5-level warp tree and,
+# on that instance, the block's 4 warps; kernel 1's large-m body sums in
+# float64 and rounds once), so each sum is within
 # 12 u sum|terms| + u |sum| of the exact one: the two within twice that.
 SUM_ULPS = 24
 U32 = 2.0**-24

@@ -32,8 +32,9 @@
 // sites of one chain, so each plane's store is one 128-byte line, and the
 // sweep reads B in that layout.  m <= 20 runs on the smallest built M >= m,
 // unrolled with the factor in registers; 20 < m <= kRolledM and coords with
-// d > kMaxDim on the rolled instance; m > kRolledM on the large-m instance
-// (vecchia_large_m.cuh).
+// d > kMaxDim on the rolled instance; kRolledM < m <= kSmemM on the
+// shared-memory body (vecchia_large_smem.cuh: a warp a (site, chain)
+// system), larger m on the scratch body (vecchia_large_m.cuh).
 //
 // What bounded the design before it (one thread per (site, chain), reading
 // its tables from global memory), on an NVIDIA H100 80GB HBM3 at 700 W:
@@ -49,6 +50,7 @@
 #include <cstddef>
 
 #include "vecchia_large_m.cuh"
+#include "vecchia_large_smem.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -190,10 +192,12 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 }
 
 // Validates the launch shape and the wrapper's geometry (group chains a
-// block, grid_x blocks along the tiles, the ring's bytes; for m > kRolledM
-// grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
-// the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
-// and for coords with d > kMaxDim; the large-m one above) and launches on
+// block, grid_x blocks along the tiles, the ring's bytes; for
+// kRolledM < m <= kSmemM group chains a block, grid_x blocks along the sites,
+// the systems' bytes and no scratch; above, grid_x blocks of kBlock sites of
+// one chain and the scratch buffer), picks the instance (M >= m for m <= 20;
+// the rolled one for 20 < m <= kRolledM and for coords with d > kMaxDim; the
+// shared-memory body up to kSmemM, the scratch body above) and launches on
 // `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_bf(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
@@ -204,6 +208,14 @@ int launch_bf(const float* params, const float* tab_a, const float* tab_b, const
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem_launch(m)) {
+    if (!valid_smem(n_pad, m, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_bf_smem<GENERAL, COORDS>(params, tab_a, tab_b, nn_idx, v, n_pad, m, dim,
+                                           chains, family, group, grid_x, smem_bytes, b_out,
+                                           f_out, st);
+  }
   if (large_launch(m)) {
     if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {
       return static_cast<int>(cudaErrorInvalidValue);

@@ -19,9 +19,11 @@
 // m, the call's neighbor count, is a launch argument too: a call runs on the
 // smallest built instance M >= m (launch_m) for m <= 20, and slots k >= m
 // are identity rows; 20 < m <= kRolledM runs the rolled instance (arrays for
-// kRolledM, loops to m); m > kRolledM the large-m instance
-// (vecchia_large_m.cuh: one thread per (site, chain), its state in a device
-// scratch buffer, loops to m).  The tables of an m-call have m (or
+// kRolledM, loops to m); m > kRolledM the large-m instances (kernels 1 and 3
+// up to kSmemM: vecchia_large_smem.cuh, a warp a (site, chain) system in
+// shared memory; above, and kernel 2 for every such m: vecchia_large_m.cuh,
+// one thread a (site, chain), its state in a device scratch buffer; loops
+// to m).  The tables of an m-call have m (or
 // m(m-1)/2, or m d) planes, the leading planes of the M layout: tri(i, k)
 // for i < m and k d + a for k < m do not depend on M.
 //

@@ -28,8 +28,9 @@
 // warp's shuffle tree writes its chain's partial.  The loops over the slots
 // unroll over the template parameter M and the factor lives in registers;
 // the rolled instance (ROLLED: arrays for kRolledM, loops to m, in local
-// memory) runs 20 < m <= 32 and coords with d > kMaxDim; m > 32 runs the
-// large-m instance (vecchia_large_m.cuh).
+// memory) runs 20 < m <= 32 and coords with d > kMaxDim; 32 < m <= kSmemM
+// runs the shared-memory body (vecchia_large_smem.cuh: a warp a (site,
+// chain) system), larger m the scratch body (vecchia_large_m.cuh).
 //
 // What bounded the design before it (one thread per (site, chain), blocks of
 // 128 sites of one chain), on an NVIDIA H100 80GB HBM3 at 700 W
@@ -57,6 +58,7 @@
 #include <cstddef>
 
 #include "vecchia_large_m.cuh"
+#include "vecchia_large_smem.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -225,10 +227,12 @@ __global__ void __launch_bounds__(kTile * kMaxGroup) suffstats_nu_kernel(VECCHIA
 #undef VECCHIA_SUFFSTATS_ARGS
 
 // Validates the launch shape and the wrapper's geometry (group chains a
-// block, grid_x blocks along the tiles, the ring's bytes; for m > kRolledM
-// grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
-// the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
-// and for coords with d > kMaxDim; the large-m one above) and launches on
+// block, grid_x blocks along the tiles, the ring's bytes; for
+// kRolledM < m <= kSmemM group chains a block, grid_x blocks along the sites,
+// the systems' bytes and no scratch; above, grid_x blocks of kBlock sites of
+// one chain and the scratch buffer), picks the instance (M >= m for m <= 20;
+// the rolled one for 20 < m <= kRolledM and for coords with d > kMaxDim; the
+// shared-memory body up to kSmemM, the scratch body above) and launches on
 // `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_suffstats(const float* params, const float* tab_a, const float* tab_b,
@@ -238,6 +242,14 @@ int launch_suffstats(const float* params, const float* tab_a, const float* tab_b
                      void* stream) {
   if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0 || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem_launch(m)) {
+    if (!valid_smem(n_pad, m, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_suffstats_smem<GENERAL, COORDS>(
+        params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, group,
+        grid_x, smem_bytes, f_out, r_out, part, static_cast<cudaStream_t>(stream));
   }
   if (large_launch(m)) {
     if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {

@@ -96,14 +96,17 @@ class LaunchCount:
         self.plain = 0
 
 
-VARIANTS = ("", "_hetero", "_large", "_large_hetero")
+VARIANTS = ("", "_hetero", "_large", "_large_hetero", "_large_scratch",
+            "_large_scratch_hetero")
 
 
 def with_variant_counts(*counts: LaunchCount) -> dict:
     """{name: count} of a wrapper's counts and, for each, counts of the same
     source's launches with heterogeneous-noise weights (``<name>_hetero``:
     the same C entry), of its large-m instance (``<name>_large``: m > 32),
-    of both (``<name>_large_hetero``), and of each of these in a call over
+    of both (``<name>_large_hetero``), of kernels 1 and 3's scratch body
+    above ``geometry.M_SMEM`` (``<name>_large_scratch``, with ``_hetero``;
+    kernel 2 never counts there), and of each of these in a call over
     several cells of a mesh (``..._sharded``), counted apart so that a run
     shows which paths drove which instance."""
     out = {}

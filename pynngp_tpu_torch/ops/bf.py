@@ -96,7 +96,7 @@ def _launch(kernel, tables: SiteTables, params, noise_v, sharded=False):
     params, _, v = cuda_args(tables, params, noise_v=noise_v)
     chains = params.shape[0]
     dev = tables.device
-    _, geo_args, scratch = launch_geometry(kernel, tables, chains, None, v)
+    _, geo_args, scratch = launch_geometry("vecchia_bf", kernel, tables, chains, None, v)
     b = torch.empty((chains, tables.m, tables.n_pad), dtype=torch.float32,
                     device=dev)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)

@@ -195,7 +195,7 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v,
     chains = params.shape[0]
     dev = tables.device
     general = kernel.family == GENERAL_FAMILY
-    grid_x, geo_args, scratch = launch_geometry(kernel, tables, chains, y, v)
+    grid_x, geo_args, scratch = launch_geometry("vecchia_grad", kernel, tables, chains, y, v)
     part = torch.empty((8 if general else 6, chains, grid_x),
                        dtype=torch.float32, device=dev)
     # the GENERAL entries take with_nu where the closed-form ones take family

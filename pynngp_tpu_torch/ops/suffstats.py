@@ -24,10 +24,13 @@ launches count under the instance's name with ``_hetero``.
 Any m >= 1 runs on the card: a call with m <= 20 launches the smallest
 built instance M >= m (:func:`cuda_instance_m`), whose slots k >= m are
 identity rows, 20 < m <= 32 the rolled instance, whose loops run to m, and
-m > 32 the large-m instance.  Up to m = 32 the three kernels launch in the
+m > 32 the large-m instances.  Up to m = 32 the three kernels launch in the
 tile geometry of :mod:`.geometry` (a block is a group of chains that share
-one staged tile of sites); above it one thread a (site, chain) with its
-state in a scratch buffer (:func:`launch_geometry`).
+one staged tile of sites); above it kernels 1 and 3 run a warp a (site,
+chain) system in shared memory up to ``geometry.M_SMEM``, and above that,
+as kernel 2 does for every m > 32, one thread a (site, chain) with its
+state in a scratch buffer (:func:`launch_geometry`); such launches of
+kernels 1 and 3 count under ``_large_scratch``.
 
 Shards.  Tables of one site shard (``SiteTables.off`` > 0) launch the same
 instances with ``off`` in the params row; :class:`~.site_tables.ShardedTables`
@@ -47,10 +50,14 @@ import torch
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.geometry import (
     CUDA_M,
+    M_SMEM,
+    SMEM_KERNELS,
     cuda_instance_m,
     geometry,
     large,
+    large_body,
     large_geometry,
+    smem_geometry,
 )
 from pynngp_tpu_torch.ops.site_tables import (
     BLOCK,
@@ -89,11 +96,14 @@ def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
              hetero: bool = False, sharded: bool = False) -> str:
     """The kernel instance a launch of ``base`` runs, named as its launch
     count: its C entry (:func:`entry_name`), ``_large`` for m > 32 (the
-    large-m instance of the same entry), ``_hetero`` for a launch with
-    noise weights and ``_sharded`` for one of a call over several mesh cells
-    (the same entry again)."""
+    large-m instance of the same entry), ``_large_scratch`` for kernels 1
+    and 3 above ``geometry.M_SMEM`` (their scratch body; kernel 2 counts
+    that body under ``_large``), ``_hetero`` for a launch with noise weights
+    and ``_sharded`` for one of a call over several mesh cells (the same
+    entry again)."""
     return (entry_name(base, kernel, tables, emit_y)
             + ("_large" if large(tables.m) else "")
+            + ("_scratch" if base in SMEM_KERNELS and tables.m > M_SMEM else "")
             + ("_hetero" if hetero else "")
             + ("_sharded" if sharded else ""))
 
@@ -322,13 +332,18 @@ def family_arg(kernel) -> tuple:
     return () if kernel.family == GENERAL_FAMILY else (kernel.family,)
 
 
-def launch_geometry(kernel, tables: SiteTables, chains: int, y, v):
-    """(grid_x, the four C arguments group, grid_x, ring bytes and scratch
-    pointer, the scratch tensor or None) of a launch of any kernel; ``y`` is
-    None for kernel 3.  m <= 32: the tile geometry
-    (:func:`.geometry.geometry`), no scratch; m > 32: the large-m instance
-    (:func:`.geometry.large_geometry`): group 1, no ring, and a scratch
-    buffer that the caller keeps until the launch is enqueued."""
+def launch_geometry(base: str, kernel, tables: SiteTables, chains: int, y, v):
+    """(grid_x, the four C arguments group, grid_x, shared bytes and scratch
+    pointer, the scratch tensor or None) of a launch of kernel ``base``;
+    ``y`` is None for kernel 3.  m <= 32: the tile geometry
+    (:func:`.geometry.geometry`), no scratch; kernels 1 and 3 with
+    32 < m <= M_SMEM: the shared-memory body
+    (:func:`.geometry.smem_geometry`), no scratch; other m > 32: the scratch
+    body (:func:`.geometry.large_geometry`): group 1, no shared bytes, and a
+    scratch buffer that the caller keeps until the launch is enqueued."""
+    if large(tables.m) and large_body(base, tables.m) == "smem":
+        geo = smem_geometry(tables.n_pad, tables.m, chains)
+        return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, None), None
     if large(tables.m):
         geo = large_geometry(tables.n_pad, tables.m, chains)
         scratch = torch.empty(geo.scratch_bytes // 8, dtype=torch.float64,
@@ -346,7 +361,8 @@ def _launch(kernel, tables: SiteTables, params, y, noise_v, sharded=False):
     params, y, v = cuda_args(tables, params, y, noise_v)
     chains = params.shape[0]
     dev = tables.device
-    grid_x, geo_args, scratch = launch_geometry(kernel, tables, chains, y, v)
+    grid_x, geo_args, scratch = launch_geometry("vecchia_suffstats", kernel, tables, chains,
+                                                y, v)
     f = torch.empty((chains, tables.n_pad), dtype=torch.float32, device=dev)
     resid = torch.empty_like(f)
     part = torch.empty((2, chains, grid_x), dtype=torch.float32, device=dev)

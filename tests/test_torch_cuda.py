@@ -689,8 +689,10 @@ def test_coords_in_four_dimensions_match_plain(card, kern, sampled):
 def test_m_above_twenty_raises_on_the_card(card):
     """m = 21 runs on the rolled instances and m = 33 on the large-m ones
     against the plain versions, and a model takes m = 33; what still raises
-    is a launch whose one block a chain needs more scratch than
-    LARGE_SCRATCH_BYTES, and it names the bytes."""
+    is a launch of kernel 2 (the scratch body at every m > 32) whose one
+    block a chain needs more scratch than LARGE_SCRATCH_BYTES, and it names
+    the bytes.  Kernel 1 takes as many chains: its shared-memory body needs
+    no scratch."""
     tab32, tab64, y, phi, alpha = _problem(card, m=21)
     _check_instances(card, kernels.SqExp(), None, with_children(tab32),
                      with_children(tab64), y, phi, alpha)
@@ -700,7 +702,10 @@ def test_m_above_twenty_raises_on_the_card(card):
     chains = geometry.LARGE_SCRATCH_BYTES // (128 * geometry.large_state_doubles(33) * 8) + 1
     many_phi, many_alpha = (t.repeat(chains // 3 + 1)[:chains] for t in (phi, alpha))
     with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
-        fops.suffstats(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
+        dops.value_and_grad_sums(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
+    ld, _, f, _ = fops.suffstats(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
+    torch.cuda.synchronize()
+    assert f.shape == (chains, tab33.n_pad) and torch.isfinite(ld).all()
     model = ResponseNNGP(np.random.default_rng(0).uniform(size=(500, 2)), np.ones(500),
                          m=33, device=card)
     assert model.tables.m == 33
@@ -933,12 +938,116 @@ def test_large_m_instances_match_plain(card, m, kern, sampled, layout, hetero):
 
 @pytest.mark.parametrize("layout,dim", [("dist", 2), ("coords", 2), ("coords", 4)],
                          ids=["dist", "coords", "coords_d4"])
-def test_large_m_with_per_chain_y_and_ragged_chains(card, layout, dim):
-    """m = 40: one y row a chain, five chains, with noise weights."""
-    tab32, tab64, y, _, _ = _problem(card, m=40, layout=layout, dim=dim)
+@pytest.mark.parametrize("m", [40, 64])
+def test_large_m_with_per_chain_y_and_ragged_chains(card, m, layout, dim):
+    """m = 40 and 64: one y row a chain, five chains (kernel 1's shared-memory
+    body: a group of four and a ragged one), with noise weights."""
+    tab32, tab64, y, _, _ = _problem(card, m=m, layout=layout, dim=dim)
     phi, alpha = _chain_params(card, 5)
     _check_per_chain_y(card, kernels.SqExp(), tab32, tab64, y, phi, alpha,
                        _weights(tab32.n))
+
+
+def _check_kernels_1_and_3(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
+    """Kernels 1 and 3 at the tables' m against their float64 plain versions
+    at the rows' limits (closed form or general nu); one launch of each
+    instance's count (``_large`` on the shared-memory body,
+    ``_large_scratch`` above M_SMEM; ``_hetero`` with weights)."""
+    limits = GENERAL_LIMITS if nu is not None else CLOSED_LIMITS
+    v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
+                                                       device=card)
+    v64 = None if v32 is None else v32.double()
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6), tab32.n,
+                               torch.float64, card,
+                               fops.kernel_nu(kern, None if nu is None else nu.double()))
+    names = [fops.instance("vecchia_suffstats", kern, tab32, hetero=v32 is not None),
+             fops.instance("vecchia_bf", kern, tab32, hetero=v32 is not None)]
+    counts = [fops.COUNTS[names[0]], bops.COUNTS[names[1]]]
+    before = [c.launches for c in counts]
+    ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, y, nu=nu, noise_v=v32)
+    b3, f3 = bops.bf_planes(kern, tab32, phi, alpha, nu=nu, noise_v=v32)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counts] == [x + 1 for x in before], names
+    ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, y.double(), v64)
+    b3_p, f3_p = bops.bf_reference(kern, tab64, params, v64)
+    n, m = tab32.n, tab32.m
+    value_rtol = limits["value"] if nu is not None else 3e-4
+    torch.testing.assert_close(ld.double(), ld_p, rtol=value_rtol, atol=0.0)
+    torch.testing.assert_close(q.double(), q_p, rtol=value_rtol, atol=0.0)
+    torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=limits["f"][0],
+                               atol=limits["f"][1])
+    torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=limits["r"][0],
+                               atol=limits["r"][1])
+    assert b3.shape == (phi.shape[0], m, tab32.n_pad)
+    torch.testing.assert_close(b3[:, :, :n].double(), b3_p[:, :, :n], rtol=0.0,
+                               atol=limits["b"])
+    torch.testing.assert_close(f3[:, :n].double(), f3_p[:, :n], rtol=limits["f3"],
+                               atol=0.0)
+    assert (b3[:, :, n:] == 0).all() and (f3[:, n:] == 1).all()
+    assert all((b3[:, k, :k + 1] == 0).all() for k in range(m))
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
+@pytest.mark.parametrize("m", [33, geometry.M_SMEM, geometry.M_SMEM + 1])
+def test_kernels_1_and_3_on_either_large_m_body(card, m, kern, sampled, layout, hetero):
+    """Kernels 1 and 3 at m = 33 and M_SMEM (the shared-memory body's
+    smallest system and its largest, one system a block) and M_SMEM + 1
+    (the scratch body), closed form and sampled nu, both layouts, with and
+    without noise weights, against their float64 plain versions."""
+    n = 1500 if m == 33 else 400
+    tab32, tab64, y, phi, alpha = _problem(card, n=n, m=m, layout=layout)
+    body = geometry.large_body("vecchia_bf", m)
+    assert body == ("smem" if m <= geometry.M_SMEM else "scratch")
+    assert fops.instance("vecchia_suffstats", kern, tab32).endswith(
+        "_large" if body == "smem" else "_large_scratch")
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    _check_kernels_1_and_3(card, kern, nu, tab32, tab64, y, phi, alpha,
+                           _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("m", [40, 64])
+def test_large_m_bodies_on_meshes_of_one_card(card, m, layout):
+    """The shard offset at m = 40 and 64: tables built for 4 site shards, on
+    meshes (1, 2), (1, 4) and (2, 2) of this card, give every per-site output
+    of kernels 1, 2-EMIT_Y and 3 (the shared-memory bodies and kernel 2's
+    scratch body) bit for bit as the unsharded launch, with and without
+    noise weights; the last shard holds padded sites."""
+    from pynngp_tpu_torch.ops.site_tables import shard_site_tables
+    from pynngp_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(3)
+    n = 1500
+    coords = rng.uniform(size=(n, 2))
+    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist")
+    tab32 = with_children(make_site_tables(data, dtype=torch.float32, device=card,
+                                           layout=layout, coords_host=coords[tab.order],
+                                           shards=4))
+    y = torch.as_tensor(rng.standard_normal(n)[tab.order], dtype=torch.float32, device=card)
+    phi, alpha = _chain_params(card, 5)
+    ys = y[None, :] + 0.1 * torch.arange(5, device=card)[:, None]
+    kern = kernels.SqExp()
+
+    def outputs(tables, v):
+        _, _, f, r = fops.suffstats(kern, tables, phi, alpha, ys, noise_v=v)
+        _, b, rof = dops.value_and_grad_sums(kern, tables, phi, alpha, ys, emit_y=True,
+                                             noise_v=v)
+        b3, f3 = bops.bf_planes(kern, tables, phi, alpha, noise_v=v)
+        torch.cuda.synchronize()
+        return [f, r, b, rof, b3, f3]
+
+    for v in (None, torch.as_tensor(_weights(n), dtype=torch.float32, device=card)):
+        want = outputs(tab32, v)
+        for shape in ((1, 2), (1, 4), (2, 2)):
+            mesh = make_mesh(*shape, devices=[card] * (shape[0] * shape[1]))
+            sharded = shard_site_tables(tab32, mesh)
+            last = sharded.cells[0][-1]
+            assert last.off + last.n_pad > n >= last.off
+            got = outputs(sharded, v)
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want)), shape
 
 
 def test_models_at_large_m_go_through_the_large_instances(card):

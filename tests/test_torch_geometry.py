@@ -1,16 +1,23 @@
 """The launch geometry of the three kernels (pynngp_tpu_torch/ops/geometry.py):
 block, chain groups, grid and the tile ring's shared-memory bytes for every
 m the ring takes (kernel 3's ring without y planes), both table layouts and
-coordinate dimensions 1 to 4, and above m = 32 the large-m instances' grid
-and scratch buffer.  The C launcher recomputes the ring from the same layout
-and refuses other bytes (csrc/vecchia_tile.cuh); tests/test_torch_cuda.py
-runs it on the card."""
+coordinate dimensions 1 to 4, and above m = 32 the large-m bodies: kernels 1
+and 3's shared-memory body up to M_SMEM (its systems' bytes, groups and
+grid), the scratch body's grid and buffer above it and for kernel 2, and
+which body and count each kernel's call gets.  The C launchers recompute the
+ring and the systems' bytes from the same layouts and refuse other bytes
+(csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh);
+tests/test_torch_cuda.py runs them on the card."""
 
 import math
+from types import SimpleNamespace
 
 import pytest
+import torch
 
+from pynngp_tpu_torch import kernels
 from pynngp_tpu_torch.ops import geometry as geo
+from pynngp_tpu_torch.ops import suffstats as fops
 
 CHAINS = [1, 2, 3, 4, 5, 16, 17]
 
@@ -143,3 +150,93 @@ def test_large_m_scratch_cap_is_the_cards_memory():
         geo.check_card_m(10_112, 0)
     with pytest.raises(ValueError, match="multiple of 128"):
         geo.large_geometry(1_500, 40, 1)
+
+
+def _system_words(m):
+    """A system's float64 words counted column by column: mp = m rounded up
+    to 4 columns of mp + 2 rows, column k holding rows k.. rounded up to an
+    odd count."""
+    mp = -(-m // 4) * 4
+    return sum((mp + 2 - k) | 1 for k in range(mp))
+
+
+@pytest.mark.parametrize("m,want", [(33, 6_048), (36, 6_048), (40, 7_360), (64, 17_920),
+                                    (128, 68_608), (233, 228_448), (236, 228_448),
+                                    (237, 236_160)])
+def test_smem_system_bytes_by_m(m, want):
+    """One (site, chain) system of the shared-memory body: the bordered
+    triangle in float64, columns rounded up to odd lengths, m rounded up to
+    the 4-column panel (m = 33..36 take the same bytes)."""
+    assert geo.smem_system_bytes(m) == want == 8 * _system_words(m)
+    assert want % 16 == 0  # every system starts on a 16-byte boundary
+
+
+def test_m_smem_is_the_largest_m_one_block_takes():
+    """M_SMEM: the largest m whose one system fits the bytes a block may
+    take (the tile ring's budget, RING_BYTES), 236 on an H100."""
+    assert geo.M_SMEM == 236
+    assert geo.smem_system_bytes(geo.M_SMEM) <= geo.RING_BYTES
+    assert geo.smem_system_bytes(geo.M_SMEM + 1) > geo.RING_BYTES
+    assert all(geo.smem_system_bytes(m) <= geo.smem_system_bytes(m + 1)
+               for m in range(33, geo.M_SMEM + 1))
+
+
+@pytest.mark.parametrize("chains", CHAINS)
+@pytest.mark.parametrize("m", [33, 40, 64, 100, 128, 180, geo.M_SMEM])
+def test_smem_geometry_groups_chains_by_shared_memory(m, chains):
+    """A block takes as many chains (one warp, one system each) as GROUP,
+    the chains and its shared memory allow; the grid walks the sites with
+    one wave of blocks over the SMs, no more blocks than sites."""
+    per = geo.smem_system_bytes(m)
+    for n_pad in (128, 1_536, 10_112, 500_096):
+        g = geo.smem_geometry(n_pad, m, chains)
+        assert g.group == min(geo.GROUP, chains, geo.RING_BYTES // per) >= 1
+        assert g.block == 32 * g.group
+        assert g.smem_bytes == g.group * per <= geo.RING_BYTES
+        assert g.grid[1] == math.ceil(chains / g.group)
+        per_sm = max(1, min(32, 64 // g.group,
+                            geo.SM_SHARED_BYTES // (g.smem_bytes + geo.SM_BLOCK_RESERVE)))
+        assert g.grid[0] == max(1, min(n_pad, math.ceil(geo.SMS * per_sm / g.grid[1])))
+    assert geo.smem_geometry(10_112, 64, 16) == geo.Geometry((99, 4), 128, 4, 71_680)
+
+
+def test_smem_geometry_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="shared-memory body"):
+        geo.smem_geometry(1_536, 32, 4)
+    with pytest.raises(ValueError, match="shared-memory body"):
+        geo.smem_geometry(1_536, geo.M_SMEM + 1, 4)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        geo.smem_geometry(1_500, 40, 4)
+    with pytest.raises(ValueError, match="chains"):
+        geo.smem_geometry(1_536, 40, 0)
+    with pytest.raises(ValueError, match="tile ring"):
+        geo.large_body("vecchia_suffstats", 32)
+
+
+@pytest.mark.parametrize("base", ["vecchia_suffstats", "vecchia_grad", "vecchia_bf"])
+@pytest.mark.parametrize("m", [33, 64, geo.M_SMEM, geo.M_SMEM + 1])
+def test_each_kernel_gets_its_body_and_count_by_m(base, m):
+    """Kernels 1 and 3 run the shared-memory body up to M_SMEM (counted
+    under ``_large``, no scratch tensor, group chains a block and their
+    systems' bytes) and the scratch body above it (``_large_scratch``);
+    kernel 2 runs the scratch body at every m > 32 (``_large``)."""
+    tables = SimpleNamespace(m=m, n_pad=128, layout="dist", dim=0,
+                             device=torch.device("cpu"))
+    chains = 3
+    smem = base != "vecchia_grad" and m <= geo.M_SMEM
+    assert geo.large_body(base, m) == ("smem" if smem else "scratch")
+    name = fops.instance(base, kernels.SqExp(), tables, hetero=True)
+    suffix = "_large_hetero" if smem or base == "vecchia_grad" else "_large_scratch_hetero"
+    assert name == base + suffix
+    y = None if base == "vecchia_bf" else torch.zeros(10)
+    grid_x, args, scratch = fops.launch_geometry(base, kernels.SqExp(), tables, chains, y,
+                                                 None)
+    if smem:
+        g = geo.smem_geometry(128, m, chains)
+        assert scratch is None and args == (g.group, g.grid[0], g.smem_bytes, None)
+        assert grid_x == g.grid[0] and g.smem_bytes == g.group * geo.smem_system_bytes(m)
+    else:
+        g = geo.large_geometry(128, m, chains)
+        assert args[:3] == (1, g.grid[0], 0) and grid_x == g.grid[0] == 1
+        assert scratch is not None and scratch.numel() * 8 == g.scratch_bytes
+        assert args[3] == scratch.data_ptr()

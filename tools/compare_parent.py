@@ -22,6 +22,13 @@ m=20, exponential, 8 chains, alpha = 0; both layouts).  Both trees
 are timed by the same function (this script's, put in place of each tree's
 ``chip_smoke._time_ms``): card time, a sleep kernel ahead of the timed calls
 covering the host's enqueueing.  The last line, ``PARENT_CHECK [...]``, holds the four rounds as JSON.
+
+    python3 tools/compare_parent.py --large
+
+times the large-m rows alone, in the same four rounds: kernels 1 and 3
+(with kernel 2 beside them) at n=10,000, m=64, 16 chains, sqexp, on both
+layouts with and without noise weights, and kernels 1 and 3's general-nu
+instances at m=40 on 4 of the 16 chains, the rows of PERF.md's table.
 """
 import json
 import os
@@ -106,12 +113,42 @@ for layout in ("dist", "coords"):
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
+ROUND_LARGE = ROUND[:ROUND.index("cs._time_ms = _time_ms")] + r'''
+cs._time_ms = _time_ms
+out = {"build_s": _build.build_info()["seconds"]}
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    case = cs.Case(10000, 64, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+    for c in (case, case.with_noise(cs.noise_weights(10000))):
+        h = "_hetero" if c.v32 is not None else ""
+        k, t, v = c.kernel, c.tab32, c.v32
+        out[f"vecchia_suffstats{sfx}_large{h}"] = _time_ms(lambda: fwd_ops.suffstats(
+            k, t, c.phi, c.alpha, c.y32, c.jitter, noise_v=v), 2, 10)
+        out[f"vecchia_bf{sfx}_large{h}"] = _time_ms(lambda: bf_ops.bf_planes(
+            k, t, c.phi, c.alpha, c.jitter, noise_v=v), 2, 10)
+        out[f"vecchia_grad{sfx}_large{h}"] = _time_ms(lambda: diff_ops.value_and_grad_sums(
+            k, t, c.phi, c.alpha, c.y32, c.jitter, noise_v=v), 2, 10)
+    nu = cs.Case(10000, 40, cs.Matern(), 16, seed=0, dev=dev, nu=cs.nu_spread(16),
+                 layout=layout).subset(slice(0, 4))
+    for c in (nu, nu.with_noise(cs.noise_weights(10000))):
+        h = "_hetero" if c.v32 is not None else ""
+        k, t, v = c.kernel, c.tab32, c.v32
+        out[f"vecchia_suffstats_nu{sfx}_large{h}"] = _time_ms(lambda: fwd_ops.suffstats(
+            k, t, c.phi, c.alpha, c.y32, c.jitter, nu=c.nu, noise_v=v), 2, 10)
+        out[f"vecchia_bf_nu{sfx}_large{h}"] = _time_ms(lambda: bf_ops.bf_planes(
+            k, t, c.phi, c.alpha, c.jitter, nu=c.nu, noise_v=v), 2, 10)
+    del case, nu
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
 
-def main() -> int:
+
+def main(args) -> int:
     root = os.getcwd()
+    code = ROUND_LARGE if args == ["--large"] else ROUND
     results = []
     for tree in ("parent_check", ".", ".", "parent_check"):
-        run = subprocess.run([sys.executable, "-c", ROUND], capture_output=True,
+        run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                              text=True, cwd=os.path.join(root, tree))
         print(tree, run.returncode, run.stderr[-2000:] if run.returncode else "",
               flush=True)
@@ -125,4 +162,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

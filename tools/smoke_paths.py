@@ -1,10 +1,14 @@
 """Run some of ``chip_smoke.py``'s paths alone on the card, with their gates:
 
-    python3 tools/smoke_paths.py [config4] [advi] [resume] [prediction]
+    python3 tools/smoke_paths.py [large] [config4] [advi] [resume] [prediction]
                                  [facade] [orderings] [dotproduct]
                                  [offset] [mesh] [processes]
 
-(all ten when none is named): path 20, ``bench.py``'s config 4 with
+(all eleven when none is named): ``large``, the large-m phase (the
+shared-memory bodies' resources, every kernel at m = 40 and 64 against its
+plain version and timed, kernels 1 and 3 on the scratch body at
+m = M_SMEM + 1, the factor-only yardstick) and path 19, both models at
+m = 40; path 20, ``bench.py``'s config 4 with
 tempered SMC; path 21, ADVI on the main path's model (its MWG means are not
 run here); path 22, interrupt and resume of MWG, NUTS and the latent model;
 path 23, prediction from the main path's draws (the main path runs first);
@@ -28,7 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from pynngp_tpu_torch.ops import _build  # noqa: E402
 
-PATHS = ("config4", "advi", "resume", "prediction", "facade", "orderings",
+PATHS = ("large", "config4", "advi", "resume", "prediction", "facade", "orderings",
          "dotproduct", "offset", "mesh", "processes")
 
 
@@ -46,7 +50,11 @@ def main(names) -> int:
     print(f"build: {_build.build_info()['seconds']:.1f} s", flush=True)
     for name in names or PATHS:
         t0 = time.perf_counter()
-        if name == "config4":
+        if name == "large":
+            cs.tile_resources(_build.build_info())
+            cs.large_m_kernels(dev)
+            cs.large_m_path(dev)
+        elif name == "config4":
             cs.config4_path(dev)
         elif name == "advi":
             cs.advi_path(dev, {})

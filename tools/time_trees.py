@@ -30,6 +30,13 @@ times kernel 3 alone: both layouts at n=100,000, m=15 and 20, 16 and 8
 chains (16 also with noise weights), its general-nu instances at n=25,000,
 m=10, and the launches of config 2 (n=10,000, 8 chains) and of config 5's
 latent run (n=500,000, m=20, coords, 8 chains), both at alpha = 0.
+
+    python3 tools/time_trees.py --large A B C
+
+times kernels 1 and 3 on their large-m bodies: both layouts at n=10,000,
+m=64 and 128, 16 chains (m=64 also with noise weights), the general-nu
+instances at m=40 on 4 chains, with chain 0's logdet and the sum of B as
+checks that a variant computes the same function.
 """
 import json
 import os
@@ -133,6 +140,49 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
+# kernels 1 and 3 on the large-m bodies
+ROUND_LARGE = r'''
+import json, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import bf as bf_ops
+from pynngp_tpu_torch.ops import suffstats as fwd_ops
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+lines = info["ptxas"].splitlines()
+out = {"build_s": info["seconds"], "lib": info["lib"], "ptxas": {
+    line.split("smem_kernel")[1][:12]: " ".join(nxt.strip() for nxt in lines[i + 1:i + 3])
+    for i, line in enumerate(lines)
+    if "Compiling entry function" in line and "smem_kernel" in line}}
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    for m in (64, 128):
+        case = cs.Case(10000, m, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+        cases = (case, case.with_noise(cs.noise_weights(10000))) if m == 64 else (case,)
+        for c in cases:
+            h = "_hetero" if c.v32 is not None else ""
+            k, t, v = c.kernel, c.tab32, c.v32
+            out[f"suffstats{sfx}_m{m}{h}"] = cs._time_ms(lambda: fwd_ops.suffstats(
+                k, t, c.phi, c.alpha, c.y32, c.jitter, noise_v=v), 2, 10)
+            out[f"bf{sfx}_m{m}{h}"] = cs._time_ms(lambda: bf_ops.bf_planes(
+                k, t, c.phi, c.alpha, c.jitter, noise_v=v), 2, 10)
+        out[f"logdet_chain0{sfx}_m{m}"] = float(fwd_ops.suffstats(
+            case.kernel, case.tab32, case.phi, case.alpha, case.y32, case.jitter)[0][0])
+        out[f"sum_b{sfx}_m{m}"] = float(bf_ops.bf_planes(
+            case.kernel, case.tab32, case.phi, case.alpha, case.jitter)[0].double().sum())
+        del case, cases
+    nu = cs.Case(10000, 40, cs.Matern(), 16, seed=0, dev=dev, nu=cs.nu_spread(16),
+                 layout=layout).subset(slice(0, 4))
+    out[f"suffstats_nu{sfx}_m40_4_chains"] = cs._time_ms(lambda: fwd_ops.suffstats(
+        nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.y32, nu.jitter, nu=nu.nu), 2, 10)
+    out[f"bf_nu{sfx}_m40_4_chains"] = cs._time_ms(lambda: bf_ops.bf_planes(
+        nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.jitter, nu=nu.nu), 2, 10)
+    del nu
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
 def main() -> int:
     root = os.getcwd()
     trees = sys.argv[1:]
@@ -141,6 +191,8 @@ def main() -> int:
         trees, code = trees[1:], ROUND_M15
     elif trees[:1] == ["--bf"]:
         trees, code = trees[1:], ROUND_BF
+    elif trees[:1] == ["--large"]:
+        trees, code = trees[1:], ROUND_LARGE
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -168,7 +220,8 @@ def main() -> int:
         usage = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-res-usage", r["lib"]],
                                capture_output=True, text=True).stdout.splitlines()
         for name, res in zip(usage, usage[1:]):
-            if "Function" in name and ("ILi15E" in name or "ILi20E" in name):
+            if "Function" in name and ("ILi15E" in name or "ILi20E" in name
+                                       or "smem_kernel" in name):
                 print(tree, name.split()[-1][:90], res.split("SHARED")[0].strip(), flush=True)
     print("TIME_TREES " + json.dumps(results), flush=True)
     return 0
