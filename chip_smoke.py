@@ -50,15 +50,16 @@ plain version and timed, the coords instances with d = 4, m = 12 and
 m = 17 run on the M = 15 and M = 20 instances against their plain versions
 and timed against those instances' own m, and m = 25 and m = 32 on the
 rolled instances of all three kernels, both layouts, and m = 40 and m = 64
-on their large-m instances (kernels 1 and 3 a warp a (site, chain) system
-in shared memory, kernel 2 one thread a (site, chain), its state in a
-scratch buffer), both layouts, with and without noise weights, closed form
-and sampled nu, with kernels 1 and 3 also at m = geometry.M_SMEM + 1 on the
-scratch body and the factor-only yardstick (``torch.linalg.cholesky_ex`` on
-the m = 64 correlation batch).  After the build it prints the registers,
-stack, shared bytes and warps an SM of every tile instance of the three
-kernels (a block of up to four chains, one warp each, over a 32-site tile
-staged in shared memory) and of kernels 1 and 3's shared-memory bodies.  After the paths above, both models at m = 40 on config 2's field,
+on their large-m instances (each kernel a warp a (site, chain) system in
+shared memory), both layouts, with and without noise weights, closed form
+and sampled nu, with kernels 1 and 3 also at m = geometry.M_SMEM + 1 and
+kernel 2 at m = geometry.M_SMEM_GRAD + 1 on the scratch body (one thread a
+(site, chain), its state in a scratch buffer) and the factor-only
+yardstick (``torch.linalg.cholesky_ex`` on the m = 64 correlation batch).
+After the build it prints the registers, stack, shared bytes and warps an
+SM of every tile instance of the three kernels (a block of up to four
+chains, one warp each, over a 32-site tile staged in shared memory) and of
+the three kernels' shared-memory bodies.  After the paths above, both models at m = 40 on config 2's field,
 through the large-m instances; then ``bench.py``'s config 4, uncut (tempered
 SMC with 512 particles at n=50,000, m=10: kernel 1 at 512 chains, held to its
 plain version at that launch and timed beside its bound), ADVI on the first
@@ -178,13 +179,12 @@ KERNEL_ROWS.update({
     for name, (src, _, _) in list(KERNEL_ROWS.items())
 })
 # the large-m instance of every source, with and without noise weights (m >
-# 32: kernels 1 and 3 a warp a (site, chain) system in shared memory up to
-# geometry.M_SMEM, kernel 2 one thread a (site, chain), its state in a
-# scratch buffer; the large-m branch of each Pallas body is the body itself
-# at a static m), counted apart
+# 32: a warp a (site, chain) system in shared memory, up to geometry.M_SMEM
+# for kernels 1 and 3 and geometry.M_SMEM_GRAD for kernel 2; the large-m
+# branch of each Pallas body is the body itself at a static m), counted apart
 KERNEL_ROWS.update({
     name.removesuffix("_hetero") + "_large" + ("_hetero" if name.endswith("_hetero") else ""): (
-        "pynngp_tpu_torch/csrc/" + ("vecchia_large_m.cuh" if name.startswith("vecchia_grad")
+        "pynngp_tpu_torch/csrc/" + ("vecchia_grad_smem.cuh" if name.startswith("vecchia_grad")
                                     else "vecchia_large_smem.cuh"), tpu,
         _COUNTS[name.removesuffix("_hetero") + "_large"
                 + ("_hetero" if name.endswith("_hetero") else "")])
@@ -2409,9 +2409,8 @@ N_LARGE = 10_000
 
 def large_m_kernels(dev) -> tuple:
     """m = 40 and 64 on the large-m instances of all three kernels (m > 32:
-    kernels 1 and 3 a warp a (site, chain) system in shared memory, kernel 2
-    one thread a (site, chain), its state in a scratch buffer) on both
-    layouts at n=10,000: against their plain versions on four of the 16
+    a warp a (site, chain) system in shared memory) on both layouts at
+    n=10,000: against their plain versions on four of the 16
     chains (two a float64 plain call), with and without noise weights,
     closed form (kernels 1, 2, 2-EMIT_Y with a shared and a per-chain y, 3)
     at the closed-form limits (gradients rtol 2e-3, as at m = 25 and 32) and
@@ -2419,7 +2418,7 @@ def large_m_kernels(dev) -> tuple:
     plain versions and bounds: the closed forms at m = 64, 16 chains, the
     general-nu instances at m = 40, 4 chains (their float32 plain versions
     at m = 64 and 16 chains would hold tens of GB of Bessel intermediates).
-    Then kernels 1 and 3 once each at m = M_SMEM + 1, the scratch body
+    Then each kernel at the first m of its scratch body
     (:func:`scratch_body_check`), and the factor-only yardstick
     (:func:`factor_only_ms`).  Returns (max_abs_err, ms, bound) by row."""
     errs, times, bounds = {}, {}, {}
@@ -2501,27 +2500,42 @@ def factor_only_ms(dev) -> dict:
 
 
 def scratch_body_check(dev) -> dict:
-    """Kernels 1 and 3 at m = M_SMEM + 1 (n=1,000, 4 chains), the first m
-    they run on the scratch body: one launch each against its float64 plain
-    version at the closed-form limits, counted under ``_large_scratch``."""
-    m = geometry.M_SMEM + 1
-    _require(geometry.large_body("vecchia_suffstats", m) == "scratch"
-             and geometry.large_body("vecchia_bf", m) == "scratch"
-             and geometry.large_body("vecchia_bf", m - 1) == "smem",
-             f"m={m} does not run kernels 1 and 3's scratch body")
-    case = Case(1_000, m, SqExp(), 4, seed=0, dev=dev)
+    """Each kernel at the first m it runs on the scratch body, 4 chains:
+    kernels 1 and 3 at m = M_SMEM + 1 (n=1,000), kernel 2 and its EMIT_Y
+    instance at m = M_SMEM_GRAD + 1 (n=500: their float64 plain versions,
+    kernel 2's through autograd, cost seconds a call at this m); one launch
+    each against its float64 plain version at the closed-form limits,
+    counted under ``_large_scratch``."""
+    m13, m2 = geometry.M_SMEM + 1, geometry.M_SMEM_GRAD + 1
+    _require(geometry.large_body("vecchia_suffstats", m13) == "scratch"
+             and geometry.large_body("vecchia_bf", m13) == "scratch"
+             and geometry.large_body("vecchia_bf", m13 - 1) == "smem"
+             and geometry.large_body("vecchia_grad", m2) == "scratch"
+             and geometry.large_body("vecchia_grad", m2 - 1) == "smem",
+             f"m={m13} (kernels 1 and 3) or m={m2} (kernel 2) does not run the scratch body")
     counts = (fwd_ops.COUNTS["vecchia_suffstats_large_scratch"],
-              bf_ops.COUNTS["vecchia_bf_large_scratch"])
+              bf_ops.COUNTS["vecchia_bf_large_scratch"],
+              diff_ops.COUNTS["vecchia_grad_large_scratch"],
+              diff_ops.COUNTS["vecchia_grad_y_large_scratch"])
     before = [c.launches for c in counts]
-    label = f"n1000 m{m} scratch body sqexp"
     t0 = time.perf_counter()
+    case = Case(1_000, m13, SqExp(), 4, seed=0, dev=dev)
+    label = f"n1000 m{m13} scratch body sqexp"
     fwd = check_forward(case.subset(slice(None)), label)
     bf = check_bf(case.subset(slice(None)), label, zero_alpha=False, gated=True)
+    case = Case(500, m2, SqExp(), 4, seed=0, dev=dev)
+    label = f"n500 m{m2} scratch body sqexp"
+    grad = check_grad(case.subset(slice(None)), label, grad_rtol=2e-3)
+    grad_y = check_grad_y(case.subset(slice(None)), label, False, grad_rtol=2e-3)
     launches = [c.launches - b for c, b in zip(counts, before)]
-    _require(launches == [1, 1], f"the scratch body was not launched once each: {launches}")
-    out = {"m": m, "launches": launches, "f_max_abs_err": fwd["f_max_abs_err"],
-           "b_max_abs_err": bf["b_max_abs_err"], "seconds": time.perf_counter() - t0}
-    print("scratch body above M_SMEM: " + json.dumps(out), flush=True)
+    _require(launches == [1, 1, 1, 1],
+             f"the scratch body was not launched once each: {launches}")
+    out = {"m": {"kernels 1 and 3": m13, "kernel 2": m2}, "launches": launches,
+           "f_max_abs_err": fwd["f_max_abs_err"], "b_max_abs_err": bf["b_max_abs_err"],
+           "grad_max_abs_err": grad["max_abs_err"],
+           "grad_y_b_max_abs_err": grad_y["b_max_abs_err"],
+           "seconds": time.perf_counter() - t0}
+    print("scratch bodies above M_SMEM and M_SMEM_GRAD: " + json.dumps(out), flush=True)
     del case
     torch.cuda.empty_cache()
     return out
@@ -2582,7 +2596,9 @@ def tile_resources(info: dict) -> dict:
     those allow by the card's occupancy rules
     (65,536 registers an SM given out 256 to a warp, 233,472 bytes of shared
     memory an SM with 1,024 reserved a block, 64 warps and 32 blocks an
-    SM)."""
+    SM).  cuobjdump's SHARED already holds the 1,024 reserved bytes (a
+    kernel without static shared arrays reads 1024), so a block takes the
+    dynamic bytes plus SHARED."""
     usage = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-res-usage", info["lib"]],
                            capture_output=True, text=True, timeout=300,
                            check=True).stdout.splitlines()
@@ -2608,7 +2624,7 @@ def tile_resources(info: dict) -> dict:
                                 hetero=hetero == "1", with_y=not name.startswith("bf"))
         warps = geo.block // 32
         per_warp = -(-regs * 32 // 256) * 256
-        blocks = min(65_536 // per_warp // warps, 233_472 // (geo.smem_bytes + static + 1024),
+        blocks = min(65_536 // per_warp // warps, 233_472 // (geo.smem_bytes + static),
                      64 // warps, 32)
         key = f"{name}<{'rolled' if rolled == '1' else big_m}>"
         out[key] = {"registers": regs, "stack": stack, "static_shared": static,
@@ -2619,26 +2635,32 @@ def tile_resources(info: dict) -> dict:
              f"{len(out)}")
     smem = {}
     for line, res in zip(usage, usage[1:]):
-        found = re.search(r"(suffstats|bf)_smem_kernelILb([01])ELb([01])E", line)
+        # kernels 1 and 3: <GENERAL, COORDS>; kernel 2: <EMIT_Y, GENERAL, COORDS>
+        found = re.search(r"(suffstats|bf|grad)_smem_kernelI((?:Lb[01]E)+)", line)
         if "Function" not in line or not found:
             continue
-        name = (found.group(1) + ("_nu" if found.group(2) == "1" else "")
-                + ("_coords" if found.group(3) == "1" else ""))
+        flags = re.findall(r"Lb([01])E", found.group(2))
+        if found.group(1) == "grad":
+            emit_y, flags = flags[0], flags[1:]
+        name = (found.group(1) + ("_y" if found.group(1) == "grad" and emit_y == "1" else "")
+                + ("_nu" if flags[0] == "1" else "") + ("_coords" if flags[1] == "1" else ""))
+        base = "vecchia_" + found.group(1)
         stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
         regs, stack, static = (int(stats.get(k, 0)) for k in ("REG", "STACK", "SHARED"))
         row = {"registers": regs, "stack": stack, "static_shared": static}
         for m in LARGE_M:
-            geo = geometry.smem_geometry(10_112, m, CHAINS)
+            geo = geometry.smem_geometry(10_112, m, CHAINS, base)
             warps = geo.block // 32
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(65_536 // per_warp // warps,
-                         233_472 // (geo.smem_bytes + static + 1024), 64 // warps, 32)
+                         233_472 // (geo.smem_bytes + static), 64 // warps, 32)
             row[f"m{m}"] = {"group": geo.group, "dynamic_shared": geo.smem_bytes,
                             "warps_per_sm": blocks * warps}
         smem[name] = row
     print("shared-memory bodies' resources [kernels 1 and 3, 32 < m <= "
-          f"{geometry.M_SMEM}; 16 chains]: " + json.dumps(smem), flush=True)
-    _require(len(smem) == 8, f"expected 8 shared-memory kernels, found {len(smem)}")
+          f"{geometry.M_SMEM}; kernel 2, 32 < m <= {geometry.M_SMEM_GRAD}; 16 chains]: "
+          + json.dumps(smem), flush=True)
+    _require(len(smem) == 16, f"expected 16 shared-memory kernels, found {len(smem)}")
     return out
 
 
@@ -3419,15 +3441,15 @@ def _sum_launches(*counts: dict) -> dict:
 OFFSET_MESHES = ((1, 2), (1, 4), (2, 2))
 # Bound on a sum of the sharded call against the unsharded launch, in units
 # of 2^-24 (float32's unit roundoff) of the sum of |per-site terms|.  The
-# per-site terms of the two are the same bits (gated), and both sum them in
-# float32 within a block, then the blocks' partials in float64, then round
-# to float32 once.  A term passes through at most 12 float32 additions on
-# its way to a partial (at most 4 sites a thread on the tile kernels, 2 on
-# kernel 2's large-m instance at these shapes, then a 5-level warp tree and,
-# on that instance, the block's 4 warps; kernel 1's large-m body sums in
-# float64 and rounds once), so each sum is within
-# 12 u sum|terms| + u |sum| of the exact one: the two within twice that.
-SUM_ULPS = 24
+# per-site terms of the two are the same bits (gated).  The tile kernels sum
+# them in float32 within a block: a term passes through at most 9 float32
+# additions on its way to a partial (at most 4 sites a lane, then a 5-level
+# warp tree); the shared-memory bodies of the m = 40 case (kernels 1 and 2)
+# sum in float64 and round each partial once.  Both launches then add the
+# blocks' partials in float64 and round to float32 once, so each sum is
+# within 9 u sum|terms| + u |sum| of the exact one: the two within twice
+# 10 u sum|terms|.
+SUM_ULPS = 20
 U32 = 2.0**-24
 
 
@@ -3567,7 +3589,7 @@ def _loglik_rate(model, u, warm: int = 5) -> tuple:
 
 # Path 28's limits on the mesh model against the unsharded one (float32 on
 # the card): the log-likelihood and the value with fixed effects rtol 1e-5,
-# as path 27 bounds a sum by 24 ulps of the sum of |terms| and here those
+# as path 27 bounds a sum by SUM_ULPS ulps of the sum of |terms| and here those
 # are within a few times |log-likelihood|; the gradient 1e-4 of the largest
 # entry (its phi and alpha entries are such sums with cancellation, its beta
 # entries the same gather of the same planes); one latent step's w 1e-3 of

@@ -20,10 +20,10 @@
 // smallest built instance M >= m (launch_m) for m <= 20, and slots k >= m
 // are identity rows; 20 < m <= kRolledM runs the rolled instance (arrays for
 // kRolledM, loops to m); m > kRolledM the large-m instances (kernels 1 and 3
-// up to kSmemM: vecchia_large_smem.cuh, a warp a (site, chain) system in
-// shared memory; above, and kernel 2 for every such m: vecchia_large_m.cuh,
-// one thread a (site, chain), its state in a device scratch buffer; loops
-// to m).  The tables of an m-call have m (or
+// up to kSmemM: vecchia_large_smem.cuh, kernel 2 up to kSmemGradM:
+// vecchia_grad_smem.cuh, a warp a (site, chain) system in shared memory;
+// above: vecchia_large_m.cuh, one thread a (site, chain), its state in a
+// device scratch buffer; loops to m).  The tables of an m-call have m (or
 // m(m-1)/2, or m d) planes, the leading planes of the M layout: tri(i, k)
 // for i < m and k d + a for k < m do not depend on M.
 //
@@ -100,7 +100,7 @@ constexpr int kMaxDim = 3;
 // runs every launch with 20 < m <= kRolledM, and coords launches with
 // d > kMaxDim.  State per (site, chain) grows as m^2 (the factor alone is
 // m(m-1)/2 floats) and the tile ring as m(m+1)/2 planes, so a larger m runs
-// the large-m instance, whose state lives in a device scratch buffer.
+// a large-m instance, its state in shared memory or a device scratch buffer.
 constexpr int kRolledM = 32;
 
 // The site's own relative nugget: alpha, or alpha v[gsite] (global index).

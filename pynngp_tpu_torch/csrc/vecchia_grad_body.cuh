@@ -60,8 +60,9 @@
 // sums), at no cost in device memory.  The slot loops unroll over M, the
 // loops nested in them stay rolled and the factor lives in local memory (see
 // below); the rolled instance (arrays for kRolledM, loops to m) runs
-// 20 < m <= 32 and coords with d > kMaxDim, and the large-m instance
-// (vecchia_large_m.cuh) m > 32.
+// 20 < m <= 32 and coords with d > kMaxDim, and above 32 the shared-memory
+// body (vecchia_grad_smem.cuh, a warp a (site, chain) system) up to
+// kSmemGradM, the scratch body (vecchia_large_m.cuh) above it.
 //
 // What bounded the design before it (one thread per (site, chain); NVIDIA
 // H100 80GB HBM3, 700 W, tools/time_trees.py --m15, PERF.md; n=100,000,
@@ -82,6 +83,7 @@
 
 #include <cstddef>
 
+#include "vecchia_grad_smem.cuh"
 #include "vecchia_large_m.cuh"
 #include "vecchia_tile.cuh"
 
@@ -327,11 +329,13 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 }
 
 // Validates the launch shape and the wrapper's geometry (group chains a
-// block, grid_x blocks along the tiles, the ring's bytes; for m > kRolledM
+// block, grid_x blocks along the tiles, the ring's bytes; for kRolledM <
+// m <= kSmemGradM group chains a block and their systems' bytes; above,
 // grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
 // the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
-// and for coords with d > kMaxDim; the large-m one above) and launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// and for coords with d > kMaxDim; the shared-memory body, then the scratch
+// body above) and launches on `stream` without synchronising; returns
+// cudaGetLastError().
 template <bool EMIT_Y, bool GENERAL, bool COORDS>
 int launch_grad(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
                 const float* y, int y_stride, const float* v, int n_pad, int m, int dim,
@@ -340,6 +344,14 @@ int launch_grad(const float* params, const float* tab_a, const float* tab_b, con
                 void* stream) {
   if (!valid_launch<COORDS>(n_pad, chains, dim) || y_stride < 0 || launch_m(m) == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem_grad_launch(m)) {
+    if (!valid_smem_grad(n_pad, m, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_grad_smem<EMIT_Y, GENERAL, COORDS>(
+        params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, with_nu,
+        group, grid_x, smem_bytes, part, b_out, rof_out, static_cast<cudaStream_t>(stream));
   }
   if (large_launch(m)) {
     if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {

@@ -1,4 +1,6 @@
-// The large-m instances of the three kernels: every call with m > kRolledM,
+// The scratch bodies of the three kernels: every call with m > kRolledM
+// that no shared-memory body takes (kernels 1 and 3 above kSmemM,
+// vecchia_large_smem.cuh; kernel 2 above kSmemGradM, vecchia_grad_smem.cuh),
 // on either table layout, closed-form rho or the general-nu Matern, with or
 // without noise weights.  Each source's launcher sends such a call here.
 //

@@ -1,8 +1,9 @@
 // Kernels 1 and 3 for 32 < m <= kSmemM: each (site, chain) system factored
 // by one warp, its factor in shared memory in float64.  The launchers of
 // vecchia_suffstats_body.cuh and vecchia_bf_body.cuh send such calls here;
-// above kSmemM they keep the scratch body of vecchia_large_m.cuh, and kernel
-// 2 keeps it for every m > kRolledM.
+// above kSmemM they keep the scratch body of vecchia_large_m.cuh.  Kernel 2
+// builds on the same pieces (the fill with WITH_D, the factor) in
+// vecchia_grad_smem.cuh, up to its own limit kSmemGradM.
 //
 // What bounded the scratch body (one thread a (site, chain), its factor in a
 // per-thread slice of a device buffer): its left-looking Cholesky loads
@@ -108,13 +109,18 @@ static_assert(kSmemM == 236, "ops/geometry.py M_SMEM takes the same value");
 // Whether a call of kernel 1 or 3 runs this body.
 __host__ inline bool smem_launch(int m) { return large_launch(m) && m <= kSmemM; }
 
-// The wrapper's geometry for this body: group warps (chains) a block, grid_x
-// blocks along the sites, group systems' bytes, no scratch buffer.
+// The wrapper's geometry for a shared-memory body: group warps (chains) a
+// block, grid_x blocks along the sites, group systems of `words` float64
+// words each, no scratch buffer.
+__host__ inline bool valid_systems(int n_pad, int words, int group, int grid_x,
+                                   int smem_bytes, const double* scratch) {
+  return group >= 1 && group <= kMaxGroup && grid_x >= 1 && grid_x <= n_pad &&
+         scratch == nullptr && smem_bytes == group * words * 8 && smem_bytes <= kMaxRingBytes;
+}
+
 __host__ inline bool valid_smem(int n_pad, int m, int group, int grid_x, int smem_bytes,
                                 const double* scratch) {
-  return group >= 1 && group <= kMaxGroup && grid_x >= 1 && grid_x <= n_pad &&
-         scratch == nullptr && smem_bytes == group * smem_system_doubles(m) * 8 &&
-         smem_bytes <= kMaxRingBytes;
+  return valid_systems(n_pad, smem_system_doubles(m), group, grid_x, smem_bytes, scratch);
 }
 
 // The block's chains and its warp's system.
@@ -125,11 +131,15 @@ struct SmemGroup {
   int lane;
   int mp;
   int rows;         // layout rows: mp + 2
-  int sys_doubles;  // words a system
+  int sys_doubles;  // words a system (kernel 2: with its two vectors)
+  int vec;          // kernel 2: first word of the vectors dc and dcn after the triangle
   double* sys0;     // the block's first system
 };
 
-__device__ __forceinline__ SmemGroup smem_group(double* smem, int chains, int m) {
+// `sys_doubles`: the words a warp's system takes, smem_system_doubles(m)
+// unless the body keeps more beside the triangle.
+__device__ __forceinline__ SmemGroup smem_group(double* smem, int chains, int m,
+                                                int sys_doubles) {
   SmemGroup g;
   const int group = blockDim.x >> 5;
   g.c0 = blockIdx.y * group;
@@ -138,14 +148,20 @@ __device__ __forceinline__ SmemGroup smem_group(double* smem, int chains, int m)
   g.lane = threadIdx.x & 31;
   g.mp = smem_mp(m);
   g.rows = g.mp + 2;
-  g.sys_doubles = smem_system_doubles(m);
+  g.sys_doubles = sys_doubles;
+  g.vec = smem_system_doubles(m);
   g.sys0 = smem;
   return g;
+}
+
+__device__ __forceinline__ SmemGroup smem_group(double* smem, int chains, int m) {
+  return smem_group(smem, chains, m, smem_system_doubles(m));
 }
 
 // What the fill needs of each of the block's chains, in registers.
 struct GroupChains {
   double scale[kMaxGroup];  // closed forms: t = scale d (ClosedForm64.scale)
+  double inv_phi[kMaxGroup];  // closed forms: d rho / d phi is 1/phi times the phi = 1 shape's
   double alpha[kMaxGroup];
   double jitter[kMaxGroup];
   const float* y[kMaxGroup];
@@ -161,6 +177,7 @@ __device__ __forceinline__ GroupChains group_chains(const float* __restrict__ pa
     const int chain = g.c0 + min(c, g.active - 1);
     const float* pr = params + chain * kParams;
     ch.scale[c] = family == kMaternGeneral ? 0.0 : closed_form64(family, pr[0]).scale;
+    ch.inv_phi[c] = 1.0 / pr[0];
     ch.alpha[c] = pr[1];
     ch.jitter[c] = pr[2];
     ch.y[c] = y_all + static_cast<size_t>(chain) * y_stride;
@@ -169,15 +186,18 @@ __device__ __forceinline__ GroupChains group_chains(const float* __restrict__ pa
 }
 
 // The MaternSet of each of the block's chains (GENERAL), or null: lane 0 of
-// each warp builds its chain's.  Every thread of the block must call it.
+// each warp builds its chain's, with the two ends of the difference in nu
+// where `with_nu` (kernel 2 for a sampled nu).  Every thread of the block
+// must call it.
 template <bool GENERAL>
 __device__ __forceinline__ const MaternSet* group_matern_sets(const float* __restrict__ params,
-                                                              const SmemGroup& g) {
+                                                              const SmemGroup& g,
+                                                              bool with_nu = false) {
   if constexpr (GENERAL) {
     __shared__ MaternSet sets[kMaxGroup];
     if (g.lane == 0 && g.warp < g.active) {
       const float* pr = params + (g.c0 + g.warp) * kParams;
-      make_matern_set(pr[0], pr[4], false, &sets[g.warp]);
+      make_matern_set(pr[0], pr[4], with_nu, &sets[g.warp]);
     }
     __syncthreads();
     return sets;
@@ -204,11 +224,14 @@ __device__ __forceinline__ double group_rho(const ClosedForm64& shape, double sc
 // order (consecutive threads write consecutive words), then each slot's
 // diagonal, c and (WITH_Y) y_N.  Slot k is real iff lim = min(gsite, m) > k;
 // the others are identity rows, and rows mp + 1 stay unwritten without y.
-template <bool GENERAL, bool COORDS, bool WITH_Y>
+// WITH_D (kernel 2) also writes the masked d c / d phi and d c / d nu (zero
+// unless `with_nu`) into the vectors at g.vec, c from the same evaluation
+// (the general nu: rho_drho_general's rho, as the scratch body takes it).
+template <bool GENERAL, bool COORDS, bool WITH_Y, bool WITH_D = false>
 __device__ void smem_fill(const SmemGroup& g, const GroupChains& ch, const ClosedForm64& shape,
                           const MaternSet* sets, const GlobalDistances<COORDS>& dist,
                           const int* __restrict__ nn_idx, const float* __restrict__ v,
-                          int n_pad, int site, int lim) {
+                          int n_pad, int site, int lim, bool with_nu = false) {
   const int mp = g.mp;
   const int pairs = mp * (mp - 1) / 2;
   for (int q = threadIdx.x; q < pairs; q += blockDim.x) {
@@ -247,7 +270,25 @@ __device__ void smem_fill(const SmemGroup& g, const GroupChains& ch, const Close
       if (c < g.active) {
         double* a = g.sys0 + c * g.sys_doubles + base;
         a[k] = real ? 1.0 + (ch.alpha[c] * vk + ch.jitter[c]) : 1.0;
-        a[mp] = real ? group_rho<GENERAL>(shape, ch.scale[c], dk, sets + c) : 0.0;
+        if constexpr (WITH_D) {
+          double* dc = g.sys0 + c * g.sys_doubles + g.vec;  // dc[k], then dcn[k] at mp + k
+          if constexpr (GENERAL) {
+            const float dk32 = static_cast<float>(dk);
+            const float2 rd = real ? rho_drho_general(dk32, &sets[c].at) : make_float2(0.0f, 0.0f);
+            a[mp] = rd.x;
+            dc[k] = rd.y;
+            dc[mp + k] = real && with_nu ? drho_dnu_general(dk32, sets + c) : 0.0;
+          } else {
+            const double t = fmin(ch.scale[c] * dk, shape.t_max);
+            const double e = shape.decay(t);
+            a[mp] = real ? (1.0 + t * (shape.c1 + t * (shape.c2 + t * shape.c3))) * e : 0.0;
+            dc[k] = real ? ch.inv_phi[c] * (t * (shape.d1 + t * (shape.d2 + t * shape.d3)) * e)
+                         : 0.0;
+            dc[mp + k] = 0.0;
+          }
+        } else {
+          a[mp] = real ? group_rho<GENERAL>(shape, ch.scale[c], dk, sets + c) : 0.0;
+        }
         if constexpr (WITH_Y) a[mp + 1] = real ? static_cast<double>(ch.y[c][nbr]) : 0.0;
       }
     }

@@ -104,9 +104,10 @@ def with_variant_counts(*counts: LaunchCount) -> dict:
     """{name: count} of a wrapper's counts and, for each, counts of the same
     source's launches with heterogeneous-noise weights (``<name>_hetero``:
     the same C entry), of its large-m instance (``<name>_large``: m > 32),
-    of both (``<name>_large_hetero``), of kernels 1 and 3's scratch body
-    above ``geometry.M_SMEM`` (``<name>_large_scratch``, with ``_hetero``;
-    kernel 2 never counts there), and of each of these in a call over
+    of both (``<name>_large_hetero``), of the scratch body above the
+    kernel's shared-memory limit (``<name>_large_scratch``, with
+    ``_hetero``: ``geometry.M_SMEM`` for kernels 1 and 3,
+    ``geometry.M_SMEM_GRAD`` for kernel 2), and of each of these in a call over
     several cells of a mesh (``..._sharded``), counted apart so that a run
     shows which paths drove which instance."""
     out = {}

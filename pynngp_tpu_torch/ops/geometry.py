@@ -1,4 +1,5 @@
 """Launch geometry of the three kernels (``csrc/vecchia_tile.cuh``,
+``csrc/vecchia_large_smem.cuh``, ``csrc/vecchia_grad_smem.cuh``,
 ``csrc/vecchia_large_m.cuh``).
 
 For m <= 32 a block is a group of up to :data:`GROUP` chains, one warp of
@@ -13,12 +14,13 @@ recomputes the ring's bytes from the same layout and refuses a launch whose
 bytes differ.
 
 For m > 32 the ring does not fit (one stage at m = 64 on the dist layout is
-283 KB).  Kernels 1 and 3 then run one warp a (site, chain) system, its
-factor in shared memory (:func:`smem_geometry`), up to :data:`M_SMEM`, the
-largest m whose one system fits a block; above it, and kernel 2 for every
-m > 32, the scratch body runs one thread a (site, chain) with its state in a
-device scratch buffer (:func:`large_geometry`).  :func:`large_body` names
-which of the two a launch runs.
+283 KB).  Each kernel then runs one warp a (site, chain) system, its factor
+in shared memory (:func:`smem_geometry`), up to the largest m whose one
+system fits a block: :data:`M_SMEM` for kernels 1 and 3, :data:`M_SMEM_GRAD`
+for kernel 2, whose system keeps two more vectors.  Above its limit a kernel
+runs the scratch body, one thread a (site, chain) with its state in a device
+scratch buffer (:func:`large_geometry`).  :func:`large_body` names which of
+the two a launch runs.
 
 Everything here is plain arithmetic on the call's shapes, so the CPU tests
 hold it without a card.
@@ -30,11 +32,11 @@ import math
 from typing import NamedTuple
 
 __all__ = ["CUDA_M", "GROUP", "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M", "M_SMEM",
-           "RING_BYTES", "SHARED_BYTES", "SMEM_KERNELS", "STAGES", "TILE",
+           "M_SMEM_GRAD", "RING_BYTES", "SHARED_BYTES", "SMEM_M", "STAGES", "TILE",
            "TILES_PER_BLOCK", "Geometry", "LargeGeometry", "check_card_m",
            "cuda_instance_m", "geometry", "large", "large_body", "large_geometry",
            "large_state_doubles", "ring_planes", "rolled", "smem_geometry",
-           "smem_system_bytes"]
+           "smem_grad_system_bytes", "smem_system_bytes", "system_bytes"]
 
 CUDA_M = (7, 10, 15, 20)  # the unrolled instances M; a call runs the smallest M >= m
 MAX_M = 32  # the rolled instance (kRolledM) takes 20 < m <= 32; above, the large-m one
@@ -55,9 +57,6 @@ PANEL = 4  # kPanel: a system's slots are m rounded up to a multiple of it
 SMS = 132  # an H100's SMs
 SM_SHARED_BYTES = 233_472  # shared memory of one SM
 SM_BLOCK_RESERVE = 2048  # bytes a block takes beside its systems: 1,024 the card's, MaternSets
-# the kernels (base names) whose calls with 32 < m <= M_SMEM run the
-# shared-memory body; kernel 2 runs the scratch body for every m > 32
-SMEM_KERNELS = ("vecchia_suffstats", "vecchia_bf")
 
 
 def cuda_instance_m(m: int) -> int:
@@ -189,43 +188,64 @@ def smem_system_bytes(m: int) -> int:
     return 8 * (mp * rows - mp * (mp - 1) // 2 + (mp + 1) // 2)
 
 
-def _max_smem_m() -> int:
+def smem_grad_system_bytes(m: int) -> int:
+    """Bytes of one (site, chain) system of kernel 2's shared-memory body
+    (``smem_grad_doubles`` of csrc/vecchia_grad_smem.cuh): kernel 1's
+    system and, beside it, two vectors of mp float64 words (d c / d phi and
+    d c / d nu, then p and q)."""
+    return smem_system_bytes(m) + 16 * (-(-m // PANEL) * PANEL)
+
+
+def _max_smem_m(system) -> int:
     m = MAX_M
-    while smem_system_bytes(m + 1) <= RING_BYTES:
+    while system(m + 1) <= RING_BYTES:
         m += 1
     return m
 
 
-# the largest m whose one system fits a block's shared memory (kSmemM)
-M_SMEM = _max_smem_m()
+# the largest m whose one system fits a block's shared memory: kernels 1
+# and 3 (kSmemM) and kernel 2 (kSmemGradM)
+M_SMEM = _max_smem_m(smem_system_bytes)
+M_SMEM_GRAD = _max_smem_m(smem_grad_system_bytes)
+# each kernel's (base name's) largest m on the shared-memory body
+SMEM_M = {"vecchia_suffstats": M_SMEM, "vecchia_grad": M_SMEM_GRAD, "vecchia_bf": M_SMEM}
+
+
+def system_bytes(base: str, m: int) -> int:
+    """Bytes of one system of kernel ``base`` on the shared-memory body."""
+    return smem_grad_system_bytes(m) if base == "vecchia_grad" else smem_system_bytes(m)
 
 
 def large_body(base: str, m: int) -> str:
     """The body a launch of kernel ``base`` (``vecchia_suffstats``,
     ``vecchia_grad`` or ``vecchia_bf``) with m > 32 neighbors runs:
-    ``"smem"`` (a warp a system in shared memory) for kernels 1 and 3 up to
-    :data:`M_SMEM`, else ``"scratch"`` (a thread a system, its state in a
-    device buffer).  A rule of shape: nothing runs on a failure."""
+    ``"smem"`` (a warp a system in shared memory) up to the kernel's limit
+    (:data:`SMEM_M`: M_SMEM for kernels 1 and 3, M_SMEM_GRAD for kernel 2),
+    else ``"scratch"`` (a thread a system, its state in a device buffer).  A
+    rule of shape: nothing runs on a failure."""
     if not large(m):
         raise ValueError(f"m={m} runs the tile ring, not a large-m body")
-    return "smem" if base in SMEM_KERNELS and m <= M_SMEM else "scratch"
+    return "smem" if m <= SMEM_M[base] else "scratch"
 
 
-def smem_geometry(n_pad: int, m: int, chains: int) -> Geometry:
-    """The launch of kernel 1 or 3 on the shared-memory body (32 < m <=
-    M_SMEM) for ``chains`` chains over ``n_pad`` sites (a multiple of 128):
-    a block takes ``group`` chains, one warp and one system each, as many as
-    GROUP, the chains and its shared memory allow (the last group may be
-    ragged); blocks walk the sites in a stride of ``grid[0]``, as many as
-    one wave of the SMs holds at the blocks an SM takes, and no more than
-    the sites.  No scratch buffer."""
+def smem_geometry(n_pad: int, m: int, chains: int,
+                  base: str = "vecchia_suffstats") -> Geometry:
+    """The launch of kernel ``base`` on the shared-memory body (32 < m <=
+    its limit, :data:`SMEM_M`) for ``chains`` chains over ``n_pad`` sites
+    (a multiple of 128): a block takes ``group`` chains, one warp and one
+    system (:func:`system_bytes`) each, as many as GROUP, the chains and its
+    shared memory allow (the last group may be ragged); blocks walk the
+    sites in a stride of ``grid[0]``, as many as one wave of the SMs holds
+    at the blocks an SM takes, and no more than the sites.  No scratch
+    buffer."""
     if n_pad % LARGE_BLOCK or n_pad <= 0:
         raise ValueError(f"n_pad={n_pad} is not a positive multiple of {LARGE_BLOCK}")
     if not 1 <= chains <= 65535:
         raise ValueError(f"chains={chains} out of range")
-    if not large(m) or m > M_SMEM:
-        raise ValueError(f"the shared-memory body takes {MAX_M} < m <= {M_SMEM}, got m={m}")
-    per = smem_system_bytes(m)
+    if not large(m) or m > SMEM_M[base]:
+        raise ValueError(f"the shared-memory body of {base} takes {MAX_M} < m <= "
+                         f"{SMEM_M[base]}, got m={m}")
+    per = system_bytes(base, m)
     group = min(GROUP, chains, RING_BYTES // per)
     smem_bytes = group * per
     per_sm = max(1, min(32, 64 // group, SM_SHARED_BYTES // (smem_bytes + SM_BLOCK_RESERVE)))
@@ -236,10 +256,13 @@ def smem_geometry(n_pad: int, m: int, chains: int) -> Geometry:
 
 def check_card_m(n_pad: int, m: int) -> None:
     """Raise where the card cannot take m neighbors over ``n_pad`` sites
-    for one chain: m < 1, or a large-m launch whose one block needs more
-    than LARGE_SCRATCH_BYTES of scratch (kernel 2's scratch body, which
-    every m > 32 runs).  The models call it as they build
-    their tables on the card; a launch checks its own chain count."""
+    for one chain: m < 1, or a scratch-body launch whose one block needs
+    more than LARGE_SCRATCH_BYTES of scratch.  Only m > M_SMEM_GRAD runs a
+    scratch body for every kernel of a model (kernel 2 there; kernels 1
+    and 3 above M_SMEM, which is larger); below it every large-m launch
+    runs a shared-memory body and needs no scratch.  The models call it as
+    they build their tables on the card; a launch checks its own chain
+    count."""
     cuda_instance_m(m)
-    if large(m):
+    if large(m) and m > M_SMEM_GRAD:
         large_geometry(n_pad, m, 1)

@@ -26,11 +26,11 @@ built instance M >= m (:func:`cuda_instance_m`), whose slots k >= m are
 identity rows, 20 < m <= 32 the rolled instance, whose loops run to m, and
 m > 32 the large-m instances.  Up to m = 32 the three kernels launch in the
 tile geometry of :mod:`.geometry` (a block is a group of chains that share
-one staged tile of sites); above it kernels 1 and 3 run a warp a (site,
-chain) system in shared memory up to ``geometry.M_SMEM``, and above that,
-as kernel 2 does for every m > 32, one thread a (site, chain) with its
-state in a scratch buffer (:func:`launch_geometry`); such launches of
-kernels 1 and 3 count under ``_large_scratch``.
+one staged tile of sites); above it each kernel runs a warp a (site, chain)
+system in shared memory up to its limit (``geometry.M_SMEM`` for kernels 1
+and 3, ``geometry.M_SMEM_GRAD`` for kernel 2), and above that one thread a
+(site, chain) with its state in a scratch buffer (:func:`launch_geometry`);
+such launches count under ``_large_scratch``.
 
 Shards.  Tables of one site shard (``SiteTables.off`` > 0) launch the same
 instances with ``off`` in the params row; :class:`~.site_tables.ShardedTables`
@@ -50,8 +50,6 @@ import torch
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.geometry import (
     CUDA_M,
-    M_SMEM,
-    SMEM_KERNELS,
     cuda_instance_m,
     geometry,
     large,
@@ -96,14 +94,14 @@ def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
              hetero: bool = False, sharded: bool = False) -> str:
     """The kernel instance a launch of ``base`` runs, named as its launch
     count: its C entry (:func:`entry_name`), ``_large`` for m > 32 (the
-    large-m instance of the same entry), ``_large_scratch`` for kernels 1
-    and 3 above ``geometry.M_SMEM`` (their scratch body; kernel 2 counts
-    that body under ``_large``), ``_hetero`` for a launch with noise weights
-    and ``_sharded`` for one of a call over several mesh cells (the same
-    entry again)."""
+    large-m instance of the same entry), ``_large_scratch`` above the
+    kernel's shared-memory limit (its scratch body, ``geometry.large_body``),
+    ``_hetero`` for a launch with noise weights and ``_sharded`` for one of
+    a call over several mesh cells (the same entry again)."""
+    large_m = large(tables.m)
     return (entry_name(base, kernel, tables, emit_y)
-            + ("_large" if large(tables.m) else "")
-            + ("_scratch" if base in SMEM_KERNELS and tables.m > M_SMEM else "")
+            + ("_large" if large_m else "")
+            + ("_scratch" if large_m and large_body(base, tables.m) == "scratch" else "")
             + ("_hetero" if hetero else "")
             + ("_sharded" if sharded else ""))
 
@@ -336,13 +334,13 @@ def launch_geometry(base: str, kernel, tables: SiteTables, chains: int, y, v):
     """(grid_x, the four C arguments group, grid_x, shared bytes and scratch
     pointer, the scratch tensor or None) of a launch of kernel ``base``;
     ``y`` is None for kernel 3.  m <= 32: the tile geometry
-    (:func:`.geometry.geometry`), no scratch; kernels 1 and 3 with
-    32 < m <= M_SMEM: the shared-memory body
-    (:func:`.geometry.smem_geometry`), no scratch; other m > 32: the scratch
+    (:func:`.geometry.geometry`), no scratch; 32 < m <= the kernel's limit
+    (``geometry.SMEM_M``): the shared-memory body
+    (:func:`.geometry.smem_geometry`), no scratch; above it: the scratch
     body (:func:`.geometry.large_geometry`): group 1, no shared bytes, and a
     scratch buffer that the caller keeps until the launch is enqueued."""
     if large(tables.m) and large_body(base, tables.m) == "smem":
-        geo = smem_geometry(tables.n_pad, tables.m, chains)
+        geo = smem_geometry(tables.n_pad, tables.m, chains, base)
         return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, None), None
     if large(tables.m):
         geo = large_geometry(tables.n_pad, tables.m, chains)

@@ -214,7 +214,36 @@ def test_y_cotangent_on_the_card_matches_float64(card, kern, per_chain):
     taken there at alpha = 0.12).  dy is a sum of terms r/F with F >= alpha,
     so its absolute error grows as 1/alpha: the chain at alpha = 0.05 is held
     to atol 2e-4 * 0.12 / 0.05.  The gather gives the same bits twice."""
-    tab32, tab64, y, phi, alpha, params = _y_problem(card, 7, per_chain)
+    tab32, tab64, y, _, alpha, _ = _y_problem(card, 7, per_chain)
+    _check_y_cotangent(card, kern, tab32, tab64, y, alpha, per_chain)
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])
+def test_y_cotangent_at_m_64_on_coords_matches_float64(card, per_chain):
+    """The y cotangent where float32 state once missed its limit: m = 64 on
+    the coords layout, kernel 2-EMIT_Y on its shared-memory body, at the
+    same limits (dy rtol 2e-3, atol 2e-4 scaled by 0.12 / alpha)."""
+    rng = np.random.default_rng(3)
+    n = 1500
+    coords = rng.uniform(size=(n, 2))
+    data, tab = make_vecchia_data(coords, 64, precompute_distances=False)
+    tab32 = with_children(make_site_tables(data, dtype=torch.float32, device=card,
+                                           layout="coords", coords_host=coords[tab.order]))
+    tab64 = tab32.to(torch.float64)
+    y = torch.as_tensor(rng.standard_normal(n)[tab.order], dtype=torch.float32, device=card)
+    if per_chain:
+        y = y + 0.1 * torch.as_tensor(rng.standard_normal((3, n)), dtype=torch.float32,
+                                      device=card)
+    alpha = torch.tensor([0.05, 0.15, 0.3], device=card)
+    assert geometry.large_body("vecchia_grad", 64) == "smem"
+    _check_y_cotangent(card, kernels.SqExp(), tab32, tab64, y, alpha, per_chain)
+
+
+def _check_y_cotangent(card, kern, tab32, tab64, y, alpha, per_chain):
+    """dquad/dy and the phi, alpha gradients of chains phi = 0.1, 0.3, 0.5
+    through DiffSuffstats on the card against autograd through the float64
+    plain factorization, and the same bits twice."""
+    phi = torch.tensor([0.1, 0.3, 0.5], device=card)
     leaves = [t.clone().requires_grad_(True) for t in (phi, alpha, y)]
     ld, q = dops.diff_suffstats(kern, tab32, *leaves)
     got = torch.autograd.grad((0.7 * ld + 1.3 * q).sum(), leaves)
@@ -688,11 +717,12 @@ def test_coords_in_four_dimensions_match_plain(card, kern, sampled):
 
 def test_m_above_twenty_raises_on_the_card(card):
     """m = 21 runs on the rolled instances and m = 33 on the large-m ones
-    against the plain versions, and a model takes m = 33; what still raises
-    is a launch of kernel 2 (the scratch body at every m > 32) whose one
-    block a chain needs more scratch than LARGE_SCRATCH_BYTES, and it names
-    the bytes.  Kernel 1 takes as many chains: its shared-memory body needs
-    no scratch."""
+    against the plain versions, and a model takes m = 33.  At m = 33 kernels
+    1 and 2 take as many chains as the scratch body's budget would refuse
+    (one block a chain over LARGE_SCRATCH_BYTES): their shared-memory bodies
+    need no scratch.  What still raises is a launch of kernel 2 above
+    M_SMEM_GRAD (its scratch body) whose one block a chain needs more
+    scratch than LARGE_SCRATCH_BYTES, and it names the bytes."""
     tab32, tab64, y, phi, alpha = _problem(card, m=21)
     _check_instances(card, kernels.SqExp(), None, with_children(tab32),
                      with_children(tab64), y, phi, alpha)
@@ -701,11 +731,20 @@ def test_m_above_twenty_raises_on_the_card(card):
                      with_children(tab33_64), y33, phi, alpha)
     chains = geometry.LARGE_SCRATCH_BYTES // (128 * geometry.large_state_doubles(33) * 8) + 1
     many_phi, many_alpha = (t.repeat(chains // 3 + 1)[:chains] for t in (phi, alpha))
-    with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
-        dops.value_and_grad_sums(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
+    sums = dops.value_and_grad_sums(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
     ld, _, f, _ = fops.suffstats(kernels.SqExp(), tab33, many_phi, many_alpha, y33)
     torch.cuda.synchronize()
+    assert sums.shape == (6, chains) and torch.isfinite(sums).all()
     assert f.shape == (chains, tab33.n_pad) and torch.isfinite(ld).all()
+    # every third chain is the first one, in another warp or block
+    torch.testing.assert_close(sums[:, ::3], sums[:, :1].expand(-1, sums[:, ::3].shape[1]),
+                               rtol=1e-6, atol=0.0)
+    big = geometry.M_SMEM_GRAD + 1
+    tab_big, _, y_big, _, _ = _problem(card, n=400, m=big)
+    chains = geometry.LARGE_SCRATCH_BYTES // (128 * geometry.large_state_doubles(big) * 8) + 1
+    many_phi, many_alpha = (t.repeat(chains // 3 + 1)[:chains] for t in (phi, alpha))
+    with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
+        dops.value_and_grad_sums(kernels.SqExp(), tab_big, many_phi, many_alpha, y_big)
     model = ResponseNNGP(np.random.default_rng(0).uniform(size=(500, 2)), np.ones(500),
                          m=33, device=card)
     assert model.tables.m == 33
@@ -1005,6 +1044,66 @@ def test_kernels_1_and_3_on_either_large_m_body(card, m, kern, sampled, layout, 
     nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
     _check_kernels_1_and_3(card, kern, nu, tab32, tab64, y, phi, alpha,
                            _weights(tab32.n) if hetero else None)
+
+
+def _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
+    """Kernel 2 and its EMIT_Y instance at the tables' m, with a shared y
+    and with one y row a chain, against their float64 plain versions at the
+    rows' limits (closed form or general nu); one launch of each instance's
+    count a call (``_large`` on the shared-memory body, ``_large_scratch``
+    above M_SMEM_GRAD; ``_hetero`` with weights)."""
+    limits = GENERAL_LIMITS if nu is not None else CLOSED_LIMITS
+    v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
+                                                       device=card)
+    v64 = None if v32 is None else v32.double()
+    params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6), tab32.n,
+                               torch.float64, card,
+                               fops.kernel_nu(kern, None if nu is None else nu.double()))
+    names = [fops.instance("vecchia_grad", kern, tab32, hetero=v32 is not None),
+             fops.instance("vecchia_grad", kern, tab32, True, v32 is not None)]
+    counts = [dops.COUNTS[name] for name in names]
+    n, m = tab32.n, tab32.m
+    ys = y[None, :] + 0.1 * torch.arange(phi.shape[0], device=card)[:, None]
+    for yy in (y, ys):
+        before = [c.launches for c in counts]
+        sums = dops.value_and_grad_sums(kern, tab32, phi, alpha, yy, nu=nu, noise_v=v32)
+        sums_y, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, yy, emit_y=True,
+                                                  nu=nu, noise_v=v32)
+        torch.cuda.synchronize()
+        assert [c.launches for c in counts] == [x + 1 for x in before], names
+        want, b_p, rof_p = dops.grad_reference(kern, tab64, params, yy.double(), True, v64)
+        for got in (sums.double(), sums_y.double()):
+            torch.testing.assert_close(got[:2], want[:2], rtol=limits["value"], atol=0.0)
+            torch.testing.assert_close(got[2:6], want[2:6], rtol=limits["deriv"], atol=0.0)
+            if limits["nu"] is not None and kern.samples_nu:
+                torch.testing.assert_close(got[6:], want[6:], rtol=limits["nu"], atol=0.0)
+        assert b.shape == (phi.shape[0], m, tab32.n_pad)
+        torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=limits["b"])
+        torch.testing.assert_close(rof.double(), rof_p, rtol=limits["rof"][0],
+                                   atol=limits["rof"][1])
+        assert (b[:, :, n:] == 0).all() and (rof[:, n:] == 0).all()
+        assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
+@pytest.mark.parametrize("m", [33, geometry.M_SMEM_GRAD, geometry.M_SMEM_GRAD + 1])
+def test_kernel_2_on_either_large_m_body(card, m, kern, sampled, layout, hetero):
+    """Kernel 2 with and without EMIT_Y at m = 33 and M_SMEM_GRAD (its
+    shared-memory body's smallest system and its largest, one system a
+    block) and M_SMEM_GRAD + 1 (the scratch body), closed form and sampled
+    nu, both layouts, with and without noise weights, a shared and a
+    per-chain y, phi = 0.1, 0.3, 0.5, against its float64 plain versions."""
+    n = 1500 if m == 33 else 400
+    tab32, tab64, y, phi, alpha = _problem(card, n=n, m=m, layout=layout)
+    body = geometry.large_body("vecchia_grad", m)
+    assert body == ("smem" if m <= geometry.M_SMEM_GRAD else "scratch")
+    assert fops.instance("vecchia_grad", kern, tab32, True).endswith(
+        "_large" if body == "smem" else "_large_scratch")
+    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
+    _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha,
+                    _weights(tab32.n) if hetero else None)
 
 
 @pytest.mark.parametrize("layout", ["dist", "coords"])

@@ -1,13 +1,14 @@
 """The launch geometry of the three kernels (pynngp_tpu_torch/ops/geometry.py):
 block, chain groups, grid and the tile ring's shared-memory bytes for every
 m the ring takes (kernel 3's ring without y planes), both table layouts and
-coordinate dimensions 1 to 4, and above m = 32 the large-m bodies: kernels 1
-and 3's shared-memory body up to M_SMEM (its systems' bytes, groups and
-grid), the scratch body's grid and buffer above it and for kernel 2, and
-which body and count each kernel's call gets.  The C launchers recompute the
-ring and the systems' bytes from the same layouts and refuse other bytes
-(csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh);
-tests/test_torch_cuda.py runs them on the card."""
+coordinate dimensions 1 to 4, and above m = 32 the large-m bodies: the
+shared-memory bodies up to M_SMEM (kernels 1 and 3) and M_SMEM_GRAD (kernel
+2; their systems' bytes, groups and grid), the scratch body's grid and
+buffer above them, and which body and count each kernel's call gets.  The C
+launchers recompute the ring and the systems' bytes from the same layouts
+and refuse other bytes (csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh,
+csrc/vecchia_grad_smem.cuh); tests/test_torch_cuda.py runs them on the
+card."""
 
 import math
 from types import SimpleNamespace
@@ -214,29 +215,108 @@ def test_smem_geometry_refuses_what_it_does_not_take():
 
 
 @pytest.mark.parametrize("base", ["vecchia_suffstats", "vecchia_grad", "vecchia_bf"])
-@pytest.mark.parametrize("m", [33, 64, geo.M_SMEM, geo.M_SMEM + 1])
+@pytest.mark.parametrize("m", [33, 64, geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM,
+                               geo.M_SMEM + 1])
 def test_each_kernel_gets_its_body_and_count_by_m(base, m):
-    """Kernels 1 and 3 run the shared-memory body up to M_SMEM (counted
-    under ``_large``, no scratch tensor, group chains a block and their
-    systems' bytes) and the scratch body above it (``_large_scratch``);
-    kernel 2 runs the scratch body at every m > 32 (``_large``)."""
+    """Each kernel runs its shared-memory body up to its limit (M_SMEM for
+    kernels 1 and 3, M_SMEM_GRAD for kernel 2; counted under ``_large``, no
+    scratch tensor, group chains a block and their systems' bytes) and the
+    scratch body above it (``_large_scratch``)."""
     tables = SimpleNamespace(m=m, n_pad=128, layout="dist", dim=0,
                              device=torch.device("cpu"))
     chains = 3
-    smem = base != "vecchia_grad" and m <= geo.M_SMEM
+    smem = m <= (geo.M_SMEM_GRAD if base == "vecchia_grad" else geo.M_SMEM)
     assert geo.large_body(base, m) == ("smem" if smem else "scratch")
     name = fops.instance(base, kernels.SqExp(), tables, hetero=True)
-    suffix = "_large_hetero" if smem or base == "vecchia_grad" else "_large_scratch_hetero"
+    suffix = "_large_hetero" if smem else "_large_scratch_hetero"
     assert name == base + suffix
     y = None if base == "vecchia_bf" else torch.zeros(10)
     grid_x, args, scratch = fops.launch_geometry(base, kernels.SqExp(), tables, chains, y,
                                                  None)
     if smem:
-        g = geo.smem_geometry(128, m, chains)
+        g = geo.smem_geometry(128, m, chains, base)
         assert scratch is None and args == (g.group, g.grid[0], g.smem_bytes, None)
-        assert grid_x == g.grid[0] and g.smem_bytes == g.group * geo.smem_system_bytes(m)
+        assert grid_x == g.grid[0] and g.smem_bytes == g.group * geo.system_bytes(base, m)
     else:
         g = geo.large_geometry(128, m, chains)
         assert args[:3] == (1, g.grid[0], 0) and grid_x == g.grid[0] == 1
         assert scratch is not None and scratch.numel() * 8 == g.scratch_bytes
         assert args[3] == scratch.data_ptr()
+
+
+@pytest.mark.parametrize("m,want", [(33, 6_624), (36, 6_624), (40, 8_000), (64, 18_944),
+                                    (128, 70_656), (232, 224_576), (233, 232_224)])
+def test_kernel_2_system_bytes_by_m(m, want):
+    """Kernel 2's system on the shared-memory body: kernel 1's bordered
+    triangle and two vectors of mp float64 words beside it (d c / d phi and
+    d c / d nu, then p and q); every system starts on a 16-byte boundary."""
+    mp = -(-m // 4) * 4
+    assert geo.smem_grad_system_bytes(m) == want == 8 * (_system_words(m) + 2 * mp)
+    assert geo.system_bytes("vecchia_grad", m) == want
+    assert geo.system_bytes("vecchia_bf", m) == geo.smem_system_bytes(m)
+    assert want % 16 == 0
+
+
+def test_m_smem_grad_is_the_largest_m_one_block_takes():
+    """M_SMEM_GRAD: the largest m whose one kernel-2 system fits the bytes a
+    block may take, 232 on an H100, below kernels 1 and 3's M_SMEM; each
+    kernel's limit in SMEM_M."""
+    assert geo.M_SMEM_GRAD == 232 < geo.M_SMEM
+    assert geo.smem_grad_system_bytes(geo.M_SMEM_GRAD) <= geo.RING_BYTES
+    assert geo.smem_grad_system_bytes(geo.M_SMEM_GRAD + 1) > geo.RING_BYTES
+    assert all(geo.smem_grad_system_bytes(m) <= geo.smem_grad_system_bytes(m + 1)
+               for m in range(33, geo.M_SMEM_GRAD + 1))
+    assert geo.SMEM_M == {"vecchia_suffstats": geo.M_SMEM, "vecchia_grad": geo.M_SMEM_GRAD,
+                          "vecchia_bf": geo.M_SMEM}
+
+
+@pytest.mark.parametrize("chains", CHAINS)
+@pytest.mark.parametrize("m", [33, 40, 64, 100, 128, 180, geo.M_SMEM_GRAD])
+def test_smem_geometry_of_kernel_2_groups_chains_by_its_system_bytes(m, chains):
+    """Kernel 2's shared-memory launch: as many chains a block as GROUP, the
+    chains and its larger systems allow; the grid by the same rule as
+    kernels 1 and 3's, from its own bytes."""
+    per = geo.smem_grad_system_bytes(m)
+    for n_pad in (128, 1_536, 10_112, 500_096):
+        g = geo.smem_geometry(n_pad, m, chains, "vecchia_grad")
+        assert g.group == min(geo.GROUP, chains, geo.RING_BYTES // per) >= 1
+        assert g.block == 32 * g.group
+        assert g.smem_bytes == g.group * per <= geo.RING_BYTES
+        assert g.grid[1] == math.ceil(chains / g.group)
+        per_sm = max(1, min(32, 64 // g.group,
+                            geo.SM_SHARED_BYTES // (g.smem_bytes + geo.SM_BLOCK_RESERVE)))
+        assert g.grid[0] == max(1, min(n_pad, math.ceil(geo.SMS * per_sm / g.grid[1])))
+
+
+@pytest.mark.parametrize("m,want", [(64, geo.Geometry((99, 4), 128, 4, 75_776)),
+                                    (128, geo.Geometry((22, 6), 96, 3, 211_968)),
+                                    (geo.M_SMEM_GRAD, geo.Geometry((9, 16), 32, 1, 224_576))])
+def test_smem_geometry_of_kernel_2_at_sixteen_chains(m, want):
+    """Kernel 2 at 16 chains over 10,112 sites: four systems a block and
+    three blocks an SM at m = 64, as kernels 1 and 3; three a block at
+    m = 128 and one at its limit, one block an SM."""
+    assert geo.smem_geometry(10_112, m, 16, "vecchia_grad") == want
+
+
+def test_smem_geometry_of_kernel_2_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="shared-memory body of vecchia_grad"):
+        geo.smem_geometry(1_536, geo.M_SMEM_GRAD + 1, 4, "vecchia_grad")
+    with pytest.raises(ValueError, match="shared-memory body of vecchia_grad"):
+        geo.smem_geometry(1_536, 32, 4, "vecchia_grad")
+    assert geo.smem_geometry(1_536, geo.M_SMEM_GRAD + 1, 4).group == 1  # kernels 1 and 3
+
+
+@pytest.mark.parametrize("m", [33, 64, geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM + 1])
+def test_check_card_m_raises_only_where_a_scratch_body_runs(m, monkeypatch):
+    """check_card_m asks the scratch body's budget only above M_SMEM_GRAD,
+    where kernel 2 (and above M_SMEM kernels 1 and 3) run the scratch body;
+    up to it every large-m launch is a shared-memory one and needs none.
+    With a budget too small for one block of one chain it raises exactly
+    there, and names it."""
+    geo.check_card_m(10_112, m)
+    monkeypatch.setattr(geo, "LARGE_SCRATCH_BYTES", 1 << 20)
+    if m <= geo.M_SMEM_GRAD:
+        geo.check_card_m(10_112, m)
+    else:
+        with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
+            geo.check_card_m(10_112, m)

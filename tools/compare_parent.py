@@ -25,10 +25,11 @@ covering the host's enqueueing.  The last line, ``PARENT_CHECK [...]``, holds th
 
     python3 tools/compare_parent.py --large
 
-times the large-m rows alone, in the same four rounds: kernels 1 and 3
-(with kernel 2 beside them) at n=10,000, m=64, 16 chains, sqexp, on both
-layouts with and without noise weights, and kernels 1 and 3's general-nu
-instances at m=40 on 4 of the 16 chains, the rows of PERF.md's table.
+times the large-m rows alone, in the same four rounds: kernels 1, 2,
+2-EMIT_Y (one y row a chain, as ``chip_smoke.time_instances`` times it) and 3
+at n=10,000, m=64, 16 chains, sqexp, on both layouts with and without noise
+weights, and their general-nu instances (sampled nu) at m=40
+on 4 of the 16 chains, the rows of PERF.md's table.
 """
 import json
 import os
@@ -128,6 +129,8 @@ for layout in ("dist", "coords"):
             k, t, c.phi, c.alpha, c.jitter, noise_v=v), 2, 10)
         out[f"vecchia_grad{sfx}_large{h}"] = _time_ms(lambda: diff_ops.value_and_grad_sums(
             k, t, c.phi, c.alpha, c.y32, c.jitter, noise_v=v), 2, 10)
+        out[f"vecchia_grad_y{sfx}_large{h}"] = _time_ms(lambda: diff_ops.value_and_grad_sums(
+            k, t, c.phi, c.alpha, c.y32_chains, c.jitter, emit_y=True, noise_v=v), 2, 10)
     nu = cs.Case(10000, 40, cs.Matern(), 16, seed=0, dev=dev, nu=cs.nu_spread(16),
                  layout=layout).subset(slice(0, 4))
     for c in (nu, nu.with_noise(cs.noise_weights(10000))):
@@ -137,6 +140,11 @@ for layout in ("dist", "coords"):
             k, t, c.phi, c.alpha, c.y32, c.jitter, nu=c.nu, noise_v=v), 2, 10)
         out[f"vecchia_bf_nu{sfx}_large{h}"] = _time_ms(lambda: bf_ops.bf_planes(
             k, t, c.phi, c.alpha, c.jitter, nu=c.nu, noise_v=v), 2, 10)
+        out[f"vecchia_grad_nu{sfx}_large{h}"] = _time_ms(lambda: diff_ops.value_and_grad_sums(
+            k, t, c.phi, c.alpha, c.y32, c.jitter, nu=c.nu, noise_v=v), 2, 10)
+        out[f"vecchia_grad_y_nu{sfx}_large{h}"] = _time_ms(
+            lambda: diff_ops.value_and_grad_sums(k, t, c.phi, c.alpha, c.y32_chains, c.jitter,
+                                                 emit_y=True, nu=c.nu, noise_v=v), 2, 10)
     del case, nu
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)

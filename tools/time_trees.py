@@ -33,10 +33,11 @@ latent run (n=500,000, m=20, coords, 8 chains), both at alpha = 0.
 
     python3 tools/time_trees.py --large A B C
 
-times kernels 1 and 3 on their large-m bodies: both layouts at n=10,000,
-m=64 and 128, 16 chains (m=64 also with noise weights), the general-nu
-instances at m=40 on 4 chains, with chain 0's logdet and the sum of B as
-checks that a variant computes the same function.
+times the three kernels on their large-m shared-memory bodies (kernel 2 with
+and without EMIT_Y): both layouts at n=10,000, m=64 and 128, 16 chains (m=64
+also with noise weights), the general-nu instances (sampled nu) at m=40 on 4
+chains, with chain 0's logdet, its dlogdet/dphi and the sum of B as checks
+that a variant computes the same function.
 """
 import json
 import os
@@ -140,20 +141,23 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
-# kernels 1 and 3 on the large-m bodies
+# the three kernels on the large-m shared-memory bodies
 ROUND_LARGE = r'''
-import json, torch
+import json, re, torch
 import chip_smoke as cs
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops import bf as bf_ops
+from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
 from pynngp_tpu_torch.ops import suffstats as fwd_ops
 dev = torch.device("cuda", 0)
 info = _build.build_info()
 lines = info["ptxas"].splitlines()
+# each shared-memory kernel's registers, stack and spills, by name and flags
 out = {"build_s": info["seconds"], "lib": info["lib"], "ptxas": {
-    line.split("smem_kernel")[1][:12]: " ".join(nxt.strip() for nxt in lines[i + 1:i + 3])
+    "".join(re.search(r"(suffstats|bf|grad)_smem_kernelI((?:Lb[01]E)+)", line).groups()):
+        " ".join(nxt.strip() for nxt in lines[i + 1:i + 3])
     for i, line in enumerate(lines)
-    if "Compiling entry function" in line and "smem_kernel" in line}}
+    if "Compiling entry function" in line and "_smem_kernel" in line}}
 for layout in ("dist", "coords"):
     sfx = "_coords" if layout == "coords" else ""
     for m in (64, 128):
@@ -166,8 +170,14 @@ for layout in ("dist", "coords"):
                 k, t, c.phi, c.alpha, c.y32, c.jitter, noise_v=v), 2, 10)
             out[f"bf{sfx}_m{m}{h}"] = cs._time_ms(lambda: bf_ops.bf_planes(
                 k, t, c.phi, c.alpha, c.jitter, noise_v=v), 2, 10)
+            out[f"grad{sfx}_m{m}{h}"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+                k, t, c.phi, c.alpha, c.y32, c.jitter, noise_v=v), 2, 10)
+            out[f"grad_y{sfx}_m{m}{h}"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+                k, t, c.phi, c.alpha, c.y32_chains, c.jitter, emit_y=True, noise_v=v), 2, 10)
         out[f"logdet_chain0{sfx}_m{m}"] = float(fwd_ops.suffstats(
             case.kernel, case.tab32, case.phi, case.alpha, case.y32, case.jitter)[0][0])
+        out[f"dlogdet_dphi_chain0{sfx}_m{m}"] = float(diff_ops.value_and_grad_sums(
+            case.kernel, case.tab32, case.phi, case.alpha, case.y32, case.jitter)[2][0])
         out[f"sum_b{sfx}_m{m}"] = float(bf_ops.bf_planes(
             case.kernel, case.tab32, case.phi, case.alpha, case.jitter)[0].double().sum())
         del case, cases
@@ -177,6 +187,13 @@ for layout in ("dist", "coords"):
         nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.y32, nu.jitter, nu=nu.nu), 2, 10)
     out[f"bf_nu{sfx}_m40_4_chains"] = cs._time_ms(lambda: bf_ops.bf_planes(
         nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.jitter, nu=nu.nu), 2, 10)
+    out[f"grad_nu{sfx}_m40_4_chains"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+        nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.y32, nu.jitter, nu=nu.nu), 2, 10)
+    out[f"grad_y_nu{sfx}_m40_4_chains"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+        nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.y32_chains, nu.jitter, emit_y=True,
+        nu=nu.nu), 2, 10)
+    out[f"dlogdet_dnu_chain0_nu{sfx}_m40"] = float(diff_ops.value_and_grad_sums(
+        nu.kernel, nu.tab32, nu.phi, nu.alpha, nu.y32, nu.jitter, nu=nu.nu)[6][0])
     del nu
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
