@@ -190,6 +190,27 @@ KERNEL_ROWS.update({
                 + ("_hetero" if name.endswith("_hetero") else "")])
     for name, (_, tpu, _) in list(KERNEL_ROWS.items())
 })
+# the M = 20 team bodies (csrc/vecchia_team.cuh): kernels 2 and
+# 2-EMIT_Y on both layouts and kernel 1-coords at 15 < m <= 20, closed-form
+# rho, counted in fwd_ops.COUNTS_M20 beside their instances' counts (every
+# launch of the body); timed at config 5's n=500,000, m=20, 16 chains, and
+# kernel 2 also at 4 chains (the NUTS recipe's launch: the same body, its own
+# time, bound and error, and its own count, the body's launches of four
+# chains)
+_TEAM_SRC = "pynngp_tpu_torch/csrc/vecchia_team.cuh"
+M20_ROWS = {
+    "vecchia_suffstats_coords_m20": "pynngp_tpu/ops/pallas_bf.py:437",
+    "vecchia_grad_m20": "pynngp_tpu/ops/pallas_bf.py:727",
+    "vecchia_grad_coords_m20": "pynngp_tpu/ops/pallas_bf.py:752",
+    "vecchia_grad_y_m20": "pynngp_tpu/ops/pallas_bf.py:857",
+    "vecchia_grad_y_coords_m20": "pynngp_tpu/ops/pallas_bf.py:752",
+}
+M20_FOUR = {"vecchia_grad_m20_4_chains": "vecchia_grad_m20",
+            "vecchia_grad_coords_m20_4_chains": "vecchia_grad_coords_m20"}
+_COUNTS.update(fwd_ops.COUNTS_M20)
+KERNEL_ROWS.update({name: (_TEAM_SRC, tpu, _COUNTS[name]) for name, tpu in M20_ROWS.items()})
+KERNEL_ROWS.update({name: (_TEAM_SRC, M20_ROWS[row], _COUNTS[name])
+                    for name, row in M20_FOUR.items()})
 # every row's launches in calls over several cells of a mesh (slice 11),
 # counted apart and added to the row's launches
 SHARDED = {name: _COUNTS[name + "_sharded"] for name in KERNEL_ROWS}
@@ -272,7 +293,9 @@ def config3_field(n: int = 25_000, m: int = 10):
 
 def ptxas_summary(ptxas: str, m: int) -> str:
     """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
-    instance of every kernel.  The template arguments after M are EMIT_Y
+    instance of every kernel (``_team``: the M = 20 team bodies, whose
+    second template argument is their lanes a system).  The
+    template arguments after M are EMIT_Y
     (kernel 2 only), GENERAL, the general-nu Matern, COORDS, the coords
     table layout, ROLLED, the rolled instance for m > 20 or d > 3
     (``_rolled``; M = 32, slice 6's coords-only ANY_D at M = 20), and,
@@ -282,16 +305,21 @@ def ptxas_summary(ptxas: str, m: int) -> str:
     out = []
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(rf"(suffstats|grad|bf)(?:_nu)?_kernelILi{m}E((?:Lb[01]E)+)", line)
+        found = re.search(rf"(suffstats|grad|bf)(?:_nu)?(_team)?_kernelILi{m}E(?:Li\d+E)?"
+                          r"((?:Lb[01]E)*)", line)
         if "Compiling entry function" not in line or not found:
             continue
-        name, flags = found.group(1), re.findall(r"Lb([01])E", found.group(2))
+        name, flags = found.group(1), re.findall(r"Lb([01])E", found.group(3))
+        if found.group(2):  # an M = 20 team body: kernel 2 <EMIT_Y, COORDS>, kernel 1 coords
+            name = "grad_y" if name == "grad" and flags[0] == "1" else name
+            name += ("_coords" if name == "suffstats" or flags[1] == "1" else "") + "_team"
+            flags = []
         core = 3 if name == "grad" else 2  # (EMIT_Y,) GENERAL, COORDS
-        if name == "grad" and flags[0] == "1":
+        if name == "grad" and flags[:1] == ["1"]:
             name = "grad_y"
-        if flags[core - 2] == "1":
+        if flags[core - 2:core - 1] == ["1"]:
             name += "_nu"
-        if flags[core - 1] == "1":
+        if flags[core - 1:core] == ["1"]:
             name += "_coords"
         if flags[core:core + 1] == ["1"]:
             name += "_rolled"
@@ -718,7 +746,11 @@ def _time_ms(fn, warm: int, reps: int) -> float:
 
 def _suffix(case: Case) -> str:
     """The row-name suffix of the case's table layout."""
-    return "_coords" if case.layout == "coords" else ""
+    return _suffix_of(case.layout)
+
+
+def _suffix_of(layout: str) -> str:
+    return "_coords" if layout == "coords" else ""
 
 
 def time_plain(case: Case) -> dict:
@@ -810,9 +842,11 @@ def kernel_bounds(case: Case) -> dict:
     per triangular solve (kernel 1: two forward; kernel 2: two forward, two
     backward and ~3 m^2 for the dC/dphi contractions, the same with EMIT_Y;
     kernel 3: one forward, one backward) over 67 TFLOP/s; and one special-function operation per
-    correlation (m(m+1)/2; twice that in kernel 2, which also needs the
-    derivative) and per pivot (m) over 4.19e12/s.  The bound is the largest
-    of the three times.
+    correlation (m(m+1)/2) and per pivot (m) over 4.19e12/s, in kernel 2
+    too: for every closed-form rho, d rho / d phi is rho's own exponential
+    times an algebraic factor (spherical's is algebraic), so the function
+    needs no second one (the kernels and the reference evaluate it again;
+    the bound does not count that).  The bound is the largest of the three times.
 
     The coords layout reads (d + m d) coordinate planes for its tables and
     adds what its distances need (:func:`distance_work`)."""
@@ -827,14 +861,14 @@ def kernel_bounds(case: Case) -> dict:
         "vecchia_suffstats": (tables + ids_y + (2 * sites + 2 * blocks) * 4,
                               m**3 / 3 + 2 * m * m, corr + m),
         "vecchia_grad": (tables + ids_y + 6 * blocks * 4,
-                         m**3 / 3 + 7 * m * m, 2 * corr + m),
+                         m**3 / 3 + 7 * m * m, corr + m),
         "vecchia_bf": (tables + (m + 1) * sites * 4,
                        m**3 / 3 + 2 * m * m, corr + m),
         # kernel 2's work, one y row per chain, and the B and r/F stores
         "vecchia_grad_y": (tables + t.nn_idx.numel() * 4
                            + case.phi.shape[0] * t.n * 4 + 6 * blocks * 4
                            + (m + 1) * sites * 4,
-                           m**3 / 3 + 7 * m * m, 2 * corr + m),
+                           m**3 / 3 + 7 * m * m, corr + m),
     }
     if case.v32 is not None:
         work = {name: (nbytes + noise_bytes(t, name), flops + noise_flops(m, name), sfu)
@@ -1755,9 +1789,13 @@ def config5_parity(dist: Case, coords: Case) -> dict:
     coordinate planes, with the dist rows' own checks and limits: kernels
     1, 2 and 2-EMIT_Y (shared and per-chain y) with sqexp, as paths 11-13
     run them; kernel 3 with sqexp and with exponential (path 14's) at the
-    case's alpha.  Four of the case's chains (every fourth, so phi and
-    alpha span the case's range), two a float64 plain call, to keep the
-    plain versions' memory to a few GB; returns the max_abs_err of each row.
+    case's alpha.  Kernels 2 (four chains) and 2-EMIT_Y (two chains) also
+    on the dist layout: at M = 20 both layouts run the team body; the rows
+    named ``_m20`` are the team bodies', and kernel 2's launches of four
+    chains on either layout give the ``_m20_4_chains`` rows their errors.
+    Four of the case's chains (every fourth, so phi and alpha span the
+    case's range), two a float64 plain call, to keep the plain versions'
+    memory to a few GB; returns the max_abs_err of each row.
 
     Kernel 3 at alpha = 0 (the latent model's) is printed for both layouts
     on the same sites and not gated, as the sqexp rows at alpha = 0 are: at
@@ -1772,6 +1810,13 @@ def config5_parity(dist: Case, coords: Case) -> dict:
     fwd = check_forward(sqexp, label)
     grad = check_grad(sqexp, label, grad_rtol=2e-3)
     grad_y = check_grad_y(sqexp, label, False, grad_rtol=2e-3)
+    label_dist = f"dist n{dist.n} m{dist.m} sqexp"
+    sq_dist = dist.subset(every4, chunk=2)
+    _require(sqexp.phi.shape[0] == sq_dist.phi.shape[0] == 4,
+             "config 5's kernel 2 parity launches are not of four chains")
+    grad_dist = check_grad(sq_dist, label_dist, grad_rtol=2e-3)
+    grad_y_dist = check_grad_y(dist.subset(slice(None, None, 8), chunk=2),  # chains 0 and 8
+                               label_dist, False, grad_rtol=2e-3)
     bf = check_bf(sqexp, label, zero_alpha=False, gated=True)
     for case in (coords, dist):
         expo = case.subset(every4, kernel=Exponential(), chunk=2)
@@ -1782,7 +1827,45 @@ def config5_parity(dist: Case, coords: Case) -> dict:
     return {"vecchia_suffstats_coords": fwd["f_max_abs_err"],
             "vecchia_grad_coords": grad["max_abs_err"],
             "vecchia_bf_coords": max(bf["b_max_abs_err"], bf_exp["b_max_abs_err"]),
-            "vecchia_grad_y_coords": grad_y["b_max_abs_err"]}
+            "vecchia_grad_y_coords": grad_y["b_max_abs_err"],
+            "vecchia_suffstats_coords_m20": fwd["f_max_abs_err"],
+            "vecchia_grad_m20": grad_dist["max_abs_err"],
+            "vecchia_grad_coords_m20": grad["max_abs_err"],
+            "vecchia_grad_y_m20": grad_y_dist["b_max_abs_err"],
+            "vecchia_grad_y_coords_m20": grad_y["b_max_abs_err"],
+            "vecchia_grad_m20_4_chains": grad_dist["max_abs_err"],
+            "vecchia_grad_coords_m20_4_chains": grad["max_abs_err"]}
+
+
+def time_plain_m20(dist: Case, coords: Case) -> dict:
+    """Per-call times of the float32 plain versions of the M = 20 rows at
+    config 5's shapes: kernels 1-coords, 2 and 2-EMIT_Y at 16 chains, as
+    four calls of 4 chains (one call of 16 would hold tens of GB of (C,
+    n_pad, m, m) tensors), and kernel 2 at 4 chains; one timed call each."""
+    out = {}
+    for case in (dist, coords):
+        k, t = case.kernel, case.tab32
+        sfx = _suffix(case)
+        params = fwd_ops.params_array(case.phi, case.alpha, case.jitter, case.n,
+                                      torch.float32, case.phi.device)
+        quarters = [slice(i, i + 4) for i in range(0, case.phi.shape[0], 4)]
+        grad = lambda sl, y: diff_ops.grad_reference(k, t, params[sl], y)
+        grad_y = lambda sl: diff_ops.grad_reference(k, t, params[sl], case.y32_chains[sl],
+                                                    emit_y=True)
+        out[f"vecchia_grad{sfx}_m20_plain"] = _time_ms(
+            lambda: [grad(sl, case.y32) for sl in quarters], 0, 1)
+        out[f"vecchia_grad_y{sfx}_m20_plain"] = _time_ms(
+            lambda: [grad_y(sl) for sl in quarters], 0, 1)
+        out[f"vecchia_grad{sfx}_m20_4_chains_plain"] = _time_ms(
+            lambda: grad(quarters[0], case.y32), 0, 1)
+        if case is coords:
+            out["vecchia_suffstats_coords_m20_plain"] = _time_ms(
+                lambda: [fwd_ops.suffstats_reference(k, t, params[sl], case.y32)
+                         for sl in quarters], 0, 1)
+        torch.cuda.empty_cache()
+    print("plain times [n500000 m20, 16 chains in four calls; 4 chains]: "
+          + json.dumps(out), flush=True)
+    return out
 
 
 def compare_layouts(dist: Case, coords: Case, label: str) -> dict:
@@ -2005,7 +2088,8 @@ def config5_probe(dev) -> dict:
     t0 = time.perf_counter()
     total = many(phis + 0.002)
     evals_per_sec = k_evals / (time.perf_counter() - t0)
-    launches = _read_counts("config 5 probe", ("vecchia_suffstats_coords",))
+    launches = _read_counts("config 5 probe", ("vecchia_suffstats_coords",
+                                               "vecchia_suffstats_coords_m20"))
     res = {
         f"config5_loglik_evals_per_sec_n{N_C5}_m{M_C5}": evals_per_sec,
         "setup_seconds": setup_s, "setup_phases": phases, "sum_loglik": total,
@@ -2046,7 +2130,10 @@ def config5_response_path(dev) -> dict:
                              init_inv_mass=mp.laplace_cov, init_jitter=2.0)
     res["nuts_run_s"] = time.perf_counter() - t0
     launches = _read_counts("config 5 response", ("vecchia_suffstats_coords",
-                                                  "vecchia_grad_coords"))
+                                                  "vecchia_grad_coords",
+                                                  "vecchia_suffstats_coords_m20",
+                                                  "vecchia_grad_coords_m20",
+                                                  "vecchia_grad_coords_m20_4_chains"))
     res["nuts"] = _nuts_summary(nuts, n_burn, "vecchia_grad_coords",
                                 launches["vecchia_grad_coords"] - map_launches)
     res.update(launches=launches, plain_calls=0,
@@ -2090,7 +2177,8 @@ def config5_fixed_effects_path(dev) -> dict:
     mp = model.fit_map(n_steps=150)
     torch.cuda.synchronize()
     map_s = time.perf_counter() - t0
-    launches = _read_counts("config 5 fixed effects", ("vecchia_grad_y_coords",))
+    launches = _read_counts("config 5 fixed effects", ("vecchia_grad_y_coords",
+                                                       "vecchia_grad_y_coords_m20"))
     u = mp.u.cpu()
     res = {"setup_s": setup_s, "map_s": map_s, "lane_layout": model.lane_layout,
            "map_u": u.tolist(), "map_beta": u[3:].tolist(),
@@ -2629,10 +2717,38 @@ def tile_resources(info: dict) -> dict:
         key = f"{name}<{'rolled' if rolled == '1' else big_m}>"
         out[key] = {"registers": regs, "stack": stack, "static_shared": static,
                     "ring_bytes": geo.smem_bytes, "warps_per_sm": blocks * warps}
-    print("tile kernels' resources [16 chains, shared y; ring at m = 25 for the rolled]: "
-          + json.dumps(out), flush=True)
+    for line, res in zip(usage, usage[1:]):
+        # the M = 20 team bodies: kernel 2 <M, T, EMIT_Y, COORDS>, kernel 1
+        # <M, T> (coords), T the lanes a (site, chain) system
+        found = re.search(r"(suffstats|grad)_team_kernelILi(\d+)ELi(\d+)E((?:Lb[01]E)*)",
+                          line)
+        if "Function" not in line or not found:
+            continue
+        name, big_m, lanes = found.group(1), int(found.group(2)), int(found.group(3))
+        flags = re.findall(r"Lb([01])E", found.group(4))
+        coords = name == "suffstats" or flags[1] == "1"
+        name = ("grad_y" if name == "grad" and flags[0] == "1" else name) + (
+            "_coords" if coords else "")
+        stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
+        regs, stack, static = (int(stats.get(k, 0)) for k in ("REG", "STACK", "SHARED"))
+        geo = geometry.geometry(100_096, big_m, CHAINS, "coords" if coords else "dist",
+                                2 if coords else 0)
+        warps = geo.block // 32
+        per_warp = -(-regs * 32 // 256) * 256
+        blocks = min(65_536 // per_warp // warps, 233_472 // (geo.smem_bytes + static),
+                     64 // warps, 32)
+        out[f"{name}_team<{big_m}>"] = {
+            "registers": regs, "stack": stack, "static_shared": static,
+            "ring_bytes": geo.smem_bytes, "warps_per_sm": blocks * warps,
+            "team_lanes": lanes}
+    print("tile kernels' resources [16 chains, shared y; ring at m = 25 for the rolled; "
+          "the M = 20 team bodies as <name>_team<20>]: " + json.dumps(out), flush=True)
+    # 95 instances a lane a (site, chain) and the 5 team instances, which
+    # take the closed-form M = 20 instances of kernel 2 and of kernel 1-coords
     _require(len(out) == 100, f"expected 100 tile instances of the three kernels, found "
              f"{len(out)}")
+    _require(sum(key.endswith("_team<20>") for key in out) == 5,
+             f"expected the 5 M = 20 team instances, found {sorted(out)}")
     smem = {}
     for line, res in zip(usage, usage[1:]):
         # kernels 1 and 3: <GENERAL, COORDS>; kernel 2: <EMIT_Y, GENERAL, COORDS>
@@ -3550,8 +3666,10 @@ def shard_offset_path(dev, field3) -> dict:
     on one card, on meshes (1, 2), (1, 4) and (2, 2) of cuda:0: the main
     case (n=100,000, m=15, sqexp, 16 chains), config 3's general-nu case
     (n=25,000, m=10, sampled nu), the coords layout at the main case's
-    shapes, the main case with noise weights, and m=40 (n=10,000, the
-    large-m instances).  Tables built for 4 site shards."""
+    shapes, the main case with noise weights, m=40 (n=10,000, the
+    large-m instances) and m=20 on both layouts (n=10,000, 4 chains, the
+    M = 20 team bodies, their unsharded launches of four chains).  Tables
+    built for 4 site shards."""
     t0 = time.perf_counter()
     out = {}
     main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, shards=4)
@@ -3566,6 +3684,14 @@ def shard_offset_path(dev, field3) -> dict:
              nu=nu_spread(CHAINS), shards=4), "general nu")
     out["m40"] = shard_offset_case(
         Case(N_LARGE, 40, SqExp(), CHAINS, seed=0, dev=dev, shards=4), "m40")
+    for layout in LAYOUTS:
+        out[f"m20_{layout}"] = shard_offset_case(
+            Case(N_LARGE, 20, SqExp(), 4, seed=0, dev=dev, layout=layout, shards=4),
+            f"m20 {layout}")
+        row = "vecchia_grad" + _suffix_of(layout) + "_m20"
+        _require(all(out[f"m20_{layout}"]["launches"].get(name, 0) > 0
+                     for name in (row, row + "_4_chains")),
+                 f"path 27's m = 20 case ran no team body of four chains [{layout}]")
     torch.cuda.empty_cache()
     out["launches"] = _sum_launches(*(case["launches"] for case in out.values()))
     out["seconds"] = time.perf_counter() - t0
@@ -3635,7 +3761,8 @@ def config5_mesh_path(dev) -> dict:
     res["mwg_posterior_mean"] = {key: float(np.mean(draws[key]))
                                  for key in ("sigma2", "phi", "tau2")}
     res["mwg_rhat_max"] = _chain_stats(draws)[1]
-    res["launches"] = _read_counts("config 5 mesh", ("vecchia_suffstats_coords_sharded",))
+    res["launches"] = _read_counts("config 5 mesh", ("vecchia_suffstats_coords_sharded",
+                                                     "vecchia_suffstats_coords_m20_sharded"))
     _require(all(np.isfinite(v).all() for v in draws.values()),
              "non-finite mesh MWG draws")
     tau2 = res["mwg_posterior_mean"]["tau2"]
@@ -3657,7 +3784,8 @@ def config5_mesh_path(dev) -> dict:
     fe = {"value_max_rel_diff": float(((v2 - v1).abs() / v1.abs()).max()),
           "grad_max_abs_diff_over_max": float((g2 - g1).abs().max() / g1.abs().max()),
           "launches": _read_counts("config 5 mesh fixed effects",
-                                   ("vecchia_grad_y_coords_sharded",))}
+                                   ("vecchia_grad_y_coords_sharded",
+                                    "vecchia_grad_y_coords_m20_sharded"))}
     res["fixed_effects"] = fe
     _require(fe["value_max_rel_diff"] <= MESH_LL_RTOL and
              fe["grad_max_abs_diff_over_max"] <= MESH_GRAD_TOL,
@@ -3943,6 +4071,7 @@ def main() -> int:
     del large_nu
     torch.cuda.empty_cache()
 
+    phase_s = {"build_and_kernel_phases": time.perf_counter() - t_start}
     # the layout phase: both layouts' kernel times and host set-up at each
     # of LAYOUT_SIZES, and the rule they give
     for n, m in LAYOUT_SIZES:
@@ -3954,15 +4083,28 @@ def main() -> int:
             layouts[key] = {"n": n, "times": time_layouts(*pair, 3 if big else 10,
                                                           10 if big else 50)}
             if big:  # config 5's bounds, for the table of kernels, and the
-                # m=20 coords instances at the shapes paths 11-14 launch them
+                # m=20 coords instances at the shapes paths 11-14 launch them;
+                # the M = 20 rows' bounds (16 and 4 chains) and plain times
                 for case in pair:
-                    kernel_bounds(case)
+                    for four, sfx in ((case, "_m20"), (case.subset(slice(0, 4)),
+                                                        "_m20_4_chains")):
+                        for name, bound in kernel_bounds(four).items():
+                            row = name + sfx
+                            if row in KERNEL_ROWS and (sfx == "_m20" or row in M20_FOUR):
+                                bounds[row] = bound
                 for name, err in config5_parity(*pair).items():
-                    errs[name] = max(errs[name], err)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                times.update(time_plain_m20(*pair))
             del pair
             torch.cuda.empty_cache()
         layouts[key]["setup"] = layout_setup(n, m)
     layout_rule(layouts)
+    phase_s["layout_phase"] = time.perf_counter() - t_start - sum(phase_s.values())
+    # the M = 20 rows' times: the layout phase's at config 5's shapes
+    ms_c5 = layouts[f"n{N_C5}_m{M_C5}"]["times"]["ms"]
+    times.update({row: ms_c5[row.removesuffix("_m20")] for row in M20_ROWS})
+    times.update({"vecchia_grad_m20_4_chains": ms_c5["vecchia_grad_4_chains"],
+                  "vecchia_grad_coords_m20_4_chains": ms_c5["vecchia_grad_4_chains_coords"]})
 
     paths = {}
     paths["response"], main_draws = main_path(dev)
@@ -4006,6 +4148,7 @@ def main() -> int:
         paths["resume"] = resume_path(dev, tmp)
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
+    phase_s["paths_1_22"] = t_new - t_start - sum(phase_s.values())
     paths["prediction"] = prediction_path(dev, main_draws)
     torch.cuda.empty_cache()
     paths["facade"] = facade_path(dev)
@@ -4045,6 +4188,8 @@ def main() -> int:
     for name, err in errs_m.items():  # m = 12, 17, 25 and 32
         errs[name] = max(errs[name], err)
     errs.update(errs_large)  # m = 40 and 64
+    phase_s["paths_23_29"] = time.perf_counter() - t_start - sum(phase_s.values())
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build "
           f"{info['seconds']:.1f} s of it", flush=True)
     # launches: the sum over the paths, each counted from 0 (path 29's in its

@@ -62,7 +62,10 @@
 // below); the rolled instance (arrays for kRolledM, loops to m) runs
 // 20 < m <= 32 and coords with d > kMaxDim, and above 32 the shared-memory
 // body (vecchia_grad_smem.cuh, a warp a (site, chain) system) up to
-// kSmemGradM, the scratch body (vecchia_large_m.cuh) above it.
+// kSmemGradM, the scratch body (vecchia_large_m.cuh) above it.  At M = 20
+// (15 < m <= 20) the closed-form instances run the team body
+// (vecchia_team.cuh: a few lanes a system, its state in registers); the
+// general-nu ones keep this body.
 //
 // What bounded the design before it (one thread per (site, chain); NVIDIA
 // H100 80GB HBM3, 700 W, tools/time_trees.py --m15, PERF.md; n=100,000,
@@ -79,12 +82,21 @@
 // thread.  In the coords layout every pair distance is recomputed twice, in
 // the factorization and in the contractions (d subtractions and
 // multiply-adds and a square root each time, from the staged coordinates).
+//
+// What bounded this body at M = 20, which the team body replaced for the
+// closed forms (NVIDIA H100 80GB HBM3, 700.00 W; n=500,000, m=20, 16 chains,
+// tools/compare_parent.py --m20, PERF.md): 46.82 ms a launch on dist (36.30
+// on coords), 9.3x the M = 15 instance's time a (site, chain) for about
+// twice the work.  A thread's 310 floats (the factor, u, w,
+// dc, p, q, 1/L_kk) lived in local memory, and the M = 20 ring's 64 KB a
+// block left L1 little room to hold them.
 #pragma once
 
 #include <cstddef>
 
 #include "vecchia_grad_smem.cuh"
 #include "vecchia_large_m.cuh"
+#include "vecchia_team.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -370,9 +382,9 @@ int launch_grad(const float* params, const float* tab_a, const float* tab_b, con
   const dim3 grid(grid_x, (chains + group - 1) / group);
   const dim3 block(kTile * group);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VECCHIA_GRAD_LAUNCH(MM, ROLL)                                                       \
+#define VECCHIA_GRAD_ONE(...)                                                               \
   {                                                                                         \
-    auto kern = grad_kernel<MM, EMIT_Y, GENERAL, COORDS, ROLL>;                             \
+    auto kern = __VA_ARGS__;                                                                \
     if (smem_bytes > 48 * 1024) {                                                           \
       const cudaError_t err = cudaFuncSetAttribute(                                         \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);                   \
@@ -382,6 +394,7 @@ int launch_grad(const float* params, const float* tab_a, const float* tab_b, con
                                          n_pad, m, dim, chains, family, part, b_out,        \
                                          rof_out, with_nu);                                 \
   }
+#define VECCHIA_GRAD_LAUNCH(MM, ROLL) VECCHIA_GRAD_ONE(grad_kernel<MM, EMIT_Y, GENERAL, COORDS, ROLL>)
   if (rolled) {
     VECCHIA_GRAD_LAUNCH(kRolledM, true);
     return static_cast<int>(cudaGetLastError());
@@ -390,10 +403,21 @@ int launch_grad(const float* params, const float* tab_a, const float* tab_b, con
     case 7: VECCHIA_GRAD_LAUNCH(7, false); break;
     case 10: VECCHIA_GRAD_LAUNCH(10, false); break;
     case 15: VECCHIA_GRAD_LAUNCH(15, false); break;
-    case 20: VECCHIA_GRAD_LAUNCH(20, false); break;
+    case 20:
+      // closed form: the team body (vecchia_team.cuh); general nu: its own
+      if constexpr (GENERAL) {
+        VECCHIA_GRAD_LAUNCH(20, false);
+      } else {
+        if (!team_launch(true, GENERAL, COORDS, m, dim)) {
+          return static_cast<int>(cudaErrorInvalidValue);
+        }
+        VECCHIA_GRAD_ONE(grad_team_kernel<20, team_lanes(true, COORDS), EMIT_Y, COORDS>);
+      }
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VECCHIA_GRAD_LAUNCH
+#undef VECCHIA_GRAD_ONE
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,9 @@
 // the rolled instance (ROLLED: arrays for kRolledM, loops to m, in local
 // memory) runs 20 < m <= 32 and coords with d > kMaxDim; 32 < m <= kSmemM
 // runs the shared-memory body (vecchia_large_smem.cuh: a warp a (site,
-// chain) system), larger m the scratch body (vecchia_large_m.cuh).
+// chain) system), larger m the scratch body (vecchia_large_m.cuh).  At
+// M = 20 (15 < m <= 20) the closed-form coords instance runs the team body
+// (vecchia_team.cuh: a few lanes a system).
 //
 // What bounded the design before it (one thread per (site, chain), blocks of
 // 128 sites of one chain), on an NVIDIA H100 80GB HBM3 at 700 W
@@ -52,13 +54,18 @@
 // place of the m(m+1)/2 distances and spends, per distance, d subtractions
 // and multiply-adds and a square root (tile_sqrt); it re-reads a neighbor's
 // coordinates from the stage at every use instead of keeping m d of them
-// live.
+// live.  What bounded its coords instance at M = 20, which the team body
+// replaced (NVIDIA H100 80GB HBM3, 700.00 W; n=500,000, m=20, 16 chains,
+// tools/compare_parent.py --m20, PERF.md): 8.07 ms a launch; its ~230 live
+// floats spilled under the 168 registers of three blocks an SM, and with
+// 190 registers it ran 46% slower.
 #pragma once
 
 #include <cstddef>
 
 #include "vecchia_large_m.cuh"
 #include "vecchia_large_smem.cuh"
+#include "vecchia_team.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -294,7 +301,17 @@ int launch_suffstats(const float* params, const float* tab_a, const float* tab_b
     case 7: VECCHIA_SUFFSTATS_LAUNCH(7, false); break;
     case 10: VECCHIA_SUFFSTATS_LAUNCH(10, false); break;
     case 15: VECCHIA_SUFFSTATS_LAUNCH(15, false); break;
-    case 20: VECCHIA_SUFFSTATS_LAUNCH(20, false); break;
+    case 20:
+      // closed form on coords: the team body (vecchia_team.cuh)
+      if constexpr (!GENERAL && COORDS) {
+        if (!team_launch(false, GENERAL, COORDS, m, dim)) {
+          return static_cast<int>(cudaErrorInvalidValue);
+        }
+        VECCHIA_SUFFSTATS_ONE(suffstats_team_kernel<20, team_lanes(false, true)>);
+      } else {
+        VECCHIA_SUFFSTATS_LAUNCH(20, false);
+      }
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VECCHIA_SUFFSTATS_LAUNCH

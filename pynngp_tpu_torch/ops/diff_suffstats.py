@@ -74,6 +74,7 @@ from pynngp_tpu_torch.ops.site_tables import ShardedTables, SiteTables
 from pynngp_tpu_torch.ops.suffstats import (
     GENERAL_FAMILY,
     _factor,
+    count_team,
     cuda_args,
     entry_name,
     instance,
@@ -217,6 +218,7 @@ def _launch(kernel, tables: SiteTables, params, y, emit_y: bool, noise_v,
     del scratch  # the launch is enqueued: the allocator orders any reuse after it
     COUNTS[instance("vecchia_grad", kernel, tables, emit_y, v is not None,
                     sharded)].launches += 1
+    count_team("vecchia_grad", kernel, tables, chains, emit_y, sharded)
     sums = part.sum(-1, dtype=torch.float64)
     return (sums, b, rof) if emit_y else sums
 

@@ -22,6 +22,12 @@ runs the scratch body, one thread a (site, chain) with its state in a device
 scratch buffer (:func:`large_geometry`).  :func:`large_body` names which of
 the two a launch runs.
 
+At M = 20 (15 < m <= 20) the closed-form instances of kernel 2 (both
+layouts) and kernel 1 on coords run a team body on the same ring and grid
+(csrc/vecchia_team.cuh): a team of a few lanes a (site, chain) system, a
+warp factoring several sites of its chain at a time (:func:`team_body`; the
+lanes a system are the kernels' own, ``team_lanes`` of that header).
+
 Everything here is plain arithmetic on the call's shapes, so the CPU tests
 hold it without a card.
 """
@@ -32,11 +38,12 @@ import math
 from typing import NamedTuple
 
 __all__ = ["CUDA_M", "GROUP", "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M", "M_SMEM",
-           "M_SMEM_GRAD", "RING_BYTES", "SHARED_BYTES", "SMEM_M", "STAGES", "TILE",
-           "TILES_PER_BLOCK", "Geometry", "LargeGeometry", "check_card_m",
+           "M_SMEM_GRAD", "RING_BYTES", "SHARED_BYTES", "SMEM_M", "STAGES",
+           "TEAM_M", "TILE", "TILES_PER_BLOCK", "Geometry", "LargeGeometry", "check_card_m",
            "cuda_instance_m", "geometry", "large", "large_body", "large_geometry",
-           "large_state_doubles", "ring_planes", "rolled", "smem_geometry",
-           "smem_grad_system_bytes", "smem_system_bytes", "system_bytes"]
+           "large_state_doubles", "ring_planes", "rolled",
+           "smem_geometry", "smem_grad_system_bytes", "smem_system_bytes", "system_bytes",
+           "team_body"]
 
 CUDA_M = (7, 10, 15, 20)  # the unrolled instances M; a call runs the smallest M >= m
 MAX_M = 32  # the rolled instance (kRolledM) takes 20 < m <= 32; above, the large-m one
@@ -55,6 +62,7 @@ LARGE_BLOCKS = 132 * 8  # blocks a large-m launch keeps: 32 warps on each of 132
 LARGE_SCRATCH_BYTES = 4 << 30
 PANEL = 4  # kPanel: a system's slots are m rounded up to a multiple of it
 SMS = 132  # an H100's SMs
+TEAM_M = 20  # the built instance M whose closed-form kernels 1-coords and 2 run them
 SM_SHARED_BYTES = 233_472  # shared memory of one SM
 SM_BLOCK_RESERVE = 2048  # bytes a block takes beside its systems: 1,024 the card's, MaternSets
 
@@ -82,6 +90,18 @@ def rolled(m: int, layout: str, dim: int) -> bool:
     """Whether a tile call runs the rolled instance: 20 < m <= 32, or coords
     with more than three dimensions."""
     return cuda_instance_m(m) == MAX_M or (layout == "coords" and dim > MAX_DIM_UNROLLED)
+
+
+def team_body(base: str, m: int, layout: str = "dist", dim: int = 0,
+              general: bool = False) -> bool:
+    """Whether a tile launch of kernel ``base`` (``vecchia_suffstats``,
+    ``vecchia_grad`` or ``vecchia_bf``) runs a team body
+    (csrc/vecchia_team.cuh, ``team_launch``): closed-form rho on the
+    unrolled M = 20 instance (15 < m <= 20, and d <= 3 on coords), kernel 2
+    on both layouts and kernel 1 on coords.  Every other tile launch runs a
+    lane a (site, chain).  A rule of shape, the C launchers' too."""
+    return (not general and cuda_instance_m(m) == TEAM_M and not rolled(m, layout, dim)
+            and (base == "vecchia_grad" or (base == "vecchia_suffstats" and layout == "coords")))
 
 
 def ring_planes(m: int, layout: str = "dist", dim: int = 0, ycopies: int = 1,

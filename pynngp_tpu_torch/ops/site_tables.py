@@ -72,11 +72,12 @@ MAX_SITE_INDEX = 2**24
 # and its NUTS branch on one set-up), with kernels 1 and 2 on their tile
 # design: dist runs it faster at every size measured, 10,000 to 300,000
 # sites with m=15 (22.2 s against 26.8 s at 300,000) and 500,000 with m=20
-# (config 5; 173.1 s against 176.5 s, the set-up 13.6 s against 1.2 s).  At
-# m=15 coords wins the NUTS branch alone from 100,000 sites and loses the
-# MWG branch alone at every size.  The threshold is the largest size
-# measured, where the margin is 2%.  chip_smoke.py fails if this constant
-# takes another layout than the measurement at a size it measures.
+# (config 5; 53.6 s against 72.5 s with kernels 1-coords and 2 on their
+# M = 20 team bodies, 173.1 s against 176.5 s before them; the set-up
+# 13.6 s against 1.2 s).  At m=15 coords wins the NUTS branch alone from
+# 100,000 sites and loses the MWG branch alone at every size.  The
+# threshold is the largest size measured.  chip_smoke.py fails if this
+# constant takes another layout than the measurement at a size it measures.
 COORDS_LAYOUT_MIN_SITES = 500_000
 
 

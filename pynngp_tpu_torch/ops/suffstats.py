@@ -32,6 +32,12 @@ and 3, ``geometry.M_SMEM_GRAD`` for kernel 2), and above that one thread a
 (site, chain) with its state in a scratch buffer (:func:`launch_geometry`);
 such launches count under ``_large_scratch``.
 
+At M = 20 (15 < m <= 20) the closed-form coords instance runs a team body
+(``geometry.team_body``: a few lanes a (site, chain) system); such launches
+also count in :data:`COUNTS_M20` (``<entry>_m20``, and ``<entry>_m20_4_chains``
+for those of exactly four chains, one block's group; ``_sharded`` for a call
+over several cells), beside the instance's count.
+
 Shards.  Tables of one site shard (``SiteTables.off`` > 0) launch the same
 instances with ``off`` in the params row; :class:`~.site_tables.ShardedTables`
 make one launch a cell of their mesh (:func:`map_cells`: the chains split
@@ -56,6 +62,7 @@ from pynngp_tpu_torch.ops.geometry import (
     large_body,
     large_geometry,
     smem_geometry,
+    team_body,
 )
 from pynngp_tpu_torch.ops.site_tables import (
     BLOCK,
@@ -67,9 +74,9 @@ from pynngp_tpu_torch.ops.site_tables import (
 )
 from pynngp_tpu_torch.vecchia import LOG_2PI, conditional_system
 
-__all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "CUDA_M",
+__all__ = ["COUNT", "COUNT_NU", "COUNT_COORDS", "COUNT_NU_COORDS", "COUNTS_M20", "CUDA_M",
            "GENERAL_FAMILY", "cuda_instance_m", "entry_name", "instance", "kernel_nu",
-           "launch_geometry",
+           "count_team", "launch_geometry",
            "map_cells", "noise_plane", "params_array", "suffstats",
            "suffstats_reference", "loglik"]
 
@@ -79,6 +86,14 @@ COUNT_COORDS = _build.LaunchCount("vecchia_suffstats_coords")  # COORDS
 COUNT_NU_COORDS = _build.LaunchCount("vecchia_suffstats_nu_coords")
 COUNTS = _build.with_variant_counts(COUNT, COUNT_NU, COUNT_COORDS, COUNT_NU_COORDS)
 GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
+# the C entries whose M = 20 instance runs a team body, and their launches
+# there (every call of the entry at 15 < m <= 20, with or without weights;
+# _4_chains: those of four chains)
+TEAM_ENTRIES = ("vecchia_suffstats_coords", "vecchia_grad", "vecchia_grad_coords",
+                "vecchia_grad_y", "vecchia_grad_y_coords")
+COUNTS_M20 = {name + "_m20" + four + sfx: _build.LaunchCount(name + "_m20" + four + sfx)
+              for name in TEAM_ENTRIES for four in ("", "_4_chains")
+              for sfx in ("", "_sharded")}
 
 
 def entry_name(base: str, kernel, tables: SiteTables, emit_y: bool = False) -> str:
@@ -104,6 +119,19 @@ def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
             + ("_scratch" if large_m and large_body(base, tables.m) == "scratch" else "")
             + ("_hetero" if hetero else "")
             + ("_sharded" if sharded else ""))
+
+
+def count_team(base: str, kernel, tables: SiteTables, chains: int, emit_y: bool = False,
+               sharded: bool = False) -> None:
+    """Add one to the M = 20 team count of a launch of ``chains`` chains that
+    ran a team body, and to its four-chain count if it had four."""
+    dim = tables.dim if tables.layout == "coords" else 0
+    if team_body(base, tables.m, tables.layout, dim, kernel.family == GENERAL_FAMILY):
+        name = entry_name(base, kernel, tables, emit_y) + "_m20"
+        sfx = "_sharded" if sharded else ""
+        COUNTS_M20[name + sfx].launches += 1
+        if chains == 4:
+            COUNTS_M20[name + "_4_chains" + sfx].launches += 1
 
 
 def noise_plane(tables: SiteTables, noise_v):
@@ -375,6 +403,7 @@ def _launch(kernel, tables: SiteTables, params, y, noise_v, sharded=False):
     del scratch  # the launch is enqueued: the allocator orders any reuse after it
     COUNTS[instance("vecchia_suffstats", kernel, tables, hetero=v is not None,
                     sharded=sharded)].launches += 1
+    count_team("vecchia_suffstats", kernel, tables, chains, sharded=sharded)
     sums = part.sum(-1, dtype=torch.float64)
     return sums[0], sums[1], f, resid
 

@@ -1369,3 +1369,108 @@ def test_facade_and_the_new_options_on_the_card(card):
         assert torch.isfinite(out["samples"]).all()
     for c, (launches, plain) in zip(counts, before):
         assert c.launches > launches and c.plain == plain, c.name
+
+
+# ---- M = 20 on the team bodies ------------------------------------------------
+# 15 < m <= 20: kernel 2 (both layouts, with and without EMIT_Y) and kernel
+# 1-coords, closed-form rho, run csrc/vecchia_team.cuh (a few lanes a (site,
+# chain) system); the same limits as every closed-form row, and a launch of
+# the instance's count and of its M = 20 team count.
+
+def _team_counts(tables, kern, hetero):
+    """The instance counts and M = 20 team counts of kernels 1, 2 and
+    2-EMIT_Y for a launch on ``tables`` (kernel 1's team count only on
+    coords)."""
+    names = [fops.instance("vecchia_suffstats", kern, tables, hetero=hetero),
+             fops.instance("vecchia_grad", kern, tables, hetero=hetero),
+             fops.instance("vecchia_grad", kern, tables, True, hetero)]
+    counts = [fops.COUNTS[names[0]], dops.COUNTS[names[1]], dops.COUNTS[names[2]]]
+    team = [fops.COUNTS_M20[fops.entry_name(b, kern, tables, e) + "_m20"]
+            for b, e in (("vecchia_grad", False), ("vecchia_grad", True))]
+    if tables.layout == "coords":
+        team.append(fops.COUNTS_M20["vecchia_suffstats_coords_m20"])
+    return counts + team
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout,dim", [("dist", 2), ("coords", 1), ("coords", 2),
+                                        ("coords", 3)],
+                         ids=["dist", "coords_d1", "coords_d2", "coords_d3"])
+@pytest.mark.parametrize("m", [16, 17, 18, 19, 20])
+def test_m20_team_bodies_match_plain(card, m, layout, dim, hetero):
+    """Every m in 16-20 on the M = 20 team bodies, both layouts, d = 1-3,
+    with and without noise weights, five chains (a ragged group), against
+    the float64 plain versions (kernels 1, 2, 2-EMIT_Y and 3)."""
+    assert fops.cuda_instance_m(m) == 20
+    assert geometry.team_body("vecchia_grad", m, layout, dim if layout == "coords" else 0)
+    tab32, tab64, y, _, _ = _problem(card, m=m, layout=layout, dim=dim)
+    tab32, tab64 = with_children(tab32), with_children(tab64)
+    phi, alpha = _chain_params(card, 5)
+    kern = kernels.SqExp()
+    counts = _team_counts(tab32, kern, hetero)
+    before = [c.launches for c in counts]
+    _check_instances(card, kern, None, tab32, tab64, y, phi, alpha,
+                     _weights(tab32.n) if hetero else None)
+    assert all(c.launches > b for c, b in zip(counts, before)), [c.name for c in counts]
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout,dim", [("dist", 2), ("coords", 1), ("coords", 3)],
+                         ids=["dist", "coords_d1", "coords_d3"])
+@pytest.mark.parametrize("m", [16, 20])
+def test_m20_team_bodies_with_per_chain_y(card, m, layout, dim, hetero):
+    """One y row a chain on the team bodies (the ring holds a y plane set a
+    warp), a ragged group of five chains."""
+    tab32, tab64, y, _, _ = _problem(card, m=m, layout=layout, dim=dim)
+    phi, alpha = _chain_params(card, 5)
+    _check_per_chain_y(card, kernels.SqExp(), tab32, tab64, y, phi, alpha,
+                       _weights(tab32.n) if hetero else None)
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("chains", [1, 2, 3, 4, 5, 16, 17])
+def test_m20_team_bodies_take_any_chain_count(card, chains, layout):
+    tab32, tab64, y, _, _ = _problem(card, m=20, layout=layout)
+    phi, alpha = _chain_params(card, chains)
+    _check_instances(card, kernels.Exponential(), None, with_children(tab32),
+                     with_children(tab64), y, phi, alpha)
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+def test_m20_team_bodies_are_bitwise_deterministic(card, layout):
+    """Two launches of the team bodies on the same inputs give the same
+    bits (a lane's part, then the team's butterfly, in a fixed order)."""
+    tab32, _, y, _, _ = _problem(card, n=20_000, m=20, layout=layout)
+    phi, alpha = _chain_params(card, 6)
+    kern = kernels.SqExp()
+    ys = y[None, :] + 0.1 * torch.arange(6, device=card)[:, None]
+    runs = [(fops.suffstats(kern, tab32, phi, alpha, y),
+             dops.value_and_grad_sums(kern, tab32, phi, alpha, y),
+             dops.value_and_grad_sums(kern, tab32, phi, alpha, ys, emit_y=True))
+            for _ in range(2)]
+    flat = [[t for part in run for t in (part if isinstance(part, tuple) else (part,))]
+            for run in runs]
+    assert all(torch.equal(a, b) for a, b in zip(*flat))
+
+
+@pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])
+def test_y_cotangent_at_m_20_on_coords_matches_float64(card, per_chain):
+    """The y cotangent through kernel 2-EMIT_Y's M = 20 team body on the
+    coords layout (dy rtol 2e-3, atol 2e-4 scaled by 0.12 / alpha)."""
+    rng = np.random.default_rng(3)
+    n = 1500
+    coords = rng.uniform(size=(n, 2))
+    data, tab = make_vecchia_data(coords, 20, precompute_distances=False)
+    tab32 = with_children(make_site_tables(data, dtype=torch.float32, device=card,
+                                           layout="coords", coords_host=coords[tab.order]))
+    tab64 = tab32.to(torch.float64)
+    y = torch.as_tensor(rng.standard_normal(n)[tab.order], dtype=torch.float32, device=card)
+    if per_chain:
+        y = y + 0.1 * torch.as_tensor(rng.standard_normal((3, n)), dtype=torch.float32,
+                                      device=card)
+    alpha = torch.tensor([0.05, 0.15, 0.3], device=card)
+    assert geometry.team_body("vecchia_grad", 20, "coords", 2)
+    count = fops.COUNTS_M20["vecchia_grad_y_coords_m20"]
+    before = count.launches
+    _check_y_cotangent(card, kernels.SqExp(), tab32, tab64, y, alpha, per_chain)
+    assert count.launches > before

@@ -320,3 +320,79 @@ def test_check_card_m_raises_only_where_a_scratch_body_runs(m, monkeypatch):
     else:
         with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
             geo.check_card_m(10_112, m)
+
+
+M20_LAYOUTS = [("dist", 0), ("coords", 1), ("coords", 2), ("coords", 3)]
+
+
+@pytest.mark.parametrize("chains", CHAINS)
+@pytest.mark.parametrize("m", [16, 17, 18, 19, 20])
+def test_m20_team_bodies_keep_the_ring_and_grid(m, chains):
+    """15 < m <= 20 on both layouts (d <= 3), with and without weights, a
+    shared and a per-chain y: the M = 20 ring and grid of every tile launch
+    (the team bodies change how a warp turns a staged tile into systems, not
+    what is staged), a team body on kernel 2 and kernel 1-coords, a lane a
+    site on kernel 3, kernel 1-dist and the general-nu instances; the
+    instances' names and counts as before, the team bodies' launches also
+    counted under ``_m20`` (and ``_m20_4_chains`` at 4 chains), and no
+    large-m body."""
+    n_pad = 500_096
+    assert geo.cuda_instance_m(m) == geo.TEAM_M == 20 and not geo.large(m)
+    with pytest.raises(ValueError, match="tile ring"):
+        geo.large_body("vecchia_grad", m)
+    for layout, dim in M20_LAYOUTS:
+        team = {"vecchia_grad": True, "vecchia_suffstats": layout == "coords",
+                "vecchia_bf": False}
+        for base, want in team.items():
+            assert geo.team_body(base, m, layout, dim) is want
+            assert not geo.team_body(base, m, layout, dim, general=True)
+        tables = SimpleNamespace(m=m, n_pad=n_pad, layout=layout, dim=dim,
+                                 device=torch.device("cpu"))
+        sfx = "_coords" if layout == "coords" else ""
+        assert fops.instance("vecchia_grad", kernels.SqExp(), tables, True, True) == (
+            "vecchia_grad_y" + sfx + "_hetero")
+        assert fops.entry_name("vecchia_grad", kernels.SqExp(), tables) + "_m20" in \
+            fops.COUNTS_M20
+        for base, emit_y in (("vecchia_grad", False), ("vecchia_grad", True),
+                             ("vecchia_suffstats", False), ("vecchia_bf", False)):
+            for sharded in (False, True):
+                before = {k: c.launches for k, c in fops.COUNTS_M20.items()}
+                fops.count_team(base, kernels.SqExp(), tables, chains, emit_y, sharded)
+                fops.count_team(base, kernels.Matern(nu=None), tables, chains, emit_y, sharded)
+                added = {k for k, c in fops.COUNTS_M20.items() if c.launches != before[k]}
+                name = (fops.entry_name(base, kernels.SqExp(), tables, emit_y) + "_m20",
+                        "_sharded" if sharded else "")
+                want = ({name[0] + name[1]} | ({name[0] + "_4_chains" + name[1]}
+                                               if chains == 4 else set())
+                        if geo.team_body(base, m, layout, dim) else set())
+                assert added == want
+                assert all(fops.COUNTS_M20[k].launches == before[k] + 1 for k in added)
+        for y_shared in (True, False):
+            for hetero in (False, True):
+                g = geo.geometry(n_pad, m, chains, layout, dim, y_shared, hetero)
+                assert g == geo.geometry(n_pad, 20, chains, layout, dim, y_shared, hetero)
+                assert g.group == min(chains, geo.GROUP) and g.block == 32 * g.group
+                per_block = max(1, min(geo.TILES_PER_BLOCK,
+                                       n_pad // 32 * chains // geo.FILL_WARPS))
+                assert g.grid == (math.ceil(n_pad / 32 / per_block),
+                                  math.ceil(chains / g.group))
+                ycopies = 1 if y_shared else g.group
+                tables_planes = 20 + 190 if layout == "dist" else dim + 20 * dim
+                planes = tables_planes + 20 + ycopies * 20 + (20 if hetero else 0)
+                assert geo.ring_planes(m, layout, dim, ycopies, hetero) == planes
+                assert g.smem_bytes == geo.STAGES * planes * 32 * 4 <= geo.RING_BYTES
+
+
+@pytest.mark.parametrize("m,layout,dim", [(15, "dist", 0), (15, "coords", 2), (21, "dist", 0),
+                                          (21, "coords", 3), (20, "coords", 4)])
+def test_m15_m21_and_four_dimensions_keep_their_old_geometry(m, layout, dim):
+    """m = 15 (the M = 15 instance), m = 21 (the rolled one) and d = 4 at
+    m = 20 (the rolled one) keep a lane a (site, chain) and the geometry
+    they had: their ring's planes and the grid of every tile launch."""
+    for base in ("vecchia_suffstats", "vecchia_grad", "vecchia_bf"):
+        assert not geo.team_body(base, m, layout, dim)
+    ml = m if geo.rolled(m, layout, dim) else 15
+    assert geo.rolled(m, layout, dim) == (m > 20 or dim > 3)
+    tables_planes = ml + ml * (ml - 1) // 2 if layout == "dist" else dim + ml * dim
+    g = geo.geometry(100_096, m, 16, layout, dim)
+    assert g == geo.Geometry((782, 4), 128, 4, 2 * (tables_planes + 2 * ml) * 32 * 4)

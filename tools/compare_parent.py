@@ -30,6 +30,14 @@ times the large-m rows alone, in the same four rounds: kernels 1, 2,
 at n=10,000, m=64, 16 chains, sqexp, on both layouts with and without noise
 weights, and their general-nu instances (sampled nu) at m=40
 on 4 of the 16 chains, the rows of PERF.md's table.
+
+    python3 tools/compare_parent.py --m20
+
+times the M = 20 rows alone (config 5's n=500,000, m=20, sqexp), in the
+same four rounds: kernels 1, 2, 2-EMIT_Y (one y row a chain) and 3 on both
+layouts, with and without noise weights, at 16 and 4 chains, and kernel 1
+at 1 chain (config 5's probe); and chain 0's logdet, dlogdet/dphi and the
+sum of B as checks that both trees compute the same function.
 """
 import json
 import os
@@ -151,9 +159,45 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
+ROUND_M20 = ROUND[:ROUND.index("cs._time_ms = _time_ms")] + r'''
+cs._time_ms = _time_ms
+out = {"build_s": _build.build_info()["seconds"]}
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    case = cs.Case(500000, 20, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+    for c in (case, case.with_noise(cs.noise_weights(500000))):
+        h = "_hetero" if c.v32 is not None else ""
+        k, t, v = c.kernel, c.tab32, c.v32
+        for chains in (16, 4):
+            ch = "" if chains == 16 else "_4_chains"
+            phi, alpha, ys = c.phi[:chains], c.alpha[:chains], c.y32_chains[:chains]
+            out[f"vecchia_suffstats{sfx}{h}{ch}"] = _time_ms(lambda: fwd_ops.suffstats(
+                k, t, phi, alpha, c.y32, c.jitter, noise_v=v), 3, 10)
+            out[f"vecchia_grad{sfx}{h}{ch}"] = _time_ms(lambda: diff_ops.value_and_grad_sums(
+                k, t, phi, alpha, c.y32, c.jitter, noise_v=v), 3, 10)
+            out[f"vecchia_grad_y{sfx}{h}{ch}"] = _time_ms(
+                lambda: diff_ops.value_and_grad_sums(k, t, phi, alpha, ys, c.jitter,
+                                                     emit_y=True, noise_v=v), 3, 10)
+            out[f"vecchia_bf{sfx}{h}{ch}"] = _time_ms(lambda: bf_ops.bf_planes(
+                k, t, phi, alpha, c.jitter, noise_v=v), 3, 10)
+    k, t = case.kernel, case.tab32
+    out[f"vecchia_suffstats{sfx}_1_chain"] = _time_ms(lambda: fwd_ops.suffstats(
+        k, t, case.phi[:1], case.alpha[:1], case.y32, case.jitter), 5, 50)
+    sums = diff_ops.value_and_grad_sums(k, t, case.phi, case.alpha, case.y32, case.jitter)
+    out[f"check_logdet_chain0{sfx}"] = float(fwd_ops.suffstats(
+        k, t, case.phi, case.alpha, case.y32, case.jitter)[0][0])
+    out[f"check_dlogdet_dphi_chain0{sfx}"] = float(sums[2][0])
+    out[f"check_sum_b{sfx}"] = float(diff_ops.value_and_grad_sums(
+        k, t, case.phi, case.alpha, case.y32_chains, case.jitter, emit_y=True)[1].double().sum())
+    del case, c, t, sums
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
 def main(args) -> int:
     root = os.getcwd()
-    code = ROUND_LARGE if args == ["--large"] else ROUND
+    code = {"--large": ROUND_LARGE, "--m20": ROUND_M20}.get(args[0] if args else "", ROUND)
     results = []
     for tree in ("parent_check", ".", ".", "parent_check"):
         run = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -38,6 +38,16 @@ and without EMIT_Y): both layouts at n=10,000, m=64 and 128, 16 chains (m=64
 also with noise weights), the general-nu instances (sampled nu) at m=40 on 4
 chains, with chain 0's logdet, its dlogdet/dphi and the sum of B as checks
 that a variant computes the same function.
+
+    python3 tools/time_trees.py --m20 A B C
+
+times the M = 20 rows (n=500,000, m=20, sqexp, config 5's shape) on both
+layouts: kernels 2 and 2-EMIT_Y (one y row a chain) at 16 and 4 chains,
+kernel 1 at 16 chains and 1 (config 5's probe), kernel 3 at 16, with chain
+0's logdet, dlogdet/dphi, dquad/dphi and the sum of B as checks that a
+variant computes the same function, and each tree's registers, stack and
+spills of its M = 20 kernels (``ptxas -v``); it chose the team size of
+csrc/vecchia_team.cuh.
 """
 import json
 import os
@@ -200,6 +210,51 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
+# the M = 20 rows at config 5's shape
+ROUND_M20 = r'''
+import json, re, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import bf as bf_ops
+from pynngp_tpu_torch.ops import diff_suffstats as diff_ops
+from pynngp_tpu_torch.ops import suffstats as fwd_ops
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+lines = info["ptxas"].splitlines()
+out = {"build_s": info["seconds"], "lib": info["lib"], "ptxas": {
+    "".join(re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E|Lb[01]E)+E)", line).groups()):
+        " ".join(nxt.strip() for nxt in lines[i + 2:i + 4])
+    for i, line in enumerate(lines)
+    if "Compiling entry function" in line and ("ILi20E" in line or "team" in line)}}
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    c = cs.Case(500000, 20, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
+    k, t, y, ys = c.kernel, c.tab32, c.y32, c.y32_chains
+    for chains in (16, 4):
+        phi, alpha = c.phi[:chains], c.alpha[:chains]
+        out[f"grad{sfx}_{chains}_chains"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+            k, t, phi, alpha, y, c.jitter), 3, 10)
+        out[f"grad_y{sfx}_{chains}_chains"] = cs._time_ms(lambda: diff_ops.value_and_grad_sums(
+            k, t, phi, alpha, ys[:chains], c.jitter, emit_y=True), 3, 10)
+    for chains in (16, 1):
+        phi, alpha = c.phi[:chains], c.alpha[:chains]
+        out[f"suffstats{sfx}_{chains}_chains"] = cs._time_ms(lambda: fwd_ops.suffstats(
+            k, t, phi, alpha, y, c.jitter), 3, 10)
+    out[f"bf{sfx}_16_chains"] = cs._time_ms(lambda: bf_ops.bf_planes(
+        k, t, c.phi, c.alpha, c.jitter), 3, 10)
+    sums = diff_ops.value_and_grad_sums(k, t, c.phi, c.alpha, y, c.jitter)
+    out[f"logdet_chain0{sfx}"] = float(fwd_ops.suffstats(k, t, c.phi, c.alpha, y, c.jitter)[0][0])
+    out[f"grad_logdet_chain0{sfx}"] = float(sums[0][0])
+    out[f"dlogdet_dphi_chain0{sfx}"] = float(sums[2][0])
+    out[f"dquad_dphi_chain0{sfx}"] = float(sums[3][0])
+    out[f"sum_b{sfx}"] = float(diff_ops.value_and_grad_sums(
+        k, t, c.phi, c.alpha, ys, c.jitter, emit_y=True)[1].double().sum())
+    del c, t, y, ys, sums
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
 def main() -> int:
     root = os.getcwd()
     trees = sys.argv[1:]
@@ -210,6 +265,8 @@ def main() -> int:
         trees, code = trees[1:], ROUND_BF
     elif trees[:1] == ["--large"]:
         trees, code = trees[1:], ROUND_LARGE
+    elif trees[:1] == ["--m20"]:
+        trees, code = trees[1:], ROUND_M20
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -218,9 +275,9 @@ def main() -> int:
         run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                              cwd=os.path.join(root, "archive_check", tree))
         found = [line for line in run.stdout.splitlines() if line.startswith("RESULT ")]
-        if not found:
+        if not found:  # a tree that fails is reported and left out of the means
             print(tree, run.returncode, run.stderr[-3000:], flush=True)
-            return 1
+            continue
         results.append((tree, json.loads(found[0][len("RESULT "):])))
         print(tree, "build", results[-1][1]["build_s"], flush=True)
     names = sorted({k for _, r in results for k, v in r.items()
@@ -232,13 +289,13 @@ def main() -> int:
                 row.setdefault(tree, []).append(r[name])
         print(f"{name:40s} " + "  ".join(f"{t} {sum(v) / len(v):.4f}" for t, v in row.items()),
               flush=True)
-    for tree, r in results[:len(trees)]:
+    for tree, r in {tree: r for tree, r in results}.items():
         print(tree, json.dumps(r["ptxas"]), flush=True)
         usage = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-res-usage", r["lib"]],
                                capture_output=True, text=True).stdout.splitlines()
         for name, res in zip(usage, usage[1:]):
             if "Function" in name and ("ILi15E" in name or "ILi20E" in name
-                                       or "smem_kernel" in name):
+                                       or "smem_kernel" in name or "team" in name):
                 print(tree, name.split()[-1][:90], res.split("SHARED")[0].strip(), flush=True)
     print("TIME_TREES " + json.dumps(results), flush=True)
     return 0
