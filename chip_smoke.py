@@ -190,13 +190,14 @@ KERNEL_ROWS.update({
                 + ("_hetero" if name.endswith("_hetero") else "")])
     for name, (_, tpu, _) in list(KERNEL_ROWS.items())
 })
-# the M = 20 team bodies (csrc/vecchia_team.cuh): kernels 2 and
-# 2-EMIT_Y on both layouts and kernel 1-coords at 15 < m <= 20, closed-form
-# rho, counted in fwd_ops.COUNTS_M20 beside their instances' counts (every
-# launch of the body); timed at config 5's n=500,000, m=20, 16 chains, and
-# kernel 2 also at 4 chains (the NUTS recipe's launch: the same body, its own
-# time, bound and error, and its own count, the body's launches of four
-# chains)
+# the M = 20 team bodies (csrc/vecchia_team.cuh): kernels 1, 2, 2-EMIT_Y
+# and 3 on coords and kernels 2 and 2-EMIT_Y on dist at 15 < m <= 20,
+# closed-form rho, counted in fwd_ops.COUNTS_M20 beside their instances'
+# counts (every launch of the body); timed at config 5's n=500,000, m=20,
+# 16 chains, and kernel 2 also at 4 chains (the NUTS recipe's launch: the
+# same body, its own time, bound and error, and its own count, the body's
+# launches of four chains).  Kernels 1 and 3 on dist keep a lane a (site,
+# chain) at M = 20 (LANE_KEPT_M20).
 _TEAM_SRC = "pynngp_tpu_torch/csrc/vecchia_team.cuh"
 M20_ROWS = {
     "vecchia_suffstats_coords_m20": "pynngp_tpu/ops/pallas_bf.py:437",
@@ -204,7 +205,13 @@ M20_ROWS = {
     "vecchia_grad_coords_m20": "pynngp_tpu/ops/pallas_bf.py:752",
     "vecchia_grad_y_m20": "pynngp_tpu/ops/pallas_bf.py:857",
     "vecchia_grad_y_coords_m20": "pynngp_tpu/ops/pallas_bf.py:752",
+    "vecchia_bf_coords_m20": "pynngp_tpu/ops/pallas_bf.py:957",
 }
+# the M = 20 instances kept on a lane a (site, chain), and their teams of 2
+# as the card timed them (tools/time_trees.py --m20 over teams of 2, 4 and
+# 8 and the lane body, n=500,000, m=20, sqexp, 16 chains; NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md): printed beside this run's lane time
+LANE_KEPT_M20 = {"vecchia_suffstats": 3.0119, "vecchia_bf": 3.1224}
 M20_FOUR = {"vecchia_grad_m20_4_chains": "vecchia_grad_m20",
             "vecchia_grad_coords_m20_4_chains": "vecchia_grad_coords_m20"}
 _COUNTS.update(fwd_ops.COUNTS_M20)
@@ -291,6 +298,17 @@ def config3_field(n: int = 25_000, m: int = 10):
     return coords, w + np.sqrt(tau_t) * g.standard_normal(n)
 
 
+def team_name(kernel: str, flags: list) -> str:
+    """The instance an M = 20 team kernel's template flags name: kernel 2
+    <EMIT_Y, COORDS>, kernel 1 <> (coords), kernel 3 <HETERO> (coords);
+    e.g. ``grad_y_coords``, ``bf_coords_hetero``."""
+    if kernel == "grad":
+        return ("grad_y" if flags[0] == "1" else "grad") + ("_coords" if flags[1] == "1" else "")
+    if kernel == "suffstats":
+        return "suffstats_coords"
+    return "bf_coords" + ("_hetero" if flags[0] == "1" else "")
+
+
 def ptxas_summary(ptxas: str, m: int) -> str:
     """'<kernel><m> R regs spill S/L B' (spill stores/loads) of the m
     instance of every kernel (``_team``: the M = 20 team bodies, whose
@@ -310,10 +328,8 @@ def ptxas_summary(ptxas: str, m: int) -> str:
         if "Compiling entry function" not in line or not found:
             continue
         name, flags = found.group(1), re.findall(r"Lb([01])E", found.group(3))
-        if found.group(2):  # an M = 20 team body: kernel 2 <EMIT_Y, COORDS>, kernel 1 coords
-            name = "grad_y" if name == "grad" and flags[0] == "1" else name
-            name += ("_coords" if name == "suffstats" or flags[1] == "1" else "") + "_team"
-            flags = []
+        if found.group(2):  # an M = 20 team body
+            name, flags = team_name(name, flags) + "_team", []
         core = 3 if name == "grad" else 2  # (EMIT_Y,) GENERAL, COORDS
         if name == "grad" and flags[:1] == ["1"]:
             name = "grad_y"
@@ -1783,16 +1799,25 @@ def coords_parity(main: Case, small: Case) -> dict:
             "vecchia_grad_y_coords": grad_y["b_max_abs_err"]}
 
 
+# kernel 3's B error at config 5's shapes, exponential, alpha = 0, on the
+# thread-a-system body, before the coords instance moved to the team body
+# (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's last runs before it,
+# PERF.md)
+ALPHA0_LANE_B = {"coords": 8.84e-3, "dist": 7.25e-3}
+
+
 def config5_parity(dist: Case, coords: Case) -> dict:
     """The m=20 coords instances at config 5's shapes (n=500,000), as paths
     11-14 launch them, against their float64 plain versions on the same
     coordinate planes, with the dist rows' own checks and limits: kernels
     1, 2 and 2-EMIT_Y (shared and per-chain y) with sqexp, as paths 11-13
     run them; kernel 3 with sqexp and with exponential (path 14's) at the
-    case's alpha.  Kernels 2 (four chains) and 2-EMIT_Y (two chains) also
-    on the dist layout: at M = 20 both layouts run the team body; the rows
-    named ``_m20`` are the team bodies', and kernel 2's launches of four
-    chains on either layout give the ``_m20_4_chains`` rows their errors.
+    case's alpha.  Kernels 1, 2 (four chains), 2-EMIT_Y (two chains) and 3
+    (sqexp and exponential) also on the dist layout: at M = 20 kernel 2 runs
+    its team body on both layouts, kernels 1 and 3 theirs on coords and a
+    lane a (site, chain) on dist; the rows named ``_m20`` are the team
+    bodies', and kernel 2's launches of four chains on either layout give
+    the ``_m20_4_chains`` rows their errors.
     Four of the case's chains (every fourth, so phi and alpha span the
     case's range), two a float64 plain call, to keep the plain versions'
     memory to a few GB; returns the max_abs_err of each row.
@@ -1803,7 +1828,9 @@ def config5_parity(dist: Case, coords: Case) -> dict:
     >= 0.05) the exponential systems without a nugget are as ill-conditioned
     as sqexp's at n=1,500, and the first run on the card (an NVIDIA H100
     80GB HBM3) put the coords instance at B 9.0e-3, F 6.3e-3 from the
-    float64 plain version, over the 1e-3 that holds at n=1,500, m=7."""
+    float64 plain version, over the 1e-3 that holds at n=1,500, m=7.  Those
+    errors are printed beside the thread-a-system body's last ones
+    (ALPHA0_LANE_B)."""
     every4 = slice(None, None, 4)
     sqexp = coords.subset(every4, chunk=2)
     label = f"coords n{coords.n} m{coords.m} sqexp"
@@ -1814,21 +1841,32 @@ def config5_parity(dist: Case, coords: Case) -> dict:
     sq_dist = dist.subset(every4, chunk=2)
     _require(sqexp.phi.shape[0] == sq_dist.phi.shape[0] == 4,
              "config 5's kernel 2 parity launches are not of four chains")
+    check_forward(sq_dist, label_dist)  # kernel 1-dist's lane body at M = 20
     grad_dist = check_grad(sq_dist, label_dist, grad_rtol=2e-3)
     grad_y_dist = check_grad_y(dist.subset(slice(None, None, 8), chunk=2),  # chains 0 and 8
                                label_dist, False, grad_rtol=2e-3)
-    bf = check_bf(sqexp, label, zero_alpha=False, gated=True)
+    bf = check_bf(sqexp, label, zero_alpha=False, gated=True)["b_max_abs_err"]
+    check_bf(sq_dist, label_dist, zero_alpha=False, gated=True)  # kernel 3-dist's lane body
+    alpha0 = {}
     for case in (coords, dist):
         expo = case.subset(every4, kernel=Exponential(), chunk=2)
         label = f"{case.layout} n{case.n} m{case.m} exponential"
+        err = check_bf(expo, label, zero_alpha=False, gated=True)["b_max_abs_err"]
         if case is coords:
-            bf_exp = check_bf(expo, label, zero_alpha=False, gated=True)
-        check_bf(expo, label, zero_alpha=True, gated=False)
+            bf = max(bf, err)
+        zero = check_bf(expo, label, zero_alpha=True, gated=False)
+        alpha0[case.layout] = {"b_max_abs_err": zero["b_max_abs_err"],
+                               "f_max_rel_err": zero["f_max_rel_err"],
+                               "lane_body_b_max_abs_err": ALPHA0_LANE_B[case.layout]}
+    print(f"kernel 3 at alpha = 0 [n{dist.n} m{dist.m} exponential, not gated; coords on "
+          "the team body, dist on the lane body], beside the lane body's last errors: "
+          + json.dumps(alpha0), flush=True)
     return {"vecchia_suffstats_coords": fwd["f_max_abs_err"],
             "vecchia_grad_coords": grad["max_abs_err"],
-            "vecchia_bf_coords": max(bf["b_max_abs_err"], bf_exp["b_max_abs_err"]),
+            "vecchia_bf_coords": bf,
             "vecchia_grad_y_coords": grad_y["b_max_abs_err"],
             "vecchia_suffstats_coords_m20": fwd["f_max_abs_err"],
+            "vecchia_bf_coords_m20": bf,
             "vecchia_grad_m20": grad_dist["max_abs_err"],
             "vecchia_grad_coords_m20": grad["max_abs_err"],
             "vecchia_grad_y_m20": grad_y_dist["b_max_abs_err"],
@@ -1839,9 +1877,9 @@ def config5_parity(dist: Case, coords: Case) -> dict:
 
 def time_plain_m20(dist: Case, coords: Case) -> dict:
     """Per-call times of the float32 plain versions of the M = 20 rows at
-    config 5's shapes: kernels 1-coords, 2 and 2-EMIT_Y at 16 chains, as
-    four calls of 4 chains (one call of 16 would hold tens of GB of (C,
-    n_pad, m, m) tensors), and kernel 2 at 4 chains; one timed call each."""
+    config 5's shapes: kernels 1, 2, 2-EMIT_Y and 3 at 16 chains, as four
+    calls of 4 chains (one call of 16 would hold tens of GB of (C, n_pad,
+    m, m) tensors), and kernel 2 at 4 chains; one timed call each."""
     out = {}
     for case in (dist, coords):
         k, t = case.kernel, case.tab32
@@ -1858,10 +1896,11 @@ def time_plain_m20(dist: Case, coords: Case) -> dict:
             lambda: [grad_y(sl) for sl in quarters], 0, 1)
         out[f"vecchia_grad{sfx}_m20_4_chains_plain"] = _time_ms(
             lambda: grad(quarters[0], case.y32), 0, 1)
-        if case is coords:
-            out["vecchia_suffstats_coords_m20_plain"] = _time_ms(
-                lambda: [fwd_ops.suffstats_reference(k, t, params[sl], case.y32)
-                         for sl in quarters], 0, 1)
+        out[f"vecchia_suffstats{sfx}_m20_plain"] = _time_ms(
+            lambda: [fwd_ops.suffstats_reference(k, t, params[sl], case.y32)
+                     for sl in quarters], 0, 1)
+        out[f"vecchia_bf{sfx}_m20_plain"] = _time_ms(
+            lambda: [bf_ops.bf_reference(k, t, params[sl]) for sl in quarters], 0, 1)
         torch.cuda.empty_cache()
     print("plain times [n500000 m20, 16 chains in four calls; 4 chains]: "
           + json.dumps(out), flush=True)
@@ -2216,7 +2255,7 @@ def config5_latent_path(dev) -> dict:
     draws = model.sample(n_draws, n_burn=n_burn, n_chains=chains, seed=0, init=init,
                          w_every=8)
     run_s = time.perf_counter() - t0
-    launches = _read_counts("config 5 latent", ("vecchia_bf_coords",))
+    launches = _read_counts("config 5 latent", ("vecchia_bf_coords", "vecchia_bf_coords_m20"))
     res = {
         "setup_s": setup_s, "run_s": run_s, "colors": model.n_colors,
         "lane_layout": model.lane_layout,
@@ -2718,21 +2757,20 @@ def tile_resources(info: dict) -> dict:
         out[key] = {"registers": regs, "stack": stack, "static_shared": static,
                     "ring_bytes": geo.smem_bytes, "warps_per_sm": blocks * warps}
     for line, res in zip(usage, usage[1:]):
-        # the M = 20 team bodies: kernel 2 <M, T, EMIT_Y, COORDS>, kernel 1
-        # <M, T> (coords), T the lanes a (site, chain) system
-        found = re.search(r"(suffstats|grad)_team_kernelILi(\d+)ELi(\d+)E((?:Lb[01]E)*)",
+        # the M = 20 team bodies: <M, T, flags> (team_name), T the lanes a
+        # (site, chain) system
+        found = re.search(r"(suffstats|grad|bf)_team_kernelILi(\d+)ELi(\d+)E((?:Lb[01]E)*)",
                           line)
         if "Function" not in line or not found:
             continue
-        name, big_m, lanes = found.group(1), int(found.group(2)), int(found.group(3))
-        flags = re.findall(r"Lb([01])E", found.group(4))
-        coords = name == "suffstats" or flags[1] == "1"
-        name = ("grad_y" if name == "grad" and flags[0] == "1" else name) + (
-            "_coords" if coords else "")
+        big_m, lanes = int(found.group(2)), int(found.group(3))
+        name = team_name(found.group(1), re.findall(r"Lb([01])E", found.group(4)))
+        coords = "_coords" in name
         stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
         regs, stack, static = (int(stats.get(k, 0)) for k in ("REG", "STACK", "SHARED"))
         geo = geometry.geometry(100_096, big_m, CHAINS, "coords" if coords else "dist",
-                                2 if coords else 0)
+                                2 if coords else 0, hetero=name.endswith("_hetero"),
+                                with_y=not name.startswith("bf"))
         warps = geo.block // 32
         per_warp = -(-regs * 32 // 256) * 256
         blocks = min(65_536 // per_warp // warps, 233_472 // (geo.smem_bytes + static),
@@ -2743,12 +2781,13 @@ def tile_resources(info: dict) -> dict:
             "team_lanes": lanes}
     print("tile kernels' resources [16 chains, shared y; ring at m = 25 for the rolled; "
           "the M = 20 team bodies as <name>_team<20>]: " + json.dumps(out), flush=True)
-    # 95 instances a lane a (site, chain) and the 5 team instances, which
-    # take the closed-form M = 20 instances of kernel 2 and of kernel 1-coords
+    # 93 instances a lane a (site, chain) and the 7 team instances, which
+    # take the closed-form M = 20 instances of kernel 2 and of kernels 1 and
+    # 3 on coords
     _require(len(out) == 100, f"expected 100 tile instances of the three kernels, found "
              f"{len(out)}")
-    _require(sum(key.endswith("_team<20>") for key in out) == 5,
-             f"expected the 5 M = 20 team instances, found {sorted(out)}")
+    _require(sum(key.endswith("_team<20>") for key in out) == 7,
+             f"expected the 7 M = 20 team instances, found {sorted(out)}")
     smem = {}
     for line, res in zip(usage, usage[1:]):
         # kernels 1 and 3: <GENERAL, COORDS>; kernel 2: <EMIT_Y, GENERAL, COORDS>
@@ -2778,6 +2817,16 @@ def tile_resources(info: dict) -> dict:
           + json.dumps(smem), flush=True)
     _require(len(smem) == 16, f"expected 16 shared-memory kernels, found {len(smem)}")
     return out
+
+
+def team_resources(resources: dict, row: str) -> dict:
+    """An M = 20 team row's registers, stack and lanes a system (its
+    instance without noise weights, from :func:`tile_resources`); {} for
+    any other row."""
+    if "_m20" not in row:
+        return {}
+    res = resources[row.removeprefix("vecchia_").split("_m20")[0] + "_team<20>"]
+    return {key: res[key] for key in ("registers", "stack", "team_lanes")}
 
 
 def hetero_main_path(dev) -> dict:
@@ -3692,6 +3741,11 @@ def shard_offset_path(dev, field3) -> dict:
         _require(all(out[f"m20_{layout}"]["launches"].get(name, 0) > 0
                      for name in (row, row + "_4_chains")),
                  f"path 27's m = 20 case ran no team body of four chains [{layout}]")
+        if layout == "coords":
+            rows = [f"vecchia_{k}_coords_m20{s}" for k in ("suffstats", "bf")
+                    for s in ("", "_sharded")]
+            _require(all(out["m20_coords"]["launches"].get(name, 0) > 0 for name in rows),
+                     "path 27's m = 20 case ran no team body of kernel 1 or 3 [coords]")
     torch.cuda.empty_cache()
     out["launches"] = _sum_launches(*(case["launches"] for case in out.values()))
     out["seconds"] = time.perf_counter() - t0
@@ -3822,7 +3876,8 @@ def config5_mesh_path(dev) -> dict:
                             w_every=10)
     res["latent_run_s"] = time.perf_counter() - t0
     res["latent_launches"] = _read_counts("config 5 mesh latent",
-                                          ("vecchia_bf_coords_sharded",))
+                                          ("vecchia_bf_coords_sharded",
+                                           "vecchia_bf_coords_m20_sharded"))
     res["latent_posterior_mean"] = {key: float(np.mean(ldraws[key]))
                                     for key in ("sigma2", "phi", "tau2")}
     _require(all(np.isfinite(v).all() for v in ldraws.values()),
@@ -3967,7 +4022,7 @@ def main() -> int:
           f"{info['nvcc']}, torch {torch.__version__} cuda {torch.version.cuda}, "
           "ptxas: " + "; ".join(ptxas_summary(info["ptxas"], m)
                                 for m in fwd_ops.CUDA_M + (geometry.MAX_M,)), flush=True)
-    tile_resources(info)
+    resources = tile_resources(info)
 
     main_case = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev)
     small_case = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev)
@@ -4102,6 +4157,10 @@ def main() -> int:
     phase_s["layout_phase"] = time.perf_counter() - t_start - sum(phase_s.values())
     # the M = 20 rows' times: the layout phase's at config 5's shapes
     ms_c5 = layouts[f"n{N_C5}_m{M_C5}"]["times"]["ms"]
+    print(f"M = 20 on dist, kept on a lane a (site, chain) [n{N_C5} m{M_C5}, {CHAINS} chains; "
+          "this run's lane body, the team of 2 as probed]: " + json.dumps(
+              {name: {"lane_ms": ms_c5[name], "team_of_2_ms": team_ms}
+               for name, team_ms in LANE_KEPT_M20.items()}), flush=True)
     times.update({row: ms_c5[row.removesuffix("_m20")] for row in M20_ROWS})
     times.update({"vecchia_grad_m20_4_chains": ms_c5["vecchia_grad_4_chains"],
                   "vecchia_grad_coords_m20_4_chains": ms_c5["vecchia_grad_4_chains_coords"]})
@@ -4209,7 +4268,8 @@ def main() -> int:
                                  for p in paths.values()),
          "max_abs_err": errs[name], "ms": times[name],
          "plain_ms": times[name + "_plain"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": None,
+         **team_resources(resources, name)}
         for name, (src, tpu, _) in KERNEL_ROWS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,10 @@
 // unrolled with the factor in registers; 20 < m <= kRolledM and coords with
 // d > kMaxDim on the rolled instance; kRolledM < m <= kSmemM on the
 // shared-memory body (vecchia_large_smem.cuh: a warp a (site, chain)
-// system), larger m on the scratch body (vecchia_large_m.cuh).
+// system), larger m on the scratch body (vecchia_large_m.cuh).  At M = 20
+// (15 < m <= 20) the closed-form coords instances run the team body
+// (vecchia_team.cuh: a few lanes a system); the dist and general-nu ones
+// keep this body (team_launch says why).
 //
 // What bounded the design before it (one thread per (site, chain), reading
 // its tables from global memory), on an NVIDIA H100 80GB HBM3 at 700 W:
@@ -51,6 +54,7 @@
 
 #include "vecchia_large_m.cuh"
 #include "vecchia_large_smem.cuh"
+#include "vecchia_team.cuh"
 #include "vecchia_tile.cuh"
 
 namespace vecchia {
@@ -231,10 +235,9 @@ int launch_bf(const float* params, const float* tab_a, const float* tab_b, const
   }
   const dim3 grid(grid_x, (chains + group - 1) / group);
   const dim3 block(kTile * group);
-#define VECCHIA_BF_LAUNCH(MM, ROLL)                                                         \
+#define VECCHIA_BF_ONE(KERN_HETERO, KERN)                                                   \
   {                                                                                         \
-    auto kern = v != nullptr ? bf_kernel<MM, GENERAL, COORDS, ROLL, true>                  \
-                             : bf_kernel<MM, GENERAL, COORDS, ROLL, false>;                 \
+    auto kern = v != nullptr ? KERN_HETERO : KERN;                                          \
     if (smem_bytes > 48 * 1024) {                                                           \
       const cudaError_t err = cudaFuncSetAttribute(                                         \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);                   \
@@ -243,6 +246,9 @@ int launch_bf(const float* params, const float* tab_a, const float* tab_b, const
     kern<<<grid, block, smem_bytes, st>>>(params, tab_a, tab_b, nn_idx, v, n_pad, m, dim,   \
                                          chains, family, b_out, f_out);                     \
   }
+#define VECCHIA_BF_LAUNCH(MM, ROLL)                                                         \
+  VECCHIA_BF_ONE((bf_kernel<MM, GENERAL, COORDS, ROLL, true>),                              \
+                 (bf_kernel<MM, GENERAL, COORDS, ROLL, false>))
   if (rolled) {
     VECCHIA_BF_LAUNCH(kRolledM, true);
     return static_cast<int>(cudaGetLastError());
@@ -251,10 +257,23 @@ int launch_bf(const float* params, const float* tab_a, const float* tab_b, const
     case 7: VECCHIA_BF_LAUNCH(7, false); break;
     case 10: VECCHIA_BF_LAUNCH(10, false); break;
     case 15: VECCHIA_BF_LAUNCH(15, false); break;
-    case 20: VECCHIA_BF_LAUNCH(20, false); break;
+    case 20:
+      // closed form on coords: the team body (vecchia_team.cuh); dist and
+      // general nu: this body (team_launch)
+      if constexpr (GENERAL || !COORDS) {
+        VECCHIA_BF_LAUNCH(20, false);
+      } else {
+        if (!team_launch(kTeamBf, GENERAL, COORDS, m, dim)) {
+          return static_cast<int>(cudaErrorInvalidValue);
+        }
+        constexpr int kLanes = team_lanes(kTeamBf, true);
+        VECCHIA_BF_ONE((bf_team_kernel<20, kLanes, true>), (bf_team_kernel<20, kLanes, false>));
+      }
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef VECCHIA_BF_LAUNCH
+#undef VECCHIA_BF_ONE
   return static_cast<int>(cudaGetLastError());
 }
 

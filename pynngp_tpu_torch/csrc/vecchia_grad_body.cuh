@@ -408,10 +408,10 @@ int launch_grad(const float* params, const float* tab_a, const float* tab_b, con
       if constexpr (GENERAL) {
         VECCHIA_GRAD_LAUNCH(20, false);
       } else {
-        if (!team_launch(true, GENERAL, COORDS, m, dim)) {
+        if (!team_launch(kTeamGrad, GENERAL, COORDS, m, dim)) {
           return static_cast<int>(cudaErrorInvalidValue);
         }
-        VECCHIA_GRAD_ONE(grad_team_kernel<20, team_lanes(true, COORDS), EMIT_Y, COORDS>);
+        VECCHIA_GRAD_ONE(grad_team_kernel<20, team_lanes(kTeamGrad, COORDS), EMIT_Y, COORDS>);
       }
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);

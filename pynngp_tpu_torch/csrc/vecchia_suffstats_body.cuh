@@ -32,7 +32,8 @@
 // runs the shared-memory body (vecchia_large_smem.cuh: a warp a (site,
 // chain) system), larger m the scratch body (vecchia_large_m.cuh).  At
 // M = 20 (15 < m <= 20) the closed-form coords instance runs the team body
-// (vecchia_team.cuh: a few lanes a system).
+// (vecchia_team.cuh: a few lanes a system); the dist and general-nu ones
+// keep this body (team_launch says why).
 //
 // What bounded the design before it (one thread per (site, chain), blocks of
 // 128 sites of one chain), on an NVIDIA H100 80GB HBM3 at 700 W
@@ -302,12 +303,13 @@ int launch_suffstats(const float* params, const float* tab_a, const float* tab_b
     case 10: VECCHIA_SUFFSTATS_LAUNCH(10, false); break;
     case 15: VECCHIA_SUFFSTATS_LAUNCH(15, false); break;
     case 20:
-      // closed form on coords: the team body (vecchia_team.cuh)
+      // closed form on coords: the team body (vecchia_team.cuh); dist and
+      // general nu: this body (team_launch)
       if constexpr (!GENERAL && COORDS) {
-        if (!team_launch(false, GENERAL, COORDS, m, dim)) {
+        if (!team_launch(kTeamSuffstats, GENERAL, COORDS, m, dim)) {
           return static_cast<int>(cudaErrorInvalidValue);
         }
-        VECCHIA_SUFFSTATS_ONE(suffstats_team_kernel<20, team_lanes(false, true)>);
+        VECCHIA_SUFFSTATS_ONE(suffstats_team_kernel<20, team_lanes(kTeamSuffstats, true)>);
       } else {
         VECCHIA_SUFFSTATS_LAUNCH(20, false);
       }

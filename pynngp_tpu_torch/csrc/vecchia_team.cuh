@@ -1,16 +1,18 @@
-// Kernels 1 and 2 at M = 20 (15 < m <= 20) on a team of lanes a (site,
-// chain) system: the closed-form value-and-gradient instances of kernel 2
-// (vecchia_grad.cu, vecchia_grad_y.cu and their _coords sources) and the
-// closed-form coords instance of kernel 1 (vecchia_suffstats_coords.cu).
-// The launchers of vecchia_grad_body.cuh and vecchia_suffstats_body.cuh send
-// such calls here (team_launch); every other M and the general-nu instances
-// keep their bodies.
+// Kernels 1, 2 and 3 at M = 20 (15 < m <= 20) on a team of lanes a (site,
+// chain) system: the closed-form instances of kernel 2 (vecchia_grad.cu,
+// vecchia_grad_y.cu and their _coords sources) and the closed-form coords
+// instances of kernels 1 and 3 (vecchia_suffstats_coords.cu,
+// vecchia_bf_coords.cu).  The launchers of vecchia_suffstats_body.cuh,
+// vecchia_grad_body.cuh and vecchia_bf_body.cuh send such calls here
+// (team_launch); every other M, kernels 1 and 3 on dist and the general-nu
+// instances keep their bodies.
 //
-// Replaces, at those shapes, the Pallas kernels _grad_kernel
-// (pynngp_tpu/ops/pallas_bf.py:727, pallas_call l.918, emit_y l.857) and
-// _suffstats_kernel (l.409, pallas_call l.572, its coords branch through
-// _dist_access l.377), whose functions vecchia_grad_body.cuh and
-// vecchia_suffstats_body.cuh state.
+// Replaces, at those shapes, the Pallas kernels _suffstats_kernel
+// (pynngp_tpu/ops/pallas_bf.py:409, pallas_call l.572), _grad_kernel
+// (l.727, pallas_call l.918, emit_y l.857) and _bf_kernel (l.941,
+// pallas_call l.1015), their coords branches through _dist_access (l.377,
+// l.437, l.752, l.957), whose functions vecchia_suffstats_body.cuh,
+// vecchia_grad_body.cuh and vecchia_bf_body.cuh state.
 //
 // What bounded the design before it (one thread a (site, chain) system, on
 // an NVIDIA H100 80GB HBM3 at 700.00 W, n=500,000, m=20, 16 chains,
@@ -21,7 +23,9 @@
 // w, dc, p, q and 1/L_kk) in local memory, which the ring's 64 KB a block
 // left little L1 to hold; kernel 1-coords 8.07 ms, its ~230 live floats
 // spilled under the 168 registers of its three blocks an SM (190 registers
-// without the cap ran 46% slower).
+// without the cap ran 46% slower); kernel 3-coords 10.74 ms, 4.3% of its
+// bound, all of L and the rows' coordinates live to the back-substitution
+// at 255 registers with 240 B of stack and 1,668 B of spill loads.
 //
 // Design.  The tile ring, its cp.async staging and the launch geometry stay
 // those of vecchia_tile.cuh.  A warp turns a staged tile of 32 sites into
@@ -43,7 +47,10 @@
 // of the team needs at that r (columns past the lane's own row are kept
 // finite and never read), so every index is a compile-time constant and the
 // state stays in registers.  One lane of the team writes the site's outputs
-// and adds its sums (lane p on pass p: one site a lane a tile).
+// and adds its sums (lane p on pass p: one site a lane a tile).  Kernel 3's
+// system is bordered with c alone (TeamSystem without y), its B = L^-T u is
+// kernel 2's p (TeamSystem::back_substitute), written plane-major by every
+// lane for its rows, and it keeps no sums.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W, n=500,000, m=20, 16 chains,
 // tools/compare_parent.py --m20): kernel 2 5.22 ms on dist (2 lanes) and
@@ -65,7 +72,9 @@
 // (a lane's part, then the team's butterfly, the same bits in every lane).
 // Deterministic for a launch shape.  Slots k >= m, and padded sites, are
 // the masked identity rows of the other bodies; p = 0 there exactly, so
-// EMIT_Y's B = 0 on invalid slots and padded sites, as before.
+// EMIT_Y's B = 0 on invalid slots and padded sites, as before.  Kernel 3's
+// padded sites factor the identity (no slot real) in place of their system,
+// singular at alpha = 0, and write B = 0 and F = 1.
 #pragma once
 
 #include <cstddef>
@@ -74,20 +83,29 @@
 
 namespace vecchia {
 
-// Lanes a (site, chain) system by instance (2, 4 or 8 take the same code),
-// chosen on the H100 by tools/time_trees.py --m20 (PERF.md); the kernels
-// take it as their second template argument, which chip_smoke.py's
-// tile_resources reads from their names.
-__host__ __device__ constexpr int team_lanes(bool grad, bool coords) {
-  return grad && coords ? 4 : 2;
+// The kernels a team body takes (their C launchers name themselves by it).
+enum TeamKernel { kTeamSuffstats, kTeamGrad, kTeamBf };
+
+// Lanes a (site, chain) system by kernel and layout (2, 4 or 8 take the same
+// code), chosen on the H100 by tools/time_trees.py --m20 (PERF.md): 4 for
+// kernel 2 on coords, 2 for the others; the kernels take it as their second
+// template argument, which chip_smoke.py's tile_resources reads from their
+// names.
+__host__ __device__ constexpr int team_lanes(TeamKernel kernel, bool coords) {
+  return kernel == kTeamGrad && coords ? 4 : 2;
 }
 
 // Whether a tile launch runs a team body (ops/geometry.py team_body states
 // the same rule): closed-form rho on the unrolled M = 20 instance (15 < m
-// <= 20, d <= kMaxDim on coords), kernel 2 on both layouts and kernel 1 on
-// coords.
-__host__ inline bool team_launch(bool grad, bool general, bool coords, int m, int dim) {
-  return !general && launch_m(m) == 20 && !(coords && dim > kMaxDim) && (grad || coords);
+// <= 20, d <= kMaxDim on coords), every kernel on coords and kernel 2 on
+// dist.  Kernels 1 and 3 on dist keep a lane a system: their thread bodies
+// hold the system in 255 registers without spilling, and the card measured
+// them faster than teams of 2, 4 and 8 (2.45 ms against 3.01 and 3.12 at
+// n=500,000, 16 chains, PERF.md).
+__host__ inline bool team_launch(TeamKernel kernel, bool general, bool coords, int m,
+                                 int dim) {
+  return !general && launch_m(m) == 20 && !(coords && dim > kMaxDim) &&
+         (coords || kernel == kTeamGrad);
 }
 
 namespace {
@@ -153,8 +171,10 @@ struct TeamDistances {
 // The fill and the factor of one team's system: on return a[r][j] (j < i)
 // holds L[i][j] of the lane's row i = r T + t, cu[r] and yw[r] u_i and w_i,
 // inv[r] 1/L_ii, and ff and rr the site's F and y - u.w; dc[r] d c_i / d phi
-// (GRAD) and oc[r] the coordinates of slot i (COORDS).
-template <int M, int T, bool GRAD, bool COORDS>
+// (GRAD) and oc[r] the coordinates of slot i (COORDS).  Kernel 3's system
+// (WITH_Y false) is bordered with c alone: no y_N, w or rr, and no registers
+// for them.
+template <int M, int T, bool GRAD, bool COORDS, bool WITH_Y = true>
 struct TeamSystem {
   static constexpr int R = (M + T - 1) / T;
   // a row's storage: the columns up to the last row of its r
@@ -162,7 +182,7 @@ struct TeamSystem {
 
   float a[R][M];
   float cu[R];
-  float yw[R];
+  float yw[WITH_Y ? R : 1];
   float inv[R];
   float dc[GRAD ? R : 1];
   float oc[COORDS ? R : 1][kMaxDim];
@@ -194,7 +214,7 @@ struct TeamSystem {
       } else {
         cu[r] = cf.rho(din) * mrow[r];
       }
-      yw[r] = sy[slot[r] * kTile] * mrow[r];
+      if constexpr (WITH_Y) yw[r] = sy[slot[r] * kTile] * mrow[r];
       const float diag = 1.0f + mrow[r] * (nugget + jitter);
       // slot k's column for every row that stores it: columns below the
       // lane's row the masked correlation, its own the diagonal, past it 0
@@ -228,7 +248,9 @@ struct TeamSystem {
   }
 
   // Right-looking Cholesky of the bordered system; ff and rr start at
-  // 1 + the own nugget and at y[gsite] (0 at a padded site).
+  // 1 + the own nugget and at y[gsite] (0 at a padded site); rr is unread
+  // without y.  Column k's updates reach each entry in the order of the
+  // thread-a-system bodies' Cholesky-Crout sums (j = 0, 1, ...).
   __device__ __forceinline__ void factor(float& ff, float& rr) {
     const int t = threadIdx.x & (T - 1);
 #pragma unroll
@@ -237,20 +259,21 @@ struct TeamSystem {
       const int kr = k / T;
       const float pinv = team_get<T>(rsqrtf(a[kr][k]), ko);
       const float uk = team_get<T>(cu[kr], ko) * pinv;
-      const float wk = team_get<T>(yw[kr], ko) * pinv;
+      [[maybe_unused]] float wk = 0.0f;
+      if constexpr (WITH_Y) wk = team_get<T>(yw[kr], ko) * pinv;
       if (t == ko) {
         cu[kr] = uk;
-        yw[kr] = wk;
+        if constexpr (WITH_Y) yw[kr] = wk;
         inv[kr] = pinv;
       }
       ff -= uk * uk;
-      rr -= uk * wk;
+      if constexpr (WITH_Y) rr -= uk * wk;
 #pragma unroll
       for (int r = kr; r < R; ++r) {
         a[r][k] *= pinv;  // L[i][k] on the rows below the pivot
         if (r > kr || t > ko) {
           cu[r] -= uk * a[r][k];
-          yw[r] -= wk * a[r][k];
+          if constexpr (WITH_Y) yw[r] -= wk * a[r][k];
         }
       }
 #pragma unroll
@@ -258,6 +281,39 @@ struct TeamSystem {
         const float ljk = team_get<T>(a[j / T][k], j % T);
 #pragma unroll
         for (int r = j / T; r < R; ++r) a[r][j] -= a[r][k] * ljk;
+      }
+    }
+  }
+
+  // After factor: the back-substitution p = L^-T u (and q = L^-T w with y)
+  // from the last column: the lane's rows below i, then the team's sum (the
+  // same bits in every lane), then the owner's p_i (q_i).  Each lane holds
+  // p and q of its rows; p = 0 exactly where u and the column below are.
+  __device__ __forceinline__ void back_substitute(float (&p)[R],
+                                                  float (&q)[WITH_Y ? R : 1]) const {
+    const int t = threadIdx.x & (T - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      p[r] = 0.0f;
+      if constexpr (WITH_Y) q[r] = 0.0f;
+    }
+#pragma unroll
+    for (int i = M - 1; i >= 0; --i) {
+      const int io = i % T;
+      const int ir = i / T;
+      float sp = 0.0f;
+      [[maybe_unused]] float sq = 0.0f;
+#pragma unroll
+      for (int r = ir; r < R; ++r) {
+        const float l = (r > ir || t > io) ? a[r][i] : 0.0f;
+        sp += l * p[r];
+        if constexpr (WITH_Y) sq += l * q[r];
+      }
+      sp = team_sum<T>(sp);
+      if constexpr (WITH_Y) sq = team_sum<T>(sq);
+      if (t == io) {
+        p[ir] = (cu[ir] - sp) * inv[ir];
+        if constexpr (WITH_Y) q[ir] = (yw[ir] - sq) * inv[ir];
       }
     }
   }
@@ -312,35 +368,9 @@ __device__ __forceinline__ void grad_team_site(
   float ff = 1.0f + own_nugget(alpha, v, gsite);
   float rr = valid ? y[gsite] : 0.0f;
   sys.factor(ff, rr);
-
-  // back-substitution p = L^-T u, q = L^-T w from the last column: the
-  // lane's rows below i, then the team's sum, then the owner's p_i, q_i
   float p[R];
   float q[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    p[r] = 0.0f;
-    q[r] = 0.0f;
-  }
-#pragma unroll
-  for (int i = M - 1; i >= 0; --i) {
-    const int io = i % T;
-    const int ir = i / T;
-    float sp = 0.0f;
-    float sq = 0.0f;
-#pragma unroll
-    for (int r = ir; r < R; ++r) {
-      const float l = (r > ir || t > io) ? sys.a[r][i] : 0.0f;
-      sp += l * p[r];
-      sq += l * q[r];
-    }
-    sp = team_sum<T>(sp);
-    sq = team_sum<T>(sq);
-    if (t == io) {
-      p[ir] = (sys.cu[ir] - sp) * sys.inv[ir];
-      q[ir] = (sys.yw[ir] - sq) * sys.inv[ir];
-    }
-  }
+  sys.back_substitute(p, q);
 
   // the lane's part of p' dC/dalpha p and p' dC/dalpha q (the masked
   // identity, diag(v_N) with noise weights; p = 0 past the call's m) and of
@@ -410,6 +440,43 @@ __device__ __forceinline__ void grad_team_site(
   }
 }
 
+// Kernel 3's team body at one site (coords): B of the lane's rows
+// (plane-major, every lane its own), F from the team's lane `writer`.  The system is
+// bordered with c alone, and B = L^-T u is kernel 2's p.  A padded site
+// (gsite >= n) factors the identity instead of its all-ones system at
+// alpha = 0 (no slot is real, so every lane of the warp still takes the
+// team's shuffles) and writes B = 0 and F = 1; B = 0 exactly on invalid
+// slots, where u and the column below are.  The noise weights: alpha v at
+// the neighbors through the stage (HETERO), alpha v_i at the site.
+template <int M, int T, bool HETERO>
+__device__ __forceinline__ void bf_team_site(const float* st, const TileShape& s, int writer,
+                                             int col, int site, int gsite, int m, int dim,
+                                             const ClosedForm& cf, float alpha, float jitter,
+                                             int n, const float* __restrict__ v, int n_pad,
+                                             float* __restrict__ b_chain,
+                                             float* __restrict__ f_row) {
+  using System = TeamSystem<M, T, false, true, false>;
+  constexpr int R = System::R;
+  const int t = threadIdx.x & (T - 1);
+  const bool valid = gsite < n;
+  const TeamDistances<true> dist(st, s, dim, col);
+  System sys;
+  sys.build(dist, nullptr, st + s.off_v * kTile + col, HETERO, valid ? min(gsite, m) : 0, cf,
+            alpha, jitter);
+  float ff = 1.0f + (HETERO && valid ? alpha * v[gsite] : alpha);
+  float unused = 0.0f;
+  sys.factor(ff, unused);
+  float p[R];
+  float no_q[1];
+  sys.back_substitute(p, no_q);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r * T + t;
+    if (i < m) b_chain[static_cast<size_t>(i) * n_pad + site] = valid ? p[r] : 0.0f;
+  }
+  if (t == writer) f_row[site] = valid ? ff : 1.0f;
+}
+
 // The block's loop over its tiles (vecchia_tile.cuh's ring, walked as the
 // thread-a-system bodies walk it), calling site_fn(st, adder, col, site,
 // gsite) for each of the T passes over a staged tile (32 / T sites
@@ -417,7 +484,9 @@ __device__ __forceinline__ void grad_team_site(
 // Pass p's sites add their sums to the lanes p of their teams, so that
 // each lane adds one site a tile, as in the thread-a-system bodies, and a
 // term passes through as many float32 additions on its way to a partial.
-template <int M, int T, typename Site>
+// Kernel 3 (WITH_Y false) stages no y: its tile gathers only v, and only
+// with noise weights, as its thread-a-system body does.
+template <int M, int T, bool WITH_Y = true, typename Site>
 __device__ __forceinline__ bool team_tiles(const TileShape& s, const float* __restrict__ tab_a,
                                            const float* __restrict__ tab_b,
                                            const int* __restrict__ nn_idx,
@@ -428,7 +497,8 @@ __device__ __forceinline__ bool team_tiles(const TileShape& s, const float* __re
   const int group = blockDim.x / kTile;
   const int c0 = blockIdx.y * group;
   const bool active = c0 + static_cast<int>(threadIdx.x / kTile) < chains;
-  const int ycopies = y_stride != 0 ? group : 1;
+  const int ycopies = WITH_Y ? (y_stride != 0 ? group : 1) : 0;
+  const bool gathers = WITH_Y || v != nullptr;
   const int stage_words = s.planes * kTile;
   for (int i = threadIdx.x; i < kStages * stage_words; i += blockDim.x) ring[i] = 0.0f;
   __syncthreads();
@@ -441,15 +511,19 @@ __device__ __forceinline__ bool team_tiles(const TileShape& s, const float* __re
     const int next = tile + gridDim.x;
     cp_async_wait<0>();
     __syncthreads();  // this tile's tables are in; every warp is done with the last
-    issue_gathers(st, s, M, y_all, y_stride, ycopies, c0, chains, v);
-    cp_async_commit();
+    if (gathers) {
+      issue_gathers(st, s, M, y_all, y_stride, ycopies, c0, chains, v);
+      cp_async_commit();
+    }
     if (next < tiles) {
       issue_tables(ring + ((i + 1) % kStages) * stage_words, s, tab_a, tab_b, nn_idx, n_pad,
                    next);
     }
     cp_async_commit();
-    cp_async_wait<1>();  // the gathers, not the next tile's tables
-    __syncthreads();
+    if (gathers) {
+      cp_async_wait<1>();  // the gathers, not the next tile's tables
+      __syncthreads();
+    }
     if (active) {
 #pragma unroll 1
       for (int pass = 0; pass < T; ++pass) {
@@ -462,7 +536,7 @@ __device__ __forceinline__ bool team_tiles(const TileShape& s, const float* __re
   return active;
 }
 
-// Kernel 2's team instances, T = team_lanes(true, COORDS) lanes a system (a
+// Kernel 2's team instances, T = team_lanes(kTeamGrad, COORDS) lanes a system (a
 // template argument, so that the kernel's name carries it); the arguments of
 // grad_kernel (with_nu unread).
 template <int M, int T, bool EMIT_Y, bool COORDS>
@@ -499,8 +573,8 @@ grad_team_kernel(const float* __restrict__ params, const float* __restrict__ tab
   if (active) warp_sum_store<6>(acc, part, chains * gridDim.x, chain * gridDim.x + blockIdx.x);
 }
 
-// Kernel 1's team instance (coords), T = team_lanes(false, true) lanes a
-// system; the arguments of suffstats_kernel.
+// Kernel 1's team instance (coords), T = team_lanes(kTeamSuffstats, true)
+// lanes a system; the arguments of suffstats_kernel.
 template <int M, int T>
 __global__ void __launch_bounds__(kTile * kMaxGroup)
 suffstats_team_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
@@ -537,6 +611,36 @@ suffstats_team_kernel(const float* __restrict__ params, const float* __restrict_
     const float sums[2] = {sum_logf, sum_q};
     warp_sum_store<2>(sums, part, chains * gridDim.x, chain * gridDim.x + blockIdx.x);
   }
+}
+
+// Kernel 3's team instances (coords), T = team_lanes(kTeamBf, true) lanes a
+// system, the noise weights a template parameter (HETERO) as in bf_kernel;
+// the arguments of bf_kernel.
+template <int M, int T, bool HETERO>
+__global__ void __launch_bounds__(kTile * kMaxGroup)
+bf_team_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
+               const float* __restrict__ tab_b, const int* __restrict__ nn_idx,
+               const float* __restrict__ v, int n_pad, int m, int dim, int chains, int family,
+               float* __restrict__ b_out, float* __restrict__ f_out) {
+  const int group = blockDim.x / kTile;
+  const int chain = blockIdx.y * group + static_cast<int>(threadIdx.x / kTile);
+  const int safe = min(chain, chains - 1);
+  const float* pr = params + safe * kParams;
+  const float alpha = pr[1];
+  const float jitter = pr[2];
+  const int n = static_cast<int>(pr[3]);
+  const int off = static_cast<int>(pr[5]);
+  const ClosedForm cf = closed_form(family, pr[0]);
+  float* b_chain = b_out + static_cast<size_t>(safe) * m * n_pad;
+  float* f_row = f_out + static_cast<size_t>(safe) * n_pad;
+  const TileShape s = tile_shape(m, M, dim, true, 0, HETERO, HETERO);
+  const float* vh = HETERO ? v : nullptr;
+  team_tiles<M, T, false>(s, tab_a, tab_b, nn_idx, nullptr, 0, vh, n_pad, chains, off,
+                          [&](const float* st, int writer, int col, int site, int gsite) {
+                            bf_team_site<M, T, HETERO>(st, s, writer, col, site, gsite, m,
+                                                       dim, cf, alpha, jitter, n, vh, n_pad,
+                                                       b_chain, f_row);
+                          });
 }
 
 }  // namespace

@@ -42,6 +42,7 @@ import torch
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.site_tables import ShardedTables, SiteTables, unpack_distances
 from pynngp_tpu_torch.ops.suffstats import (
+    count_team,
     cuda_args,
     entry_name,
     family_arg,
@@ -110,6 +111,7 @@ def _launch(kernel, tables: SiteTables, params, noise_v, sharded=False):
     del scratch  # the launch is enqueued: the allocator orders any reuse after it
     COUNTS[instance("vecchia_bf", kernel, tables, hetero=v is not None,
                     sharded=sharded)].launches += 1
+    count_team("vecchia_bf", kernel, tables, chains, sharded=sharded)
     return b, f
 
 

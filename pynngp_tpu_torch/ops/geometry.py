@@ -22,8 +22,8 @@ runs the scratch body, one thread a (site, chain) with its state in a device
 scratch buffer (:func:`large_geometry`).  :func:`large_body` names which of
 the two a launch runs.
 
-At M = 20 (15 < m <= 20) the closed-form instances of kernel 2 (both
-layouts) and kernel 1 on coords run a team body on the same ring and grid
+At M = 20 (15 < m <= 20) the closed-form instances of every kernel on
+coords, and of kernel 2 on dist, run a team body on the same ring and grid
 (csrc/vecchia_team.cuh): a team of a few lanes a (site, chain) system, a
 warp factoring several sites of its chain at a time (:func:`team_body`; the
 lanes a system are the kernels' own, ``team_lanes`` of that header).
@@ -62,7 +62,7 @@ LARGE_BLOCKS = 132 * 8  # blocks a large-m launch keeps: 32 warps on each of 132
 LARGE_SCRATCH_BYTES = 4 << 30
 PANEL = 4  # kPanel: a system's slots are m rounded up to a multiple of it
 SMS = 132  # an H100's SMs
-TEAM_M = 20  # the built instance M whose closed-form kernels 1-coords and 2 run them
+TEAM_M = 20  # the built instance M whose closed-form instances run the team bodies
 SM_SHARED_BYTES = 233_472  # shared memory of one SM
 SM_BLOCK_RESERVE = 2048  # bytes a block takes beside its systems: 1,024 the card's, MaternSets
 
@@ -97,11 +97,13 @@ def team_body(base: str, m: int, layout: str = "dist", dim: int = 0,
     """Whether a tile launch of kernel ``base`` (``vecchia_suffstats``,
     ``vecchia_grad`` or ``vecchia_bf``) runs a team body
     (csrc/vecchia_team.cuh, ``team_launch``): closed-form rho on the
-    unrolled M = 20 instance (15 < m <= 20, and d <= 3 on coords), kernel 2
-    on both layouts and kernel 1 on coords.  Every other tile launch runs a
-    lane a (site, chain).  A rule of shape, the C launchers' too."""
+    unrolled M = 20 instance (15 < m <= 20, and d <= 3 on coords), every
+    kernel on coords and kernel 2 on dist.  Kernels 1 and 3 on dist keep a
+    lane a (site, chain), which the card measured faster than their teams
+    (PERF.md), as does every other tile launch.  A rule of shape, the C
+    launchers' too."""
     return (not general and cuda_instance_m(m) == TEAM_M and not rolled(m, layout, dim)
-            and (base == "vecchia_grad" or (base == "vecchia_suffstats" and layout == "coords")))
+            and (layout == "coords" or base == "vecchia_grad"))
 
 
 def ring_planes(m: int, layout: str = "dist", dim: int = 0, ycopies: int = 1,

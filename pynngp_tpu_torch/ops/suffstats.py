@@ -90,7 +90,7 @@ GENERAL_FAMILY = 6  # kMaternGeneral of csrc/vecchia_common.cuh
 # there (every call of the entry at 15 < m <= 20, with or without weights;
 # _4_chains: those of four chains)
 TEAM_ENTRIES = ("vecchia_suffstats_coords", "vecchia_grad", "vecchia_grad_coords",
-                "vecchia_grad_y", "vecchia_grad_y_coords")
+                "vecchia_grad_y", "vecchia_grad_y_coords", "vecchia_bf_coords")
 COUNTS_M20 = {name + "_m20" + four + sfx: _build.LaunchCount(name + "_m20" + four + sfx)
               for name in TEAM_ENTRIES for four in ("", "_4_chains")
               for sfx in ("", "_sharded")}

@@ -229,3 +229,51 @@ def test_bf_planes_from_rows_round_trip(problem):
     b, f = ops.bf(kernels.Exponential(), t, torch.tensor(PHIS), 0.0, JITTER)
     back_b, back_f = convert.bf_planes_from_rows(b.numpy(), f.numpy())
     assert torch.equal(back_b, planes_b) and torch.equal(back_f, planes_f)
+
+
+# ---- m = 16 and 20: the M = 20 instance's shapes, both layouts, weights ----
+
+def _m20_problem(m, layout):
+    """Both packages' tables (dist or coords) over the same 300 sites, and
+    per-site noise weights v in ordered site space, in float64."""
+    rng = np.random.default_rng(11)
+    n = 300
+    coords = rng.uniform(size=(n, 2))
+    v = rng.uniform(0.25, 4.0, n)
+    on_coords = layout == "coords"
+    jdata, jtab = jvecchia.make_vecchia_data(coords, m, precompute_distances=not on_coords)
+    cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout=layout,
+                               coords_host=coords[jtab.order] if on_coords else None)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32,
+                                          precompute_distances=not on_coords)
+    np.testing.assert_array_equal(tab.order, jtab.order)
+    tables = make_site_tables(data, dtype=torch.float64, layout=layout,
+                              coords_host=coords[tab.order])
+    return {"n": n, "cache": cache, "tables": tables, "v_jax": jnp.asarray(v[tab.order]),
+            "v": torch.as_tensor(v[tab.order])}
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["homogeneous", "weights"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("m", [16, 20])
+def test_m20_bf_matches_pallas(m, layout, weighted):
+    """Kernel 3's plain version at m = 16 and 20 (the shapes of its M = 20
+    instance) on both layouts, with and without noise weights, at a nugget
+    and at the latent model's alpha = 0, against pallas_bf in interpret
+    mode: rtol 1e-8, B also atol 1e-12; B = 0 on the invalid slots of the
+    first m sites."""
+    p = _m20_problem(m, layout)
+    jkern, kern = FAMILIES["exponential"]
+    v, v_jax = (p["v"], p["v_jax"]) if weighted else (None, None)
+    run = jax.jit(lambda phi, alpha: pb.pallas_bf(jkern, {"phi": phi}, p["cache"], alpha,
+                                                  jitter=JITTER, noise_v=v_jax))
+    for alphas in ALPHAS.values():
+        b, f = ops.bf(kern, p["tables"], torch.tensor(PHIS, dtype=torch.float64),
+                      torch.tensor(alphas, dtype=torch.float64), JITTER, noise_v=v)
+        assert b.shape == (3, p["n"], m) and f.shape == (3, p["n"])
+        head = torch.arange(m)
+        assert (b[:, head, :][:, head[:, None] <= head[None, :]] == 0).all()
+        for c, (phi, alpha) in enumerate(zip(PHIS, alphas)):
+            b_p, f_p = run(jnp.float64(phi), jnp.float64(alpha))
+            np.testing.assert_allclose(b[c].numpy(), np.asarray(b_p), rtol=1e-8, atol=1e-12)
+            np.testing.assert_allclose(f[c].numpy(), np.asarray(f_p), rtol=1e-8)

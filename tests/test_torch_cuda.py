@@ -946,11 +946,11 @@ def test_kernel_3_tile_on_coords_in_four_dimensions(card, m, hetero):
 
 
 @pytest.mark.parametrize("layout", ["dist", "coords"])
-@pytest.mark.parametrize("m", [15, 40])
+@pytest.mark.parametrize("m", [15, 20, 40])
 def test_kernel_3_launches_are_bitwise_equal(card, layout, m):
-    """Two launches of kernel 3 (the tile ring at m = 15, the large-m
-    instance at m = 40) on the same inputs give the same bits, with and
-    without noise weights."""
+    """Two launches of kernel 3 (the tile ring at m = 15, its team body at
+    m = 20, the large-m instance at m = 40) on the same inputs give the same
+    bits, with and without noise weights."""
     tab32, _, _, _, _ = _problem(card, n=20_000 if m <= 32 else 3_000, m=m, layout=layout)
     phi, alpha = _chain_params(card, 6)
     v = torch.as_tensor(_weights(tab32.n), dtype=torch.float32, device=card)
@@ -1114,6 +1114,13 @@ def test_large_m_bodies_on_meshes_of_one_card(card, m, layout):
     of kernels 1, 2-EMIT_Y and 3 (the shared-memory bodies and kernel 2's
     scratch body) bit for bit as the unsharded launch, with and without
     noise weights; the last shard holds padded sites."""
+    _check_meshes(card, m, layout)
+
+
+def _check_meshes(card, m, layout):
+    """Kernels 1, 2-EMIT_Y and 3 on tables of 4 site shards: every per-site
+    output on meshes (1, 2), (1, 4) and (2, 2) of the card bit for bit as
+    the unsharded launch, with and without noise weights."""
     from pynngp_tpu_torch.ops.site_tables import shard_site_tables
     from pynngp_tpu_torch.parallel import make_mesh
 
@@ -1372,23 +1379,28 @@ def test_facade_and_the_new_options_on_the_card(card):
 
 
 # ---- M = 20 on the team bodies ------------------------------------------------
-# 15 < m <= 20: kernel 2 (both layouts, with and without EMIT_Y) and kernel
-# 1-coords, closed-form rho, run csrc/vecchia_team.cuh (a few lanes a (site,
-# chain) system); the same limits as every closed-form row, and a launch of
-# the instance's count and of its M = 20 team count.
+# 15 < m <= 20: the closed-form instances of kernel 2 (with and without
+# EMIT_Y) on both layouts and of kernels 1 and 3 on coords run
+# csrc/vecchia_team.cuh (a few lanes a (site, chain) system); kernels 1 and
+# 3 on dist keep a lane a system.  The same limits as every closed-form row,
+# and a launch of the instance's count and of its M = 20 team count.
 
 def _team_counts(tables, kern, hetero):
-    """The instance counts and M = 20 team counts of kernels 1, 2 and
-    2-EMIT_Y for a launch on ``tables`` (kernel 1's team count only on
-    coords)."""
+    """The instance counts of kernels 1, 2, 2-EMIT_Y and 3 for a launch on
+    ``tables``, and the M = 20 team counts of those that run a team body
+    there."""
     names = [fops.instance("vecchia_suffstats", kern, tables, hetero=hetero),
              fops.instance("vecchia_grad", kern, tables, hetero=hetero),
-             fops.instance("vecchia_grad", kern, tables, True, hetero)]
-    counts = [fops.COUNTS[names[0]], dops.COUNTS[names[1]], dops.COUNTS[names[2]]]
+             fops.instance("vecchia_grad", kern, tables, True, hetero),
+             fops.instance("vecchia_bf", kern, tables, hetero=hetero)]
+    counts = [fops.COUNTS[names[0]], dops.COUNTS[names[1]], dops.COUNTS[names[2]],
+              bops.COUNTS[names[3]]]
+    dim = tables.dim if tables.layout == "coords" else 0
     team = [fops.COUNTS_M20[fops.entry_name(b, kern, tables, e) + "_m20"]
-            for b, e in (("vecchia_grad", False), ("vecchia_grad", True))]
-    if tables.layout == "coords":
-        team.append(fops.COUNTS_M20["vecchia_suffstats_coords_m20"])
+            for b, e in (("vecchia_suffstats", False), ("vecchia_grad", False),
+                         ("vecchia_grad", True), ("vecchia_bf", False))
+            if geometry.team_body(b, tables.m, tables.layout, dim)]
+    assert len(team) == (4 if tables.layout == "coords" else 2)
     return counts + team
 
 
@@ -1400,7 +1412,8 @@ def _team_counts(tables, kern, hetero):
 def test_m20_team_bodies_match_plain(card, m, layout, dim, hetero):
     """Every m in 16-20 on the M = 20 team bodies, both layouts, d = 1-3,
     with and without noise weights, five chains (a ragged group), against
-    the float64 plain versions (kernels 1, 2, 2-EMIT_Y and 3)."""
+    the float64 plain versions (kernels 1, 2, 2-EMIT_Y and 3; kernel 3's
+    padded sites B = 0 and F = 1)."""
     assert fops.cuda_instance_m(m) == 20
     assert geometry.team_body("vecchia_grad", m, layout, dim if layout == "coords" else 0)
     tab32, tab64, y, _, _ = _problem(card, m=m, layout=layout, dim=dim)
@@ -1451,6 +1464,42 @@ def test_m20_team_bodies_are_bitwise_deterministic(card, layout):
     flat = [[t for part in run for t in (part if isinstance(part, tuple) else (part,))]
             for run in runs]
     assert all(torch.equal(a, b) for a, b in zip(*flat))
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("m", [16, 20])
+def test_m20_kernel_3_team_without_nugget(card, m, dim, hetero):
+    """alpha = 0, no jitter (the latent model's systems) on kernel 3's team
+    body (coords), ragged five chains: B atol 1e-3, F rtol 1e-3 in two and
+    three dimensions, as test_kernel_3_tile_without_nugget; padded sites
+    B = 0 and F = 1.  On a line (d = 1) these exponential systems are
+    near-singular in float32: on these inputs the thread-a-system body
+    reached B 0.051 and F 0.034 from the float64 plain version, the team
+    body 0.049 and 0.034 (NVIDIA H100 80GB HBM3), so d = 1 is held at 0.1."""
+    limit = 1e-3 if dim > 1 else 0.1
+    tab32, tab64, _, _, _ = _problem(card, m=m, layout="coords", dim=dim)
+    phi, _ = _chain_params(card, 5)
+    kern = kernels.Exponential()
+    team = fops.COUNTS_M20[fops.entry_name("vecchia_bf", kern, tab32) + "_m20"]
+    before = team.launches
+    _check_bf(card, kern, tab32, tab64, phi, torch.zeros_like(phi),
+              _weights(tab32.n) if hetero else None, jitter=0.0, b_atol=limit, f_rtol=limit)
+    assert team.launches == before + 1
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+def test_m20_team_bodies_on_meshes_of_one_card(card, layout):
+    """The shard offset at m = 20: meshes (1, 2), (1, 4) and (2, 2) of this
+    card give every per-site output of kernels 1, 2-EMIT_Y and 3 bit for bit
+    as the unsharded launch, with and without noise weights, on the team
+    bodies (kernel 2 on dist, all three on coords); the last shard holds
+    padded sites."""
+    row = "vecchia_bf_coords" if layout == "coords" else "vecchia_grad_y"
+    count = fops.COUNTS_M20[row + "_m20_sharded"]
+    before = count.launches
+    _check_meshes(card, 20, layout)
+    assert count.launches > before
 
 
 @pytest.mark.parametrize("per_chain", [False, True], ids=["shared_y", "per_chain_y"])

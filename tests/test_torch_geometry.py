@@ -331,18 +331,19 @@ def test_m20_team_bodies_keep_the_ring_and_grid(m, chains):
     """15 < m <= 20 on both layouts (d <= 3), with and without weights, a
     shared and a per-chain y: the M = 20 ring and grid of every tile launch
     (the team bodies change how a warp turns a staged tile into systems, not
-    what is staged), a team body on kernel 2 and kernel 1-coords, a lane a
-    site on kernel 3, kernel 1-dist and the general-nu instances; the
-    instances' names and counts as before, the team bodies' launches also
-    counted under ``_m20`` (and ``_m20_4_chains`` at 4 chains), and no
-    large-m body."""
+    what is staged; kernel 3's ring without y planes), a team body on every
+    closed-form coords instance and on kernel 2-dist, a lane a site on
+    kernels 1 and 3 on dist (measured faster) and the general-nu instances;
+    the instances' names and counts as before, the
+    team bodies' launches also counted under ``_m20`` (and ``_m20_4_chains``
+    at 4 chains), and no large-m body."""
     n_pad = 500_096
     assert geo.cuda_instance_m(m) == geo.TEAM_M == 20 and not geo.large(m)
     with pytest.raises(ValueError, match="tile ring"):
         geo.large_body("vecchia_grad", m)
     for layout, dim in M20_LAYOUTS:
         team = {"vecchia_grad": True, "vecchia_suffstats": layout == "coords",
-                "vecchia_bf": False}
+                "vecchia_bf": layout == "coords"}
         for base, want in team.items():
             assert geo.team_body(base, m, layout, dim) is want
             assert not geo.team_body(base, m, layout, dim, general=True)
@@ -353,6 +354,9 @@ def test_m20_team_bodies_keep_the_ring_and_grid(m, chains):
             "vecchia_grad_y" + sfx + "_hetero")
         assert fops.entry_name("vecchia_grad", kernels.SqExp(), tables) + "_m20" in \
             fops.COUNTS_M20
+        for base in ("vecchia_suffstats", "vecchia_bf"):
+            assert (fops.entry_name(base, kernels.SqExp(), tables) + "_m20"
+                    in fops.COUNTS_M20) is team[base]
         for base, emit_y in (("vecchia_grad", False), ("vecchia_grad", True),
                              ("vecchia_suffstats", False), ("vecchia_bf", False)):
             for sharded in (False, True):
@@ -381,6 +385,13 @@ def test_m20_team_bodies_keep_the_ring_and_grid(m, chains):
                 planes = tables_planes + 20 + ycopies * 20 + (20 if hetero else 0)
                 assert geo.ring_planes(m, layout, dim, ycopies, hetero) == planes
                 assert g.smem_bytes == geo.STAGES * planes * 32 * 4 <= geo.RING_BYTES
+                # kernel 3: no y planes, and nn_idx planes only to gather v
+                g3 = geo.geometry(n_pad, m, chains, layout, dim, hetero=hetero, with_y=False)
+                assert g3 == geo.geometry(n_pad, 20, chains, layout, dim, hetero=hetero,
+                                          with_y=False)
+                assert (g3.grid, g3.block, g3.group) == (g.grid, g.block, g.group)
+                planes3 = tables_planes + (40 if hetero else 0)
+                assert g3.smem_bytes == geo.STAGES * planes3 * 32 * 4
 
 
 @pytest.mark.parametrize("m,layout,dim", [(15, "dist", 0), (15, "coords", 2), (21, "dist", 0),

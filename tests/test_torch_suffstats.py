@@ -226,3 +226,53 @@ def test_plain_suffstats_matches_batched_bf():
     np.testing.assert_allclose(f2[0, :n].numpy(), f.numpy(), rtol=1e-8)
     np.testing.assert_allclose(r2[0, :n].numpy(), resid.numpy(), rtol=1e-8,
                                atol=1e-10)
+
+
+def _m20_problem(m, layout):
+    """Both packages' tables (dist or coords) over the same 300 sites, y and
+    per-site noise weights v in ordered site space, in float64."""
+    rng = np.random.default_rng(12)
+    n = 300
+    coords = rng.uniform(size=(n, 2))
+    y = rng.standard_normal(n)
+    v = rng.uniform(0.25, 4.0, n)
+    on_coords = layout == "coords"
+    jdata, jtab = jvecchia.make_vecchia_data(coords, m, precompute_distances=not on_coords)
+    cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout=layout,
+                               coords_host=coords[jtab.order] if on_coords else None)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32,
+                                          precompute_distances=not on_coords)
+    np.testing.assert_array_equal(tab.order, jtab.order)
+    order = tab.order
+    return {"n": n, "cache": cache,
+            "tables": make_site_tables(data, dtype=torch.float64, layout=layout,
+                                       coords_host=coords[order]),
+            "y_jax": jnp.asarray(y[order]), "y": torch.as_tensor(y[order]),
+            "v_jax": jnp.asarray(v[order]), "v": torch.as_tensor(v[order])}
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["homogeneous", "weights"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("m", [16, 20])
+def test_m20_suffstats_matches_pallas(m, layout, weighted):
+    """Kernel 1's plain version at m = 16 and 20 (the shapes of its M = 20
+    instance) on both layouts, with and without noise weights, against
+    pallas_suffstats in interpret mode: (logdet, quad, F, r), rtol 1e-8 (r
+    also atol 1e-10)."""
+    p = _m20_problem(m, layout)
+    jkern, kern = KERNELS[0]  # sqexp, config 5's family
+    n = p["n"]
+    v, v_jax = (p["v"], p["v_jax"]) if weighted else (None, None)
+    logdet, quad, f, r = ops.suffstats(
+        kern, p["tables"], torch.tensor(PHIS, dtype=torch.float64),
+        torch.tensor(ALPHAS, dtype=torch.float64), p["y"], JITTER, noise_v=v)
+    run = jax.jit(lambda phi, alpha: pb.pallas_suffstats(
+        jkern, {"phi": phi}, p["cache"], p["y_jax"], alpha, jitter=JITTER, noise_v=v_jax))
+    for c, (phi, alpha) in enumerate(zip(PHIS, ALPHAS)):
+        ld_j, q_j, f_j, r_j = run(jnp.float64(phi), jnp.float64(alpha))
+        np.testing.assert_allclose(float(logdet[c]), float(ld_j), rtol=1e-8)
+        np.testing.assert_allclose(float(quad[c]), float(q_j), rtol=1e-8)
+        np.testing.assert_allclose(f[c, :n].numpy(), np.asarray(f_j).reshape(-1)[:n],
+                                   rtol=1e-8)
+        np.testing.assert_allclose(r[c, :n].numpy(), np.asarray(r_j).reshape(-1)[:n],
+                                   rtol=1e-8, atol=1e-10)

@@ -35,9 +35,11 @@ on 4 of the 16 chains, the rows of PERF.md's table.
 
 times the M = 20 rows alone (config 5's n=500,000, m=20, sqexp), in the
 same four rounds: kernels 1, 2, 2-EMIT_Y (one y row a chain) and 3 on both
-layouts, with and without noise weights, at 16 and 4 chains, and kernel 1
-at 1 chain (config 5's probe); and chain 0's logdet, dlogdet/dphi and the
-sum of B as checks that both trees compute the same function.
+layouts, with and without noise weights, at 16 and 4 chains, kernel 1 at 1
+chain (config 5's probe) and kernel 3 at path 14's launch (exponential, 8
+chains, alpha = 0); chain 0's logdet, dlogdet/dphi and the sums of kernel
+2-EMIT_Y's and kernel 3's B as checks that both trees compute the same
+function; and each tree's ptxas summary of its M = 20 kernels.
 """
 import json
 import os
@@ -161,7 +163,8 @@ print("RESULT " + json.dumps(out), flush=True)
 
 ROUND_M20 = ROUND[:ROUND.index("cs._time_ms = _time_ms")] + r'''
 cs._time_ms = _time_ms
-out = {"build_s": _build.build_info()["seconds"]}
+info = _build.build_info()
+out = {"build_s": info["seconds"], "ptxas": cs.ptxas_summary(info["ptxas"], 20)}
 for layout in ("dist", "coords"):
     sfx = "_coords" if layout == "coords" else ""
     case = cs.Case(500000, 20, cs.SqExp(), 16, seed=0, dev=dev, layout=layout)
@@ -183,6 +186,11 @@ for layout in ("dist", "coords"):
     k, t = case.kernel, case.tab32
     out[f"vecchia_suffstats{sfx}_1_chain"] = _time_ms(lambda: fwd_ops.suffstats(
         k, t, case.phi[:1], case.alpha[:1], case.y32, case.jitter), 5, 50)
+    zero = torch.zeros_like(case.alpha[:8])
+    out[f"vecchia_bf{sfx}_path14_8_chains_alpha0"] = _time_ms(lambda: bf_ops.bf_planes(
+        cs.Exponential(), t, case.phi[:8], zero, case.jitter), 3, 10)
+    out[f"check_sum_b3{sfx}"] = float(bf_ops.bf_planes(
+        k, t, case.phi, case.alpha, case.jitter)[0].double().sum())
     sums = diff_ops.value_and_grad_sums(k, t, case.phi, case.alpha, case.y32, case.jitter)
     out[f"check_logdet_chain0{sfx}"] = float(fwd_ops.suffstats(
         k, t, case.phi, case.alpha, case.y32, case.jitter)[0][0])

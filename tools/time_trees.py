@@ -43,10 +43,12 @@ that a variant computes the same function.
 
 times the M = 20 rows (n=500,000, m=20, sqexp, config 5's shape) on both
 layouts: kernels 2 and 2-EMIT_Y (one y row a chain) at 16 and 4 chains,
-kernel 1 at 16 chains and 1 (config 5's probe), kernel 3 at 16, with chain
-0's logdet, dlogdet/dphi, dquad/dphi and the sum of B as checks that a
-variant computes the same function, and each tree's registers, stack and
-spills of its M = 20 kernels (``ptxas -v``); it chose the team size of
+kernel 1 at 16 chains and 1 (config 5's probe), kernel 3 at 16 (also with
+noise weights) and at path 14's launch (exponential, 8 chains, alpha = 0),
+with chain 0's logdet, dlogdet/dphi, dquad/dphi and the sums of kernel
+2-EMIT_Y's and kernel 3's B as checks that a variant computes the same
+function, and each tree's registers, stack and spills of its M = 20 kernels
+(``ptxas -v``, the team kernels by name); it chose the team sizes of
 csrc/vecchia_team.cuh.
 """
 import json
@@ -242,6 +244,14 @@ for layout in ("dist", "coords"):
             k, t, phi, alpha, y, c.jitter), 3, 10)
     out[f"bf{sfx}_16_chains"] = cs._time_ms(lambda: bf_ops.bf_planes(
         k, t, c.phi, c.alpha, c.jitter), 3, 10)
+    v = c.with_noise(cs.noise_weights(c.n)).v32
+    out[f"bf{sfx}_16_chains_hetero"] = cs._time_ms(lambda: bf_ops.bf_planes(
+        k, t, c.phi, c.alpha, c.jitter, noise_v=v), 3, 10)
+    zero = torch.zeros_like(c.alpha[:8])
+    out[f"bf{sfx}_path14_8_chains_alpha0"] = cs._time_ms(lambda: bf_ops.bf_planes(
+        cs.Exponential(), t, c.phi[:8], zero, c.jitter), 3, 10)
+    out[f"sum_b3{sfx}"] = float(bf_ops.bf_planes(k, t, c.phi, c.alpha, c.jitter)[0].double().sum())
+    del v
     sums = diff_ops.value_and_grad_sums(k, t, c.phi, c.alpha, y, c.jitter)
     out[f"logdet_chain0{sfx}"] = float(fwd_ops.suffstats(k, t, c.phi, c.alpha, y, c.jitter)[0][0])
     out[f"grad_logdet_chain0{sfx}"] = float(sums[0][0])
