@@ -7,14 +7,16 @@ its plain PyTorch version, times both, then drives every ported path once and
 checks that it went through its kernels:
 
 - the response NNGP at n=100,000, m=15, sqexp, as ``bench.py``'s ``bench_ess``
-  MWG branch runs it (kernels 1 and 2);
+  MWG branch runs it, its run cut to half (kernels 1 and 2);
 - the latent-w NNGP at n=10,000, m=15, exponential, 8 chains, as ``bench.py``'s
-  config 2 runs it, and a short run of the same model at n=100,000 (kernel 3);
+  config 2 runs it at half its draws, and a short run of the same model at
+  n=100,000 (kernel 3);
 - the response NNGP with an intercept and one covariate at n=100,000, 16
   chains (kernel 3);
 - NUTS over the joint posterior of the first model, as ``bench.py``'s
-  ``bench_ess`` NUTS branch runs it (fit_map, then 4 chains with the dense
-  Laplace metric; kernel 2 on every leapfrog step), and a short HMC run;
+  ``bench_ess`` NUTS branch runs it at half its draws (fit_map, then 4
+  chains with the dense Laplace metric; kernel 2 on every leapfrog step),
+  and a short HMC run;
 - NUTS with the intercept and the covariate (the EMIT_Y instances of kernel
   2 and the y-cotangent gather on every leapfrog step);
 - ``bench.py``'s config 3, uncut: the response NNGP with a sampled-nu Matern
@@ -42,9 +44,10 @@ checks that it went through its kernels:
   fixed effects (the V^-1-weighted beta update).
 
 Before the paths: every coords instance against its plain version, both
-layouts timed on the same sites at n=10,000 to 500,000, and each layout's
-host set-up (seconds, table sizes, peak host memory) at those sizes, from
-which the layout rule is printed (``site_tables.COORDS_LAYOUT_MIN_SITES``);
+layouts timed on the same sites at n=100,000 (m=15) and 500,000 (m=20), and
+each layout's host set-up (seconds, table sizes, peak host memory) at those
+sizes, run in the background beside the kernel phases, from which the
+layout rule is printed (``site_tables.COORDS_LAYOUT_MIN_SITES``);
 every instance launched with noise weights (``..._hetero``) against its
 plain version and timed, the coords instances with d = 4, m = 12 and
 m = 17 run on the M = 15 and M = 20 instances against their plain versions
@@ -95,6 +98,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -353,6 +357,20 @@ def ptxas_summary(ptxas: str, m: int) -> str:
     return "; ".join(sorted(out))
 
 
+# the float64 plain versions' chunk of chains (Case.chunk): one (chains,
+# n_pad, m, m) float64 tensor of at most this many bytes, as 4 chains at the
+# main path's n=100,000, m=15 take
+PLAIN_CHUNK_BYTES = 750_000_000
+
+
+def plain_chunk(n_pad: int, m: int, chains: int, least: int) -> int:
+    """Chains a float64 plain call takes: at least ``least``, and as many as
+    keep one (chains, n_pad, m, m) float64 tensor within PLAIN_CHUNK_BYTES
+    (the plain calls of small cases, the general-nu series above all, are
+    bound by their launches, not their bytes)."""
+    return max(least, min(chains, PLAIN_CHUNK_BYTES // (n_pad * m * m * 8)))
+
+
 class Case:
     """Site tables, y and per-chain parameters of one parity case, in float32
     for the kernels and the same values in float64 for the oracle.  In the
@@ -367,7 +385,7 @@ class Case:
         coords, y = field if field is not None else bench_field(n, seed)
         data, table = make_vecchia_data(coords, m, dtype=torch.float64,
                                         distance=distance,
-                                        precompute_distances=layout == "dist")
+                                        precompute_distances=layout == "dist", device="cpu")
         self.n, self.m, self.kernel, self.layout = n, m, kernel, layout
         self.order = table.order
         self.v32 = self.v64 = None
@@ -390,17 +408,21 @@ class Case:
                             dtype=torch.float32, device=dev)
         beta = torch.linspace(-0.05, 0.05, chains, device=dev)
         self.y32_chains = self.y32 - beta[:, None] * x
-        self.chunk = 4  # chains a float64 plain call takes
+        # chains a float64 plain call takes (4 at n=100,000, m=15; every
+        # chain of the small cases)
+        self.chunk = plain_chunk(self.tab32.n_pad, m, chains, 4)
 
     def subset(self, sl, kernel=None, chunk=1):
         """The same tables and y with the chains ``sl`` of this case, under
-        ``kernel`` if given, and ``chunk`` chains a plain call: the float64
-        plain versions' memory at config 5's n."""
+        ``kernel`` if given, and ``chunk`` chains a plain call (the float64
+        plain versions' memory at config 5's n), or with ``chunk=None`` at
+        least 2 and as many as plain_chunk allows."""
         out = copy.copy(self)
         out.phi, out.alpha, out.y32_chains = self.phi[sl], self.alpha[sl], self.y32_chains[sl]
         out.nu = None if self.nu is None else self.nu[sl]
         out.kernel = self.kernel if kernel is None else kernel
-        out.chunk = chunk
+        out.chunk = chunk if chunk is not None else plain_chunk(
+            self.tab32.n_pad, self.m, out.phi.shape[0], 2)
         return out
 
     def with_noise(self, v):
@@ -1188,7 +1210,8 @@ def _mwg_recipe(model, pilot: tuple, run: tuple, tag: str) -> dict:
 def main_path(dev) -> tuple:
     """bench.py's bench_ess MWG branch on the port: the same generator and
     seed, fit_map(250), a 16 x 1200 correlated-RW pilot with 800 burn-in,
-    then 16 x 6000 independence-mixture draws with 500 burn-in.  Returns
+    then 16 x 3000 independence-mixture draws with 500 burn-in (the recipe's
+    6000, halved to keep the script well under its time limit).  Returns
     (the path's numbers, its draws)."""
     coords, y = bench_field(N_MAIN, seed=0)
     _reset_counts()
@@ -1196,7 +1219,7 @@ def main_path(dev) -> tuple:
     model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
     setup_s = time.perf_counter() - t0
     res = {"setup_s": setup_s, "lane_layout": model.lane_layout,
-           **_mwg_recipe(model, (800, 1200), (500, 6000), f"n{N_MAIN}_m{M_MAIN}")}
+           **_mwg_recipe(model, (800, 1200), (500, 3000), f"n{N_MAIN}_m{M_MAIN}")}
     draws = res.pop("draws")
     del res["map_fit"], res["init"]
     launches = _read_counts("response", ("vecchia_suffstats", "vecchia_grad"))
@@ -1204,7 +1227,7 @@ def main_path(dev) -> tuple:
     print("main path: " + json.dumps(res), flush=True)
     _require(all(np.isfinite(v).all() for v in draws.values()),
              "non-finite draws")
-    _require(draws["phi"].shape == (CHAINS, 6000), "draws have the wrong shape")
+    _require(draws["phi"].shape == (CHAINS, 3000), "draws have the wrong shape")
     tau2 = res["posterior_mean"]["tau2"]
     _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
              f"posterior mean tau2 {tau2} is not within 2x of 0.09")
@@ -1270,8 +1293,9 @@ def profile_steps(step, state, gen, steps: int = 5, wall_steps: int = 20) -> dic
 
 def latent_path(dev) -> dict:
     """bench.py's config 2 (l.784-823) on the port: the latent-w NNGP at
-    n=10,000, m=15, exponential, 8 chains, 1000 draws after 500 burn-in with
-    w_every=8, doubled up to twice while split-R-hat > 1.05."""
+    n=10,000, m=15, exponential, 8 chains, 500 draws after 250 burn-in with
+    w_every=8 (the config's 1000 after 500, halved to keep the script well
+    under its time limit), doubled up to twice while split-R-hat > 1.05."""
     n, chains = 10_000, 8
     coords, y = config2_field(n, 10.0, np.random.default_rng(0))
     _reset_counts()
@@ -1280,7 +1304,7 @@ def latent_path(dev) -> dict:
     setup_s = time.perf_counter() - t0
     init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1,
             "tau2": float(np.var(y)) * 0.15}
-    n_draws, run_s, steps = 1000, 0.0, 0
+    n_draws, run_s, steps = 500, 0.0, 0
     for attempt in range(3):  # size the run to the R-hat gate
         t0 = time.perf_counter()
         draws = model.sample(n_draws, n_burn=n_draws // 2, n_chains=chains,
@@ -1421,8 +1445,9 @@ def _nuts_summary(draws, n_burn, launches_name, launches) -> dict:
 
 
 def profile_nuts(model, mp, chains: int, max_depth: int, warm: int = 40,
-                 wall_steps: int = 20, value_and_grad: bool = True) -> dict:
-    """profile_steps over NUTS transitions of ``model`` from its MAP fit, after
+                 wall_steps: int = 20, value_and_grad: bool = False) -> dict:
+    """profile_steps over two NUTS transitions of ``model`` from its MAP fit
+    (a transition's thousands of profiler events cost seconds to read), after
     ``warm`` transitions of warmup, with the per-leapfrog figures that follow
     from the kernel-2 launches of the window and, with ``value_and_grad``,
     a profile of the value and gradient alone."""
@@ -1432,7 +1457,7 @@ def profile_nuts(model, mp, chains: int, max_depth: int, warm: int = 40,
     state = init_fn(gen, model._warm_init_u(mp.u, mp.laplace_cov, chains, gen, 2.0))
     for _ in range(warm):
         state = step_fn(gen, state)
-    prof = profile_steps(step_fn, state, gen, wall_steps=wall_steps)
+    prof = profile_steps(step_fn, state, gen, steps=2, wall_steps=wall_steps)
     per = max(prof["grad_kernel_launches_per_step"], 1.0)
     prof["wall_ms_per_leapfrog"] = prof["wall_ms_per_step"] / per
     prof["device_busy_ms_per_leapfrog"] = prof["device_busy_ms_per_step"] / per
@@ -1451,11 +1476,13 @@ def profile_nuts(model, mp, chains: int, max_depth: int, warm: int = 40,
 
 def nuts_path(dev, mwg_ess_per_sec: float) -> dict:
     """bench.py's bench_ess NUTS branch (l.392-434) on the port, on the main
-    path's model and data: fit_map(250), then 4 chains x 400 NUTS draws after
-    300 burn-in at max_depth 6, started 2 posterior sds around the MAP with
-    the dense Laplace covariance as the frozen metric.  Then a short HMC run
-    on the same model."""
-    chains, n_burn, n_draws, max_depth = 4, 300, 400, 6
+    path's model and data: fit_map(250), then 4 chains x 200 NUTS draws after
+    150 burn-in at max_depth 6 (the recipe's 400 after 300, halved to keep
+    the script well under its time limit), started 2 posterior sds around
+    the MAP with the dense Laplace covariance as the frozen metric.  Then a
+    short HMC run on the same model, 4 x (50 + 25) (halved from 100 + 50 for
+    the same reason)."""
+    chains, n_burn, n_draws, max_depth = 4, 150, 200, 6
     coords, y = bench_field(N_MAIN, seed=0)
     _reset_counts()
     model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
@@ -1471,7 +1498,7 @@ def nuts_path(dev, mwg_ess_per_sec: float) -> dict:
     run_s = time.perf_counter() - t0
     nuts_launches = diff_ops.COUNT.launches - map_launches
     t0 = time.perf_counter()
-    hmc = model.sample_hmc(50, n_burn=100, n_chains=chains, seed=1, n_leapfrog=32,
+    hmc = model.sample_hmc(25, n_burn=50, n_chains=chains, seed=1, n_leapfrog=32,
                            init_u=mp.u, init_inv_mass=mp.laplace_cov)
     hmc_s = time.perf_counter() - t0
     launches = _read_counts("NUTS and HMC", ("vecchia_grad",))
@@ -1500,19 +1527,19 @@ def nuts_path(dev, mwg_ess_per_sec: float) -> dict:
         "draws_shape": list(hmc["phi"].shape), "draws_sha256": _digest(hmc),
     }), flush=True)
     _require(all(np.isfinite(v).all() for v in hmc.values()), "non-finite HMC draws")
-    _require(hmc["phi"].shape == (chains, 50), "HMC draws have the wrong shape")
-    print("NUTS transition profile: " + json.dumps(profile_nuts(model, mp, chains,
-                                                                max_depth)),
-          flush=True)
+    _require(hmc["phi"].shape == (chains, 25), "HMC draws have the wrong shape")
+    print("NUTS transition profile: " + json.dumps(
+        profile_nuts(model, mp, chains, max_depth, value_and_grad=True)), flush=True)
     return res
 
 
 def nuts_fixed_effects_path(dev) -> dict:
     """NUTS with fixed effects on the fixed-effects path's data: fit_map(250)
-    with x=, then 4 chains x 100 draws after 150 burn-in at max_depth 6 with
-    the dense Laplace metric.  Every leapfrog step is one launch of the EMIT_Y
+    with x=, then 4 chains x 50 draws after 75 burn-in at max_depth 6 with
+    the dense Laplace metric (halved from 100 after 150 to keep the script
+    under its time limit).  Every leapfrog step is one launch of the EMIT_Y
     instances of kernel 2 and one y-cotangent gather."""
-    chains, n_burn, n_draws, max_depth = 4, 150, 100, 6
+    chains, n_burn, n_draws, max_depth = 4, 75, 50, 6
     coords, y = bench_field(N_MAIN, seed=0)
     x = np.column_stack([np.ones(N_MAIN),
                          np.random.default_rng(1).standard_normal(N_MAIN)])
@@ -1707,7 +1734,8 @@ def matern_nu_mwg_path(dev, model, mp) -> dict:
 
 def matern_nu_latent_path(dev, field, start) -> dict:
     """The latent-w NNGP with ``Matern()`` on the first 10,000 sites of
-    config 3's data: m=10, 8 chains, 200 draws after 300 burn-in, w_every=8,
+    config 3's data: m=10, 8 chains, 100 draws after 150 burn-in (200 after
+    300 until the script neared its time limit), w_every=8,
     theta block (phi, nu), started at ``start``, the response model's MAP
     estimate of (sigma2, phi, tau2, nu) on all 25,000 sites.  Every proposal
     is one launch of kernel 3's general-nu instances, two a step.  The gates
@@ -1725,7 +1753,7 @@ def matern_nu_latent_path(dev, field, start) -> dict:
     and names jitter; the run follows its advice with jitter=1e-4.  The
     exponential kernel of the other latent paths never gets there (1 - rho
     falls like d, not d^2)."""
-    n, chains, n_burn, n_draws = 10_000, 8, 300, 200
+    n, chains, n_burn, n_draws = 10_000, 8, 150, 100
     coords, y = field[0][:n], field[1][:n]
     cold = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.15, "nu": 1.0,
             "tau2": float(np.var(y)) * 0.1}
@@ -1974,7 +2002,6 @@ def layout_setup_child(layout: str, n: int, m: int) -> dict:
     on the dist layout only), the site tables.  Peak host memory two ways:
     the resident set sampled every 2 ms from /proc/self/statm, and the peak
     of numpy's allocations (tracemalloc), which holds the tables."""
-    import threading
     import tracemalloc
 
     peak, done = [_rss_mb()], threading.Event()
@@ -1992,10 +2019,10 @@ def layout_setup_child(layout: str, n: int, m: int) -> dict:
     t_nb = time.perf_counter() - t0
     t0 = time.perf_counter()
     data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist",
-                                  table=tab)
+                                  table=tab, device="cpu")
     t_vd = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tables = make_site_tables(data, layout=layout, coords_host=coords[tab.order])
+    tables = make_site_tables(data, layout=layout, coords_host=coords[tab.order], device="cpu")
     t_st = time.perf_counter() - t0
     numpy_peak = tracemalloc.get_traced_memory()[1] / 1e6
     tracemalloc.stop()
@@ -2022,28 +2049,70 @@ def _rss_mb() -> float:
         return float("nan")
 
 
-def layout_setup(n: int = N_C5, m: int = M_C5) -> dict:
-    """The layout phase: host set-up seconds, table sizes and peak resident
-    memory of each layout at config 5's size, each in a fresh process (this
-    script imported as a module; it touches no card)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    out = {}
-    for layout in ("dist", "coords"):
-        code = ("import json, chip_smoke; print(json.dumps("
-                f"chip_smoke.layout_setup_child({layout!r}, {n}, {m})))")
-        run = subprocess.run([sys.executable, "-c", code], cwd=here,
-                             capture_output=True, text=True, timeout=900)
-        _require(run.returncode == 0,
-                 f"the {layout} set-up process failed:\n{run.stderr[-4000:]}")
-        out[layout] = json.loads(run.stdout.strip().splitlines()[-1])
-    print(f"layout set-up [n{n} m{m}]: " + json.dumps(out), flush=True)
-    return out
+class LayoutSetups:
+    """The layout phase's host set-ups, one process a layout and size, each
+    fresh (this script imported as a module; it touches no card) so that its
+    peak resident memory is its own.  They start once the kernels are built
+    and run one after another in the background, beside the kernel phases:
+    each imports, then waits for "go" on its standard input (and exits
+    without a word on anything else, as when this process dies).  Their
+    seconds are taken beside the kernel phases' host work, on the machine's
+    other cores."""
+
+    def __init__(self, sizes):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.procs, self.outputs, self.stopped = {}, {}, False
+        for n, m in sizes:
+            for layout in LAYOUTS:
+                code = ("import json, sys, chip_smoke\n"
+                        "if sys.stdin.readline().strip() == 'go':\n"
+                        "    print(json.dumps(chip_smoke.layout_setup_child("
+                        f"{layout!r}, {n}, {m})))")
+                self.procs[n, m, layout] = subprocess.Popen(
+                    [sys.executable, "-c", code], cwd=here, stdin=subprocess.PIPE,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._drive, daemon=True)
+        self.thread.start()
+
+    def _drive(self) -> None:
+        for key, proc in self.procs.items():
+            if self.stopped:
+                break
+            try:
+                self.outputs[key] = proc.communicate("go\n", timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                self.outputs[key] = ("", "timed out after 900 s")
+
+    def result(self, n: int, m: int) -> dict:
+        """Set-up seconds, table sizes and peak resident memory of each
+        layout at (n, m), once every set-up has run."""
+        self.thread.join()
+        out = {}
+        for layout in LAYOUTS:
+            stdout, stderr = self.outputs.get((n, m, layout), ("", "did not run"))
+            _require(self.procs[n, m, layout].returncode == 0 and stdout.strip(),
+                     f"the {layout} set-up process failed:\n{stderr[-4000:]}")
+            out[layout] = json.loads(stdout.strip().splitlines()[-1])
+        print(f"layout set-up [n{n} m{m}]: " + json.dumps(out), flush=True)
+        return out
+
+    def stop(self) -> None:
+        """Ends whichever of the processes still runs."""
+        self.stopped = True
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        self.thread.join()
+        for proc in self.procs.values():
+            proc.communicate()
 
 
-# the sizes of the layout phase: (n, m), m = 15 as the main path (the models'
-# default) up to 300,000, m = 20 as config 5
-LAYOUT_SIZES = ((10_000, 15), (N_MAIN, M_MAIN), (200_000, M_MAIN),
-                (300_000, M_MAIN), (N_C5, M_C5))
+# the sizes of the layout phase: (n, m), the main path's (m = 15, the models'
+# default) and config 5's at the threshold (m = 20); the sizes between them
+# (200,000 and 300,000 at m = 15) and 10,000 ran until the script's time grew
+# too close to its limit: the ranking they gave never differed from 100,000's
+LAYOUT_SIZES = ((N_MAIN, M_MAIN), (N_C5, M_C5))
 # bench_ess's two recipes as kernel launches (paths 1 and 5 of this script): the MWG
 # branch, the response model's default sampler, one kernel-1 launch of 16
 # chains a step (a 2000-step pilot and a 6500-step run); the NUTS branch,
@@ -2100,7 +2169,7 @@ def config5_probe(dev) -> dict:
     tab = build_neighbor_table(coords, M_C5)
     phases["neighbor_table"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    data, tab = make_vecchia_data(coords, M_C5, precompute_distances=False, table=tab)
+    data, tab = make_vecchia_data(coords, M_C5, precompute_distances=False, table=tab, device="cpu")
     phases["vecchia_data"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     y_dev = torch.as_tensor(y[tab.order], dtype=torch.float32, device=dev)
@@ -2231,13 +2300,13 @@ def config5_fixed_effects_path(dev) -> dict:
 
 def config5_latent_path(dev) -> dict:
     """The latent-w NNGP at config 5's size on config 5's field: m=20,
-    exponential, on the coords layout, 8 chains, 100 draws after 100
-    burn-in, w_every=8.  One launch of kernel 3's coords instances a step,
+    exponential, on the coords layout, 8 chains, 50 draws after 50 burn-in
+    (100 + 100 until the script neared its time limit), w_every=8.  One launch of kernel 3's coords instances a step,
     for the proposal of the theta block (phi).  The latent model takes its
     layout by n alone, as the reference's does, and the reference's
     threshold (200,000) takes coords here: the path builds the model under
     that threshold."""
-    n, chains, n_burn, n_draws = N_C5, 8, 100, 100
+    n, chains, n_burn, n_draws = N_C5, 8, 50, 50
     coords, y = bench_field(n, seed=0)
     _reset_counts()
     t0 = time.perf_counter()
@@ -2457,14 +2526,14 @@ def m_between_instances(dev, exact15: Case) -> dict:
     m = 17 on M = 20 (slots k >= m identity rows that read nothing).  At the
     main path's n and sites: kernels 1, 2, 2-EMIT_Y (shared and per-chain y)
     and 3 against their plain versions with the main path's limits, on four
-    of the 16 chains (two a float64 plain call); then all 16 chains timed in
+    of the 16 chains (as many a float64 plain call as plain_chunk allows); then all 16 chains timed in
     turns against the instance's own m (m, M, M, m), which is what running
     on the larger instance costs.  Returns the max_abs_err of each row."""
     errs, costs = {}, {}
     for m, built in ((12, 15), (17, 20)):
         _require(fwd_ops.cuda_instance_m(m) == built, f"m={m} is not run on M={built}")
         case = Case(N_MAIN, m, SqExp(), CHAINS, seed=0, dev=dev)
-        sub = case.subset(slice(None, None, 4), chunk=2)
+        sub = case.subset(slice(None, None, 4), chunk=None)
         label = f"n{N_MAIN} m{m} on M={built} sqexp"
         fwd = check_forward(sub, label)
         grad = check_grad(sub, label, grad_rtol=2e-3)
@@ -2495,8 +2564,8 @@ def m_between_instances(dev, exact15: Case) -> dict:
 def large_m_instances(dev) -> dict:
     """m = 25 and m = 32 on the card: the rolled instances of all three
     kernels (arrays for 32, loops to m) on both layouts at n=10,000, 16
-    chains, against their plain versions on four of the chains (two a float64
-    plain call), closed form (kernels 1, 2, 2-EMIT_Y with a shared and a
+    chains, against their plain versions on four of the chains (as many a
+    float64 plain call as plain_chunk allows), closed form (kernels 1, 2, 2-EMIT_Y with a shared and a
     per-chain y, 3) and sampled nu; then all 16 chains timed.  Limits: the
     closed-form rows' (gradients rtol 2e-3, the limit of sums over 10^5
     float32 site terms, here 10^4) and NU_LIMITS.  Returns the max_abs_err of
@@ -2506,7 +2575,7 @@ def large_m_instances(dev) -> dict:
         _require(fwd_ops.cuda_instance_m(m) == 32, f"m={m} does not run rolled")
         for layout in LAYOUTS:
             case = Case(10_000, m, SqExp(), CHAINS, seed=0, dev=dev, layout=layout)
-            sub = case.subset(slice(None, None, 4), chunk=2)
+            sub = case.subset(slice(None, None, 4), chunk=None)
             label = f"{layout} n10000 m{m} rolled sqexp"
             fwd = check_forward(sub, label)
             grad = check_grad(sub, label, grad_rtol=2e-3)
@@ -2522,7 +2591,7 @@ def large_m_instances(dev) -> dict:
             times[f"{layout}_m{m}"] = time_layout_kernels(case, 3, 20)
             nu = Case(10_000, m, Matern(), CHAINS, seed=0, dev=dev, nu=nu_spread(CHAINS),
                       layout=layout)
-            check_general_nu(nu.subset(slice(None, None, 4), chunk=2), f"{label} nu")
+            check_general_nu(nu.subset(slice(None, None, 4), chunk=None), f"{label} nu")
             del case, sub, nu
             torch.cuda.empty_cache()
     print("m above 20 on the rolled instances [n10000, 16 chains]: " + json.dumps(times),
@@ -2538,7 +2607,7 @@ def large_m_kernels(dev) -> tuple:
     """m = 40 and 64 on the large-m instances of all three kernels (m > 32:
     a warp a (site, chain) system in shared memory) on both layouts at
     n=10,000: against their plain versions on four of the 16
-    chains (two a float64 plain call), with and without noise weights,
+    chains (as many a float64 plain call as plain_chunk allows), with and without noise weights,
     closed form (kernels 1, 2, 2-EMIT_Y with a shared and a per-chain y, 3)
     at the closed-form limits (gradients rtol 2e-3, as at m = 25 and 32) and
     sampled nu at NU_LIMITS.  Then the ``_large`` rows timed with their
@@ -2562,7 +2631,7 @@ def large_m_kernels(dev) -> tuple:
         for layout in LAYOUTS:
             case = Case(N_LARGE, m, SqExp(), CHAINS, seed=0, dev=dev, layout=layout)
             for c in (case, case.with_noise(noise_weights(N_LARGE))):
-                sub = c.subset(slice(None, None, 4), chunk=2)
+                sub = c.subset(slice(None, None, 4), chunk=None)
                 label = f"{layout}{_hetero(c)} n{N_LARGE} m{m} large sqexp"
                 fwd = check_forward(sub, label)
                 grad = check_grad(sub, label, grad_rtol=2e-3)
@@ -2578,7 +2647,7 @@ def large_m_kernels(dev) -> tuple:
                       layout=layout)
             for c in (nu, nu.with_noise(noise_weights(N_LARGE))):
                 label = f"{layout}{_hetero(c)} n{N_LARGE} m{m} large nu"
-                err = check_general_nu(c.subset(slice(None, None, 4), chunk=2), label)
+                err = check_general_nu(c.subset(slice(None, None, 4), chunk=None), label)
                 sfx = _suffix(c) + _large(c) + _hetero(c)
                 for name, key in (("vecchia_suffstats_nu", "f_max_abs_err"),
                                   ("vecchia_grad_nu", "sums_max_abs_err"),
@@ -2673,8 +2742,8 @@ def large_m_path(dev) -> dict:
     (n=10,000): the response NNGP's fit_map(50) and 8 chains of MWG, 100 +
     100 (kernels 2 and 1); with x @ [1, -2], fit_map(20) and MWG 50 + 50
     (kernel 2-EMIT_Y, and kernel 3 twice a step); the latent NNGP, 8 chains,
-    100 + 100 (kernel 3).  Short runs: the gates are finite draws and the
-    slope within 0.1 of -2."""
+    50 + 50 (kernel 3; 100 + 100 until the script neared its time limit).
+    Short runs: the gates are finite draws and the slope within 0.1 of -2."""
     n, m, chains = 10_000, 40, 8
     coords, y = config2_field(n, 10.0, np.random.default_rng(0))
     x = np.column_stack([np.ones(n), np.random.default_rng(1).standard_normal(n)])
@@ -2693,7 +2762,7 @@ def large_m_path(dev) -> dict:
     fixed_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     latent = LatentNNGP(coords, y, kernel="exponential", m=m, device=dev)
-    latent_draws = latent.sample(100, n_burn=100, n_chains=chains, seed=0,
+    latent_draws = latent.sample(50, n_burn=50, n_chains=chains, seed=0,
                                  init={"sigma2": init["sigma2"], "phi": 0.1,
                                        "tau2": float(np.var(y)) * 0.15}, collect_w=False)
     latent_s = time.perf_counter() - t0
@@ -2833,9 +2902,11 @@ def hetero_main_path(dev) -> dict:
     """Heterogeneous noise on the main path: bench_field's n=100,000 signal
     plus N(0, 0.09 v_i) noise from the same draws, v ~ U(0.25, 4)
     (noise_weights), ResponseNNGP(noise=HeterogeneousNoise(v)), m=15, sqexp;
-    bench_ess's MWG recipe with the main path's fit_map(250) and 16 x (800 +
-    1200) pilot, the run cut to 16 x (500 + 1500) (the recipe has 500 +
-    6000).  Kernel 1's hetero instance per proposal, kernel 2's in MAP."""
+    bench_ess's MWG recipe with the main path's fit_map(250), the pilot cut
+    to 16 x (400 + 600) and the run to 16 x (250 + 750) (the recipe has
+    800 + 1200 and 500 + 6000; 800 + 1200 and 500 + 1500 until the script
+    neared its time limit).  Kernel 1's hetero instance per proposal, kernel
+    2's in MAP."""
     v = noise_weights(N_MAIN)
     coords, y = bench_field(N_MAIN, seed=0, noise_v=v)
     _reset_counts()
@@ -2844,7 +2915,7 @@ def hetero_main_path(dev) -> dict:
                          noise=HeterogeneousNoise(v), device=dev)
     setup_s = time.perf_counter() - t0
     res = {"setup_s": setup_s,
-           **_mwg_recipe(model, (800, 1200), (500, 1500), f"hetero_n{N_MAIN}_m{M_MAIN}")}
+           **_mwg_recipe(model, (400, 600), (250, 750), f"hetero_n{N_MAIN}_m{M_MAIN}")}
     draws = res.pop("draws")
     del res["map_fit"], res["init"]
     launches = _read_counts("hetero response",
@@ -2852,7 +2923,7 @@ def hetero_main_path(dev) -> dict:
     res.update(launches=launches, plain_calls=0)
     print("hetero main path: " + json.dumps(res), flush=True)
     _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite hetero draws")
-    _require(draws["phi"].shape == (CHAINS, 1500), "hetero draws have the wrong shape")
+    _require(draws["phi"].shape == (CHAINS, 750), "hetero draws have the wrong shape")
     tau2 = res["posterior_mean"]["tau2"]
     _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
              f"hetero posterior mean tau2 {tau2} is not within 2x of 0.09")
@@ -2913,8 +2984,9 @@ def hetero_fixed_effects_path(dev) -> dict:
 def hetero_latent_path(dev) -> dict:
     """LatentNNGP(exponential, m=15) on config 2's shapes (n=10,000, its
     field from default_rng(0)) with N(0, 0.09 v_i) noise from the same draws,
-    v ~ U(0.25, 4): 8 chains cut to 300 + 300 steps, w_every=8 (config 2's
-    recipe has 500 + 1000); then the same data plus x @ [1, -2], 8 chains
+    v ~ U(0.25, 4): 8 chains cut to 150 + 150 steps (300 + 300 before, halved
+    to keep the script under its time limit), w_every=8 (config 2's recipe
+    has 500 + 1000); then the same data plus x @ [1, -2], 8 chains
     150 + 150 from the first run's posterior means, through the V^-1-weighted
     beta update.  Kernel 3 runs at alpha = 0 without the weights.  Gates:
     all draws finite, tau2 within 2x of 0.09 in both, the slope within 0.1
@@ -2929,7 +3001,7 @@ def hetero_latent_path(dev) -> dict:
     setup_s = time.perf_counter() - t0
     init = {"sigma2": float(np.var(y)) * 0.8, "phi": 0.1, "tau2": float(np.var(y)) * 0.15}
     t0 = time.perf_counter()
-    draws = model.sample(300, n_burn=300, n_chains=chains, seed=0, init=init, w_every=8)
+    draws = model.sample(150, n_burn=150, n_chains=chains, seed=0, init=init, w_every=8)
     run_s = time.perf_counter() - t0
     means = {k: float(np.mean(draws[k])) for k in ("sigma2", "phi", "tau2")}
     x = np.column_stack([np.ones(n), np.random.default_rng(1).standard_normal(n)])
@@ -2944,7 +3016,7 @@ def hetero_latent_path(dev) -> dict:
     means_x = {k: float(np.mean(with_x[k])) for k in ("sigma2", "phi", "tau2")}
     slope = float(with_x["beta"][..., 1].mean())
     res = {
-        "setup_s": setup_s, "run_s": run_s, "ms_per_step": run_s * 1e3 / 600,
+        "setup_s": setup_s, "run_s": run_s, "ms_per_step": run_s * 1e3 / 300,
         "colors": model.n_colors, "posterior_mean": means,
         "fixed_effects": {"run_s": x_s, "posterior_mean": means_x, "slope_mean": slope,
                           "intercept_mean": float(with_x["beta"][..., 0].mean())},
@@ -2954,7 +3026,7 @@ def hetero_latent_path(dev) -> dict:
     print("hetero latent path [n10000]: " + json.dumps(res), flush=True)
     _require(all(np.isfinite(a).all() for out in (draws, with_x) for a in out.values()),
              "non-finite hetero latent draws")
-    _require(draws["w"].shape == (chains, -(-300 // 8), n),
+    _require(draws["w"].shape == (chains, -(-150 // 8), n),
              f"w draws have the wrong shape {draws['w'].shape}")
     for label, m_ in (("", means), (" with fixed effects", means_x)):
         _require(TAU2_TRUE / 2 <= m_["tau2"] <= TAU2_TRUE * 2,
@@ -3062,8 +3134,9 @@ def config4_path(dev) -> dict:
 
 def advi_path(dev, mwg_means: dict) -> dict:
     """ADVI on the main path's model and data (n=100,000, m=15, sqexp):
-    fit_advi(n_steps=2000, n_mc=8, seed=0), then a full-rank fit of 500
-    steps; each step one launch of kernel 2 for its eight points.  Gates:
+    fit_advi(n_steps=1000, n_mc=8, seed=0), then a full-rank fit of 250
+    steps (2000 and 500 until the script neared its time limit); each step
+    one launch of kernel 2 for its eight points.  Gates:
     each fit's ELBO higher over its last 100 steps than over its first 100,
     the mean-field draws' tau2 within 2x of 0.09, kernel 2 launched once a
     step and no other kernel, every draw finite."""
@@ -3071,7 +3144,7 @@ def advi_path(dev, mwg_means: dict) -> dict:
     model = ResponseNNGP(coords, y, kernel="sqexp", m=M_MAIN, device=dev)
     _reset_counts()
     fits, seconds = {}, {}
-    for name, steps, full_rank in (("mean_field", 2000, False), ("full_rank", 500, True)):
+    for name, steps, full_rank in (("mean_field", 1000, False), ("full_rank", 250, True)):
         t0 = time.perf_counter()
         fits[name] = model.fit_advi(n_steps=steps, n_mc=8, full_rank=full_rank, seed=0)
         seconds[name] = time.perf_counter() - t0
@@ -3098,9 +3171,9 @@ def advi_path(dev, mwg_means: dict) -> dict:
     tau2 = res["mean_field"]["posterior_mean"]["tau2"]
     _require(TAU2_TRUE / 2 <= tau2 <= TAU2_TRUE * 2,
              f"ADVI posterior mean tau2 {tau2} is not within 2x of 0.09")
-    _require(launches["vecchia_grad"] == 2500
+    _require(launches["vecchia_grad"] == 1250
              and sum(launches.values()) == launches["vecchia_grad"],
-             f"ADVI's 2,500 steps made other launches than one of kernel 2 each: {launches}")
+             f"ADVI's 1,250 steps made other launches than one of kernel 2 each: {launches}")
     # where a step's time goes: one-step fits from the mean-field result
     gen = torch.Generator().manual_seed(1)
     mu = fits["mean_field"][1].mu
@@ -3321,8 +3394,8 @@ def _flat_thinned(draws: dict, thin: int) -> dict:
 def prediction_path(dev, draws) -> dict:
     """Path 23: prediction at the main path's full width through the
     facade.  SeqNNGP(sqexp, m=15, response) on path 1's data; predict at
-    10,000 new sites (uniform, default_rng(1)) from path 1's 16 x 6,000
-    draws, one in 100 (960 draws), with samples.  Gates: finite outputs on
+    10,000 new sites (uniform, default_rng(1)) from path 1's 16 x 3,000
+    draws, one in 50 (960 draws), with samples.  Gates: finite outputs on
     the card, the central 95% predictive intervals covering y0 (the field
     there plus N(0, 0.09) from default_rng(2)) at 0.93-0.97, the posterior
     mean's RMSE against the noiseless field below the noise sd 0.3, and the
@@ -3332,7 +3405,7 @@ def prediction_path(dev, draws) -> dict:
     coords0 = np.random.default_rng(1).uniform(size=(N_PRED, 2))
     truth = bench_surface(coords0)
     y0 = truth + 0.3 * np.random.default_rng(2).standard_normal(N_PRED)
-    thin = 100
+    thin = 50
     _reset_counts()
     t0 = time.perf_counter()
     gp = SeqNNGP(y, coords, m=M_MAIN, cov_model="sqexp", model="response", device=dev)
@@ -3376,8 +3449,9 @@ def prediction_path(dev, draws) -> dict:
 def facade_path(dev) -> dict:
     """Path 24: the facade's defaults end to end.  Config 2's field at n =
     11,000 (default_rng(0)); SeqNNGP(y, coords) on the first 10,000 (the
-    latent model, exponential, m = 15: kernel 3), sample(500, n_burn=500,
-    n_chains=8), summary(), predict at the 1,000 held out.  Gates: finite
+    latent model, exponential, m = 15: kernel 3), sample(250, n_burn=250,
+    n_chains=8) (halved from 500 + 500 to keep the script under its time
+    limit; 125 + 125 left tau2 at 0.28, R-hat 1.8), summary(), predict at the 1,000 held out.  Gates: finite
     draws and predictions, tau2 within 2x of 0.09, the predictive mean's
     correlation with the held-out y above 0.7 (tests/test_seq_facade.py:27)."""
     coords, y = config2_field(11_000, 10.0, np.random.default_rng(0))
@@ -3387,7 +3461,7 @@ def facade_path(dev) -> dict:
     gp = SeqNNGP(y[train], coords[train], device=dev)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    draws = gp.sample(500, n_burn=500, n_chains=8)
+    draws = gp.sample(250, n_burn=250, n_chains=8)
     sample_s = time.perf_counter() - t0
     summary = gp.summary()
     t0 = time.perf_counter()
@@ -3429,7 +3503,8 @@ def orderings_path(dev) -> dict:
     """Path 25: the max-min and natural orderings at full width, on path 1's
     data (n=100,000, m=15, sqexp).  ResponseNNGP(ordering="maxmin") (the
     native max-min order), fit_map(250), then 16 chains of correlated-RW MWG
-    from the MAP, 200 + 400 (kernels 1 and 2); ordering="none" and
+    from the MAP, 100 + 200 (halved from 200 + 400 to keep the script under
+    its time limit; kernels 1 and 2); ordering="none" and
     "coordinate": the value and gradient at the max-min MAP (kernel 2).
     Gates: tau2 within 2x of 0.09; the other orders' values and gradients
     finite (they are other models, so they are printed, not compared)."""
@@ -3446,7 +3521,7 @@ def orderings_path(dev) -> dict:
     mp = model.fit_map(n_steps=250)
     map_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    draws = model.sample(400, n_burn=200, n_chains=CHAINS, seed=5,
+    draws = model.sample(200, n_burn=100, n_chains=CHAINS, seed=5,
                          init=_map_init(model, mp),
                          proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
     run_s = time.perf_counter() - t0
@@ -3564,6 +3639,7 @@ def dotproduct_path(dev, tmp: str) -> dict:
         neighbors._build_neighbor_table_impl = build
         os.environ["PYNNGP_NEIGHBOR_CACHE"] = env
     same = all(np.array_equal(a, b) for a, b in zip(first, second))
+    without_tables = dotproduct_without_tables(dev, coords[train], y[train], tmp)
     res = {
         "kernels": kernels_res, "setup_s": setup_s, "map_s": map_s, "run_s": run_s,
         "predict_s": predict_s, "prediction_draws": out["mean"].shape[0],
@@ -3575,7 +3651,7 @@ def dotproduct_path(dev, tmp: str) -> dict:
         "parity_max_abs_err": {"suffstats_f": parity["forward"]["f_max_abs_err"],
                                "grad": parity["grad"]["max_abs_err"],
                                "bf_b": parity["bf"]["b_max_abs_err"]},
-        "launches": launches, "plain_calls": 0,
+        "launches": launches, "plain_calls": 0, "without_tables": without_tables,
     }
     print("dot-product path: " + json.dumps(res), flush=True)
     _require(all(np.isfinite(v).all() for v in draws.values()), "non-finite draws")
@@ -3586,6 +3662,114 @@ def dotproduct_path(dev, tmp: str) -> dict:
     _require(0.93 <= res["coverage_95"] <= 0.97,
              f"95% interval coverage {res['coverage_95']} outside 0.93-0.97")
     _require(len(stored) == 1 and same, f"the cache check failed: {res['cache']}")
+    return res
+
+
+def _built_with_peak(build):
+    """(object, seconds, peak MB of numpy's host allocations) of ``build()``
+    (tracemalloc: the distance tables are numpy arrays)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        t0 = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = tracemalloc.get_traced_memory()[1] / 1e6
+    finally:
+        tracemalloc.stop()
+    return out, seconds, peak
+
+
+def dotproduct_without_tables(dev, coords, y, tmp: str) -> dict:
+    """Path 26's second half: ``ResponseNNGP`` and ``LatentNNGP``
+    with distance="dotproduct" (exponential, m=15) on path 26's 20,000
+    training sites, with precomputed tables and with
+    ``precompute_distances=False`` (the tables computed from the float64
+    coordinates under the model's metric, block by block), all four on the
+    same neighbor table (loaded from the cache in ``tmp`` that path 26's
+    check filled).  Gates: the recomputed planes equal the precomputed ones
+    within one float32 rounding; kernel 1's sums, kernel 2's value and
+    gradient and kernel 3's B / F on the recomputed tables equal those on
+    the precomputed ones within the closed-form rows' limits (kernel 3 also
+    at alpha = 0 on the latent model's tables).  Prints each model's set-up
+    seconds and the peak of its numpy host allocations."""
+    env = os.environ.get("PYNNGP_NEIGHBOR_CACHE")
+    os.environ["PYNNGP_NEIGHBOR_CACHE"] = tmp
+    build = neighbors._build_neighbor_table_impl
+
+    def rebuilt(*args, **kwargs):
+        raise SmokeFailure("path 26's cached neighbor table was rebuilt, not loaded")
+
+    neighbors._build_neighbor_table_impl = rebuilt
+    models, setup = {}, {}
+    try:
+        for name, cls in (("response", ResponseNNGP), ("latent", LatentNNGP)):
+            for pre in (True, False):
+                key = f"{name}_{'precomputed' if pre else 'recomputed'}"
+                models[key], secs, peak = _built_with_peak(lambda: cls(
+                    coords, y, kernel="exponential", m=M_MAIN, distance="dotproduct",
+                    precompute_distances=pre, device=dev))
+                setup[key] = {"setup_s": secs, "peak_numpy_mb": peak}
+    finally:
+        neighbors._build_neighbor_table_impl = build
+        os.environ["PYNNGP_NEIGHBOR_CACHE"] = env
+    res = {"setup": setup, "planes_max_ulps": {}, "kernels": {}}
+    for name in ("response", "latent"):
+        pre, rec = models[f"{name}_precomputed"], models[f"{name}_recomputed"]
+        _require(rec.tables.layout == pre.tables.layout == "dist"
+                 and np.array_equal(rec.table.nn_idx, pre.table.nn_idx),
+                 f"the {name} models do not share the dist layout and neighbor table")
+        for plane in ("tab_a", "tab_b"):
+            a, b = getattr(rec.tables, plane), getattr(pre.tables, plane)
+            ulps = float(((a.double() - b.double()).abs()
+                          / (b.double().abs() * 2.0**-24).clamp(min=2.0**-149)).max())
+            res["planes_max_ulps"][f"{name}_{plane}"] = ulps
+            _require(ulps <= 1.0, f"the {name} model's recomputed {plane} is {ulps} "
+                     "float32 roundings from the precomputed one")
+    kern = Exponential()
+    phi = torch.linspace(0.02, 0.08, CHAINS, device=dev)  # the field's phi, 1/25
+    alpha = torch.full((CHAINS,), TAU2_TRUE, device=dev)
+    y32 = models["response_precomputed"].y
+    out = {}
+    for key in ("response_precomputed", "response_recomputed"):
+        t = models[key].tables
+        ld, q, f, _ = fwd_ops.suffstats(kern, t, phi, alpha, y32, 1e-6)
+        sums = diff_ops.value_and_grad_sums(kern, t, phi, alpha, y32, 1e-6)
+        b, fb = bf_ops.bf_planes(kern, t, phi, alpha, 1e-6)
+        out[key] = (ld.double(), q.double(), f.double(), sums.double(), b.double(),
+                    fb.double())
+    for key in ("latent_precomputed", "latent_recomputed"):
+        b, fb = bf_ops.bf_planes(kern, models[key].tables, phi, torch.zeros_like(alpha),
+                                 1e-6)
+        out[key] = (b.double(), fb.double())
+    torch.cuda.synchronize()
+    (ld0, q0, f0, s0, b0, fb0), (ld1, q1, f1, s1, b1, fb1) = (
+        out["response_precomputed"], out["response_recomputed"])
+    lb0, lf0 = out["latent_precomputed"]
+    lb1, lf1 = out["latent_recomputed"]
+    k = res["kernels"]
+    k["suffstats_logdet_rel"], k["suffstats_quad_rel"] = _rel(ld1, ld0), _rel(q1, q0)
+    k["suffstats_f_ratio"] = _allclose_ratio(f1, f0, 1e-4, 1e-6)
+    k["grad_value_rel"], k["grad_dphi_rel"], k["grad_dalpha_rel"] = (
+        _rel(s1[:2], s0[:2]), _rel(s1[2:4], s0[2:4]), _rel(s1[4:6], s0[4:6]))
+    k["bf_b_max_abs_err"] = float((b1 - b0).abs().max())
+    k["bf_f_max_rel_err"] = float(((fb1 - fb0).abs() / fb0.abs()).max())
+    k["bf_alpha0_b_max_abs_err"] = float((lb1 - lb0).abs().max())
+    k["bf_alpha0_f_max_rel_err"] = float(((lf1 - lf0).abs() / lf0.abs()).max())
+    print("dot-product without tables: " + json.dumps(res), flush=True)
+    _require(k["suffstats_logdet_rel"] <= 3e-4 and k["suffstats_quad_rel"] <= 3e-4
+             and k["suffstats_f_ratio"] <= 1.0,
+             "kernel 1 on recomputed dot-product tables differs from the precomputed")
+    _require(k["grad_value_rel"] <= 5e-4 and k["grad_dphi_rel"] <= 2e-3
+             and k["grad_dalpha_rel"] <= 2e-3,
+             "kernel 2 on recomputed dot-product tables differs from the precomputed")
+    _require(max(k["bf_b_max_abs_err"], k["bf_f_max_rel_err"],
+                 k["bf_alpha0_b_max_abs_err"], k["bf_alpha0_f_max_rel_err"]) <= 3e-5,
+             "kernel 3 on recomputed dot-product tables differs from the precomputed")
+    del models, out
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3787,7 +3971,8 @@ def config5_mesh_path(dev) -> dict:
     with x @ [1, -2] at 4 points, and the latent model (exponential, the
     coords layout as config5_latent_path builds it): one step against the
     unsharded step from the same generator state, then a cut run (8 chains,
-    20 + 20 steps)."""
+    10 + 10 steps; 20 + 20 before, halved to keep the script under its time
+    limit)."""
     t_all = time.perf_counter()
     coords, y = bench_field(N_C5, seed=0)
     mesh = make_mesh(1, 4, devices=[dev] * 4)
@@ -3872,7 +4057,7 @@ def config5_mesh_path(dev) -> dict:
     _require(all(v <= MESH_STEP_TOL for v in step_diff.values()),
              f"the mesh latent step differs from the unsharded one: {step_diff}")
     t0 = time.perf_counter()
-    ldraws = pair[1].sample(20, n_burn=20, n_chains=chains, seed=0, init=linit,
+    ldraws = pair[1].sample(10, n_burn=10, n_chains=chains, seed=0, init=linit,
                             w_every=10)
     res["latent_run_s"] = time.perf_counter() - t0
     res["latent_launches"] = _read_counts("config 5 mesh latent",
@@ -3893,18 +4078,25 @@ def config5_mesh_path(dev) -> dict:
 
 
 # path 29: two processes on gloo, one card; each process's share of the
-# chains, its cut MWG run, and the worker's time limit
+# chains, its cut MWG run, and the worker's time limit; then its checkpointed
+# run (burn, draws, chunk), a checkpoint every chunk, stopped inside its last
+# chunk and resumed
 PROCESS_CHAINS, PROCESS_STEPS, PROCESS_TIMEOUT_S = 8, (300, 300), 240
+PROCESS_CKPT = (50, 100, 25)
 
 
-def process_worker(port: int, rank: int) -> int:
+def process_worker(port: int, rank: int, ckpt_dir: str) -> int:
     """One of path 29's two processes (``chip_smoke.py --process-worker
-    PORT RANK``): the main path's model on a (2, 2) mesh whose chains axis
-    runs across the processes (this process's share: 1 x 2 of cuda:0),
-    gloo over localhost.  Checks what tests/_distributed_worker.py checks:
-    the site-sharded log-likelihood equals the process-local unsharded
-    value, and a chain-sharded all_reduce equals the local sum; then runs
-    its 8 of 16 chains, cut, and gathers the draws on rank 0."""
+    PORT RANK CKPT_DIR``): the main path's model on a (2, 2) mesh whose
+    chains axis runs across the processes (this process's share: 1 x 2 of
+    cuda:0), gloo over localhost.  Checks what tests/_distributed_worker.py
+    checks: the site-sharded log-likelihood equals the process-local
+    unsharded value, and a chain-sharded all_reduce equals the local sum;
+    then runs its 8 of 16 chains, cut, and gathers the draws on rank 0.
+    Last, per-process checkpoints: its chains' checkpointed MWG
+    under ``CKPT_DIR/run`` (``run.p<rank>.*``), stopped inside its last
+    chunk and resumed, must give its uninterrupted run's draws bit for
+    bit."""
     import torch.distributed as tdist
 
     from pynngp_tpu_torch.parallel import (global_mesh, initialize_distributed,
@@ -3956,6 +4148,23 @@ def process_worker(port: int, rank: int) -> int:
         res["pooled_chains"] = pooled["phi"].shape[0]
         res["rhat_pooled"] = _chain_stats(pooled)[1]
         res["posterior_mean"] = {k: float(np.mean(v)) for k, v in pooled.items()}
+    n_burn, n_samples, chunk = PROCESS_CKPT
+    run_kw = dict(n_samples=n_samples, n_burn=n_burn, n_chains=PROCESS_CHAINS,
+                  seed=200 + rank, init=init, chunk=chunk,
+                  proposal_cov=model.theta_proposal_cov(mp.laplace_cov))
+    ck = os.path.join(ckpt_dir, "run")
+    t0 = time.perf_counter()
+    want = model.sample(**run_kw)
+    got = _stopped_and_resumed(lambda **kw: model.sample(**run_kw, **kw), model, "step",
+                               n_burn + n_samples - 10,
+                               {"checkpoint_path": ck, "checkpoint_every": 1})
+    _same_draws(want, got, f"rank {rank}'s checkpointed")
+    own = [f"{ck}.p{rank}{suffix}" for suffix in (".npz", ".json", ".draws.npz")]
+    _require(all(os.path.exists(f) for f in own) and not os.path.exists(ck + ".npz"),
+             f"rank {rank} did not write its own checkpoint files: {os.listdir(ckpt_dir)}")
+    res["checkpoint"] = {"seconds": time.perf_counter() - t0, "bitwise_equal": True,
+                         "files": sorted(os.listdir(ckpt_dir))}
+    tdist.barrier()
     tdist.destroy_process_group()
     print("PROCESS OK " + json.dumps(res), flush=True)
     return 0
@@ -3972,7 +4181,9 @@ def processes_path() -> dict:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     me = os.path.abspath(__file__)
-    procs = [subprocess.Popen([sys.executable, me, "--process-worker", str(port), str(rank)],
+    ckpt = tempfile.TemporaryDirectory(dir=os.path.dirname(_build.BUILD_DIR))
+    procs = [subprocess.Popen([sys.executable, me, "--process-worker", str(port), str(rank),
+                               ckpt.name],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                               cwd=os.path.dirname(me))
              for rank in range(2)]
@@ -3992,7 +4203,16 @@ def processes_path() -> dict:
         _require(rc == 0 and ok, f"process {rank} failed (rc={rc}):\n{out[-2000:]}\n"
                  f"{err[-3000:]}")
         lines.append(json.loads(ok[0][len("PROCESS OK "):]))
+    # each rank's checkpoint is its own: both exist, and their states differ
+    with ckpt:
+        states = []
+        for rank in range(2):
+            with np.load(os.path.join(ckpt.name, f"run.p{rank}.npz")) as z:
+                states.append([z[k] for k in sorted(z.files)])
+        differ = any(not np.array_equal(a, b) for a, b in zip(*states))
+    _require(differ, "the two ranks' checkpoints hold the same state")
     res = {"processes": lines, "seconds": time.perf_counter() - t0,
+           "checkpoints_differ": differ,
            "launches": _sum_launches(*(line.pop("launches") for line in lines))}
     print("path 29 (two processes on gloo, one card): " + json.dumps(res), flush=True)
     return res
@@ -4023,6 +4243,19 @@ def main() -> int:
           "ptxas: " + "; ".join(ptxas_summary(info["ptxas"], m)
                                 for m in fwd_ops.CUDA_M + (geometry.MAX_M,)), flush=True)
     resources = tile_resources(info)
+    # the layout phase's set-ups run now, in the background, beside the
+    # kernel phases; a path below that fails ends them
+    setups = LayoutSetups(LAYOUT_SIZES)
+    try:
+        return run_phases(t_start, dev, info, resources, setups)
+    finally:
+        setups.stop()
+
+
+def run_phases(t_start: float, dev, info: dict, resources: dict,
+               setups: LayoutSetups) -> int:
+    """main's phases once the kernels are built: the kernel phases, the
+    layout phase, paths 1-29 and the closing lines."""
 
     main_case = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev)
     small_case = Case(1500, 7, Exponential(), CHAINS, seed=3, dev=dev)
@@ -4152,7 +4385,7 @@ def main() -> int:
                 times.update(time_plain_m20(*pair))
             del pair
             torch.cuda.empty_cache()
-        layouts[key]["setup"] = layout_setup(n, m)
+        layouts[key]["setup"] = setups.result(n, m)
     layout_rule(layouts)
     phase_s["layout_phase"] = time.perf_counter() - t_start - sum(phase_s.values())
     # the M = 20 rows' times: the layout phase's at config 5's shapes
@@ -4279,6 +4512,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--process-worker":
-        sys.exit(process_worker(int(sys.argv[2]), int(sys.argv[3])))
+    if len(sys.argv) == 5 and sys.argv[1] == "--process-worker":
+        sys.exit(process_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

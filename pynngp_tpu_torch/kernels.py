@@ -50,6 +50,13 @@ class KernelBase:
         parameter row per chain and kernel 2 emits the two nu sums."""
         return "nu" in self.param_names
 
+    def default_params(self, dtype=torch.float32, device=None) -> dict:
+        """The initial parameters: phi = 1, and nu = 1.5 where nu is sampled."""
+        out = {"phi": torch.tensor(1.0, dtype=dtype, device=device)}
+        if self.samples_nu:
+            out["nu"] = torch.tensor(1.5, dtype=dtype, device=device)
+        return out
+
     def correlation(self, d, params):  # pragma: no cover - abstract
         raise NotImplementedError
 

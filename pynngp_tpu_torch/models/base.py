@@ -1,5 +1,7 @@
 """Shared model plumbing (counterpart of ``pynngp_tpu.models.base``): data
-preparation and the host-chunked multi-chain MCMC driver.
+preparation, the host-chunked multi-chain MCMC driver and the reference's
+two plain drivers, :func:`run_mcmc` (one state, no chunks) and
+:func:`run_chains` (one chunk of the chunked driver).
 
 The reference compiles a chunk of iterations into one ``lax.scan`` over a
 vmap of chains.  Here the chains are the leading axis of one batched state
@@ -21,10 +23,10 @@ import torch
 from pynngp_tpu_torch.priors import InverseGamma, Uniform
 from pynngp_tpu_torch.utils import checkpoint
 from pynngp_tpu_torch.utils.metrics import MetricsLogger
-from pynngp_tpu_torch.vecchia import make_vecchia_data
+from pynngp_tpu_torch.vecchia import make_vecchia_data, require_device
 
 __all__ = ["SpatialData", "check_device", "default_priors",
-           "prepare_spatial_data", "run_chains_chunked"]
+           "prepare_spatial_data", "run_chains", "run_chains_chunked", "run_mcmc"]
 
 
 class SpatialData(NamedTuple):
@@ -46,8 +48,7 @@ def check_device(device, dtype, mesh=None) -> torch.device:
             raise ValueError(f"device={device} but the mesh starts on {mesh.first}")
         device = mesh.first
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but torch sees no CUDA device")
+        require_device(device)
         if dtype != torch.float32:
             raise ValueError("the CUDA kernels run in float32")
     elif device.type != "cpu":
@@ -100,6 +101,59 @@ def _synchronize(states) -> None:
             return
 
 
+def _stack(draws):
+    """A list of collect trees (tensors, dicts, tuples) as one tree of
+    tensors stacked along a new leading axis."""
+    first = draws[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(draws)
+    if isinstance(first, dict):
+        return {key: _stack([d[key] for d in draws]) for key in first}
+    children = [_stack(list(col)) for col in zip(*draws)]
+    return type(first)(*children) if hasattr(first, "_fields") else type(first)(children)
+
+
+def run_mcmc(gen: torch.Generator, state, step_fn: Callable, collect_fn: Callable,
+             n_samples: int, n_burn: int = 0, thin: int = 1):
+    """Burn-in, then ``n_samples`` draws kept one every ``thin`` steps, on
+    the device of ``state``.
+
+    ``step_fn(gen, state) -> state``; ``collect_fn(state)`` returns a tensor
+    or a dict or tuple of them, recorded per kept draw.  Returns (final
+    state, draws) with the draws stacked along a leading (n_samples,) axis,
+    as tensors (None when ``n_samples`` is 0)."""
+    for _ in range(n_burn):
+        state = step_fn(gen, state)
+    draws = []
+    for _ in range(n_samples):
+        for _ in range(thin):
+            state = step_fn(gen, state)
+        draws.append(collect_fn(state))
+    return state, (_stack(draws) if draws else None)
+
+
+def run_chains(gen: torch.Generator, init_fn: Callable, step_fn: Callable,
+               collect_fn: Callable, n_chains: int, n_samples: int,
+               n_burn: int = 0, thin: int = 1):
+    """:func:`run_chains_chunked` in one chunk, without checkpoints or
+    metrics: the reference's monolithic driver.  Every random number comes
+    from ``gen`` in the same order whatever the chunk, so its result is the
+    chunked driver's bit for bit."""
+    return run_chains_chunked(gen, init_fn, step_fn, collect_fn, n_chains,
+                              n_samples, n_burn, thin,
+                              chunk=max(n_burn, n_samples * thin, 1))
+
+
+def _process_index():
+    """This process's rank when ``torch.distributed`` runs more than one,
+    else None: the reference's ``jax.process_index()`` rule (its
+    ``models/base.py:180``)."""
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        return torch.distributed.get_rank()
+    return None
+
+
 def run_chains_chunked(
     gen: torch.Generator,
     init_fn: Callable,
@@ -116,6 +170,7 @@ def run_chains_chunked(
     checkpoint_every: int = 0,
     config=None,
     health_fn: Callable = None,
+    progress_fn: Callable = None,
 ):
     """Host-chunked multi-chain MCMC driver.
 
@@ -129,7 +184,9 @@ def run_chains_chunked(
     fields of ``health_fn(state) -> dict`` when given.
     ``collect_every`` maps collect keys to a keep-every-k stride: those keys
     keep only draws with index i % k == 0.  Draws are kept on the device and
-    copied to the host once.
+    copied to the host once.  ``progress_fn(phase, done, total)`` is called
+    after every chunk: ``("burn", steps done, n_burn)``, then
+    ``("sample", draws done, n_samples)``.
 
     Checkpoints: with ``checkpoint_path`` and ``checkpoint_every`` = K > 0,
     every K-th chunk saves the state and the generator's state
@@ -142,6 +199,11 @@ def run_chains_chunked(
     n_chains, n_samples, n_burn, thin, chunk and collect_every; a resume
     whose values differ raises a ``ValueError`` naming the first that
     differs, and so does a ``config`` that differs from the stored one.
+    When ``torch.distributed`` runs more than one process, each holds its
+    own chains and generator and names its files by rank, as the
+    reference does: ``<path>.p<rank>.npz``, ``.p<rank>.json`` and
+    ``.p<rank>.draws.npz``; ``<path>.config.json`` stays one file, written
+    by rank 0.
 
     Returns (final_state, draws) with draws as numpy (n_chains, n_draws, ...).
     """
@@ -157,40 +219,44 @@ def run_chains_chunked(
             if checkpoint_path else None)
     try:
         return _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt,
-                    health_fn)
+                    health_fn, progress_fn)
     finally:
         if owned is not None:
             owned.close()
 
 
 class _Checkpoints:
-    """Saving and resuming a chunked run's progress at ``path``."""
+    """Saving and resuming a chunked run's progress at ``path`` (this
+    process's files at ``own``)."""
 
     def __init__(self, path, every, run, config, gen):
         self.path, self.every, self.run = path, every, run
         self.config, self.gen = config, gen
         self.chunks = 0
+        self.proc = _process_index()
+        self.own = checkpoint.proc_path(path, self.proc)
 
     def resume(self, states):
         """(state, burn_done, draws_done, the draws so far as numpy
         (rows, C, ...) by key) from an existing checkpoint, or None."""
-        if not os.path.exists(checkpoint.npz_path(self.path)):
+        if not os.path.exists(checkpoint.npz_path(self.own)):
             return None
-        with open(checkpoint.meta_path(self.path)) as fh:
+        with open(checkpoint.meta_path(self.own)) as fh:
             extra = json.load(fh).get("extra", {})
         stored = extra.get("run", {})
         for key, want in self.run.items():
             if stored.get(key) != want:
                 raise ValueError(
-                    f"checkpoint {self.path} was written by a run with "
+                    f"checkpoint {self.own} was written by a run with "
                     f"{key}={stored.get(key)!r}; this run has {key}={want!r}")
         states, gen_state = checkpoint.load_state(
-            self.path, (states, self.gen.get_state()), config=self.config)
+            self.path, (states, self.gen.get_state()), config=self.config,
+            process_index=self.proc)
         self.gen.set_state(gen_state)
         burn_done, draws_done = int(extra["burn_done"]), int(extra["draws_done"])
         prior = {}
         if draws_done:
-            with np.load(self.path + ".draws.npz") as z:
+            with np.load(self.own + ".draws.npz") as z:
                 prior = {key: z[key] for key in z.files}
         return states, burn_done, draws_done, prior
 
@@ -205,21 +271,22 @@ class _Checkpoints:
             stride = self.run["collect_every"]
             rows = {key: buf[:-(-draws_done // stride.get(key, 1))].cpu().numpy()
                     for key, buf in buffers.items()}
-            checkpoint.write_atomic(self.path + ".draws.npz",
+            checkpoint.write_atomic(self.own + ".draws.npz",
                                     lambda fh: np.savez(fh, **rows))
         checkpoint.save_state(
             self.path, (states, self.gen.get_state()),
             extra={"burn_done": burn_done, "draws_done": draws_done,
                    "run": self.run},
-            config=self.config)
-        if self.config is not None:
+            config=self.config, process_index=self.proc)
+        if self.config is not None and not self.proc:
             cfg = checkpoint.config_dict(self.config)
             checkpoint.write_atomic(
                 self.path + ".config.json",
                 lambda fh: fh.write(json.dumps(cfg, indent=2).encode()))
 
 
-def _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt, health_fn):
+def _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt, health_fn,
+         progress_fn):
     n_samples, n_burn, thin = run["n_samples"], run["n_burn"], run["thin"]
     chunk, collect_every = run["chunk"], run["collect_every"]
     states = init_fn(run["n_chains"])
@@ -250,6 +317,8 @@ def _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt, health_fn):
         it += steps
         if ckpt is not None:
             ckpt.chunk_done(states, it, 0, {})
+        if progress_fn is not None:
+            progress_fn("burn", it, n_burn)
         emit("burn", it, n_burn, steps, t0)
 
     buffers = {}
@@ -278,6 +347,8 @@ def _run(gen, init_fn, step_fn, collect_fn, run, metrics, ckpt, health_fn):
             got += 1
         if ckpt is not None:
             ckpt.chunk_done(states, n_burn, got, buffers)
+        if progress_fn is not None:
+            progress_fn("sample", got, n_samples)
         emit("sample", got, n_samples, todo * thin, t0)
     # (n_draws, n_chains, ...) -> (n_chains, n_draws, ...), one copy per key;
     # a run resumed after its last draw returns the stored draws

@@ -141,8 +141,8 @@ class LatentNNGP:
     recomputed in the kernel, no distance table made) above
     ``site_tables.COORDS_LAYOUT_MIN_SITES`` sites, dist at or below;
     ``precompute_distances=False`` leaves the dist layout to compute its
-    tables from the ordered coordinates in the model's dtype (Euclidean
-    only).
+    tables from the float64 ordered coordinates under the model's metric,
+    in blocks of sites, so that no (n, m, m) array is made.
 
     ``mesh``: a (chains, sites) mesh (``parallel.make_mesh``) to shard the
     sites and chains over; the model then lives on its first device, whose
@@ -191,7 +191,7 @@ class LatentNNGP:
         # (pynngp_tpu/models/latent.py:155-163); the coords layout needs no
         # distance tables, so none are made for it
         coords = np.asarray(coords)
-        dist_fn = get_distance(distance)
+        self.dist_fn = dist_fn = get_distance(distance)
         euclidean = isinstance(dist_fn, Euclidean)
         if not euclidean and coords.shape[0] > NON_EUCLIDEAN_MAX_SITES:
             raise ValueError(
@@ -199,10 +199,6 @@ class LatentNNGP:
                 f"{NON_EUCLIDEAN_MAX_SITES} sites, got n={coords.shape[0]}: "
                 "above that the reference forces the coords layout, which "
                 "needs the Euclidean metric")
-        if not euclidean and not precompute_distances:
-            raise ValueError(
-                f"distance {dist_fn.name!r} needs precompute_distances=True: "
-                "tables computed from the coordinates are Euclidean")
         self.lane_layout = choose_layout("auto", coords.shape[0], euclidean)
         on_coords = self.lane_layout == "coords"
         sd = prepare_spatial_data(
@@ -214,7 +210,7 @@ class LatentNNGP:
         self.p = 0 if sd.x is None else sd.x.shape[1]
         self.tables = make_site_tables(
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
-            coords_host=coords[tab.order] if on_coords else None,
+            coords_host=coords[tab.order], dist_fn=dist_fn,
             shards=1 if mesh is None else mesh.shape["sites"])
         self.m = self.tables.m
         if device.type == "cuda":

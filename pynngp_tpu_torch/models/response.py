@@ -134,8 +134,8 @@ class ResponseNNGP:
     at or below; "coords" with a metric other than Euclidean falls back to
     dist.  On the coords layout no distance table is made;
     ``precompute_distances=False`` leaves the dist layout to compute its
-    tables from the ordered coordinates in the model's dtype (Euclidean
-    only).
+    tables from the float64 ordered coordinates under the model's metric,
+    in blocks of sites, so that no (n, m, m) array is made.
 
     ``mesh``: a (chains, sites) mesh (``parallel.make_mesh``) to shard the
     sites and chains over; the model then lives on its first device, whose
@@ -174,12 +174,8 @@ class ResponseNNGP:
         self.collapsed = collapsed
 
         coords = np.asarray(coords)
-        dist_fn = get_distance(distance)
+        self.dist_fn = dist_fn = get_distance(distance)
         euclidean = isinstance(dist_fn, Euclidean)
-        if not euclidean and not precompute_distances:
-            raise ValueError(
-                f"distance {dist_fn.name!r} needs precompute_distances=True: "
-                "tables computed from the coordinates are Euclidean")
         self.lane_layout = choose_layout(lane_layout, coords.shape[0], euclidean)
         on_coords = self.lane_layout == "coords"
         sd = prepare_spatial_data(
@@ -189,10 +185,11 @@ class ResponseNNGP:
         self.n = sd.y.shape[0]
         self.y, self.x = sd.y, sd.x
         self.p = 0 if sd.x is None else sd.x.shape[1]
-        # the coords layout takes the float64 ordered coordinates
+        # the coords layout and the dist layout's recompute take the float64
+        # ordered coordinates
         self.tables = make_site_tables(
             sd.vecchia, dtype=dtype, device=device, layout=self.lane_layout,
-            coords_host=coords[sd.table.order] if on_coords else None,
+            coords_host=coords[sd.table.order], dist_fn=dist_fn,
             shards=1 if mesh is None else mesh.shape["sites"])
         if device.type == "cuda":
             check_card_m(self.tables.n_pad, self.tables.m)
@@ -540,9 +537,11 @@ class ResponseNNGP:
         return u + init_jitter * scale * eps
 
     def fit_map(self, n_steps: int = 300, learning_rate: float = 5e-2,
-                init: Optional[dict] = None):
+                init: Optional[dict] = None, seed: int = 0):
         """Adam MAP + Laplace approximation on the joint unconstrained
-        posterior (samplers/mapfit.py); u and the result live on the host."""
+        posterior (samplers/mapfit.py); u and the result live on the host.
+        ``seed`` is the reference's and changes nothing: the start is
+        deterministic (its ``_full_init_u(..., jitter=0.0)``)."""
         return map_fit(self.full_logpost, self._full_init_u(init).cpu(),
                        n_steps=n_steps, learning_rate=learning_rate)
 

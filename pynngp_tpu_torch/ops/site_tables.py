@@ -10,6 +10,8 @@ read adjacent addresses.  Two layouts, as ``LaneCache`` has:
 - ``"dist"`` (any metric): ``tab_a`` (m, n_pad) holds the site -> neighbor-slot
   distances, ``tab_b`` (m(m-1)/2, n_pad) the neighbor-pair distances, packed
   strict lower triangle, plane ``tri_index(i, k)`` for the (i, k), i > k pair;
+  from the data's precomputed tables, or else computed here under the
+  model's metric (``dist_fn``) block by block, never as one (n, m, m) array;
 - ``"coords"`` (Euclidean only): ``tab_a`` (d, n_pad) holds the site's own
   coordinates, ``tab_b`` (m d, n_pad) its neighbors', plane ``k d + a`` for
   coordinate a of slot k; the kernels recompute every distance.  The
@@ -52,8 +54,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pynngp_tpu_torch.distance import Euclidean
 from pynngp_tpu_torch.neighbors import build_children_table
-from pynngp_tpu_torch.vecchia import neighbor_distances
+from pynngp_tpu_torch.vecchia import require_device
 
 __all__ = ["BLOCK", "COORDS_LAYOUT_MIN_SITES", "LAYOUTS", "MAX_SITE_INDEX",
            "ShardedTables", "SiteTables", "chain_groups", "choose_layout",
@@ -154,33 +157,60 @@ def _tri_rows_cols(m: int):
     return iu, ku
 
 
-def make_site_tables(data, dtype=torch.float32, device="cpu", layout="dist",
-                     coords_host=None, shards: int = 1) -> SiteTables:
+# sites a block of the dist layout's recompute: its float64 intermediates,
+# at most (block, m, m, d), stay near 64 MiB
+_RECOMPUTE_ELEMS = 1 << 23
+
+
+def _dist_planes(pts, nn_idx, dist_fn, tab_a, tab_b):
+    """Fill the dist layout's planes with the distances of ``pts`` (n, d)
+    float64 under ``dist_fn``'s numpy methods, a block of sites at a time,
+    each rounded once into the planes' dtype."""
+    n, m = nn_idx.shape
+    iu, ku = _tri_rows_cols(m)
+    block = max(1, _RECOMPUTE_ELEMS // (m * m * max(pts.shape[1], 1)))
+    for lo in range(0, n, block):
+        hi = min(n, lo + block)
+        nbr = pts[nn_idx[lo:hi]]  # (block, m, d)
+        tab_a[:, lo:hi] = dist_fn.one_to_many_np(pts[lo:hi], nbr).T
+        if m > 1:
+            tab_b[:, lo:hi] = dist_fn.pairwise_np(nbr, nbr)[:, iu, ku].T
+
+
+def make_site_tables(data, dtype=torch.float32, device="cuda", layout="dist",
+                     coords_host=None, shards: int = 1,
+                     dist_fn=None) -> SiteTables:
     """Host-side relayout of a :class:`~pynngp_tpu_torch.vecchia.VecchiaData`
-    into plane-major tables.
+    into plane-major tables on ``device``, the card unless "cpu" is asked
+    for.
 
     ``layout="dist"`` reads the data's distance tables or, where it holds
-    none, computes them from its coordinates (``make_lane_cache`` does the
-    same).  ``layout="coords"``
-    reads coordinates: ``coords_host``, the (n, d) float64 coordinates in
-    ordered space, where the caller has them (the models do), else the data's
-    own ``coords``, already in the data's dtype (a UTM-style offset of 1e6 in
-    float32 is quantized to 0.06 before the centring can save it).
+    none, computes them on the host in float64 under ``dist_fn`` (Euclidean
+    when None), as ``make_lane_cache(dist_fn=)`` does, in blocks of sites.
+    ``layout="coords"`` (Euclidean only) reads coordinates.  Both take
+    ``coords_host``, the (n, d) float64 coordinates in ordered space, where
+    the caller has them (the models do), else the data's own ``coords``,
+    already in the data's dtype (a UTM-style offset of 1e6 in float32 is
+    quantized to 0.06 before the centring can save it).
     ``shards``: pad the sites to a multiple of ``BLOCK * shards``, so that
     :func:`shard_site_tables` can cut them into that many site shards."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be 'dist' or 'coords', got {layout!r}")
+    device = require_device(device)
     nn_idx_host = data.nn_idx.cpu().numpy()
     n, m = nn_idx_host.shape
     n_pad = padded_size(n, shards)
     nn_idx = np.zeros((m, n_pad), np.int32)
     nn_idx[:, :n] = nn_idx_host.T
-    if layout == "coords":
+    d_in, d_nn = data.nn_dist, data.nn_cross_dist
+    recompute = layout == "dist" and (d_in is None or d_nn is None)
+    if layout == "coords" or recompute:
         pts = np.asarray(data.coords.cpu().numpy() if coords_host is None
                          else coords_host, np.float64)
         if pts.ndim != 2 or pts.shape[0] != n or pts.shape[1] < 1:
             raise ValueError(f"coords must be (n={n}, d) with d >= 1, got "
                              f"{pts.shape}")
+    if layout == "coords":
         # distances do not change under a shift, and float32 planes of
         # coordinates with a large offset would lose ~eps |x| of each distance
         pts = pts - pts.mean(axis=0, keepdims=True)
@@ -190,16 +220,17 @@ def make_site_tables(data, dtype=torch.float32, device="cpu", layout="dist",
         tab_a[:, :n] = pts.T
         tab_b[:, :n] = pts[nn_idx_host].reshape(n, m * d).T
     else:
-        d_in, d_nn = data.nn_dist, data.nn_cross_dist
-        if d_in is None or d_nn is None:
-            d_in, d_nn = (t.cpu().numpy() for t in neighbor_distances(data))
         np_dtype = torch.empty((), dtype=dtype).numpy().dtype
         tab_a = np.zeros((m, n_pad), np_dtype)
-        tab_a[:, :n] = d_in.T
         tab_b = np.zeros((max(m * (m - 1) // 2, 1), n_pad), np_dtype)
-        if m > 1:
-            iu, ku = _tri_rows_cols(m)
-            tab_b[:, :n] = d_nn[:, iu, ku].T
+        if recompute:
+            _dist_planes(pts, nn_idx_host, Euclidean() if dist_fn is None
+                         else dist_fn, tab_a, tab_b)
+        else:
+            tab_a[:, :n] = d_in.T
+            if m > 1:
+                iu, ku = _tri_rows_cols(m)
+                tab_b[:, :n] = d_nn[:, iu, ku].T
     return SiteTables(
         tab_a=torch.as_tensor(tab_a, device=device).to(dtype),
         tab_b=torch.as_tensor(tab_b, device=device).to(dtype),

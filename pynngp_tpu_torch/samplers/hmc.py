@@ -40,6 +40,7 @@ __all__ = [
     "HMCInfo",
     "HMCState",
     "make_hmc_kernel",
+    "hmc_sample",
     "find_reasonable_step_size",
     "select",
     "warmup_schedule",
@@ -342,6 +343,46 @@ def make_hmc_kernel(value_and_grad_fn: Callable, n_burn: int, n_leapfrog: int = 
                         info=info)
 
     return init_fn, step_fn
+
+
+def _sample_one_chain(make_kernel, value_and_grad_fn: Callable, z0, gen,
+                     n_samples: int, n_burn: int, collect_fn: Callable, thin: int):
+    """The reference's single-chain run (its ``hmc_sample`` / ``nuts_sample``)
+    on a batched kernel with a chain axis of one.
+
+    ``make_kernel(batched_value_and_grad)`` builds (init_fn, step_fn);
+    ``value_and_grad_fn`` maps one point (d,) to (value, (d,) gradient), as
+    the reference's does.  Runs on ``z0``'s device through
+    ``models.base.run_mcmc``.  ``collect_fn(z, value, info) -> tree`` is
+    recorded per draw (default: z).  Returns (draws stacked along
+    (n_samples,), {"step_size", "inv_mass"} after warmup)."""
+    from pynngp_tpu_torch.models.base import run_mcmc
+
+    def batched(z):
+        value, grad = value_and_grad_fn(z[0])
+        return value.reshape(1), grad.reshape(1, -1)
+
+    init_fn, step_fn = make_kernel(batched)
+    state0 = init_fn(gen, torch.as_tensor(z0)[None])
+    collect = collect_fn or (lambda z, value, info: z)
+    state, draws = run_mcmc(
+        gen, state0, step_fn,
+        lambda s: collect(s.z[0], s.value[0], type(s.info)(*(t[0] for t in s.info))),
+        n_samples, n_burn, thin)
+    return draws, {"step_size": torch.exp(state.da.log_step_avg[0]),
+                   "inv_mass": state.inv_mass[0]}
+
+
+def hmc_sample(value_and_grad_fn: Callable, z0, gen: torch.Generator,
+               n_samples: int, n_burn: int = 500, n_leapfrog: int = 32,
+               target_accept: float = 0.8, collect_fn: Callable = None,
+               thin: int = 1):
+    """Single-chain HMC run (the reference's ``hmc_sample``): see
+    :func:`_sample_one_chain`.  The models' ``sample_hmc`` runs many chains
+    with checkpoints."""
+    return _sample_one_chain(
+        lambda vg: make_hmc_kernel(vg, n_burn, n_leapfrog, target_accept),
+        value_and_grad_fn, z0, gen, n_samples, n_burn, collect_fn, thin)
 
 
 def find_reasonable_step_size(value_and_grad_fn, z, inv_mass, gen, init=1.0,

@@ -14,11 +14,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["MAPResult", "adam_step", "map_fit", "laplace_moments", "value_and_grad"]
+__all__ = ["MAPResult", "adam_step", "map_fit", "laplace_moments",
+           "laplace_variance", "value_and_grad"]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
-_FD_STEP = 1e-3  # first-pass finite-difference step of the Laplace Hessian
-_REL_FLOOR = 1e-8  # eigenvalue magnitude floor, relative to the largest
 
 
 class MAPResult(NamedTuple):
@@ -84,16 +83,18 @@ def map_fit(logpost_fn: Callable, u0, n_steps: int = 300,
                      converged=converged, trace=torch.stack(trace))
 
 
-def laplace_moments(logpost_fn: Callable, u_map):
+def laplace_moments(logpost_fn: Callable, u_map, rel_floor: float = 1e-8,
+                    fd_step: float = 1e-3):
     """(diagonal variance, dense covariance) of the Laplace approximation
     H^-1 with H = -hessian(logpost) at the MAP.
 
     The Hessian is a central finite difference of the exact gradient, in two
-    passes: pass 1 with h = 1e-3 gets rough scales, pass 2 re-differences
-    with h_i = 0.5 sd_i so that float32 gradient noise stays small against
-    the curvature.  The inverse is SoftAbs-style: eigenvalue magnitudes are
-    clamped away from zero, and a non-finite result falls back to identity.
-    The k x k eigendecomposition runs on the host."""
+    passes: pass 1 with h = ``fd_step`` gets rough scales, pass 2
+    re-differences with h_i = 0.5 sd_i (clamped to [fd_step, 1]) so that
+    float32 gradient noise stays small against the curvature.  The inverse
+    is SoftAbs-style: eigenvalue magnitudes are clamped away from zero, at
+    ``rel_floor`` times the largest, and a non-finite result falls back to
+    identity.  The k x k eigendecomposition runs on the host."""
     u_map = torch.as_tensor(u_map).detach()
     k = u_map.shape[0]
     eye = torch.eye(k, dtype=u_map.dtype, device=u_map.device)
@@ -105,7 +106,7 @@ def laplace_moments(logpost_fn: Callable, u_map):
         h_rows = (g[:k] - g[k:]) / (2.0 * steps[:, None])  # row i = d grad/d u_i
         h = (-0.5 * (h_rows + h_rows.T)).cpu()
         evals, evecs = torch.linalg.eigh(h)
-        floor = torch.clamp(evals.abs().max() * _REL_FLOOR, min=1e-30)
+        floor = torch.clamp(evals.abs().max() * rel_floor, min=1e-30)
         safe = torch.maximum(evals.abs(), floor)
         hinv = (evecs / safe[None, :]) @ evecs.T
         var = torch.diagonal(hinv)
@@ -113,7 +114,13 @@ def laplace_moments(logpost_fn: Callable, u_map):
             var, hinv = torch.ones(k, dtype=h.dtype), torch.eye(k, dtype=h.dtype)
         return var.to(u_map.device), hinv.to(u_map.device)
 
-    var1, _ = moments(torch.full((k,), _FD_STEP, dtype=u_map.dtype,
+    var1, _ = moments(torch.full((k,), fd_step, dtype=u_map.dtype,
                                  device=u_map.device))
-    steps = torch.clamp(0.5 * torch.sqrt(var1), _FD_STEP, 1.0)
+    steps = torch.clamp(0.5 * torch.sqrt(var1), fd_step, 1.0)
     return moments(steps)
+
+
+def laplace_variance(logpost_fn: Callable, u_map, rel_floor: float = 1e-8,
+                     fd_step: float = 1e-3):
+    """Diagonal of :func:`laplace_moments`."""
+    return laplace_moments(logpost_fn, u_map, rel_floor, fd_step)[0]

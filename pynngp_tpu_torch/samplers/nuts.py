@@ -49,13 +49,14 @@ from pynngp_tpu_torch.samplers.hmc import (
     is_dense,
     kinetic,
     mass_velocity,
+    _sample_one_chain,
     _Schedule,
     select,
     warmup_schedule,
     welford_init,
 )
 
-__all__ = ["nuts_step", "make_nuts_kernel", "NUTSInfo", "NUTSState"]
+__all__ = ["nuts_step", "nuts_sample", "make_nuts_kernel", "NUTSInfo", "NUTSState"]
 
 _MAX_DELTA_ENERGY = 1000.0
 _warmup_schedule = warmup_schedule
@@ -296,3 +297,15 @@ def make_nuts_kernel(value_and_grad_fn: Callable, n_burn: int, max_depth: int = 
                          info=info)
 
     return init_fn, step_fn
+
+
+def nuts_sample(value_and_grad_fn: Callable, z0, gen: torch.Generator,
+                n_samples: int, n_burn: int = 500, max_depth: int = 8,
+                target_accept: float = 0.8, collect_fn: Callable = None,
+                thin: int = 1):
+    """Single-chain NUTS run (the reference's ``nuts_sample``): see
+    ``hmc._sample_one_chain``.  The models' ``sample_nuts`` runs many chains
+    with checkpoints."""
+    return _sample_one_chain(
+        lambda vg: make_nuts_kernel(vg, n_burn, max_depth, target_accept),
+        value_and_grad_fn, z0, gen, n_samples, n_burn, collect_fn, thin)

@@ -12,6 +12,10 @@ structure of a template state.  Each file is written under a temporary name
 and moved into place, so that a run stopped while writing leaves the last
 complete file.
 
+Several processes (``torch.distributed``) each hold their own chains:
+``process_index=k`` reads and writes ``<path>.p<k>.npz`` / ``.json``
+instead, as the reference's per-process files (its ``_proc_path``).
+
 Refusals, each a ``ValueError``, as the reference's: a leaf count or a leaf
 shape that differs from the template's, and a config that differs from the
 one stored beside the checkpoint (naming the keys that differ).
@@ -28,7 +32,15 @@ import numpy as np
 import torch
 
 __all__ = ["save_state", "load_state", "config_dict", "write_atomic", "meta_path",
-           "npz_path"]
+           "npz_path", "proc_path"]
+
+
+def proc_path(path: str, process_index=None) -> str:
+    """``path``, or ``<path>.p<process_index>`` for one process of several."""
+    if process_index is None:
+        return path
+    base = path[:-4] if path.endswith(".npz") else path
+    return f"{base}.p{int(process_index)}"
 
 
 def npz_path(path: str) -> str:
@@ -94,10 +106,13 @@ def config_dict(config) -> Optional[dict]:
     return dict(config)
 
 
-def save_state(path: str, state: Any, extra: dict = None, config=None) -> None:
+def save_state(path: str, state: Any, extra: dict = None, config=None,
+               process_index=None) -> None:
     """Persist a state to ``<path>.npz`` (its leaves as ``leaf_<i>``) and
     ``<path>.json`` (the descriptor, with ``extra`` and ``config``, an
-    NNGPConfig or a plain dict, when given)."""
+    NNGPConfig or a plain dict, when given); with ``process_index`` k, to
+    ``<path>.p<k>.npz`` and ``<path>.p<k>.json``."""
+    path = proc_path(path, process_index)
     arrays = {f"leaf_{i}": leaf.detach().cpu().numpy()
               for i, leaf in enumerate(_leaves(state))}
     write_atomic(npz_path(path), lambda fh: np.savez(fh, **arrays))
@@ -115,14 +130,16 @@ def save_state(path: str, state: Any, extra: dict = None, config=None) -> None:
     write_atomic(meta_path(path), lambda fh: fh.write(json.dumps(meta).encode()))
 
 
-def load_state(path: str, like: Any, config=None):
+def load_state(path: str, like: Any, config=None, process_index=None):
     """Load a checkpoint into the structure of ``like`` (a state template,
     e.g. a freshly initialised state): each leaf comes back on its template
-    leaf's device and in its dtype.
+    leaf's device and in its dtype.  ``process_index`` reads that process's
+    ``<path>.p<k>`` files.
 
     Raises ValueError when the stored leaves do not match the template
     (count, shape) or when ``config`` differs from the config recorded at
     save time."""
+    path = proc_path(path, process_index)
     leaves_like = _leaves(like)
     with np.load(npz_path(path)) as npz:
         stored = [npz[f"leaf_{i}"] for i in range(len(npz.files))]

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pynngp_tpu_torch.distance import get_distance
+from pynngp_tpu_torch.distance import Euclidean, get_distance
 from pynngp_tpu_torch.neighbors import build_neighbor_table
 
 __all__ = [
@@ -33,6 +33,7 @@ __all__ = [
     "vecchia_suffstats",
     "vecchia_loglik",
     "neighbor_distances",
+    "require_device",
     "LOG_2PI",
 ]
 
@@ -46,8 +47,9 @@ class VecchiaData(NamedTuple):
     device.  ``nn_dist`` (n, m) and ``nn_cross_dist`` (n, m, m) are the
     hyperparameter-independent distance tables, kept as host numpy arrays:
     the site-table builder consumes them on the host.  Both are None when
-    the data was made with ``precompute_distances=False`` (the coords table
-    layout recomputes distances and needs neither).
+    the data was made with ``precompute_distances=False``: the coords table
+    layout recomputes distances and needs neither, and the dist layout
+    computes them through the model's metric (``dist_fn``).
     """
 
     coords: torch.Tensor  # (n, d)
@@ -65,13 +67,24 @@ class VecchiaData(NamedTuple):
         return self.nn_idx.shape[1]
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, "cuda" (the entry points' default)
+    or "cpu"; "cuda" raises without a card, since nothing falls back to the
+    host unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} but torch sees no CUDA "
+                           "device; pass device='cpu' to run on the host")
+    return device
+
+
 def make_vecchia_data(
     coords,
     m: int,
     ordering: str = "coordinate",
     distance="euclidean",
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     precompute_distances: bool = True,
     table=None,
 ):
@@ -79,11 +92,13 @@ def make_vecchia_data(
     ``table``, a :class:`~pynngp_tpu_torch.neighbors.NeighborTable` of these
     coordinates, is given) and, with ``precompute_distances``, compute the
     distance tables in float64 numpy and keep them in ``dtype`` (without it
-    no (n, m, m) array is made).
+    no (n, m, m) array is made).  The tensors go to ``device``, the card
+    unless "cpu" is asked for (any float dtype on either).
 
     Returns (data, table): ``data`` has coords in ordered space; use
     ``table.order`` / ``table.inverse_order`` to map user arrays.
     """
+    device = require_device(device)
     coords = np.asarray(coords)
     dist_fn = get_distance(distance)
     if table is None:
@@ -102,18 +117,24 @@ def make_vecchia_data(
     return VecchiaData(pts, nn_idx, nn_mask, d_in, d_nn), table
 
 
-def neighbor_distances(data: VecchiaData):
-    """(d_in (n, m), d_nn (n, m, m)) distance tables of ``data`` as tensors on
-    its device: the precomputed ones, or the Euclidean distances of its
-    coordinates where it holds none (``pynngp_tpu.vecchia._distances``)."""
+def neighbor_distances(coords, nn_idx, dist_fn=None):
+    """(d_in (n, m), d_nn (n, m, m)): site-to-neighbor and neighbor-pair
+    distances of ``coords`` (n, d) under ``dist_fn`` (Euclidean by default),
+    on their device and in their dtype."""
+    dist_fn = Euclidean() if dist_fn is None else dist_fn
+    nbr = coords[nn_idx]  # (n, m, d)
+    return dist_fn.one_to_many(coords, nbr), dist_fn.pairwise(nbr, nbr)
+
+
+def _distances(data: VecchiaData, dist_fn=None):
+    """The distance tables of ``data`` as tensors on its device: the
+    precomputed ones, or those of its coordinates under ``dist_fn`` where it
+    holds none (``pynngp_tpu.vecchia._distances``)."""
     dev = data.coords.device
     if data.nn_dist is not None and data.nn_cross_dist is not None:
         return (torch.as_tensor(data.nn_dist, device=dev),
                 torch.as_tensor(data.nn_cross_dist, device=dev))
-    nbr = data.coords[data.nn_idx]  # (n, m, d)
-    d_in = torch.sqrt(((data.coords[:, None, :] - nbr) ** 2).sum(-1))
-    d_nn = torch.sqrt(((nbr[:, :, None, :] - nbr[:, None, :, :]) ** 2).sum(-1))
-    return d_in, d_nn
+    return neighbor_distances(data.coords, data.nn_idx, dist_fn)
 
 
 def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask, nu=None,
@@ -156,7 +177,8 @@ def conditional_system(kernel, phi, alpha, jitter, d_in, d_nn, mask, nu=None,
     return c_mat, c_vec
 
 
-def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
+def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6,
+               dist_fn=None):
     """Batched kriging weights and conditional variances.
 
     Args:
@@ -169,6 +191,8 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
         length n is read as per site.  Site i's own diagonal gets alpha[i]
         and its neighbor block's diagonal alpha[nn_idx[i]]
         (``pynngp_tpu/vecchia.py:140-143``).
+      dist_fn: the metric of data made without distance tables (Euclidean
+        by default); the precomputed tables take precedence.
 
     Returns:
       B: (n, m) weights (0 in masked slots), F: (n,) conditional variances of
@@ -176,7 +200,7 @@ def vecchia_bf(kernel, params, data: VecchiaData, alpha=0.0, jitter=1e-6):
       alpha has one.
     """
     dev = data.coords.device
-    d_in, d_nn = neighbor_distances(data)
+    d_in, d_nn = _distances(data, dist_fn)
     dtype = d_in.dtype
     phi = torch.as_tensor(params["phi"], dtype=dtype, device=dev)
     alpha = torch.as_tensor(alpha, dtype=dtype, device=dev)
@@ -219,9 +243,10 @@ def vecchia_suffstats(b, f, y, data: VecchiaData):
 
 
 def vecchia_loglik(kernel, params, data: VecchiaData, y, sigma2, alpha=0.0,
-                   jitter=1e-6):
+                   jitter=1e-6, dist_fn=None):
     """Vecchia (NNGP) log-likelihood of y under sigma^2 (rho + alpha I)."""
-    b, f = vecchia_bf(kernel, params, data, alpha=alpha, jitter=jitter)
+    b, f = vecchia_bf(kernel, params, data, alpha=alpha, jitter=jitter,
+                      dist_fn=dist_fn)
     logdet, quad, _ = vecchia_suffstats(b, f, y, data)
     n = y.shape[-1]
     sigma2 = torch.as_tensor(sigma2, dtype=f.dtype, device=f.device)

@@ -50,7 +50,7 @@ def _problem(m):
     jdata64 = jdata._replace(nn_dist=jnp.asarray(jdata.nn_dist, jnp.float64),
                              nn_cross_dist=jnp.asarray(jdata.nn_cross_dist,
                                                        jnp.float64))
-    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
+    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
     # both packages build the float32 tables from the same float64 distances:
     # a comparison of B below holds the factorizations, not the tables
     for name in ("nn_dist", "nn_cross_dist"):
@@ -59,7 +59,7 @@ def _problem(m):
     data64 = data._replace(coords=data.coords.double(),
                            nn_dist=data.nn_dist.astype(np.float64),
                            nn_cross_dist=data.nn_cross_dist.astype(np.float64))
-    tables = make_site_tables(data, dtype=torch.float64)
+    tables = make_site_tables(data, dtype=torch.float64, device="cpu")
     return {"n": n, "m": m, "cache": cache, "jdata": jdata64, "data": data64,
             "tables": tables, "w": rng.standard_normal((3, n))}
 
@@ -245,10 +245,10 @@ def _m20_problem(m, layout):
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout=layout,
                                coords_host=coords[jtab.order] if on_coords else None)
     data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32,
-                                          precompute_distances=not on_coords)
+                                          precompute_distances=not on_coords, device="cpu")
     np.testing.assert_array_equal(tab.order, jtab.order)
     tables = make_site_tables(data, dtype=torch.float64, layout=layout,
-                              coords_host=coords[tab.order])
+                              coords_host=coords[tab.order], device="cpu")
     return {"n": n, "cache": cache, "tables": tables, "v_jax": jnp.asarray(v[tab.order]),
             "v": torch.as_tensor(v[tab.order])}
 

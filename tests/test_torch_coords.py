@@ -63,10 +63,10 @@ def _problem(n, m, seed, offset=0.0):
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout="coords",
                                coords_host=coords[jtab.order], nn_idx_host=jtab.nn_idx)
     data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64,
-                                          precompute_distances=False)
+                                          precompute_distances=False, device="cpu")
     np.testing.assert_array_equal(tab.order, jtab.order)
     tables = make_site_tables(data, dtype=torch.float64, layout="coords",
-                              coords_host=coords[tab.order])
+                              coords_host=coords[tab.order], device="cpu")
     y_ord = y[tab.order]
     return {"n": n, "m": m, "cache": cache, "tables": tables,
             "y_jax": jnp.asarray(y_ord, jnp.float64), "y": torch.as_tensor(y_ord)}
@@ -100,9 +100,9 @@ def test_coords_site_tables_match_lane_cache(dtype, offset):
     want = convert.site_tables_from_lane_cache(
         np.asarray(cache.tab_a), np.asarray(cache.tab_b), np.asarray(cache.nn_idx),
         n, layout="coords")
-    data, tab = vecchia.make_vecchia_data(coords, m, precompute_distances=False)
+    data, tab = vecchia.make_vecchia_data(coords, m, precompute_distances=False, device="cpu")
     got = make_site_tables(data, dtype=getattr(torch, dtype), layout="coords",
-                           coords_host=coords[tab.order])
+                           coords_host=coords[tab.order], device="cpu")
     assert got.layout == want.layout == "coords" and got.dim == 2
     assert got.tab_a.shape == (2, got.n_pad) and got.tab_b.shape == (2 * m, got.n_pad)
     for name in ("tab_a", "tab_b", "nn_idx"):
@@ -133,9 +133,9 @@ def test_coords_site_tables_in_four_dimensions_match_lane_cache(dtype):
     want = convert.site_tables_from_lane_cache(
         np.asarray(cache.tab_a), np.asarray(cache.tab_b), np.asarray(cache.nn_idx),
         n, layout="coords")
-    data, tab = vecchia.make_vecchia_data(coords, m, precompute_distances=False)
+    data, tab = vecchia.make_vecchia_data(coords, m, precompute_distances=False, device="cpu")
     got = make_site_tables(data, dtype=getattr(torch, dtype), layout="coords",
-                           coords_host=coords[tab.order])
+                           coords_host=coords[tab.order], device="cpu")
     assert got.dim == 4 and got.tab_b.shape == (4 * m, got.n_pad)
     for name in ("tab_a", "tab_b", "nn_idx"):
         a, b = getattr(got, name), getattr(want, name)
@@ -399,7 +399,7 @@ def test_the_coords_path_builds_no_pair_distance_table(monkeypatch):
     rng = np.random.default_rng(6)
     coords = rng.uniform(size=(150, 2))
     y = rng.standard_normal(150)
-    data, _ = vecchia.make_vecchia_data(coords, 5, precompute_distances=False)
+    data, _ = vecchia.make_vecchia_data(coords, 5, precompute_distances=False, device="cpu")
     assert data.nn_dist is None and data.nn_cross_dist is None
 
     def refuse(*args, **kwargs):

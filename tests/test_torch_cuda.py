@@ -38,7 +38,7 @@ def card():
 def _problem(dev, n=1500, m=7, seed=3, layout="dist", dim=2):
     rng = np.random.default_rng(seed)
     coords = rng.uniform(size=(n, dim))
-    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist")
+    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist", device="cpu")
     tab32 = make_site_tables(data, dtype=torch.float32, device=dev, layout=layout,
                              coords_host=coords[tab.order])
     # the same float32 tables in float64: on the coords layout the plain
@@ -226,7 +226,7 @@ def test_y_cotangent_at_m_64_on_coords_matches_float64(card, per_chain):
     rng = np.random.default_rng(3)
     n = 1500
     coords = rng.uniform(size=(n, 2))
-    data, tab = make_vecchia_data(coords, 64, precompute_distances=False)
+    data, tab = make_vecchia_data(coords, 64, precompute_distances=False, device="cpu")
     tab32 = with_children(make_site_tables(data, dtype=torch.float32, device=card,
                                            layout="coords", coords_host=coords[tab.order]))
     tab64 = tab32.to(torch.float64)
@@ -1127,7 +1127,7 @@ def _check_meshes(card, m, layout):
     rng = np.random.default_rng(3)
     n = 1500
     coords = rng.uniform(size=(n, 2))
-    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist")
+    data, tab = make_vecchia_data(coords, m, precompute_distances=layout == "dist", device="cpu")
     tab32 = with_children(make_site_tables(data, dtype=torch.float32, device=card,
                                            layout=layout, coords_host=coords[tab.order],
                                            shards=4))
@@ -1290,7 +1290,7 @@ def test_kernels_on_dotproduct_tables_match_plain(card, kern, m):
     is the Gaussian kernel of the chord, positive definite; the smoother
     families of it are not (their float32 factors fail here)."""
     coords, y_host = _sphere(1500, seed=3)
-    data, tab = make_vecchia_data(coords, m, distance="dotproduct")
+    data, tab = make_vecchia_data(coords, m, distance="dotproduct", device="cpu")
     tab32 = make_site_tables(data, dtype=torch.float32, device=card, layout="dist")
     tab64 = tab32.to(torch.float64)
     assert float(tab64.tab_a.max()) <= 2.0
@@ -1509,7 +1509,7 @@ def test_y_cotangent_at_m_20_on_coords_matches_float64(card, per_chain):
     rng = np.random.default_rng(3)
     n = 1500
     coords = rng.uniform(size=(n, 2))
-    data, tab = make_vecchia_data(coords, 20, precompute_distances=False)
+    data, tab = make_vecchia_data(coords, 20, precompute_distances=False, device="cpu")
     tab32 = with_children(make_site_tables(data, dtype=torch.float32, device=card,
                                            layout="coords", coords_host=coords[tab.order]))
     tab64 = tab32.to(torch.float64)

@@ -43,9 +43,9 @@ def _problem(n, m, seed):
     jdata, jtab = jvecchia.make_vecchia_data(coords, m)
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout="dist")
     y_ord = y[jtab.order]
-    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
+    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
     return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
-            "tables": make_site_tables(data, dtype=torch.float64),
+            "tables": make_site_tables(data, dtype=torch.float64, device="cpu"),
             "y": torch.as_tensor(y_ord)}
 
 
@@ -138,8 +138,8 @@ def test_nu_derivative_is_the_kernels_central_difference():
     (rtol 2e-3 at h = 1e-2), not to rounding."""
     rng = np.random.default_rng(8)
     data, _ = vecchia.make_vecchia_data(rng.uniform(size=(150, 2)), 5,
-                                        dtype=torch.float64)
-    tables = make_site_tables(data, dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
+    tables = make_site_tables(data, dtype=torch.float64, device="cpu")
     y = torch.as_tensor(rng.standard_normal(150))
     kern = kernels.Matern()
     phi = torch.tensor([0.2, 0.35], dtype=torch.float64)
@@ -190,8 +190,8 @@ def test_gradcheck_plain_version(kern):
     rng = np.random.default_rng(8)
     n, m = 150, 5
     coords = rng.uniform(size=(n, 2))
-    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
-    tables = make_site_tables(data, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64, device="cpu")
+    tables = make_site_tables(data, dtype=torch.float64, device="cpu")
     y = torch.as_tensor(rng.standard_normal(n))
     phi = torch.tensor([0.2, 0.35], dtype=torch.float64, requires_grad=True)
     alpha = torch.tensor([0.1, 0.3], dtype=torch.float64, requires_grad=True)
@@ -202,9 +202,9 @@ def test_gradcheck_plain_version(kern):
 def _tiny():
     rng = np.random.default_rng(9)
     data, _ = vecchia.make_vecchia_data(rng.uniform(size=(100, 2)), 4,
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     y = torch.as_tensor(rng.standard_normal(100))
-    return make_site_tables(data, dtype=torch.float64), y
+    return make_site_tables(data, dtype=torch.float64, device="cpu"), y
 
 
 def test_undifferentiated_call_runs_the_forward_kernel_only():
@@ -335,8 +335,8 @@ def test_gradcheck_y(per_chain):
     rng = np.random.default_rng(8)
     n, m = 60, 4
     data, _ = vecchia.make_vecchia_data(rng.uniform(size=(n, 2)), m,
-                                        dtype=torch.float64)
-    tables = with_children(make_site_tables(data, dtype=torch.float64))
+                                        dtype=torch.float64, device="cpu")
+    tables = with_children(make_site_tables(data, dtype=torch.float64, device="cpu"))
     y = torch.as_tensor(rng.standard_normal((2, n) if per_chain else n))
     y.requires_grad_(True)
     phi = torch.tensor([0.2, 0.35], dtype=torch.float64, requires_grad=True)
@@ -352,8 +352,8 @@ def test_dy_gather_equals_scatter():
     (pallas_bf.py:1082-1091), on random planes."""
     rng = np.random.default_rng(2)
     data, _ = vecchia.make_vecchia_data(rng.uniform(size=(300, 2)), 6,
-                                        dtype=torch.float64)
-    tables = with_children(make_site_tables(data, dtype=torch.float64))
+                                        dtype=torch.float64, device="cpu")
+    tables = with_children(make_site_tables(data, dtype=torch.float64, device="cpu"))
     n, m, n_pad = tables.n, tables.m, tables.n_pad
     site = torch.arange(n_pad)
     mask = (site[None, :] > torch.arange(m)[:, None]) & (site < n)[None, :]

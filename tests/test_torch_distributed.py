@@ -2,7 +2,7 @@
 the port's counterpart of tests/test_distributed.py.
 
 The file is its own worker: ``python tests/test_torch_distributed.py
-worker PORT RANK``.  Each process brings up the group with
+worker PORT RANK CKPT_DIR``.  Each process brings up the group with
 ``initialize_distributed``, takes its share of a (chains=2, sites=2) mesh of
 "cpu" devices from ``global_mesh`` (the chains axis across the processes)
 and checks what the reference's worker checks:
@@ -13,12 +13,21 @@ and checks what the reference's worker checks:
      its chains) equals the sum over all chains computed locally;
 
 and that ``process_chain_slice`` and ``host_local_to_global`` give each
-process its own chains on its mesh's first device."""
+process its own chains on its mesh's first device.
+
+The same pair then runs the reference's per-process checkpoints (its
+save / kill / resume): each rank samples its own chains with its own
+generator, uninterrupted, then stopped inside its last chunk and resumed
+from ``<path>.p<rank>.*``; the resumed draws must be its uninterrupted
+run's bit for bit."""
 
 import os
 import socket
 import subprocess
 import sys
+
+import numpy as np
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER_TIMEOUT_S = 240  # each process's own limit
@@ -31,8 +40,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def worker(port: int, rank: int) -> None:
-    import numpy as np
+def worker(port: int, rank: int, ckpt_dir: str) -> None:
     import torch
     import torch.distributed as dist
 
@@ -72,18 +80,64 @@ def worker(port: int, rank: int) -> None:
         dist.all_reduce(total)
         every = local.full_loglik(torch.as_tensor(u_all)).sum()
         np.testing.assert_allclose(float(total), float(every), rtol=1e-10)
-    dist.destroy_process_group()
     print(f"DIST OK rank={rank} loglik={float(got.sum()):.6f} "
           f"total={float(total):.6f}", flush=True)
+    _checkpoint_worker(local, rank, ckpt_dir)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
-def test_two_process_distributed():
+class _Stop(Exception):
+    pass
+
+
+def _checkpoint_worker(model, rank: int, ckpt_dir: str) -> None:
+    """An uninterrupted, a stopped and a resumed checkpointed MWG run of this
+    rank's chains, each rank with its own seed; the resume must give the
+    uninterrupted draws bit for bit."""
+    ck = os.path.join(ckpt_dir, "run")
+    n_burn, n_samples = 10, 20
+    kw = dict(n_samples=n_samples, n_burn=n_burn, n_chains=2, seed=11 + rank,
+              chunk=5, config={"model": "response", "m": model.tables.m})
+    want = model.sample(**kw)
+    calls = [0]
+    step = model.step
+
+    def stopping_step(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] > n_burn + n_samples - 3:  # inside the last chunk
+            raise _Stop
+        return step(*args, **kwargs)
+
+    model.step = stopping_step
+    try:
+        model.sample(checkpoint_path=ck, checkpoint_every=1, **kw)
+        raise AssertionError("the run was not stopped")
+    except _Stop:
+        pass
+    finally:
+        del model.step
+    for suffix in (".npz", ".json", ".draws.npz"):
+        assert os.path.exists(f"{ck}.p{rank}{suffix}"), suffix
+    got = model.sample(checkpoint_path=ck, checkpoint_every=1, **kw)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert np.array_equal(got[key], want[key]), key
+    print(f"CKPT OK rank={rank} draws={want['phi'].shape}", flush=True)
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    """One pair of gloo worker processes, run to their end: each one's
+    (rc, stdout, stderr), and the checkpoint directory they share."""
+    ckpt_dir = str(tmp_path_factory.mktemp("ckpt"))
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env["CUDA_VISIBLE_DEVICES"] = ""
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "worker", str(port), str(rank)],
+        [sys.executable, os.path.abspath(__file__), "worker", str(port), str(rank),
+         ckpt_dir],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True, cwd=ROOT)
         for rank in range(2)]
     outs = []
@@ -96,11 +150,37 @@ def test_two_process_distributed():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    return outs, ckpt_dir
+
+
+def test_two_process_distributed(pair):
+    outs, _ = pair
     for rc, out, err in outs:
         assert rc == 0, f"worker failed (rc={rc}):\n{out}\n{err[-3000:]}"
         assert "DIST OK" in out, f"missing OK line:\n{out}\n{err[-2000:]}"
 
 
-if __name__ == "__main__" and len(sys.argv) == 4 and sys.argv[1] == "worker":
+def test_two_process_checkpoints_resume_per_rank(pair):
+    """Each rank resumed its own run bit for bit from its own files
+    ``<path>.p<rank>.npz / .json / .draws.npz``; no single-process file was
+    written, the two ranks' states differ, and ``<path>.config.json`` is one
+    file, rank 0's."""
+    outs, ckpt_dir = pair
+    for rc, out, err in outs:
+        assert rc == 0, f"worker failed (rc={rc}):\n{out}\n{err[-3000:]}"
+        assert "CKPT OK" in out, f"missing OK line:\n{out}\n{err[-2000:]}"
+    ck = os.path.join(ckpt_dir, "run")
+    states = []
+    for rank in range(2):
+        with np.load(f"{ck}.p{rank}.npz") as z:
+            states.append({k: z[k] for k in z.files})
+    assert states[0].keys() == states[1].keys()
+    assert any(not np.array_equal(states[0][k], states[1][k]) for k in states[0])
+    assert os.path.exists(ck + ".config.json")
+    for suffix in (".npz", ".json", ".draws.npz"):
+        assert not os.path.exists(ck + suffix), suffix
+
+
+if __name__ == "__main__" and len(sys.argv) == 5 and sys.argv[1] == "worker":
     sys.path.insert(0, ROOT)
-    worker(int(sys.argv[2]), int(sys.argv[3]))
+    worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

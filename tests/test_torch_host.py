@@ -132,8 +132,8 @@ def test_site_tables_match_lane_cache():
         np.asarray(cache.tab_a), np.asarray(cache.tab_b),
         np.asarray(cache.nn_idx), n,
     )
-    data, _ = make_vecchia_data(coords, m, dtype=torch.float32)
-    got = make_site_tables(data, dtype=torch.float32)
+    data, _ = make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
+    got = make_site_tables(data, dtype=torch.float32, device="cpu")
     assert got.n == want.n == n
     assert got.n_pad == want.n_pad == 1536 and got.n_pad % BLOCK == 0
     assert got.layout == want.layout == "dist"

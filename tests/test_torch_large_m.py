@@ -46,8 +46,8 @@ def problem(request):
     jdata, jtab = jvecchia.make_vecchia_data(coords, m)
     jdata64 = jdata._replace(nn_dist=jnp.asarray(jdata.nn_dist, jnp.float64),
                              nn_cross_dist=jnp.asarray(jdata.nn_cross_dist, jnp.float64))
-    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
-    tables = with_children(make_site_tables(data, dtype=torch.float64))
+    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
+    tables = with_children(make_site_tables(data, dtype=torch.float64, device="cpu"))
     # m = 25 and 32 run the rolled instance (M = 32), m = 40 the large-m one
     assert tables.m == m and fops.cuda_instance_m(m) == (32 if m <= 32 else m)
     y_ord = y[jtab.order]

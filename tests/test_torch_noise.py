@@ -79,7 +79,7 @@ def test_vector_alpha_bf_matches_reference_and_dense_solves():
     n, m = 60, 6
     coords = rng.uniform(size=(n, 2))
     jdata, jtab = jvecchia.make_vecchia_data(coords, m, dtype=jnp.float64)
-    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64, device="cpu")
     v = _weights(n)[tab.order]
     av = 0.2 * v
     kern, jkern = kernels.Exponential(), jkernels.Exponential()

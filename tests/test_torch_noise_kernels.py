@@ -56,9 +56,9 @@ def _problem(layout, n, m, seed):
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout=layout,
                                coords_host=coords[jtab.order] if on_coords else None)
     data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32,
-                                          precompute_distances=not on_coords)
+                                          precompute_distances=not on_coords, device="cpu")
     tables = make_site_tables(data, dtype=torch.float64, layout=layout,
-                              coords_host=coords[tab.order])
+                              coords_host=coords[tab.order], device="cpu")
     order = tab.order
     return {"n": n, "cache": cache, "tables": with_children(tables),
             "y_jax": jnp.asarray(y[order]), "y": torch.as_tensor(y[order]),

@@ -76,11 +76,11 @@ def problem():
     rng = np.random.default_rng(3)
     coords = rng.uniform(size=(N, 2))
     y = rng.standard_normal(N)
-    data, tab = vecchia.make_vecchia_data(coords, M, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, M, dtype=torch.float64, device="cpu")
     # the reference's data keep float32 distances: the port's copy of them
     # for the comparison with its Pallas kernels
     jdata, _ = jvecchia.make_vecchia_data(coords, M)
-    data32, _ = vecchia.make_vecchia_data(coords, M, dtype=torch.float32)
+    data32, _ = vecchia.make_vecchia_data(coords, M, dtype=torch.float32, device="cpu")
     return {"coords": coords, "data": data, "jdata": jdata, "data32": data32,
             "order": tab.order,
             "y": torch.as_tensor(y[tab.order]),
@@ -113,7 +113,7 @@ def test_sharded_value_grad_and_bf_match_the_reference_pallas(problem, hetero):
     bf_ref = pb.make_sharded_pallas_bf(jkern, cache, jmesh, jitter=JITTER,
                                        noise_v=jnoise)
     tables = shard_site_tables(make_site_tables(problem["data32"], dtype=torch.float64,
-                                                shards=2), mesh)
+                                                shards=2, device="cpu"), mesh)
     phi, alpha = _leaf([p for p, _ in POINTS]), _leaf([a for _, a in POINTS])
     ld, q = dops.diff_suffstats(kern, tables, phi, alpha, problem["y"], JITTER,
                                 noise_v=noise)
@@ -146,7 +146,7 @@ def nu_problem():
     the Bessel series in eager PyTorch (n = 300, m = 6)."""
     rng = np.random.default_rng(4)
     coords = rng.uniform(size=(300, 2))
-    data, tab = vecchia.make_vecchia_data(coords, 6, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, 6, dtype=torch.float64, device="cpu")
     return {"coords": coords, "data": data, "order": tab.order, "n": 300,
             "y": torch.as_tensor(rng.standard_normal(300)[tab.order]),
             "v": torch.as_tensor(rng.uniform(0.5, 2.0, 300)),
@@ -168,7 +168,7 @@ def test_sharded_wrappers_match_the_unsharded_plain_versions(problem, nu_problem
     n_pad_shards = shape[1]
     full = with_children(make_site_tables(
         problem["data"], dtype=torch.float64, layout=layout,
-        coords_host=problem["coords"][problem["order"]], shards=n_pad_shards))
+        coords_host=problem["coords"][problem["order"]], shards=n_pad_shards, device="cpu"))
     sharded = shard_site_tables(full, _mesh(shape))
     assert sharded.n_pad == full.n_pad and sharded.cells[0][-1].reach == full.n_pad
     # one shard straddles n; at 4 shards of 256 the last holds padding only
@@ -238,7 +238,7 @@ def test_sharded_loglik_and_bf_functions(problem):
 def test_pad_data_for_sharding_is_the_references(shards):
     rng = np.random.default_rng(5)
     coords = rng.uniform(size=(205, 2))
-    data, _ = vecchia.make_vecchia_data(coords, 9, dtype=torch.float64)
+    data, _ = vecchia.make_vecchia_data(coords, 9, dtype=torch.float64, device="cpu")
     jdata, _ = jvecchia.make_vecchia_data(coords, 9, dtype=jnp.float64)
     got, valid = pad_data_for_sharding(data, shards)
     want, jvalid = jsharded.pad_data_for_sharding(jdata, shards)
@@ -278,12 +278,12 @@ def test_sharded_chromatic_matches_the_reference(shape):
     rng = np.random.default_rng(8)
     n, chains = 240, 3
     coords = rng.uniform(size=(n, 2))
-    data, tab = vecchia.make_vecchia_data(coords, 6, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, 6, dtype=torch.float64, device="cpu")
     ch = neighbors.build_children_table(tab.nn_idx, tab.nn_mask)
     colors = neighbors.color_moral_graph(tab.nn_idx, tab.nn_mask)
     n_colors = int(colors.max()) + 1
     csites, csmask = shard_color_tables(colors, shape[1])
-    tables = make_site_tables(data, dtype=torch.float64)
+    tables = make_site_tables(data, dtype=torch.float64, device="cpu")
     b, f = bops.bf_planes(kernels.Exponential(), tables,
                           torch.tensor([0.2, 0.3, 0.25], dtype=torch.float64), 0.0, 1e-6)
     b = b[:, :, :n]
@@ -322,15 +322,15 @@ def test_mesh_shapes_and_refusals(problem):
     assert chain_groups(1, 2) == [(0, slice(0, 1))]
     # tables padded for 1 shard do not cut into 4 whole blocks
     with pytest.raises(ValueError, match="shards=4"):
-        shard_site_tables(make_site_tables(problem["data"]), _mesh((1, 4)))
+        shard_site_tables(make_site_tables(problem["data"], device="cpu"), _mesh((1, 4)))
     # off and n ride the kernels' float32 params row: a launch whose global
     # site indices reach 2^24 is refused before it is made
-    tables = make_site_tables(problem["data"])
+    tables = make_site_tables(problem["data"], device="cpu")
     far = tables._replace(off=MAX_SITE_INDEX - tables.n_pad + 128)
     params = fops.params_array(0.25, 0.125, JITTER, N, torch.float32, off=far.off)
     with pytest.raises(ValueError, match="2\\^24"):
         fops.cuda_args(far, params)
     # a noise plane for a shard reaches past its last site
-    shard = shard_site_tables(make_site_tables(problem["data"], shards=2),
+    shard = shard_site_tables(make_site_tables(problem["data"], shards=2, device="cpu"),
                               _mesh((1, 2))).cells[0][1]
     assert fops.noise_plane(shard, problem["v"]).shape == (shard.reach,)

@@ -54,8 +54,8 @@ def problem():
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout="dist")
     y_ord = y[jtab.order]
     # the same float32 distance tables, held in float64
-    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
-    tables = make_site_tables(data, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
+    tables = make_site_tables(data, dtype=torch.float64, device="cpu")
     return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
             "tables": tables, "y": torch.as_tensor(y_ord), "n": n}
 
@@ -67,9 +67,9 @@ def _problem(n, m, seed):
     jdata, jtab = jvecchia.make_vecchia_data(coords, m)
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout="dist")
     y_ord = y[jtab.order]
-    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32)
+    data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
     return {"cache": cache, "y_jax": jnp.asarray(y_ord, jnp.float64),
-            "tables": make_site_tables(data, dtype=torch.float64),
+            "tables": make_site_tables(data, dtype=torch.float64, device="cpu"),
             "y": torch.as_tensor(y_ord), "n": n}
 
 
@@ -131,7 +131,7 @@ def test_general_nu_vecchia_loglik_matches_dense_gold():
     n, m = 200, 5
     coords = rng.uniform(size=(n, 2))
     y = rng.standard_normal(n)
-    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64, device="cpu")
     y_ord = torch.as_tensor(y[tab.order])
     sigma2, phi, tau2 = 1.3, 0.2, 0.15
     nus = (0.8, 1.7)
@@ -195,7 +195,7 @@ def test_vecchia_loglik_matches_dense_gold(name, kern):
     n, m = 200, 5
     coords = rng.uniform(size=(n, 2))
     y = rng.standard_normal(n)
-    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64, device="cpu")
     y_ord = torch.as_tensor(y[tab.order])
     sigma2, phi, tau2 = 1.3, 0.2, 0.15
     got = vecchia.vecchia_loglik(kern, {"phi": phi}, data, y_ord, sigma2,
@@ -214,12 +214,12 @@ def test_plain_suffstats_matches_batched_bf():
     n, m = 400, 6
     coords = rng.uniform(size=(n, 2))
     y = rng.standard_normal(n)
-    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64)
+    data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float64, device="cpu")
     y_ord = torch.as_tensor(y[tab.order])
     kern = kernels.Matern(nu=1.5)
     b, f = vecchia.vecchia_bf(kern, {"phi": 0.3}, data, alpha=0.2, jitter=JITTER)
     ld, q, resid = vecchia.vecchia_suffstats(b, f, y_ord, data)
-    tables = make_site_tables(data, dtype=torch.float64)
+    tables = make_site_tables(data, dtype=torch.float64, device="cpu")
     ld2, q2, f2, r2 = ops.suffstats(kern, tables, 0.3, 0.2, y_ord, JITTER)
     np.testing.assert_allclose(float(ld2[0]), float(ld), rtol=1e-8)
     np.testing.assert_allclose(float(q2[0]), float(q), rtol=1e-8)
@@ -241,12 +241,12 @@ def _m20_problem(m, layout):
     cache = pb.make_lane_cache(jdata, dtype=jnp.float64, layout=layout,
                                coords_host=coords[jtab.order] if on_coords else None)
     data, tab = vecchia.make_vecchia_data(coords, m, dtype=torch.float32,
-                                          precompute_distances=not on_coords)
+                                          precompute_distances=not on_coords, device="cpu")
     np.testing.assert_array_equal(tab.order, jtab.order)
     order = tab.order
     return {"n": n, "cache": cache,
             "tables": make_site_tables(data, dtype=torch.float64, layout=layout,
-                                       coords_host=coords[order]),
+                                       coords_host=coords[order], device="cpu"),
             "y_jax": jnp.asarray(y[order]), "y": torch.as_tensor(y[order]),
             "v_jax": jnp.asarray(v[order]), "v": torch.as_tensor(v[order])}
 
