@@ -55,10 +55,16 @@ and timed against those instances' own m, and m = 25 and m = 32 on the
 rolled instances of all three kernels, both layouts, and m = 40 and m = 64
 on their large-m instances (each kernel a warp a (site, chain) system in
 shared memory), both layouts, with and without noise weights, closed form
-and sampled nu, with kernels 1 and 3 also at m = geometry.M_SMEM + 1 and
-kernel 2 at m = geometry.M_SMEM_GRAD + 1 on the scratch body (one thread a
-(site, chain), its state in a scratch buffer) and the factor-only
-yardstick (``torch.linalg.cholesky_ex`` on the m = 64 correlation batch).
+and sampled nu, with kernels 1 and 3 also on their cluster body (a
+thread-block cluster a (site, chain) system, its factor spread over the
+blocks' shared memory) at the first m of each cluster size and at
+geometry.M_CLUSTER, both layouts, closed form and sampled nu, with and
+without noise weights, and timed at m = geometry.M_SMEM + 1; kernels 1 and 3
+at m = geometry.M_CLUSTER + 1 and kernel 2 at m = geometry.M_SMEM_GRAD + 1
+on the scratch body (one thread a (site, chain), its state in a scratch
+buffer); and the factor-only yardstick (``torch.linalg.cholesky_ex`` on the
+m = 64 correlation batch, and on each cluster and scratch row's batch as
+that row's library_ms).
 After the build it prints the registers, stack, shared bytes and warps an
 SM of every tile instance of the three kernels (a block of up to four
 chains, one warp each, over a 32-site tile staged in shared memory) and of
@@ -75,9 +81,10 @@ facade's defaults end to end (the latent model on config 2's field, sample,
 summary, predict), the max-min and natural orderings at n=100,000, and the
 dot-product distance on 20,000 sites of the sphere (kernels 1-3 on its
 dissimilarity tables, MWG, prediction, and the neighbor-table cache).
-Then slice 11's three: the shard offset of every kernel (path 27: five
-cases, each on meshes (1, 2), (1, 4) and (2, 2) of cuda:0, per-site outputs
-bit for bit against the unsharded launch), config 5 on a (1, 4) mesh of
+Then the three of sharding: the shard offset of every kernel (path 27: its
+cases, kernels 1 and 3 on their cluster body among them, each on meshes
+(1, 2), (1, 4) and (2, 2) of cuda:0, per-site outputs bit for bit against
+the unsharded launch), config 5 on a (1, 4) mesh of
 cuda:0 through both models' ``mesh=`` (path 28), and two processes on gloo
 sharing the card, the chains split across them (path 29).
 
@@ -222,6 +229,21 @@ _COUNTS.update(fwd_ops.COUNTS_M20)
 KERNEL_ROWS.update({name: (_TEAM_SRC, tpu, _COUNTS[name]) for name, tpu in M20_ROWS.items()})
 KERNEL_ROWS.update({name: (_TEAM_SRC, M20_ROWS[row], _COUNTS[name])
                     for name, row in M20_FOUR.items()})
+# the cluster body of kernels 1 and 3 (geometry.M_SMEM < m <=
+# geometry.M_CLUSTER: a thread-block cluster a (site, chain) system), every
+# source, counted apart; and their scratch body above M_CLUSTER on the
+# closed-form dist sources (the launches of scratch_body_check)
+CLUSTER_ROWS = {name + "_large_cluster": name for name in (
+    "vecchia_suffstats", "vecchia_suffstats_nu", "vecchia_suffstats_coords",
+    "vecchia_suffstats_nu_coords", "vecchia_bf", "vecchia_bf_nu", "vecchia_bf_coords",
+    "vecchia_bf_nu_coords")}
+SCRATCH_ROWS = {"vecchia_suffstats_large_scratch": "vecchia_suffstats",
+                "vecchia_bf_large_scratch": "vecchia_bf"}
+KERNEL_ROWS.update({row: ("pynngp_tpu_torch/csrc/vecchia_large_cluster.cuh",
+                          KERNEL_ROWS[name][1], _COUNTS[row])
+                    for row, name in CLUSTER_ROWS.items()})
+KERNEL_ROWS.update({row: ("pynngp_tpu_torch/csrc/vecchia_large_m.cuh", KERNEL_ROWS[name][1],
+                          _COUNTS[row]) for row, name in SCRATCH_ROWS.items()})
 # every row's launches in calls over several cells of a mesh (slice 11),
 # counted apart and added to the row's launches
 SHARDED = {name: _COUNTS[name + "_sharded"] for name in KERNEL_ROWS}
@@ -383,15 +405,19 @@ class Case:
     def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None,
                  layout="dist", distance="euclidean", shards=1):
         coords, y = field if field is not None else bench_field(n, seed)
+        # above M_SMEM the dist planes come from the coords layout's on the
+        # card (dist_tables_from_coords): the host's (n, m, m) table takes a
+        # minute there
+        built = "coords" if layout == "dist" and m > geometry.M_SMEM else layout
         data, table = make_vecchia_data(coords, m, dtype=torch.float64,
                                         distance=distance,
-                                        precompute_distances=layout == "dist", device="cpu")
+                                        precompute_distances=built == "dist", device="cpu")
         self.n, self.m, self.kernel, self.layout = n, m, kernel, layout
         self.order = table.order
         self.v32 = self.v64 = None
-        self.tab32 = with_children(make_site_tables(
-            data, dtype=torch.float32, device=dev, layout=layout,
-            coords_host=np.asarray(coords)[table.order], shards=shards))
+        tab = make_site_tables(data, dtype=torch.float32, device=dev, layout=built,
+                               coords_host=np.asarray(coords)[table.order], shards=shards)
+        self.tab32 = with_children(tab if built == layout else dist_tables_from_coords(tab))
         self.tab64 = self.tab32.to(torch.float64)
         self.y32 = torch.as_tensor(y[table.order], dtype=torch.float32, device=dev)
         self.y64 = self.y32.double()
@@ -458,12 +484,13 @@ def _allclose_ratio(a, b, rtol, atol):
     return float(((a - b).abs() / (atol + rtol * b.abs())).max())
 
 
-def check_forward(case: Case, label: str) -> dict:
+def check_forward(case: Case, label: str, out=None) -> dict:
     """Kernel 1 against its plain version (float64 on the card, chunked over
-    chains); tolerances of tests/test_pallas.py:62-70."""
-    logdet, quad, f, r = fwd_ops.suffstats(case.kernel, case.tab32, case.phi,
-                                           case.alpha, case.y32, case.jitter,
-                                           noise_v=case.v32)
+    chains); tolerances of tests/test_pallas.py:62-70.  ``out``: the
+    kernel's outputs of a launch already made, or None to launch it."""
+    logdet, quad, f, r = out if out is not None else fwd_ops.suffstats(
+        case.kernel, case.tab32, case.phi, case.alpha, case.y32, case.jitter,
+        noise_v=case.v32)
     torch.cuda.synchronize()
     ref = [fwd_ops.suffstats_reference(case.kernel, case.tab64,
                                        case.params64(sl)[2], case.y64, case.v64)
@@ -517,7 +544,7 @@ def check_grad(case: Case, label: str, grad_rtol: float) -> dict:
     return res
 
 
-def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool) -> dict:
+def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool, out=None) -> dict:
     """Kernel 3 against its plain version (float64 on the card, chunked over
     chains), B and F over the sites < n, and the padded-site rule (B = 0,
     F = 1 exactly for site >= n).
@@ -527,10 +554,11 @@ def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool) -> dict:
     the latent model passes) the systems are far worse conditioned: B atol
     1e-3 and F rtol 1e-3 for the rough exponential kernel; for sqexp any two
     correct float32 factorizations disagree (tests/test_pallas.py:34-38), so
-    that case is printed and only its padded sites are held."""
+    that case is printed and only its padded sites are held.  ``out``: the
+    kernel's (B, F) of a launch already made, or None to launch it."""
     alpha = torch.zeros_like(case.alpha) if zero_alpha else case.alpha
-    b, f = bf_ops.bf_planes(case.kernel, case.tab32, case.phi, alpha, case.jitter,
-                            noise_v=case.v32)
+    b, f = out if out is not None else bf_ops.bf_planes(
+        case.kernel, case.tab32, case.phi, alpha, case.jitter, noise_v=case.v32)
     torch.cuda.synchronize()
     ref = [bf_ops.bf_reference(case.kernel, case.tab64,
                                case.params64(sl, alpha=alpha)[2], case.v64)
@@ -710,6 +738,45 @@ def check_general_nu(case: Case, label: str) -> dict:
              f"general-nu kernel 3 B/F disagree [{label}]")
     for key, limit in NU_LIMITS.items():
         _require(res[key] <= limit, f"general-nu {key} {res[key]} exceeds {limit} [{label}]")
+    return res
+
+
+def check_general_nu_13(case: Case, label: str) -> dict:
+    """The general-nu instances of kernels 1 and 3 alone against their plain
+    versions in float64 on the card, sampled nu, at :func:`check_general_nu`'s
+    limits (NU_LIMITS; kernel 3's F rtol 1e-4)."""
+    k, t32, t64, n = case.kernel, case.tab32, case.tab64, case.n
+    logdet, quad, f, r = fwd_ops.suffstats(k, t32, case.phi, case.alpha, case.y32,
+                                           case.jitter, nu=case.nu, noise_v=case.v32)
+    b3, f3 = bf_ops.bf_planes(k, t32, case.phi, case.alpha, case.jitter, nu=case.nu,
+                              noise_v=case.v32)
+    torch.cuda.synchronize()
+    refs = []
+    for sl in case.chunks():
+        _, _, pr = case.params64(sl)
+        refs.append((*fwd_ops.suffstats_reference(k, t64, pr, case.y64, case.v64),
+                     *bf_ops.bf_reference(k, t64, pr, case.v64)))
+    ld_ref, q_ref, f_ref, r_ref, b3_ref, f3_ref = (torch.cat([ref[i] for ref in refs])
+                                                   for i in range(6))
+    pad_ok = bool((b3[:, :, n:] == 0).all() and (f3[:, n:] == 1).all())
+    res = {
+        "nu": [round(float(v), 4) for v in case.nu],
+        "value_rel": max(_rel(logdet.double(), ld_ref), _rel(quad.double(), q_ref)),
+        "f_ratio": _allclose_ratio(f[:, :n].double(), f_ref[:, :n], 1e-3, 1e-5),
+        "r_ratio": _allclose_ratio(r[:, :n].double(), r_ref[:, :n], 2e-3, 2e-4),
+        "f_max_abs_err": float((f[:, :n].double() - f_ref[:, :n]).abs().max()),
+        "bf_b_max_abs_err": float((b3.double() - b3_ref).abs().max()),
+        "bf_f_max_rel_err": _rel(f3[:, :n].double(), f3_ref[:, :n]),
+        "padded_sites": t32.n_pad - n, "padded_ok": pad_ok,
+    }
+    print(f"general-nu parity, kernels 1 and 3 [{label}]: " + json.dumps(res), flush=True)
+    _require(pad_ok, f"general-nu kernel 3 padded sites are wrong [{label}]")
+    _require(res["bf_b_max_abs_err"] <= NU_LIMITS["b_max_abs_err"]
+             and res["bf_f_max_rel_err"] <= 1e-4,
+             f"general-nu kernel 3 B/F disagree [{label}]")
+    for key in ("value_rel", "f_ratio", "r_ratio"):
+        _require(res[key] <= NU_LIMITS[key],
+                 f"general-nu {key} {res[key]} exceeds {NU_LIMITS[key]} [{label}]")
     return res
 
 
@@ -911,8 +978,9 @@ def kernel_bounds(case: Case) -> dict:
     if case.v32 is not None:
         work = {name: (nbytes + noise_bytes(t, name), flops + noise_flops(m, name), sfu)
                 for name, (nbytes, flops, sfu) in work.items()}
-    out, sfx, shown = {}, _suffix(case) + _large(case) + _hetero(case), {}
+    out, shown = {}, {}
     for name, (nbytes, flops, sfu) in work.items():
+        sfx = _suffix(case) + _large(case, name) + _hetero(case)
         flops, sfu = flops * sites + dist_flops, sfu * sites + dist_sfu
         byte_ms = nbytes / PEAK_BYTES * 1e3
         op_ms = max(flops / PEAK_FLOPS, sfu / PEAK_SFU) * 1e3
@@ -931,9 +999,17 @@ def _hetero(case: Case) -> str:
     return "" if case.v32 is None else "_hetero"
 
 
-def _large(case: Case) -> str:
-    """The row-name suffix of a case with m > 32 (the large-m instances)."""
-    return "_large" if geometry.large(case.m) else ""
+def _large(case: Case, name: str = "vecchia_suffstats") -> str:
+    """The row-name suffix of kernel ``name`` (a row or base name) at a case
+    with m > 32 (the large-m instances): ``_large`` on the shared-memory
+    body, ``_large_cluster`` or ``_large_scratch`` above it
+    (``geometry.large_body``)."""
+    if not geometry.large(case.m):
+        return ""
+    base = next(b for b in ("vecchia_grad", "vecchia_bf", "vecchia_suffstats")
+                if name.startswith(b))
+    body = geometry.large_body(base, case.m)
+    return "_large" + ("" if body == "smem" else "_" + body)
 
 
 def noise_bytes(t, name: str) -> int:
@@ -962,6 +1038,15 @@ def distance_work(t) -> tuple:
         return 0.0, 0.0
     per_site = t.m * (t.m + 1) // 2
     return 2.0 * t.dim * per_site * t.n_pad, float(per_site * t.n_pad)
+
+
+def dist_tables_from_coords(t):
+    """Dist-layout tables of the same sites and neighbors as the coords
+    tables ``t``: the float64 distances of :func:`distance_planes` rounded to
+    float32 once, as the host's dist layout rounds its float64 distances."""
+    d_in, d_nn = distance_planes(t)
+    return t._replace(tab_a=d_in.float().contiguous(), tab_b=d_nn.float().contiguous(),
+                      layout="dist")
 
 
 def distance_planes(t):
@@ -1101,7 +1186,7 @@ def kernel_bounds_nu(case: Case) -> dict:
         work = {name: (nbytes + noise_bytes(t, name), ops + noise_flops(m, name) * sites,
                        sfu) for name, (nbytes, ops, sfu) in work.items()}
     dist_flops, dist_sfu = distance_work(t)
-    work = {name.replace("_nu", "_nu" + _suffix(case), 1) + _large(case) + _hetero(case):
+    work = {name.replace("_nu", "_nu" + _suffix(case), 1) + _large(case, name) + _hetero(case):
             (nbytes, ops + dist_flops, sfu + dist_sfu)
             for name, (nbytes, ops, sfu) in work.items()}
     out = {}
@@ -2436,11 +2521,14 @@ def time_layouts(dist: Case, coords: Case, warm: int, reps: int) -> dict:
 # ---- heterogeneous noise, any m <= 20, coords with any d (slice 6) --------
 
 
-def time_instances(case: Case, warm: int, reps: int, plain: tuple) -> dict:
-    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 at the case's shapes,
-    with its noise weights if it has them, and of their float32 plain
-    versions (``plain`` = (warm, reps)), named by the rows of the instances
-    they launch (``_large`` for m > 32, ``_hetero`` with weights)."""
+def time_instances(case: Case, warm: int, reps: int, plain: tuple,
+                   bases: tuple = ("vecchia_suffstats", "vecchia_grad", "vecchia_bf")) -> dict:
+    """Per-call times of kernels 1, 2, 2-EMIT_Y and 3 (those of ``bases``)
+    at the case's shapes, with its noise weights if it has them, and of
+    their float32 plain versions (``plain`` = (warm, reps)), named by the
+    rows of the instances they launch (``_large`` for m > 32, with
+    ``_cluster`` or ``_scratch`` above the shared-memory body, ``_hetero``
+    with weights)."""
     k, t, v, nu, jit = case.kernel, case.tab32, case.v32, case.nu, case.jitter
     args = (case.phi, case.alpha)
     params = fwd_ops.params_array(*args, jit, case.n, torch.float32, case.phi.device,
@@ -2464,6 +2552,8 @@ def time_instances(case: Case, warm: int, reps: int, plain: tuple) -> dict:
     }
     times = {}
     for (base, emit_y), (launch, plain_call) in calls.items():
+        if base not in bases:
+            continue
         name = fwd_ops.instance(base, k, t, emit_y, hetero=v is not None)
         times[name] = _time_ms(launch, warm, reps)
         times[name + "_plain"] = _time_ms(plain_call, *plain)
@@ -2614,9 +2704,11 @@ def large_m_kernels(dev) -> tuple:
     plain versions and bounds: the closed forms at m = 64, 16 chains, the
     general-nu instances at m = 40, 4 chains (their float32 plain versions
     at m = 64 and 16 chains would hold tens of GB of Bessel intermediates).
-    Then each kernel at the first m of its scratch body
-    (:func:`scratch_body_check`), and the factor-only yardstick
-    (:func:`factor_only_ms`).  Returns (max_abs_err, ms, bound) by row."""
+    Then the factor-only yardstick (:func:`factor_only_ms`), kernels 1 and 3
+    on their cluster body (:func:`cluster_body_check`) and each kernel at
+    the first m of its scratch body (:func:`scratch_body_check`).  Returns
+    (max_abs_err, ms, bound, library) by row, library the factor-only
+    yardstick of the cluster and scratch rows."""
     errs, times, bounds = {}, {}, {}
 
     def record(c, fwd, grad, bf, grad_y):
@@ -2665,8 +2757,11 @@ def large_m_kernels(dev) -> tuple:
     print("large-m instances [n10000]: " + json.dumps(
         {"max_abs_err": errs, "ms": times, "factor_only_ms": factor_ms,
          "bound_ms": {k: v[0] for k, v in bounds.items()}}), flush=True)
-    scratch_body_check(dev)
-    return errs, times, bounds
+    library = {}
+    for check in (cluster_body_check, scratch_body_check):
+        for into, got in zip((errs, times, bounds, library), check(dev)):
+            into.update(got)
+    return errs, times, bounds, library
 
 
 def factor_only_ms(dev) -> dict:
@@ -2677,35 +2772,149 @@ def factor_only_ms(dev) -> dict:
     correlations; it is not the rows' library call (none computes their
     function) and the port never calls it."""
     case = Case(N_LARGE, LARGE_M[-1], SqExp(), CHAINS, seed=0, dev=dev)
-    t = case.tab64
-    d_in, d_nn = unpack_distances(t)
-    mask = fwd_ops.global_sites(t)[:, None] > torch.arange(case.m, device=dev)
-    _, _, pr = case.params64(slice(None))
-    c_mat, _ = conditional_system(case.kernel, pr[:, 0:1], pr[:, 1:2], pr[:, 2:3], d_in,
-                                  d_nn, mask, fused=True)
-    batch = c_mat.reshape(-1, case.m, case.m).contiguous()
-    del c_mat, d_in, d_nn, mask
-    ms = _time_ms(lambda: torch.linalg.cholesky_ex(batch), 2, 5)
-    out = {"label": "factor only", "batch": list(batch.shape), "dtype": "float64",
-           "ms": ms}
+    out = factor_only(case, 2, 5)
     print("factor-only yardstick [torch.linalg.cholesky_ex, m=64, n10000, 16 chains]: "
           + json.dumps(out), flush=True)
-    del batch, case
+    del case
     torch.cuda.empty_cache()
     return out
 
 
-def scratch_body_check(dev) -> dict:
-    """Each kernel at the first m it runs on the scratch body, 4 chains:
-    kernels 1 and 3 at m = M_SMEM + 1 (n=1,000), kernel 2 and its EMIT_Y
-    instance at m = M_SMEM_GRAD + 1 (n=500: their float64 plain versions,
-    kernel 2's through autograd, cost seconds a call at this m); one launch
-    each against its float64 plain version at the closed-form limits,
-    counted under ``_large_scratch``."""
-    m13, m2 = geometry.M_SMEM + 1, geometry.M_SMEM_GRAD + 1
+def factor_only(case: Case, warm: int, reps: int) -> dict:
+    """``torch.linalg.cholesky_ex`` timed on the case's (C n_pad, m, m)
+    float64 batch of correlation matrices, built a chain at a time: the
+    factor alone, which the port never calls."""
+    t = case.tab64
+    d_in, d_nn = unpack_distances(t)
+    mask = fwd_ops.global_sites(t)[:, None] > torch.arange(case.m, device=t.device)
+    chains = case.phi.shape[0]
+    batch = torch.empty((chains, t.n_pad, case.m, case.m), dtype=torch.float64,
+                        device=t.device)
+    for c in range(chains):
+        _, _, pr = case.params64(slice(c, c + 1))
+        batch[c] = conditional_system(case.kernel, pr[:, 0:1], pr[:, 1:2], pr[:, 2:3], d_in,
+                                      d_nn, mask, fused=True)[0][0]
+    batch = batch.reshape(-1, case.m, case.m)
+    del d_in, d_nn, mask
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: torch.linalg.cholesky_ex(batch), warm, reps)
+    out = {"label": "factor only", "batch": list(batch.shape), "dtype": "float64", "ms": ms}
+    del batch
+    return out
+
+
+# the cluster body's checks: the first m of each cluster size (2, 4, 8
+# blocks) and M_CLUSTER, each on one layout and with or without noise
+# weights, so that every pair of the two comes once, closed form and sampled
+# nu at each
+CLUSTER_CHECKS = ((geometry.M_SMEM + 1, "dist", False), (313, "coords", True),
+                  (441, "dist", True), (geometry.M_CLUSTER, "coords", False))
+CLUSTER_CHECK_M = tuple(m for m, _, _ in CLUSTER_CHECKS)
+# the shape the cluster rows are timed at: M_SMEM + 1, n=1,000, 4 chains
+N_CLUSTER_TIMED = 1_000
+
+
+def cluster_body_check(dev) -> tuple:
+    """Kernels 1 and 3 on the cluster body (M_SMEM < m <= M_CLUSTER, a
+    thread-block cluster a (site, chain) system): at each m of
+    CLUSTER_CHECKS (n = m + 100, 2 chains) on its layout and with or
+    without noise weights, closed form (sqexp, the closed-form limits of
+    check_forward and check_bf) and sampled nu (NU_LIMITS), against their
+    float64 plain versions, each launch counted under ``_large_cluster``.  Then the
+    ``_large_cluster`` rows timed at m = M_SMEM + 1, n=1,000, 4 chains (the
+    general-nu ones too) with their float32 plain versions, bounds and the
+    factor-only yardstick on the same float64 batch as their library_ms.
+    Returns (max_abs_err, ms, bound, library) by row."""
+    errs, times, bounds, library = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for m, layout, hetero in CLUSTER_CHECKS:
+        _require(geometry.large_body("vecchia_suffstats", m) == "cluster"
+                 and geometry.large_body("vecchia_bf", m) == "cluster"
+                 and geometry.large_body("vecchia_grad", m) == "scratch",
+                 f"m={m} does not run kernels 1 and 3 on the cluster body")
+        sfx = _suffix_of(layout)
+        rows = (f"vecchia_suffstats{sfx}_large_cluster", f"vecchia_bf{sfx}_large_cluster",
+                f"vecchia_suffstats_nu{sfx}_large_cluster", f"vecchia_bf_nu{sfx}_large_cluster")
+        het = "_hetero" if hetero else ""
+        counts = [_COUNTS[row + het] for row in rows]
+        before = [c.launches for c in counts]
+        case = Case(m + 100, m, SqExp(), 2, seed=0, dev=dev, layout=layout)
+        nu = Case(m + 100, m, Matern(), 2, seed=0, dev=dev, nu=[0.5 - 1e-4, 2.4],
+                  layout=layout)
+        if hetero:
+            case = case.with_noise(noise_weights(m + 100))
+            nu = nu.with_noise(noise_weights(m + 100))
+        label = f"{layout}{het} n{m + 100} m{m} cluster body (k={geometry.cluster_blocks(m)})"
+        fwd = check_forward(case.subset(slice(None)), label)
+        bf = check_bf(case.subset(slice(None)), label, zero_alpha=False, gated=True)
+        gen = check_general_nu_13(nu.subset(slice(None)), label + " nu")
+        launches = [c.launches - b for c, b in zip(counts, before)]
+        _require(launches == [1, 1, 1, 1],
+                 f"the cluster body was not launched once each [{label}]: {launches}")
+        for row, err in zip(rows, (fwd["f_max_abs_err"], bf["b_max_abs_err"],
+                                   gen["f_max_abs_err"], gen["bf_b_max_abs_err"])):
+            errs[row] = max(errs.get(row, 0.0), err)
+        del case, nu
+        torch.cuda.empty_cache()
+    checks_s = time.perf_counter() - t0
+    m = geometry.M_SMEM + 1
+    for layout in LAYOUTS:
+        case = Case(N_CLUSTER_TIMED, m, SqExp(), 4, seed=0, dev=dev, layout=layout)
+        times.update(time_instances(case, 1, 5, (1, 2), ("vecchia_suffstats", "vecchia_bf")))
+        bounds.update({row: b for row, b in kernel_bounds(case).items() if row in KERNEL_ROWS
+                       and row.endswith("_large_cluster")})
+        yard = factor_only(case, 1, 3)
+        nu = Case(N_CLUSTER_TIMED, m, Matern(), 4, seed=0, dev=dev, nu=nu_spread(CHAINS)[::4],
+                  layout=layout)
+        times.update(time_instances(nu, 1, 3, (0, 1), ("vecchia_suffstats", "vecchia_bf")))
+        bounds.update({row: b for row, b in kernel_bounds_nu(nu).items() if row in KERNEL_ROWS
+                       and row.endswith("_large_cluster")})
+        library.update({row: yard for row in CLUSTER_ROWS
+                        if ("_coords" in row) == (layout == "coords")})
+        del case, nu
+        torch.cuda.empty_cache()
+    out = {"checks": [f"m{m} {layout}{' hetero' if het else ''}" for m, layout, het in CLUSTER_CHECKS],
+           "cluster_blocks": {m: geometry.cluster_blocks(m) for m in CLUSTER_CHECK_M},
+           "block_bytes": {m: geometry.cluster_block_bytes(m, geometry.cluster_blocks(m))
+                           for m in CLUSTER_CHECK_M},
+           "max_abs_err": errs, "timed": f"m{m} n{N_CLUSTER_TIMED} 4 chains",
+           "ms": {row: times[row] for row in CLUSTER_ROWS},
+           "plain_ms": {row: times[row + "_plain"] for row in CLUSTER_ROWS},
+           "bound_ms": {row: bounds[row][0] for row in CLUSTER_ROWS},
+           "factor_only_ms": {row: library[row]["ms"] for row in CLUSTER_ROWS},
+           "check_seconds": checks_s, "seconds": time.perf_counter() - t0}
+    print("cluster body of kernels 1 and 3 [M_SMEM < m <= M_CLUSTER]: " + json.dumps(out),
+          flush=True)
+    return errs, times, bounds, library
+
+
+def _timed_launch(fn):
+    """(fn's result, its card milliseconds): one call between CUDA events,
+    as a launch too long to time twice is timed."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def scratch_body_check(dev) -> tuple:
+    """Each kernel at the first m it runs on the scratch body: kernels 1 and
+    3 at m = M_CLUSTER + 1 with the fewest sites and chains that run (n = m
+    + 1, one chain: the body runs each site's system in one thread, so a
+    launch takes one system's time), each launch timed between CUDA events
+    and held to its float64 plain version at the closed-form limits; kernel
+    2 and its EMIT_Y instance at m = M_SMEM_GRAD + 1 (n=500, 4 chains: their
+    float64 plain versions, kernel 2's through autograd, cost seconds a call
+    at this m); each counted under ``_large_scratch``.  Returns (max_abs_err,
+    ms, bound, library) of the ``_large_scratch`` rows."""
+    m13, m2 = geometry.M_CLUSTER + 1, geometry.M_SMEM_GRAD + 1
     _require(geometry.large_body("vecchia_suffstats", m13) == "scratch"
              and geometry.large_body("vecchia_bf", m13) == "scratch"
-             and geometry.large_body("vecchia_bf", m13 - 1) == "smem"
+             and geometry.large_body("vecchia_bf", m13 - 1) == "cluster"
              and geometry.large_body("vecchia_grad", m2) == "scratch"
              and geometry.large_body("vecchia_grad", m2 - 1) == "smem",
              f"m={m13} (kernels 1 and 3) or m={m2} (kernel 2) does not run the scratch body")
@@ -2715,10 +2924,28 @@ def scratch_body_check(dev) -> dict:
               diff_ops.COUNTS["vecchia_grad_y_large_scratch"])
     before = [c.launches for c in counts]
     t0 = time.perf_counter()
-    case = Case(1_000, m13, SqExp(), 4, seed=0, dev=dev)
-    label = f"n1000 m{m13} scratch body sqexp"
-    fwd = check_forward(case.subset(slice(None)), label)
-    bf = check_bf(case.subset(slice(None)), label, zero_alpha=False, gated=True)
+    case = Case(m13 + 1, m13, SqExp(), 1, seed=0, dev=dev)
+    label = f"n{m13 + 1} m{m13} scratch body sqexp, 1 chain"
+    k, t = case.kernel, case.tab32
+    out1, ms1 = _timed_launch(lambda: fwd_ops.suffstats(k, t, case.phi, case.alpha, case.y32,
+                                                        case.jitter))
+    fwd = check_forward(case, label, out=out1)
+    out3, ms3 = _timed_launch(lambda: bf_ops.bf_planes(k, t, case.phi, case.alpha,
+                                                       case.jitter))
+    bf = check_bf(case, label, zero_alpha=False, gated=True, out=out3)
+    params = fwd_ops.params_array(case.phi, case.alpha, case.jitter, case.n, torch.float32,
+                                  case.phi.device)
+    times = {"vecchia_suffstats_large_scratch": ms1, "vecchia_bf_large_scratch": ms3,
+             "vecchia_suffstats_large_scratch_plain": _time_ms(
+                 lambda: fwd_ops.suffstats_reference(k, t, params, case.y32), 0, 1),
+             "vecchia_bf_large_scratch_plain": _time_ms(
+                 lambda: bf_ops.bf_reference(k, t, params), 0, 1)}
+    bounds = {row: b for row, b in kernel_bounds(case).items() if row in SCRATCH_ROWS}
+    yard = factor_only(case, 0, 1)
+    library = {row: yard for row in SCRATCH_ROWS}
+    errs = {"vecchia_suffstats_large_scratch": fwd["f_max_abs_err"],
+            "vecchia_bf_large_scratch": bf["b_max_abs_err"]}
+    scratch13_s = time.perf_counter() - t0
     case = Case(500, m2, SqExp(), 4, seed=0, dev=dev)
     label = f"n500 m{m2} scratch body sqexp"
     grad = check_grad(case.subset(slice(None)), label, grad_rtol=2e-3)
@@ -2730,11 +2957,15 @@ def scratch_body_check(dev) -> dict:
            "f_max_abs_err": fwd["f_max_abs_err"], "b_max_abs_err": bf["b_max_abs_err"],
            "grad_max_abs_err": grad["max_abs_err"],
            "grad_y_b_max_abs_err": grad_y["b_max_abs_err"],
-           "seconds": time.perf_counter() - t0}
-    print("scratch bodies above M_SMEM and M_SMEM_GRAD: " + json.dumps(out), flush=True)
+           "ms": {row: times[row] for row in SCRATCH_ROWS},
+           "plain_ms": {row: times[row + "_plain"] for row in SCRATCH_ROWS},
+           "bound_ms": {row: bounds[row][0] for row in SCRATCH_ROWS},
+           "factor_only_ms": yard["ms"],
+           "kernels_1_and_3_seconds": scratch13_s, "seconds": time.perf_counter() - t0}
+    print("scratch bodies above M_CLUSTER and M_SMEM_GRAD: " + json.dumps(out), flush=True)
     del case
     torch.cuda.empty_cache()
-    return out
+    return errs, times, bounds, library
 
 
 def large_m_path(dev) -> dict:
@@ -2885,6 +3116,27 @@ def tile_resources(info: dict) -> dict:
           f"{geometry.M_SMEM}; kernel 2, 32 < m <= {geometry.M_SMEM_GRAD}; 16 chains]: "
           + json.dumps(smem), flush=True)
     _require(len(smem) == 16, f"expected 16 shared-memory kernels, found {len(smem)}")
+    cluster = {}
+    for line, res in zip(usage, usage[1:]):
+        # kernels 1 and 3 on the cluster body: <GENERAL, COORDS>
+        found = re.search(r"(suffstats|bf)_cluster_kernelI((?:Lb[01]E)+)", line)
+        if "Function" not in line or not found:
+            continue
+        flags = re.findall(r"Lb([01])E", found.group(2))
+        name = (found.group(1) + ("_nu" if flags[0] == "1" else "")
+                + ("_coords" if flags[1] == "1" else ""))
+        stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
+        cluster[name] = {"registers": int(stats.get("REG", 0)),
+                         "stack": int(stats.get("STACK", 0)),
+                         "static_shared": int(stats.get("SHARED", 0)),
+                         **{f"m{m}": {"cluster_blocks": geometry.cluster_blocks(m),
+                                      "dynamic_shared": geometry.cluster_block_bytes(
+                                          m, geometry.cluster_blocks(m))}
+                            for m in CLUSTER_CHECK_M}}
+    print(f"cluster bodies' resources [kernels 1 and 3, {geometry.M_SMEM} < m <= "
+          f"{geometry.M_CLUSTER}; {geometry.CLUSTER_THREADS} threads a block]: "
+          + json.dumps(cluster), flush=True)
+    _require(len(cluster) == 8, f"expected 8 cluster-body kernels, found {len(cluster)}")
     return out
 
 
@@ -3802,29 +4054,45 @@ SUM_ULPS = 20
 U32 = 2.0**-24
 
 
-def _offset_launches(case: Case, tables) -> dict:
+def _offset_launches(case: Case, tables, grad: bool = True) -> dict:
     """Every kernel of the case on ``tables`` (unsharded or sharded): kernel
     1 and kernel 2 with the per-chain y, kernel 2's EMIT_Y instances and
-    kernel 3.  Per-site outputs and the float64 sums."""
+    kernel 3 (kernels 1 and 3 alone without ``grad``).  Per-site outputs and
+    the float64 sums."""
     k, y, nu, v = case.kernel, case.y32_chains, case.nu, case.v32
     ld, q, f, r = fwd_ops.suffstats(k, tables, case.phi, case.alpha, y, case.jitter,
                                     nu, v)
+    b3, f3 = bf_ops.bf_planes(k, tables, case.phi, case.alpha, case.jitter, nu, v)
+    if not grad:
+        torch.cuda.synchronize()
+        return {"sums1": torch.stack([ld, q]).double(), "f": f, "r": r, "bf_b": b3,
+                "bf_f": f3}
     sums = diff_ops.value_and_grad_sums(k, tables, case.phi, case.alpha, y,
                                         case.jitter, nu=nu, noise_v=v)
     sums_y, b, rof = diff_ops.value_and_grad_sums(k, tables, case.phi, case.alpha, y,
                                                   case.jitter, emit_y=True, nu=nu,
                                                   noise_v=v)
-    b3, f3 = bf_ops.bf_planes(k, tables, case.phi, case.alpha, case.jitter, nu, v)
     torch.cuda.synchronize()
     return {"sums1": torch.stack([ld, q]).double(), "f": f, "r": r,
             "sums2": sums.double(), "sums2_y": sums_y.double(), "b": b, "rof": rof,
             "bf_b": b3, "bf_f": f3}
 
 
-def _abs_term_sums(case: Case) -> dict:
+def _abs_term_sums(case: Case, grad: bool = True) -> dict:
     """sum over the valid sites of |per-site term| of each sum, in float64:
     kernel 2's from its plain version on the card (chunked over chains),
-    kernel 1's (the same two as kernel 2's first) from it too."""
+    kernel 1's (the same two as kernel 2's first) from it too; without
+    ``grad`` kernel 1's alone, from its float64 plain version."""
+    if not grad:
+        parts = []
+        for sl in case.chunks():
+            _, _, pr = case.params64(sl)
+            _, _, f, r = fwd_ops.suffstats_reference(case.kernel, case.tab64, pr,
+                                                     case.y32_chains[sl].double(), case.v64)
+            valid = fwd_ops.global_sites(case.tab64) < case.n
+            parts.append(torch.stack([(torch.log(f).abs() * valid).sum(-1),
+                                      (r * r / f * valid).abs().sum(-1)]))
+        return {"sums1": torch.cat(parts, dim=1)}
     parts = []
     for sl in case.chunks():
         _, _, pr = case.params64(sl)
@@ -3835,37 +4103,37 @@ def _abs_term_sums(case: Case) -> dict:
     return {"sums1": t2[:2], "sums2": t2, "sums2_y": t2}
 
 
-def shard_offset_case(case: Case, label: str, times: bool = False) -> dict:
-    """Path 27 on one case: every instance's per-site outputs on meshes
-    OFFSET_MESHES of cuda:0 against the unsharded launch on the same tables,
-    bit for bit, and the sums within SUM_ULPS; the last shard holds padded
-    sites past n."""
+def shard_offset_case(case: Case, label: str, times: bool = False, grad: bool = True) -> dict:
+    """Path 27 on one case: every instance's per-site outputs (kernels 1
+    and 3 alone without ``grad``) on meshes OFFSET_MESHES of cuda:0 against
+    the unsharded launch on the same tables, bit for bit, and the sums
+    within SUM_ULPS; the last shard holds padded sites past n."""
     dev = case.y32.device
     _reset_counts()
-    want = _offset_launches(case, case.tab32)
-    terms = _abs_term_sums(case)
+    want = _offset_launches(case, case.tab32, grad)
+    terms = _abs_term_sums(case, grad)
     res = {"n": case.n, "m": case.m, "layout": case.layout,
            "hetero": case.v32 is not None, "n_pad": case.tab32.n_pad}
-    per_site = ("f", "r", "b", "rof", "bf_b", "bf_f")
+    per_site = ("f", "r", "b", "rof", "bf_b", "bf_f") if grad else ("f", "r", "bf_b", "bf_f")
     for shape in OFFSET_MESHES:
         mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
         sharded = shard_site_tables(case.tab32, mesh)
         last = sharded.cells[0][-1]
         _require(last.off + last.n_pad > case.n >= last.off,
                  f"the last shard holds no padded site past n [{label} {shape}]")
-        got = _offset_launches(case, sharded)
+        got = _offset_launches(case, sharded, grad)
         # the same bits (NaN included), compared as integers
         same = {key: bool(torch.equal(got[key].view(torch.int32),
                                       want[key].view(torch.int32))) for key in per_site}
         worst = 0.0
-        for key in ("sums1", "sums2", "sums2_y"):
+        for key in terms:
             bound = (SUM_ULPS * U32 * terms[key]
                      + U32 * (got[key].abs() + want[key].abs()))
             worst = max(worst, float(((got[key] - want[key]).abs() / bound).max()))
         key = f"mesh_{shape[0]}x{shape[1]}"
         res[key] = {"bitwise": same, "sums_over_bound": worst,
                     "sums_max_abs_diff": max(float((got[k] - want[k]).abs().max())
-                                             for k in ("sums1", "sums2", "sums2_y")),
+                                             for k in terms),
                     "shard_sites": last.n_pad, "last_shard_padded": last.reach - case.n}
         _require(all(same.values()),
                  f"sharded per-site outputs differ from the unsharded launch "
@@ -3900,9 +4168,10 @@ def shard_offset_path(dev, field3) -> dict:
     case (n=100,000, m=15, sqexp, 16 chains), config 3's general-nu case
     (n=25,000, m=10, sampled nu), the coords layout at the main case's
     shapes, the main case with noise weights, m=40 (n=10,000, the
-    large-m instances) and m=20 on both layouts (n=10,000, 4 chains, the
-    M = 20 team bodies, their unsharded launches of four chains).  Tables
-    built for 4 site shards."""
+    large-m instances), kernels 1 and 3 at m = M_SMEM + 1 (n=1,000, 4
+    chains, the cluster body) and m=20 on both layouts
+    (n=10,000, 4 chains, the M = 20 team bodies, their unsharded launches of
+    four chains).  Tables built for 4 site shards."""
     t0 = time.perf_counter()
     out = {}
     main = Case(N_MAIN, M_MAIN, SqExp(), CHAINS, seed=0, dev=dev, shards=4)
@@ -3917,6 +4186,14 @@ def shard_offset_path(dev, field3) -> dict:
              nu=nu_spread(CHAINS), shards=4), "general nu")
     out["m40"] = shard_offset_case(
         Case(N_LARGE, 40, SqExp(), CHAINS, seed=0, dev=dev, shards=4), "m40")
+    m = geometry.M_SMEM + 1
+    out["cluster"] = shard_offset_case(
+        Case(N_CLUSTER_TIMED, m, SqExp(), 4, seed=0, dev=dev, shards=4),
+        f"m{m} cluster body", grad=False)
+    _require(all(out["cluster"]["launches"].get(name, 0) > 0 for name in (
+        "vecchia_suffstats_large_cluster", "vecchia_bf_large_cluster",
+        "vecchia_suffstats_large_cluster_sharded", "vecchia_bf_large_cluster_sharded")),
+             "path 27's cluster case ran no cluster body, sharded or not")
     for layout in LAYOUTS:
         out[f"m20_{layout}"] = shard_offset_case(
             Case(N_LARGE, 20, SqExp(), 4, seed=0, dev=dev, layout=layout, shards=4),
@@ -4284,7 +4561,7 @@ def run_phases(t_start: float, dev, info: dict, resources: dict,
     errs_m = m_between_instances(dev, main_case)
     errs_m.update({name: max(err, errs_m.get(name, 0.0))
                    for name, err in large_m_instances(dev).items()})
-    errs_large, times_large, bounds_large = large_m_kernels(dev)
+    errs_large, times_large, bounds_large, library = large_m_kernels(dev)
     times.update(times_large)
     bounds.update(bounds_large)
 
@@ -4501,7 +4778,10 @@ def run_phases(t_start: float, dev, info: dict, resources: dict,
                                  for p in paths.values()),
          "max_abs_err": errs[name], "ms": times[name],
          "plain_ms": times[name + "_plain"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None,
+         "bound_by": bounds[name][1],
+         "library_ms": library[name]["ms"] if name in library else None,
+         **({"library_call": "torch.linalg.cholesky_ex on the same float64 batch, "
+                             "the factor alone"} if name in library else {}),
          **team_resources(resources, name)}
         for name, (src, tpu, _) in KERNEL_ROWS.items()
     ]}), flush=True)

@@ -34,7 +34,9 @@
 // unrolled with the factor in registers; 20 < m <= kRolledM and coords with
 // d > kMaxDim on the rolled instance; kRolledM < m <= kSmemM on the
 // shared-memory body (vecchia_large_smem.cuh: a warp a (site, chain)
-// system), larger m on the scratch body (vecchia_large_m.cuh).  At M = 20
+// system), kSmemM < m <= kClusterM on the cluster body
+// (vecchia_large_cluster.cuh: a thread-block cluster a system), larger m on
+// the scratch body (vecchia_large_m.cuh).  At M = 20
 // (15 < m <= 20) the closed-form coords instances run the team body
 // (vecchia_team.cuh: a few lanes a system); the dist and general-nu ones
 // keep this body (team_launch says why).
@@ -52,6 +54,7 @@
 
 #include <cstddef>
 
+#include "vecchia_large_cluster.cuh"
 #include "vecchia_large_m.cuh"
 #include "vecchia_large_smem.cuh"
 #include "vecchia_team.cuh"
@@ -198,10 +201,14 @@ bf_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 // Validates the launch shape and the wrapper's geometry (group chains a
 // block, grid_x blocks along the tiles, the ring's bytes; for
 // kRolledM < m <= kSmemM group chains a block, grid_x blocks along the sites,
-// the systems' bytes and no scratch; above, grid_x blocks of kBlock sites of
-// one chain and the scratch buffer), picks the instance (M >= m for m <= 20;
-// the rolled one for 20 < m <= kRolledM and for coords with d > kMaxDim; the
-// shared-memory body up to kSmemM, the scratch body above) and launches on
+// the systems' bytes and no scratch; for kSmemM < m <= kClusterM the
+// cluster size, grid_x clusters a chain, a block's bytes and the hand-off
+// buffer in scratch;
+// above, grid_x blocks of kBlock sites of one chain and the scratch buffer),
+// picks the instance (M >= m for m <= 20; the rolled one for
+// 20 < m <= kRolledM and for coords with d > kMaxDim; the shared-memory body
+// up to kSmemM, the cluster body up to kClusterM, the scratch body above)
+// and launches on
 // `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_bf(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
@@ -219,6 +226,14 @@ int launch_bf(const float* params, const float* tab_a, const float* tab_b, const
     return launch_bf_smem<GENERAL, COORDS>(params, tab_a, tab_b, nn_idx, v, n_pad, m, dim,
                                            chains, family, group, grid_x, smem_bytes, b_out,
                                            f_out, st);
+  }
+  if (cluster_launch(m)) {
+    if (!valid_cluster(n_pad, m, chains, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_bf_cluster<GENERAL, COORDS>(params, tab_a, tab_b, nn_idx, v, n_pad, m, dim,
+                                              chains, family, group, grid_x, smem_bytes,
+                                              scratch, b_out, f_out, st);
   }
   if (large_launch(m)) {
     if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {

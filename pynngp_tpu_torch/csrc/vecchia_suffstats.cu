@@ -8,13 +8,15 @@
 //   int32; y (n,) with y_stride 0, or (C, n) with y_stride n; v (n_pad,) the
 //   per-site noise weights padded with 1, or null for homogeneous noise;
 //   m >= 1 (the instance M >= m runs for m <= 20, the rolled one for
-//   m <= 32, the shared-memory body up to kSmemM = 236, the scratch body
-//   above); group (chains a block, one warp each), grid_x (blocks along the
+//   m <= 32, the shared-memory body up to kSmemM = 236, the cluster body up
+//   to kClusterM = 608, the scratch body above); group (chains a block, one warp each), grid_x (blocks along the
 //   32-site tiles) and smem_bytes (the tile ring's bytes for them) as
 //   pynngp_tpu_torch/ops/geometry.py computes them, refused unless the bytes
 //   match the ring's layout; for 32 < m <= 236 group chains a block, grid_x
 //   blocks along the sites and smem_bytes group systems' bytes
-//   (geometry.smem_geometry), scratch null; above, group 1, smem_bytes 0,
+//   (geometry.smem_geometry), scratch null; for 236 < m <= 608 group the
+//   cluster size, grid_x clusters a chain and smem_bytes a block's bytes
+//   (geometry.cluster_geometry), scratch null; above, group 1, smem_bytes 0,
 //   grid_x blocks of 128 sites and scratch, a buffer of m(m-1)/2 + 6m
 //   doubles for each of the launch's grid_x * C * 128 threads
 //   (geometry.large_geometry), null otherwise;

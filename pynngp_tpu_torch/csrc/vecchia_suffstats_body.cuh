@@ -30,8 +30,9 @@
 // the rolled instance (ROLLED: arrays for kRolledM, loops to m, in local
 // memory) runs 20 < m <= 32 and coords with d > kMaxDim; 32 < m <= kSmemM
 // runs the shared-memory body (vecchia_large_smem.cuh: a warp a (site,
-// chain) system), larger m the scratch body (vecchia_large_m.cuh).  At
-// M = 20 (15 < m <= 20) the closed-form coords instance runs the team body
+// chain) system), kSmemM < m <= kClusterM the cluster body
+// (vecchia_large_cluster.cuh: a thread-block cluster a system), larger m the
+// scratch body (vecchia_large_m.cuh).  At M = 20 (15 < m <= 20) the closed-form coords instance runs the team body
 // (vecchia_team.cuh: a few lanes a system); the dist and general-nu ones
 // keep this body (team_launch says why).
 //
@@ -64,6 +65,7 @@
 
 #include <cstddef>
 
+#include "vecchia_large_cluster.cuh"
 #include "vecchia_large_m.cuh"
 #include "vecchia_large_smem.cuh"
 #include "vecchia_team.cuh"
@@ -237,10 +239,14 @@ __global__ void __launch_bounds__(kTile * kMaxGroup) suffstats_nu_kernel(VECCHIA
 // Validates the launch shape and the wrapper's geometry (group chains a
 // block, grid_x blocks along the tiles, the ring's bytes; for
 // kRolledM < m <= kSmemM group chains a block, grid_x blocks along the sites,
-// the systems' bytes and no scratch; above, grid_x blocks of kBlock sites of
-// one chain and the scratch buffer), picks the instance (M >= m for m <= 20;
-// the rolled one for 20 < m <= kRolledM and for coords with d > kMaxDim; the
-// shared-memory body up to kSmemM, the scratch body above) and launches on
+// the systems' bytes and no scratch; for kSmemM < m <= kClusterM the
+// cluster size, grid_x clusters a chain, a block's bytes and the hand-off
+// buffer in scratch;
+// above, grid_x blocks of kBlock sites of one chain and the scratch buffer),
+// picks the instance (M >= m for m <= 20; the rolled one for
+// 20 < m <= kRolledM and for coords with d > kMaxDim; the shared-memory body
+// up to kSmemM, the cluster body up to kClusterM, the scratch body above)
+// and launches on
 // `stream` without synchronising; returns cudaGetLastError().
 template <bool GENERAL, bool COORDS>
 int launch_suffstats(const float* params, const float* tab_a, const float* tab_b,
@@ -258,6 +264,14 @@ int launch_suffstats(const float* params, const float* tab_a, const float* tab_b
     return launch_suffstats_smem<GENERAL, COORDS>(
         params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, group,
         grid_x, smem_bytes, f_out, r_out, part, static_cast<cudaStream_t>(stream));
+  }
+  if (cluster_launch(m)) {
+    if (!valid_cluster(n_pad, m, chains, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_suffstats_cluster<GENERAL, COORDS>(
+        params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, group,
+        grid_x, smem_bytes, scratch, f_out, r_out, part, static_cast<cudaStream_t>(stream));
   }
   if (large_launch(m)) {
     if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {

@@ -1,6 +1,6 @@
 """Launch geometry of the three kernels (``csrc/vecchia_tile.cuh``,
 ``csrc/vecchia_large_smem.cuh``, ``csrc/vecchia_grad_smem.cuh``,
-``csrc/vecchia_large_m.cuh``).
+``csrc/vecchia_large_cluster.cuh``, ``csrc/vecchia_large_m.cuh``).
 
 For m <= 32 a block is a group of up to :data:`GROUP` chains, one warp of
 32 threads a chain, and its warps share one tile of :data:`TILE` consecutive
@@ -17,10 +17,14 @@ For m > 32 the ring does not fit (one stage at m = 64 on the dist layout is
 283 KB).  Each kernel then runs one warp a (site, chain) system, its factor
 in shared memory (:func:`smem_geometry`), up to the largest m whose one
 system fits a block: :data:`M_SMEM` for kernels 1 and 3, :data:`M_SMEM_GRAD`
-for kernel 2, whose system keeps two more vectors.  Above its limit a kernel
-runs the scratch body, one thread a (site, chain) with its state in a device
-scratch buffer (:func:`large_geometry`).  :func:`large_body` names which of
-the two a launch runs.
+for kernel 2, whose system keeps two more vectors.  Above M_SMEM kernels 1
+and 3 run the cluster body up to :data:`M_CLUSTER`: a thread-block cluster a
+(site, chain) system, its columns spread over the shared memory of the
+cluster's blocks (:func:`cluster_geometry`).  Above its limit (M_CLUSTER,
+or M_SMEM_GRAD for kernel 2) a kernel runs the scratch body, one thread a
+(site, chain) with its state in a device scratch buffer
+(:func:`large_geometry`).  :func:`large_body` names which body a launch
+runs.
 
 At M = 20 (15 < m <= 20) the closed-form instances of every kernel on
 coords, and of kernel 2 on dist, run a team body on the same ring and grid
@@ -37,9 +41,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-__all__ = ["CUDA_M", "GROUP", "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M", "M_SMEM",
+__all__ = ["CLUSTER_M", "CLUSTER_PANEL", "CLUSTER_THREADS", "CUDA_M", "GROUP",
+           "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M", "M_CLUSTER", "M_SMEM",
            "M_SMEM_GRAD", "RING_BYTES", "SHARED_BYTES", "SMEM_M", "STAGES",
            "TEAM_M", "TILE", "TILES_PER_BLOCK", "Geometry", "LargeGeometry", "check_card_m",
+           "cluster_block_bytes", "cluster_blocks", "cluster_geometry", "cluster_owner",
+           "cluster_slot_bytes", "cluster_stage_words",
            "cuda_instance_m", "geometry", "large", "large_body", "large_geometry",
            "large_state_doubles", "ring_planes", "rolled",
            "smem_geometry", "smem_grad_system_bytes", "smem_system_bytes", "system_bytes",
@@ -65,6 +72,11 @@ SMS = 132  # an H100's SMs
 TEAM_M = 20  # the built instance M whose closed-form instances run the team bodies
 SM_SHARED_BYTES = 233_472  # shared memory of one SM
 SM_BLOCK_RESERVE = 2048  # bytes a block takes beside its systems: 1,024 the card's, MaternSets
+CLUSTER_PANEL = 8  # kClusterPanel: columns a panel of the cluster body
+CLUSTER_THREADS = 256  # kClusterThreads: threads a block of the cluster body
+CLUSTER_SIZES = (2, 4, 8)  # the portable cluster sizes, smallest first
+CLUSTER_SYSTEMS = 8192  # clusters a cluster-body launch keeps at most (before rounding)
+CLUSTER_SLOT_SMS = 256  # kClusterSlotSms: SMs the cluster body's hand-off buffer serves
 
 
 def cuda_instance_m(m: int) -> int:
@@ -238,16 +250,103 @@ def system_bytes(base: str, m: int) -> int:
     return smem_grad_system_bytes(m) if base == "vecchia_grad" else smem_system_bytes(m)
 
 
+def cluster_mp(m: int) -> int:
+    """m rounded up to CLUSTER_PANEL: the cluster body's slots."""
+    return -(-m // CLUSTER_PANEL) * CLUSTER_PANEL
+
+
+def cluster_owner(p: int, k: int) -> int:
+    """The block of a k-block cluster that holds panel p (CLUSTER_PANEL
+    columns): snake order, 0 .. k-1 then k-1 .. 0 (``cluster_owner`` of
+    csrc/vecchia_large_cluster.cuh)."""
+    return p % k if (p // k) % 2 == 0 else k - 1 - p % k
+
+
+def cluster_block_bytes(m: int, k: int) -> int:
+    """Dynamic shared bytes a block of the cluster body takes with k blocks
+    a system (``cluster_block_bytes``): its cluster's largest share of the
+    panels, each CLUSTER_PANEL columns of rows - c0 float64 words (rows =
+    mp + 2: the border rows c and y_N; c0 the panel's first column), and the
+    staging buffer, CLUSTER_PANEL columns of rows - CLUSTER_PANEL words."""
+    mp = cluster_mp(m)
+    words = [0] * k
+    for p in range(mp // CLUSTER_PANEL):
+        words[cluster_owner(p, k)] += CLUSTER_PANEL * (mp + 2 - p * CLUSTER_PANEL)
+    return 8 * (max(words) + cluster_stage_words(m))
+
+
+def cluster_stage_words(m: int) -> int:
+    """float64 words of one staged panel of the cluster body: CLUSTER_PANEL
+    columns of rows - CLUSTER_PANEL words, the most a panel's rows below it
+    take (``cluster_stage_words``)."""
+    return CLUSTER_PANEL * (cluster_mp(m) + 2 - CLUSTER_PANEL)
+
+
+def cluster_slot_bytes(m: int) -> int:
+    """Bytes of the cluster body's hand-off buffer in device memory (the
+    launch's scratch tensor): two staged panels for each of CLUSTER_SLOT_SMS
+    SMs, the one a panel's owner writes as it factors it and every block of
+    its cluster stages from (``valid_cluster``'s note)."""
+    return 8 * 2 * CLUSTER_SLOT_SMS * cluster_stage_words(m)
+
+
+def cluster_blocks(m: int):
+    """The smallest cluster size of CLUSTER_SIZES whose blocks hold the
+    system of m neighbors within RING_BYTES each, or None."""
+    for k in CLUSTER_SIZES:
+        if cluster_block_bytes(m, k) <= RING_BYTES:
+            return k
+    return None
+
+
+def _max_cluster_m() -> int:
+    m = M_SMEM
+    while cluster_blocks(m + 1) is not None:
+        m += 1
+    return m
+
+
+# the largest m an 8-block cluster holds: kernels 1 and 3 run the cluster
+# body for M_SMEM < m <= M_CLUSTER (kClusterM)
+M_CLUSTER = _max_cluster_m()
+# the kernels (base names) with a cluster body, and its largest m
+CLUSTER_M = {"vecchia_suffstats": M_CLUSTER, "vecchia_bf": M_CLUSTER}
+
+
 def large_body(base: str, m: int) -> str:
     """The body a launch of kernel ``base`` (``vecchia_suffstats``,
     ``vecchia_grad`` or ``vecchia_bf``) with m > 32 neighbors runs:
     ``"smem"`` (a warp a system in shared memory) up to the kernel's limit
     (:data:`SMEM_M`: M_SMEM for kernels 1 and 3, M_SMEM_GRAD for kernel 2),
-    else ``"scratch"`` (a thread a system, its state in a device buffer).  A
-    rule of shape: nothing runs on a failure."""
+    then for kernels 1 and 3 ``"cluster"`` (a thread-block cluster a system)
+    up to :data:`M_CLUSTER`, else ``"scratch"`` (a thread a system, its state
+    in a device buffer).  A rule of shape: nothing runs on a failure."""
     if not large(m):
         raise ValueError(f"m={m} runs the tile ring, not a large-m body")
-    return "smem" if m <= SMEM_M[base] else "scratch"
+    if m <= SMEM_M[base]:
+        return "smem"
+    return "cluster" if m <= CLUSTER_M.get(base, 0) else "scratch"
+
+
+def cluster_geometry(n_pad: int, m: int, chains: int) -> Geometry:
+    """The launch of kernel 1 or 3 on the cluster body (M_SMEM < m <=
+    M_CLUSTER) for ``chains`` chains over ``n_pad`` sites (a multiple of
+    128): clusters of ``group`` = :func:`cluster_blocks` blocks of
+    CLUSTER_THREADS threads, each cluster one chain's sites in a stride of
+    ``grid[0]`` (one system at a time), grid[0] clusters a chain, as many as
+    keep CLUSTER_SYSTEMS clusters in the launch and no more than the sites
+    (the card runs them in waves of what it holds); ``smem_bytes`` a block's
+    dynamic shared bytes.  The launch takes a hand-off buffer of
+    :func:`cluster_slot_bytes` as its scratch tensor."""
+    if n_pad % LARGE_BLOCK or n_pad <= 0:
+        raise ValueError(f"n_pad={n_pad} is not a positive multiple of {LARGE_BLOCK}")
+    if not 1 <= chains <= 65535:
+        raise ValueError(f"chains={chains} out of range")
+    if not M_SMEM < m <= M_CLUSTER:
+        raise ValueError(f"the cluster body takes {M_SMEM} < m <= {M_CLUSTER}, got m={m}")
+    k = cluster_blocks(m)
+    grid_x = max(1, min(n_pad, math.ceil(CLUSTER_SYSTEMS / chains)))
+    return Geometry((grid_x, chains), CLUSTER_THREADS, k, cluster_block_bytes(m, k))
 
 
 def smem_geometry(n_pad: int, m: int, chains: int,
@@ -280,9 +379,11 @@ def check_card_m(n_pad: int, m: int) -> None:
     """Raise where the card cannot take m neighbors over ``n_pad`` sites
     for one chain: m < 1, or a scratch-body launch whose one block needs
     more than LARGE_SCRATCH_BYTES of scratch.  Only m > M_SMEM_GRAD runs a
-    scratch body for every kernel of a model (kernel 2 there; kernels 1
-    and 3 above M_SMEM, which is larger); below it every large-m launch
-    runs a shared-memory body and needs no scratch.  The models call it as
+    scratch body for a kernel of every model (kernel 2 there; kernels 1 and
+    3 above M_CLUSTER, which is larger, and the cluster body between M_SMEM
+    and M_CLUSTER, whose hand-off buffer, under 20 MB, does not grow with
+    the sites); below it every large-m launch runs a shared-memory body and
+    needs no scratch.  The models call it as
     they build their tables on the card; a launch checks its own chain
     count."""
     cuda_instance_m(m)

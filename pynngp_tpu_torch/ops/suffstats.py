@@ -28,9 +28,11 @@ m > 32 the large-m instances.  Up to m = 32 the three kernels launch in the
 tile geometry of :mod:`.geometry` (a block is a group of chains that share
 one staged tile of sites); above it each kernel runs a warp a (site, chain)
 system in shared memory up to its limit (``geometry.M_SMEM`` for kernels 1
-and 3, ``geometry.M_SMEM_GRAD`` for kernel 2), and above that one thread a
-(site, chain) with its state in a scratch buffer (:func:`launch_geometry`);
-such launches count under ``_large_scratch``.
+and 3, ``geometry.M_SMEM_GRAD`` for kernel 2); above that kernels 1 and 3
+run a thread-block cluster a system up to ``geometry.M_CLUSTER`` (such
+launches count under ``_large_cluster``), and above their last limit the
+kernels run one thread a (site, chain) with its state in a scratch buffer
+(:func:`launch_geometry`); such launches count under ``_large_scratch``.
 
 At M = 20 (15 < m <= 20) the closed-form coords instance runs a team body
 (``geometry.team_body``: a few lanes a (site, chain) system); such launches
@@ -56,6 +58,8 @@ import torch
 from pynngp_tpu_torch.ops import _build
 from pynngp_tpu_torch.ops.geometry import (
     CUDA_M,
+    cluster_geometry,
+    cluster_slot_bytes,
     cuda_instance_m,
     geometry,
     large,
@@ -109,14 +113,15 @@ def instance(base: str, kernel, tables: SiteTables, emit_y: bool = False,
              hetero: bool = False, sharded: bool = False) -> str:
     """The kernel instance a launch of ``base`` runs, named as its launch
     count: its C entry (:func:`entry_name`), ``_large`` for m > 32 (the
-    large-m instance of the same entry), ``_large_scratch`` above the
-    kernel's shared-memory limit (its scratch body, ``geometry.large_body``),
-    ``_hetero`` for a launch with noise weights and ``_sharded`` for one of
-    a call over several mesh cells (the same entry again)."""
-    large_m = large(tables.m)
+    large-m instance of the same entry), ``_large_cluster`` on the cluster
+    body and ``_large_scratch`` on the scratch body, above the kernel's
+    shared-memory limit (``geometry.large_body``), ``_hetero`` for a launch
+    with noise weights and ``_sharded`` for one of a call over several mesh
+    cells (the same entry again)."""
+    body = large_body(base, tables.m) if large(tables.m) else None
     return (entry_name(base, kernel, tables, emit_y)
-            + ("_large" if large_m else "")
-            + ("_scratch" if large_m and large_body(base, tables.m) == "scratch" else "")
+            + ("_large" if body else "")
+            + ("_" + body if body in ("cluster", "scratch") else "")
             + ("_hetero" if hetero else "")
             + ("_sharded" if sharded else ""))
 
@@ -364,13 +369,23 @@ def launch_geometry(base: str, kernel, tables: SiteTables, chains: int, y, v):
     ``y`` is None for kernel 3.  m <= 32: the tile geometry
     (:func:`.geometry.geometry`), no scratch; 32 < m <= the kernel's limit
     (``geometry.SMEM_M``): the shared-memory body
-    (:func:`.geometry.smem_geometry`), no scratch; above it: the scratch
-    body (:func:`.geometry.large_geometry`): group 1, no shared bytes, and a
-    scratch buffer that the caller keeps until the launch is enqueued."""
-    if large(tables.m) and large_body(base, tables.m) == "smem":
+    (:func:`.geometry.smem_geometry`), no scratch; kernels 1 and 3 up to
+    ``geometry.M_CLUSTER``: the cluster body (:func:`.geometry.cluster_geometry`:
+    group the cluster's blocks, grid_x its clusters a chain) and its
+    hand-off buffer as the scratch tensor (``geometry.cluster_slot_bytes``);
+    above: the scratch body (:func:`.geometry.large_geometry`): group 1, no
+    shared bytes, and a scratch buffer.  The caller keeps a scratch tensor
+    until the launch is enqueued."""
+    body = large_body(base, tables.m) if large(tables.m) else None
+    if body == "smem":
         geo = smem_geometry(tables.n_pad, tables.m, chains, base)
         return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, None), None
-    if large(tables.m):
+    if body == "cluster":
+        geo = cluster_geometry(tables.n_pad, tables.m, chains)
+        slots = torch.empty(cluster_slot_bytes(tables.m) // 8, dtype=torch.float64,
+                            device=tables.device)
+        return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, slots.data_ptr()), slots
+    if body == "scratch":
         geo = large_geometry(tables.n_pad, tables.m, chains)
         scratch = torch.empty(geo.scratch_bytes // 8, dtype=torch.float64,
                               device=tables.device)

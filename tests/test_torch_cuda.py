@@ -808,9 +808,10 @@ def test_tile_kernels_take_any_chain_count_and_m(card, chains, m):
                      with_children(tab64), y, phi, alpha)
 
 
-def _check_per_chain_y(card, kern, tab32, tab64, y, phi, alpha, noise_v=None):
-    """Kernels 1, 2 and 2-EMIT_Y with one y row a chain, (C, n), against
-    their plain versions at the closed-form rows' limits."""
+def _check_per_chain_y(card, kern, tab32, tab64, y, phi, alpha, noise_v=None, grad=True):
+    """Kernels 1, 2 and 2-EMIT_Y (kernel 1 alone without ``grad``) with one
+    y row a chain, (C, n), against their plain versions at the closed-form
+    rows' limits."""
     limits = CLOSED_LIMITS
     n = tab32.n
     ys = y[None, :] + 0.1 * torch.arange(phi.shape[0], device=card)[:, None]
@@ -820,16 +821,18 @@ def _check_per_chain_y(card, kern, tab32, tab64, y, phi, alpha, noise_v=None):
     params = fops.params_array(phi.double(), alpha.double(), np.float32(1e-6), n,
                                torch.float64, card)
     ld, q, f, r = fops.suffstats(kern, tab32, phi, alpha, ys, noise_v=v32)
-    sums, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, ys, emit_y=True,
-                                            noise_v=v32)
     ld_p, q_p, f_p, r_p = fops.suffstats_reference(kern, tab64, params, ys.double(), v64)
-    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, ys.double(), True, v64)
     torch.testing.assert_close(ld.double(), ld_p, rtol=3e-4, atol=0.0)
     torch.testing.assert_close(q.double(), q_p, rtol=3e-4, atol=0.0)
     torch.testing.assert_close(f[:, :n].double(), f_p[:, :n], rtol=limits["f"][0],
                                atol=limits["f"][1])
     torch.testing.assert_close(r[:, :n].double(), r_p[:, :n], rtol=limits["r"][0],
                                atol=limits["r"][1])
+    if not grad:
+        return
+    sums, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, ys, emit_y=True,
+                                            noise_v=v32)
+    want, b_p, rof_p = dops.grad_reference(kern, tab64, params, ys.double(), True, v64)
     torch.testing.assert_close(sums.double()[:2], want[:2], rtol=limits["value"], atol=0.0)
     torch.testing.assert_close(sums.double()[2:6], want[2:6], rtol=limits["deriv"], atol=0.0)
     torch.testing.assert_close(b.double(), b_p, rtol=0.0, atol=limits["b"])
@@ -991,7 +994,8 @@ def _check_kernels_1_and_3(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=
     """Kernels 1 and 3 at the tables' m against their float64 plain versions
     at the rows' limits (closed form or general nu); one launch of each
     instance's count (``_large`` on the shared-memory body,
-    ``_large_scratch`` above M_SMEM; ``_hetero`` with weights)."""
+    ``_large_cluster`` above M_SMEM, ``_large_scratch`` above M_CLUSTER;
+    ``_hetero`` with weights)."""
     limits = GENERAL_LIMITS if nu is not None else CLOSED_LIMITS
     v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
                                                        device=card)
@@ -1033,17 +1037,88 @@ def _check_kernels_1_and_3(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=
 def test_kernels_1_and_3_on_either_large_m_body(card, m, kern, sampled, layout, hetero):
     """Kernels 1 and 3 at m = 33 and M_SMEM (the shared-memory body's
     smallest system and its largest, one system a block) and M_SMEM + 1
-    (the scratch body), closed form and sampled nu, both layouts, with and
-    without noise weights, against their float64 plain versions."""
+    (the cluster body's first m, two blocks a system), closed form and
+    sampled nu, both layouts, with and without noise weights, against their
+    float64 plain versions."""
     n = 1500 if m == 33 else 400
     tab32, tab64, y, phi, alpha = _problem(card, n=n, m=m, layout=layout)
     body = geometry.large_body("vecchia_bf", m)
-    assert body == ("smem" if m <= geometry.M_SMEM else "scratch")
+    assert body == ("smem" if m <= geometry.M_SMEM else "cluster")
     assert fops.instance("vecchia_suffstats", kern, tab32).endswith(
-        "_large" if body == "smem" else "_large_scratch")
+        "_large" if body == "smem" else "_large_cluster")
     nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
     _check_kernels_1_and_3(card, kern, nu, tab32, tab64, y, phi, alpha,
                            _weights(tab32.n) if hetero else None)
+
+
+# the cluster body's boundaries: the last m of two blocks a system, the first
+# of four, the last of four, the first of eight, and M_CLUSTER; the sampled-nu
+# cases at each size's first m
+CLUSTER_CASES = [(312, 0), (313, 0), (313, 1), (440, 0), (441, 0), (441, 1),
+                 (geometry.M_CLUSTER, 0)]
+
+
+@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("m,family", CLUSTER_CASES,
+                         ids=[f"m{m}_{'sampled_nu' if f else 'closed'}" for m, f in CLUSTER_CASES])
+def test_kernels_1_and_3_at_each_cluster_size(card, m, family, layout, hetero):
+    """Kernels 1 and 3 on the cluster body on either side of each cluster
+    size (2, 4 and 8 blocks a system) and at M_CLUSTER, closed form and
+    sampled nu, both layouts, with and without noise weights, against their
+    float64 plain versions (n = m + 28; the sampled-nu chains one a call,
+    whose float64 Bessel series would hold tens of GB for three)."""
+    kern, sampled = HETERO_FAMILIES[family]
+    tab32, tab64, y, phi, alpha = _problem(card, n=m + 28, m=m, layout=layout)
+    assert geometry.large_body("vecchia_suffstats", m) == "cluster"
+    assert geometry.large_body("vecchia_bf", m) == "cluster"
+    assert geometry.cluster_blocks(m) == (2 if m <= 312 else 4 if m <= 440 else 8)
+    v = _weights(tab32.n) if hetero else None
+    if not sampled:
+        _check_kernels_1_and_3(card, kern, None, tab32, tab64, y, phi, alpha, v)
+        return
+    nu = torch.tensor(NU_CHAINS, device=card)
+    for c in range(len(NU_CHAINS)):
+        _check_kernels_1_and_3(card, kern, nu[c:c + 1], tab32, tab64, y, phi[c:c + 1],
+                               alpha[c:c + 1], v)
+
+
+def test_kernels_1_and_3_above_m_cluster_run_the_scratch_body(card):
+    """m = M_CLUSTER + 1: kernels 1 and 3 on the scratch body (counted under
+    ``_large_scratch``) against their float64 plain versions."""
+    m = geometry.M_CLUSTER + 1
+    tab32, tab64, y, phi, alpha = _problem(card, n=m + 20, m=m)
+    assert geometry.large_body("vecchia_bf", m) == "scratch"
+    assert fops.instance("vecchia_suffstats", kernels.Exponential(), tab32).endswith(
+        "_large_scratch")
+    _check_kernels_1_and_3(card, kernels.Exponential(), None, tab32, tab64, y, phi[:1],
+                           alpha[:1])
+
+
+@pytest.mark.parametrize("layout,dim", [("dist", 2), ("coords", 2), ("coords", 4)],
+                         ids=["dist", "coords", "coords_d4"])
+@pytest.mark.parametrize("m", [geometry.M_SMEM + 1, 441])
+def test_cluster_body_with_per_chain_y_and_ragged_chains(card, m, layout, dim):
+    """Kernel 1 on the cluster body with one y row a chain, five chains,
+    noise weights, on both layouts and in four dimensions."""
+    tab32, tab64, y, _, _ = _problem(card, n=m + 28, m=m, layout=layout, dim=dim)
+    phi, alpha = _chain_params(card, 5)
+    _check_per_chain_y(card, kernels.SqExp(), tab32, tab64, y, phi, alpha,
+                       _weights(tab32.n), grad=False)
+
+
+@pytest.mark.parametrize("layout", ["dist", "coords"])
+@pytest.mark.parametrize("m", [geometry.M_SMEM + 1, 441])
+def test_cluster_body_on_meshes_of_one_card(card, m, layout):
+    """The shard offset on the cluster body: kernels 1 and 3 on tables of 4
+    site shards, on meshes (1, 2), (1, 4) and (2, 2) of this card, every
+    per-site output bit for bit as the unsharded launch, with and without
+    noise weights; the last shard holds padded sites."""
+    count = fops.COUNTS["vecchia_suffstats" + ("_coords" if layout == "coords" else "")
+                        + "_large_cluster_sharded"]
+    before = count.launches
+    _check_meshes(card, m, layout, grad=False)
+    assert count.launches > before
 
 
 def _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
@@ -1117,10 +1192,11 @@ def test_large_m_bodies_on_meshes_of_one_card(card, m, layout):
     _check_meshes(card, m, layout)
 
 
-def _check_meshes(card, m, layout):
-    """Kernels 1, 2-EMIT_Y and 3 on tables of 4 site shards: every per-site
-    output on meshes (1, 2), (1, 4) and (2, 2) of the card bit for bit as
-    the unsharded launch, with and without noise weights."""
+def _check_meshes(card, m, layout, grad=True):
+    """Kernels 1, 2-EMIT_Y and 3 (kernels 1 and 3 alone without ``grad``) on
+    tables of 4 site shards: every per-site output on meshes (1, 2), (1, 4)
+    and (2, 2) of the card bit for bit as the unsharded launch, with and
+    without noise weights."""
     from pynngp_tpu_torch.ops.site_tables import shard_site_tables
     from pynngp_tpu_torch.parallel import make_mesh
 
@@ -1138,11 +1214,12 @@ def _check_meshes(card, m, layout):
 
     def outputs(tables, v):
         _, _, f, r = fops.suffstats(kern, tables, phi, alpha, ys, noise_v=v)
-        _, b, rof = dops.value_and_grad_sums(kern, tables, phi, alpha, ys, emit_y=True,
-                                             noise_v=v)
         b3, f3 = bops.bf_planes(kern, tables, phi, alpha, noise_v=v)
+        if grad:
+            _, b, rof = dops.value_and_grad_sums(kern, tables, phi, alpha, ys, emit_y=True,
+                                                 noise_v=v)
         torch.cuda.synchronize()
-        return [f, r, b, rof, b3, f3]
+        return [f, r, b3, f3] + ([b, rof] if grad else [])
 
     for v in (None, torch.as_tensor(_weights(n), dtype=torch.float32, device=card)):
         want = outputs(tab32, v)

@@ -3,12 +3,14 @@ block, chain groups, grid and the tile ring's shared-memory bytes for every
 m the ring takes (kernel 3's ring without y planes), both table layouts and
 coordinate dimensions 1 to 4, and above m = 32 the large-m bodies: the
 shared-memory bodies up to M_SMEM (kernels 1 and 3) and M_SMEM_GRAD (kernel
-2; their systems' bytes, groups and grid), the scratch body's grid and
-buffer above them, and which body and count each kernel's call gets.  The C
-launchers recompute the ring and the systems' bytes from the same layouts
-and refuse other bytes (csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh,
-csrc/vecchia_grad_smem.cuh); tests/test_torch_cuda.py runs them on the
-card."""
+2; their systems' bytes, groups and grid), the cluster body of kernels 1 and
+3 up to M_CLUSTER (cluster sizes, a block's bytes and the grid), the scratch
+body's grid and buffer above them, and which body and count each kernel's
+call gets.  The C launchers recompute the ring, the systems' and a cluster
+block's bytes from the same layouts and refuse other bytes
+(csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh,
+csrc/vecchia_grad_smem.cuh, csrc/vecchia_large_cluster.cuh);
+tests/test_torch_cuda.py runs them on the card."""
 
 import math
 from types import SimpleNamespace
@@ -17,6 +19,8 @@ import pytest
 import torch
 
 from pynngp_tpu_torch import kernels
+from pynngp_tpu_torch.ops import bf as bops
+from pynngp_tpu_torch.ops import diff_suffstats as dops
 from pynngp_tpu_torch.ops import geometry as geo
 from pynngp_tpu_torch.ops import suffstats as fops
 
@@ -216,20 +220,29 @@ def test_smem_geometry_refuses_what_it_does_not_take():
 
 @pytest.mark.parametrize("base", ["vecchia_suffstats", "vecchia_grad", "vecchia_bf"])
 @pytest.mark.parametrize("m", [33, 64, geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM,
-                               geo.M_SMEM + 1])
+                               geo.M_SMEM + 1, geo.M_CLUSTER, geo.M_CLUSTER + 1])
 def test_each_kernel_gets_its_body_and_count_by_m(base, m):
     """Each kernel runs its shared-memory body up to its limit (M_SMEM for
     kernels 1 and 3, M_SMEM_GRAD for kernel 2; counted under ``_large``, no
-    scratch tensor, group chains a block and their systems' bytes) and the
-    scratch body above it (``_large_scratch``)."""
+    scratch tensor, group chains a block and their systems' bytes); kernels 1
+    and 3 then run the cluster body up to M_CLUSTER (``_large_cluster``, no
+    scratch tensor, group the cluster's blocks and a block's bytes), and each
+    kernel the scratch body above its last limit (``_large_scratch``; kernel
+    2 straight above M_SMEM_GRAD).  The cluster body's scratch tensor is its
+    hand-off buffer."""
     tables = SimpleNamespace(m=m, n_pad=128, layout="dist", dim=0,
                              device=torch.device("cpu"))
     chains = 3
     smem = m <= (geo.M_SMEM_GRAD if base == "vecchia_grad" else geo.M_SMEM)
-    assert geo.large_body(base, m) == ("smem" if smem else "scratch")
+    cluster = not smem and base != "vecchia_grad" and m <= geo.M_CLUSTER
+    body = "smem" if smem else "cluster" if cluster else "scratch"
+    assert geo.large_body(base, m) == body
     name = fops.instance(base, kernels.SqExp(), tables, hetero=True)
-    suffix = "_large_hetero" if smem else "_large_scratch_hetero"
+    suffix = {"smem": "_large_hetero", "cluster": "_large_cluster_hetero",
+              "scratch": "_large_scratch_hetero"}[body]
     assert name == base + suffix
+    counts = {**fops.COUNTS, **dops.COUNTS, **bops.COUNTS}
+    assert name in counts and name + "_sharded" in counts  # each body counted apart
     y = None if base == "vecchia_bf" else torch.zeros(10)
     grid_x, args, scratch = fops.launch_geometry(base, kernels.SqExp(), tables, chains, y,
                                                  None)
@@ -237,6 +250,13 @@ def test_each_kernel_gets_its_body_and_count_by_m(base, m):
         g = geo.smem_geometry(128, m, chains, base)
         assert scratch is None and args == (g.group, g.grid[0], g.smem_bytes, None)
         assert grid_x == g.grid[0] and g.smem_bytes == g.group * geo.system_bytes(base, m)
+    elif cluster:
+        g = geo.cluster_geometry(128, m, chains)
+        assert args[:3] == (g.group, g.grid[0], g.smem_bytes)
+        assert scratch is not None and scratch.numel() * 8 == geo.cluster_slot_bytes(m)
+        assert args[3] == scratch.data_ptr() and scratch.dtype == torch.float64
+        assert grid_x == g.grid[0] == 128 and g.group == geo.cluster_blocks(m)
+        assert g.smem_bytes == geo.cluster_block_bytes(m, g.group) <= geo.RING_BYTES
     else:
         g = geo.large_geometry(128, m, chains)
         assert args[:3] == (1, g.grid[0], 0) and grid_x == g.grid[0] == 1
@@ -306,11 +326,12 @@ def test_smem_geometry_of_kernel_2_refuses_what_it_does_not_take():
     assert geo.smem_geometry(1_536, geo.M_SMEM_GRAD + 1, 4).group == 1  # kernels 1 and 3
 
 
-@pytest.mark.parametrize("m", [33, 64, geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM + 1])
+@pytest.mark.parametrize("m", [33, 64, geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM + 1,
+                               geo.M_CLUSTER + 1])
 def test_check_card_m_raises_only_where_a_scratch_body_runs(m, monkeypatch):
     """check_card_m asks the scratch body's budget only above M_SMEM_GRAD,
-    where kernel 2 (and above M_SMEM kernels 1 and 3) run the scratch body;
-    up to it every large-m launch is a shared-memory one and needs none.
+    where kernel 2 (and above M_CLUSTER kernels 1 and 3) run the scratch
+    body; up to it every large-m launch is a shared-memory one and needs none.
     With a budget too small for one block of one chain it raises exactly
     there, and names it."""
     geo.check_card_m(10_112, m)
@@ -407,3 +428,86 @@ def test_m15_m21_and_four_dimensions_keep_their_old_geometry(m, layout, dim):
     tables_planes = ml + ml * (ml - 1) // 2 if layout == "dist" else dim + ml * dim
     g = geo.geometry(100_096, m, 16, layout, dim)
     assert g == geo.Geometry((782, 4), 128, 4, 2 * (tables_planes + 2 * ml) * 32 * 4)
+
+
+# the first and last m of each cluster size, and a block's bytes there
+CLUSTER_BOUNDS = [(237, 2, 136_192), (312, 2, 221_824), (313, 4, 126_336), (440, 4, 226_688),
+                  (441, 8, 133_120), (600, 8, 222_976), (608, 8, 228_096)]
+
+
+def test_m_cluster_is_the_largest_m_eight_blocks_take():
+    """M_CLUSTER: the largest m whose system eight blocks hold, each block
+    its share of the panels and the staging buffer within RING_BYTES: 608
+    on an H100 (kClusterM of csrc/vecchia_large_cluster.cuh asserts the
+    same); every m from M_SMEM + 1 to it has a cluster size, and none above."""
+    assert geo.M_CLUSTER == 608 > geo.M_SMEM
+    assert geo.cluster_block_bytes(geo.M_CLUSTER, 8) <= geo.RING_BYTES
+    assert geo.cluster_block_bytes(geo.M_CLUSTER + 1, 8) > geo.RING_BYTES
+    assert geo.cluster_blocks(geo.M_CLUSTER + 1) is None
+    assert all(geo.cluster_blocks(m) in geo.CLUSTER_SIZES
+               for m in range(geo.M_SMEM + 1, geo.M_CLUSTER + 1))
+    assert geo.CLUSTER_M == {"vecchia_suffstats": geo.M_CLUSTER, "vecchia_bf": geo.M_CLUSTER}
+
+
+@pytest.mark.parametrize("m,k,want", CLUSTER_BOUNDS)
+def test_cluster_blocks_and_bytes_at_each_boundary(m, k, want):
+    """The smallest cluster size whose blocks hold the system, at the first
+    and last m of each size, and a block's dynamic bytes: its largest share
+    of the panels (each CLUSTER_PANEL columns of rows - c0 float64 words,
+    rows = mp + 2) and the staging buffer (CLUSTER_PANEL columns of rows -
+    CLUSTER_PANEL words), counted here from the panels' owners."""
+    assert geo.cluster_blocks(m) == k
+    assert k == 2 or geo.cluster_block_bytes(m, k // 2) > geo.RING_BYTES
+    mp = -(-m // 8) * 8
+    shares = [sum(8 * (mp + 2 - 8 * p) for p in range(mp // 8) if geo.cluster_owner(p, k) == r)
+              for r in range(k)]
+    assert sum(shares) == 8 * sum(mp + 2 - 8 * p for p in range(mp // 8))
+    assert geo.cluster_block_bytes(m, k) == 8 * (max(shares) + 8 * (mp + 2 - 8)) == want
+    assert want <= geo.RING_BYTES
+
+
+@pytest.mark.parametrize("k", geo.CLUSTER_SIZES)
+def test_cluster_panels_go_to_the_blocks_in_snake_order(k):
+    """Each round of k panels gives each block one, in rank order on even
+    rounds and reversed on odd ones."""
+    owners = [geo.cluster_owner(p, k) for p in range(4 * k)]
+    assert owners[:2 * k] == list(range(k)) + list(range(k))[::-1]
+    assert owners[2 * k:] == owners[:2 * k]
+    for r in range(4):
+        assert sorted(owners[r * k:(r + 1) * k]) == list(range(k))
+
+
+@pytest.mark.parametrize("chains", [1, 3, 4, 16, 5000])
+@pytest.mark.parametrize("m", [geo.M_SMEM + 1, 400, geo.M_CLUSTER])
+def test_cluster_geometry_walks_each_chains_sites(m, chains):
+    """The cluster body's launch: clusters of cluster_blocks(m) blocks of
+    CLUSTER_THREADS threads, grid[0] clusters a chain (CLUSTER_SYSTEMS in
+    all at most, before rounding up, and no more than the sites), a block's
+    bytes; refused outside M_SMEM < m <= M_CLUSTER."""
+    for n_pad in (128, 2_048, 100_096):
+        g = geo.cluster_geometry(n_pad, m, chains)
+        want_x = max(1, min(n_pad, math.ceil(geo.CLUSTER_SYSTEMS / chains)))
+        assert g == geo.Geometry((want_x, chains), geo.CLUSTER_THREADS, geo.cluster_blocks(m),
+                                 geo.cluster_block_bytes(m, geo.cluster_blocks(m)))
+    with pytest.raises(ValueError, match="cluster body"):
+        geo.cluster_geometry(2_048, geo.M_SMEM, chains)
+    with pytest.raises(ValueError, match="cluster body"):
+        geo.cluster_geometry(2_048, geo.M_CLUSTER + 1, chains)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        geo.cluster_geometry(2_000, m, chains)
+
+
+def test_cluster_body_holds_one_block_an_sm_and_sizes_its_hand_off_buffer():
+    """Every block of the cluster body takes more than half an SM's shared
+    memory at every m it runs, so an SM holds one block at a time and the
+    hand-off buffer has two slots an SM (CLUSTER_SLOT_SMS of them), each one
+    staged panel: CLUSTER_PANEL columns of mp + 2 - CLUSTER_PANEL words."""
+    least = min(geo.cluster_block_bytes(m, geo.cluster_blocks(m))
+                for m in range(geo.M_SMEM + 1, geo.M_CLUSTER + 1))
+    assert 2 * least > geo.SM_SHARED_BYTES
+    assert geo.CLUSTER_SLOT_SMS >= geo.SMS
+    for m in (geo.M_SMEM + 1, 400, geo.M_CLUSTER):
+        mp = -(-m // 8) * 8
+        assert geo.cluster_stage_words(m) == 8 * (mp + 2 - 8)
+        assert geo.cluster_slot_bytes(m) == 8 * 2 * geo.CLUSTER_SLOT_SMS * 8 * (mp + 2 - 8)
+    assert geo.cluster_slot_bytes(geo.M_CLUSTER) < 20 << 20

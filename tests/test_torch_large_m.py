@@ -1,5 +1,7 @@
 """m = 25 and m = 32 (the rolled instances of the three kernels on the card)
-and m = 40 (the large-m instances) in the plain versions on CPU tensors,
+and m = 40 (the large-m instances) in the plain versions on CPU tensors, and
+m = 240 for kernels 1 and 3 (their cluster body on the card, above
+geometry.M_SMEM),
 against the reference's XLA Vecchia functions (``vecchia_bf``, ``vecchia_suffstats``) in float64: kernel 1's
 sums and planes, kernel 2's value and gradient with respect to (phi, alpha,
 y) (the EMIT_Y planes and the y cotangent), kernel 3's B/F.  The Pallas
@@ -12,6 +14,8 @@ parameters exact in float32 as the reference's ``_params_vec`` rounds them.
 Both models at m = 40 on CPU tensors: the response model's log-posterior and
 gradient and the latent model's theta-block value, B, F and log-likelihood
 against the reference's models (XLA backend), rtol 1e-8."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ from pynngp_tpu_torch.models.latent import LatentNNGP
 from pynngp_tpu_torch.models.response import ResponseNNGP
 from pynngp_tpu_torch.ops import bf as bops
 from pynngp_tpu_torch.ops import diff_suffstats as dops
+from pynngp_tpu_torch.ops import geometry
 from pynngp_tpu_torch.ops import suffstats as fops
 from pynngp_tpu_torch.ops.site_tables import make_site_tables, with_children
 
@@ -36,9 +41,8 @@ PHIS = (0.25, 0.125, 0.5)  # C = 3 chains
 ALPHAS = (0.125, 0.25, 0.0625)
 
 
-@pytest.fixture(scope="module", params=[25, 32, 40], ids=["m25", "m32", "m40"])
-def problem(request):
-    m = request.param
+@functools.lru_cache(maxsize=None)
+def _problem(m):
     rng = np.random.default_rng(11)
     n = 300  # pads to 384
     coords = rng.uniform(size=(n, 2))
@@ -48,19 +52,39 @@ def problem(request):
                              nn_cross_dist=jnp.asarray(jdata.nn_cross_dist, jnp.float64))
     data, _ = vecchia.make_vecchia_data(coords, m, dtype=torch.float32, device="cpu")
     tables = with_children(make_site_tables(data, dtype=torch.float64, device="cpu"))
-    # m = 25 and 32 run the rolled instance (M = 32), m = 40 the large-m one
+    # m = 25 and 32 run the rolled instance (M = 32), m = 40 and 240 the
+    # large-m ones
     assert tables.m == m and fops.cuda_instance_m(m) == (32 if m <= 32 else m)
     y_ord = y[jtab.order]
     return {"n": n, "m": m, "jdata": jdata64, "tables": tables,
             "y": torch.as_tensor(y_ord), "y_jax": jnp.asarray(y_ord, jnp.float64)}
 
 
+@pytest.fixture(scope="module", params=[25, 32, 40], ids=["m25", "m32", "m40"])
+def problem(request):
+    return _problem(request.param)
+
+
+@pytest.fixture(scope="module", params=[25, 32, 40, 240], ids=["m25", "m32", "m40", "m240"])
+def problem13(request):
+    """The problems of kernels 1 and 3: also m = 240, where the card runs
+    their cluster body."""
+    if request.param == 240:
+        assert geometry.large_body("vecchia_bf", 240) == "cluster"
+    return _problem(request.param)
+
+
+@jax.jit
+def _reference_jit(phi, alpha, jdata, y):
+    b, f = jvecchia.vecchia_bf(jkernels.SqExp(), {"phi": phi}, jdata, alpha=alpha,
+                               jitter=JITTER)
+    ld, q, r = jvecchia.vecchia_suffstats(b, f, y, jdata)
+    return ld, q, r, b, f
+
+
 def _reference(problem, phi, alpha):
     """(logdet, quad, resid, b, f) of the reference's XLA path."""
-    b, f = jvecchia.vecchia_bf(jkernels.SqExp(), {"phi": phi}, problem["jdata"],
-                               alpha=alpha, jitter=JITTER)
-    ld, q, r = jvecchia.vecchia_suffstats(b, f, problem["y_jax"], problem["jdata"])
-    return ld, q, r, b, f
+    return _reference_jit(phi, alpha, problem["jdata"], problem["y_jax"])
 
 
 def _chains():
@@ -68,7 +92,8 @@ def _chains():
             torch.tensor(ALPHAS, dtype=torch.float64))
 
 
-def test_suffstats_at_large_m_match_the_reference(problem):
+def test_suffstats_at_large_m_match_the_reference(problem13):
+    problem = problem13
     n = problem["n"]
     phi, alpha = _chains()
     ld, q, f, r = fops.suffstats(kernels.SqExp(), problem["tables"], phi, alpha,
@@ -122,7 +147,8 @@ def test_value_and_gradient_with_y_at_large_m_match_the_reference(problem):
                                    atol=1e-14)
 
 
-def test_bf_at_large_m_matches_the_reference(problem):
+def test_bf_at_large_m_matches_the_reference(problem13):
+    problem = problem13
     n = problem["n"]
     phi, alpha = _chains()
     b, f = bops.bf(kernels.SqExp(), problem["tables"], phi, alpha, JITTER)

@@ -40,6 +40,20 @@ chain (config 5's probe) and kernel 3 at path 14's launch (exponential, 8
 chains, alpha = 0); chain 0's logdet, dlogdet/dphi and the sums of kernel
 2-EMIT_Y's and kernel 3's B as checks that both trees compute the same
 function; and each tree's ptxas summary of its M = 20 kernels.
+
+    python3 tools/compare_parent.py --cluster
+
+times kernels 1 and 3 above geometry.M_SMEM, in the same four rounds: at
+m = 237, 300, 400 and 600, n=2,000 (n_pad 2,048), 4 chains, sqexp, on both
+layouts (the parent's scratch body against the change's cluster body).  A
+launch whose first call takes more than half a second is timed by that one
+call (the scratch body: seconds to a minute a launch); the others after a
+warm call, over five.  A tree whose chip_smoke.py has ``factor_only`` also
+times the float32 plain versions (one call), the factor-only yardstick
+(``torch.linalg.cholesky_ex`` on the same float64 batch) and prints the
+bounds (``kernel_bounds``) and each kernel's registers; chain 0's logdet
+and the sum of kernel 3's B check that both trees compute the same
+function.
 """
 import json
 import os
@@ -203,9 +217,67 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
+ROUND_CLUSTER = ROUND[:ROUND.index("cs._time_ms = _time_ms")] + r'''
+import time
+cs._time_ms = _time_ms
+info = _build.build_info()
+out = {"build_s": info["seconds"]}
+lines = info["ptxas"].splitlines()
+out["ptxas"] = [l.strip()[-60:] + " " + " ".join(x.split("info    :")[-1].strip()
+                                                for x in lines[i + 2:i + 4])
+                for i, l in enumerate(lines)
+                if "Compiling entry function" in l and ("cluster_kernel" in l or "large_kernel" in l)
+                and ("suffstats" in l or "_bf_" in l) and "ILb0ELb0E" in l]
+change = hasattr(cs, "factor_only")
+
+
+def timed(fn):
+    # one call between events; if it took more than 0.5 s, that is the time
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    first = start.elapsed_time(stop)
+    return first if first > 500.0 else _time_ms(fn, 1, 5)
+
+
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    for m in (237, 300, 400, 600):
+        c = cs.Case(2000, m, cs.SqExp(), 4, seed=0, dev=dev, layout=layout)
+        k, t = c.kernel, c.tab32
+        row = f"m{m}{sfx}"
+        out[f"vecchia_suffstats_{row}"] = timed(lambda: fwd_ops.suffstats(
+            k, t, c.phi, c.alpha, c.y32, c.jitter))
+        out[f"vecchia_bf_{row}"] = timed(lambda: bf_ops.bf_planes(
+            k, t, c.phi, c.alpha, c.jitter))
+        out[f"check_logdet_chain0_{row}"] = float(fwd_ops.suffstats(
+            k, t, c.phi, c.alpha, c.y32, c.jitter)[0][0])
+        out[f"check_sum_b3_{row}"] = float(bf_ops.bf_planes(
+            k, t, c.phi, c.alpha, c.jitter)[0].double().sum())
+        if change:
+            params = fwd_ops.params_array(c.phi, c.alpha, c.jitter, c.n, torch.float32, dev)
+            out[f"vecchia_suffstats_{row}_plain"] = _time_ms(
+                lambda: fwd_ops.suffstats_reference(k, t, params, c.y32), 0, 1)
+            out[f"vecchia_bf_{row}_plain"] = _time_ms(
+                lambda: bf_ops.bf_reference(k, t, params), 0, 1)
+            out[f"bounds_{row}"] = {name: b for name, b in cs.kernel_bounds(c).items()
+                                    if not name.startswith("vecchia_grad")}
+            if layout == "dist":
+                out[f"factor_only_{row}"] = cs.factor_only(c, 1, 3)
+        del c, t
+        torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
 def main(args) -> int:
     root = os.getcwd()
-    code = {"--large": ROUND_LARGE, "--m20": ROUND_M20}.get(args[0] if args else "", ROUND)
+    code = {"--large": ROUND_LARGE, "--m20": ROUND_M20,
+            "--cluster": ROUND_CLUSTER}.get(args[0] if args else "", ROUND)
     results = []
     for tree in ("parent_check", ".", ".", "parent_check"):
         run = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -5,9 +5,11 @@
                                  [offset] [mesh] [processes]
 
 (all eleven when none is named): ``large``, the large-m phase (the
-shared-memory bodies' resources, every kernel at m = 40 and 64 against its
-plain version and timed, each kernel on the scratch body at the first m it
-runs there, the factor-only yardstick) and path 19, both models at
+shared-memory and cluster bodies' resources, every kernel at m = 40 and 64
+against its plain version and timed, the factor-only yardstick, kernels 1
+and 3 on their cluster body at the first m of each cluster size and at
+M_CLUSTER against their plain versions and timed, each kernel on the
+scratch body at the first m it runs there) and path 19, both models at
 m = 40; path 20, ``bench.py``'s config 4 with
 tempered SMC; path 21, ADVI on the main path's model (its MWG means are not
 run here); path 22, interrupt and resume of MWG, NUTS and the latent model;

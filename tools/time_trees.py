@@ -50,6 +50,16 @@ with chain 0's logdet, dlogdet/dphi, dquad/dphi and the sums of kernel
 function, and each tree's registers, stack and spills of its M = 20 kernels
 (``ptxas -v``, the team kernels by name); it chose the team sizes of
 csrc/vecchia_team.cuh.
+
+    python3 tools/time_trees.py --cluster A B C
+
+times kernels 1 and 3 on their cluster body (geometry.M_SMEM < m <=
+geometry.M_CLUSTER) at m = 237, 300, 400 and 600, n=2,000, 4 chains, sqexp,
+on the coords layout (whose tables build in a second at these m), with chain
+0's logdet and the sum of kernel 3's B as checks, and each tree's
+registers, stack and spills of its cluster kernels; it split the cluster
+body's time into its phases (variants with a phase deleted) and chose its
+update's arithmetic (PERF.md).
 """
 import json
 import os
@@ -265,6 +275,35 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
+ROUND_CLUSTER = r'''
+import json, re, torch
+import chip_smoke as cs
+from pynngp_tpu_torch.ops import _build
+from pynngp_tpu_torch.ops import bf as bf_ops
+from pynngp_tpu_torch.ops import suffstats as fwd_ops
+dev = torch.device("cuda", 0)
+info = _build.build_info()
+lines = info["ptxas"].splitlines()
+out = {"build_s": info["seconds"], "lib": info["lib"], "ptxas": {
+    re.search(r"\d+([a-z_]+_kernel)", line).group(1): " ".join(
+        nxt.strip() for nxt in lines[i + 2:i + 4])
+    for i, line in enumerate(lines)
+    if "Compiling entry function" in line and "cluster_kernel" in line and "ILb0ELb1E" in line}}
+for m in (237, 300, 400, 600):
+    c = cs.Case(2000, m, cs.SqExp(), 4, seed=0, dev=dev, layout="coords")
+    k, t = c.kernel, c.tab32
+    out[f"suffstats_m{m}"] = cs._time_ms(lambda: fwd_ops.suffstats(
+        k, t, c.phi, c.alpha, c.y32, c.jitter), 1, 3)
+    out[f"bf_m{m}"] = cs._time_ms(lambda: bf_ops.bf_planes(k, t, c.phi, c.alpha, c.jitter), 1, 3)
+    out[f"logdet_chain0_m{m}"] = float(fwd_ops.suffstats(
+        k, t, c.phi, c.alpha, c.y32, c.jitter)[0][0])
+    out[f"sum_b3_m{m}"] = float(bf_ops.bf_planes(k, t, c.phi, c.alpha, c.jitter)[0].double().sum())
+    del c, t
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
 def main() -> int:
     root = os.getcwd()
     trees = sys.argv[1:]
@@ -277,6 +316,8 @@ def main() -> int:
         trees, code = trees[1:], ROUND_LARGE
     elif trees[:1] == ["--m20"]:
         trees, code = trees[1:], ROUND_M20
+    elif trees[:1] == ["--cluster"]:
+        trees, code = trees[1:], ROUND_CLUSTER
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -305,7 +346,8 @@ def main() -> int:
                                capture_output=True, text=True).stdout.splitlines()
         for name, res in zip(usage, usage[1:]):
             if "Function" in name and ("ILi15E" in name or "ILi20E" in name
-                                       or "smem_kernel" in name or "team" in name):
+                                       or "smem_kernel" in name or "team" in name
+                                       or "cluster_kernel" in name):
                 print(tree, name.split()[-1][:90], res.split("SHARED")[0].strip(), flush=True)
     print("TIME_TREES " + json.dumps(results), flush=True)
     return 0
