@@ -55,21 +55,23 @@ and timed against those instances' own m, and m = 25 and m = 32 on the
 rolled instances of all three kernels, both layouts, and m = 40 and m = 64
 on their large-m instances (each kernel a warp a (site, chain) system in
 shared memory), both layouts, with and without noise weights, closed form
-and sampled nu, with kernels 1 and 3 also on their cluster body (a
+and sampled nu, with the three kernels also on their cluster body (a
 thread-block cluster a (site, chain) system, its factor spread over the
 blocks' shared memory) at the first m of each cluster size and at
 geometry.M_CLUSTER, both layouts, closed form and sampled nu, with and
-without noise weights, and timed at m = geometry.M_SMEM + 1; kernels 1 and 3
-at m = geometry.M_CLUSTER + 1 and kernel 2 at m = geometry.M_SMEM_GRAD + 1
-on the scratch body (one thread a (site, chain), its state in a scratch
-buffer); and the factor-only yardstick (``torch.linalg.cholesky_ex`` on the
+without noise weights, and timed at each kernel's first m there
+(geometry.M_SMEM + 1 for kernels 1 and 3, geometry.M_SMEM_GRAD + 1 for
+kernel 2); the three kernels at m = geometry.M_CLUSTER + 1 on the scratch
+body (one thread a (site, chain), its state in a scratch buffer); and the
+factor-only yardstick (``torch.linalg.cholesky_ex`` on the
 m = 64 correlation batch, and on each cluster and scratch row's batch as
 that row's library_ms).
 After the build it prints the registers, stack, shared bytes and warps an
 SM of every tile instance of the three kernels (a block of up to four
 chains, one warp each, over a 32-site tile staged in shared memory) and of
 the three kernels' shared-memory bodies.  After the paths above, both models at m = 40 on config 2's field,
-through the large-m instances; then ``bench.py``'s config 4, uncut (tempered
+through the large-m instances, and the response model's MAP at m = 240
+(kernel 2's cluster body); then ``bench.py``'s config 4, uncut (tempered
 SMC with 512 particles at n=50,000, m=10: kernel 1 at 512 chains, held to its
 plain version at that launch and timed beside its bound), ADVI on the first
 model (kernel 2 at eight points a step, mean-field and full rank), and an
@@ -82,7 +84,7 @@ summary, predict), the max-min and natural orderings at n=100,000, and the
 dot-product distance on 20,000 sites of the sphere (kernels 1-3 on its
 dissimilarity tables, MWG, prediction, and the neighbor-table cache).
 Then the three of sharding: the shard offset of every kernel (path 27: its
-cases, kernels 1 and 3 on their cluster body among them, each on meshes
+cases, the three kernels on their cluster body among them, each on meshes
 (1, 2), (1, 4) and (2, 2) of cuda:0, per-site outputs bit for bit against
 the unsharded launch), config 5 on a (1, 4) mesh of
 cuda:0 through both models' ``mesh=`` (path 28), and two processes on gloo
@@ -229,17 +231,24 @@ _COUNTS.update(fwd_ops.COUNTS_M20)
 KERNEL_ROWS.update({name: (_TEAM_SRC, tpu, _COUNTS[name]) for name, tpu in M20_ROWS.items()})
 KERNEL_ROWS.update({name: (_TEAM_SRC, M20_ROWS[row], _COUNTS[name])
                     for name, row in M20_FOUR.items()})
-# the cluster body of kernels 1 and 3 (geometry.M_SMEM < m <=
-# geometry.M_CLUSTER: a thread-block cluster a (site, chain) system), every
-# source, counted apart; and their scratch body above M_CLUSTER on the
+# the cluster body (a thread-block cluster a (site, chain) system) of
+# kernels 1 and 3 (geometry.M_SMEM < m <= geometry.M_CLUSTER) and of kernel
+# 2 and 2-EMIT_Y (geometry.M_SMEM_GRAD < m <= geometry.M_CLUSTER_GRAD),
+# every source, counted apart; and the scratch body above them on the
 # closed-form dist sources (the launches of scratch_body_check)
 CLUSTER_ROWS = {name + "_large_cluster": name for name in (
     "vecchia_suffstats", "vecchia_suffstats_nu", "vecchia_suffstats_coords",
     "vecchia_suffstats_nu_coords", "vecchia_bf", "vecchia_bf_nu", "vecchia_bf_coords",
-    "vecchia_bf_nu_coords")}
+    "vecchia_bf_nu_coords", "vecchia_grad", "vecchia_grad_nu", "vecchia_grad_coords",
+    "vecchia_grad_nu_coords", "vecchia_grad_y", "vecchia_grad_y_nu", "vecchia_grad_y_coords",
+    "vecchia_grad_y_nu_coords")}
 SCRATCH_ROWS = {"vecchia_suffstats_large_scratch": "vecchia_suffstats",
-                "vecchia_bf_large_scratch": "vecchia_bf"}
-KERNEL_ROWS.update({row: ("pynngp_tpu_torch/csrc/vecchia_large_cluster.cuh",
+                "vecchia_bf_large_scratch": "vecchia_bf",
+                "vecchia_grad_large_scratch": "vecchia_grad",
+                "vecchia_grad_y_large_scratch": "vecchia_grad_y"}
+KERNEL_ROWS.update({row: ("pynngp_tpu_torch/csrc/" + ("vecchia_grad_cluster.cuh"
+                                                      if name.startswith("vecchia_grad")
+                                                      else "vecchia_large_cluster.cuh"),
                           KERNEL_ROWS[name][1], _COUNTS[row])
                     for row, name in CLUSTER_ROWS.items()})
 KERNEL_ROWS.update({row: ("pynngp_tpu_torch/csrc/vecchia_large_m.cuh", KERNEL_ROWS[name][1],
@@ -405,10 +414,10 @@ class Case:
     def __init__(self, n, m, kernel, chains, seed, dev, field=None, nu=None,
                  layout="dist", distance="euclidean", shards=1):
         coords, y = field if field is not None else bench_field(n, seed)
-        # above M_SMEM the dist planes come from the coords layout's on the
-        # card (dist_tables_from_coords): the host's (n, m, m) table takes a
-        # minute there
-        built = "coords" if layout == "dist" and m > geometry.M_SMEM else layout
+        # above M_SMEM_GRAD (the cluster body) the dist planes come from the
+        # coords layout's on the card (dist_tables_from_coords): the host's
+        # (n, m, m) table takes seconds at m = 233 and a minute at m = 600
+        built = "coords" if layout == "dist" and m > geometry.M_SMEM_GRAD else layout
         data, table = make_vecchia_data(coords, m, dtype=torch.float64,
                                         distance=distance,
                                         precompute_distances=built == "dist", device="cpu")
@@ -514,11 +523,12 @@ def check_forward(case: Case, label: str, out=None) -> dict:
     return res
 
 
-def check_grad(case: Case, label: str, grad_rtol: float) -> dict:
-    """Kernel 2 against autograd through the plain float64 version."""
-    sums = diff_ops.value_and_grad_sums(case.kernel, case.tab32, case.phi,
-                                        case.alpha, case.y32, case.jitter,
-                                        noise_v=case.v32)
+def check_grad(case: Case, label: str, grad_rtol: float, out=None) -> dict:
+    """Kernel 2 against autograd through the plain float64 version.
+    ``out``: the sums of a launch already made, or None to launch it."""
+    sums = out if out is not None else diff_ops.value_and_grad_sums(
+        case.kernel, case.tab32, case.phi, case.alpha, case.y32, case.jitter,
+        noise_v=case.v32)
     torch.cuda.synchronize()
     refs = []
     for sl in case.chunks():
@@ -584,7 +594,8 @@ def check_bf(case: Case, label: str, zero_alpha: bool, gated: bool, out=None) ->
     return res
 
 
-def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float) -> dict:
+def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float,
+                 out=None) -> dict:
     """The EMIT_Y instances of kernel 2 against the plain version in float64
     on the card (chunked over chains), with a shared or a per-chain y.
 
@@ -593,9 +604,10 @@ def check_grad_y(case: Case, label: str, per_chain: bool, grad_rtol: float) -> d
     1e-4, kernel 1's limit for r.  dy = dquad/dy from the kernel's planes
     through the gather, against autograd through the float64 factorization:
     rtol 2e-3, atol 2e-4 (tests/test_pallas.py:205-209).  Padded sites hold
-    B = 0 and r/F = 0 exactly, and so does every invalid slot of B."""
+    B = 0 and r/F = 0 exactly, and so does every invalid slot of B.  ``out``:
+    the (sums, B, r/F) of a launch already made, or None to launch it."""
     y32 = case.y32_chains if per_chain else case.y32
-    sums, b, rof = diff_ops.value_and_grad_sums(
+    sums, b, rof = out if out is not None else diff_ops.value_and_grad_sums(
         case.kernel, case.tab32, case.phi, case.alpha, y32, case.jitter, emit_y=True,
         noise_v=case.v32)
     dy = diff_ops.dquad_dy(case.tab32, b, rof)
@@ -662,9 +674,11 @@ def nu_spread(chains: int):
     return np.concatenate([rest, edge])[:chains]
 
 
-def check_general_nu(case: Case, label: str) -> dict:
+def check_general_nu(case: Case, label: str, per_chain_y: bool = True) -> dict:
     """The general-nu instances of kernels 1, 2, 2-EMIT_Y and 3 against their
-    plain versions in float64 on the card (chunked over chains), sampled nu.
+    plain versions in float64 on the card (chunked over chains), sampled nu;
+    kernel 2-EMIT_Y with one y row a chain, or with ``per_chain_y`` false the
+    shared y of kernel 2 (one float64 plain call then serves both).
 
     Limits, and why.  The float32 series for K_nu carries up to 1e-5 relative
     noise in rho, where a closed form carries 1e-7; F and r follow rho through
@@ -687,9 +701,9 @@ def check_general_nu(case: Case, label: str) -> dict:
                               noise_v=v32)
     sums = diff_ops.value_and_grad_sums(k, t32, case.phi, case.alpha, case.y32, jit,
                                         nu=case.nu, noise_v=v32)
+    y_emit = case.y32_chains if per_chain_y else case.y32
     sums_y, b, rof = diff_ops.value_and_grad_sums(
-        k, t32, case.phi, case.alpha, case.y32_chains, jit, emit_y=True, nu=case.nu,
-        noise_v=v32)
+        k, t32, case.phi, case.alpha, y_emit, jit, emit_y=True, nu=case.nu, noise_v=v32)
     dy = diff_ops.dquad_dy(t32, b, rof)
     torch.cuda.synchronize()
     refs = []
@@ -697,9 +711,11 @@ def check_general_nu(case: Case, label: str) -> dict:
         _, _, pr = case.params64(sl)
         fwd = fwd_ops.suffstats_reference(k, t64, pr, case.y64, v64)
         bf = bf_ops.bf_reference(k, t64, pr, v64)
-        s_ref = diff_ops.grad_reference(k, t64, pr, case.y64, noise_v=v64)
         sy_ref, b_ref, rof_ref = diff_ops.grad_reference(
-            k, t64, pr, case.y32_chains[sl].double(), emit_y=True, noise_v=v64)
+            k, t64, pr, y_emit[sl].double() if per_chain_y else case.y64, emit_y=True,
+            noise_v=v64)
+        s_ref = (diff_ops.grad_reference(k, t64, pr, case.y64, noise_v=v64) if per_chain_y
+                 else sy_ref)
         refs.append((*fwd, *bf, s_ref, sy_ref, b_ref, rof_ref,
                      diff_ops.dquad_dy(t64, b_ref, rof_ref)))
     cat = lambda i, dim=0: torch.cat([ref[i] for ref in refs], dim=dim)
@@ -711,7 +727,7 @@ def check_general_nu(case: Case, label: str) -> dict:
     slots_ok = all(bool((b[:, j, :j + 1] == 0).all()) for j in range(m))
     got, got_y = sums.double(), sums_y.double()
     res = {
-        "nu": [round(float(v), 4) for v in case.nu],
+        "nu": [round(float(v), 4) for v in case.nu], "y": "per-chain" if per_chain_y else "shared",
         "value_rel": max(_rel(logdet.double(), ld_ref), _rel(quad.double(), q_ref),
                          _rel(got[:2], s_ref[:2]), _rel(got_y[:2], sy_ref[:2])),
         "f_ratio": _allclose_ratio(f[:, :n].double(), f_ref[:, :n], 1e-3, 1e-5),
@@ -2704,8 +2720,8 @@ def large_m_kernels(dev) -> tuple:
     plain versions and bounds: the closed forms at m = 64, 16 chains, the
     general-nu instances at m = 40, 4 chains (their float32 plain versions
     at m = 64 and 16 chains would hold tens of GB of Bessel intermediates).
-    Then the factor-only yardstick (:func:`factor_only_ms`), kernels 1 and 3
-    on their cluster body (:func:`cluster_body_check`) and each kernel at
+    Then the factor-only yardstick (:func:`factor_only_ms`), the three
+    kernels on their cluster body (:func:`cluster_body_check`) and each kernel at
     the first m of its scratch body (:func:`scratch_body_check`).  Returns
     (max_abs_err, ms, bound, library) by row, library the factor-only
     yardstick of the cluster and scratch rows."""
@@ -2806,35 +2822,42 @@ def factor_only(case: Case, warm: int, reps: int) -> dict:
 # the cluster body's checks: the first m of each cluster size (2, 4, 8
 # blocks) and M_CLUSTER, each on one layout and with or without noise
 # weights, so that every pair of the two comes once, closed form and sampled
-# nu at each
+# nu at each; kernel 2's first m (M_SMEM_GRAD + 1) is checked by path 19's
+# models and timed below
 CLUSTER_CHECKS = ((geometry.M_SMEM + 1, "dist", False), (313, "coords", True),
                   (441, "dist", True), (geometry.M_CLUSTER, "coords", False))
 CLUSTER_CHECK_M = tuple(m for m, _, _ in CLUSTER_CHECKS)
-# the shape the cluster rows are timed at: M_SMEM + 1, n=1,000, 4 chains
+# the shape the cluster rows are timed at: the kernel's first m on the body
+# (M_SMEM + 1 for kernels 1 and 3, M_SMEM_GRAD + 1 for kernel 2), n=1,000,
+# 4 chains
 N_CLUSTER_TIMED = 1_000
 
 
 def cluster_body_check(dev) -> tuple:
-    """Kernels 1 and 3 on the cluster body (M_SMEM < m <= M_CLUSTER, a
-    thread-block cluster a (site, chain) system): at each m of
+    """The three kernels on the cluster body (a thread-block cluster a
+    (site, chain) system; M_SMEM < m <= M_CLUSTER for kernels 1 and 3,
+    M_SMEM_GRAD < m <= M_CLUSTER_GRAD for kernel 2): at each m of
     CLUSTER_CHECKS (n = m + 100, 2 chains) on its layout and with or
-    without noise weights, closed form (sqexp, the closed-form limits of
-    check_forward and check_bf) and sampled nu (NU_LIMITS), against their
-    float64 plain versions, each launch counted under ``_large_cluster``.  Then the
-    ``_large_cluster`` rows timed at m = M_SMEM + 1, n=1,000, 4 chains (the
-    general-nu ones too) with their float32 plain versions, bounds and the
-    factor-only yardstick on the same float64 batch as their library_ms.
-    Returns (max_abs_err, ms, bound, library) by row."""
+    without noise weights, closed form (sqexp: the limits of check_forward,
+    check_bf, check_grad, and check_grad_y with one y row a chain) and
+    sampled nu (NU_LIMITS; kernel 2-EMIT_Y with kernel 2's shared y, so that
+    one call of the float64 plain version, which takes half a minute at
+    M_CLUSTER, serves both instances),
+    against their float64 plain versions, each launch counted under
+    ``_large_cluster``.  Then the ``_large_cluster`` rows timed at each
+    kernel's first m on the body, n=1,000, 4 chains (the general-nu ones
+    too) with their float32 plain versions, bounds and the factor-only
+    yardstick on the same float64 batch as their library_ms.  Returns
+    (max_abs_err, ms, bound, library) by row."""
     errs, times, bounds, library = {}, {}, {}, {}
     t0 = time.perf_counter()
     for m, layout, hetero in CLUSTER_CHECKS:
-        _require(geometry.large_body("vecchia_suffstats", m) == "cluster"
-                 and geometry.large_body("vecchia_bf", m) == "cluster"
-                 and geometry.large_body("vecchia_grad", m) == "scratch",
-                 f"m={m} does not run kernels 1 and 3 on the cluster body")
+        _require(all(geometry.large_body(base, m) == "cluster"
+                     for base in ("vecchia_suffstats", "vecchia_grad", "vecchia_bf")),
+                 f"m={m} does not run the three kernels on the cluster body")
         sfx = _suffix_of(layout)
-        rows = (f"vecchia_suffstats{sfx}_large_cluster", f"vecchia_bf{sfx}_large_cluster",
-                f"vecchia_suffstats_nu{sfx}_large_cluster", f"vecchia_bf_nu{sfx}_large_cluster")
+        rows = tuple(f"vecchia_{k}{nu}{sfx}_large_cluster" for nu in ("", "_nu")
+                     for k in ("suffstats", "bf", "grad", "grad_y"))
         het = "_hetero" if hetero else ""
         counts = [_COUNTS[row + het] for row in rows]
         before = [c.launches for c in counts]
@@ -2847,44 +2870,50 @@ def cluster_body_check(dev) -> tuple:
         label = f"{layout}{het} n{m + 100} m{m} cluster body (k={geometry.cluster_blocks(m)})"
         fwd = check_forward(case.subset(slice(None)), label)
         bf = check_bf(case.subset(slice(None)), label, zero_alpha=False, gated=True)
-        gen = check_general_nu_13(nu.subset(slice(None)), label + " nu")
+        grad = check_grad(case.subset(slice(None)), label, grad_rtol=2e-3)
+        grad_y = check_grad_y(case.subset(slice(None)), label, True, grad_rtol=2e-3)
+        gen = check_general_nu(nu.subset(slice(None)), label + " nu", per_chain_y=False)
         launches = [c.launches - b for c, b in zip(counts, before)]
-        _require(launches == [1, 1, 1, 1],
+        _require(launches == [1] * len(rows),
                  f"the cluster body was not launched once each [{label}]: {launches}")
         for row, err in zip(rows, (fwd["f_max_abs_err"], bf["b_max_abs_err"],
-                                   gen["f_max_abs_err"], gen["bf_b_max_abs_err"])):
+                                   grad["max_abs_err"], grad_y["b_max_abs_err"],
+                                   gen["f_max_abs_err"], gen["bf_b_max_abs_err"],
+                                   gen["sums_max_abs_err"], gen["b_max_abs_err"])):
             errs[row] = max(errs.get(row, 0.0), err)
         del case, nu
         torch.cuda.empty_cache()
     checks_s = time.perf_counter() - t0
-    m = geometry.M_SMEM + 1
-    for layout in LAYOUTS:
-        case = Case(N_CLUSTER_TIMED, m, SqExp(), 4, seed=0, dev=dev, layout=layout)
-        times.update(time_instances(case, 1, 5, (1, 2), ("vecchia_suffstats", "vecchia_bf")))
-        bounds.update({row: b for row, b in kernel_bounds(case).items() if row in KERNEL_ROWS
-                       and row.endswith("_large_cluster")})
-        yard = factor_only(case, 1, 3)
-        nu = Case(N_CLUSTER_TIMED, m, Matern(), 4, seed=0, dev=dev, nu=nu_spread(CHAINS)[::4],
-                  layout=layout)
-        times.update(time_instances(nu, 1, 3, (0, 1), ("vecchia_suffstats", "vecchia_bf")))
-        bounds.update({row: b for row, b in kernel_bounds_nu(nu).items() if row in KERNEL_ROWS
-                       and row.endswith("_large_cluster")})
-        library.update({row: yard for row in CLUSTER_ROWS
-                        if ("_coords" in row) == (layout == "coords")})
-        del case, nu
-        torch.cuda.empty_cache()
+    timed = {}
+    for bases in (("vecchia_suffstats", "vecchia_bf"), ("vecchia_grad",)):
+        m = geometry.SMEM_M[bases[0]] + 1
+        timed[" ".join(bases)] = f"m{m} n{N_CLUSTER_TIMED} 4 chains"
+        for layout in LAYOUTS:
+            case = Case(N_CLUSTER_TIMED, m, SqExp(), 4, seed=0, dev=dev, layout=layout)
+            mine = {row for row in CLUSTER_ROWS if row.startswith(bases)
+                    and ("_coords" in row) == (layout == "coords")}
+            times.update(time_instances(case, 1, 5, (1, 2), bases))
+            bounds.update({row: b for row, b in kernel_bounds(case).items() if row in mine})
+            yard = factor_only(case, 1, 3)
+            nu = Case(N_CLUSTER_TIMED, m, Matern(), 4, seed=0, dev=dev,
+                      nu=nu_spread(CHAINS)[::4], layout=layout)
+            times.update(time_instances(nu, 1, 3, (0, 1), bases))
+            bounds.update({row: b for row, b in kernel_bounds_nu(nu).items() if row in mine})
+            library.update({row: yard for row in mine})
+            del case, nu
+            torch.cuda.empty_cache()
     out = {"checks": [f"m{m} {layout}{' hetero' if het else ''}" for m, layout, het in CLUSTER_CHECKS],
            "cluster_blocks": {m: geometry.cluster_blocks(m) for m in CLUSTER_CHECK_M},
            "block_bytes": {m: geometry.cluster_block_bytes(m, geometry.cluster_blocks(m))
                            for m in CLUSTER_CHECK_M},
-           "max_abs_err": errs, "timed": f"m{m} n{N_CLUSTER_TIMED} 4 chains",
+           "max_abs_err": errs, "timed": timed,
            "ms": {row: times[row] for row in CLUSTER_ROWS},
            "plain_ms": {row: times[row + "_plain"] for row in CLUSTER_ROWS},
            "bound_ms": {row: bounds[row][0] for row in CLUSTER_ROWS},
            "factor_only_ms": {row: library[row]["ms"] for row in CLUSTER_ROWS},
            "check_seconds": checks_s, "seconds": time.perf_counter() - t0}
-    print("cluster body of kernels 1 and 3 [M_SMEM < m <= M_CLUSTER]: " + json.dumps(out),
-          flush=True)
+    print("cluster body of the three kernels [M_SMEM < m <= M_CLUSTER, kernel 2 from "
+          "M_SMEM_GRAD]: " + json.dumps(out), flush=True)
     return errs, times, bounds, library
 
 
@@ -2903,25 +2932,21 @@ def _timed_launch(fn):
 
 def scratch_body_check(dev) -> tuple:
     """Each kernel at the first m it runs on the scratch body: kernels 1 and
-    3 at m = M_CLUSTER + 1 with the fewest sites and chains that run (n = m
-    + 1, one chain: the body runs each site's system in one thread, so a
-    launch takes one system's time), each launch timed between CUDA events
-    and held to its float64 plain version at the closed-form limits; kernel
-    2 and its EMIT_Y instance at m = M_SMEM_GRAD + 1 (n=500, 4 chains: their
-    float64 plain versions, kernel 2's through autograd, cost seconds a call
-    at this m); each counted under ``_large_scratch``.  Returns (max_abs_err,
+    3 at m = M_CLUSTER + 1, kernel 2 and its EMIT_Y instance at m =
+    M_CLUSTER_GRAD + 1 (the same m), with the fewest sites and chains that
+    run (n = m + 1, one chain: the body runs each site's system in one
+    thread, so a launch takes one system's time), each launch timed between
+    CUDA events and held to its float64 plain version at the closed-form
+    limits; each counted under ``_large_scratch``.  (Launched at once on
+    four streams they took twice as long each, and no less in all.)  Returns (max_abs_err,
     ms, bound, library) of the ``_large_scratch`` rows."""
-    m13, m2 = geometry.M_CLUSTER + 1, geometry.M_SMEM_GRAD + 1
-    _require(geometry.large_body("vecchia_suffstats", m13) == "scratch"
-             and geometry.large_body("vecchia_bf", m13) == "scratch"
-             and geometry.large_body("vecchia_bf", m13 - 1) == "cluster"
-             and geometry.large_body("vecchia_grad", m2) == "scratch"
-             and geometry.large_body("vecchia_grad", m2 - 1) == "smem",
+    m13, m2 = geometry.M_CLUSTER + 1, geometry.M_CLUSTER_GRAD + 1
+    _require(m13 == m2 and all(
+        geometry.large_body(base, m13) == "scratch"
+        and geometry.large_body(base, m13 - 1) == "cluster"
+        for base in ("vecchia_suffstats", "vecchia_grad", "vecchia_bf")),
              f"m={m13} (kernels 1 and 3) or m={m2} (kernel 2) does not run the scratch body")
-    counts = (fwd_ops.COUNTS["vecchia_suffstats_large_scratch"],
-              bf_ops.COUNTS["vecchia_bf_large_scratch"],
-              diff_ops.COUNTS["vecchia_grad_large_scratch"],
-              diff_ops.COUNTS["vecchia_grad_y_large_scratch"])
+    counts = [_COUNTS[row] for row in SCRATCH_ROWS]
     before = [c.launches for c in counts]
     t0 = time.perf_counter()
     case = Case(m13 + 1, m13, SqExp(), 1, seed=0, dev=dev)
@@ -2933,36 +2958,43 @@ def scratch_body_check(dev) -> tuple:
     out3, ms3 = _timed_launch(lambda: bf_ops.bf_planes(k, t, case.phi, case.alpha,
                                                        case.jitter))
     bf = check_bf(case, label, zero_alpha=False, gated=True, out=out3)
+    out2, ms2 = _timed_launch(lambda: diff_ops.value_and_grad_sums(
+        k, t, case.phi, case.alpha, case.y32, case.jitter))
+    grad = check_grad(case, label, grad_rtol=2e-3, out=out2)
+    out2y, ms2y = _timed_launch(lambda: diff_ops.value_and_grad_sums(
+        k, t, case.phi, case.alpha, case.y32_chains, case.jitter, emit_y=True))
+    grad_y = check_grad_y(case, label, True, grad_rtol=2e-3, out=out2y)
     params = fwd_ops.params_array(case.phi, case.alpha, case.jitter, case.n, torch.float32,
                                   case.phi.device)
     times = {"vecchia_suffstats_large_scratch": ms1, "vecchia_bf_large_scratch": ms3,
+             "vecchia_grad_large_scratch": ms2, "vecchia_grad_y_large_scratch": ms2y,
              "vecchia_suffstats_large_scratch_plain": _time_ms(
                  lambda: fwd_ops.suffstats_reference(k, t, params, case.y32), 0, 1),
              "vecchia_bf_large_scratch_plain": _time_ms(
-                 lambda: bf_ops.bf_reference(k, t, params), 0, 1)}
+                 lambda: bf_ops.bf_reference(k, t, params), 0, 1),
+             "vecchia_grad_large_scratch_plain": _time_ms(
+                 lambda: diff_ops.grad_reference(k, t, params, case.y32), 0, 1),
+             "vecchia_grad_y_large_scratch_plain": _time_ms(
+                 lambda: diff_ops.grad_reference(k, t, params, case.y32_chains, emit_y=True),
+                 0, 1)}
     bounds = {row: b for row, b in kernel_bounds(case).items() if row in SCRATCH_ROWS}
     yard = factor_only(case, 0, 1)
     library = {row: yard for row in SCRATCH_ROWS}
     errs = {"vecchia_suffstats_large_scratch": fwd["f_max_abs_err"],
-            "vecchia_bf_large_scratch": bf["b_max_abs_err"]}
-    scratch13_s = time.perf_counter() - t0
-    case = Case(500, m2, SqExp(), 4, seed=0, dev=dev)
-    label = f"n500 m{m2} scratch body sqexp"
-    grad = check_grad(case.subset(slice(None)), label, grad_rtol=2e-3)
-    grad_y = check_grad_y(case.subset(slice(None)), label, False, grad_rtol=2e-3)
+            "vecchia_bf_large_scratch": bf["b_max_abs_err"],
+            "vecchia_grad_large_scratch": grad["max_abs_err"],
+            "vecchia_grad_y_large_scratch": grad_y["b_max_abs_err"]}
     launches = [c.launches - b for c, b in zip(counts, before)]
     _require(launches == [1, 1, 1, 1],
              f"the scratch body was not launched once each: {launches}")
     out = {"m": {"kernels 1 and 3": m13, "kernel 2": m2}, "launches": launches,
-           "f_max_abs_err": fwd["f_max_abs_err"], "b_max_abs_err": bf["b_max_abs_err"],
-           "grad_max_abs_err": grad["max_abs_err"],
-           "grad_y_b_max_abs_err": grad_y["b_max_abs_err"],
+           "max_abs_err": errs,
            "ms": {row: times[row] for row in SCRATCH_ROWS},
            "plain_ms": {row: times[row + "_plain"] for row in SCRATCH_ROWS},
            "bound_ms": {row: bounds[row][0] for row in SCRATCH_ROWS},
            "factor_only_ms": yard["ms"],
-           "kernels_1_and_3_seconds": scratch13_s, "seconds": time.perf_counter() - t0}
-    print("scratch bodies above M_CLUSTER and M_SMEM_GRAD: " + json.dumps(out), flush=True)
+           "seconds": time.perf_counter() - t0}
+    print("scratch bodies above M_CLUSTER and M_CLUSTER_GRAD: " + json.dumps(out), flush=True)
     del case
     torch.cuda.empty_cache()
     return errs, times, bounds, library
@@ -2974,7 +3006,8 @@ def large_m_path(dev) -> dict:
     100 (kernels 2 and 1); with x @ [1, -2], fit_map(20) and MWG 50 + 50
     (kernel 2-EMIT_Y, and kernel 3 twice a step); the latent NNGP, 8 chains,
     50 + 50 (kernel 3; 100 + 100 until the script neared its time limit).
-    Short runs: the gates are finite draws and the slope within 0.1 of -2."""
+    Short runs: the gates are finite draws and the slope within 0.1 of -2.
+    Then :func:`cluster_map_run`, the response model's MAP at m = 240."""
     n, m, chains = 10_000, 40, 8
     coords, y = config2_field(n, 10.0, np.random.default_rng(0))
     x = np.column_stack([np.ones(n), np.random.default_rng(1).standard_normal(n)])
@@ -3007,11 +3040,42 @@ def large_m_path(dev) -> dict:
         "latent_posterior_mean": {k: float(np.mean(latent_draws[k]))
                                   for k in ("sigma2", "phi", "tau2")},
         "slope": slope, "launches": launches, "plain_calls": 0,
+        "m240": cluster_map_run(dev),
     }
-    print("large-m path [n10000 m40]: " + json.dumps(res), flush=True)
+    print("large-m path [n10000 m40; n2000 m240]: " + json.dumps(res), flush=True)
     _require(all(np.isfinite(v).all() for d in (draws, fixed_draws, latent_draws)
                  for v in d.values()), "non-finite draws at m = 40")
     _require(abs(slope + 2.0) <= 0.1, f"posterior mean slope {slope} is not within 0.1 of -2")
+    return res
+
+
+def cluster_map_run(dev) -> dict:
+    """The response NNGP with m = 240 (kernel 2 and 2-EMIT_Y on the cluster
+    body) on config 2's field at n=2,000: fit_map(20), and with x @ [1, -2]
+    fit_map(10).  Gates: finite values and a ``_large_cluster`` launch of
+    both kernel-2 instances, and no plain version."""
+    n, m = 2_000, 240
+    coords, y = config2_field(n, 10.0, np.random.default_rng(0))
+    x = np.column_stack([np.ones(n), np.random.default_rng(1).standard_normal(n)])
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = ResponseNNGP(coords, y, kernel="exponential", m=m, device=dev)
+    built_s = time.perf_counter() - t0
+    mp = model.fit_map(n_steps=20)
+    fixed = ResponseNNGP(coords, y + x @ np.array([1.0, -2.0]), kernel="exponential", m=m,
+                         x=x, device=dev)
+    mp_fixed = fixed.fit_map(n_steps=10)
+    torch.cuda.synchronize()
+    launches = _read_counts("m = 240", ("vecchia_grad_large_cluster",
+                                        "vecchia_grad_y_large_cluster"))
+    res = {"layout": model.tables.layout, "build_s": built_s,
+           "seconds": time.perf_counter() - t0, "map_logpost": float(mp.value),
+           "fixed_map_logpost": float(mp_fixed.value),
+           "map_u": [float(v) for v in mp.u],
+           "launches": {k: v for k, v in launches.items() if v}}
+    _require(np.isfinite(res["map_logpost"]) and np.isfinite(res["fixed_map_logpost"])
+             and all(np.isfinite(v) for v in res["map_u"]),
+             f"non-finite MAP at m = 240: {res}")
     return res
 
 
@@ -3118,13 +3182,16 @@ def tile_resources(info: dict) -> dict:
     _require(len(smem) == 16, f"expected 16 shared-memory kernels, found {len(smem)}")
     cluster = {}
     for line, res in zip(usage, usage[1:]):
-        # kernels 1 and 3 on the cluster body: <GENERAL, COORDS>
-        found = re.search(r"(suffstats|bf)_cluster_kernelI((?:Lb[01]E)+)", line)
+        # the cluster body: kernels 1 and 3 <GENERAL, COORDS>, kernel 2
+        # <EMIT_Y, GENERAL, COORDS>
+        found = re.search(r"(suffstats|bf|grad)_cluster_kernelI((?:Lb[01]E)+)", line)
         if "Function" not in line or not found:
             continue
         flags = re.findall(r"Lb([01])E", found.group(2))
-        name = (found.group(1) + ("_nu" if flags[0] == "1" else "")
-                + ("_coords" if flags[1] == "1" else ""))
+        if found.group(1) == "grad":
+            emit_y, flags = flags[0], flags[1:]
+        name = (found.group(1) + ("_y" if found.group(1) == "grad" and emit_y == "1" else "")
+                + ("_nu" if flags[0] == "1" else "") + ("_coords" if flags[1] == "1" else ""))
         stats = dict(re.findall(r"(REG|STACK|SHARED):(\d+)", res))
         cluster[name] = {"registers": int(stats.get("REG", 0)),
                          "stack": int(stats.get("STACK", 0)),
@@ -3134,9 +3201,10 @@ def tile_resources(info: dict) -> dict:
                                           m, geometry.cluster_blocks(m))}
                             for m in CLUSTER_CHECK_M}}
     print(f"cluster bodies' resources [kernels 1 and 3, {geometry.M_SMEM} < m <= "
-          f"{geometry.M_CLUSTER}; {geometry.CLUSTER_THREADS} threads a block]: "
+          f"{geometry.M_CLUSTER}; kernel 2, {geometry.M_SMEM_GRAD} < m <= "
+          f"{geometry.M_CLUSTER_GRAD}; {geometry.CLUSTER_THREADS} threads a block]: "
           + json.dumps(cluster), flush=True)
-    _require(len(cluster) == 8, f"expected 8 cluster-body kernels, found {len(cluster)}")
+    _require(len(cluster) == 16, f"expected 16 cluster-body kernels, found {len(cluster)}")
     return out
 
 
@@ -4168,7 +4236,7 @@ def shard_offset_path(dev, field3) -> dict:
     case (n=100,000, m=15, sqexp, 16 chains), config 3's general-nu case
     (n=25,000, m=10, sampled nu), the coords layout at the main case's
     shapes, the main case with noise weights, m=40 (n=10,000, the
-    large-m instances), kernels 1 and 3 at m = M_SMEM + 1 (n=1,000, 4
+    large-m instances), the three kernels at m = M_SMEM + 1 (n=1,000, 4
     chains, the cluster body) and m=20 on both layouts
     (n=10,000, 4 chains, the M = 20 team bodies, their unsharded launches of
     four chains).  Tables built for 4 site shards."""
@@ -4189,11 +4257,10 @@ def shard_offset_path(dev, field3) -> dict:
     m = geometry.M_SMEM + 1
     out["cluster"] = shard_offset_case(
         Case(N_CLUSTER_TIMED, m, SqExp(), 4, seed=0, dev=dev, shards=4),
-        f"m{m} cluster body", grad=False)
-    _require(all(out["cluster"]["launches"].get(name, 0) > 0 for name in (
-        "vecchia_suffstats_large_cluster", "vecchia_bf_large_cluster",
-        "vecchia_suffstats_large_cluster_sharded", "vecchia_bf_large_cluster_sharded")),
-             "path 27's cluster case ran no cluster body, sharded or not")
+        f"m{m} cluster body")
+    _require(all(out["cluster"]["launches"].get(f"vecchia_{k}_large_cluster{s}", 0) > 0
+                 for k in ("suffstats", "grad", "grad_y", "bf") for s in ("", "_sharded")),
+             "path 27's cluster case ran no cluster body of a kernel, sharded or not")
     for layout in LAYOUTS:
         out[f"m20_{layout}"] = shard_offset_case(
             Case(N_LARGE, 20, SqExp(), 4, seed=0, dev=dev, layout=layout, shards=4),

@@ -22,8 +22,10 @@
 // kRolledM, loops to m); m > kRolledM the large-m instances (kernels 1 and 3
 // up to kSmemM: vecchia_large_smem.cuh, kernel 2 up to kSmemGradM:
 // vecchia_grad_smem.cuh, a warp a (site, chain) system in shared memory;
-// above: vecchia_large_m.cuh, one thread a (site, chain), its state in a
-// device scratch buffer; loops to m).  The tables of an m-call have m (or
+// above, up to kClusterM (kernel 2: kClusterGradM), a thread-block cluster a
+// system: vecchia_large_cluster.cuh, vecchia_grad_cluster.cuh; above:
+// vecchia_large_m.cuh, one thread a (site, chain), its state in a device
+// scratch buffer; loops to m).  The tables of an m-call have m (or
 // m(m-1)/2, or m d) planes, the leading planes of the M layout: tri(i, k)
 // for i < m and k d + a for k < m do not depend on M.
 //

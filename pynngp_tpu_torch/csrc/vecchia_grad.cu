@@ -6,7 +6,11 @@
 //   params (C, 6); d_in (m, n_pad); d_tri (m(m-1)/2, n_pad); nn_idx (m, n_pad)
 //   int32; y (n,) with y_stride 0, or (C, n) with y_stride n; v (n_pad,) the
 //   per-site noise weights padded with 1, or null; m >= 1; group, grid_x,
-//   smem_bytes and scratch as for vecchia_suffstats_f32; part
+//   smem_bytes and scratch as for vecchia_suffstats_f32, with kernel 2's
+//   limits: the shared-memory body up to kSmemGradM = 232
+//   (geometry.smem_geometry(..., "vecchia_grad")), the cluster body up to
+//   kClusterGradM = 608 (geometry.cluster_geometry(..., "vecchia_grad"),
+//   scratch the hand-off buffer), the scratch body above; part
 //   (6, C, grid_x) in the order logdet, quad, dlogdet/dphi, dquad/dphi,
 //   dlogdet/dalpha, dquad/dalpha.
 // Launches on `stream` without synchronising; returns cudaGetLastError().

@@ -62,7 +62,9 @@
 // below); the rolled instance (arrays for kRolledM, loops to m) runs
 // 20 < m <= 32 and coords with d > kMaxDim, and above 32 the shared-memory
 // body (vecchia_grad_smem.cuh, a warp a (site, chain) system) up to
-// kSmemGradM, the scratch body (vecchia_large_m.cuh) above it.  At M = 20
+// kSmemGradM, the cluster body (vecchia_grad_cluster.cuh, a thread-block
+// cluster a system) up to kClusterGradM, the scratch body
+// (vecchia_large_m.cuh) above it.  At M = 20
 // (15 < m <= 20) the closed-form instances run the team body
 // (vecchia_team.cuh: a few lanes a system, its state in registers); the
 // general-nu ones keep this body.
@@ -94,6 +96,7 @@
 
 #include <cstddef>
 
+#include "vecchia_grad_cluster.cuh"
 #include "vecchia_grad_smem.cuh"
 #include "vecchia_large_m.cuh"
 #include "vecchia_team.cuh"
@@ -342,12 +345,14 @@ grad_kernel(const float* __restrict__ params, const float* __restrict__ tab_a,
 
 // Validates the launch shape and the wrapper's geometry (group chains a
 // block, grid_x blocks along the tiles, the ring's bytes; for kRolledM <
-// m <= kSmemGradM group chains a block and their systems' bytes; above,
-// grid_x blocks of kBlock sites of one chain and the scratch buffer), picks
-// the instance (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM
-// and for coords with d > kMaxDim; the shared-memory body, then the scratch
-// body above) and launches on `stream` without synchronising; returns
-// cudaGetLastError().
+// m <= kSmemGradM group chains a block and their systems' bytes; for
+// kSmemGradM < m <= kClusterGradM the cluster size, grid_x clusters a chain,
+// a block's bytes and the hand-off buffer in scratch; above, grid_x blocks
+// of kBlock sites of one chain and the scratch buffer), picks the instance
+// (M >= m for m <= 20; the rolled one for 20 < m <= kRolledM and for coords
+// with d > kMaxDim; the shared-memory body, the cluster body, then the
+// scratch body above) and launches on `stream` without synchronising;
+// returns cudaGetLastError().
 template <bool EMIT_Y, bool GENERAL, bool COORDS>
 int launch_grad(const float* params, const float* tab_a, const float* tab_b, const int* nn_idx,
                 const float* y, int y_stride, const float* v, int n_pad, int m, int dim,
@@ -364,6 +369,15 @@ int launch_grad(const float* params, const float* tab_a, const float* tab_b, con
     return launch_grad_smem<EMIT_Y, GENERAL, COORDS>(
         params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, with_nu,
         group, grid_x, smem_bytes, part, b_out, rof_out, static_cast<cudaStream_t>(stream));
+  }
+  if (grad_cluster_launch(m)) {
+    if (!valid_cluster(n_pad, m, chains, group, grid_x, smem_bytes, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_grad_cluster<EMIT_Y, GENERAL, COORDS>(
+        params, tab_a, tab_b, nn_idx, y, y_stride, v, n_pad, m, dim, chains, family, with_nu,
+        group, grid_x, smem_bytes, scratch, part, b_out, rof_out,
+        static_cast<cudaStream_t>(stream));
   }
   if (large_launch(m)) {
     if (!valid_large(n_pad, group, grid_x, smem_bytes, scratch)) {

@@ -2,7 +2,7 @@
 // one warp in shared memory in float64, on the pieces of kernels 1 and 3's
 // shared-memory body (vecchia_large_smem.cuh: SmemGroup, the fill, the
 // factor).  The launcher of vecchia_grad_body.cuh sends such calls here;
-// above kSmemGradM it keeps the scratch body of vecchia_large_m.cuh.
+// above kSmemGradM the cluster body (vecchia_grad_cluster.cuh) takes them.
 //
 // Replaces, at those m, the Pallas kernel _grad_kernel
 // (pynngp_tpu/ops/pallas_bf.py:727, pallas_call l.918, emit_y l.857), whose

@@ -4,8 +4,8 @@
 // vecchia_suffstats_body.cuh and vecchia_bf_body.cuh send such calls here,
 // between the shared-memory body (vecchia_large_smem.cuh, one warp a system,
 // up to kSmemM = 236) and the scratch body (vecchia_large_m.cuh, above
-// kClusterM).  Kernel 2 does not run here: above kSmemGradM it keeps the
-// scratch body.
+// kClusterM).  Kernel 2 runs on the same pieces above kSmemGradM
+// (vecchia_grad_cluster.cuh).
 //
 // What bounded the scratch body above kSmemM (one thread a (site, chain),
 // its factor in a per-thread slice of a device buffer): its left-looking
@@ -597,11 +597,14 @@ suffstats_cluster_kernel(const float* __restrict__ params, const float* __restri
   cluster_sync();  // no block exits while rank 0 may read its shared memory
 }
 
-// Back-substitution step of kernel 3: panel p's P unknowns from the right-
-// hand sides over its row mp (their later panels' terms already
-// subtracted), in place, last first (thread 0).
+// Back-substitution step: panel p's P unknowns from the right-hand sides
+// over its row mp + t (their later panels' terms already subtracted), in
+// place, last first, by thread t < ROWS (kernel 3: row mp, B; kernel 2:
+// rows mp and mp + 1, p and q, the corner's reads the same in both threads).
+template <int ROWS = 1>
 __device__ __forceinline__ void cluster_solve_panel(const ClusterShare& s, int p) {
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x >= ROWS) return;
+  const int row = s.mp + threadIdx.x;
   const int c0 = p * kClusterPanel;
   const int len = s.rows - c0;
   const double* pan = cluster_panel(s, p);
@@ -609,22 +612,25 @@ __device__ __forceinline__ void cluster_solve_panel(const ClusterShare& s, int p
 #pragma unroll
   for (int c = kClusterPanel - 1; c >= 0; --c) {
     const double* col = pan + c * len - c0;  // col[i]: row i of column c0 + c
-    double b = col[s.mp];
+    double b = col[row];
 #pragma unroll
     for (int c2 = c + 1; c2 < kClusterPanel; ++c2) b -= col[c0 + c2] * x[c2];
     x[c] = b * col[c0 + c];  // times 1/L_kk
   }
 #pragma unroll
   for (int c = 0; c < kClusterPanel; ++c) {
-    cluster_panel(s, p)[c * len + s.mp - c0] = x[c];
+    cluster_panel(s, p)[c * len + row - c0] = x[c];
   }
 }
 
-// Subtract panel j's solved unknowns xs (P of them) from the right-hand
-// sides of this block's columns before panel j: those of panel `only` where
-// only >= 0, else every one but panel `skip`'s.  A thread a column.
+// Subtract panel j's solved unknowns from the right-hand sides (rows mp ..
+// mp + ROWS - 1) of this block's columns before panel j: those of panel
+// `only` where only >= 0, else every one but panel `skip`'s; xs[t xs_stride
+// + q] is the q-th of row mp + t.  A thread a column.
+template <int ROWS = 1>
 __device__ __forceinline__ void cluster_back_update(const ClusterShare& s, int j,
-                                                    const double* xs, int only, int skip) {
+                                                    const double* xs, int only, int skip,
+                                                    int xs_stride = 0) {
   const int r0 = j * kClusterPanel;
   for (int idx = threadIdx.x;; idx += blockDim.x) {
     const int p = cluster_own_panel(idx / kClusterPanel, s.k, s.rank);
@@ -633,10 +639,17 @@ __device__ __forceinline__ void cluster_back_update(const ClusterShare& s, int j
     const int len = s.rows - p * kClusterPanel;
     double* col =
         cluster_panel(s, p) + (idx % kClusterPanel) * len - p * kClusterPanel;  // col[i]: row i
-    double b = col[s.mp];
+    double b[ROWS];
 #pragma unroll
-    for (int q = 0; q < kClusterPanel; ++q) b -= col[r0 + q] * xs[q];
-    col[s.mp] = b;
+    for (int t = 0; t < ROWS; ++t) b[t] = col[s.mp + t];
+#pragma unroll
+    for (int q = 0; q < kClusterPanel; ++q) {
+      const double l = col[r0 + q];
+#pragma unroll
+      for (int t = 0; t < ROWS; ++t) b[t] -= l * xs[t * xs_stride + q];
+    }
+#pragma unroll
+    for (int t = 0; t < ROWS; ++t) col[s.mp + t] = b[t];
   }
 }
 

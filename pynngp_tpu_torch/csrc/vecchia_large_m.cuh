@@ -1,7 +1,7 @@
 // The scratch bodies of the three kernels: every call with m > kRolledM
-// that no shared-memory body takes (kernels 1 and 3 above kSmemM,
-// vecchia_large_smem.cuh; kernel 2 above kSmemGradM, vecchia_grad_smem.cuh),
-// on either table layout, closed-form rho or the general-nu Matern, with or
+// that neither a shared-memory body nor the cluster body takes (kernels 1
+// and 3 above kClusterM, vecchia_large_cluster.cuh; kernel 2 above
+// kClusterGradM, vecchia_grad_cluster.cuh), on either table layout, closed-form rho or the general-nu Matern, with or
 // without noise weights.  Each source's launcher sends such a call here.
 //
 // Why another design.  The tile ring (vecchia_tile.cuh) stages m(m+1)/2 + m

@@ -104,12 +104,12 @@ def with_variant_counts(*counts: LaunchCount) -> dict:
     """{name: count} of a wrapper's counts and, for each, counts of the same
     source's launches with heterogeneous-noise weights (``<name>_hetero``:
     the same C entry), of its large-m instance (``<name>_large``: m > 32),
-    of both (``<name>_large_hetero``), of the cluster body of kernels 1 and
-    3 above their shared-memory limit (``<name>_large_cluster``, with
-    ``_hetero``: ``geometry.M_SMEM`` < m <= ``geometry.M_CLUSTER``), of the
-    scratch body above the kernel's last limit (``<name>_large_scratch``,
-    with ``_hetero``: ``geometry.M_CLUSTER`` for kernels 1 and 3,
-    ``geometry.M_SMEM_GRAD`` for kernel 2), and of each of these in a call over
+    of both (``<name>_large_hetero``), of the cluster body above the
+    kernel's shared-memory limit (``<name>_large_cluster``, with
+    ``_hetero``: up to ``geometry.CLUSTER_M``), of the scratch body above
+    that (``<name>_large_scratch``, with ``_hetero``: ``geometry.M_CLUSTER``
+    for kernels 1 and 3, ``geometry.M_CLUSTER_GRAD`` for kernel 2), and of
+    each of these in a call over
     several cells of a mesh (``..._sharded``), counted apart so that a run
     shows which paths drove which instance."""
     out = {}

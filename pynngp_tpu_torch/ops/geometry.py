@@ -1,6 +1,7 @@
 """Launch geometry of the three kernels (``csrc/vecchia_tile.cuh``,
 ``csrc/vecchia_large_smem.cuh``, ``csrc/vecchia_grad_smem.cuh``,
-``csrc/vecchia_large_cluster.cuh``, ``csrc/vecchia_large_m.cuh``).
+``csrc/vecchia_large_cluster.cuh``, ``csrc/vecchia_grad_cluster.cuh``,
+``csrc/vecchia_large_m.cuh``).
 
 For m <= 32 a block is a group of up to :data:`GROUP` chains, one warp of
 32 threads a chain, and its warps share one tile of :data:`TILE` consecutive
@@ -17,13 +18,13 @@ For m > 32 the ring does not fit (one stage at m = 64 on the dist layout is
 283 KB).  Each kernel then runs one warp a (site, chain) system, its factor
 in shared memory (:func:`smem_geometry`), up to the largest m whose one
 system fits a block: :data:`M_SMEM` for kernels 1 and 3, :data:`M_SMEM_GRAD`
-for kernel 2, whose system keeps two more vectors.  Above M_SMEM kernels 1
-and 3 run the cluster body up to :data:`M_CLUSTER`: a thread-block cluster a
-(site, chain) system, its columns spread over the shared memory of the
-cluster's blocks (:func:`cluster_geometry`).  Above its limit (M_CLUSTER,
-or M_SMEM_GRAD for kernel 2) a kernel runs the scratch body, one thread a
-(site, chain) with its state in a device scratch buffer
-(:func:`large_geometry`).  :func:`large_body` names which body a launch
+for kernel 2, whose system keeps two more vectors.  Above that limit each
+kernel runs the cluster body up to :data:`CLUSTER_M` (:data:`M_CLUSTER` for
+kernels 1 and 3, :data:`M_CLUSTER_GRAD` for kernel 2): a thread-block
+cluster a (site, chain) system, its columns spread over the shared memory
+of the cluster's blocks (:func:`cluster_geometry`).  Above it a kernel runs
+the scratch body, one thread a (site, chain) with its state in a device
+scratch buffer (:func:`large_geometry`).  :func:`large_body` names which body a launch
 runs.
 
 At M = 20 (15 < m <= 20) the closed-form instances of every kernel on
@@ -42,7 +43,7 @@ import math
 from typing import NamedTuple
 
 __all__ = ["CLUSTER_M", "CLUSTER_PANEL", "CLUSTER_THREADS", "CUDA_M", "GROUP",
-           "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M", "M_CLUSTER", "M_SMEM",
+           "LARGE_BLOCKS", "LARGE_SCRATCH_BYTES", "MAX_M", "M_CLUSTER", "M_CLUSTER_GRAD", "M_SMEM",
            "M_SMEM_GRAD", "RING_BYTES", "SHARED_BYTES", "SMEM_M", "STAGES",
            "TEAM_M", "TILE", "TILES_PER_BLOCK", "Geometry", "LargeGeometry", "check_card_m",
            "cluster_block_bytes", "cluster_blocks", "cluster_geometry", "cluster_owner",
@@ -306,11 +307,23 @@ def _max_cluster_m() -> int:
     return m
 
 
+def _max_cluster_grad_m() -> int:
+    m = M_SMEM_GRAD
+    while (cluster_blocks(m + 1) is not None
+           and 2 * cluster_mp(m + 1) <= cluster_stage_words(m + 1)):
+        m += 1
+    return m
+
+
 # the largest m an 8-block cluster holds: kernels 1 and 3 run the cluster
 # body for M_SMEM < m <= M_CLUSTER (kClusterM)
 M_CLUSTER = _max_cluster_m()
-# the kernels (base names) with a cluster body, and its largest m
-CLUSTER_M = {"vecchia_suffstats": M_CLUSTER, "vecchia_bf": M_CLUSTER}
+# kernel 2 runs it for M_SMEM_GRAD < m <= M_CLUSTER_GRAD (kClusterGradM):
+# the same blocks, p and q (2 mp words) in the staging buffer
+M_CLUSTER_GRAD = _max_cluster_grad_m()
+# each kernel's (base name's) largest m on the cluster body
+CLUSTER_M = {"vecchia_suffstats": M_CLUSTER, "vecchia_grad": M_CLUSTER_GRAD,
+             "vecchia_bf": M_CLUSTER}
 
 
 def large_body(base: str, m: int) -> str:
@@ -318,20 +331,23 @@ def large_body(base: str, m: int) -> str:
     ``vecchia_grad`` or ``vecchia_bf``) with m > 32 neighbors runs:
     ``"smem"`` (a warp a system in shared memory) up to the kernel's limit
     (:data:`SMEM_M`: M_SMEM for kernels 1 and 3, M_SMEM_GRAD for kernel 2),
-    then for kernels 1 and 3 ``"cluster"`` (a thread-block cluster a system)
-    up to :data:`M_CLUSTER`, else ``"scratch"`` (a thread a system, its state
-    in a device buffer).  A rule of shape: nothing runs on a failure."""
+    then ``"cluster"`` (a thread-block cluster a system) up to the kernel's
+    :data:`CLUSTER_M` (M_CLUSTER for kernels 1 and 3, M_CLUSTER_GRAD for
+    kernel 2), else ``"scratch"`` (a thread a system, its state in a device
+    buffer).  A rule of shape: nothing runs on a failure."""
     if not large(m):
         raise ValueError(f"m={m} runs the tile ring, not a large-m body")
     if m <= SMEM_M[base]:
         return "smem"
-    return "cluster" if m <= CLUSTER_M.get(base, 0) else "scratch"
+    return "cluster" if m <= CLUSTER_M[base] else "scratch"
 
 
-def cluster_geometry(n_pad: int, m: int, chains: int) -> Geometry:
-    """The launch of kernel 1 or 3 on the cluster body (M_SMEM < m <=
-    M_CLUSTER) for ``chains`` chains over ``n_pad`` sites (a multiple of
-    128): clusters of ``group`` = :func:`cluster_blocks` blocks of
+def cluster_geometry(n_pad: int, m: int, chains: int,
+                     base: str = "vecchia_suffstats") -> Geometry:
+    """The launch of kernel ``base`` on the cluster body (its
+    :data:`SMEM_M` < m <= its :data:`CLUSTER_M`) for ``chains`` chains over
+    ``n_pad`` sites (a multiple of 128): clusters of ``group`` =
+    :func:`cluster_blocks` blocks of
     CLUSTER_THREADS threads, each cluster one chain's sites in a stride of
     ``grid[0]`` (one system at a time), grid[0] clusters a chain, as many as
     keep CLUSTER_SYSTEMS clusters in the launch and no more than the sites
@@ -342,8 +358,9 @@ def cluster_geometry(n_pad: int, m: int, chains: int) -> Geometry:
         raise ValueError(f"n_pad={n_pad} is not a positive multiple of {LARGE_BLOCK}")
     if not 1 <= chains <= 65535:
         raise ValueError(f"chains={chains} out of range")
-    if not M_SMEM < m <= M_CLUSTER:
-        raise ValueError(f"the cluster body takes {M_SMEM} < m <= {M_CLUSTER}, got m={m}")
+    if not SMEM_M[base] < m <= CLUSTER_M[base]:
+        raise ValueError(f"the cluster body of {base} takes {SMEM_M[base]} < m <= "
+                         f"{CLUSTER_M[base]}, got m={m}")
     k = cluster_blocks(m)
     grid_x = max(1, min(n_pad, math.ceil(CLUSTER_SYSTEMS / chains)))
     return Geometry((grid_x, chains), CLUSTER_THREADS, k, cluster_block_bytes(m, k))
@@ -378,14 +395,13 @@ def smem_geometry(n_pad: int, m: int, chains: int,
 def check_card_m(n_pad: int, m: int) -> None:
     """Raise where the card cannot take m neighbors over ``n_pad`` sites
     for one chain: m < 1, or a scratch-body launch whose one block needs
-    more than LARGE_SCRATCH_BYTES of scratch.  Only m > M_SMEM_GRAD runs a
-    scratch body for a kernel of every model (kernel 2 there; kernels 1 and
-    3 above M_CLUSTER, which is larger, and the cluster body between M_SMEM
-    and M_CLUSTER, whose hand-off buffer, under 20 MB, does not grow with
-    the sites); below it every large-m launch runs a shared-memory body and
-    needs no scratch.  The models call it as
-    they build their tables on the card; a launch checks its own chain
-    count."""
+    more than LARGE_SCRATCH_BYTES of scratch.  A kernel runs a scratch body
+    only above its :data:`CLUSTER_M` (M_CLUSTER_GRAD for kernel 2, M_CLUSTER
+    for kernels 1 and 3); up to the lowest of them every large-m launch runs
+    a shared-memory body, which needs no scratch, or the cluster body, whose
+    hand-off buffer, under 20 MB, does not grow with the sites.  The models
+    call it as they build their tables on the card; a launch checks its own
+    chain count."""
     cuda_instance_m(m)
-    if large(m) and m > M_SMEM_GRAD:
+    if large(m) and m > min(CLUSTER_M.values()):
         large_geometry(n_pad, m, 1)

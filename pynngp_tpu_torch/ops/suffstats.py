@@ -28,9 +28,10 @@ m > 32 the large-m instances.  Up to m = 32 the three kernels launch in the
 tile geometry of :mod:`.geometry` (a block is a group of chains that share
 one staged tile of sites); above it each kernel runs a warp a (site, chain)
 system in shared memory up to its limit (``geometry.M_SMEM`` for kernels 1
-and 3, ``geometry.M_SMEM_GRAD`` for kernel 2); above that kernels 1 and 3
-run a thread-block cluster a system up to ``geometry.M_CLUSTER`` (such
-launches count under ``_large_cluster``), and above their last limit the
+and 3, ``geometry.M_SMEM_GRAD`` for kernel 2); above that each kernel runs
+a thread-block cluster a system up to ``geometry.CLUSTER_M`` (``M_CLUSTER``
+for kernels 1 and 3, ``M_CLUSTER_GRAD`` for kernel 2; such launches count
+under ``_large_cluster``), and above their last limit the
 kernels run one thread a (site, chain) with its state in a scratch buffer
 (:func:`launch_geometry`); such launches count under ``_large_scratch``.
 
@@ -369,8 +370,8 @@ def launch_geometry(base: str, kernel, tables: SiteTables, chains: int, y, v):
     ``y`` is None for kernel 3.  m <= 32: the tile geometry
     (:func:`.geometry.geometry`), no scratch; 32 < m <= the kernel's limit
     (``geometry.SMEM_M``): the shared-memory body
-    (:func:`.geometry.smem_geometry`), no scratch; kernels 1 and 3 up to
-    ``geometry.M_CLUSTER``: the cluster body (:func:`.geometry.cluster_geometry`:
+    (:func:`.geometry.smem_geometry`), no scratch; up to the kernel's
+    ``geometry.CLUSTER_M``: the cluster body (:func:`.geometry.cluster_geometry`:
     group the cluster's blocks, grid_x its clusters a chain) and its
     hand-off buffer as the scratch tensor (``geometry.cluster_slot_bytes``);
     above: the scratch body (:func:`.geometry.large_geometry`): group 1, no
@@ -381,7 +382,7 @@ def launch_geometry(base: str, kernel, tables: SiteTables, chains: int, y, v):
         geo = smem_geometry(tables.n_pad, tables.m, chains, base)
         return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, None), None
     if body == "cluster":
-        geo = cluster_geometry(tables.n_pad, tables.m, chains)
+        geo = cluster_geometry(tables.n_pad, tables.m, chains, base)
         slots = torch.empty(cluster_slot_bytes(tables.m) // 8, dtype=torch.float64,
                             device=tables.device)
         return geo.grid[0], (geo.group, geo.grid[0], geo.smem_bytes, slots.data_ptr()), slots

@@ -721,7 +721,7 @@ def test_m_above_twenty_raises_on_the_card(card):
     1 and 2 take as many chains as the scratch body's budget would refuse
     (one block a chain over LARGE_SCRATCH_BYTES): their shared-memory bodies
     need no scratch.  What still raises is a launch of kernel 2 above
-    M_SMEM_GRAD (its scratch body) whose one block a chain needs more
+    M_CLUSTER_GRAD (its scratch body) whose one block a chain needs more
     scratch than LARGE_SCRATCH_BYTES, and it names the bytes."""
     tab32, tab64, y, phi, alpha = _problem(card, m=21)
     _check_instances(card, kernels.SqExp(), None, with_children(tab32),
@@ -739,8 +739,8 @@ def test_m_above_twenty_raises_on_the_card(card):
     # every third chain is the first one, in another warp or block
     torch.testing.assert_close(sums[:, ::3], sums[:, :1].expand(-1, sums[:, ::3].shape[1]),
                                rtol=1e-6, atol=0.0)
-    big = geometry.M_SMEM_GRAD + 1
-    tab_big, _, y_big, _, _ = _problem(card, n=400, m=big)
+    big = geometry.M_CLUSTER_GRAD + 1
+    tab_big, _, y_big, _, _ = _problem(card, n=big + 28, m=big, layout="coords")
     chains = geometry.LARGE_SCRATCH_BYTES // (128 * geometry.large_state_doubles(big) * 8) + 1
     many_phi, many_alpha = (t.repeat(chains // 3 + 1)[:chains] for t in (phi, alpha))
     with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
@@ -1099,34 +1099,40 @@ def test_kernels_1_and_3_above_m_cluster_run_the_scratch_body(card):
                          ids=["dist", "coords", "coords_d4"])
 @pytest.mark.parametrize("m", [geometry.M_SMEM + 1, 441])
 def test_cluster_body_with_per_chain_y_and_ragged_chains(card, m, layout, dim):
-    """Kernel 1 on the cluster body with one y row a chain, five chains,
-    noise weights, on both layouts and in four dimensions."""
+    """Kernels 1, 2 and 2-EMIT_Y on the cluster body with one y row a chain,
+    five chains, noise weights, on both layouts and in four dimensions."""
     tab32, tab64, y, _, _ = _problem(card, n=m + 28, m=m, layout=layout, dim=dim)
     phi, alpha = _chain_params(card, 5)
+    assert geometry.large_body("vecchia_grad", m) == "cluster"
+    count = dops.COUNTS[fops.instance("vecchia_grad", kernels.SqExp(), tab32, True, True)]
+    before = count.launches
     _check_per_chain_y(card, kernels.SqExp(), tab32, tab64, y, phi, alpha,
-                       _weights(tab32.n), grad=False)
+                       _weights(tab32.n))
+    assert count.launches == before + 1 and count.name.endswith("_large_cluster_hetero")
 
 
 @pytest.mark.parametrize("layout", ["dist", "coords"])
 @pytest.mark.parametrize("m", [geometry.M_SMEM + 1, 441])
 def test_cluster_body_on_meshes_of_one_card(card, m, layout):
-    """The shard offset on the cluster body: kernels 1 and 3 on tables of 4
-    site shards, on meshes (1, 2), (1, 4) and (2, 2) of this card, every
-    per-site output bit for bit as the unsharded launch, with and without
-    noise weights; the last shard holds padded sites."""
-    count = fops.COUNTS["vecchia_suffstats" + ("_coords" if layout == "coords" else "")
-                        + "_large_cluster_sharded"]
-    before = count.launches
-    _check_meshes(card, m, layout, grad=False)
-    assert count.launches > before
+    """The shard offset on the cluster body: kernels 1, 2-EMIT_Y and 3 on
+    tables of 4 site shards, on meshes (1, 2), (1, 4) and (2, 2) of this
+    card, every per-site output bit for bit as the unsharded launch, with
+    and without noise weights; the last shard holds padded sites."""
+    sfx = ("_coords" if layout == "coords" else "") + "_large_cluster_sharded"
+    counts = [fops.COUNTS["vecchia_suffstats" + sfx], dops.COUNTS["vecchia_grad_y" + sfx]]
+    before = [c.launches for c in counts]
+    _check_meshes(card, m, layout)
+    assert all(c.launches > b for c, b in zip(counts, before))
 
 
-def _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
+def _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None,
+                    shared_y=True):
     """Kernel 2 and its EMIT_Y instance at the tables' m, with a shared y
-    and with one y row a chain, against their float64 plain versions at the
-    rows' limits (closed form or general nu); one launch of each instance's
-    count a call (``_large`` on the shared-memory body, ``_large_scratch``
-    above M_SMEM_GRAD; ``_hetero`` with weights)."""
+    (unless ``shared_y`` is false) and with one y row a chain, against their
+    float64 plain versions at the rows' limits (closed form or general nu);
+    one launch of each instance's count a call (``_large`` on the
+    shared-memory body, ``_large_cluster`` above M_SMEM_GRAD,
+    ``_large_scratch`` above M_CLUSTER_GRAD; ``_hetero`` with weights)."""
     limits = GENERAL_LIMITS if nu is not None else CLOSED_LIMITS
     v32 = None if noise_v is None else torch.as_tensor(noise_v, dtype=torch.float32,
                                                        device=card)
@@ -1139,7 +1145,7 @@ def _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
     counts = [dops.COUNTS[name] for name in names]
     n, m = tab32.n, tab32.m
     ys = y[None, :] + 0.1 * torch.arange(phi.shape[0], device=card)[:, None]
-    for yy in (y, ys):
+    for yy in (y, ys) if shared_y else (ys,):
         before = [c.launches for c in counts]
         sums = dops.value_and_grad_sums(kern, tab32, phi, alpha, yy, nu=nu, noise_v=v32)
         sums_y, b, rof = dops.value_and_grad_sums(kern, tab32, phi, alpha, yy, emit_y=True,
@@ -1160,25 +1166,53 @@ def _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, noise_v=None):
         assert all((b[:, k, :k + 1] == 0).all() for k in range(m))
 
 
-@pytest.mark.parametrize("hetero", [False, True], ids=["homogeneous", "hetero"])
-@pytest.mark.parametrize("layout", ["dist", "coords"])
-@pytest.mark.parametrize("kern,sampled", HETERO_FAMILIES, ids=["closed", "sampled_nu"])
-@pytest.mark.parametrize("m", [33, geometry.M_SMEM_GRAD, geometry.M_SMEM_GRAD + 1])
-def test_kernel_2_on_either_large_m_body(card, m, kern, sampled, layout, hetero):
+# kernel 2's large-m bodies: the shared-memory body's smallest system and
+# its largest (one system a block), the cluster body's first m and the first
+# m of four and of eight blocks a system and M_CLUSTER_GRAD, each with both
+# families, layouts and noise settings; the scratch body's first m once (a
+# launch there takes one system's time in one thread, ~20 s)
+KERNEL_2_CASES = [(m, f, layout, hetero)
+                  for m in (33, geometry.M_SMEM_GRAD, geometry.M_SMEM_GRAD + 1, 313, 441,
+                            geometry.M_CLUSTER_GRAD)
+                  for f in (0, 1) for layout in ("dist", "coords") for hetero in (False, True)]
+KERNEL_2_CASES.append((geometry.M_CLUSTER_GRAD + 1, 0, "coords", False))
+
+
+@pytest.mark.parametrize(
+    "m,family,layout,hetero", KERNEL_2_CASES,
+    ids=[f"m{m}-{'sampled_nu' if f else 'closed'}-{layout}-{'hetero' if h else 'homogeneous'}"
+         for m, f, layout, h in KERNEL_2_CASES])
+def test_kernel_2_on_either_large_m_body(card, m, family, layout, hetero):
     """Kernel 2 with and without EMIT_Y at m = 33 and M_SMEM_GRAD (its
     shared-memory body's smallest system and its largest, one system a
-    block) and M_SMEM_GRAD + 1 (the scratch body), closed form and sampled
-    nu, both layouts, with and without noise weights, a shared and a
-    per-chain y, phi = 0.1, 0.3, 0.5, against its float64 plain versions."""
-    n = 1500 if m == 33 else 400
+    block), M_SMEM_GRAD + 1, 313, 441 and M_CLUSTER_GRAD (the cluster body
+    at two, four and eight blocks a system) and M_CLUSTER_GRAD + 1 (the
+    scratch body), closed form and sampled nu, both layouts, with and
+    without noise weights, a shared and a per-chain y, phi = 0.1, 0.3, 0.5,
+    against its float64 plain versions (the sampled-nu chains one a call
+    from m = 313 on, whose float64 Bessel series would hold tens of GB for
+    three; the scratch case with the per-chain y alone)."""
+    kern, sampled = HETERO_FAMILIES[family]
+    n = 1500 if m == 33 else 400 if m <= geometry.M_SMEM_GRAD + 1 else m + 28
     tab32, tab64, y, phi, alpha = _problem(card, n=n, m=m, layout=layout)
     body = geometry.large_body("vecchia_grad", m)
-    assert body == ("smem" if m <= geometry.M_SMEM_GRAD else "scratch")
-    assert fops.instance("vecchia_grad", kern, tab32, True).endswith(
-        "_large" if body == "smem" else "_large_scratch")
-    nu = torch.tensor(NU_CHAINS, device=card) if sampled else None
-    _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha,
-                    _weights(tab32.n) if hetero else None)
+    assert body == ("smem" if m <= geometry.M_SMEM_GRAD else
+                    "cluster" if m <= geometry.M_CLUSTER_GRAD else "scratch")
+    for emit_y in (False, True):
+        assert fops.instance("vecchia_grad", kern, tab32, emit_y).endswith(
+            {"smem": "_large", "cluster": "_large_cluster", "scratch": "_large_scratch"}[body])
+    v = _weights(tab32.n) if hetero else None
+    if not sampled:
+        _check_kernel_2(card, kern, None, tab32, tab64, y, phi, alpha, v,
+                        shared_y=body != "scratch")
+        return
+    nu = torch.tensor(NU_CHAINS, device=card)
+    if m < 313:
+        _check_kernel_2(card, kern, nu, tab32, tab64, y, phi, alpha, v)
+        return
+    for c in range(len(NU_CHAINS)):
+        _check_kernel_2(card, kern, nu[c:c + 1], tab32, tab64, y, phi[c:c + 1],
+                        alpha[c:c + 1], v)
 
 
 @pytest.mark.parametrize("layout", ["dist", "coords"])

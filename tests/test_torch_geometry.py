@@ -3,13 +3,14 @@ block, chain groups, grid and the tile ring's shared-memory bytes for every
 m the ring takes (kernel 3's ring without y planes), both table layouts and
 coordinate dimensions 1 to 4, and above m = 32 the large-m bodies: the
 shared-memory bodies up to M_SMEM (kernels 1 and 3) and M_SMEM_GRAD (kernel
-2; their systems' bytes, groups and grid), the cluster body of kernels 1 and
-3 up to M_CLUSTER (cluster sizes, a block's bytes and the grid), the scratch
-body's grid and buffer above them, and which body and count each kernel's
-call gets.  The C launchers recompute the ring, the systems' and a cluster
-block's bytes from the same layouts and refuse other bytes
-(csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh,
-csrc/vecchia_grad_smem.cuh, csrc/vecchia_large_cluster.cuh);
+2; their systems' bytes, groups and grid), the cluster body up to M_CLUSTER
+(kernels 1 and 3) and M_CLUSTER_GRAD (kernel 2; cluster sizes, a block's
+bytes and the grid), the scratch body's grid and buffer above them, and
+which body and count each kernel's call gets.  The C launchers recompute
+the ring, the systems' and a cluster block's bytes from the same layouts and
+refuse other bytes (csrc/vecchia_tile.cuh, csrc/vecchia_large_smem.cuh,
+csrc/vecchia_grad_smem.cuh, csrc/vecchia_large_cluster.cuh,
+csrc/vecchia_grad_cluster.cuh);
 tests/test_torch_cuda.py runs them on the card."""
 
 import math
@@ -224,17 +225,18 @@ def test_smem_geometry_refuses_what_it_does_not_take():
 def test_each_kernel_gets_its_body_and_count_by_m(base, m):
     """Each kernel runs its shared-memory body up to its limit (M_SMEM for
     kernels 1 and 3, M_SMEM_GRAD for kernel 2; counted under ``_large``, no
-    scratch tensor, group chains a block and their systems' bytes); kernels 1
-    and 3 then run the cluster body up to M_CLUSTER (``_large_cluster``, no
-    scratch tensor, group the cluster's blocks and a block's bytes), and each
-    kernel the scratch body above its last limit (``_large_scratch``; kernel
-    2 straight above M_SMEM_GRAD).  The cluster body's scratch tensor is its
-    hand-off buffer."""
+    scratch tensor, group chains a block and their systems' bytes); each
+    then runs the cluster body up to its limit (M_CLUSTER for kernels 1 and
+    3, M_CLUSTER_GRAD for kernel 2; ``_large_cluster``, group the cluster's
+    blocks and a block's bytes), and the scratch body above it
+    (``_large_scratch``).  The cluster body's scratch tensor is its hand-off
+    buffer."""
     tables = SimpleNamespace(m=m, n_pad=128, layout="dist", dim=0,
                              device=torch.device("cpu"))
     chains = 3
-    smem = m <= (geo.M_SMEM_GRAD if base == "vecchia_grad" else geo.M_SMEM)
-    cluster = not smem and base != "vecchia_grad" and m <= geo.M_CLUSTER
+    grad = base == "vecchia_grad"
+    smem = m <= (geo.M_SMEM_GRAD if grad else geo.M_SMEM)
+    cluster = not smem and m <= (geo.M_CLUSTER_GRAD if grad else geo.M_CLUSTER)
     body = "smem" if smem else "cluster" if cluster else "scratch"
     assert geo.large_body(base, m) == body
     name = fops.instance(base, kernels.SqExp(), tables, hetero=True)
@@ -251,7 +253,7 @@ def test_each_kernel_gets_its_body_and_count_by_m(base, m):
         assert scratch is None and args == (g.group, g.grid[0], g.smem_bytes, None)
         assert grid_x == g.grid[0] and g.smem_bytes == g.group * geo.system_bytes(base, m)
     elif cluster:
-        g = geo.cluster_geometry(128, m, chains)
+        g = geo.cluster_geometry(128, m, chains, base)
         assert args[:3] == (g.group, g.grid[0], g.smem_bytes)
         assert scratch is not None and scratch.numel() * 8 == geo.cluster_slot_bytes(m)
         assert args[3] == scratch.data_ptr() and scratch.dtype == torch.float64
@@ -327,16 +329,16 @@ def test_smem_geometry_of_kernel_2_refuses_what_it_does_not_take():
 
 
 @pytest.mark.parametrize("m", [33, 64, geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM + 1,
-                               geo.M_CLUSTER + 1])
+                               geo.M_CLUSTER_GRAD, geo.M_CLUSTER + 1])
 def test_check_card_m_raises_only_where_a_scratch_body_runs(m, monkeypatch):
-    """check_card_m asks the scratch body's budget only above M_SMEM_GRAD,
-    where kernel 2 (and above M_CLUSTER kernels 1 and 3) run the scratch
-    body; up to it every large-m launch is a shared-memory one and needs none.
-    With a budget too small for one block of one chain it raises exactly
-    there, and names it."""
+    """check_card_m asks the scratch body's budget only above M_CLUSTER_GRAD
+    (= M_CLUSTER), where kernel 2 and kernels 1 and 3 run the scratch body;
+    up to it every large-m launch runs a shared-memory body or the cluster
+    body and needs none.  With a budget too small for one block of one chain
+    it raises exactly there, and names it."""
     geo.check_card_m(10_112, m)
     monkeypatch.setattr(geo, "LARGE_SCRATCH_BYTES", 1 << 20)
-    if m <= geo.M_SMEM_GRAD:
+    if m <= geo.M_CLUSTER_GRAD:
         geo.check_card_m(10_112, m)
     else:
         with pytest.raises(ValueError, match="LARGE_SCRATCH_BYTES"):
@@ -446,7 +448,8 @@ def test_m_cluster_is_the_largest_m_eight_blocks_take():
     assert geo.cluster_blocks(geo.M_CLUSTER + 1) is None
     assert all(geo.cluster_blocks(m) in geo.CLUSTER_SIZES
                for m in range(geo.M_SMEM + 1, geo.M_CLUSTER + 1))
-    assert geo.CLUSTER_M == {"vecchia_suffstats": geo.M_CLUSTER, "vecchia_bf": geo.M_CLUSTER}
+    assert geo.CLUSTER_M == {"vecchia_suffstats": geo.M_CLUSTER,
+                             "vecchia_grad": geo.M_CLUSTER_GRAD, "vecchia_bf": geo.M_CLUSTER}
 
 
 @pytest.mark.parametrize("m,k,want", CLUSTER_BOUNDS)
@@ -511,3 +514,62 @@ def test_cluster_body_holds_one_block_an_sm_and_sizes_its_hand_off_buffer():
         assert geo.cluster_stage_words(m) == 8 * (mp + 2 - 8)
         assert geo.cluster_slot_bytes(m) == 8 * 2 * geo.CLUSTER_SLOT_SMS * 8 * (mp + 2 - 8)
     assert geo.cluster_slot_bytes(geo.M_CLUSTER) < 20 << 20
+
+
+def test_m_cluster_grad_is_kernel_1s_limit():
+    """M_CLUSTER_GRAD: the largest m kernel 2 runs on the cluster body.  Its
+    blocks take kernel 1's bytes and keep p and q (2 mp float64 words) in
+    the staging buffer (CLUSTER_PANEL (mp + 2 - CLUSTER_PANEL) words), which
+    holds them at every m, so it is M_CLUSTER: 608 (kClusterGradM of
+    csrc/vecchia_grad_cluster.cuh asserts the same).  Kernel 2's first m
+    there has kernel 1's first slots, so its blocks too fill more than half
+    an SM."""
+    assert geo.M_CLUSTER_GRAD == geo.M_CLUSTER == 608
+    for m in range(geo.M_SMEM_GRAD + 1, geo.M_CLUSTER_GRAD + 1):
+        assert 2 * geo.cluster_mp(m) <= geo.cluster_stage_words(m)
+    assert geo.cluster_mp(geo.M_SMEM_GRAD + 1) == geo.cluster_mp(geo.M_SMEM + 1) == 240
+    k = geo.cluster_blocks(geo.M_SMEM_GRAD + 1)
+    assert k == 2 and 2 * geo.cluster_block_bytes(geo.M_SMEM_GRAD + 1, k) > geo.SM_SHARED_BYTES
+
+
+@pytest.mark.parametrize("m", [geo.M_SMEM_GRAD, geo.M_SMEM_GRAD + 1, geo.M_SMEM, geo.M_SMEM + 1,
+                               geo.M_CLUSTER_GRAD, geo.M_CLUSTER_GRAD + 1])
+def test_kernel_2_body_and_instance_at_its_cluster_limits(m):
+    """Kernel 2 and its EMIT_Y instance by m: the shared-memory body up to
+    M_SMEM_GRAD, the cluster body from M_SMEM_GRAD + 1 (below kernels 1 and
+    3's first cluster m) to M_CLUSTER_GRAD, the scratch body above, each
+    counted under its own name, the general-nu and coords instances too."""
+    body = geo.large_body("vecchia_grad", m)
+    assert body == ("smem" if m <= geo.M_SMEM_GRAD else
+                    "cluster" if m <= geo.M_CLUSTER_GRAD else "scratch")
+    sfx = {"smem": "_large", "cluster": "_large_cluster", "scratch": "_large_scratch"}[body]
+    for layout in ("dist", "coords"):
+        tables = SimpleNamespace(m=m, n_pad=128, layout=layout, dim=2,
+                                 device=torch.device("cpu"))
+        for kern, nu in ((kernels.SqExp(), ""), (kernels.Matern(), "_nu")):
+            lay = "_coords" if layout == "coords" else ""
+            assert fops.instance("vecchia_grad", kern, tables) == f"vecchia_grad{nu}{lay}{sfx}"
+            name = fops.instance("vecchia_grad", kern, tables, emit_y=True, hetero=True)
+            assert name == f"vecchia_grad_y{nu}{lay}{sfx}_hetero" and name in dops.COUNTS
+
+
+@pytest.mark.parametrize("chains", [1, 4, 16])
+@pytest.mark.parametrize("m", [geo.M_SMEM_GRAD + 1, 400, geo.M_CLUSTER_GRAD])
+def test_cluster_geometry_of_kernel_2(m, chains):
+    """Kernel 2's cluster launch is kernel 1's at the same m (the same
+    blocks, grid and bytes), and it starts at M_SMEM_GRAD + 1: refused at
+    M_SMEM_GRAD and above M_CLUSTER_GRAD, while kernel 1's refuses the m
+    below M_SMEM + 1."""
+    g = geo.cluster_geometry(2_048, m, chains, "vecchia_grad")
+    k = geo.cluster_blocks(m)
+    want_x = max(1, min(2_048, math.ceil(geo.CLUSTER_SYSTEMS / chains)))
+    assert g == geo.Geometry((want_x, chains), geo.CLUSTER_THREADS, k,
+                             geo.cluster_block_bytes(m, k))
+    if m > geo.M_SMEM:
+        assert g == geo.cluster_geometry(2_048, m, chains)
+    else:
+        with pytest.raises(ValueError, match="cluster body"):
+            geo.cluster_geometry(2_048, m, chains)
+    for bad in (geo.M_SMEM_GRAD, geo.M_CLUSTER_GRAD + 1):
+        with pytest.raises(ValueError, match="cluster body of vecchia_grad"):
+            geo.cluster_geometry(2_048, bad, chains, "vecchia_grad")

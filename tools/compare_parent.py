@@ -54,6 +54,15 @@ times the float32 plain versions (one call), the factor-only yardstick
 bounds (``kernel_bounds``) and each kernel's registers; chain 0's logdet
 and the sum of kernel 3's B check that both trees compute the same
 function.
+
+    python3 tools/compare_parent.py --cluster grad
+
+times kernel 2 and its EMIT_Y instance (one y row a chain) the same way
+at the same shapes (the parent's scratch body against the change's cluster
+body, above geometry.M_SMEM_GRAD), with chain 0's logdet, dlogdet/dphi and
+the sum of B as checks, and in a tree whose chip_smoke.py has
+``cluster_map_run`` the float32 plain versions (one call), the bounds and
+the factor-only yardstick.
 """
 import json
 import os
@@ -274,10 +283,49 @@ print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
+ROUND_CLUSTER_GRAD = ROUND_CLUSTER[:ROUND_CLUSTER.index("for layout in")].replace(
+    '("suffstats" in l or "_bf_" in l) and "ILb0ELb0E" in l',
+    '"grad" in l and ("ILb0ELb0ELb0E" in l or "ILb1ELb0ELb0E" in l)').replace(
+    'hasattr(cs, "factor_only")', 'hasattr(cs, "cluster_map_run")') + r'''
+for layout in ("dist", "coords"):
+    sfx = "_coords" if layout == "coords" else ""
+    for m in (237, 300, 400, 600):
+        c = cs.Case(2000, m, cs.SqExp(), 4, seed=0, dev=dev, layout=layout)
+        k, t = c.kernel, c.tab32
+        row = f"m{m}{sfx}"
+        # each launch's first call gives its checks (a scratch-body launch
+        # takes up to a minute)
+        sums = []
+        out[f"vecchia_grad_{row}"] = timed(lambda: sums.append(diff_ops.value_and_grad_sums(
+            k, t, c.phi, c.alpha, c.y32, c.jitter)))
+        out[f"vecchia_grad_y_{row}"] = timed(lambda: sums.append(diff_ops.value_and_grad_sums(
+            k, t, c.phi, c.alpha, c.y32_chains, c.jitter, emit_y=True)[:2]))
+        y_first = next(i for i, x in enumerate(sums) if isinstance(x, tuple))
+        out[f"check_logdet_chain0_{row}"] = float(sums[0][0][0])
+        out[f"check_dlogdet_dphi_chain0_{row}"] = float(sums[0][2][0])
+        out[f"check_sum_b_{row}"] = float(sums[y_first][1].double().sum())
+        if change:
+            params = fwd_ops.params_array(c.phi, c.alpha, c.jitter, c.n, torch.float32, dev)
+            out[f"vecchia_grad_{row}_plain"] = _time_ms(
+                lambda: diff_ops.grad_reference(k, t, params, c.y32), 0, 1)
+            out[f"vecchia_grad_y_{row}_plain"] = _time_ms(
+                lambda: diff_ops.grad_reference(k, t, params, c.y32_chains, emit_y=True), 0, 1)
+            out[f"bounds_{row}"] = {name: b for name, b in cs.kernel_bounds(c).items()
+                                    if name.startswith("vecchia_grad")}
+            if layout == "dist":
+                out[f"factor_only_{row}"] = cs.factor_only(c, 1, 3)
+        del c, t, sums
+        torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
 def main(args) -> int:
     root = os.getcwd()
     code = {"--large": ROUND_LARGE, "--m20": ROUND_M20,
             "--cluster": ROUND_CLUSTER}.get(args[0] if args else "", ROUND)
+    if args[:2] == ["--cluster", "grad"]:
+        code = ROUND_CLUSTER_GRAD
     results = []
     for tree in ("parent_check", ".", ".", "parent_check"):
         run = subprocess.run([sys.executable, "-c", code], capture_output=True,

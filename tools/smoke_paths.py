@@ -6,11 +6,11 @@
 
 (all eleven when none is named): ``large``, the large-m phase (the
 shared-memory and cluster bodies' resources, every kernel at m = 40 and 64
-against its plain version and timed, the factor-only yardstick, kernels 1
-and 3 on their cluster body at the first m of each cluster size and at
+against its plain version and timed, the factor-only yardstick, the three
+kernels on their cluster body at the first m of each cluster size and at
 M_CLUSTER against their plain versions and timed, each kernel on the
 scratch body at the first m it runs there) and path 19, both models at
-m = 40; path 20, ``bench.py``'s config 4 with
+m = 40 and the response model's MAP at m = 240; path 20, ``bench.py``'s config 4 with
 tempered SMC; path 21, ADVI on the main path's model (its MWG means are not
 run here); path 22, interrupt and resume of MWG, NUTS and the latent model;
 path 23, prediction from the main path's draws (the main path runs first);
